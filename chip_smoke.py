@@ -1,0 +1,411 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (src/repro_torch) on one NVIDIA GPU and
+check it end to end.
+
+    python3 chip_smoke.py            # from the repository root
+    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown
+
+Phases, one JSON line each (any failed check exits non-zero):
+
+1. build    — nvcc builds every kernel under src/repro_torch/csrc/.
+2. kernels  — K1 (prefill flash attention) and K2 (paged decode
+              attention) against their plain-torch versions at the main
+              path's shapes (bf16, D 128, 16 heads), plus a GQA (group 4)
+              and an f32 case: max abs error within 3e-2 (bf16) / 1e-4
+              (f32), CUDA-event times for kernel, plain version and (K1)
+              ``F.scaled_dot_product_attention``, and the H100 bound.
+3. parity   — olmo_1b smoke in f32, same weights, served on cuda and on
+              cpu: greedy tokens identical (a tight pool forces LIFO
+              preemption on both) and prefill / first-decode logits
+              within 1e-3.
+4. serve    — olmo_1b at full width in bf16 (random weights from a
+              seeded torch.Generator) serves 16 requests of 32-512 prompt
+              tokens and 32-64 new tokens through ``Engine``; both kernel
+              launch counters are reset before and must be > 0 after,
+              and the pool must end with zero blocks in use.
+
+Then a ``{"kernels": [...]}`` summary line, the card's name and power
+limit from nvidia-smi, and as the last line
+``{"ok": true, "device": {...}}``. Without a CUDA device, or outside the
+repository, it exits non-zero and prints no result. Imports no JAX.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import os
+import subprocess
+import sys
+import time
+
+ROOT = os.path.dirname(os.path.abspath(__file__))
+SEED = 0
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
+PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
+              "float32": 67e12}    # f32 outside the tensor cores
+TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+PARITY_TOL = 1e-3                  # f32 logits, cuda vs cpu summation order
+N_REQ, HALF = 16, 8                # serve: first HALF prompts in bucket 512
+
+
+def emit(obj):
+    print(json.dumps(obj), flush=True)
+
+
+def fail(msg):
+    print(f"chip_smoke: FAILED: {msg}", file=sys.stderr, flush=True)
+    sys.exit(1)
+
+
+def check(cond, msg):
+    if not cond:
+        fail(msg)
+
+
+# ---------------------------------------------------------------------------
+# timing and bounds
+# ---------------------------------------------------------------------------
+
+
+def cuda_ms(torch, fn, reps=20):
+    """Mean CUDA-event time of ``fn`` over ``reps`` launches, each after a
+    256 MiB write that evicts the 50 MB L2 (the main path finds its
+    inputs cold: every layer reads other weights and another pool).
+    A 0.1 s warm-up first brings the card out of its idle clocks (a
+    single warm-up call read K1 up to 1.4x slower)."""
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    t_warm = time.monotonic() + 0.1
+    while time.monotonic() < t_warm:
+        fn()
+        torch.cuda.synchronize()
+    total = 0.0
+    for _ in range(reps):
+        flush.zero_()
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        fn()
+        end.record()
+        end.synchronize()
+        total += start.elapsed_time(end)
+    return total / reps
+
+
+def bound(flops, nbytes, dtype):
+    """Least time (ms) for the work on an H100 SXM at full power, and
+    which of the two limits sets it."""
+    t_ops = flops / PEAK_FLOPS[dtype]
+    t_mem = nbytes / HBM_BYTES_PER_S
+    return max(t_ops, t_mem) * 1e3, ("operations" if t_ops > t_mem
+                                     else "bytes")
+
+
+# ---------------------------------------------------------------------------
+# phases
+# ---------------------------------------------------------------------------
+
+
+def workload(np):
+    """The serve phase's requests: the first HALF prompts fall in the 512
+    bucket (so the first admission is one (8, 16, 512, 128) prefill), the
+    rest in 32..256; 32-64 new tokens each."""
+    rng = np.random.default_rng(SEED)
+    lens = list(rng.integers(257, 513, HALF)) \
+        + list(rng.integers(32, 257, N_REQ - HALF))
+    news = list(rng.integers(32, 65, N_REQ))
+    prompts = [list(map(int, rng.integers(0, 50304, n))) for n in lens]
+    return prompts, [int(n) for n in news]
+
+
+def phase_build():
+    from repro_torch.kernels import _build
+
+    t0 = time.monotonic()
+    lib = _build.build()
+    secs = time.monotonic() - t0
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        if "Used" in line or "spill" in line:
+            print(line.strip(), file=sys.stderr)
+    emit({"phase": "build", "seconds": round(secs, 3), "library": lib.name,
+          "sources": [s.name for s in _build.sources()]})
+
+
+def k1_case(torch, name, B, hq, hkv, S, D, dtype, library):
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((B, h, S, D), generator=gen, device="cuda")
+               .to(dt) for h in (hq, hkv, hkv))
+    got = fa.flash_attention(q, k, v, causal=True)
+    want = ref.flash_attention(q, k, v, causal=True)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    pairs = B * hq * S * (S + 1) // 2            # visible (q, k) pairs
+    nbytes = q.element_size() * (2 * B * hq * S * D + 2 * B * hkv * S * D)
+    bound_ms, bound_by = bound(4 * D * pairs, nbytes, dtype)
+    row = {"phase": "kernels", "kernel": "K1", "case": name,
+           "shape": [B, hq, hkv, S, D], "dtype": dtype,
+           "max_abs_err": err, "tol": TOL[dtype],
+           "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v)),
+           "plain_ms": cuda_ms(torch, lambda: ref.flash_attention(q, k, v)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+               q, k, v, is_causal=True)) if library else None}
+    emit(row)
+    check(math.isfinite(err) and err <= TOL[dtype],
+          f"K1 {name}: max abs err {err} > {TOL[dtype]}")
+    return row
+
+
+def k2_case(torch, np, name, lengths, hq, hkv, D, dtype, bs=16, nb=1024,
+            nbmax=40):
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    dt = getattr(torch, dtype)
+    B = len(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((B, hq, D), generator=gen, device="cuda").to(dt)
+    kp, vp = (torch.randn((nb, bs, hkv, D), generator=gen, device="cuda")
+              .to(dt) for _ in range(2))
+    ids = np.random.default_rng(SEED).permutation(nb - 1)[:B * nbmax] + 1
+    bt = torch.from_numpy(ids.reshape(B, nbmax).astype(np.int32)).cuda()
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = pa.paged_decode_attention(q, kp, vp, bt, ln)
+    want = ref.paged_decode_attention(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    toks = int(sum(lengths))
+    blocks = int(sum(-(-n // bs) for n in lengths))
+    nbytes = q.element_size() * (2 * B * hq * D + 2 * toks * hkv * D) \
+        + 4 * (blocks + B)                        # table entries, lengths
+    bound_ms, bound_by = bound(4 * toks * hq * D, nbytes, dtype)
+    row = {"phase": "kernels", "kernel": "K2", "case": name,
+           "shape": [B, hq, hkv, D, bs, nbmax], "lengths": list(lengths),
+           "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
+           "ms": cuda_ms(torch, lambda: pa.paged_decode_attention(
+               q, kp, vp, bt, ln)),
+           "plain_ms": cuda_ms(torch, lambda: ref.paged_decode_attention(
+               q, kp, vp, bt, ln)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    emit(row)
+    check(math.isfinite(err) and err <= TOL[dtype],
+          f"K2 {name}: max abs err {err} > {TOL[dtype]}")
+    return row
+
+
+def phase_kernels(torch, np, prompts):
+    first = [len(p) + 1 for p in prompts[:HALF]]   # first decode lengths
+    k1 = k1_case(torch, "main", HALF, 16, 16, 512, 128, "bfloat16", True)
+    k1_case(torch, "gqa4", 2, 16, 4, 256, 128, "bfloat16", False)
+    k1_case(torch, "f32", 2, 16, 16, 128, 128, "float32", False)
+    k2 = k2_case(torch, np, "main", first, 16, 16, 128, "bfloat16")
+    k2_case(torch, np, "gqa4", first, 16, 4, 128, "bfloat16")
+    k2_case(torch, np, "f32", first, 16, 16, 128, "float32")
+    return k1, k2
+
+
+def phase_parity(torch, np):
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import transformer, weights
+    from repro_torch.models.model import Model
+    from repro_torch.models.paged_kv import PagedLayout
+
+    cfg = get_config("olmo_1b").smoke()
+    models = {d: Model(cfg, device=d) for d in ("cpu", "cuda")}
+    params = {"cpu": models["cpu"].init(seed=SEED)}
+    params["cuda"] = weights.to_device(params["cpu"], "cuda")
+    rng = np.random.default_rng(SEED)
+    ctx = transformer.RunCtx()
+
+    # logits: right-padded prefill, packed into a pool, one paged decode
+    lens = np.array([3, 7, 12], np.int32)
+    toks = np.zeros((3, 16), np.int32)
+    for r, n in enumerate(lens):
+        toks[r, :n] = rng.integers(0, cfg.vocab_size, n)
+    table = (np.arange(3 * 8, dtype=np.int32) + 1).reshape(3, 8)
+    ids = np.where(np.arange(4)[None] < -(-lens[:, None] // 4),
+                   table[:, :4], 0).astype(np.int32)
+    feed = rng.integers(0, cfg.vocab_size, (3, 1)).astype(np.int32)
+    layout = PagedLayout(num_slots=3, num_blocks=25, block_size=4,
+                         max_len=32)
+    out = {}
+    for d, m in models.items():
+        def t(a, d=d):
+            return torch.from_numpy(a).to(d)
+        pl, dense = m.prefill(params[d], {"tokens": t(toks)}, ctx,
+                              max_len=16, length=t(lens))
+        pools = m.pack_prefill_into_paged(layout, m.init_paged_cache(layout),
+                                          dense, t(ids))
+        dl, _ = m.decode_step_paged(params[d], pools, t(table), t(lens),
+                                    t(feed), ctx)
+        out[d] = (pl.cpu(), dl.cpu())
+    pre_diff = (out["cpu"][0] - out["cuda"][0]).abs().max().item()
+    dec_diff = (out["cpu"][1] - out["cuda"][1]).abs().max().item()
+
+    # engine: ragged prompts, then a pool tight enough to preempt
+    ragged = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+              for n in (3, 7, 12)]
+    tight = [list(map(int, rng.integers(0, cfg.vocab_size, 8)))
+             for _ in range(3)]
+    got, pre = {}, {}
+    for d, m in models.items():
+        e1 = Engine(m, params[d], EngineConfig(num_slots=2, block_size=4,
+                                               num_blocks=17, max_len=32),
+                    device=d)
+        e2 = Engine(m, params[d], EngineConfig(num_slots=3, block_size=4,
+                                               num_blocks=14, max_len=64),
+                    device=d)
+        got[d] = (e1.generate(ragged, SamplingParams(max_tokens=6)),
+                  e2.generate(tight, SamplingParams(max_tokens=16)))
+        pre[d] = e2.stats()["preemptions"]
+        check(e1.stats()["blocks_used"] == 0 == e2.stats()["blocks_used"],
+              f"parity: {d} engine leaked blocks")
+    emit({"phase": "parity", "config": cfg.name, "dtype": "float32",
+          "prefill_max_abs_diff": pre_diff, "decode_max_abs_diff": dec_diff,
+          "tol": PARITY_TOL, "tokens_equal": got["cpu"] == got["cuda"],
+          "preemptions": pre})
+    check(pre_diff <= PARITY_TOL and dec_diff <= PARITY_TOL,
+          f"parity: logits differ by {pre_diff} / {dec_diff}")
+    check(got["cpu"] == got["cuda"], "parity: cuda tokens != cpu tokens")
+    check(pre["cuda"] >= 1, "parity: the tight pool never preempted")
+
+
+def phase_serve(torch, np, prompts, news, profile):
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    cfg = get_config("olmo_1b")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=SEED)
+    ecfg = EngineConfig(num_slots=8, block_size=16, num_blocks=1024,
+                        max_len=640)
+    engine = Engine(model, params, ecfg, device="cuda")
+    engine.generate([prompts[0][:40]], SamplingParams(max_tokens=2))
+    engine.backend.reset_telemetry()              # warm-up excluded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    fa.flash_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    t0 = time.monotonic()
+    outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
+                                     for n in news])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    launches = {"K1": fa.flash_attention.launches,
+                "K2": pa.paged_decode_attention.launches}
+
+    st = engine.stats()
+    ntok = sum(len(o) for o in outs)
+    logits = model.prefill(params, {"tokens": torch.tensor(
+        [prompts[0][:16]], device="cuda")}, transformer.RunCtx())[0]
+    emit({"phase": "serve", "config": cfg.name, "dtype": cfg.dtype,
+          "requests": len(outs), "tokens": ntok, "seconds": secs,
+          "tok_s": ntok / secs, "launches": launches,
+          "steps": st["steps"], "decode_device_s": st["device_s"],
+          "prefill_calls": st["prefill_calls"],
+          "prefill_tokens": st["prefill_tokens"],
+          "preemptions": st["preemptions"], "blocks_used": st["blocks_used"],
+          "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+          "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_tokens": outs[0][:8]})
+    check(all(len(o) == n for o, n in zip(outs, news)),
+          "serve: a request did not emit max_tokens tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "serve: token id out of range")
+    check(launches["K1"] > 0 and launches["K2"] > 0,
+          f"serve: a kernel was never launched on the main path {launches}")
+    check(st["blocks_used"] == 0, f"serve: {st['blocks_used']} blocks leaked")
+    check(tuple(logits.shape) == (1, 16, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()), "serve: bad prefill logits")
+    if profile:
+        phase_profile(torch, engine, prompts, news)
+    return launches
+
+
+def phase_profile(torch, engine, prompts, news):
+    """Device time by kernel over one admission + 8 decode steps, and
+    the share of the window the device was busy (kernel time only)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.launch.engine import SamplingParams
+
+    for p, n in zip(prompts[:HALF], news):
+        engine.add_request(p, SamplingParams(max_tokens=n))
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.monotonic()
+        for _ in range(9):
+            engine.step()
+        torch.cuda.synchronize()
+        wall = time.monotonic() - t0
+    engine.drain()
+    kernels = sorted((e for e in prof.key_averages()
+                      if e.device_type == DeviceType.CUDA),
+                     key=lambda e: -e.self_device_time_total)
+    busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    emit({"phase": "profile", "window_s": wall, "device_busy_s": busy,
+          "busy_share": busy / wall,
+          "top": [{"name": e.key[:80], "calls": e.count,
+                   "device_ms": e.self_device_time_total / 1e3}
+                  for e in kernels[:12]]})
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--profile", action="store_true",
+                    help="also print device time by kernel (torch.profiler)")
+    args = ap.parse_args()
+    import numpy as np
+    import torch
+
+    if not torch.cuda.is_available():
+        fail("torch.cuda.is_available() is False: this check needs a GPU")
+    if not os.path.isdir(os.path.join(ROOT, "src", "repro_torch")):
+        fail("src/repro_torch not found: run from a checkout of the repo")
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    prompts, news = workload(np)
+    phase_build()
+    k1, k2 = phase_kernels(torch, np, prompts)
+    phase_parity(torch, np)
+    launches = phase_serve(torch, np, prompts, news, args.profile)
+
+    kernels = []
+    for row, name, src, tpu in (
+            (k1, "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:109"),
+            (k2, "paged_decode_attention",
+             "src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:158")):
+        kernels.append({"name": name, "route": "cuda", "source": src,
+                        "replaces": tpu, "launches": launches[row["kernel"]],
+                        **{k: row[k] for k in (
+                            "max_abs_err", "ms", "plain_ms", "bound_ms",
+                            "bound_by", "library_ms")}})
+    emit({"kernels": kernels})
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    print(smi[0], flush=True)
+    emit({"ok": True, "device": {"platform": "gpu",
+                                 "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+
+
+if __name__ == "__main__":
+    main()

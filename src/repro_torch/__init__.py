@@ -1,0 +1,15 @@
+"""PyTorch/CUDA port of the ``repro`` serving stack for NVIDIA Hopper.
+
+Module paths mirror ``repro`` so each piece has an obvious counterpart:
+``configs`` (the same ModelConfig data), ``kernels`` (plain-torch
+versions in ``kernels/ref.py`` plus hand-written CUDA kernels under
+``csrc/``, dispatched by the tensor's device in ``kernels/ops.py``),
+``models`` (layers, attention, the paged KV pool, the decoder-only LM
+and the JAX weight bridge) and ``launch`` (the paged serving Engine and
+its CLI).
+
+The package imports ``torch`` and ``numpy`` only: never ``jax`` and
+nothing of ``repro``. Entry points take ``device`` (default ``"cuda"``)
+and raise when no GPU is present; pass ``device="cpu"`` to run the
+plain-torch path.
+"""

@@ -1,0 +1,79 @@
+"""Plain-torch versions of the hand-written kernels (the correctness
+contract).
+
+Each function mirrors its counterpart in ``repro/kernels/ref.py`` line
+for line: the same masks, f32 softmax, the same fully-masked-row -> 0
+rule. The wrappers in ``kernels/*.py`` run these for CPU tensors, and
+``chip_smoke.py`` holds every CUDA kernel against them on the card.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    q_offset=0):
+    """Reference attention.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D). GQA maps query head h to
+    kv head h // (Hq // Hkv). ``window`` (if set) restricts attention to
+    the last ``window`` positions (SWA). ``q_offset`` positions queries at
+    absolute position q_offset + i. Returns (B, Hq, Sq, D) in q.dtype.
+    """
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    kx = k.repeat_interleave(group, dim=1).float()
+    vx = v.repeat_interleave(group, dim=1).float()
+    logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
+    qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
+    kpos = torch.arange(Skv, device=q.device)[None, :]
+    mask = torch.ones((Sq, Skv), dtype=torch.bool, device=q.device)
+    if causal:
+        mask = mask & (kpos <= qpos)
+    if window is not None:
+        mask = mask & (kpos > qpos - window)
+    logits = logits.masked_fill(~mask, float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    # Fully-masked rows (tiny windows) -> zeros, not NaN.
+    probs = torch.where(mask.any(-1)[:, None], probs, 0.0)
+    return torch.einsum("bhqk,bhkd->bhqd", probs, vx).to(q.dtype)
+
+
+def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
+                           window=None, scale=None):
+    """Reference single-token decode attention over a block-paged cache.
+
+    q: (B, Hq, D) — the query for the token at position ``lengths[b] - 1``.
+    k_pool, v_pool: (NB, BS, Hkv, D) — shared pool of BS-token blocks.
+    block_table: (B, NBMAX) int32 — per-sequence logical->physical block
+    map (entries past a sequence's last block may hold any in-range id).
+    lengths: (B,) int32 — valid tokens per sequence, including the
+    current token, whose K/V must already be in the pool. ``window``
+    restricts attention to the last ``window`` positions.
+    Returns (B, Hq, D) in q.dtype.
+    """
+    B, Hq, D = q.shape
+    BS, Hkv = k_pool.shape[1], k_pool.shape[2]
+    group = Hq // Hkv
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    S = block_table.shape[1] * BS
+    bt = block_table.long()
+    k = k_pool[bt].reshape(B, S, Hkv, D).float()
+    v = v_pool[bt].reshape(B, S, Hkv, D).float()
+    kx = k.transpose(1, 2).repeat_interleave(group, dim=1)   # (B, Hq, S, D)
+    vx = v.transpose(1, 2).repeat_interleave(group, dim=1)
+    logits = torch.einsum("bhd,bhsd->bhs", q.float(), kx) * scale
+    kpos = torch.arange(S, device=q.device)[None, :]
+    lens = lengths.long()[:, None]
+    valid = kpos < lens
+    if window is not None:
+        valid = valid & (kpos >= lens - window)
+    logits = logits.masked_fill(~valid[:, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(valid.any(-1)[:, None, None], probs, 0.0)
+    return torch.einsum("bhs,bhsd->bhd", probs, vx).to(q.dtype)

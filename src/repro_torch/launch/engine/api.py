@@ -1,0 +1,500 @@
+"""Engine front-end: SamplingParams, request handles, streaming outputs.
+
+Counterpart of ``repro/launch/engine/api.py``. The Engine owns request
+admission and the step loop; the backend (``PagedBackend``) owns the
+device state and implements ``enqueue(handle)``, ``step()`` and
+``stats()``. Every token is *emitted the step it is sampled* (prefill
+included), so ``step()`` doubles as the streaming interface.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Any, Optional, Sequence
+
+from ...models.model import Model, resolve_device
+from ...models.transformer import RunCtx, check_supported
+
+
+def prefill_bucket(n: int, floor: int, cap: int) -> int:
+    """The prompt-bucket policy: the smallest power of two >=
+    max(n, floor), clamped to cap (the same O(log(max_len / floor))
+    bucket set as the JAX engine)."""
+    return min(max(1 << max(n - 1, 0).bit_length(), floor), cap)
+
+
+@dataclasses.dataclass(frozen=True)
+class SamplingParams:
+    """Per-request decoding parameters.
+
+    ``temperature <= 0`` selects greedy (argmax) decoding; otherwise
+    logits are temperature-scaled, truncated to the ``top_k`` highest
+    and to the top-p nucleus, then sampled from the request's own RNG
+    stream.
+
+    Parameters
+    ----------
+    max_tokens : int
+        Retire the request after this many emitted tokens (>= 1).
+    temperature : float
+        Softmax temperature; ``<= 0`` selects greedy decoding.
+    top_k : int
+        Keep only the ``top_k`` highest logits (0 disables).
+    top_p : float
+        Nucleus sampling in (0, 1].
+    seed : int
+        Derives the request's own RNG stream: token t is a pure function
+        of (seed, t) and the request's own logits, so sampled outputs do
+        not depend on admission order, slot placement, co-batched
+        traffic or preemption history.
+    stop_token_ids : tuple of int
+        Retire the request on match (the stop token is stripped, never
+        emitted), on top of the engine-level ``eos_id``.
+
+    Raises
+    ------
+    ValueError
+        On ``max_tokens < 1``, ``top_p`` outside (0, 1], or negative
+        ``top_k``.
+    """
+
+    max_tokens: int = 16
+    temperature: float = 0.0
+    top_k: int = 0
+    top_p: float = 1.0
+    seed: int = 0
+    stop_token_ids: tuple[int, ...] = ()
+
+    def __post_init__(self):
+        if self.max_tokens < 1:
+            raise ValueError("max_tokens must be >= 1")
+        if not 0.0 < self.top_p <= 1.0:
+            raise ValueError("top_p must be in (0, 1]")
+        if self.top_k < 0:
+            raise ValueError("top_k must be >= 0 (0 disables)")
+
+    @property
+    def greedy(self) -> bool:
+        """True when this request decodes greedily (temperature <= 0)."""
+        return self.temperature <= 0.0
+
+
+@dataclasses.dataclass(frozen=True)
+class Request:
+    """One unit of admission work, as submitted.
+
+    Parameters
+    ----------
+    prompt : sequence of int
+        Prompt token ids (>= 1 token).
+    sampling : SamplingParams, optional
+        Decoding parameters; defaults to ``SamplingParams()``.
+    encoder_features : array or None
+        Encoder-frontend embeddings for encoder-decoder configs, which
+        this port does not serve yet; must be None.
+    """
+
+    prompt: Sequence[int]
+    sampling: Optional[SamplingParams] = None
+    encoder_features: Any = None
+
+
+@dataclasses.dataclass
+class RequestHandle:
+    """Live view of one request; ``token_ids`` grows as the engine steps.
+
+    Attributes
+    ----------
+    uid : int
+        Engine-assigned request id (matches ``RequestOutput.request_id``).
+    prompt : list of int
+        The prompt token ids as submitted.
+    sampling : SamplingParams
+        The request's decoding parameters.
+    token_ids : list of int
+        Tokens emitted so far, in order (stop tokens are stripped).
+    finished : bool
+        True once the request retired.
+    finish_reason : str or None
+        ``"length"`` (max_tokens) or ``"stop"`` (eos / stop token).
+    num_preemptions : int
+        Times this request was LIFO-preempted and later resumed.
+    t_submit, t_first_token : float or None
+        Monotonic-clock stamps at handle creation and at the first
+        sampled token (TTFT, aggregated by ``latency_stats``).
+    t_tokens : list of float
+        Monotonic stamp per *sampled* token (TPOT, ``latency_stats``).
+    """
+
+    uid: int
+    prompt: list[int]
+    sampling: SamplingParams
+    token_ids: list[int] = dataclasses.field(default_factory=list)
+    finished: bool = False
+    finish_reason: Optional[str] = None      # "length" | "stop"
+    num_preemptions: int = 0
+    t_submit: float = dataclasses.field(default_factory=time.monotonic)
+    t_first_token: Optional[float] = None
+    t_tokens: list[float] = dataclasses.field(default_factory=list)
+    # internal: RNG stream position (== tokens sampled; differs from
+    # len(token_ids) only after a stripped stop token)
+    _n_sampled: int = 0
+
+
+@dataclasses.dataclass(frozen=True)
+class RequestOutput:
+    """One streaming increment: tokens a request gained this step.
+
+    Attributes
+    ----------
+    request_id : int
+        The owning request's ``RequestHandle.uid``.
+    new_tokens : tuple of int
+        Tokens emitted this step — one, or none on a stripped stop token.
+    num_tokens : int
+        Total tokens emitted for the request so far.
+    finished : bool
+        True when this increment retires the request.
+    finish_reason : str or None
+        ``"length"`` or ``"stop"`` when ``finished``, else None.
+    """
+
+    request_id: int
+    new_tokens: tuple[int, ...]
+    num_tokens: int
+    finished: bool
+    finish_reason: Optional[str] = None
+
+
+def register_sample(req: RequestHandle, tok: int, eos_id: int,
+                    on_finish) -> RequestOutput:
+    """Token-acceptance state machine: advance the request's RNG stream,
+    strip stop tokens, retire on stop or max_tokens, and emit the
+    streaming increment. ``on_finish()`` runs backend cleanup after the
+    handle's finished/finish_reason flags are set."""
+    now = time.monotonic()
+    req._n_sampled += 1
+    req.t_tokens.append(now)
+    if req._n_sampled == 1:
+        req.t_first_token = now
+    stop = (eos_id >= 0 and tok == eos_id) \
+        or tok in req.sampling.stop_token_ids
+    if not stop:
+        req.token_ids.append(tok)
+        if len(req.token_ids) < req.sampling.max_tokens:
+            return RequestOutput(req.uid, (tok,), len(req.token_ids),
+                                 False)
+    reason = "stop" if stop else "length"
+    req.finished = True
+    req.finish_reason = reason
+    on_finish()
+    return RequestOutput(req.uid, () if stop else (tok,),
+                         len(req.token_ids), True, reason)
+
+
+def _pctl(sorted_vals: list[float], q: float) -> float:
+    """Nearest-rank percentile over an already-sorted sample."""
+    if not sorted_vals:
+        return 0.0
+    i = min(len(sorted_vals) - 1,
+            max(0, int(round(q * (len(sorted_vals) - 1)))))
+    return float(sorted_vals[i])
+
+
+def latency_stats(handles) -> dict:
+    """Aggregate per-request latency stamps into TTFT/TPOT percentiles.
+
+    TTFT is ``t_first_token - t_submit`` per request; TPOT is the mean
+    inter-token gap over requests with at least two sampled tokens.
+
+    Parameters
+    ----------
+    handles : iterable of RequestHandle
+        Finished and/or in-flight handles.
+
+    Returns
+    -------
+    dict
+        ``{"ttft": {count, mean_s, p50_s, p95_s, p99_s}, "tpot": {...}}``.
+    """
+    ttft = sorted(h.t_first_token - h.t_submit for h in handles
+                  if h.t_first_token is not None)
+    tpot = sorted((h.t_tokens[-1] - h.t_tokens[0]) / (len(h.t_tokens) - 1)
+                  for h in handles if len(h.t_tokens) >= 2)
+
+    def summarize(vals):
+        return {"count": len(vals),
+                "mean_s": float(sum(vals) / len(vals)) if vals else 0.0,
+                "p50_s": _pctl(vals, 0.50),
+                "p95_s": _pctl(vals, 0.95),
+                "p99_s": _pctl(vals, 0.99)}
+
+    return {"ttft": summarize(ttft), "tpot": summarize(tpot)}
+
+
+@dataclasses.dataclass(frozen=True)
+class EngineConfig:
+    """Engine/backend configuration (immutable).
+
+    The fields are the JAX engine's. Options whose machinery is not
+    ported yet raise NotImplementedError at ``Engine`` construction when
+    set away from their default, naming the ROADMAP queue 1 item that
+    brings them.
+
+    Parameters
+    ----------
+    backend : {"paged"}
+        Continuous batching over the block-paged KV pool. ``"static"``
+        is not ported yet.
+    num_slots : int
+        Decode batch width (concurrent sequences on device).
+    block_size, num_blocks : int
+        Paged pool geometry: tokens per cache block and pool size
+        (block 0 is the reserved null block).
+    max_len : int
+        Per-sequence position cap (prompt + output).
+    eos_id : int
+        Engine-level stop token; -1 retires on length only.
+    watermark_blocks : int
+        Admission headroom: keep this many blocks free for in-flight
+        growth while admitting new sequences.
+    bucketed_prefill : bool
+        Right-pad prompts to power-of-two buckets (exact for every
+        served config).
+    max_prefill_batch : int
+        Cap on requests prefilled in one batched admission call; <= 0
+        lifts the cap to the slot count.
+    prefix_cache : bool
+        Copy-on-write prefix caching. Defaults to False here (True in
+        the JAX engine, whose outputs are identical either way); True is
+        not ported yet.
+    mesh, tp_axis
+        Multi-device serving; not ported yet (``mesh`` must be None).
+    spec_tokens, drafter, ngram_max, draft_model, draft_params
+        Speculative decoding; not ported yet (``spec_tokens`` must be 0).
+    kv_dtype : {"bf16"}
+        Pool storage precision; quantized pools are not ported yet. The
+        pool stores the model dtype.
+    overlap : bool
+        Async host/device overlap; not ported yet (must be False).
+    """
+
+    backend: str = "paged"
+    num_slots: int = 8
+    block_size: int = 16
+    num_blocks: int = 512
+    max_len: int = 256
+    eos_id: int = -1
+    watermark_blocks: int = 0
+    bucketed_prefill: bool = True
+    max_prefill_batch: int = 0
+    prefix_cache: bool = False
+    mesh: Any = None
+    tp_axis: str = "model"
+    spec_tokens: int = 0
+    drafter: str = "ngram"
+    ngram_max: int = 3
+    draft_model: Any = None
+    draft_params: Any = None
+    kv_dtype: str = "bf16"
+    overlap: bool = False
+
+    def check_ported(self):
+        """Raise NotImplementedError for options not ported yet."""
+        unported = [
+            (self.backend == "static", "backend='static'", "StaticBackend"),
+            (self.spec_tokens > 0, "spec_tokens > 0",
+             "K3 + speculative verify"),
+            (self.prefix_cache, "prefix_cache=True",
+             "K3 + speculative verify"),
+            (self.kv_dtype != "bf16", f"kv_dtype={self.kv_dtype!r}",
+             "K4 quantized pool"),
+            (self.overlap, "overlap=True", "overlap on CUDA streams"),
+            (self.mesh is not None, "mesh", "multi-device"),
+        ]
+        for bad, what, item in unported:
+            if bad:
+                raise NotImplementedError(
+                    f"EngineConfig {what} is not ported yet (ROADMAP "
+                    f"queue 1: '{item}')")
+        if self.backend != "paged":
+            raise ValueError(f"unknown backend {self.backend!r}")
+
+
+class Engine:
+    """Serving front-end over the paged backend on one device.
+
+    Parameters
+    ----------
+    model : Model
+        The target model; configs the port cannot serve yet (windowed,
+        recurrent, MoE, encoder-decoder, VLM) raise NotImplementedError.
+    params
+        Its parameter tree, on ``device``.
+    cfg : EngineConfig, optional
+        Geometry and options; defaults to ``EngineConfig()``.
+    ctx : RunCtx, optional
+        Per-call model context.
+    device : str or torch.device
+        Where the engine runs, ``"cuda"`` by default; raises when no GPU
+        is present. Must be the model's device.
+
+    Attributes
+    ----------
+    backend : PagedBackend
+        The execution backend.
+    finished : list of RequestHandle
+        Handles retired so far, in completion order.
+
+    Notes
+    -----
+    Outputs obey the RNG-stream contract: they do not depend on
+    admission order, slot placement, co-batched traffic or preemption.
+    Greedy outputs are token-identical to the JAX engine on the same
+    weights. Zero block leaks: every pool block returns to the allocator
+    on retirement and preemption (double-frees raise).
+
+    Examples
+    --------
+    >>> engine = Engine(model, params, EngineConfig(), device="cuda")
+    >>> handle = engine.add_request(prompt, SamplingParams(max_tokens=8))
+    >>> while engine.has_work:
+    ...     for out in engine.step():
+    ...         print(out.request_id, out.new_tokens)
+    """
+
+    def __init__(self, model: Model, params, cfg: EngineConfig = None,
+                 ctx: Optional[RunCtx] = None, device="cuda"):
+        from .scheduler import PagedBackend
+
+        self.device = resolve_device(device)
+        if self.device != model.device:
+            raise ValueError(f"engine device {self.device} != model "
+                             f"device {model.device}")
+        self.cfg = cfg or EngineConfig()
+        self.cfg.check_ported()
+        self.model = model
+        self.caps = model.serving_caps()
+        if not self.caps.paged_decode:
+            mc = model.cfg
+            raise NotImplementedError(
+                f"no paged decode path for config {mc.family}/{mc.name}: "
+                "mrope / visual-prefix frontends (qwen2-vl) and "
+                "decoder-only absolute-position embeddings are not "
+                "served (ServingCaps.paged_decode)")
+        check_supported(model.cfg)
+        self.backend = PagedBackend(model, params, self.cfg,
+                                    ctx or RunCtx())
+        self._uid = 0
+
+    # -- request lifecycle ----------------------------------------------
+
+    def check_request(self, prompt: Sequence[int],
+                      sampling: SamplingParams, encoder_features=None):
+        """Raise ValueError when this engine could never serve the
+        request (empty prompt, position cap, pool capacity, encoder
+        features on a decoder-only config)."""
+        mc = self.model.cfg
+        if len(prompt) < 1:
+            raise ValueError("empty prompt")
+        if len(prompt) + sampling.max_tokens > self.cfg.max_len:
+            raise ValueError(
+                f"prompt ({len(prompt)}) + max_tokens "
+                f"({sampling.max_tokens}) exceeds max_len "
+                f"{self.cfg.max_len}")
+        if encoder_features is not None:
+            raise ValueError(
+                f"encoder features on a non-encoder-decoder config: "
+                f"{mc.family}/{mc.name} has no cross-attention")
+        self.backend.check_request(len(prompt), sampling)
+
+    def add_request(self, prompt,
+                    sampling: Optional[SamplingParams] = None,
+                    encoder_features=None) -> RequestHandle:
+        """Validate and enqueue one request; returns its live handle.
+        ``prompt`` is a token-id sequence or a ``Request``."""
+        if isinstance(prompt, Request):
+            if sampling is not None or encoder_features is not None:
+                raise ValueError("pass sampling/encoder_features inside "
+                                 "the Request, not alongside it")
+            sampling = prompt.sampling
+            encoder_features = prompt.encoder_features
+            prompt = prompt.prompt
+        sampling = sampling or SamplingParams()
+        prompt = [int(t) for t in prompt]
+        self.check_request(prompt, sampling, encoder_features)
+        handle = RequestHandle(self._uid, prompt, sampling)
+        self._uid += 1
+        self.backend.enqueue(handle)
+        return handle
+
+    def step(self) -> list[RequestOutput]:
+        """Admissions + one device step; streams per-request increments."""
+        return self.backend.step()
+
+    @property
+    def has_work(self) -> bool:
+        """True while any request is waiting or active."""
+        return self.backend.has_work
+
+    @property
+    def finished(self) -> list[RequestHandle]:
+        """Handles retired so far, in completion order."""
+        return self.backend.finished
+
+    def stats(self) -> dict:
+        """Backend telemetry plus a ``"latency"`` section (TTFT/TPOT
+        percentiles over finished and in-flight requests)."""
+        st = self.backend.stats()
+        st["latency"] = latency_stats(list(self.backend.finished)
+                                      + self.backend.live_handles())
+        return st
+
+    @property
+    def made_progress(self) -> bool:
+        """True when the last ``step()`` admitted or decoded."""
+        return self.backend.made_progress
+
+    # -- drive to completion --------------------------------------------
+
+    def drain(self, max_steps: int = 100_000) -> list[RequestOutput]:
+        """Step until idle; returns the concatenated output stream."""
+        return drive(self, max_steps,
+                     "engine stalled: waiting requests cannot be admitted")
+
+    def generate(self, prompts: Sequence[Sequence[int]], sampling=None,
+                 max_steps: int = 100_000) -> list[list[int]]:
+        """Submit ``prompts`` and drive to completion; returns token ids
+        per prompt in submission order. ``sampling`` is one
+        SamplingParams for all or a per-prompt sequence."""
+        return run_generate(self, prompts, sampling, max_steps)
+
+
+def drive(engine, max_steps: int, stall_msg: str) -> list[RequestOutput]:
+    """Drive-to-completion loop: step until idle, guard the step budget,
+    raise on a stall (a step that neither emitted nor progressed)."""
+    stream: list[RequestOutput] = []
+    steps = 0
+    while engine.has_work:
+        outs = engine.step()
+        stream.extend(outs)
+        steps += 1
+        if steps > max_steps:
+            raise RuntimeError("step budget exceeded")
+        if not outs and not engine.made_progress:
+            raise RuntimeError(stall_msg)
+    return stream
+
+
+def run_generate(engine, prompts, sampling, max_steps) -> list[list[int]]:
+    """The ``generate`` loop: broadcast/validate sampling params,
+    submit everything, drain, collect per-prompt tokens in order."""
+    if sampling is None or isinstance(sampling, SamplingParams):
+        sampling = [sampling or SamplingParams()] * len(prompts)
+    if len(sampling) != len(prompts):
+        raise ValueError(f"{len(sampling)} sampling params for "
+                         f"{len(prompts)} prompts")
+    handles = [engine.add_request(p, s) for p, s in zip(prompts, sampling)]
+    engine.drain(max_steps=max_steps)
+    return [list(h.token_ids) for h in handles]

@@ -1,0 +1,129 @@
+"""Vectorized sampling step for the serving engine.
+
+Counterpart of ``repro/launch/engine/sampling.py``: one call samples
+every decode slot at once from per-slot parameter arrays (temperature /
+top-k / top-p / seed / RNG-stream step). Greedy decoding and the top-k
+and top-p masks follow the JAX package exactly.
+
+Determinism contract: token t of a request is drawn with Gumbel-max from
+uniforms that a counter-based hash computes from ``(seed, t, vocab
+index)`` alone, so sampled outputs do not depend on admission order,
+slot index, co-batched requests, preemption history or device (the hash
+is integer arithmetic, identical on CPU and GPU). The draws are not
+``jax.random``'s threefry bits: bit-for-bit agreement with the JAX
+sampler is a later step (ROADMAP queue 1: 'bit-exact threefry
+sampling'); greedy outputs match JAX already.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+_M32 = 0xFFFFFFFF
+
+
+def fold_seed(seed: int) -> int:
+    """Fold an arbitrary Python int seed into the non-negative int32
+    range the param arrays carry. Pure masking — a given seed always
+    selects the same stream."""
+    return int(seed) & 0x7FFFFFFF
+
+
+def _hash32(x):
+    """Avalanching 32-bit integer hash on int64 tensors holding values in
+    [0, 2**32): xorshift-multiply rounds with multipliers below 2**31, so
+    every product fits in int64 without overflow."""
+    x = (x + 0x9E3779B9) & _M32
+    x = x ^ (x >> 16)
+    x = (x * 0x7FEB352D) & _M32
+    x = x ^ (x >> 15)
+    x = (x * 0x2C1B3C6D) & _M32
+    return x ^ (x >> 16)
+
+
+def _uniforms(seeds, steps, V: int):
+    """(B, V) f32 uniforms in (0, 1), a pure function of each row's
+    (seed, step) and the vocab index."""
+    row = _hash32(_hash32(seeds.long() & _M32) ^ (steps.long() & _M32))
+    row = row[:, None]
+    idx = torch.arange(V, dtype=torch.int64, device=seeds.device)[None, :]
+    h = _hash32(_hash32(row ^ idx) ^ row)
+    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+
+
+def sample_tokens(logits, seeds, steps, temps, top_ks, top_ps):
+    """logits (B, V) f32 + per-slot param tensors (B,) -> (B,) int32."""
+    V = logits.shape[1]
+    greedy = logits.argmax(-1)
+    scaled = logits.float() / temps.float().clamp_min(1e-6)[:, None]
+    desc = scaled.sort(-1, descending=True).values
+    # top-k: logits below the k-th highest are cut (k <= 0 disables;
+    # ties at the threshold survive — the standard caveat)
+    k_eff = torch.where(top_ks <= 0, V, top_ks.clamp(1, V)).long()
+    thresh_k = desc.gather(1, (k_eff - 1)[:, None])
+    # top-p (nucleus): keep tokens whose PRECEDING cumulative mass is < p;
+    # the argmax token is always kept
+    probs = torch.softmax(desc, -1)
+    kept = (probs.cumsum(-1) - probs) < top_ps.float().clamp(1e-6, 1.0)[:, None]
+    thresh_p = desc.gather(1, (kept.sum(-1) - 1).clamp_min(0)[:, None])
+    allowed = (scaled >= thresh_k) & (scaled >= thresh_p)
+    masked = scaled.masked_fill(~allowed, float("-inf"))
+    gumbel = -torch.log(-torch.log(_uniforms(seeds, steps, V)))
+    sampled = (masked + gumbel).argmax(-1)
+    return torch.where(temps <= 0.0, greedy, sampled).int()
+
+
+class SlotSampler:
+    """Host-side mirror of the per-slot sampling parameter arrays.
+
+    The backend installs a request's SamplingParams at admission and
+    resets the slot at retirement; ``sample`` runs the step on the
+    logits' device. ``steps[i]`` is the owning request's RNG-stream
+    position and must be advanced by the backend after every draw.
+    """
+
+    def __init__(self, num_slots: int):
+        self.temps = np.zeros((num_slots,), np.float32)
+        self.top_ks = np.zeros((num_slots,), np.int32)
+        self.top_ps = np.ones((num_slots,), np.float32)
+        self.seeds = np.zeros((num_slots,), np.int32)
+        self.steps = np.zeros((num_slots,), np.int32)
+
+    def install(self, slot: int, sampling, n_sampled: int):
+        """Install a request's SamplingParams at admission; ``n_sampled``
+        is its RNG-stream position (nonzero on preemption resume)."""
+        self.temps[slot] = sampling.temperature
+        self.top_ks[slot] = sampling.top_k
+        self.top_ps[slot] = sampling.top_p
+        self.seeds[slot] = fold_seed(sampling.seed)
+        self.steps[slot] = n_sampled
+
+    def clear(self, slot: int):
+        """Reset a retired/preempted slot to the default (greedy) row."""
+        self.temps[slot] = 0.0
+        self.top_ks[slot] = 0
+        self.top_ps[slot] = 1.0
+        self.seeds[slot] = 0
+        self.steps[slot] = 0
+
+    def _sample(self, logits, sl):
+        if (self.temps[sl] <= 0.0).all():
+            # all-greedy fast path (the default): only argmax leaves the
+            # device, no sort/softmax/cumsum
+            return logits.argmax(-1).int().cpu().numpy()
+        dev = logits.device
+        args = [torch.from_numpy(a[sl]).to(dev) for a in
+                (self.seeds, self.steps, self.temps, self.top_ks,
+                 self.top_ps)]
+        return sample_tokens(logits, *args).cpu().numpy()
+
+    def sample(self, logits):
+        """logits: (B, V) tensor -> (B,) numpy int32 tokens."""
+        return self._sample(logits, slice(None))
+
+    def sample_one(self, slot: int, row_logits) -> int:
+        """Sample for ONE slot (prefill admission) from the parameters
+        just installed — same streams as the batch path. row_logits:
+        (1, V)."""
+        return int(self._sample(row_logits, slice(slot, slot + 1))[0])

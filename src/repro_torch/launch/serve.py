@@ -1,0 +1,58 @@
+"""Serving CLI of the port: random-weight requests through ``Engine``.
+
+Run on the card:  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b
+On the CPU:       PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+"""
+
+from __future__ import annotations
+
+import argparse
+import time
+
+import numpy as np
+import torch
+
+from repro_torch.configs import get_config
+from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+from repro_torch.models.model import Model
+
+
+def main():
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--arch", default="olmo_1b")
+    ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--n-new", type=int, default=16)
+    ap.add_argument("--slots", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=8)
+    ap.add_argument("--temperature", type=float, default=0.0)
+    ap.add_argument("--device", default="cuda")
+    args = ap.parse_args()
+    cfg = get_config(args.arch)
+    if args.smoke:
+        cfg = cfg.smoke()
+    model = Model(cfg, device=args.device)
+    params = model.init(seed=0)
+    rng = np.random.default_rng(0)
+    engine = Engine(model, params,
+                    EngineConfig(num_slots=args.slots, max_len=128),
+                    device=args.device)
+    prompts = [list(rng.integers(0, cfg.vocab_size,
+                                 int(rng.integers(4, 16))))
+               for _ in range(args.requests)]
+    sp = [SamplingParams(max_tokens=int(rng.integers(4, args.n_new + 1)),
+                         temperature=args.temperature, seed=i)
+          for i in range(args.requests)]
+    t0 = time.time()
+    outs = engine.generate(prompts, sp)
+    if model.device.type == "cuda":
+        torch.cuda.synchronize()
+    dt = time.time() - t0
+    total = sum(len(o) for o in outs)
+    print(f"[paged {model.device}] {total} tokens over {len(outs)} reqs in "
+          f"{dt:.2f}s ({total / dt:.1f} tok/s)  stats={engine.stats()}")
+    for i, o in enumerate(outs[:2]):
+        print(f"req{i}: {o[:12]}...")
+
+
+if __name__ == "__main__":
+    main()

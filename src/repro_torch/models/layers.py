@@ -1,0 +1,124 @@
+"""Shared model layers: initializers, norms, MLPs, rotary embeddings.
+
+Counterpart of ``repro/models/layers.py`` for the dense decoder-only
+path: norms rmsnorm (``(1 + scale)`` convention), layernorm and
+nonparametric (OLMo: LayerNorm without affine), gated and plain MLPs,
+half-split RoPE with f32 angles. Params are plain dicts of tensors.
+Initializers take a ``lead`` shape so a scan group's stacked
+``(count, ...)`` leaves are drawn in one call.
+"""
+
+from __future__ import annotations
+
+import math
+
+import torch
+import torch.nn.functional as F
+
+
+def truncated_normal_init(gen, shape, dtype, stddev=None, lead=()):
+    """``stddev * truncated_normal(-2, 2)`` drawn from the
+    ``torch.Generator`` ``gen`` on its device, shaped ``lead + shape``.
+
+    The default stddev is ``1 / sqrt(shape[0])`` (fan-in), JAX's rule;
+    the draw is in f32 and cast to ``dtype``, as JAX casts.
+    """
+    stddev = stddev if stddev is not None else 1.0 / math.sqrt(shape[0])
+    t = torch.empty(tuple(lead) + tuple(shape), dtype=torch.float32,
+                    device=gen.device)
+    torch.nn.init.trunc_normal_(t, 0.0, 1.0, -2.0, 2.0, generator=gen)
+    return t.mul_(stddev).to(dtype)
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+
+
+def init_norm(kind: str, dim: int, dtype, device, lead=()):
+    shape = tuple(lead) + (dim,)
+    if kind == "rmsnorm":                 # (1 + scale) convention
+        return {"scale": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "layernorm":
+        return {"scale": torch.ones(shape, dtype=dtype, device=device),
+                "bias": torch.zeros(shape, dtype=dtype, device=device)}
+    if kind == "nonparametric":
+        return {}
+    raise ValueError(kind)
+
+
+def apply_norm(kind: str, params, x, eps: float = 1e-6):
+    dt = x.dtype
+    xf = x.float()
+    if kind == "rmsnorm":
+        xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
+        return (xf * (1.0 + params["scale"].float())).to(dt)
+    if kind in ("layernorm", "nonparametric"):
+        mu = xf.mean(-1, keepdim=True)
+        var = (xf - mu).square().mean(-1, keepdim=True)
+        xf = (xf - mu) * torch.rsqrt(var + eps)
+        if kind == "layernorm":
+            xf = xf * params["scale"].float() + params["bias"].float()
+        return xf.to(dt)
+    raise ValueError(kind)
+
+
+# ---------------------------------------------------------------------------
+# MLP
+# ---------------------------------------------------------------------------
+
+_ACT = {
+    "silu": F.silu,
+    "gelu": lambda x: F.gelu(x, approximate="tanh"),
+    "relu": F.relu,
+}
+
+
+def init_mlp(gen, d_model: int, d_ff: int, dtype, gated: bool = True,
+             lead=()):
+    p = {"w_up": truncated_normal_init(gen, (d_model, d_ff), dtype,
+                                       lead=lead),
+         "w_down": truncated_normal_init(gen, (d_ff, d_model), dtype,
+                                         lead=lead)}
+    if gated:
+        p["w_gate"] = truncated_normal_init(gen, (d_model, d_ff), dtype,
+                                            lead=lead)
+    return p
+
+
+def apply_mlp(params, x, activation: str = "silu"):
+    act = _ACT[activation]
+    up = x @ params["w_up"]
+    if "w_gate" in params:
+        up = act(x @ params["w_gate"]) * up
+    else:
+        up = act(up)
+    return up @ params["w_down"]
+
+
+# ---------------------------------------------------------------------------
+# Rotary embeddings
+# ---------------------------------------------------------------------------
+
+
+def _rope_angles(positions, head_dim: int, theta: float):
+    """positions (..., S) -> cos/sin (..., S, head_dim/2), f32."""
+    half = head_dim // 2
+    exps = torch.arange(half, dtype=torch.float32,
+                        device=positions.device) / half
+    freqs = 1.0 / (theta ** exps)
+    ang = positions[..., None].float() * freqs
+    return torch.cos(ang), torch.sin(ang)
+
+
+def apply_rope(x, positions, theta: float = 10000.0):
+    """Half-split RoPE. x: (B, S, H, D); positions: (B, S) or (S,)."""
+    B, S, H, D = x.shape
+    if positions.dim() == 1:
+        positions = positions[None].expand(B, S)
+    cos, sin = _rope_angles(positions, D, theta)       # (B, S, D/2)
+    cos = cos[:, :, None, :]
+    sin = sin[:, :, None, :]
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)

@@ -1,0 +1,121 @@
+"""Unified model API: config -> init / prefill / paged decode.
+
+Counterpart of ``repro/models/model.py`` (``ServingCaps``, ``Model``)
+for the decoder-only serving path. ``Model`` also owns the device the
+model runs on: ``"cuda"`` by default, which raises on a machine without
+a GPU instead of carrying on on the CPU.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+
+import torch
+
+from . import transformer
+from .transformer import RunCtx
+
+
+def resolve_device(device) -> torch.device:
+    """``torch.device`` for an entry point's ``device`` argument; raises
+    when a CUDA device is asked for and none is present."""
+    device = torch.device(device)
+    if device.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            "device 'cuda' requested but torch.cuda.is_available() is "
+            "False; pass device='cpu' to run the plain-torch path")
+    if device.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {device}")
+    return device
+
+
+@dataclasses.dataclass(frozen=True)
+class ServingCaps:
+    """Declared serving capabilities of one model configuration.
+
+    Attributes
+    ----------
+    ragged_prefill : bool
+        Right-padded (bucketed) prefill is exact: causal attention hides
+        pad keys, and positions are relative or absent.
+    prefix_cache : bool
+        Block-granular KV prefix sharing would be exact (every layer's
+        decode state lives in the shared pool). The prefix cache itself
+        is not ported yet.
+    paged_decode : bool
+        The model has a block-paged continuous-batching decode path.
+    cross_attn : bool
+        Requests carry encoder features (encoder-decoder configs).
+    moe : bool
+        FFN layers route through experts.
+    quantized_kv : bool
+        The paged pool may store int8/fp8 K/V payloads.
+    """
+
+    ragged_prefill: bool
+    prefix_cache: bool
+    paged_decode: bool
+    cross_attn: bool
+    moe: bool
+    quantized_kv: bool
+
+
+class Model:
+    """Thin functional wrapper over the decoder-only LM on one device."""
+
+    def __init__(self, cfg, device="cuda"):
+        self.cfg = cfg
+        self.device = resolve_device(device)
+
+    # -- parameters -----------------------------------------------------
+
+    def init(self, seed: int = 0):
+        """Random params from a ``torch.Generator`` seeded with ``seed``
+        on this model's device (see ``transformer.init_lm``)."""
+        gen = torch.Generator(device=self.device).manual_seed(seed)
+        return transformer.init_lm(gen, self.cfg)
+
+    # -- serving --------------------------------------------------------
+
+    def prefill(self, params, batch, ctx: RunCtx, max_len=None, length=None,
+                rows=None):
+        return transformer.prefill(params, self.cfg, batch["tokens"], ctx,
+                                   max_len=max_len, length=length, rows=rows)
+
+    def serving_caps(self) -> ServingCaps:
+        """The declared ``ServingCaps`` for this configuration (the same
+        predicates as the JAX package)."""
+        cfg = self.cfg
+        paged = (cfg.rope_style != "mrope"
+                 and not cfg.visual_prefix
+                 and (cfg.pos_embed == "none" or cfg.enc_dec))
+        return ServingCaps(
+            ragged_prefill=(cfg.enc_dec
+                            or transformer.prefill_supports_ragged(cfg)),
+            prefix_cache=(not cfg.enc_dec
+                          and set(cfg.block_pattern) == {"attn"}
+                          and not cfg.sliding_window
+                          and cfg.rope_style in ("rope", "none")
+                          and cfg.pos_embed == "none"
+                          and not cfg.visual_prefix),
+            paged_decode=paged,
+            cross_attn=cfg.enc_dec,
+            moe=cfg.is_moe,
+            quantized_kv=paged and not cfg.enc_dec,
+        )
+
+    def init_paged_cache(self, layout):
+        return transformer.init_paged_cache(self.cfg, layout, self.device)
+
+    def pack_prefill_into_paged(self, layout, pools, dense_caches,
+                                block_ids):
+        """Batched install (in place): block_ids (N, nbp) per prefill
+        row."""
+        return transformer.pack_prefill_into_paged(
+            self.cfg, layout, pools, dense_caches, block_ids)
+
+    def decode_step_paged(self, params, pools, block_table, lengths, tokens,
+                          ctx: RunCtx):
+        return transformer.decode_step_paged(params, self.cfg, pools,
+                                             block_table, lengths, tokens,
+                                             ctx)

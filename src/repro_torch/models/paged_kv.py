@@ -1,0 +1,273 @@
+"""Paged KV cache: a shared pool of token blocks + per-sequence block tables.
+
+Counterpart of ``repro/models/paged_kv.py`` (bf16/f32 pools; quantized
+pools, the prefix index and the cross arena are later slices). Physical
+storage is a pool of fixed-size blocks shared by all decode slots, and a
+per-sequence block table maps logical token positions to physical
+blocks, so cache memory scales with ``sum(len_i)``.
+
+Layout per full-attention layer stack (count = layers in the group):
+
+    k_pool, v_pool: (count, num_blocks, block_size, n_kv_heads, head_dim)
+
+Physical block 0 is the reserved *null block*: retired or empty slots
+and pad tails point at it, so their discarded writes land somewhere
+harmless; it is only ever read masked. The allocator never hands it out.
+
+Unlike the JAX package, the device-side functions here update the pool
+tensors IN PLACE (and return the pool for symmetry); the
+``BlockAllocator`` is host-side bookkeeping owned by the scheduler.
+"""
+
+from __future__ import annotations
+
+import collections
+import dataclasses
+
+import torch
+
+NULL_BLOCK = 0
+
+
+def blocks_for(n_tokens: int, block_size: int) -> int:
+    return -(-n_tokens // block_size)
+
+
+@dataclasses.dataclass(frozen=True)
+class PagedLayout:
+    """Static geometry of the paged cache."""
+
+    num_slots: int           # decode batch width B
+    num_blocks: int          # pool size incl. reserved null block 0
+    block_size: int          # tokens per block
+    max_len: int             # per-sequence position cap
+
+    def __post_init__(self):
+        if self.num_blocks < 2:
+            raise ValueError("need >= 1 allocatable block + the null block")
+
+    @property
+    def max_blocks_per_seq(self) -> int:
+        return blocks_for(self.max_len, self.block_size)
+
+    @property
+    def usable_blocks(self) -> int:
+        return self.num_blocks - 1        # block 0 is the null block
+
+
+class BlockAllocator:
+    """Refcounting allocator over physical blocks 1..num_blocks-1.
+
+    Every block is in exactly ONE of four states, and the partition is
+    checked after every transition (``check_invariant``):
+
+    * **owned** — refcount >= 1: referenced by live slot tables. A block
+      shared by N slots carries refcount N; ``free`` decrements and only
+      the last reference releases the block.
+    * **cached** LRU — refcount 0 but registered in a prefix index
+      (``register``): kept resident so a future admission can re-hit it
+      (``share`` revives it), reclaimed oldest-first ONLY when the free
+      list runs dry (``on_evict`` tells the index to unlink it).
+    * **free** — a plain FIFO: ``free`` appends to the tail, ``alloc``
+      pops from the head, so a preempted victim's blocks are the LAST
+      ones recycled.
+    * the reserved null block 0 — never allocated, never freed.
+
+    ``can_admit`` applies a free-block *watermark* so new sequences
+    leave growth headroom, and ``select_victim`` encodes the preemption
+    order (LIFO — the most recently admitted sequence is evicted first,
+    so the oldest admission always runs to completion and the engine
+    cannot livelock). The prefix-cache states (shared refcounts, the
+    LRU) are ported whole, ahead of the prefix index that uses them.
+    """
+
+    def __init__(self, layout: PagedLayout, watermark: int = 0,
+                 on_evict=None):
+        self.layout = layout
+        self.watermark = watermark
+        self.on_evict = on_evict           # called with each reclaimed
+        self._free = collections.deque(range(1, layout.num_blocks))
+        self._refs: dict[int, int] = {}    # block -> live reference count
+        self._cached: set[int] = set()     # registered in a prefix index
+        # refcount-0 cached blocks, insertion-ordered: oldest first
+        self._lru: collections.OrderedDict[int, None] = \
+            collections.OrderedDict()
+
+    @property
+    def free_count(self) -> int:
+        """Blocks allocatable right now (free list + reclaimable LRU)."""
+        return len(self._free) + len(self._lru)
+
+    @property
+    def used_count(self) -> int:
+        """Blocks with at least one live reference."""
+        return len(self._refs)
+
+    @property
+    def lru_count(self) -> int:
+        """Unreferenced cached blocks awaiting re-hit or reclaim."""
+        return len(self._lru)
+
+    def refcount(self, b: int) -> int:
+        return self._refs.get(b, 0)
+
+    def can_alloc(self, n: int) -> bool:
+        return n <= self.free_count
+
+    def can_admit(self, n: int, *, strict: bool = True) -> bool:
+        """Admission check for a NEW sequence needing ``n`` blocks now.
+
+        ``strict`` keeps ``watermark`` blocks free as growth headroom for
+        already-running sequences; callers pass ``strict=False`` when
+        nothing else is running (the watermark must never starve a sole
+        request — progress beats headroom)."""
+        if not strict:
+            return n <= self.free_count
+        return n + self.watermark <= self.free_count
+
+    @staticmethod
+    def select_victim(candidates: list[tuple[int, int]]) -> int:
+        """Pick the preemption victim from ``(slot, admission_ticket)``
+        pairs: LIFO — highest ticket (latest admission) loses."""
+        if not candidates:
+            raise ValueError("no preemption candidates")
+        return max(candidates, key=lambda c: c[1])[0]
+
+    def alloc(self, n: int) -> list[int]:
+        """Claim ``n`` exclusively-owned blocks (refcount 1 each),
+        reclaiming the oldest unreferenced cached blocks only after the
+        plain free list is exhausted."""
+        if n > self.free_count:
+            raise MemoryError(f"paged pool exhausted: want {n}, "
+                              f"free {self.free_count}")
+        out = []
+        for _ in range(n):
+            if self._free:
+                b = self._free.popleft()
+            else:                          # reclaim the oldest cached
+                b, _ = self._lru.popitem(last=False)
+                self._cached.discard(b)
+                if self.on_evict is not None:
+                    self.on_evict(b)
+            self._refs[b] = 1
+            out.append(b)
+        self.check_invariant()
+        return out
+
+    def free(self, blocks: list[int]):
+        """Drop one reference per block. The LAST reference releases the
+        block: to the cached LRU when a prefix index registered it, else
+        to the tail of the FIFO free list."""
+        for b in blocks:
+            if b == NULL_BLOCK:
+                raise ValueError("freeing the reserved null block")
+            r = self._refs.get(b, 0)
+            if r <= 0:
+                raise ValueError(f"double-free of block {b}")
+            if r > 1:
+                self._refs[b] = r - 1
+            else:
+                del self._refs[b]
+                if b in self._cached:
+                    self._lru[b] = None    # most recent at the tail
+                else:
+                    self._free.append(b)
+        self.check_invariant()
+
+    def share(self, b: int):
+        """Take one more reference on a resident block: bump a live
+        block's refcount, or revive an unreferenced cached block out of
+        the LRU. Raises on free/unknown blocks."""
+        if b in self._refs:
+            self._refs[b] += 1
+        elif b in self._lru:
+            del self._lru[b]
+            self._refs[b] = 1
+        else:
+            raise ValueError(f"sharing unreferenced block {b}")
+        self.check_invariant()
+
+    def register(self, b: int):
+        """Mark a LIVE block as indexed by a prefix cache: when its last
+        reference drops it parks in the LRU instead of the free list."""
+        if b not in self._refs:
+            raise ValueError(f"registering non-live block {b}")
+        self._cached.add(b)
+
+    def must_cow(self, b: int) -> bool:
+        """True when an in-place write to ``b`` would be observable
+        outside the writer: another slot holds a reference, or a prefix
+        index could hand the block to a future admission."""
+        return self._refs.get(b, 0) > 1 or b in self._cached
+
+    def check_invariant(self):
+        """owned ⊎ cached-LRU ⊎ free must partition blocks 1..N-1 (and
+        the cached set may only mark resident blocks)."""
+        owned, lru, free = set(self._refs), set(self._lru), set(self._free)
+        if (owned & lru) or (owned & free) or (lru & free):
+            raise AssertionError(
+                f"allocator states overlap: owned∩lru={owned & lru} "
+                f"owned∩free={owned & free} lru∩free={lru & free}")
+        universe = set(range(1, self.layout.num_blocks))
+        if (owned | lru | free) != universe:
+            raise AssertionError(
+                f"allocator lost blocks: missing "
+                f"{universe - (owned | lru | free)}, "
+                f"foreign {(owned | lru | free) - universe}")
+        if not self._cached <= (owned | lru):
+            raise AssertionError(
+                f"cached marks non-resident blocks: "
+                f"{self._cached - (owned | lru)}")
+        if any(r < 1 for r in self._refs.values()):
+            raise AssertionError("non-positive refcount")
+
+
+# ---------------------------------------------------------------------------
+# Device side (in place)
+# ---------------------------------------------------------------------------
+
+
+def write_kv_rows(pool, phys, off, k, v):
+    """Scatter new K/V rows at the decode append frontier, IN PLACE.
+
+    pool: {"k", "v"} of (NB, BS, Hkv, D); phys/off: integer index
+    tensors selecting (block, slot-in-block) per row; k/v: (..., Hkv, D)
+    new rows matching the index shape. Rows aimed at the same place (the
+    null block, from retired slots) land in unspecified order, which is
+    harmless because the null block is only read masked."""
+    phys, off = phys.long(), off.long()
+    pool["k"][phys, off] = k.to(pool["k"].dtype)
+    pool["v"][phys, off] = v.to(pool["v"].dtype)
+    return pool
+
+
+def init_layer_pool(cfg, layout: PagedLayout, dtype, device, lead=()):
+    """Zeroed block pool {"k", "v"} of ``lead + (NB, BS, Hkv, D)``."""
+    shape = tuple(lead) + (layout.num_blocks, layout.block_size,
+                           cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def pack_prefill_kv(pool, dense_kv, block_ids, block_size):
+    """Scatter a batch of prefilled dense caches into pool blocks, IN
+    PLACE.
+
+    pool: {"k", "v"} of (..., NB, BS, Hkv, D); dense_kv: {"k", "v"} of
+    (..., N, S, Hkv, D) with S == block_ids.shape[1] * BS (zero past each
+    row's true length); block_ids: (N, nbp) physical destinations, one
+    row per prefilled sequence. Leading (stacked layer) dims broadcast.
+    Rows' real blocks are disjoint; pad-tail and batch-filler entries all
+    point at the null block, where their writes collide harmlessly.
+    """
+    if block_ids.dim() == 1:              # single-sequence convenience
+        block_ids = block_ids[None]
+    n, nbp = block_ids.shape
+    flat = block_ids.reshape(-1).long()
+    for name in ("k", "v"):
+        p, d = pool[name], dense_kv[name]
+        lead = p.shape[:-4]
+        hkv, hd = p.shape[-2:]
+        d = d.reshape(lead + (n * nbp, block_size, hkv, hd))
+        p[..., flat, :, :, :] = d.to(p.dtype)
+    return pool

@@ -1,0 +1,288 @@
+"""LM assembly: the decoder-only stack over stacked per-group params.
+
+Counterpart of ``repro/models/transformer.py`` for the ``attn`` block
+kind without a sliding window (the olmo/yi/gemma main path). The layer
+layout stays JAX's: layers are grouped into repeating *pattern periods*
+and every leaf of ``params["groups"]["g0"]["p0"]`` (and of the paged
+pools) is stacked ``(count, ...)``, so the weight bridge and the pool
+comparisons line up leaf for leaf. Where JAX runs ``lax.scan`` over the
+stacked leaves, this module runs a Python loop over the layer index.
+
+Two phases share one param set:
+  prefill  — full (right-padded) sequence, returns a dense cache
+  decode   — one token per slot against the block-paged pool
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import math
+
+import torch
+
+from . import attention as attn_lib
+from . import layers, paged_kv
+
+_NOT_PORTED = {
+    "local": "SWA rings",
+    "rglru": "K5 RG-LRU and recurrent kinds",
+    "mlstm": "K5 RG-LRU and recurrent kinds",
+    "slstm": "K5 RG-LRU and recurrent kinds",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class RunCtx:
+    """Per-call model context, the counterpart of JAX's ``RunCtx``.
+
+    Kernel dispatch needs no field here: the backend follows the tensors'
+    device (``kernels/ops.py``). The sharding, quantized-pool and
+    speculative fields of JAX's context arrive with their slices.
+    """
+
+
+def check_supported(cfg) -> None:
+    """Raise NotImplementedError (naming the ROADMAP queue 1 item) for a
+    config this slice cannot run: only full-attention ``attn`` layers of
+    a decoder-only model with RoPE or no positions."""
+    for kind in dict.fromkeys(cfg.block_pattern):     # pattern order
+        if kind != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: block kind {kind!r} is not ported yet "
+                f"(ROADMAP queue 1: '{_NOT_PORTED.get(kind, kind)}')")
+    if cfg.sliding_window:
+        raise NotImplementedError(
+            f"{cfg.name}: sliding-window attention is not ported yet "
+            "(ROADMAP queue 1: 'SWA rings')")
+    if cfg.is_moe or cfg.enc_dec or cfg.visual_prefix \
+            or cfg.rope_style not in ("rope", "none") \
+            or cfg.pos_embed != "none":
+        raise NotImplementedError(
+            f"{cfg.name}: MoE, encoder-decoder and VLM configs are not "
+            "ported yet (ROADMAP queue 1: 'MoE / enc-dec')")
+
+
+# ---------------------------------------------------------------------------
+# Layer walk over the stacked-group structure
+# ---------------------------------------------------------------------------
+
+
+def layer_groups(cfg):
+    """[(pattern tuple, repeat count), ...] covering all layers in order."""
+    p = tuple(cfg.block_pattern)
+    full, rem = divmod(cfg.n_layers, len(p))
+    groups = []
+    if full:
+        groups.append((p, full))
+    if rem:
+        groups.append((p[:rem], 1))
+    return groups
+
+
+def layer_walk(cfg):
+    """Yield ``(group_key, pattern, count)`` per stacked group, in order;
+    the one place the ``g{g}``/``p{pi}`` keying is defined."""
+    for g, (pattern, count) in enumerate(layer_groups(cfg)):
+        yield f"g{g}", pattern, count
+
+
+def map_layer_tree(cfg, fn):
+    """Build ``{gk: {pk: fn(gk, pk, kind, count)}}`` over ``layer_walk``."""
+    return {gk: {f"p{pi}": fn(gk, f"p{pi}", kind, count)
+                 for pi, kind in enumerate(pattern)}
+            for gk, pattern, count in layer_walk(cfg)}
+
+
+def layer_slice(tree, i: int):
+    """Layer ``i`` of a stacked subtree: every leaf indexed at ``[i]``.
+    The leaves are views, so writes into a sliced pool land in the
+    stacked pool."""
+    return {k: layer_slice(v, i) if isinstance(v, dict) else v[i]
+            for k, v in tree.items()}
+
+
+def _layers(cfg, *trees):
+    """Walk every layer in execution order, yielding ``(kind, slices)``
+    with layer ``i`` of each stacked tree (``trees[t][gk][pk]``)."""
+    for gk, pattern, count in layer_walk(cfg):
+        for i in range(count):
+            for pi, kind in enumerate(pattern):
+                yield kind, [layer_slice(t[gk][f"p{pi}"], i) for t in trees]
+
+
+# ---------------------------------------------------------------------------
+# Params
+# ---------------------------------------------------------------------------
+
+
+def model_dtype(cfg) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def init_block(gen, cfg, dtype, count: int):
+    """Stacked ``(count, ...)`` params of one ``attn`` pattern position."""
+    lead = (count,)
+    p = {"ln1": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device,
+                                 lead),
+         "attn": attn_lib.init_attention(gen, cfg, dtype, lead),
+         "ln2": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device,
+                                 lead)}
+    if cfg.d_ff > 0:
+        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                                   gated=cfg.gated_mlp, lead=lead)
+    return p
+
+
+def init_lm(gen, cfg):
+    """Random params from the ``torch.Generator`` ``gen`` on its device,
+    with JAX's distributions (truncated normal on [-2, 2], stddev
+    1/sqrt(fan_in), embed stddev 1.0) and JAX's tree layout. The values
+    differ from ``repro``'s ``PRNGKey`` draws; to hold the port against
+    JAX, carry the JAX params over with ``models/weights.py``."""
+    check_supported(cfg)
+    dtype = model_dtype(cfg)
+    params = {"embed": layers.truncated_normal_init(
+        gen, (cfg.vocab_size, cfg.d_model), dtype, stddev=1.0)}
+    params["groups"] = map_layer_tree(
+        cfg, lambda gk, pk, kind, count: init_block(gen, cfg, dtype, count))
+    params["final_norm"] = layers.init_norm(cfg.norm, cfg.d_model, dtype,
+                                            gen.device)
+    if not cfg.tie_embeddings:
+        params["lm_head"] = layers.truncated_normal_init(
+            gen, (cfg.d_model, cfg.vocab_size), dtype)
+    return params
+
+
+# ---------------------------------------------------------------------------
+# Blocks
+# ---------------------------------------------------------------------------
+
+
+def _ffn_part(p, cfg, x):
+    """Pre-norm MLP + residual."""
+    if "mlp" in p:
+        xn = layers.apply_norm(cfg.norm, p["ln2"], x)
+        x = x + layers.apply_mlp(p["mlp"], xn, cfg.activation)
+    return x
+
+
+def apply_block(p, cfg, x, positions):
+    """Full-sequence ``attn`` block. Returns (x, {"k", "v"}) with the
+    layer's rotated (B, S, Hkv, D) keys and values."""
+    xn = layers.apply_norm(cfg.norm, p["ln1"], x)
+    out, kv = attn_lib.attend(p["attn"], cfg, xn, positions)
+    return _ffn_part(p, cfg, x + out), kv
+
+
+def apply_block_decode_paged(p, cfg, x, pool, block_table, lengths):
+    """One-token ``attn`` block over the paged pool (written in place)."""
+    xn = layers.apply_norm(cfg.norm, p["ln1"], x)
+    out, _ = attn_lib.decode_attend_paged(p["attn"], cfg, xn, pool,
+                                          block_table, lengths)
+    return _ffn_part(p, cfg, x + out)
+
+
+# ---------------------------------------------------------------------------
+# The LM
+# ---------------------------------------------------------------------------
+
+
+def _embed(params, cfg, tokens):
+    x = params["embed"][tokens.long()]
+    if cfg.embed_scale:
+        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
+                             device=x.device)
+    return x
+
+
+def _logits(params, cfg, x):
+    """``x @ head`` in the model dtype, then upcast to f32 (JAX's order)."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    return (x @ head).float()
+
+
+def prefill_supports_ragged(cfg) -> bool:
+    """True when right-padded (bucketed) prefill is exact: causal
+    attention hides pad keys from every real query, and positions are
+    relative (rope) or absent."""
+    return (set(cfg.block_pattern) == {"attn"} and not cfg.enc_dec
+            and not cfg.visual_prefix
+            and cfg.rope_style in ("rope", "none")
+            and cfg.pos_embed == "none")
+
+
+def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
+            rows=None):
+    """Prefill: logits plus a dense decode cache of width ``max_len``.
+
+    tokens: (B, S). ``length`` ((B,) int) marks RIGHT-padded prompts:
+    row b's real tokens are ``tokens[b, :length[b]]``; causal attention
+    keeps the pad tail invisible to every real query, and cache entries
+    past ``length`` are never read unmasked. ``rows`` ((B,) int) selects
+    one position per row whose logits to return, (B, V) f32 — the
+    scheduler asks for ``length - 1`` only; None returns all (B, S, V).
+    The cache mirrors ``params["groups"]``: {"k", "v"} leaves of
+    (count, B, max_len, Hkv, D), zero past S.
+    """
+    del ctx, length        # pad keys are masked by causality alone
+    check_supported(cfg)
+    B, S = tokens.shape
+    cache_len = max_len or S
+    x = _embed(params, cfg, tokens)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    dtype = model_dtype(cfg)
+    caches = map_layer_tree(cfg, lambda gk, pk, kind, count: {
+        name: torch.zeros((count, B, cache_len, cfg.n_kv_heads,
+                           cfg.head_dim), dtype=dtype, device=x.device)
+        for name in ("k", "v")})
+    for _, (lp, lc) in _layers(cfg, params["groups"], caches):
+        x, kv = apply_block(lp, cfg, x, positions)
+        lc["k"][:, :S] = kv["k"]
+        lc["v"][:, :S] = kv["v"]
+    if rows is not None:
+        x = x[torch.arange(B, device=x.device), rows.long()][:, None]
+    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    logits = _logits(params, cfg, x)
+    return (logits[:, 0] if rows is not None else logits), caches
+
+
+def init_paged_cache(cfg, layout, device):
+    """Stacked per-layer block pools for the paged serving engine
+    (zero-filled; block tables and lengths live with the scheduler)."""
+    check_supported(cfg)
+    dtype = model_dtype(cfg)
+    return map_layer_tree(cfg, lambda gk, pk, kind, count:
+                          paged_kv.init_layer_pool(cfg, layout, dtype,
+                                                   device, lead=(count,)))
+
+
+def pack_prefill_into_paged(cfg, layout, pools, dense_caches, block_ids):
+    """Install a batch of prefilled dense caches (``prefill`` with
+    ``max_len == block_ids.shape[1] * block_size``) into the pools, IN
+    PLACE. ``block_ids`` (N, nbp): per prefill row the physical
+    destinations of its cache blocks, pad tails at the null block."""
+    for gk, pattern, _ in layer_walk(cfg):
+        for pi in range(len(pattern)):
+            pk = f"p{pi}"
+            paged_kv.pack_prefill_kv(pools[gk][pk], dense_caches[gk][pk],
+                                     block_ids, layout.block_size)
+    return pools
+
+
+def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
+                      ctx: RunCtx):
+    """Continuous-batching decode step.
+
+    tokens: (B, 1) — one token per decode slot; lengths: (B,) int32
+    tokens already cached per slot (the new token's position);
+    block_table: (B, NBMAX) int32. Retired slots ride along pointed at
+    the null block, their outputs discarded by the scheduler. The new
+    K/V rows are written into ``pools`` IN PLACE. Returns
+    (logits (B, V) f32, pools).
+    """
+    del ctx
+    x = _embed(params, cfg, tokens)
+    for _, (lp, pool) in _layers(cfg, params["groups"], pools):
+        x = apply_block_decode_paged(lp, cfg, x, pool, block_table, lengths)
+    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    return _logits(params, cfg, x)[:, 0], pools

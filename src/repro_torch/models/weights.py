@@ -1,0 +1,85 @@
+"""The weight bridge: JAX param trees <-> the port's params.
+
+``from_jax_numpy`` takes the JAX package's param tree as nested dicts of
+numpy arrays (``jax.tree.map(np.asarray, params)``, or the ``.npy`` per
+leaf a checkpoint holds) and returns the same tree of torch tensors under
+the same paths, the stacked ``(count, ...)`` group leaves included, so
+the port runs on exactly the reference's weights. ``to_numpy`` is the
+inverse. Both are exact: values are copied, never recomputed.
+
+numpy has no bfloat16 of its own: JAX's bf16 leaves arrive as a numpy
+dtype named ``bfloat16`` (2-byte payloads, reinterpreted bit for bit
+here), and ``to_numpy`` returns bf16 leaves as float32 arrays, which hold
+every bf16 value exactly.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .transformer import layer_walk
+
+
+def map_tree(fn, tree):
+    """Apply ``fn`` to every leaf of a nested dict, keeping the keys."""
+    if isinstance(tree, dict):
+        return {k: map_tree(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _from_numpy(a) -> torch.Tensor:
+    a = np.array(a, copy=True)            # owned, writable, contiguous
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def check_layout(tree, cfg):
+    """Raise ValueError unless ``tree["groups"]`` has the stacked group
+    layout of ``cfg`` (one ``g{g}/p{pi}`` subtree per pattern position,
+    every leaf led by the group's layer count)."""
+    groups = tree.get("groups", {})
+    want = {gk: (len(pattern), count) for gk, pattern, count in
+            layer_walk(cfg)}
+    if set(groups) != set(want):
+        raise ValueError(f"groups {sorted(groups)} != {sorted(want)}")
+    for gk, (n_pos, count) in want.items():
+        if set(groups[gk]) != {f"p{pi}" for pi in range(n_pos)}:
+            raise ValueError(f"{gk}: pattern keys {sorted(groups[gk])}")
+
+        def lead(t, gk=gk, count=count):
+            if t.shape[0] != count:
+                raise ValueError(f"{gk}: leaf of shape {tuple(t.shape)} is "
+                                 f"not stacked over {count} layers")
+        map_tree(lead, groups[gk])
+
+
+def to_device(tree, device, dtype=None):
+    """Copy every leaf to ``device`` (and floating leaves to ``dtype``)."""
+    def move(t):
+        t = t.to(device)
+        return t.to(dtype) if dtype is not None and t.is_floating_point() \
+            else t
+    return map_tree(move, tree)
+
+
+def from_jax_numpy(tree, cfg, device, dtype=None):
+    """JAX param tree of numpy arrays -> the port's params on ``device``.
+
+    ``dtype`` (optional) casts floating leaves, e.g. to run f32 reference
+    weights in bf16 on the card. Raises ValueError when the tree does not
+    have ``cfg``'s stacked group layout.
+    """
+    params = map_tree(_from_numpy, tree)
+    check_layout(params, cfg)
+    return to_device(params, device, dtype)
+
+
+def to_numpy(params):
+    """The port's params -> nested dicts of numpy arrays (bf16 leaves as
+    float32)."""
+    def leaf(t):
+        t = t.detach().cpu()
+        return (t.float() if t.dtype == torch.bfloat16 else t).numpy()
+    return map_tree(leaf, params)

@@ -1,0 +1,142 @@
+"""The port's hand-written CUDA kernels against their plain-torch
+versions, on the card.
+
+Marked ``cuda``: on a machine without a GPU every test skips (the
+``cuda_device`` fixture decides at run time). This file imports no JAX,
+so it also runs on a GPU machine that has none:
+
+    PYTHONPATH=src python -m pytest -q --noconftest -m cuda \\
+        tests/test_torch_cuda_kernels.py
+
+Tolerances are the JAX package's kernel tolerances: 1e-4 in f32 (the
+kernels sum in another order than the plain version) and 3e-2 in bf16
+(the output is rounded to bf16).
+"""
+
+import pytest
+import torch
+
+from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import paged_attention as pa_mod
+from repro_torch.kernels import ref
+
+pytestmark = pytest.mark.cuda
+
+TOL = {torch.float32: 1e-4, torch.bfloat16: 3e-2}
+
+
+@pytest.fixture
+def cuda_device():
+    if not torch.cuda.is_available():
+        pytest.skip("needs an NVIDIA GPU (CUDA kernels have no CPU mode)")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _randn(gen, shape, dtype, device):
+    return torch.randn(shape, generator=gen).to(device=device, dtype=dtype)
+
+
+def _close(got, want, dtype):
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    assert err <= TOL[dtype], f"max abs err {err} > {TOL[dtype]}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,hq,hkv,Sq,Skv,D,causal,window", [
+    (2, 4, 4, 80, 80, 32, True, None),
+    (2, 4, 2, 80, 80, 32, False, None),
+    (2, 8, 1, 80, 80, 32, True, 16),
+    (1, 2, 2, 64, 64, 64, True, None),
+    (2, 4, 2, 33, 33, 16, True, None),
+    (1, 4, 1, 7, 130, 16, False, 5),
+    (2, 16, 16, 512, 512, 128, True, None),
+    (1, 16, 4, 200, 200, 128, True, None),
+])
+def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, hq, hkv,
+                                              Sq, Skv, D, causal, window):
+    gen = torch.Generator().manual_seed(B * 1000 + Sq + D)
+    q = _randn(gen, (B, hq, Sq, D), dtype, cuda_device)
+    k = _randn(gen, (B, hkv, Skv, D), dtype, cuda_device)
+    v = _randn(gen, (B, hkv, Skv, D), dtype, cuda_device)
+    n0 = fa_mod.flash_attention.launches
+    got = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
+    assert fa_mod.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.flash_attention(q, k, v, causal=causal, window=window),
+           dtype)
+
+
+def test_flash_attention_kernel_strided_inputs(cuda_device):
+    """(B, S, H, D) projections pass as transposed views, no copy."""
+    gen = torch.Generator().manual_seed(7)
+    x = _randn(gen, (2, 96, 3, 4, 64), torch.bfloat16, cuda_device)
+    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+    assert not q.is_contiguous()
+    got = fa_mod.flash_attention(q, k, v)
+    _close(got, ref.flash_attention(q.contiguous(), k.contiguous(),
+                                    v.contiguous()), torch.bfloat16)
+
+
+def _pool_case(gen, B, hq, hkv, D, bs, nbmax, lengths, dtype, device):
+    nb = B * nbmax + 1
+    q = _randn(gen, (B, hq, D), dtype, device)
+    kp = _randn(gen, (nb, bs, hkv, D), dtype, device)
+    vp = _randn(gen, (nb, bs, hkv, D), dtype, device)
+    perm = torch.randperm(nb - 1, generator=gen) + 1
+    bt = perm[:B * nbmax].reshape(B, nbmax).to(torch.int32).to(device)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, kp, vp, bt, ln
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,D,bs,window", [
+    (4, 4, 16, 4, None), (4, 2, 16, 4, 5), (8, 1, 16, 4, None),
+    (4, 2, 32, 8, None), (8, 2, 64, 16, 7), (16, 16, 128, 16, None),
+    (16, 4, 128, 16, 40), (4, 2, 16, 6, None),
+])
+def test_paged_decode_kernel_matches_plain(cuda_device, dtype, hq, hkv, D,
+                                           bs, window):
+    gen = torch.Generator().manual_seed(hq * 100 + D + bs)
+    nbmax = 6
+    lengths = [7, 8, 1, bs * nbmax, 2 * bs + 3]
+    q, kp, vp, bt, ln = _pool_case(gen, len(lengths), hq, hkv, D, bs,
+                                   nbmax, lengths, dtype, cuda_device)
+    n0 = pa_mod.paged_decode_attention.launches
+    got = pa_mod.paged_decode_attention(q, kp, vp, bt, ln, window=window)
+    assert pa_mod.paged_decode_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.paged_decode_attention(q, kp, vp, bt, ln, window=window),
+           dtype)
+
+
+def test_paged_decode_kernel_reads_only_visible_blocks(cuda_device):
+    """Table entries past a sequence's last visible block are never
+    dereferenced: poison them with out-of-range ids and the result still
+    matches the plain version on a clean table."""
+    gen = torch.Generator().manual_seed(3)
+    q, kp, vp, bt, ln = _pool_case(gen, 3, 4, 2, 32, 4, 5, [5, 1, 9],
+                                   torch.float32, cuda_device)
+    want = ref.paged_decode_attention(q, kp, vp, bt, ln)
+    poisoned = bt.clone()
+    for b, L in enumerate([5, 1, 9]):
+        poisoned[b, -(-L // 4):] = 1 << 30
+    _close(pa_mod.paged_decode_attention(q, kp, vp, poisoned, ln), want,
+           torch.float32)
+
+
+def test_kernels_reject_unsupported_shapes(cuda_device):
+    t = torch.zeros((1, 2, 8, 48), device=cuda_device)
+    with pytest.raises(ValueError, match="head dim"):
+        fa_mod.flash_attention(t, t, t)
+    q = torch.zeros((1, 6, 16), device=cuda_device)
+    pool = torch.zeros((2, 4, 2, 16), device=cuda_device)
+    bt = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="group"):
+        pa_mod.paged_decode_attention(q, pool, pool, bt, bt[0])
+    with pytest.raises(ValueError, match="int32"):
+        pa_mod.paged_decode_attention(q[:, :4], pool, pool, bt.long(),
+                                      bt[0])
+

@@ -1,0 +1,100 @@
+"""The port stands on its own: no module of src/repro_torch/ nor
+chip_smoke.py imports JAX or the JAX package; its configs mirror
+``repro.configs`` field for field; entry points refuse to fall back to
+the CPU when a GPU is asked for and none is present; options and
+configs this slice does not serve raise NotImplementedError."""
+
+import ast
+import dataclasses
+import importlib
+import pathlib
+
+import pytest
+import torch
+
+from repro import configs as jax_configs
+from repro_torch import configs
+from repro_torch.launch.engine import Engine, EngineConfig
+from repro_torch.models.model import Model
+
+torch.set_num_threads(1)
+
+ROOT = pathlib.Path(__file__).resolve().parent.parent
+PORT_FILES = sorted((ROOT / "src" / "repro_torch").rglob("*.py")) \
+    + [ROOT / "chip_smoke.py"]
+
+
+def _forbidden(name: str) -> bool:
+    top = name.split(".")[0]
+    return top in ("jax", "jaxlib", "repro")
+
+
+@pytest.mark.parametrize("path", PORT_FILES,
+                         ids=lambda p: str(p.relative_to(ROOT)))
+def test_no_jax_or_repro_imports(path):
+    bad = []
+    for node in ast.walk(ast.parse(path.read_text())):
+        if isinstance(node, ast.Import):
+            bad += [a.name for a in node.names if _forbidden(a.name)]
+        elif isinstance(node, ast.ImportFrom) and node.level == 0:
+            if _forbidden(node.module or ""):
+                bad.append(node.module)
+    assert not bad, f"{path.name} imports {bad}"
+
+
+def test_every_port_module_imports_without_a_gpu():
+    for path in PORT_FILES[:-1]:
+        rel = path.relative_to(ROOT / "src").with_suffix("")
+        parts = rel.parts[:-1] if rel.name == "__init__" else rel.parts
+        importlib.import_module(".".join(parts))
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_configs_mirror_jax_field_for_field(arch):
+    mine, ref = configs.get_config(arch), jax_configs.get_config(arch)
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert dataclasses.asdict(mine.smoke()) == dataclasses.asdict(ref.smoke())
+    assert mine.layer_kinds == ref.layer_kinds
+
+
+def test_default_device_raises_without_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    cfg = configs.get_config("olmo_1b").smoke()
+    with pytest.raises(RuntimeError, match="cuda"):
+        Model(cfg)
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0)
+    with pytest.raises(RuntimeError, match="cuda"):
+        Engine(model, params, EngineConfig())
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("backend", "static", "StaticBackend"),
+    ("spec_tokens", 2, "speculative verify"),
+    ("prefix_cache", True, "speculative verify"),
+    ("kv_dtype", "int8", "K4 quantized pool"),
+    ("overlap", True, "overlap on CUDA streams"),
+    ("mesh", object(), "multi-device"),
+])
+def test_unported_engine_options_raise(field, value, item):
+    model = Model(configs.get_config("olmo_1b").smoke(), device="cpu")
+    params = model.init(seed=0)
+    cfg = dataclasses.replace(EngineConfig(), **{field: value})
+    with pytest.raises(NotImplementedError, match=item):
+        Engine(model, params, cfg, device="cpu")
+
+
+@pytest.mark.parametrize("arch,item", [
+    ("h2o_danube_3_4b", "SWA rings"),
+    ("recurrentgemma_2b", "K5 RG-LRU"),
+    ("xlstm_1_3b", "K5 RG-LRU"),
+    ("qwen3_moe_30b_a3b", "MoE / enc-dec"),
+    ("whisper_base", "MoE / enc-dec"),
+    ("qwen2_vl_2b", "paged decode"),
+])
+def test_unported_configs_raise_at_engine(arch, item):
+    cfg = configs.get_config(arch).smoke()
+    model = Model(cfg, device="cpu")
+    with pytest.raises(NotImplementedError, match=item):
+        Engine(model, {}, EngineConfig(), device="cpu")
