@@ -8,21 +8,35 @@ check it end to end.
 Phases, one JSON line each (any failed check exits non-zero):
 
 1. build    — nvcc builds every kernel under src/repro_torch/csrc/.
-2. kernels  — K1 (prefill flash attention) and K2 (paged decode
-              attention) against their plain-torch versions at the main
-              path's shapes (bf16, D 128, 16 heads), plus a GQA (group 4)
-              and an f32 case: max abs error within 3e-2 (bf16) / 1e-4
-              (f32), CUDA-event times for kernel, plain version and (K1)
-              ``F.scaled_dot_product_attention``, and the H100 bound.
+2. kernels  — K1 (prefill flash attention), K2 (paged decode attention)
+              and K3 (paged verify attention: the verify window and the
+              suffix prefill) against their plain-torch versions at the
+              main path's shapes (bf16, D 128, 16 heads), plus a GQA
+              (group 4) and an f32 case: max abs error within 3e-2 (bf16)
+              / 1e-4 (f32), CUDA-event times for kernel, plain version
+              and (K1) ``F.scaled_dot_product_attention``, and the H100
+              bound.
 3. parity   — olmo_1b smoke in f32, same weights, served on cuda and on
               cpu: greedy tokens identical (a tight pool forces LIFO
               preemption on both) and prefill / first-decode logits
-              within 1e-3.
+              within 1e-3; then speculative decoding (ngram and
+              draft-model drafters) with the prefix cache on prompts that
+              share a block-aligned prefix (partial hits, a full hit and
+              a COW copy): tokens identical on cuda and cpu and equal to
+              the non-speculative, cache-off engine.
 4. serve    — olmo_1b at full width in bf16 (random weights from a
               seeded torch.Generator) serves 16 requests of 32-512 prompt
-              tokens and 32-64 new tokens through ``Engine``; both kernel
-              launch counters are reset before and must be > 0 after,
-              and the pool must end with zero blocks in use.
+              tokens and 32-64 new tokens through ``Engine`` (prefix
+              cache on, the default); the K1 and K2 launch counters are
+              reset before and must be > 0 after, and the pool must end
+              with zero blocks in use.
+5. spec_serve — the same model with ``spec_tokens=4`` (ngram drafter)
+              and the prefix cache serves 16 requests that share a
+              256-token prefix; the K3 launch counter is reset before and
+              must be > 0 after, every request hits the cache, the pool
+              ends empty. It also reports the share of requests whose
+              tokens equal a non-speculative, cache-off engine's (bf16
+              argmax may flip on near-ties, so that share is no check).
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power
 limit from nvidia-smi, and as the last line
@@ -48,6 +62,7 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 PARITY_TOL = 1e-3                  # f32 logits, cuda vs cpu summation order
 N_REQ, HALF = 16, 8                # serve: first HALF prompts in bucket 512
+SHARED, PHRASE = 256, 8            # spec_serve: shared prefix, repeated phrase
 
 
 def emit(obj):
@@ -110,13 +125,33 @@ def bound(flops, nbytes, dtype):
 def workload(np):
     """The serve phase's requests: the first HALF prompts fall in the 512
     bucket (so the first admission is one (8, 16, 512, 128) prefill), the
-    rest in 32..256; 32-64 new tokens each."""
+    rest in 32..256; 32-64 new tokens each. Plus a 40-token warm-up
+    prompt that shares no block with them."""
     rng = np.random.default_rng(SEED)
     lens = list(rng.integers(257, 513, HALF)) \
         + list(rng.integers(32, 257, N_REQ - HALF))
     news = list(rng.integers(32, 65, N_REQ))
     prompts = [list(map(int, rng.integers(0, 50304, n))) for n in lens]
-    return prompts, [int(n) for n in news]
+    warm = list(map(int, rng.integers(0, 50304, 40)))
+    return prompts, [int(n) for n in news], warm
+
+
+def spec_workload(np):
+    """spec_serve's requests: a SHARED-token prefix drawn from the seed,
+    then a distinct 16..128-token suffix whose last 32 tokens repeat an
+    8-token phrase (material for the ngram drafter); 32-64 new tokens.
+    The warm-up request is the prefix plus a short suffix of its own."""
+    rng = np.random.default_rng(SEED + 1)
+    prefix = list(map(int, rng.integers(0, 50304, SHARED)))
+    prompts, news = [], []
+    for _ in range(N_REQ):
+        n = int(rng.integers(16, 129))
+        phrase = list(map(int, rng.integers(0, 50304, PHRASE)))
+        head = list(map(int, rng.integers(0, 50304, max(n - 32, 0))))
+        prompts.append(prefix + head + (phrase * 4)[-min(n, 32):])
+        news.append(int(rng.integers(32, 65)))
+    warm = prefix + list(map(int, rng.integers(0, 50304, 8)))
+    return prompts, news, warm
 
 
 def phase_build():
@@ -198,6 +233,46 @@ def k2_case(torch, np, name, lengths, hq, hkv, D, dtype, bs=16, nb=1024,
     return row
 
 
+def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, bs=16,
+            nb=1024, nbmax=40):
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    dt = getattr(torch, dtype)
+    B = len(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((B, K1, hq, D), generator=gen, device="cuda").to(dt)
+    kp, vp = (torch.randn((nb, bs, hkv, D), generator=gen, device="cuda")
+              .to(dt) for _ in range(2))
+    ids = np.random.default_rng(SEED).permutation(nb - 1)[:B * nbmax] + 1
+    bt = torch.from_numpy(ids.reshape(B, nbmax).astype(np.int32)).cuda()
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    got = pa.paged_verify_attention(q, kp, vp, bt, ln)
+    want = ref.paged_verify_attention(q, kp, vp, bt, ln)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    # visible keys: row j of sequence b sees min(len + 1 + j, table) keys;
+    # the sequence's K/V rows are read once for all its rows
+    s_max = nbmax * bs
+    pairs = sum(min(n + 1 + j, s_max) for n in lengths for j in range(K1))
+    rows = sum(min(n + K1, s_max) for n in lengths)
+    blocks = sum(-(-min(n + K1, s_max) // bs) for n in lengths)
+    nbytes = q.element_size() * (2 * B * K1 * hq * D + 2 * rows * hkv * D) \
+        + 4 * (blocks + B)                        # table entries, lengths
+    bound_ms, bound_by = bound(4 * D * hq * pairs, nbytes, dtype)
+    row = {"phase": "kernels", "kernel": "K3", "case": name,
+           "shape": [B, K1, hq, hkv, D, bs, nbmax], "lengths": list(lengths),
+           "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
+           "ms": cuda_ms(torch, lambda: pa.paged_verify_attention(
+               q, kp, vp, bt, ln)),
+           "plain_ms": cuda_ms(torch, lambda: ref.paged_verify_attention(
+               q, kp, vp, bt, ln)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    emit(row)
+    check(math.isfinite(err) and err <= TOL[dtype],
+          f"K3 {name}: max abs err {err} > {TOL[dtype]}")
+    return row
+
+
 def phase_kernels(torch, np, prompts):
     first = [len(p) + 1 for p in prompts[:HALF]]   # first decode lengths
     k1 = k1_case(torch, "main", HALF, 16, 16, 512, 128, "bfloat16", True)
@@ -206,7 +281,15 @@ def phase_kernels(torch, np, prompts):
     k2 = k2_case(torch, np, "main", first, 16, 16, 128, "bfloat16")
     k2_case(torch, np, "gqa4", first, 16, 4, 128, "bfloat16")
     k2_case(torch, np, "f32", first, 16, 16, 128, "float32")
-    return k1, k2
+    # K3 counts the tokens before the window: a verify window at the
+    # first decode starts at len(prompt)
+    cached = [n - 1 for n in first]
+    k3 = k3_case(torch, np, "verify", cached, 5, 16, 16, 128, "bfloat16")
+    k3_case(torch, np, "suffix", [SHARED] * HALF, SHARED, 16, 16, 128,
+            "bfloat16")
+    k3_case(torch, np, "gqa4", cached, 5, 16, 4, 128, "bfloat16")
+    k3_case(torch, np, "f32", cached, 5, 16, 16, 128, "float32")
+    return k1, k2, k3
 
 
 def phase_parity(torch, np):
@@ -274,9 +357,61 @@ def phase_parity(torch, np):
           f"parity: logits differ by {pre_diff} / {dec_diff}")
     check(got["cpu"] == got["cuda"], "parity: cuda tokens != cpu tokens")
     check(pre["cuda"] >= 1, "parity: the tight pool never preempted")
+    phase_parity_spec(torch, np, models, params, rng)
 
 
-def phase_serve(torch, np, prompts, news, profile):
+def phase_parity_spec(torch, np, models, params, rng):
+    """Speculative decoding + prefix cache, cuda against cpu: prompts
+    share a 12-token (3-block) prefix and end in a repeated phrase; the
+    last repeats the first, so the run has partial hits (suffix prefill
+    through K3), a full hit and its COW copy."""
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import weights
+
+    vocab = models["cpu"].cfg.vocab_size
+    common = list(map(int, rng.integers(0, vocab, 12)))
+    prompts = [common + list(map(int, rng.integers(0, vocab, 2))) * 2
+               for _ in range(4)]
+    prompts.append(list(prompts[0]))
+    geo = dict(num_slots=2, block_size=4, num_blocks=40, max_len=48)
+    draft = {"cpu": models["cpu"].init(seed=SEED + 7)}
+    draft["cuda"] = weights.to_device(draft["cpu"], "cuda")
+    sp = SamplingParams(max_tokens=10)
+    runs, stats = {}, {}
+    for d, m in models.items():
+        for drafter in ("ngram", "draft_model"):
+            kw = dict(geo, spec_tokens=3, drafter=drafter)
+            if drafter == "draft_model":
+                kw.update(draft_model=m, draft_params=draft[d])
+            eng = Engine(m, params[d], EngineConfig(**kw), device=d)
+            n0 = pa.paged_verify_attention.launches
+            runs[(d, drafter)] = eng.generate(prompts, sp)
+            st = eng.stats()
+            stats[(d, drafter)] = {
+                "blocks_used": st["blocks_used"],
+                **{k: st["prefix_cache"][k] for k in (
+                    "hits", "cow_copies", "suffix_shapes")},
+                "accepted": st["spec"]["accepted"],
+                "k3_launches": pa.paged_verify_attention.launches - n0}
+    base = Engine(models["cuda"], params["cuda"],
+                  EngineConfig(prefix_cache=False, **geo), device="cuda")
+    want = base.generate(prompts, sp)
+    equal = all(out == want for out in runs.values())
+    emit({"phase": "parity_spec", "dtype": "float32", "tokens_equal": equal,
+          "stats": {f"{d}/{dr}": v for (d, dr), v in stats.items()}})
+    check(equal, "parity_spec: spec / prefix-cache tokens differ from the "
+          "non-speculative cache-off engine or between cuda and cpu")
+    for key, st in stats.items():
+        check(st["blocks_used"] == 0, f"parity_spec: {key} leaked blocks")
+        check(st["hits"] >= 3 and st["cow_copies"] >= 1
+              and st["suffix_shapes"] >= 1,
+              f"parity_spec: {key} missed a partial hit, full hit or COW")
+        check(key[0] == "cpu" or st["k3_launches"] > 0,
+              f"parity_spec: {key} never launched K3")
+
+
+def phase_serve(torch, np, prompts, news, warm, profile):
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -290,7 +425,7 @@ def phase_serve(torch, np, prompts, news, profile):
     ecfg = EngineConfig(num_slots=8, block_size=16, num_blocks=1024,
                         max_len=640)
     engine = Engine(model, params, ecfg, device="cuda")
-    engine.generate([prompts[0][:40]], SamplingParams(max_tokens=2))
+    engine.generate([warm], SamplingParams(max_tokens=2))
     engine.backend.reset_telemetry()              # warm-up excluded
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
@@ -331,6 +466,81 @@ def phase_serve(torch, np, prompts, news, profile):
           and bool(torch.isfinite(logits).all()), "serve: bad prefill logits")
     if profile:
         phase_profile(torch, engine, prompts, news)
+    return launches
+
+
+def phase_spec_serve(torch, np):
+    """Full-width olmo_1b, bf16, speculative decoding (ngram, K = 4) with
+    the prefix cache, on shared-prefix traffic; then the same prompts
+    through a non-speculative, cache-off engine for the token match."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models.model import Model
+
+    prompts, news, warm = spec_workload(np)
+    cfg = get_config("olmo_1b")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=SEED)
+    geo = dict(num_slots=8, block_size=16, num_blocks=1024, max_len=640)
+    engine = Engine(model, params, EngineConfig(spec_tokens=4,
+                                                drafter="ngram", **geo),
+                    device="cuda")
+    # indexes the prefix's 16 blocks (parked in the LRU after retirement)
+    engine.generate([warm], SamplingParams(max_tokens=2))
+    engine.backend.reset_telemetry()
+    torch.cuda.synchronize()
+
+    fa.flash_attention.launches = 0
+    pa.paged_decode_attention.launches = 0
+    pa.paged_verify_attention.launches = 0
+    t0 = time.monotonic()
+    outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
+                                     for n in news])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    launches = {"K1": fa.flash_attention.launches,
+                "K2": pa.paged_decode_attention.launches,
+                "K3": pa.paged_verify_attention.launches}
+    st = engine.stats()
+    del engine
+    base = Engine(model, params, EngineConfig(prefix_cache=False, **geo),
+                  device="cuda")
+    want = base.generate(prompts, [SamplingParams(max_tokens=n)
+                                   for n in news])
+    same = [o == w for o, w in zip(outs, want)]
+    diverge = [{"request": r, "position": next(
+                   (j for j, (a, b) in enumerate(zip(o, w)) if a != b),
+                   min(len(o), len(w))), "spec": o[:12], "base": w[:12]}
+               for r, (o, w) in enumerate(zip(outs, want)) if o != w]
+    ntok = sum(len(o) for o in outs)
+    pc, spec = st["prefix_cache"], st["spec"]
+    emit({"phase": "spec_serve", "config": cfg.name, "dtype": cfg.dtype,
+          "spec_tokens": 4, "drafter": "ngram", "requests": len(outs),
+          "tokens": ntok, "seconds": secs, "tok_s": ntok / secs,
+          "launches": launches, "steps": st["steps"],
+          "decode_device_s": st["device_s"],
+          "emitted_per_step": spec["emitted_per_step"],
+          "accept_rate": spec["accept_rate"],
+          "prefill_calls": st["prefill_calls"],
+          "prefill_tokens": st["prefill_tokens"],
+          "prefix_hits": pc["hits"], "prefix_hit_tokens": pc["hit_tokens"],
+          "cow_copies": pc["cow_copies"], "blocks_used": st["blocks_used"],
+          "preemptions": st["preemptions"],
+          "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+          "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+          "match_nonspec_share": sum(same) / len(same),
+          "first_divergence": diverge[:1]})
+    check(all(len(o) == n for o, n in zip(outs, news)),
+          "spec_serve: a request did not emit max_tokens tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "spec_serve: token id out of range")
+    check(launches["K3"] > 0,
+          f"spec_serve: K3 was never launched on the path {launches}")
+    check(pc["hits"] >= N_REQ, f"spec_serve: {pc['hits']} prefix hits")
+    check(st["blocks_used"] == 0,
+          f"spec_serve: {st['blocks_used']} blocks leaked")
     return launches
 
 
@@ -379,11 +589,12 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
-    prompts, news = workload(np)
+    prompts, news, warm = workload(np)
     phase_build()
-    k1, k2 = phase_kernels(torch, np, prompts)
+    k1, k2, k3 = phase_kernels(torch, np, prompts)
     phase_parity(torch, np)
-    launches = phase_serve(torch, np, prompts, news, args.profile)
+    launches = phase_serve(torch, np, prompts, news, warm, args.profile)
+    launches["K3"] = phase_spec_serve(torch, np)["K3"]
 
     kernels = []
     for row, name, src, tpu in (
@@ -391,7 +602,10 @@ def main():
              "src/repro/kernels/flash_attention.py:109"),
             (k2, "paged_decode_attention",
              "src/repro_torch/csrc/paged_attention.cu",
-             "src/repro/kernels/paged_attention.py:158")):
+             "src/repro/kernels/paged_attention.py:158"),
+            (k3, "paged_verify_attention",
+             "src/repro_torch/csrc/paged_verify_attention.cu",
+             "src/repro/kernels/paged_attention.py:301")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu, "launches": launches[row["kernel"]],
                         **{k: row[k] for k in (

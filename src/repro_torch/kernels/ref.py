@@ -77,3 +77,42 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(valid.any(-1)[:, None, None], probs, 0.0)
     return torch.einsum("bhs,bhsd->bhd", probs, vx).to(q.dtype)
+
+
+def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
+                           window=None, scale=None):
+    """Reference multi-query decode attention over a block-paged cache.
+
+    The speculative-decode verify step (and suffix prefill): each
+    sequence contributes K1 query rows for the positions
+    ``lengths[b] + j`` (j = 0..K1-1), whose K/V must already be in the
+    pool. Row j attends positions < ``lengths[b] + 1 + j`` (and, with a
+    window, >= that limit minus ``window``), so row j equals
+    ``paged_decode_attention`` at length ``lengths[b] + 1 + j``.
+
+    q: (B, K1, Hq, D); pools: (NB, BS, Hkv, D); block_table: (B, NBMAX)
+    int32; lengths: (B,) int32 tokens cached BEFORE the window. Positions
+    past the table (``NBMAX * BS``) do not exist. A row that sees no key
+    gives 0. Returns (B, K1, Hq, D) in q.dtype.
+    """
+    B, K1, Hq, D = q.shape
+    BS, Hkv = k_pool.shape[1], k_pool.shape[2]
+    group = Hq // Hkv
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    S = block_table.shape[1] * BS
+    bt = block_table.long()
+    k = k_pool[bt].reshape(B, S, Hkv, D).float()
+    v = v_pool[bt].reshape(B, S, Hkv, D).float()
+    kx = k.transpose(1, 2).repeat_interleave(group, dim=1)   # (B, Hq, S, D)
+    vx = v.transpose(1, 2).repeat_interleave(group, dim=1)
+    logits = torch.einsum("bjhd,bhsd->bjhs", q.float(), kx) * scale
+    kpos = torch.arange(S, device=q.device)[None, None, :]
+    limit = lengths.long()[:, None, None] \
+        + 1 + torch.arange(K1, device=q.device)[None, :, None]
+    valid = kpos < limit                                     # (B, K1, S)
+    if window is not None:
+        valid = valid & (kpos >= limit - window)
+    logits = logits.masked_fill(~valid[:, :, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(valid.any(-1)[:, :, None, None], probs, 0.0)
+    return torch.einsum("bjhs,bhsd->bjhd", probs, vx).to(q.dtype)

@@ -7,17 +7,21 @@
             consume(out.request_id, out.new_tokens)
 
 ``PagedBackend`` runs continuous batching over the block-paged KV pool
-with optimistic admission, LIFO preemption and power-of-two bucketed,
-batched prefill; the JAX engine's other backends and options arrive with
-later slices (see ``EngineConfig``).
+with optimistic admission, LIFO preemption, power-of-two bucketed,
+batched prefill and the copy-on-write prefix cache;
+``SpecDecodeBackend`` adds speculative decoding (``spec_tokens > 0``,
+ngram or draft-model drafter). The JAX engine's other backends and
+options arrive with later slices (see ``EngineConfig``).
 """
 
 from .api import (Engine, EngineConfig, Request, RequestHandle,
                   RequestOutput, SamplingParams)
 from .sampling import sample_tokens
 from .scheduler import PagedBackend
+from .speculative import NgramDrafter, SpecDecodeBackend
 
 __all__ = [
-    "Engine", "EngineConfig", "PagedBackend", "Request", "RequestHandle",
-    "RequestOutput", "SamplingParams", "sample_tokens",
+    "Engine", "EngineConfig", "NgramDrafter", "PagedBackend", "Request",
+    "RequestHandle", "RequestOutput", "SamplingParams", "SpecDecodeBackend",
+    "sample_tokens",
 ]

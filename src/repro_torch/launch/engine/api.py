@@ -1,10 +1,11 @@
 """Engine front-end: SamplingParams, request handles, streaming outputs.
 
 Counterpart of ``repro/launch/engine/api.py``. The Engine owns request
-admission and the step loop; the backend (``PagedBackend``) owns the
-device state and implements ``enqueue(handle)``, ``step()`` and
-``stats()``. Every token is *emitted the step it is sampled* (prefill
-included), so ``step()`` doubles as the streaming interface.
+admission and the step loop; the backend (``PagedBackend``, or
+``SpecDecodeBackend`` when ``spec_tokens > 0``) owns the device state and
+implements ``enqueue(handle)``, ``step()`` and ``stats()``. Every token
+is *emitted the step it is sampled* (prefill included), so ``step()``
+doubles as the streaming interface.
 """
 
 from __future__ import annotations
@@ -120,6 +121,10 @@ class RequestHandle:
         ``"length"`` (max_tokens) or ``"stop"`` (eos / stop token).
     num_preemptions : int
         Times this request was LIFO-preempted and later resumed.
+    num_draft_proposed, num_draft_accepted : int
+        Speculative-decoding counters: draft tokens proposed for /
+        accepted into this request (0 unless ``spec_tokens > 0``), the
+        per-request source of ``Engine.stats()["spec"]``.
     t_submit, t_first_token : float or None
         Monotonic-clock stamps at handle creation and at the first
         sampled token (TTFT, aggregated by ``latency_stats``).
@@ -134,6 +139,8 @@ class RequestHandle:
     finished: bool = False
     finish_reason: Optional[str] = None      # "length" | "stop"
     num_preemptions: int = 0
+    num_draft_proposed: int = 0
+    num_draft_accepted: int = 0
     t_submit: float = dataclasses.field(default_factory=time.monotonic)
     t_first_token: Optional[float] = None
     t_tokens: list[float] = dataclasses.field(default_factory=list)
@@ -151,7 +158,8 @@ class RequestOutput:
     request_id : int
         The owning request's ``RequestHandle.uid``.
     new_tokens : tuple of int
-        Tokens emitted this step — one, or none on a stripped stop token.
+        Tokens emitted by this increment: one, or none on a stripped
+        stop token (a speculative step emits one increment per token).
     num_tokens : int
         Total tokens emitted for the request so far.
     finished : bool
@@ -245,8 +253,9 @@ class EngineConfig:
     Parameters
     ----------
     backend : {"paged"}
-        Continuous batching over the block-paged KV pool. ``"static"``
-        is not ported yet.
+        Continuous batching over the block-paged KV pool (the speculative
+        backend when ``spec_tokens > 0``). ``"static"`` is not ported
+        yet.
     num_slots : int
         Decode batch width (concurrent sequences on device).
     block_size, num_blocks : int
@@ -266,13 +275,27 @@ class EngineConfig:
         Cap on requests prefilled in one batched admission call; <= 0
         lifts the cap to the slot count.
     prefix_cache : bool
-        Copy-on-write prefix caching. Defaults to False here (True in
-        the JAX engine, whose outputs are identical either way); True is
-        not ported yet.
+        Copy-on-write prefix caching: admissions match the longest
+        block-aligned cached prefix, share those blocks by refcount and
+        prefill only the non-shared suffix (through kernel K3);
+        unreferenced indexed blocks park in an LRU reclaimed before the
+        allocator reports exhaustion. Active when the model's whole
+        state lives in the pool (``ServingCaps.prefix_cache``); outputs
+        are token-identical with it on or off.
     mesh, tp_axis
         Multi-device serving; not ported yet (``mesh`` must be None).
-    spec_tokens, drafter, ngram_max, draft_model, draft_params
-        Speculative decoding; not ported yet (``spec_tokens`` must be 0).
+    spec_tokens : int
+        Speculative decoding: draft tokens proposed per request per step
+        (K); the verify pass scores K+1 positions at once through kernel
+        K3. 0 disables.
+    drafter : {"ngram", "draft_model"}
+        Proposal source: zero-parameter prompt lookup, or a small draft
+        model given by ``draft_model``/``draft_params``.
+    ngram_max : int
+        Longest history suffix the ngram drafter keys on.
+    draft_model, draft_params
+        The draft ``Model`` (attention-only, same vocabulary, on the
+        engine's device) and its params for ``drafter="draft_model"``.
     kv_dtype : {"bf16"}
         Pool storage precision; quantized pools are not ported yet. The
         pool stores the model dtype.
@@ -289,7 +312,7 @@ class EngineConfig:
     watermark_blocks: int = 0
     bucketed_prefill: bool = True
     max_prefill_batch: int = 0
-    prefix_cache: bool = False
+    prefix_cache: bool = True
     mesh: Any = None
     tp_axis: str = "model"
     spec_tokens: int = 0
@@ -304,10 +327,6 @@ class EngineConfig:
         """Raise NotImplementedError for options not ported yet."""
         unported = [
             (self.backend == "static", "backend='static'", "StaticBackend"),
-            (self.spec_tokens > 0, "spec_tokens > 0",
-             "K3 + speculative verify"),
-            (self.prefix_cache, "prefix_cache=True",
-             "K3 + speculative verify"),
             (self.kv_dtype != "bf16", f"kv_dtype={self.kv_dtype!r}",
              "K4 quantized pool"),
             (self.overlap, "overlap=True", "overlap on CUDA streams"),
@@ -342,8 +361,8 @@ class Engine:
 
     Attributes
     ----------
-    backend : PagedBackend
-        The execution backend.
+    backend : PagedBackend | SpecDecodeBackend
+        The execution backend selected by ``cfg``.
     finished : list of RequestHandle
         Handles retired so far, in completion order.
 
@@ -351,9 +370,11 @@ class Engine:
     -----
     Outputs obey the RNG-stream contract: they do not depend on
     admission order, slot placement, co-batched traffic or preemption.
-    Greedy outputs are token-identical to the JAX engine on the same
-    weights. Zero block leaks: every pool block returns to the allocator
-    on retirement and preemption (double-frees raise).
+    They do not depend on the prefix cache or speculative decoding
+    either. Greedy outputs are token-identical to the JAX engine on the
+    same weights. Zero block leaks: every pool block returns to the
+    allocator on retirement, preemption and speculative rejected-tail
+    rewind (double-frees raise).
 
     Examples
     --------
@@ -367,12 +388,23 @@ class Engine:
     def __init__(self, model: Model, params, cfg: EngineConfig = None,
                  ctx: Optional[RunCtx] = None, device="cuda"):
         from .scheduler import PagedBackend
+        from .speculative import SpecDecodeBackend
 
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} != model "
                              f"device {model.device}")
         self.cfg = cfg or EngineConfig()
+        if self.cfg.spec_tokens > 0:
+            if self.cfg.backend != "paged":
+                raise ValueError(
+                    "speculative decoding requires the paged backend")
+            if self.cfg.overlap:
+                raise ValueError(
+                    "overlap=True is incompatible with speculative "
+                    "decoding: the verify step consumes the sampled "
+                    "tokens on the host before the next dispatch; set "
+                    "spec_tokens=0")
         self.cfg.check_ported()
         self.model = model
         self.caps = model.serving_caps()
@@ -384,8 +416,9 @@ class Engine:
                 "decoder-only absolute-position embeddings are not "
                 "served (ServingCaps.paged_decode)")
         check_supported(model.cfg)
-        self.backend = PagedBackend(model, params, self.cfg,
-                                    ctx or RunCtx())
+        backend = SpecDecodeBackend if self.cfg.spec_tokens > 0 \
+            else PagedBackend
+        self.backend = backend(model, params, self.cfg, ctx or RunCtx())
         self._uid = 0
 
     # -- request lifecycle ----------------------------------------------

@@ -74,6 +74,59 @@ def sample_tokens(logits, seeds, steps, temps, top_ks, top_ps):
     return torch.where(temps <= 0.0, greedy, sampled).int()
 
 
+def verify_accept(logits, tokens, num_drafts, seeds, steps, temps,
+                  top_ks, top_ps):
+    """Accept/resample rule for a speculative verify window.
+
+    Every request's sampler is a deterministic function of its own
+    stream (token t is drawn at stream position t from the target
+    logits of that position), so rejection sampling collapses to
+    exact-match coupling: compute the token the baseline sampler WOULD
+    emit at each of the K1 window positions (greedy argmax, or the seeded
+    draw at stream position ``steps + j``), accept the longest draft
+    prefix matching those draws, and emit the first mismatching target
+    as the correction (the row-K target is the bonus token when every
+    draft matches). Outputs therefore equal non-speculative decoding.
+
+    logits: (B, K1, V) f32, row j scoring the position after fed token
+    j; tokens: (B, K1) int the fed window (row 0 the last accepted
+    token, rows 1..K the drafts, padded past ``num_drafts``);
+    num_drafts: (B,) usable drafts per slot; seeds, steps, temps,
+    top_ks, top_ps: (B,) per-slot sampling parameters, ``steps`` the
+    stream position at the window start. Returns (out_tokens (B, K1)
+    int32, -1 past each row's emitted prefix; commit (B,) int32 in
+    [1, K1], the fed tokens whose cache state is valid).
+    """
+    B, K1, V = logits.shape
+    j = torch.arange(K1, device=logits.device)
+
+    def rep(a):
+        return a.repeat_interleave(K1)
+
+    tgt = sample_tokens(logits.reshape(B * K1, V), rep(seeds),
+                        (steps.long()[:, None] + j[None, :]).reshape(-1),
+                        rep(temps), rep(top_ks), rep(top_ps))
+    return _accept_targets(tgt.reshape(B, K1), tokens, num_drafts)
+
+
+def verify_accept_greedy(logits, tokens, num_drafts):
+    """All-greedy fast path of ``verify_accept`` (the serving default):
+    the targets are plain argmax rows, no sort, masks or draws."""
+    return _accept_targets(logits.argmax(-1).int(), tokens, num_drafts)
+
+
+def _accept_targets(tgt, tokens, num_drafts):
+    """Shared tail of the accept rule: the longest draft prefix matching
+    the per-position targets, plus the correction/bonus target."""
+    K1 = tgt.shape[1]
+    jidx = torch.arange(K1, device=tgt.device)
+    ok = (tokens[:, 1:] == tgt[:, :-1]) \
+        & (jidx[None, :-1] < num_drafts[:, None])
+    acc = ok.int().cumprod(1).sum(1)          # leading all-True prefix
+    out = torch.where(jidx[None, :] <= acc[:, None], tgt.int(), -1)
+    return out.int(), (acc + 1).int()
+
+
 class SlotSampler:
     """Host-side mirror of the per-slot sampling parameter arrays.
 
@@ -112,15 +165,19 @@ class SlotSampler:
             # all-greedy fast path (the default): only argmax leaves the
             # device, no sort/softmax/cumsum
             return logits.argmax(-1).int().cpu().numpy()
-        dev = logits.device
-        args = [torch.from_numpy(a[sl]).to(dev) for a in
-                (self.seeds, self.steps, self.temps, self.top_ks,
-                 self.top_ps)]
+        args = self.device_args(logits.device, sl)
         return sample_tokens(logits, *args).cpu().numpy()
 
     def sample(self, logits):
         """logits: (B, V) tensor -> (B,) numpy int32 tokens."""
         return self._sample(logits, slice(None))
+
+    def device_args(self, device, sl=slice(None)):
+        """The (seeds, steps, temps, top_ks, top_ps) rows ``sl`` of the
+        per-slot arrays as tensors on ``device``."""
+        return [torch.from_numpy(a[sl]).to(device) for a in
+                (self.seeds, self.steps, self.temps, self.top_ks,
+                 self.top_ps)]
 
     def sample_one(self, slot: int, row_logits) -> int:
         """Sample for ONE slot (prefill admission) from the parameters

@@ -1,7 +1,8 @@
 """PagedBackend: continuous batching over the block-paged KV cache.
 
 Counterpart of ``repro/launch/engine/scheduler.py::PagedBackend``
-without overlap, speculation, prefix cache, mesh or cross arena:
+without overlap, mesh or cross arena (speculation subclasses it in
+``speculative.py``):
 
 * **Optimistic admission** — a request is admitted when the pool covers
   its *current* footprint (plus an optional free-block watermark), not
@@ -17,6 +18,15 @@ without overlap, speculation, prefix cache, mesh or cross arena:
   bucket and prefills it as ONE right-padded batch call (batch width a
   power of two, capped at the slot count), scattering each row's cache
   into its blocks; pad tails go to the reserved null block.
+* **Copy-on-write prefix cache** (``EngineConfig.prefix_cache``, on by
+  default) — admission matches each request's longest block-aligned
+  cached prefix in a host-side trie (``paged_kv.PrefixIndex``) and
+  shares those blocks by refcount. A full hit costs no device call (the
+  first decode replays the prompt's last token), a partial hit prefills
+  only the suffix through the verify pass (kernel K3), a miss takes the
+  batched full prefill. A write into a shared block copies it first;
+  unreferenced indexed blocks park in the allocator's LRU, reclaimed
+  only when the free list runs dry.
 
 The pools live on the engine's device and are updated in place; the
 block table, lengths and sampler parameters are host (numpy) state,
@@ -47,6 +57,7 @@ class _Slot:
     blocks: list[int] = dataclasses.field(default_factory=list)
     last_token: int = 0
     ticket: int = -1             # admission order; LIFO preemption key
+    shared: int = 0              # leading blocks held by shared reference
 
 
 class PagedBackend:
@@ -62,8 +73,14 @@ class PagedBackend:
         self.layout = paged_kv.PagedLayout(
             num_slots=cfg.num_slots, num_blocks=cfg.num_blocks,
             block_size=cfg.block_size, max_len=cfg.max_len)
-        self.alloc = paged_kv.BlockAllocator(self.layout,
-                                             watermark=cfg.watermark_blocks)
+        caps = model.serving_caps()
+        # COW prefix caching: only when EVERY layer's decode state lives
+        # in the shared pool blocks
+        self.prefix = paged_kv.PrefixIndex(cfg.block_size) \
+            if cfg.prefix_cache and caps.prefix_cache else None
+        self.alloc = paged_kv.BlockAllocator(
+            self.layout, watermark=cfg.watermark_blocks,
+            on_evict=self._on_evict if self.prefix is not None else None)
         self.pools = model.init_paged_cache(self.layout)
         self.table = np.full(
             (cfg.num_slots, self.layout.max_blocks_per_seq),
@@ -73,11 +90,11 @@ class PagedBackend:
         self.sampler = SlotSampler(cfg.num_slots)
         self.waiting: collections.deque[RequestHandle] = collections.deque()
         self.finished: list[RequestHandle] = []
-        self.ragged_prefill = (cfg.bucketed_prefill
-                               and model.serving_caps().ragged_prefill)
+        self.ragged_prefill = cfg.bucketed_prefill and caps.ragged_prefill
         self.made_progress = False
         self._ticket = 0
         self._prefill_shapes: set = set()
+        self._suffix_shapes: set = set()
         self.reset_telemetry()
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -117,6 +134,10 @@ class PagedBackend:
         self._admit(outs)
         self._grow_blocks()
         active = [i for i, s in enumerate(self.slots) if s.req is not None]
+        if not active:
+            return outs
+        self._ensure_cow(active)       # may LIFO-preempt under pressure
+        active = [i for i in active if self.slots[i].req is not None]
         if not active:
             return outs
         tokens = np.zeros((self.cfg.num_slots, 1), np.int32)
@@ -183,6 +204,60 @@ class PagedBackend:
             slot.blocks.append(nb)
             self.table[i, len(slot.blocks) - 1] = nb
 
+    def _on_evict(self, b: int):
+        """Allocator reclaimed an unreferenced cached block: unlink it
+        from the prefix index so it can never be matched again."""
+        self.prefix.evict_block(b)
+        self.prefix_evictions += 1
+
+    def _ensure_cow(self, active):
+        """Copy-on-write pass before a decode/verify device call: a slot
+        whose next write position lands inside its SHARED prefix gets
+        that block copied into a private one first, so the write cannot
+        corrupt other slots sharing it (or the indexed copy future
+        admissions match). Only the LAST shared block is ever a write
+        target: writes happen at the length frontier, which a full-prefix
+        hit places one token inside the shared tail (lengths = S - 1)."""
+        if self.prefix is None:
+            return
+        bs = self.cfg.block_size
+        for i in active:
+            slot = self.slots[i]
+            idx = int(self.lengths[i]) // bs
+            if idx >= slot.shared:
+                continue
+            assert idx == slot.shared - 1, \
+                "write frontier deeper than the shared tail block"
+            assert self.alloc.must_cow(slot.blocks[idx])
+            while not self.alloc.can_alloc(1):   # LIFO, like _grow_blocks
+                cands = [(j, s.ticket) for j, s in enumerate(self.slots)
+                         if s.req is not None]
+                victim = self.alloc.select_victim(cands)
+                self._preempt(victim)
+                if victim == i:
+                    break
+            if slot.req is None:           # preempted itself: waits in
+                continue                   # queue, re-admits later
+            self._cow_block(i, idx)
+
+    def _cow_block(self, i: int, idx: int):
+        """Copy shared block ``slot.blocks[idx]`` into a freshly owned
+        one (an indexed copy over every layer leaf of the in-place pools)
+        and swap the table entry; the old block keeps its other
+        references and its place in the prefix index."""
+        slot = self.slots[i]
+        old = slot.blocks[idx]
+        (new,) = self.alloc.alloc(1)
+        for group in self.pools.values():        # {gk: {pk: {"k", "v"}}}
+            for pool in group.values():
+                for leaf in pool.values():       # (count, NB, BS, Hkv, D)
+                    leaf[:, new] = leaf[:, old]
+        slot.blocks[idx] = new
+        self.table[i, idx] = new
+        self.alloc.free([old])             # drop only THIS slot's ref
+        slot.shared = idx                  # blocks before idx still shared
+        self.cow_copies += 1
+
     def _imminent_growth(self) -> int:
         """Growth blocks active sequences will claim THIS step, counted
         into admission so a new request cannot take the last free blocks
@@ -204,21 +279,45 @@ class PagedBackend:
 
     def _bucket_key(self, S: int):
         """The prefill-shape identity of a cached length: the padded
-        token width (bucketed) or the exact length. Requests batch
-        together iff their keys match."""
+        token width (bucketed) or the exact length."""
         bs = self.cfg.block_size
         if self.ragged_prefill:
             cap = paged_kv.blocks_for(self.cfg.max_len, bs) * bs
             return paged_kv.blocks_for(prefill_bucket(S, bs, cap), bs) * bs
         return ("exact", S)
 
+    def _suffix_bucket(self, n: int) -> int:
+        """Power-of-two bucket for a non-shared admission suffix: the
+        prompt-bucket policy (floor = block size, capped at the table
+        width), so suffix-prefill shapes stay O(log max_len)."""
+        bs = self.cfg.block_size
+        cap = paged_kv.blocks_for(self.cfg.max_len, bs) * bs
+        return prefill_bucket(n, bs, cap)
+
+    def _admit_key(self, S: int, matched: int):
+        """The admission-shape identity: full-hit installs (no device
+        call), suffix prefills by suffix bucket, full prefills by the
+        prompt bucket. Requests batch together iff their keys match."""
+        if matched == S:
+            return ("hit",)
+        if matched > 0:
+            return ("sfx", self._suffix_bucket(S - matched))
+        return self._bucket_key(S)
+
     def _drain_bucket_run(self):
         """Pop the maximal FCFS PREFIX of the queue that fits the free
         slots and the pool (cumulative footprint + this step's imminent
         growth, watermark headroom while anything else runs), shares the
-        head's bucket, and stays within ``max_prefill_batch``. A request
-        that does not fit ends the run — no skipping ahead. Returns
-        ``(req, cached_tokens, S)`` entries."""
+        head's admission key (prefill bucket / suffix bucket / full hit),
+        and stays within ``max_prefill_batch``. A request that does not
+        fit ends the run — no skipping ahead.
+
+        Each accepted request's longest block-aligned cached prefix is
+        matched here and its blocks are SHARED at once (refcount pinned),
+        so a later entry's fresh allocation cannot reclaim them out of
+        the LRU mid-run; a request that then fails the pool check is
+        un-pinned before the run closes. Returns
+        ``(req, matched_blocks, cached_tokens, S)`` entries."""
         free = sum(1 for s in self.slots if s.req is None)
         if not free:
             return []
@@ -233,17 +332,24 @@ class PagedBackend:
                 break
             cached = self._cached_tokens(req)
             S = len(cached)
-            key = self._bucket_key(S)
+            m = self.prefix.match(cached) if self.prefix is not None \
+                else []
+            key = self._admit_key(S, len(m) * bs)
             if run and key != key0:
                 break
+            for b in m:                   # pin against mid-run reclaim
+                self.alloc.share(b)
             # + 1: the admitted slot decodes THIS step, caching the fed
-            # token at position S
-            want = paged_kv.blocks_for(S + 1, bs)
+            # token at position S; matched blocks are already resident
+            # (for a fresh full hit the + 1 covers the COW block instead)
+            want = paged_kv.blocks_for(S + 1, bs) - len(m)
             strict = self.num_active > 0 or bool(run)
             if not self.alloc.can_admit(need + want, strict=strict):
+                if m:
+                    self.alloc.free(m)    # un-pin: hits return to LRU
                 break
             need += want
-            run.append((req, cached, S))
+            run.append((req, m, cached, S))
             key0 = key
         for _ in run:
             self.waiting.popleft()
@@ -257,33 +363,117 @@ class PagedBackend:
             self._place_batch(run, outs)
 
     def _place_batch(self, run, outs: list[RequestOutput]):
-        """Admit one drained run: allocate each row's blocks, prefill the
-        batch in one call, sample each row's first token (a resumed
-        request samples nothing new: its last emitted token feeds the
-        next decode)."""
+        """Admit one drained run (all rows share one admission key):
+        install matched prefix blocks, allocate the rest and compute ONLY
+        the non-shared tokens: a full-prefix hit costs no device call, a
+        partial hit prefills just the suffix through the verify pass, a
+        miss takes the batched full prefill. Then sample each row's first
+        token (a resumed request samples nothing new: its last emitted
+        token feeds the next decode; a fresh full hit samples it from
+        this step's decode, at the same stream position from the same
+        logits row)."""
         bs = self.cfg.block_size
         free_slots = [i for i, s in enumerate(self.slots) if s.req is None]
         rows = []                          # (slot, req, cached, S, ids)
-        for req, cached, S in run:
-            block_ids = self.alloc.alloc(paged_kv.blocks_for(S, bs))
+        for req, m, cached, S in run:
+            # matched blocks were share()'d at drain time; only the
+            # non-shared tail is allocated
+            block_ids = list(m) + self.alloc.alloc(
+                paged_kv.blocks_for(S, bs) - len(m))
             i = free_slots.pop(0)
             slot = self.slots[i]
             slot.req = req
             slot.blocks = block_ids
+            slot.shared = len(m)
             slot.ticket = self._ticket
             self._ticket += 1
             self.table[i, :] = paged_kv.NULL_BLOCK
             self.table[i, :len(block_ids)] = block_ids
             rows.append((i, req, cached, S, block_ids))
-        row_logits = self._full_batch(rows)
+            if self.prefix is not None:
+                self.prefix_lookups += 1
+                if m:
+                    self.prefix_hits += 1
+                    self.prefix_hit_tokens += len(m) * bs
+        _, m0, _, S0 = run[0]
+        if m0 and len(m0) * bs == S0:
+            row_logits = self._install_hits(rows)
+        elif m0:
+            row_logits = self._suffix_batch(rows)
+        else:
+            row_logits = self._full_batch(rows)
         self.made_progress = True
+        # index each row's full PROMPT-chunk blocks before sampling: a
+        # max_tokens=1 row retires inside _accept, and its freed chain
+        # must already be registered to land in the LRU
+        if self.prefix is not None:
+            for i, req, cached, S, block_ids in rows:
+                for b in self.prefix.insert(cached, block_ids):
+                    self.alloc.register(b)
         for r, (i, req, cached, S, block_ids) in enumerate(rows):
             self.sampler.install(i, req.sampling, req._n_sampled)
             if req._n_sampled > 0:         # resume: nothing new to sample
                 self.slots[i].last_token = req.token_ids[-1]
-            else:
+            elif row_logits is not None:   # miss/suffix: sample token 0
                 outs.append(self._accept(
                     i, self.sampler.sample_one(i, row_logits[r:r + 1])))
+        self._post_admit(rows)
+
+    def _install_hits(self, rows):
+        """Full-prefix hit: every block is already resident, no device
+        call. A RESUME row's cache is complete (lengths = S, feed the
+        last emitted token); a FRESH row still owes the sample after its
+        prompt, so its length rewinds one token (lengths = S - 1) and
+        this step's decode replays ``cached[-1]``; that rewrite lands in
+        the shared tail block, which ``_ensure_cow`` privatizes first."""
+        for i, req, cached, S, block_ids in rows:
+            if req._n_sampled > 0:
+                self.lengths[i] = S
+            else:
+                self.lengths[i] = S - 1
+                self.slots[i].last_token = cached[-1]
+        return None
+
+    def _suffix_batch(self, rows):
+        """Partial hit: prefill ONLY each row's non-shared suffix, in one
+        verify-pass call (fed token j caches at ``lengths + j``, which is
+        suffix prefill when lengths = matched tokens), through kernel K3
+        with K1 = W, the suffix bucket. The other slots ride along
+        masked: local table rows at the null block and local lengths 0,
+        so their writes land in the reserved block and their logits rows
+        are ignored. Returns row-ordered next-token logits
+        (len(rows), V)."""
+        bs = self.cfg.block_size
+        i0, _, _, S0, _ = rows[0]
+        W = self._suffix_bucket(S0 - self.slots[i0].shared * bs)
+        self._suffix_shapes.add(W)
+        N = self.cfg.num_slots
+        toks = np.zeros((N, W), np.int32)
+        slens = np.zeros((N,), np.int32)
+        stable = np.full((N, self.layout.max_blocks_per_seq),
+                         paged_kv.NULL_BLOCK, np.int32)
+        last = np.zeros((N,), np.int32)
+        for i, req, cached, S, block_ids in rows:
+            mt = self.slots[i].shared * bs
+            sfx = S - mt
+            toks[i, :sfx] = cached[mt:]
+            slens[i] = mt
+            stable[i, :len(block_ids)] = block_ids
+            last[i] = sfx - 1
+            self.lengths[i] = S
+            self.prefill_tokens += sfx
+        last_t = self._dev(last).long()
+        ridx = torch.arange(N, device=self.device)
+
+        def commit_fn(logits):           # (N, W, V) -> each row's last
+            return logits[ridx, last_t], torch.full((N,), W)
+
+        row_logits, _, self.pools = self.model.decode_verify(
+            self.params, self.pools, self._dev(stable), self._dev(slens),
+            self._dev(toks), commit_fn, self.ctx)
+        self.prefill_calls += 1
+        self.prefill_reqs += len(rows)
+        return row_logits[[i for i, *_ in rows]]
 
     def _prefill_width(self, S: int, n: int):
         """(token width, cache width, batch width) of a prefill call:
@@ -348,9 +538,18 @@ class PagedBackend:
         slot.blocks = []
         slot.last_token = 0
         slot.ticket = -1
+        slot.shared = 0
         self.table[i, :] = paged_kv.NULL_BLOCK
         self.lengths[i] = 0
         self.sampler.clear(i)
+        self._post_clear(i)
+
+    def _post_admit(self, rows):
+        """Subclass hook: ``(slot, req, cached, S, block_ids)`` rows just
+        admitted (the speculative backend installs drafter state here)."""
+
+    def _post_clear(self, i: int):
+        """Subclass hook: slot ``i`` was just retired or preempted."""
 
     # -- reporting ------------------------------------------------------
 
@@ -363,6 +562,9 @@ class PagedBackend:
         self.device_s = 0.0
         self.preemptions = 0
         self.prefill_calls = self.prefill_reqs = self.prefill_tokens = 0
+        self.prefix_lookups = self.prefix_hits = 0
+        self.prefix_hit_tokens = 0
+        self.cow_copies = self.prefix_evictions = 0
 
     def stats(self) -> dict:
         """Cache/occupancy/scheduling telemetry for the run so far.
@@ -382,4 +584,15 @@ class PagedBackend:
             "prefill_reqs": self.prefill_reqs,
             "prefill_tokens": self.prefill_tokens,
             "bucketed_prefill": self.ragged_prefill,
+            "prefix_cache": {
+                "enabled": self.prefix is not None,
+                "lookups": self.prefix_lookups,
+                "hits": self.prefix_hits,
+                "hit_rate": self.prefix_hits / max(self.prefix_lookups, 1),
+                "hit_tokens": self.prefix_hit_tokens,
+                "cow_copies": self.cow_copies,
+                "evictions": self.prefix_evictions,
+                "lru_blocks": self.alloc.lru_count,
+                "suffix_shapes": len(self._suffix_shapes),
+            },
         }

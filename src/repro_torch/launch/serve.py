@@ -2,6 +2,7 @@
 
 Run on the card:  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b
 On the CPU:       PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
+Speculative:      add --spec-tokens 3 (ngram drafter)
 """
 
 from __future__ import annotations
@@ -26,6 +27,9 @@ def main():
     ap.add_argument("--requests", type=int, default=8)
     ap.add_argument("--temperature", type=float, default=0.0)
     ap.add_argument("--device", default="cuda")
+    ap.add_argument("--spec-tokens", type=int, default=0,
+                    help="speculative decoding: ngram-drafted tokens per "
+                         "step (outputs identical to spec-tokens 0)")
     args = ap.parse_args()
     cfg = get_config(args.arch)
     if args.smoke:
@@ -34,7 +38,8 @@ def main():
     params = model.init(seed=0)
     rng = np.random.default_rng(0)
     engine = Engine(model, params,
-                    EngineConfig(num_slots=args.slots, max_len=128),
+                    EngineConfig(num_slots=args.slots, max_len=128,
+                                 spec_tokens=args.spec_tokens),
                     device=args.device)
     prompts = [list(rng.integers(0, cfg.vocab_size,
                                  int(rng.integers(4, 16))))
@@ -48,8 +53,9 @@ def main():
         torch.cuda.synchronize()
     dt = time.time() - t0
     total = sum(len(o) for o in outs)
-    print(f"[paged {model.device}] {total} tokens over {len(outs)} reqs in "
-          f"{dt:.2f}s ({total / dt:.1f} tok/s)  stats={engine.stats()}")
+    print(f"[paged {model.device} spec={args.spec_tokens}] {total} tokens "
+          f"over {len(outs)} reqs in {dt:.2f}s ({total / dt:.1f} tok/s)  "
+          f"stats={engine.stats()}")
     for i, o in enumerate(outs[:2]):
         print(f"req{i}: {o[:12]}...")
 

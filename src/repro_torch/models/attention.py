@@ -1,13 +1,19 @@
-"""Attention blocks: GQA/MQA projections, prefill attention, paged decode.
+"""Attention blocks: GQA/MQA projections, prefill attention, paged decode
+and verify, dense decode.
 
 Counterpart of ``repro/models/attention.py`` for the full-attention
-path: prefill runs kernel K1 through ``kernels/ops.flash_attention``,
-decode appends the new K/V row to the block pool and runs kernel K2
-through ``kernels/ops.paged_attention``. Projections are bias-optional
+path: prefill runs kernel K1 through ``kernels/ops.flash_attention``;
+paged decode appends the new K/V row to the block pool and runs kernel
+K2, the speculative verify (and suffix prefill) appends K1 rows and runs
+kernel K3, both through ``kernels/ops.paged_attention``. The dense
+decode over linear per-slot caches (the draft model's) is plain torch,
+as JAX computes it in plain jnp. Projections are bias-optional
 (qwen2-vl) with optional per-head QK-norm (qwen3).
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -103,3 +109,79 @@ def decode_attend_paged(params, cfg, x, pool, block_table, lengths):
                                lengths + 1, mode="decode")
     out = out.reshape(B, 1, hq * hd).to(x.dtype)
     return out @ params["wo"], pool
+
+
+def verify_attend_paged(params, cfg, x, pool, block_table, lengths):
+    """Multi-token decode (speculative verify, suffix prefill) against a
+    paged KV pool, through kernel K3.
+
+    x: (B, K1, d): the last accepted token plus K draft tokens per slot
+    (or a prompt suffix); lengths: (B,) tokens already cached, so fed
+    token j lands at position ``lengths[b] + j``. All K1 rows are written
+    first (IN PLACE), then every row attends causally within the window.
+    A write whose logical block lies past the table (a pad row of a slot
+    near max_len) goes to the null block 0, never clipped into the
+    slot's own last block, which holds live K/V. Returns
+    (out (B, K1, d), pool).
+    """
+    B, K1, _ = x.shape
+    hq, hd = cfg.n_heads, cfg.head_dim
+    bs = pool["k"].shape[1]
+    q, k, v = _project_qkv(params, cfg, x, x)
+    pos = lengths.long()[:, None] \
+        + torch.arange(K1, device=x.device)[None, :]        # (B, K1)
+    if cfg.rope_style == "rope":
+        q = layers.apply_rope(q, pos, cfg.rope_theta)
+        k = layers.apply_rope(k, pos, cfg.rope_theta)
+    logical = pos // bs
+    nbmax = block_table.shape[1]
+    phys = torch.where(
+        logical < nbmax,
+        block_table.gather(1, logical.clamp(0, nbmax - 1)),
+        0)
+    write_kv_rows(pool, phys, pos % bs, k, v)
+    out = kops.paged_attention(q.contiguous(), pool, block_table, lengths,
+                               mode="verify")
+    out = out.reshape(B, K1, hq * hd).to(x.dtype)
+    return out @ params["wo"], pool
+
+
+def init_kv_cache(cfg, batch: int, max_len: int, dtype, device, lead=()):
+    """Zeroed linear cache {"k", "v"} of ``lead + (batch, max_len, Hkv,
+    D)`` for the dense decode path."""
+    shape = tuple(lead) + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def decode_attend_batched(params, cfg, x, cache, pos):
+    """Single-token decode over a linear cache with PER-SLOT positions.
+
+    x: (B, 1, d); cache: {"k", "v"} of (B, S, Hkv, D), written IN PLACE;
+    pos: (B,) int each slot's current position (its cached length). The
+    new K/V row lands at ``pos`` (clipped to the cache), and row b
+    attends cache slots <= pos[b]. Plain torch, the jnp math of JAX's
+    version. Returns (out (B, 1, d), cache).
+    """
+    B = x.shape[0]
+    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    q, k, v = _project_qkv(params, cfg, x, x)
+    posb = pos[:, None]
+    if cfg.rope_style == "rope":
+        q = layers.apply_rope(q, posb, cfg.rope_theta)
+        k = layers.apply_rope(k, posb, cfg.rope_theta)
+    size = cache["k"].shape[1]
+    slot = pos.long().clamp(0, size - 1)
+    bidx = torch.arange(B, device=x.device)
+    cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
+    cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
+    valid = torch.arange(size, device=x.device)[None, :] <= pos.long()[:, None]
+    qg = q.float().reshape(B, hkv, hq // hkv, hd)
+    kf = cache["k"].float().transpose(1, 2)                  # (B, Hkv, S, D)
+    vf = cache["v"].float().transpose(1, 2)
+    logits = torch.einsum("bhgd,bhsd->bhgs", qg, kf) / math.sqrt(hd)
+    logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
+    probs = torch.softmax(logits, dim=-1)
+    out = torch.einsum("bhgs,bhsd->bhgd", probs, vf)
+    out = out.reshape(B, 1, hq * hd).to(x.dtype)
+    return out @ params["wo"], cache

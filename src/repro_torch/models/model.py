@@ -1,4 +1,5 @@
-"""Unified model API: config -> init / prefill / paged decode.
+"""Unified model API: config -> init / prefill / paged decode and verify /
+dense decode.
 
 Counterpart of ``repro/models/model.py`` (``ServingCaps``, ``Model``)
 for the decoder-only serving path. ``Model`` also owns the device the
@@ -39,9 +40,9 @@ class ServingCaps:
         Right-padded (bucketed) prefill is exact: causal attention hides
         pad keys, and positions are relative or absent.
     prefix_cache : bool
-        Block-granular KV prefix sharing would be exact (every layer's
-        decode state lives in the shared pool). The prefix cache itself
-        is not ported yet.
+        Block-granular KV prefix sharing is exact: every layer's decode
+        state lives in the shared pool, with K/V a pure function of the
+        prefix token ids and absolute positions.
     paged_decode : bool
         The model has a block-paged continuous-batching decode path.
     cross_attn : bool
@@ -104,6 +105,15 @@ class Model:
             quantized_kv=paged and not cfg.enc_dec,
         )
 
+    def init_cache(self, batch: int, max_len: int):
+        """Linear per-slot decode caches (the draft model's)."""
+        return transformer.init_cache(self.cfg, batch, max_len, self.device)
+
+    def decode_step(self, params, cache, tokens, pos, ctx: RunCtx):
+        """Dense decode: tokens (B, 1) at per-slot positions ``pos``."""
+        return transformer.decode_step(params, self.cfg, cache, tokens, pos,
+                                       ctx)
+
     def init_paged_cache(self, layout):
         return transformer.init_paged_cache(self.cfg, layout, self.device)
 
@@ -119,3 +129,12 @@ class Model:
         return transformer.decode_step_paged(params, self.cfg, pools,
                                              block_table, lengths, tokens,
                                              ctx)
+
+    def decode_verify(self, params, pools, block_table, lengths, tokens,
+                      commit_fn, ctx: RunCtx):
+        """Speculative verify: score a (B, K1) token window in one pass;
+        ``commit_fn(logits) -> (out_tokens, commit)`` is the accept rule.
+        See transformer.decode_verify_paged."""
+        return transformer.decode_verify_paged(
+            params, self.cfg, pools, block_table, lengths, tokens,
+            commit_fn, ctx)

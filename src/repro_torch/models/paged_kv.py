@@ -1,7 +1,8 @@
 """Paged KV cache: a shared pool of token blocks + per-sequence block tables.
 
-Counterpart of ``repro/models/paged_kv.py`` (bf16/f32 pools; quantized
-pools, the prefix index and the cross arena are later slices). Physical
+Counterpart of ``repro/models/paged_kv.py`` (bf16/f32 pools, the
+refcounting allocator and the prefix index; quantized pools and the cross
+arena are later slices). Physical
 storage is a pool of fixed-size blocks shared by all decode slots, and a
 per-sequence block table maps logical token positions to physical
 blocks, so cache memory scales with ``sum(len_i)``.
@@ -31,6 +32,24 @@ NULL_BLOCK = 0
 
 def blocks_for(n_tokens: int, block_size: int) -> int:
     return -(-n_tokens // block_size)
+
+
+def rollback_tail(blocks: list, n_tokens: int, block_size: int) -> list:
+    """Split off the blocks a sequence no longer needs after a rewind.
+
+    The speculative verify step appends up to K+1 tokens to a slot's
+    blocks and then rewinds the length pointer over the rejected tail:
+    the paged cache's rollback is just that pointer move (rejected K/V
+    stay in place, invisible past the length, overwritten when the
+    sequence genuinely reaches those positions). What remains is
+    returning surplus whole blocks: mutates ``blocks`` down to
+    ``blocks_for(n_tokens)`` entries and returns the cut tail for
+    ``BlockAllocator.free``. No block contents are copied.
+    """
+    keep = blocks_for(n_tokens, block_size)
+    tail = blocks[keep:]
+    del blocks[keep:]
+    return tail
 
 
 @dataclasses.dataclass(frozen=True)
@@ -77,8 +96,7 @@ class BlockAllocator:
     leave growth headroom, and ``select_victim`` encodes the preemption
     order (LIFO — the most recently admitted sequence is evicted first,
     so the oldest admission always runs to completion and the engine
-    cannot livelock). The prefix-cache states (shared refcounts, the
-    LRU) are ported whole, ahead of the prefix index that uses them.
+    cannot livelock).
     """
 
     def __init__(self, layout: PagedLayout, watermark: int = 0,
@@ -222,19 +240,104 @@ class BlockAllocator:
             raise AssertionError("non-positive refcount")
 
 
+class _PrefixNode:
+    __slots__ = ("chunk", "block", "parent", "children")
+
+    def __init__(self, chunk, block, parent):
+        self.chunk = chunk
+        self.block = block
+        self.parent = parent              # None for root-level nodes
+        self.children: dict = {}
+
+
+class PrefixIndex:
+    """Host-side trie mapping block-size token chunks to pool blocks.
+
+    Each node keys one FULL block of token ids on the path from the
+    sequence start and names the physical block whose K/V holds exactly
+    those positions: K/V of an attention layer depend only on the token
+    ids and absolute positions of the prefix, so two requests sharing a
+    prompt prefix can share the physical blocks.
+
+    The index holds NO references of its own: the ``BlockAllocator``
+    keeps indexed blocks resident (cached LRU) and calls ``evict_block``
+    when it reclaims one. Insertion is first-wins: a chunk already
+    indexed keeps its original block, and later copies of the same
+    content stay private to their slot. Evicting a node orphans its
+    descendants: matching walks from the root, so they can no longer be
+    matched, and they age out of the allocator's LRU like any cold block.
+    """
+
+    def __init__(self, block_size: int):
+        self.block_size = block_size
+        self.children: dict = {}          # root: chunk tuple -> node
+        self._by_block: dict[int, _PrefixNode] = {}
+
+    def __len__(self) -> int:
+        return len(self._by_block)
+
+    def match(self, tokens) -> list[int]:
+        """Physical blocks of the longest indexed chain of FULL
+        block-size chunks prefixing ``tokens`` (possibly empty)."""
+        bs = self.block_size
+        out: list[int] = []
+        kids = self.children
+        for c in range(len(tokens) // bs):
+            node = kids.get(tuple(tokens[c * bs:(c + 1) * bs]))
+            if node is None:
+                break
+            out.append(node.block)
+            kids = node.children
+        return out
+
+    def insert(self, tokens, blocks) -> list[int]:
+        """Index ``blocks[c]`` under the c-th full chunk of ``tokens``
+        (first-wins). Returns the block ids newly indexed: the caller
+        must ``register`` exactly those with the allocator."""
+        bs = self.block_size
+        new: list[int] = []
+        kids = self.children
+        parent = None
+        for c in range(min(len(tokens) // bs, len(blocks))):
+            chunk = tuple(tokens[c * bs:(c + 1) * bs])
+            node = kids.get(chunk)
+            if node is None:
+                node = _PrefixNode(chunk, blocks[c], parent)
+                kids[chunk] = node
+                self._by_block[blocks[c]] = node
+                new.append(blocks[c])
+            parent = node
+            kids = node.children
+        return new
+
+    def evict_block(self, b: int):
+        """Unlink the node indexing block ``b`` (allocator reclaim
+        callback). Descendants become unmatchable orphans and are
+        unlinked the same way when their blocks are reclaimed."""
+        node = self._by_block.pop(b, None)
+        if node is None:
+            return
+        kids = self.children if node.parent is None \
+            else node.parent.children
+        if kids.get(node.chunk) is node:
+            del kids[node.chunk]
+
+
 # ---------------------------------------------------------------------------
 # Device side (in place)
 # ---------------------------------------------------------------------------
 
 
 def write_kv_rows(pool, phys, off, k, v):
-    """Scatter new K/V rows at the decode append frontier, IN PLACE.
+    """Scatter new K/V rows at the decode/verify append frontier, IN
+    PLACE.
 
     pool: {"k", "v"} of (NB, BS, Hkv, D); phys/off: integer index
-    tensors selecting (block, slot-in-block) per row; k/v: (..., Hkv, D)
-    new rows matching the index shape. Rows aimed at the same place (the
-    null block, from retired slots) land in unspecified order, which is
-    harmless because the null block is only read masked."""
+    tensors selecting (block, slot-in-block) per row, (B,) for a decode
+    step or (B, K1) for a verify window; k/v: (..., Hkv, D) new rows
+    matching the index shape. Rows aimed at the same place (the null
+    block, from retired slots and pad rows) land in unspecified order,
+    which is harmless because the null block is only read masked."""
     phys, off = phys.long(), off.long()
     pool["k"][phys, off] = k.to(pool["k"].dtype)
     pool["v"][phys, off] = v.to(pool["v"].dtype)
@@ -271,3 +374,29 @@ def pack_prefill_kv(pool, dense_kv, block_ids, block_size):
         d = d.reshape(lead + (n * nbp, block_size, hkv, hd))
         p[..., flat, :, :, :] = d.to(p.dtype)
     return pool
+
+
+def _select_slots(state, dense, row_of_slot, valid, batch_axis):
+    """Install per-slot decode state IN PLACE: slot s takes ``dense``
+    row ``row_of_slot[s]`` where ``valid[s]``, else keeps its state.
+    Only valid slots are written, each once, so the result is exact for
+    any (row_of_slot, valid)."""
+    slots = torch.nonzero(valid.bool()).flatten()
+    rows = row_of_slot.long()[slots]
+    src = torch.index_select(dense, batch_axis, rows)
+    state.index_copy_(batch_axis, slots, src.to(state.dtype))
+    return state
+
+
+def pack_prefill_state(state, dense_state, row_of_slot, valid):
+    """Install a batch of prefilled dense decode caches into per-slot
+    storage, IN PLACE (the draft model's linear caches). Both trees are
+    ``init_cache``-shaped stacked caches of one width: a leading
+    layer-count axis, then the slot/batch axis, so the batch axis is
+    axis 1 on every leaf."""
+    if isinstance(state, dict):
+        for k in state:
+            pack_prefill_state(state[k], dense_state[k], row_of_slot, valid)
+        return state
+    return _select_slots(state, dense_state, row_of_slot, valid,
+                         batch_axis=1)

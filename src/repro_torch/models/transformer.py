@@ -8,9 +8,13 @@ pools) is stacked ``(count, ...)``, so the weight bridge and the pool
 comparisons line up leaf for leaf. Where JAX runs ``lax.scan`` over the
 stacked leaves, this module runs a Python loop over the layer index.
 
-Two phases share one param set:
+Phases sharing one param set:
   prefill  — full (right-padded) sequence, returns a dense cache
-  decode   — one token per slot against the block-paged pool
+  decode   — one token per slot against the block-paged pool (K2)
+  verify   — a K1-token window per slot against the pool in one pass
+             (K3): the speculative verify step and the suffix prefill
+  dense decode — one token per slot over linear per-slot caches (the
+             draft model's), plain torch
 """
 
 from __future__ import annotations
@@ -36,8 +40,8 @@ class RunCtx:
     """Per-call model context, the counterpart of JAX's ``RunCtx``.
 
     Kernel dispatch needs no field here: the backend follows the tensors'
-    device (``kernels/ops.py``). The sharding, quantized-pool and
-    speculative fields of JAX's context arrive with their slices.
+    device (``kernels/ops.py``). The sharding and quantized-pool fields
+    of JAX's context arrive with their slices.
     """
 
 
@@ -182,6 +186,25 @@ def apply_block_decode_paged(p, cfg, x, pool, block_table, lengths):
     return _ffn_part(p, cfg, x + out)
 
 
+def apply_block_verify_paged(p, cfg, x, pool, block_table, lengths):
+    """K1-token ``attn`` block for the verify window: ONE multi-query
+    pass over the paged pool (written in place). The pool commits by
+    construction: the host rewinds the length pointer over a rejected
+    tail, no block is copied."""
+    xn = layers.apply_norm(cfg.norm, p["ln1"], x)
+    out, _ = attn_lib.verify_attend_paged(p["attn"], cfg, xn, pool,
+                                          block_table, lengths)
+    return _ffn_part(p, cfg, x + out)
+
+
+def apply_block_decode(p, cfg, x, cache, pos):
+    """One-token ``attn`` block over a linear per-slot cache (written in
+    place); ``pos`` (B,) per-slot positions."""
+    xn = layers.apply_norm(cfg.norm, p["ln1"], x)
+    out, _ = attn_lib.decode_attend_batched(p["attn"], cfg, xn, cache, pos)
+    return _ffn_part(p, cfg, x + out)
+
+
 # ---------------------------------------------------------------------------
 # The LM
 # ---------------------------------------------------------------------------
@@ -246,6 +269,16 @@ def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
     return (logits[:, 0] if rows is not None else logits), caches
 
 
+def init_cache(cfg, batch: int, max_len: int, device):
+    """Stacked linear decode caches {"k", "v"} of (count, batch, max_len,
+    Hkv, D) mirroring the group structure (zero-filled)."""
+    check_supported(cfg)
+    dtype = model_dtype(cfg)
+    return map_layer_tree(cfg, lambda gk, pk, kind, count:
+                          attn_lib.init_kv_cache(cfg, batch, max_len, dtype,
+                                                 device, lead=(count,)))
+
+
 def init_paged_cache(cfg, layout, device):
     """Stacked per-layer block pools for the paged serving engine
     (zero-filled; block tables and lengths live with the scheduler)."""
@@ -286,3 +319,51 @@ def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
         x = apply_block_decode_paged(lp, cfg, x, pool, block_table, lengths)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x)[:, 0], pools
+
+
+def select_verify_state(cfg, cands, commit):
+    """Commit a verify window's per-slot state at the accept boundary.
+
+    JAX's version selects the candidate state after fed token
+    ``commit - 1`` for every per-slot leaf (windowed rings, SSM carries)
+    and keeps pool leaves as they are (length-pointer rollback). Every
+    layer this port serves is a full-attention ``attn`` layer whose state
+    is a pool leaf, so the pools are already final and are returned.
+    """
+    del commit
+    check_supported(cfg)
+    return cands
+
+
+def decode_verify_paged(params, cfg, pools, block_table, lengths, tokens,
+                        commit_fn, ctx: RunCtx):
+    """Speculative-decode verify: score a K1-token window in ONE pass.
+
+    tokens: (B, K1): per slot, the last accepted token followed by K
+    draft tokens; fed token j is cached at position ``lengths[b] + j``
+    (IN PLACE) and logits row j scores the NEXT position, so row j is
+    what ``decode_step_paged`` would return after feeding tokens 0..j.
+    ``commit_fn(logits (B, K1, V) f32) -> (out_tokens, commit)`` is the
+    accept rule (``engine/sampling.verify_accept``); ``commit[b]`` in
+    [1, K1] counts the fed tokens whose cache state to keep. Returns
+    (out_tokens, commit, pools).
+    """
+    del ctx
+    x = _embed(params, cfg, tokens)
+    for _, (lp, pool) in _layers(cfg, params["groups"], pools):
+        x = apply_block_verify_paged(lp, cfg, x, pool, block_table, lengths)
+    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    out_tokens, commit = commit_fn(_logits(params, cfg, x))
+    return out_tokens, commit, select_verify_state(cfg, pools, commit)
+
+
+def decode_step(params, cfg, cache, tokens, pos, ctx: RunCtx):
+    """Dense decode step: tokens (B, 1) at per-slot positions ``pos``
+    (B,) over ``init_cache`` caches (written IN PLACE) -> (logits (B, V)
+    f32, cache)."""
+    del ctx
+    x = _embed(params, cfg, tokens)
+    for _, (lp, lc) in _layers(cfg, params["groups"], cache):
+        x = apply_block_decode(lp, cfg, x, lc, pos)
+    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    return _logits(params, cfg, x)[:, 0], cache

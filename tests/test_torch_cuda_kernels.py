@@ -1,5 +1,5 @@
-"""The port's hand-written CUDA kernels against their plain-torch
-versions, on the card.
+"""The port's hand-written CUDA kernels (K1, K2, K3) against their
+plain-torch versions, on the card.
 
 Marked ``cuda``: on a machine without a GPU every test skips (the
 ``cuda_device`` fixture decides at run time). This file imports no JAX,
@@ -127,6 +127,74 @@ def test_paged_decode_kernel_reads_only_visible_blocks(cuda_device):
            torch.float32)
 
 
+def _verify_case(gen, B, K1, hq, hkv, D, bs, nbmax, lengths, dtype, device):
+    nb = B * nbmax + 1
+    q = _randn(gen, (B, K1, hq, D), dtype, device)
+    kp = _randn(gen, (nb, bs, hkv, D), dtype, device)
+    vp = _randn(gen, (nb, bs, hkv, D), dtype, device)
+    perm = torch.randperm(nb - 1, generator=gen) + 1
+    bt = perm[:B * nbmax].reshape(B, nbmax).to(torch.int32).to(device)
+    ln = torch.tensor(lengths, dtype=torch.int32, device=device)
+    return q, kp, vp, bt, ln
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K1,hq,hkv,D,bs,window", [
+    (5, 4, 4, 16, 4, None), (5, 4, 2, 16, 4, 5), (5, 8, 1, 16, 4, None),
+    (5, 4, 2, 32, 8, None), (5, 8, 2, 64, 16, 7), (5, 16, 16, 128, 16, None),
+    (5, 16, 4, 128, 16, 40), (4, 4, 2, 16, 6, None),
+    (64, 4, 4, 32, 4, None), (64, 8, 2, 64, 16, 20),
+    (256, 16, 16, 128, 16, None), (256, 4, 1, 16, 16, None),
+])
+def test_paged_verify_kernel_matches_plain(cuda_device, dtype, K1, hq, hkv,
+                                           D, bs, window):
+    """K3 over both regimes: verify windows (K1 5) and suffix prefill
+    (K1 64 and 256), every head dim and group, windows, a block size
+    that is no power of two; lengths at zero, mid-block, a block
+    boundary and deep, and a row whose limits run past the table."""
+    gen = torch.Generator().manual_seed(K1 * 1000 + hq * 100 + D + bs)
+    nbmax = -(-(K1 + 3 * bs + 2) // bs) + 2
+    lengths = [0, 3, 2 * bs, nbmax * bs - 2, bs + 1]
+    q, kp, vp, bt, ln = _verify_case(gen, len(lengths), K1, hq, hkv, D, bs,
+                                     nbmax, lengths, dtype, cuda_device)
+    n0 = pa_mod.paged_verify_attention.launches
+    got = pa_mod.paged_verify_attention(q, kp, vp, bt, ln, window=window)
+    assert pa_mod.paged_verify_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.paged_verify_attention(q, kp, vp, bt, ln, window=window),
+           dtype)
+
+
+def test_paged_verify_kernel_row_j_is_decode_at_length(cuda_device):
+    """Row j of K3 equals K2 at lengths + 1 + j (K3 counts the tokens
+    before the window, K2 the tokens including the current one)."""
+    gen = torch.Generator().manual_seed(11)
+    q, kp, vp, bt, ln = _verify_case(gen, 3, 5, 8, 2, 64, 16, 6,
+                                     [0, 17, 40], torch.float32, cuda_device)
+    got = pa_mod.paged_verify_attention(q, kp, vp, bt, ln)
+    for j in range(5):
+        _close(got[:, j], pa_mod.paged_decode_attention(
+            q[:, j].contiguous(), kp, vp, bt, ln + 1 + j), torch.float32)
+
+
+def test_paged_verify_kernel_reads_only_visible_blocks(cuda_device):
+    """Table entries past every row's limit (the NULL tail of a suffix
+    chain, unallocated growth) are never dereferenced: poisoned with
+    out-of-range ids, the result still matches the clean table. A slot
+    with length 0 and an all-null table reads only block 0."""
+    gen = torch.Generator().manual_seed(5)
+    lengths = [5, 0, 9]
+    q, kp, vp, bt, ln = _verify_case(gen, 3, 5, 4, 2, 32, 4, 8, lengths,
+                                     torch.float32, cuda_device)
+    bt[1] = 0
+    want = ref.paged_verify_attention(q, kp, vp, bt, ln)
+    poisoned = bt.clone()
+    for b, L in enumerate(lengths):
+        poisoned[b, -(-(L + 5) // 4):] = 1 << 30
+    _close(pa_mod.paged_verify_attention(q, kp, vp, poisoned, ln), want,
+           torch.float32)
+
+
 def test_kernels_reject_unsupported_shapes(cuda_device):
     t = torch.zeros((1, 2, 8, 48), device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
@@ -139,4 +207,17 @@ def test_kernels_reject_unsupported_shapes(cuda_device):
     with pytest.raises(ValueError, match="int32"):
         pa_mod.paged_decode_attention(q[:, :4], pool, pool, bt.long(),
                                       bt[0])
+    qv = torch.zeros((1, 5, 6, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="group"):
+        pa_mod.paged_verify_attention(qv, pool, pool, bt, bt[0])
+    with pytest.raises(ValueError, match="head dim"):
+        pa_mod.paged_verify_attention(
+            torch.zeros((1, 5, 4, 48), device=cuda_device),
+            torch.zeros((2, 4, 2, 48), device=cuda_device),
+            torch.zeros((2, 4, 2, 48), device=cuda_device), bt, bt[0])
+    with pytest.raises(ValueError, match="int32"):
+        pa_mod.paged_verify_attention(qv[:, :, :4], pool, pool, bt.long(),
+                                      bt[0])
+    with pytest.raises(ValueError, match=r"\(B, K1, Hq, D\)"):
+        pa_mod.paged_verify_attention(q, pool, pool, bt, bt[0])
 

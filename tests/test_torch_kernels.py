@@ -111,11 +111,13 @@ def test_paged_decode_scale_from_logical_head_dim(rng):
 
 
 def test_unported_paged_modes_raise(rng):
+    """An unknown mode is a ValueError (JAX ops.py:160); quantized pools
+    (kernel K4) are not ported yet."""
     q, kp, vp, bt, ln = _pool_case(rng, 2, 4, 2, 16, 4, 2, [3, 5],
                                    "float32")
-    with pytest.raises(NotImplementedError, match="K3"):
+    with pytest.raises(ValueError, match="mode"):
         ops.paged_attention(q[1], {"k": kp[1], "v": vp[1]}, bt[1], ln[1],
-                            mode="verify")
+                            mode="prefill")
     with pytest.raises(NotImplementedError, match="K4"):
         ops.paged_attention(q[1], {"k": kp[1], "v": vp[1],
                                    "k_scale": kp[1]}, bt[1], ln[1])
@@ -124,15 +126,20 @@ def test_unported_paged_modes_raise(rng):
 def test_cpu_tensors_never_launch_a_kernel(rng):
     """A CPU tensor takes the plain version: neither launch counter moves
     (the counters count CUDA kernel launches only)."""
-    before = (fa_mod.flash_attention.launches,
-              pa_mod.paged_decode_attention.launches)
+    def counts():
+        return (fa_mod.flash_attention.launches,
+                pa_mod.paged_decode_attention.launches,
+                pa_mod.paged_verify_attention.launches)
+
+    before = counts()
     t = torch.from_numpy(rng.normal(size=(1, 2, 8, 16)).astype(np.float32))
     ops.flash_attention(t, t, t)
     q, kp, vp, bt, ln = _pool_case(rng, 2, 4, 2, 16, 4, 2, [3, 5],
                                    "float32")
     ops.paged_attention(q[1], {"k": kp[1], "v": vp[1]}, bt[1], ln[1])
-    assert (fa_mod.flash_attention.launches,
-            pa_mod.paged_decode_attention.launches) == before
+    ops.paged_attention(q[1][:, None], {"k": kp[1], "v": vp[1]}, bt[1],
+                        ln[1], mode="verify")
+    assert counts() == before
 
 
 def test_wrappers_reject_other_devices():
@@ -146,3 +153,5 @@ def test_wrappers_reject_other_devices():
     idx = torch.zeros((1, 1), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="CUDA"):
         pa_mod.paged_decode_attention(q, pool, pool, idx, idx[0])
+    with pytest.raises(ValueError, match="CUDA"):
+        pa_mod.paged_verify_attention(q[:, None], pool, pool, idx, idx[0])
