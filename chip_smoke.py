@@ -8,14 +8,16 @@ check it end to end.
 Phases, one JSON line each (any failed check exits non-zero):
 
 1. build    — nvcc builds every kernel under src/repro_torch/csrc/.
-2. kernels  — K1 (prefill flash attention), K2 (paged decode attention)
-              and K3 (paged verify attention: the verify window and the
-              suffix prefill) against their plain-torch versions at the
-              main path's shapes (bf16, D 128, 16 heads), plus a GQA
-              (group 4) and an f32 case: max abs error within 3e-2 (bf16)
-              / 1e-4 (f32), CUDA-event times for kernel, plain version
-              and (K1) ``F.scaled_dot_product_attention``, and the H100
-              bound.
+2. kernels  — K1 (prefill flash attention), K2 (paged decode attention),
+              K3 (paged verify attention: the verify window and the
+              suffix prefill) and K4 (K2 and K3 over an int8 / fp8 pool
+              with per-(token, head) scales, fused dequant; a GQA case
+              and a D-64-in-128 padded case) against their plain-torch
+              versions at the main path's shapes (bf16, D 128, 16 heads),
+              plus a GQA (group 4) and an f32 case: max abs error within
+              3e-2 (bf16) / 1e-4 (f32), CUDA-event times for kernel,
+              plain version and (K1) ``F.scaled_dot_product_attention``,
+              and the H100 bound.
 3. parity   — olmo_1b smoke in f32, same weights, served on cuda and on
               cpu: greedy tokens identical (a tight pool forces LIFO
               preemption on both) and prefill / first-decode logits
@@ -23,20 +25,33 @@ Phases, one JSON line each (any failed check exits non-zero):
               draft-model drafters) with the prefix cache on prompts that
               share a block-aligned prefix (partial hits, a full hit and
               a COW copy): tokens identical on cuda and cpu and equal to
-              the non-speculative, cache-off engine.
-4. serve    — olmo_1b at full width in bf16 (random weights from a
+              the non-speculative, cache-off engine; seeded tokens
+              (threefry) identical on cuda and cpu, plain and speculative.
+4. parity_quant — the same smoke model over int8 and fp8 pools, cuda
+              against cpu: greedy, seeded and speculative runs with the
+              prefix cache give equal tokens and equal prefix-cache
+              counters, leak nothing, and launch K4 in decode and verify.
+5. serve    — olmo_1b at full width in bf16 (random weights from a
               seeded torch.Generator) serves 16 requests of 32-512 prompt
               tokens and 32-64 new tokens through ``Engine`` (prefix
               cache on, the default); the K1 and K2 launch counters are
               reset before and must be > 0 after, and the pool must end
               with zero blocks in use.
-5. spec_serve — the same model with ``spec_tokens=4`` (ngram drafter)
+6. spec_serve — the same model with ``spec_tokens=4`` (ngram drafter)
               and the prefix cache serves 16 requests that share a
               256-token prefix; the K3 launch counter is reset before and
               must be > 0 after, every request hits the cache, the pool
               ends empty. It also reports the share of requests whose
               tokens equal a non-speculative, cache-off engine's (bf16
               argmax may flip on near-ties, so that share is no check).
+7. quant_serve — the serve phase's model, requests and geometry over an
+              fp8 and then an int8 pool that gets the bf16 pool's usable
+              bytes (so 1.94x its blocks): capacity ratio, tok/s, TTFT /
+              TPOT p50, K4 launches (must be > 0, K2 none), zero leaked
+              blocks, and the greedy token match rate against the serve
+              phase's bf16 outputs (reported, not gated); then fp8 with
+              speculation on spec_serve's traffic, where every verify
+              runs through K4.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power
 limit from nvidia-smi, and as the last line
@@ -197,57 +212,77 @@ def k1_case(torch, name, B, hq, hkv, S, D, dtype, library):
     return row
 
 
-def k2_case(torch, np, name, lengths, hq, hkv, D, dtype, bs=16, nb=1024,
-            nbmax=40):
+def pool_case(torch, np, gen, B, hkv, D, dtype, kv_dtype, bs, nb, nbmax):
+    """A random (nb, bs, hkv, D) K/V pool drawn from ``gen`` in ``dtype``,
+    or quantized to ``kv_dtype`` (int8 / fp8: payload plus f32 scales,
+    the K4 path), and a scrambled block table. Returns (kp, vp, scales
+    kwargs, table, bytes of one token row of K and V together)."""
+    from repro_torch.models import paged_kv
+
+    kp, vp = (torch.randn((nb, bs, hkv, D), generator=gen, device="cuda")
+              .to(getattr(torch, dtype)) for _ in range(2))
+    kw = {}
+    if kv_dtype is not None:
+        spec = paged_kv.PoolSpec(kv_dtype=kv_dtype, block_size=bs,
+                                 n_kv_heads=hkv, head_dim=D)
+        (kp, kw["k_scale"]), (vp, kw["v_scale"]) = (
+            paged_kv.quantize_kv(x.float(), spec) for x in (kp, vp))
+    row_bytes = 2 * hkv * (D * kp.element_size() + 4 * bool(kw))
+    ids = np.random.default_rng(SEED).permutation(nb - 1)[:B * nbmax] + 1
+    bt = torch.from_numpy(ids.reshape(B, nbmax).astype(np.int32)).cuda()
+    return kp, vp, kw, bt, row_bytes
+
+
+def k2_case(torch, np, name, lengths, hq, hkv, D, dtype, kv_dtype=None,
+            bs=16, nb=1024, nbmax=40):
+    """K2 (float pool) or K4 (``kv_dtype`` int8 / fp8) decode case."""
     from repro_torch.kernels import paged_attention as pa, ref
 
     dt = getattr(torch, dtype)
     B = len(lengths)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q = torch.randn((B, hq, D), generator=gen, device="cuda").to(dt)
-    kp, vp = (torch.randn((nb, bs, hkv, D), generator=gen, device="cuda")
-              .to(dt) for _ in range(2))
-    ids = np.random.default_rng(SEED).permutation(nb - 1)[:B * nbmax] + 1
-    bt = torch.from_numpy(ids.reshape(B, nbmax).astype(np.int32)).cuda()
+    kp, vp, kw, bt, row_bytes = pool_case(torch, np, gen, B, hkv, D, dtype,
+                                          kv_dtype, bs, nb, nbmax)
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    got = pa.paged_decode_attention(q, kp, vp, bt, ln)
-    want = ref.paged_decode_attention(q, kp, vp, bt, ln)
+    got = pa.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+    want = ref.paged_decode_attention(q, kp, vp, bt, ln, **kw)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     toks = int(sum(lengths))
     blocks = int(sum(-(-n // bs) for n in lengths))
-    nbytes = q.element_size() * (2 * B * hq * D + 2 * toks * hkv * D) \
+    nbytes = q.element_size() * 2 * B * hq * D + toks * row_bytes \
         + 4 * (blocks + B)                        # table entries, lengths
     bound_ms, bound_by = bound(4 * toks * hq * D, nbytes, dtype)
-    row = {"phase": "kernels", "kernel": "K2", "case": name,
+    row = {"phase": "kernels", "kernel": "K4" if kw else "K2", "case": name,
            "shape": [B, hq, hkv, D, bs, nbmax], "lengths": list(lengths),
-           "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
+           "dtype": dtype, "kv_dtype": kv_dtype, "max_abs_err": err,
+           "tol": TOL[dtype],
            "ms": cuda_ms(torch, lambda: pa.paged_decode_attention(
-               q, kp, vp, bt, ln)),
+               q, kp, vp, bt, ln, **kw)),
            "plain_ms": cuda_ms(torch, lambda: ref.paged_decode_attention(
-               q, kp, vp, bt, ln)),
+               q, kp, vp, bt, ln, **kw)),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     emit(row)
     check(math.isfinite(err) and err <= TOL[dtype],
-          f"K2 {name}: max abs err {err} > {TOL[dtype]}")
+          f"{row['kernel']} {name}: max abs err {err} > {TOL[dtype]}")
     return row
 
 
-def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, bs=16,
-            nb=1024, nbmax=40):
+def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, kv_dtype=None,
+            bs=16, nb=1024, nbmax=40):
+    """K3 (float pool) or K4 (``kv_dtype`` int8 / fp8) verify case."""
     from repro_torch.kernels import paged_attention as pa, ref
 
     dt = getattr(torch, dtype)
     B = len(lengths)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q = torch.randn((B, K1, hq, D), generator=gen, device="cuda").to(dt)
-    kp, vp = (torch.randn((nb, bs, hkv, D), generator=gen, device="cuda")
-              .to(dt) for _ in range(2))
-    ids = np.random.default_rng(SEED).permutation(nb - 1)[:B * nbmax] + 1
-    bt = torch.from_numpy(ids.reshape(B, nbmax).astype(np.int32)).cuda()
+    kp, vp, kw, bt, row_bytes = pool_case(torch, np, gen, B, hkv, D, dtype,
+                                          kv_dtype, bs, nb, nbmax)
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    got = pa.paged_verify_attention(q, kp, vp, bt, ln)
-    want = ref.paged_verify_attention(q, kp, vp, bt, ln)
+    got = pa.paged_verify_attention(q, kp, vp, bt, ln, **kw)
+    want = ref.paged_verify_attention(q, kp, vp, bt, ln, **kw)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     # visible keys: row j of sequence b sees min(len + 1 + j, table) keys;
@@ -256,20 +291,76 @@ def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, bs=16,
     pairs = sum(min(n + 1 + j, s_max) for n in lengths for j in range(K1))
     rows = sum(min(n + K1, s_max) for n in lengths)
     blocks = sum(-(-min(n + K1, s_max) // bs) for n in lengths)
-    nbytes = q.element_size() * (2 * B * K1 * hq * D + 2 * rows * hkv * D) \
+    nbytes = q.element_size() * 2 * B * K1 * hq * D + rows * row_bytes \
         + 4 * (blocks + B)                        # table entries, lengths
     bound_ms, bound_by = bound(4 * D * hq * pairs, nbytes, dtype)
-    row = {"phase": "kernels", "kernel": "K3", "case": name,
+    row = {"phase": "kernels", "kernel": "K4" if kw else "K3", "case": name,
            "shape": [B, K1, hq, hkv, D, bs, nbmax], "lengths": list(lengths),
-           "dtype": dtype, "max_abs_err": err, "tol": TOL[dtype],
+           "dtype": dtype, "kv_dtype": kv_dtype, "max_abs_err": err,
+           "tol": TOL[dtype],
            "ms": cuda_ms(torch, lambda: pa.paged_verify_attention(
-               q, kp, vp, bt, ln)),
+               q, kp, vp, bt, ln, **kw)),
            "plain_ms": cuda_ms(torch, lambda: ref.paged_verify_attention(
-               q, kp, vp, bt, ln)),
+               q, kp, vp, bt, ln, **kw)),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     emit(row)
     check(math.isfinite(err) and err <= TOL[dtype],
-          f"K3 {name}: max abs err {err} > {TOL[dtype]}")
+          f"{row['kernel']} {name}: max abs err {err} > {TOL[dtype]}")
+    return row
+
+
+def k4_padded_case(torch, np, name, lengths, hq, hkv, D, Dp, kv_dtype,
+                   bs=16, nb=1024, nbmax=40):
+    """K4 decode of a D-wide head in a Dp-wide pool (zero tail) through
+    the dispatcher, which zero-pads q and slices the output; the plain
+    version runs on the same padded inputs with the logical scale."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ops, ref
+    from repro_torch.models import paged_kv
+
+    B = len(lengths)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn((B, hq, D), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    gen.manual_seed(SEED + 1)
+    spec = paged_kv.PoolSpec(kv_dtype=kv_dtype, block_size=bs,
+                             n_kv_heads=hkv, head_dim=D, padded_head_dim=Dp)
+    pool = {}
+    for n in ("k", "v"):
+        x = torch.randn((nb, bs, hkv, D), generator=gen, device="cuda")
+        pool[n], pool[n + "_scale"] = paged_kv.quantize_kv(
+            paged_kv._pad_head_dim(x, Dp), spec)
+    ids = np.random.default_rng(SEED).permutation(nb - 1)[:B * nbmax] + 1
+    bt = torch.from_numpy(ids.reshape(B, nbmax).astype(np.int32)).cuda()
+    ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+    scales = {"k_scale": pool["k_scale"], "v_scale": pool["v_scale"]}
+
+    def plain():
+        return ref.paged_decode_attention(
+            F.pad(q, (0, Dp - D)), pool["k"], pool["v"], bt, ln,
+            scale=1 / math.sqrt(D), **scales)[..., :D]
+
+    got = ops.paged_attention(q, pool, bt, ln, kv_format=spec)
+    want = plain()
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    toks = int(sum(lengths))
+    blocks = int(sum(-(-n // bs) for n in lengths))
+    nbytes = 2 * 2 * B * hq * Dp + toks * 2 * hkv * (Dp + 4) \
+        + 4 * (blocks + B)
+    bound_ms, bound_by = bound(4 * toks * hq * Dp, nbytes, "bfloat16")
+    row = {"phase": "kernels", "kernel": "K4", "case": name,
+           "shape": [B, hq, hkv, D, Dp, bs, nbmax], "lengths": list(lengths),
+           "dtype": "bfloat16", "kv_dtype": kv_dtype, "max_abs_err": err,
+           "tol": TOL["bfloat16"],
+           "ms": cuda_ms(torch, lambda: ops.paged_attention(
+               q, pool, bt, ln, kv_format=spec)),
+           "plain_ms": cuda_ms(torch, plain),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    emit(row)
+    check(math.isfinite(err) and err <= TOL["bfloat16"],
+          f"K4 {name}: max abs err {err} > {TOL['bfloat16']}")
     return row
 
 
@@ -289,7 +380,21 @@ def phase_kernels(torch, np, prompts):
             "bfloat16")
     k3_case(torch, np, "gqa4", cached, 5, 16, 4, 128, "bfloat16")
     k3_case(torch, np, "f32", cached, 5, 16, 16, 128, "float32")
-    return k1, k2, k3
+    # K4: the quantized pool through K2 and K3 at the same shapes
+    k4d = k2_case(torch, np, "decode_fp8", first, 16, 16, 128, "bfloat16",
+                  "fp8")
+    k2_case(torch, np, "decode_int8", first, 16, 16, 128, "bfloat16", "int8")
+    k2_case(torch, np, "decode_int8_gqa4", first, 16, 4, 128, "bfloat16",
+            "int8")
+    k4v = k3_case(torch, np, "verify_fp8", cached, 5, 16, 16, 128,
+                  "bfloat16", "fp8")
+    k3_case(torch, np, "verify_int8", cached, 5, 16, 16, 128, "bfloat16",
+            "int8")
+    k3_case(torch, np, "suffix_fp8", [SHARED] * HALF, SHARED, 16, 16, 128,
+            "bfloat16", "fp8")
+    k4_padded_case(torch, np, "decode_int8_d64_in_128", first, 16, 16, 64,
+                   128, "int8")
+    return k1, k2, k3, k4d, k4v
 
 
 def phase_parity(torch, np):
@@ -398,10 +503,21 @@ def phase_parity_spec(torch, np, models, params, rng):
                   EngineConfig(prefix_cache=False, **geo), device="cuda")
     want = base.generate(prompts, sp)
     equal = all(out == want for out in runs.values())
+    # seeded sampling (threefry, JAX's stream): cuda == cpu, plain and
+    # speculative
+    seeded = [SamplingParams(max_tokens=10, temperature=0.9, top_k=30,
+                             top_p=0.95, seed=s) for s in range(len(prompts))]
+    sruns = {(d, k): Engine(m, params[d], EngineConfig(spec_tokens=k, **geo),
+                            device=d).generate(prompts, seeded)
+             for d, m in models.items() for k in (0, 3)}
+    seeded_equal = len({str(v) for v in sruns.values()}) == 1
     emit({"phase": "parity_spec", "dtype": "float32", "tokens_equal": equal,
+          "seeded_tokens_equal": seeded_equal,
           "stats": {f"{d}/{dr}": v for (d, dr), v in stats.items()}})
     check(equal, "parity_spec: spec / prefix-cache tokens differ from the "
           "non-speculative cache-off engine or between cuda and cpu")
+    check(seeded_equal, "parity_spec: seeded tokens differ between cuda "
+          "and cpu, or between speculative and plain")
     for key, st in stats.items():
         check(st["blocks_used"] == 0, f"parity_spec: {key} leaked blocks")
         check(st["hits"] >= 3 and st["cow_copies"] >= 1
@@ -409,6 +525,76 @@ def phase_parity_spec(torch, np, models, params, rng):
               f"parity_spec: {key} missed a partial hit, full hit or COW")
         check(key[0] == "cpu" or st["k3_launches"] > 0,
               f"parity_spec: {key} never launched K3")
+
+
+def phase_parity_quant(torch, np):
+    """The quantized pool (K4), cuda against cpu on olmo_1b smoke in f32,
+    for int8 and fp8: greedy, seeded and ngram-speculative runs with the
+    prefix cache on, over prompts sharing a block-aligned prefix (partial
+    hits, a full hit and its COW copy). Tokens and prefix-cache counters
+    must be equal on both devices, every pool must end empty, and every
+    cuda run must have launched K4 in verify (suffix prefills, verify
+    windows) and, unless speculative, in decode."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    cfg = get_config("olmo_1b").smoke()
+    models = {d: Model(cfg, device=d) for d in ("cpu", "cuda")}
+    params = {"cpu": models["cpu"].init(seed=SEED)}
+    params["cuda"] = weights.to_device(params["cpu"], "cuda")
+    rng = np.random.default_rng(SEED + 2)
+    common = list(map(int, rng.integers(0, cfg.vocab_size, 12)))
+    prompts = [common + list(map(int, rng.integers(0, cfg.vocab_size, 2)))
+               * 2 for _ in range(4)]
+    prompts.append(list(prompts[0]))              # 16 tokens: a full hit
+    geo = dict(num_slots=2, block_size=4, num_blocks=40, max_len=48)
+    runs = {"greedy": ({}, [SamplingParams(max_tokens=10)] * 5),
+            "seeded": ({}, [SamplingParams(max_tokens=10, temperature=0.9,
+                                           top_k=30, seed=s)
+                            for s in range(5)]),
+            "spec": ({"spec_tokens": 3}, [SamplingParams(max_tokens=10)] * 5)}
+    out, stats = {}, {}
+    for kv_dtype in ("int8", "fp8"):
+        for name, (kw, sp) in runs.items():
+            for d, m in models.items():
+                k4 = (pa.paged_decode_attention.k4_launches,
+                      pa.paged_verify_attention.k4_launches)
+                eng = Engine(m, params[d], EngineConfig(
+                    kv_dtype=kv_dtype, **kw, **geo), device=d)
+                key = (kv_dtype, name, d)
+                out[key] = eng.generate(prompts, sp)
+                st = eng.stats()
+                stats[key] = {
+                    "blocks_used": st["blocks_used"],
+                    "prefix_cache": {k: st["prefix_cache"][k] for k in (
+                        "lookups", "hits", "hit_tokens", "cow_copies",
+                        "evictions", "suffix_shapes")},
+                    "k4_decode": pa.paged_decode_attention.k4_launches - k4[0],
+                    "k4_verify": pa.paged_verify_attention.k4_launches
+                    - k4[1]}
+    equal = all(out[(q, n, "cpu")] == out[(q, n, "cuda")]
+                for q in ("int8", "fp8") for n in runs)
+    same_stats = all(stats[(q, n, "cpu")]["prefix_cache"]
+                     == stats[(q, n, "cuda")]["prefix_cache"]
+                     for q in ("int8", "fp8") for n in runs)
+    emit({"phase": "parity_quant", "config": cfg.name, "dtype": "float32",
+          "tokens_equal": equal, "prefix_stats_equal": same_stats,
+          "stats": {"/".join(k): v for k, v in stats.items()}})
+    check(equal, "parity_quant: cuda tokens != cpu tokens")
+    check(same_stats, "parity_quant: prefix-cache counters differ")
+    for key, st in stats.items():
+        check(st["blocks_used"] == 0, f"parity_quant: {key} leaked blocks")
+        pc = st["prefix_cache"]
+        check(pc["hits"] >= 3 and pc["cow_copies"] >= 1,
+              f"parity_quant: {key} missed a prefix hit or the COW copy")
+        # every run prefills suffixes through verify; the speculative
+        # run has no plain decode step
+        check(key[2] == "cpu" or (st["k4_verify"] > 0 and (
+            key[1] == "spec" or st["k4_decode"] > 0)),
+            f"parity_quant: {key} never launched K4 {st}")
 
 
 def phase_serve(torch, np, prompts, news, warm, profile):
@@ -466,7 +652,7 @@ def phase_serve(torch, np, prompts, news, warm, profile):
           and bool(torch.isfinite(logits).all()), "serve: bad prefill logits")
     if profile:
         phase_profile(torch, engine, prompts, news)
-    return launches
+    return launches, outs, model, params
 
 
 def phase_spec_serve(torch, np):
@@ -544,6 +730,131 @@ def phase_spec_serve(torch, np):
     return launches
 
 
+def pool_block_bytes(torch, cfg, kv_dtype):
+    """Bytes one pool block takes across all layers, read off the leaves
+    of a pool built on the meta device (no memory) in that format."""
+    from repro_torch.models import paged_kv, transformer
+
+    layout = paged_kv.PagedLayout(num_slots=1, num_blocks=2, block_size=16,
+                                  max_len=16)
+    spec = None if kv_dtype == "bf16" else paged_kv.make_pool_spec(
+        cfg, layout, kv_dtype=kv_dtype)
+    pools = transformer.init_paged_cache(cfg, layout, torch.device("meta"),
+                                         spec)
+    return paged_kv.pool_bytes(pools) // layout.num_blocks
+
+
+def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
+                      params, usable_bf16=1023):
+    """Full-width olmo_1b (bf16 compute) over an fp8 then an int8 pool:
+    the serve phase's 16 requests and geometry, with the serve pool's
+    usable BYTES (1023 bf16 blocks) spent on quantized blocks. Reports
+    the capacity ratio, tok/s, TTFT/TPOT p50, the greedy token match rate
+    against the serve phase's bf16 outputs (reported, not gated), the K4
+    launches and the leaked blocks (must be 0). Then an fp8 speculative
+    run (ngram, K 4, prefix cache) on spec_serve's shared-prefix traffic,
+    so K4 also runs inside the verify kernel on the full-width path."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+
+    cfg = model.cfg
+    bf16_block = pool_block_bytes(torch, cfg, "bf16")
+    budget = usable_bf16 * bf16_block
+    launches = {"K4_decode": 0, "K4_verify": 0}
+    for kv_dtype in ("fp8", "int8"):
+        q_block = pool_block_bytes(torch, cfg, kv_dtype)
+        usable = budget // q_block
+        engine = Engine(model, params, EngineConfig(
+            num_slots=8, block_size=16, num_blocks=usable + 1, max_len=640,
+            kv_dtype=kv_dtype), device="cuda")
+        engine.generate([warm], SamplingParams(max_tokens=2))
+        engine.backend.reset_telemetry()
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        pa.paged_decode_attention.launches = 0
+        pa.paged_decode_attention.k4_launches = 0
+        pa.paged_verify_attention.k4_launches = 0
+        t0 = time.monotonic()
+        outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
+                                         for n in news])
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+        runs = {"K1": fa.flash_attention.launches,
+                "K2": pa.paged_decode_attention.launches,
+                "K4_decode": pa.paged_decode_attention.k4_launches,
+                "K4_verify": pa.paged_verify_attention.k4_launches}
+        launches["K4_decode"] += runs["K4_decode"]
+        st = engine.stats()
+        ntok = sum(len(o) for o in outs)
+        match = sum(a == b for o, w in zip(outs, base_outs)
+                    for a, b in zip(o, w)) / max(
+            sum(len(w) for w in base_outs), 1)
+        emit({"phase": "quant_serve", "config": cfg.name, "dtype": cfg.dtype,
+              "kv_dtype": kv_dtype, "block_bytes_bf16": bf16_block,
+              "block_bytes": q_block, "pool_budget_bytes": budget,
+              "usable_blocks_bf16": usable_bf16, "usable_blocks": usable,
+              "num_blocks": usable + 1,
+              "capacity_ratio": usable / usable_bf16,
+              "pool_bytes": st["pool_bytes"], "requests": len(outs),
+              "tokens": ntok, "seconds": secs, "tok_s": ntok / secs,
+              "launches": runs, "steps": st["steps"],
+              "decode_device_s": st["device_s"],
+              "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+              "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+              "match_rate_vs_bf16": match,
+              "blocks_used": st["blocks_used"],
+              "preemptions": st["preemptions"],
+              "first_tokens": outs[0][:8]})
+        check(st["pool_bytes"] <= budget + bf16_block,
+              f"quant_serve {kv_dtype}: pool of {st['pool_bytes']} bytes "
+              f"exceeds the bf16 pool's {budget + bf16_block}")
+        check(all(len(o) == n for o, n in zip(outs, news)),
+              f"quant_serve {kv_dtype}: a request did not finish")
+        check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+              f"quant_serve {kv_dtype}: token id out of range")
+        check(runs["K4_decode"] > 0 and runs["K2"] == 0,
+              f"quant_serve {kv_dtype}: decode did not go through K4 {runs}")
+        check(st["blocks_used"] == 0,
+              f"quant_serve {kv_dtype}: {st['blocks_used']} blocks leaked")
+        del engine
+
+    sprompts, snews, swarm = spec_workload(np)
+    engine = Engine(model, params, EngineConfig(
+        num_slots=8, block_size=16, num_blocks=1024, max_len=640,
+        kv_dtype="fp8", spec_tokens=4, drafter="ngram"), device="cuda")
+    engine.generate([swarm], SamplingParams(max_tokens=2))
+    engine.backend.reset_telemetry()
+    torch.cuda.synchronize()
+    pa.paged_verify_attention.launches = 0
+    pa.paged_verify_attention.k4_launches = 0
+    t0 = time.monotonic()
+    outs = engine.generate(sprompts, [SamplingParams(max_tokens=n)
+                                      for n in snews])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    k3, k4v = (pa.paged_verify_attention.launches,
+               pa.paged_verify_attention.k4_launches)
+    launches["K4_verify"] = k4v
+    st = engine.stats()
+    ntok = sum(len(o) for o in outs)
+    emit({"phase": "quant_serve", "config": cfg.name, "dtype": cfg.dtype,
+          "kv_dtype": "fp8", "spec_tokens": 4, "drafter": "ngram",
+          "requests": len(outs), "tokens": ntok, "seconds": secs,
+          "tok_s": ntok / secs,
+          "launches": {"K3": k3, "K4_verify": k4v},
+          "steps": st["steps"], "accept_rate": st["spec"]["accept_rate"],
+          "prefix_hits": st["prefix_cache"]["hits"],
+          "blocks_used": st["blocks_used"]})
+    check(k4v > 0 and k3 == 0,
+          f"quant_serve spec: verify did not go through K4 ({k3}, {k4v})")
+    check(st["prefix_cache"]["hits"] >= N_REQ,
+          f"quant_serve spec: {st['prefix_cache']['hits']} prefix hits")
+    check(st["blocks_used"] == 0,
+          f"quant_serve spec: {st['blocks_used']} blocks leaked")
+    return launches
+
+
 def phase_profile(torch, engine, prompts, news):
     """Device time by kernel over one admission + 8 decode steps, and
     the share of the window the device was busy (kernel time only)."""
@@ -591,23 +902,35 @@ def main():
 
     prompts, news, warm = workload(np)
     phase_build()
-    k1, k2, k3 = phase_kernels(torch, np, prompts)
+    k1, k2, k3, k4d, k4v = phase_kernels(torch, np, prompts)
     phase_parity(torch, np)
-    launches = phase_serve(torch, np, prompts, news, warm, args.profile)
+    phase_parity_quant(torch, np)
+    launches, base_outs, model, params = phase_serve(
+        torch, np, prompts, news, warm, args.profile)
     launches["K3"] = phase_spec_serve(torch, np)["K3"]
+    quant = phase_quant_serve(torch, np, prompts, news, warm, base_outs,
+                              model, params)
 
     kernels = []
-    for row, name, src, tpu in (
-            (k1, "flash_attention", "src/repro_torch/csrc/flash_attention.cu",
+    for row, key, name, src, tpu in (
+            (k1, "K1", "flash_attention",
+             "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:109"),
-            (k2, "paged_decode_attention",
+            (k2, "K2", "paged_decode_attention",
              "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:158"),
-            (k3, "paged_verify_attention",
+            (k3, "K3", "paged_verify_attention",
              "src/repro_torch/csrc/paged_verify_attention.cu",
-             "src/repro/kernels/paged_attention.py:301")):
+             "src/repro/kernels/paged_attention.py:301"),
+            (k4d, "K4_decode", "K4 paged_decode_attention (int8/fp8 pool)",
+             "src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:43"),
+            (k4v, "K4_verify", "K4 paged_verify_attention (int8/fp8 pool)",
+             "src/repro_torch/csrc/paged_verify_attention.cu",
+             "src/repro/kernels/paged_attention.py:43")):
         kernels.append({"name": name, "route": "cuda", "source": src,
-                        "replaces": tpu, "launches": launches[row["kernel"]],
+                        "replaces": tpu,
+                        "launches": {**launches, **quant}[key],
                         **{k: row[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms")}})

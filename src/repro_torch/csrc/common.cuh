@@ -1,11 +1,16 @@
 // Shared helpers for the hand-written Hopper kernels of repro_torch.
 //
-// Every kernel computes in f32 and is templated over its storage type,
-// float or __nv_bfloat16; conversions go through the CUDA intrinsics.
+// Every kernel computes in f32. Queries and outputs are float or
+// __nv_bfloat16; a paged pool's payload is the same type, or (K4) an
+// int8_t / __nv_fp8_e4m3 payload beside f32 per-(token, head) scales.
+// Conversions go through the CUDA intrinsics.
 #pragma once
 
 #include <cfloat>
+#include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
+#include <cuda_fp8.h>
 #include <cuda_runtime.h>
 
 namespace repro {
@@ -14,12 +19,19 @@ namespace repro {
 // max with (kernels/flash_attention.py MASK_VALUE = -0.7 * f32 max).
 constexpr float kMaskValue = -0.7f * FLT_MAX;
 
-// Storage-type codes passed from Python (kernels/_build.py callers).
-enum DType : int { kF32 = 0, kBF16 = 1 };
+// Storage-type codes passed from Python (kernels/_build.py callers):
+// query/output types, and the two quantized payload types of K4.
+enum DType : int { kF32 = 0, kBF16 = 1, kI8 = 2, kFP8 = 3 };
 
 __device__ __forceinline__ float to_f32(float x) { return x; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
+}
+__device__ __forceinline__ float to_f32(int8_t x) {
+  return static_cast<float>(x);
+}
+__device__ __forceinline__ float to_f32(__nv_fp8_e4m3 x) {
+  return static_cast<float>(x);
 }
 
 template <typename T>
@@ -29,6 +41,83 @@ __device__ __forceinline__ float from_f32<float>(float x) { return x; }
 template <>
 __device__ __forceinline__ __nv_bfloat16 from_f32<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
+}
+
+// True for the payload types that carry scales (K4).
+template <typename P>
+struct IsQuant {
+  static constexpr bool value = false;
+};
+template <>
+struct IsQuant<int8_t> {
+  static constexpr bool value = true;
+};
+template <>
+struct IsQuant<__nv_fp8_e4m3> {
+  static constexpr bool value = true;
+};
+
+// One 32-bit word of payload P unpacked to f32: Word<P>::N elements,
+// the lowest-addressed first.
+template <typename P>
+struct Word;
+template <>
+struct Word<float> {
+  static constexpr int N = 1;
+  __device__ static void unpack(unsigned w, float* out) {
+    out[0] = __uint_as_float(w);
+  }
+};
+template <>
+struct Word<__nv_bfloat16> {
+  static constexpr int N = 2;
+  __device__ static void unpack(unsigned w, float* out) {
+    // a bf16 is the high half of an f32
+    out[0] = __uint_as_float(w << 16);
+    out[1] = __uint_as_float(w & 0xffff0000u);
+  }
+};
+template <>
+struct Word<int8_t> {
+  static constexpr int N = 4;
+  __device__ static void unpack(unsigned w, float* out) {
+#pragma unroll
+    for (int i = 0; i < 4; ++i)   // sign-extend byte i
+      out[i] = static_cast<float>(static_cast<int>(w << (24 - 8 * i)) >> 24);
+  }
+};
+template <>
+struct Word<__nv_fp8_e4m3> {
+  static constexpr int N = 4;
+  __device__ static void unpack(unsigned w, float* out) {
+    // e4m3x2 -> f16x2 (one cvt on sm_89+; every e4m3 value is exact in
+    // f16), then f16 -> f32
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const __half2_raw h = __nv_cvt_fp8x2_to_halfraw2(
+          static_cast<__nv_fp8x2_storage_t>((w >> (16 * i)) & 0xffffu),
+          __NV_E4M3);
+      __half_raw lo, hi;
+      lo.x = h.x;
+      hi.x = h.y;
+      out[2 * i] = __half2float(__half(lo));
+      out[2 * i + 1] = __half2float(__half(hi));
+    }
+  }
+};
+
+// Elements of P in one 16-byte load.
+template <typename P>
+constexpr int kVec = 16 / static_cast<int>(sizeof(P));
+
+// One 16-byte load of P unpacked to kVec<P> f32 values.
+template <typename P>
+__device__ __forceinline__ void unpack16(const uint4& u, float* out) {
+  constexpr int N = Word<P>::N;
+  Word<P>::unpack(u.x, out);
+  Word<P>::unpack(u.y, out + N);
+  Word<P>::unpack(u.z, out + 2 * N);
+  Word<P>::unpack(u.w, out + 3 * N);
 }
 
 }  // namespace repro

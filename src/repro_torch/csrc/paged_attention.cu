@@ -26,6 +26,14 @@
 //     reads at D = 128 bf16), TC tokens are loaded together before their
 //     shuffle reductions so loads overlap, and the 8 warp-partial
 //     softmax states are merged through shared memory at the end.
+// K4 (the quantized pool, JAX's _dequant inside _pa_kernel): the payload
+// type P is a template parameter apart from the query/output type T. An
+// int8 or fp8 (e4m3) payload carries f32 scales of (NB, BS, Hkv); each
+// lane converts its row slice to f32 as it loads it and, once the loads
+// of its TC tokens are in flight, multiplies it by the (token, head)
+// scale, so the dequantized rows exist only in registers. The bytes per
+// visible token and kv head fall from 2 * D * 2 (bf16) to 2 * (D + 4),
+// and the bound with them.
 // Split-K across CTAs (flash-decoding) and TMA are later steps.
 
 #include "common.cuh"
@@ -33,6 +41,7 @@
 namespace {
 
 using repro::from_f32;
+using repro::IsQuant;
 using repro::kMaskValue;
 using repro::to_f32;
 
@@ -43,6 +52,8 @@ struct PaParams {
   const void* q;
   const void* k_pool;
   const void* v_pool;
+  const float* k_scale;          // (NB, BS, Hkv), quantized pools only
+  const float* v_scale;
   const int* block_table;
   const int* lengths;
   void* o;
@@ -50,9 +61,10 @@ struct PaParams {
   float scale;
 };
 
-template <typename T, int D, int G>
+template <typename T, typename P, int D, int G>
 __global__ void __launch_bounds__(NW * 32) pa_kernel(PaParams p) {
   constexpr int DPL = D >= 32 ? D / 32 : 1;   // elements per lane
+  constexpr bool Q = IsQuant<P>::value;
   __shared__ float sm_m[NW][G];
   __shared__ float sm_l[NW][G];
   __shared__ float sm_acc[NW][G][D];
@@ -88,26 +100,43 @@ __global__ void __launch_bounds__(NW * 32) pa_kernel(PaParams p) {
   const int i_hi = min((len + p.BS - 1) / p.BS, p.nbmax);
   const int* table = p.block_table + static_cast<long long>(b) * p.nbmax;
   const long long row = static_cast<long long>(p.Hkv) * D;  // token stride
-  const T* kp = static_cast<const T*>(p.k_pool) + hk * D + d0;
-  const T* vp = static_cast<const T*>(p.v_pool) + hk * D + d0;
+  const P* kp = static_cast<const P*>(p.k_pool) + hk * D + d0;
+  const P* vp = static_cast<const P*>(p.v_pool) + hk * D + d0;
 
   for (int i = i_lo + warp; i < i_hi; i += NW) {
-    const long long blk = static_cast<long long>(table[i]) * p.BS * row;
+    // the block's first token row, and its offset in payload elements:
+    // a token's offset then costs one multiply-add
+    const long long brow = static_cast<long long>(table[i]) * p.BS;
+    const long long blk = brow * row;
     for (int t0 = 0; t0 < p.BS; t0 += TC) {
       bool valid[TC];
-      float kv[TC][DPL], vv[TC][DPL];
+      float kv[TC][DPL], vv[TC][DPL], ks[TC], vs[TC];
 #pragma unroll
       for (int t = 0; t < TC; ++t) {
         const int tok = t0 + t;
         const int kpos = i * p.BS + tok;
         valid[t] = tok < p.BS && kpos < len && kpos >= lo;
+        const bool ld = valid[t] && lane_on;
         const long long off = blk + tok * row;
 #pragma unroll
         for (int e = 0; e < DPL; ++e) {
-          const bool ld = valid[t] && lane_on;
           kv[t][e] = ld ? to_f32(kp[off + e]) : 0.f;
           vv[t][e] = ld ? to_f32(vp[off + e]) : 0.f;
         }
+        if constexpr (Q) {     // one scale per (row, head)
+          const long long s = (brow + tok) * p.Hkv + hk;
+          ks[t] = ld ? p.k_scale[s] : 0.f;
+          vs[t] = ld ? p.v_scale[s] : 0.f;
+        }
+      }
+      if constexpr (Q) {       // fused dequant (K4), after every load
+#pragma unroll
+        for (int t = 0; t < TC; ++t)
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) {
+            kv[t][e] *= ks[t];
+            vv[t][e] *= vs[t];
+          }
       }
 #pragma unroll
       for (int g = 0; g < G; ++g) {
@@ -183,45 +212,73 @@ __global__ void __launch_bounds__(NW * 32) pa_kernel(PaParams p) {
   }
 }
 
-template <typename T, int D>
+// The merge keeps NW * G * D f32 in static shared memory (at most 48
+// KB), so G * D is at most 1024: D 256 takes groups up to 4.
+constexpr int kMaxGroupDims = 1024;
+
+template <typename T, typename P, int D>
 cudaError_t launch_g(const PaParams& p, int B, int G, cudaStream_t stream) {
   const dim3 grid(p.Hkv, B);
   switch (G) {
-    case 1: pa_kernel<T, D, 1><<<grid, NW * 32, 0, stream>>>(p); break;
-    case 2: pa_kernel<T, D, 2><<<grid, NW * 32, 0, stream>>>(p); break;
-    case 4: pa_kernel<T, D, 4><<<grid, NW * 32, 0, stream>>>(p); break;
-    case 8: pa_kernel<T, D, 8><<<grid, NW * 32, 0, stream>>>(p); break;
+    case 1: pa_kernel<T, P, D, 1><<<grid, NW * 32, 0, stream>>>(p); break;
+    case 2: pa_kernel<T, P, D, 2><<<grid, NW * 32, 0, stream>>>(p); break;
+    case 4: pa_kernel<T, P, D, 4><<<grid, NW * 32, 0, stream>>>(p); break;
+    case 8:
+      if constexpr (8 * D <= kMaxGroupDims) {
+        pa_kernel<T, P, D, 8><<<grid, NW * 32, 0, stream>>>(p);
+        break;
+      }
+      return cudaErrorInvalidValue;
     default: return cudaErrorInvalidValue;
   }
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t dispatch(const PaParams& p, int B, int G, int D,
-                     cudaStream_t stream) {
+template <typename T, typename P>
+cudaError_t dispatch_d(const PaParams& p, int B, int G, int D,
+                       cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_g<T, 16>(p, B, G, stream);
-    case 32: return launch_g<T, 32>(p, B, G, stream);
-    case 64: return launch_g<T, 64>(p, B, G, stream);
-    case 128: return launch_g<T, 128>(p, B, G, stream);
+    case 16: return launch_g<T, P, 16>(p, B, G, stream);
+    case 32: return launch_g<T, P, 32>(p, B, G, stream);
+    case 64: return launch_g<T, P, 64>(p, B, G, stream);
+    case 128: return launch_g<T, P, 128>(p, B, G, stream);
+    case 256: return launch_g<T, P, 256>(p, B, G, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Payload code: the query type's own code (a float pool), kI8 or kFP8.
+template <typename T>
+cudaError_t dispatch(const PaParams& p, int pdtype, int B, int G, int D,
+                     cudaStream_t stream) {
+  if (pdtype == repro::kI8) return dispatch_d<T, int8_t>(p, B, G, D, stream);
+  if (pdtype == repro::kFP8)
+    return dispatch_d<T, __nv_fp8_e4m3>(p, B, G, D, stream);
+  return dispatch_d<T, T>(p, B, G, D, stream);
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes by repro_torch/kernels/
-// paged_attention.py). All tensors contiguous; block_table and lengths
-// int32. Returns the launch's cudaGetLastError() code.
+// paged_attention.py). All tensors contiguous, the pools 16-byte
+// aligned; block_table and lengths int32; k_scale / v_scale (NB, BS,
+// Hkv) f32 when pdtype is kI8 or kFP8 (else unused). Returns the
+// launch's cudaGetLastError() code.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* block_table, const void* lengths, void* o, int dtype, int B,
-    int Hq, int Hkv, int D, int BS, int nbmax, int window, float scale,
+    const void* k_scale, const void* v_scale, const void* block_table,
+    const void* lengths, void* o, int dtype, int pdtype, int B, int Hq,
+    int Hkv, int D, int BS, int nbmax, int window, float scale,
     void* stream) {
+  const bool quant = pdtype == repro::kI8 || pdtype == repro::kFP8;
+  if (quant ? (k_scale == nullptr || v_scale == nullptr) : pdtype != dtype)
+    return static_cast<int>(cudaErrorInvalidValue);
   PaParams p;
   p.q = q;
   p.k_pool = k_pool;
   p.v_pool = v_pool;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.block_table = static_cast<const int*>(block_table);
   p.lengths = static_cast<const int*>(lengths);
   p.o = o;
@@ -234,7 +291,7 @@ extern "C" int repro_paged_decode_attention(
   const int G = Hq / Hkv;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == repro::kBF16
-                        ? dispatch<__nv_bfloat16>(p, B, G, D, s)
-                        : dispatch<float>(p, B, G, D, s);
+                        ? dispatch<__nv_bfloat16>(p, pdtype, B, G, D, s)
+                        : dispatch<float>(p, pdtype, B, G, D, s);
   return static_cast<int>(err);
 }

@@ -38,6 +38,14 @@
 //     computed, then stored to shared memory as f32 (K transposed, padded
 //     strides); every thread computes a (pairs x keys) block of scores
 //     and a (pairs x dims) block of the output, as K1 does for prefill.
+// K4 (the quantized pool, JAX's _dequant inside _pv_kernel): the payload
+// type P is a template parameter apart from the query/output type T. An
+// int8 or fp8 (e4m3) payload travels in the same 16-byte loads (16
+// elements a load against 8 in bf16, so a warp covers twice the tokens
+// per load) together with the row's f32 (token, head) scale; the
+// multiply happens where the tile is unpacked into shared memory as f32,
+// so the math after the gather is unchanged and the dequantized rows
+// exist only in shared memory.
 // Tensor cores (wgmma + TMA) for the suffix regime and split-K across
 // CTAs for long verify contexts are later steps.
 
@@ -50,8 +58,10 @@
 namespace {
 
 using repro::from_f32;
+using repro::IsQuant;
 using repro::kMaskValue;
 using repro::to_f32;
+using repro::unpack16;
 
 constexpr int THREADS = 256;     // 8 warps
 constexpr int BK = 64;           // keys per shared-memory tile
@@ -60,6 +70,8 @@ struct PvParams {
   const void* q;
   const void* k_pool;
   const void* v_pool;
+  const float* k_scale;          // (NB, BS, Hkv), quantized pools only
+  const float* v_scale;
   const int* block_table;
   const int* lengths;
   void* o;
@@ -67,53 +79,34 @@ struct PvParams {
   float scale;
 };
 
-// One 16-byte load of T, unpacked to f32.
-template <typename T>
-struct Vec;
-template <>
-struct Vec<float> {
-  static constexpr int N = 4;
-  __device__ static void unpack(const uint4& u, float* out) {
-    out[0] = __uint_as_float(u.x);
-    out[1] = __uint_as_float(u.y);
-    out[2] = __uint_as_float(u.z);
-    out[3] = __uint_as_float(u.w);
-  }
-};
-template <>
-struct Vec<__nv_bfloat16> {
-  static constexpr int N = 8;
-  __device__ static void unpack(const uint4& u, float* out) {
-    const unsigned w[4] = {u.x, u.y, u.z, u.w};
-#pragma unroll
-    for (int i = 0; i < 4; ++i) {
-      // a bf16 is the high half of an f32
-      out[2 * i] = __uint_as_float(w[i] << 16);
-      out[2 * i + 1] = __uint_as_float(w[i] & 0xffff0000u);
-    }
-  }
-};
-
 // Issue the 16-byte loads of the K/V rows at positions [k0, k0 + BK)
-// (those below ``hi``; the rest read as zeros) into registers.
-template <typename T, int D, int NLD>
+// (those below ``hi``; the rest read as zeros) into registers, and for a
+// quantized payload each loaded row's (token, head) scales.
+template <typename P, int D, int NLD>
 __device__ __forceinline__ void load_tile(uint4 (&kr)[NLD], uint4 (&vr)[NLD],
-                                          const T* kp, const T* vp,
-                                          const int* table, int BS,
+                                          float (&ks)[NLD], float (&vs)[NLD],
+                                          const P* kp, const P* vp,
+                                          const float* ksp, const float* vsp,
+                                          const int* table, int BS, int Hkv,
                                           long long tok, int k0, int hi) {
-  constexpr int VN = Vec<T>::N;
+  constexpr int VN = repro::kVec<P>;
   constexpr int CH = D / VN;
 #pragma unroll
   for (int n = 0; n < NLD; ++n) {
     const int idx = threadIdx.x + n * THREADS;
     const int kpos = k0 + idx / CH;
     kr[n] = vr[n] = make_uint4(0u, 0u, 0u, 0u);
+    ks[n] = vs[n] = 0.f;
     if (idx < BK * CH && kpos < hi) {
-      const long long row =
-          (static_cast<long long>(table[kpos / BS]) * BS + kpos % BS) * tok +
-          (idx % CH) * VN;
+      const long long trow =
+          static_cast<long long>(table[kpos / BS]) * BS + kpos % BS;
+      const long long row = trow * tok + (idx % CH) * VN;
       kr[n] = *reinterpret_cast<const uint4*>(kp + row);
       vr[n] = *reinterpret_cast<const uint4*>(vp + row);
+      if constexpr (IsQuant<P>::value) {
+        ks[n] = ksp[trow * Hkv];
+        vs[n] = vsp[trow * Hkv];
+      }
     }
   }
 }
@@ -124,13 +117,13 @@ constexpr size_t pv_smem_bytes() {
                           RG * RPT * (BK + 1));
 }
 
-template <typename T, int D, int RG, int RPT>
+template <typename T, typename P, int D, int RG, int RPT>
 __global__ void __launch_bounds__(THREADS) pv_kernel(PvParams p) {
   constexpr int CL = THREADS / RG;            // lanes sharing a pair
   constexpr int R = RG * RPT;                 // pairs per CTA
   constexpr int KPT = BK / CL;                // keys per thread
   constexpr int DPT = D >= CL ? D / CL : 1;   // output dims per thread
-  constexpr int VN = Vec<T>::N;
+  constexpr int VN = repro::kVec<P>;
   constexpr int CH = D / VN;                  // 16-byte chunks per row
   constexpr int NLD = (BK * CH + THREADS - 1) / THREADS;
   extern __shared__ float smem[];
@@ -183,16 +176,20 @@ __global__ void __launch_bounds__(THREADS) pv_kernel(PvParams p) {
   const int lo = p.window > 0 ? max(0, len + 1 + t0 / G - p.window) : 0;
   const int* table = p.block_table + static_cast<long long>(b) * p.nbmax;
   const long long tok = static_cast<long long>(p.Hkv) * D;   // token stride
-  const T* kp = static_cast<const T*>(p.k_pool) + hk * D;
-  const T* vp = static_cast<const T*>(p.v_pool) + hk * D;
+  const P* kp = static_cast<const P*>(p.k_pool) + hk * D;
+  const P* vp = static_cast<const P*>(p.v_pool) + hk * D;
+  const float* ksp = p.k_scale + hk;          // unused for a float pool
+  const float* vsp = p.v_scale + hk;
   const bool d_on = D >= CL || cl < D;        // D = 16 with 32 lanes
   // the warp's first row group; its pairs only grow from there, so a
   // warp whose first pair is past the tile has nothing to compute
   const bool live = (tid / 32) * (32 / CL) < n_live;
 
   uint4 kr[NLD], vr[NLD];
+  float ks[NLD], vs[NLD];
   if (lo < hi)
-    load_tile<T, D, NLD>(kr, vr, kp, vp, table, p.BS, tok, lo, hi);
+    load_tile<P, D, NLD>(kr, vr, ks, vs, kp, vp, ksp, vsp, table, p.BS,
+                         p.Hkv, tok, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += BK) {
     __syncthreads();   // previous tile consumed (and Qs written)
 #pragma unroll
@@ -201,8 +198,15 @@ __global__ void __launch_bounds__(THREADS) pv_kernel(PvParams p) {
       if (idx < BK * CH) {
         const int jj = idx / CH, d0 = (idx % CH) * VN;
         float kf[VN], vf[VN];
-        Vec<T>::unpack(kr[n], kf);
-        Vec<T>::unpack(vr[n], vf);
+        unpack16<P>(kr[n], kf);
+        unpack16<P>(vr[n], vf);
+        if constexpr (IsQuant<P>::value) {   // fused dequant (K4)
+#pragma unroll
+          for (int e = 0; e < VN; ++e) {
+            kf[e] *= ks[n];
+            vf[e] *= vs[n];
+          }
+        }
 #pragma unroll
         for (int e = 0; e < VN; ++e) {
           Kt[(d0 + e) * (BK + 1) + jj] = kf[e];
@@ -212,7 +216,8 @@ __global__ void __launch_bounds__(THREADS) pv_kernel(PvParams p) {
     }
     __syncthreads();
     if (k0 + BK < hi)   // the next tile's loads fly during this one's math
-      load_tile<T, D, NLD>(kr, vr, kp, vp, table, p.BS, tok, k0 + BK, hi);
+      load_tile<P, D, NLD>(kr, vr, ks, vs, kp, vp, ksp, vsp, table, p.BS,
+                           p.Hkv, tok, k0 + BK, hi);
     if (live) {   // scores and the online softmax of this tile
       float s[RPT][KPT];
 #pragma unroll
@@ -297,53 +302,71 @@ __global__ void __launch_bounds__(THREADS) pv_kernel(PvParams p) {
   }
 }
 
-template <typename T, int D, int RG, int RPT>
+template <typename T, typename P, int D, int RG, int RPT>
 cudaError_t launch(const PvParams& p, int B, cudaStream_t stream) {
   constexpr size_t smem = pv_smem_bytes<D, RG, RPT>();
   cudaError_t err = cudaFuncSetAttribute(
-      pv_kernel<T, D, RG, RPT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
+      pv_kernel<T, P, D, RG, RPT>,
+      cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   constexpr int R = RG * RPT;
   const int pairs = p.K1 * (p.Hq / p.Hkv);
   const dim3 grid(p.Hkv, B, (pairs + R - 1) / R);
-  pv_kernel<T, D, RG, RPT><<<grid, THREADS, smem, stream>>>(p);
+  pv_kernel<T, P, D, RG, RPT><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
-template <typename T, int D>
+template <typename T, typename P, int D>
 cudaError_t launch_tile(const PvParams& p, int B, cudaStream_t stream) {
   // verify windows (<= 32 pairs): tiles of 8; suffix prefill: 64
-  if (p.K1 * (p.Hq / p.Hkv) <= 32) return launch<T, D, 8, 1>(p, B, stream);
-  return launch<T, D, 16, 4>(p, B, stream);
+  if (p.K1 * (p.Hq / p.Hkv) <= 32) return launch<T, P, D, 8, 1>(p, B, stream);
+  return launch<T, P, D, 16, 4>(p, B, stream);
 }
 
-template <typename T>
-cudaError_t dispatch(const PvParams& p, int B, int D, cudaStream_t stream) {
+template <typename T, typename P>
+cudaError_t dispatch_d(const PvParams& p, int B, int D, cudaStream_t stream) {
   switch (D) {
-    case 16: return launch_tile<T, 16>(p, B, stream);
-    case 32: return launch_tile<T, 32>(p, B, stream);
-    case 64: return launch_tile<T, 64>(p, B, stream);
-    case 128: return launch_tile<T, 128>(p, B, stream);
+    case 16: return launch_tile<T, P, 16>(p, B, stream);
+    case 32: return launch_tile<T, P, 32>(p, B, stream);
+    case 64: return launch_tile<T, P, 64>(p, B, stream);
+    case 128: return launch_tile<T, P, 128>(p, B, stream);
+    case 256: return launch_tile<T, P, 256>(p, B, stream);
     default: return cudaErrorInvalidValue;
   }
+}
+
+// Payload code: the query type's own code (a float pool), kI8 or kFP8.
+template <typename T>
+cudaError_t dispatch(const PvParams& p, int pdtype, int B, int D,
+                     cudaStream_t stream) {
+  if (pdtype == repro::kI8) return dispatch_d<T, int8_t>(p, B, D, stream);
+  if (pdtype == repro::kFP8)
+    return dispatch_d<T, __nv_fp8_e4m3>(p, B, D, stream);
+  return dispatch_d<T, T>(p, B, D, stream);
 }
 
 }  // namespace
 
 // C entry point (loaded with ctypes by repro_torch/kernels/
 // paged_attention.py). All tensors contiguous, the pools 16-byte
-// aligned; block_table and lengths int32. Returns the launch's
-// cudaGetLastError() code.
+// aligned; block_table and lengths int32; k_scale / v_scale (NB, BS,
+// Hkv) f32 when pdtype is kI8 or kFP8 (else unused). Returns the
+// launch's cudaGetLastError() code.
 extern "C" int repro_paged_verify_attention(
     const void* q, const void* k_pool, const void* v_pool,
-    const void* block_table, const void* lengths, void* o, int dtype, int B,
-    int K1, int Hq, int Hkv, int D, int BS, int nbmax, int window,
-    float scale, void* stream) {
+    const void* k_scale, const void* v_scale, const void* block_table,
+    const void* lengths, void* o, int dtype, int pdtype, int B, int K1,
+    int Hq, int Hkv, int D, int BS, int nbmax, int window, float scale,
+    void* stream) {
+  const bool quant = pdtype == repro::kI8 || pdtype == repro::kFP8;
+  if (quant ? (k_scale == nullptr || v_scale == nullptr) : pdtype != dtype)
+    return static_cast<int>(cudaErrorInvalidValue);
   PvParams p;
   p.q = q;
   p.k_pool = k_pool;
   p.v_pool = v_pool;
+  p.k_scale = static_cast<const float*>(k_scale);
+  p.v_scale = static_cast<const float*>(v_scale);
   p.block_table = static_cast<const int*>(block_table);
   p.lengths = static_cast<const int*>(lengths);
   p.o = o;
@@ -356,7 +379,7 @@ extern "C" int repro_paged_verify_attention(
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == repro::kBF16
-                        ? dispatch<__nv_bfloat16>(p, B, D, s)
-                        : dispatch<float>(p, B, D, s);
+                        ? dispatch<__nv_bfloat16>(p, pdtype, B, D, s)
+                        : dispatch<float>(p, pdtype, B, D, s);
   return static_cast<int>(err);
 }

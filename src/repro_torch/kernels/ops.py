@@ -3,13 +3,15 @@
 The backend follows the tensors: CPU tensors run the plain versions in
 ``kernels/ref.py``, CUDA tensors the hand-written kernels (K1
 ``flash_attention``, K2 ``paged_decode_attention``, K3
-``paged_verify_attention``). Each kernel masks its own ragged edge, so
-nothing is padded to block multiples here.
+``paged_verify_attention``, K4 their quantized-pool path). Each kernel
+masks its own ragged edge, so nothing is padded to block multiples here.
 """
 
 from __future__ import annotations
 
 import math
+
+import torch
 
 from .flash_attention import flash_attention
 from .paged_attention import paged_decode_attention as _paged_decode
@@ -19,24 +21,43 @@ __all__ = ["flash_attention", "paged_attention"]
 
 
 def paged_attention(q, pool, block_table, lengths, *, mode="decode",
-                    window=None, scale=None):
-    """Paged attention over a per-layer pool dict ``{"k", "v"}``.
+                    window=None, scale=None, kv_format=None):
+    """Paged attention over a per-layer pool dict (JAX ops.py
+    ``paged_attention``).
 
     ``mode="decode"``: q (B, Hq, D), one query row per slot at position
     ``lengths[b] - 1`` (kernel K2). ``mode="verify"``: q (B, K1, Hq, D),
     K1 query rows per slot at positions ``lengths[b] + j``, ``lengths``
-    counting the tokens cached BEFORE the window (kernel K3). The softmax
-    scale derives from q's (logical) head dim. Quantized pools
-    (``k_scale`` / ``v_scale`` leaves, kernel K4) are not ported yet.
+    counting the tokens cached BEFORE the window (kernel K3).
+
+    ``pool``: ``{"k", "v"}`` of (NB, BS, Hkv, Dp); a quantized pool also
+    carries ``k_scale`` / ``v_scale`` (NB, BS, Hkv) f32 leaves, detected
+    here and dequantized inside whichever backend runs (kernel K4 on the
+    card). When the pool is wider than q's head dim (a padded pool), q is
+    zero-padded to the pool's width and the output sliced back; the
+    softmax scale always derives from q's logical head dim.
+    ``kv_format``, the pool's ``paged_kv.PoolSpec`` or None, is checked
+    against the pool: its head dims and quantization must match.
     """
     if mode not in ("decode", "verify"):
         raise ValueError(f"mode must be 'decode' or 'verify', got {mode!r}")
-    if "k_scale" in pool:
-        raise NotImplementedError(
-            "quantized paged pool: kernel K4 is not ported yet (ROADMAP "
-            "queue 1: 'K4 quantized pool')")
+    k_scale, v_scale = pool.get("k_scale"), pool.get("v_scale")
+    if (k_scale is None) != (v_scale is None):
+        raise ValueError("a quantized pool carries both k_scale and "
+                         f"v_scale; got leaves {sorted(pool)}")
+    D = q.shape[-1]
+    Dp = pool["k"].shape[-1]
+    if kv_format is not None and (
+            (kv_format.head_dim, kv_format.pool_head_dim) != (D, Dp)
+            or kv_format.quantized != (k_scale is not None)):
+        raise ValueError(
+            f"pool (head dim {Dp}, leaves {sorted(pool)}) and q (head dim "
+            f"{D}) do not match kv_format {kv_format}")
     if scale is None:
-        scale = 1.0 / math.sqrt(q.shape[-1])
+        scale = 1.0 / math.sqrt(D)       # logical head dim, pre-padding
+    if Dp != D:
+        q = torch.nn.functional.pad(q, (0, Dp - D))
     fn = _paged_decode if mode == "decode" else _paged_verify
-    return fn(q, pool["k"], pool["v"], block_table, lengths, window=window,
-              scale=scale)
+    out = fn(q, pool["k"], pool["v"], block_table, lengths, window=window,
+             scale=scale, k_scale=k_scale, v_scale=v_scale)
+    return out[..., :D] if Dp != D else out

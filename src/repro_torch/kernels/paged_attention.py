@@ -1,13 +1,18 @@
-"""K2 and K3 wrappers: attention over the block-paged pool.
+"""K2, K3 and K4 wrappers: attention over the block-paged pool.
 
 Counterparts of ``repro/kernels/paged_attention.py``:
 ``paged_decode_attention`` (K2, one query row per sequence, kernel
 ``csrc/paged_attention.cu``) and ``paged_verify_attention`` (K3, K1
 query rows per sequence for the speculative verify and the suffix
-prefill, kernel ``csrc/paged_verify_attention.cu``). A CPU tensor runs
-the plain version in ``kernels/ref.py``; a CUDA tensor launches the
-hand-written kernel on the current stream, or raises. There is no
-fallback from one to the other.
+prefill, kernel ``csrc/paged_verify_attention.cu``). K4 is the quantized
+path of both (JAX ``_dequant``): an int8 or fp8 (e4m3fn) payload with
+f32 ``k_scale`` / ``v_scale`` of (NB, BS, Hkv), dequantized inside the
+same two kernels as the rows are loaded, so no full-precision copy of
+the pool exists. A CPU tensor runs the plain version in
+``kernels/ref.py``; a CUDA tensor launches the hand-written kernel on
+the current stream, or raises. There is no fallback from one to the
+other. Launches are counted per function: ``.launches`` for float pools
+(K2, K3), ``.k4_launches`` for quantized ones (K4).
 """
 
 from __future__ import annotations
@@ -18,54 +23,85 @@ import math
 import torch
 
 from . import _build, ref
-from .flash_attention import DTYPES, HEAD_DIMS
+from .flash_attention import DTYPES
 
+HEAD_DIMS = (16, 32, 64, 128, 256)  # pool head dims the kernels are built for
 GROUPS = (1, 2, 4, 8)               # Hq // Hkv the CUDA kernel is built for
+MAX_GROUP_DIMS = 1024               # K2: group * head dim (shared memory)
+PAYLOADS = {torch.int8: 2, torch.float8_e4m3fn: 3}   # csrc/common.cuh DType
 
-_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 8
+_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
-_PV_ARGTYPES = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 9
+_PV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                 + [ctypes.c_float, ctypes.c_void_p])
 
 
-def _check_pool_args(name, q, k_pool, v_pool, block_table, lengths):
+def _check_pool_args(name, q, k_pool, v_pool, block_table, lengths,
+                     k_scale, v_scale) -> int:
     """Raise ValueError unless the tensors are what the CUDA kernels take:
-    one CUDA device, all f32 or all bf16, int32 table and lengths,
-    matching shapes, a supported head dim and group, contiguous."""
+    one CUDA device; q f32 or bf16 and the pools of q's dtype, or int8 /
+    fp8 payloads with f32 scales of (NB, BS, Hkv); int32 table and
+    lengths; matching shapes, a supported head dim and group;
+    contiguous, pools 16-byte aligned. Returns the payload's type code."""
     B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
     Hkv = k_pool.shape[2]
-    tensors = (q, k_pool, v_pool, block_table, lengths)
+    tensors = [q, k_pool, v_pool, block_table, lengths]
+    quant = k_scale is not None or v_scale is not None
+    if quant:
+        if k_scale is None or v_scale is None:
+            raise ValueError(f"{name}: a quantized pool needs both k_scale "
+                             "and v_scale")
+        tensors += [k_scale, v_scale]
     if q.device.type != "cuda" or any(t.device != q.device for t in tensors):
         raise ValueError(f"{name}: tensors on "
                          f"{[str(t.device) for t in tensors]}; expected one "
                          "CUDA device")
-    if q.dtype not in DTYPES or k_pool.dtype != q.dtype \
-            or v_pool.dtype != q.dtype:
-        raise ValueError(f"{name}: dtypes {q.dtype}, {k_pool.dtype}, "
-                         f"{v_pool.dtype}; expected all float32 or all "
-                         "bfloat16")
+    pdt = k_pool.dtype
+    if q.dtype not in DTYPES or v_pool.dtype != pdt \
+            or (pdt not in PAYLOADS if quant else pdt != q.dtype) \
+            or (quant and (k_scale.dtype != torch.float32
+                           or v_scale.dtype != torch.float32)):
+        raise ValueError(
+            f"{name}: dtypes q {q.dtype}, pools {k_pool.dtype} / "
+            f"{v_pool.dtype}, scales "
+            f"{[t.dtype for t in (k_scale, v_scale) if t is not None]}; "
+            "expected q float32 or bfloat16 with pools of q's dtype, or "
+            "int8 / float8_e4m3fn pools with float32 k_scale and v_scale")
     if block_table.dtype != torch.int32 or lengths.dtype != torch.int32:
         raise ValueError(f"{name}: block_table and lengths must be int32")
     if k_pool.dim() != 4 or k_pool.shape != v_pool.shape \
             or k_pool.shape[3] != D or block_table.dim() != 2 \
             or block_table.shape[0] != B or lengths.shape != (B,) \
-            or Hq % Hkv != 0:
+            or Hq % Hkv != 0 \
+            or (quant and (k_scale.shape != k_pool.shape[:3]
+                           or v_scale.shape != k_pool.shape[:3])):
         raise ValueError(
             f"{name}: shapes q {tuple(q.shape)}, pools "
             f"{tuple(k_pool.shape)}, table {tuple(block_table.shape)}, "
-            f"lengths {tuple(lengths.shape)}")
+            f"lengths {tuple(lengths.shape)}"
+            + (f", scales {tuple(k_scale.shape)} / {tuple(v_scale.shape)}"
+               if quant else ""))
     if D not in HEAD_DIMS or Hq // Hkv not in GROUPS:
         raise ValueError(f"{name}: head dim {D} / group {Hq // Hkv} not in "
                          f"{HEAD_DIMS} / {GROUPS}")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
+    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
+        raise ValueError(f"{name}: pools must be 16-byte aligned")
+    return PAYLOADS[pdt] if quant else DTYPES[q.dtype]
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
-                           window=None, scale=None):
+                           window=None, scale=None, k_scale=None,
+                           v_scale=None):
     """q: (B, Hq, D); pools: (NB, BS, Hkv, D); block_table: (B, NBMAX)
-    int32; lengths: (B,) int32 valid tokens including the current one
-    -> (B, Hq, D) in q's dtype.
+    int32; lengths: (B,) int32 valid tokens including the current one;
+    ``k_scale`` / ``v_scale`` (NB, BS, Hkv) f32 for an int8/fp8 pool
+    (K4) -> (B, Hq, D) in q's dtype.
 
     The kernel reads only the table entries of blocks the length (and
     window) can see, so entries past a sequence's last block may hold
@@ -74,12 +110,17 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
     if q.device.type == "cpu":
         return ref.paged_decode_attention(q, k_pool, v_pool, block_table,
                                           lengths, window=window,
-                                          scale=scale)
+                                          scale=scale, k_scale=k_scale,
+                                          v_scale=v_scale)
     if q.dim() != 3:
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} is "
                          "not (B, Hq, D)")
-    _check_pool_args("paged_decode_attention", q, k_pool, v_pool,
-                     block_table, lengths)
+    pdtype = _check_pool_args("paged_decode_attention", q, k_pool, v_pool,
+                              block_table, lengths, k_scale, v_scale)
+    if q.shape[2] * (q.shape[1] // k_pool.shape[2]) > MAX_GROUP_DIMS:
+        raise ValueError(f"paged_decode_attention: head dim {q.shape[2]} "
+                         f"with group {q.shape[1] // k_pool.shape[2]}: "
+                         f"group * head dim > {MAX_GROUP_DIMS}")
     B, Hq, D = q.shape
     BS, Hkv = k_pool.shape[1:3]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
@@ -88,23 +129,30 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
         return out
     fn = _build.function("repro_paged_decode_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             DTYPES[q.dtype], B, Hq, Hkv, D, BS, block_table.shape[1],
-             int(window or 0), scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _ptr(k_scale), _ptr(v_scale), block_table.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), DTYPES[q.dtype], pdtype,
+             B, Hq, Hkv, D, BS, block_table.shape[1], int(window or 0),
+             scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
-    paged_decode_attention.launches += 1
+    if k_scale is None:
+        paged_decode_attention.launches += 1
+    else:
+        paged_decode_attention.k4_launches += 1
     return out
 
 
-paged_decode_attention.launches = 0
+paged_decode_attention.launches = 0      # K2
+paged_decode_attention.k4_launches = 0   # K4 (quantized pool)
 
 
 def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
-                           window=None, scale=None):
+                           window=None, scale=None, k_scale=None,
+                           v_scale=None):
     """q: (B, K1, Hq, D); pools: (NB, BS, Hkv, D); block_table: (B, NBMAX)
-    int32; lengths: (B,) int32 tokens cached BEFORE the window -> (B, K1,
-    Hq, D) in q's dtype. Row j attends positions < lengths[b] + 1 + j.
+    int32; lengths: (B,) int32 tokens cached BEFORE the window;
+    ``k_scale`` / ``v_scale`` (NB, BS, Hkv) f32 for an int8/fp8 pool (K4)
+    -> (B, K1, Hq, D) in q's dtype. Row j attends positions
+    < lengths[b] + 1 + j.
 
     The kernel reads only the table entries of positions some row of a
     query tile can see (clamped at NBMAX * BS), so entries past them may
@@ -113,15 +161,13 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
     if q.device.type == "cpu":
         return ref.paged_verify_attention(q, k_pool, v_pool, block_table,
                                           lengths, window=window,
-                                          scale=scale)
+                                          scale=scale, k_scale=k_scale,
+                                          v_scale=v_scale)
     if q.dim() != 4:
         raise ValueError(f"paged_verify_attention: q {tuple(q.shape)} is "
                          "not (B, K1, Hq, D)")
-    _check_pool_args("paged_verify_attention", q, k_pool, v_pool,
-                     block_table, lengths)
-    if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
-        raise ValueError("paged_verify_attention: pools must be 16-byte "
-                         "aligned")
+    pdtype = _check_pool_args("paged_verify_attention", q, k_pool, v_pool,
+                              block_table, lengths, k_scale, v_scale)
     B, K1, Hq, D = q.shape
     BS, Hkv = k_pool.shape[1:3]
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
@@ -130,13 +176,17 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
         return out
     fn = _build.function("repro_paged_verify_attention", _PV_ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
-             block_table.data_ptr(), lengths.data_ptr(), out.data_ptr(),
-             DTYPES[q.dtype], B, K1, Hq, Hkv, D, BS, block_table.shape[1],
-             int(window or 0), scale,
-             torch.cuda.current_stream(q.device).cuda_stream)
+             _ptr(k_scale), _ptr(v_scale), block_table.data_ptr(),
+             lengths.data_ptr(), out.data_ptr(), DTYPES[q.dtype], pdtype,
+             B, K1, Hq, Hkv, D, BS, block_table.shape[1], int(window or 0),
+             scale, torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_verify_attention")
-    paged_verify_attention.launches += 1
+    if k_scale is None:
+        paged_verify_attention.launches += 1
+    else:
+        paged_verify_attention.k4_launches += 1
     return out
 
 
-paged_verify_attention.launches = 0
+paged_verify_attention.launches = 0      # K3
+paged_verify_attention.k4_launches = 0   # K4 (quantized pool)

@@ -3,8 +3,10 @@ contract).
 
 Each function mirrors its counterpart in ``repro/kernels/ref.py`` line
 for line: the same masks, f32 softmax, the same fully-masked-row -> 0
-rule. The wrappers in ``kernels/*.py`` run these for CPU tensors, and
-``chip_smoke.py`` holds every CUDA kernel against them on the card.
+rule, the same dequantization of an int8/fp8 pool (payload in f32 times
+its per-(token, head) scale). The wrappers in ``kernels/*.py`` run these
+for CPU tensors, and ``chip_smoke.py`` holds every CUDA kernel against
+them on the card.
 """
 
 from __future__ import annotations
@@ -44,8 +46,24 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
     return torch.einsum("bhqk,bhkd->bhqd", probs, vx).to(q.dtype)
 
 
+def _gather_dequant(pool, scale_pool, bt, B, S, Hkv, D):
+    """Gather pool blocks into (B, S, Hkv, D) f32 sequences, applying the
+    per-(token, head) dequant scales when the pool is quantized (JAX
+    ref.py ``_gather_dequant``). A one-byte float pool is gathered as
+    its bytes, then read back as fp8."""
+    if pool.dtype == torch.float8_e4m3fn:
+        x = pool.view(torch.uint8)[bt].view(pool.dtype)
+    else:
+        x = pool[bt]
+    x = x.reshape(B, S, Hkv, D).float()
+    if scale_pool is not None:
+        x = x * scale_pool[bt].reshape(B, S, Hkv)[..., None]
+    return x
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
-                           window=None, scale=None):
+                           window=None, scale=None, k_scale=None,
+                           v_scale=None):
     """Reference single-token decode attention over a block-paged cache.
 
     q: (B, Hq, D) — the query for the token at position ``lengths[b] - 1``.
@@ -55,6 +73,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
     lengths: (B,) int32 — valid tokens per sequence, including the
     current token, whose K/V must already be in the pool. ``window``
     restricts attention to the last ``window`` positions.
+    ``k_scale`` / ``v_scale``: (NB, BS, Hkv) f32 dequant scales when the
+    pool stores int8/fp8 payloads (None: a float pool).
     Returns (B, Hq, D) in q.dtype.
     """
     B, Hq, D = q.shape
@@ -63,8 +83,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     S = block_table.shape[1] * BS
     bt = block_table.long()
-    k = k_pool[bt].reshape(B, S, Hkv, D).float()
-    v = v_pool[bt].reshape(B, S, Hkv, D).float()
+    k = _gather_dequant(k_pool, k_scale, bt, B, S, Hkv, D)
+    v = _gather_dequant(v_pool, v_scale, bt, B, S, Hkv, D)
     kx = k.transpose(1, 2).repeat_interleave(group, dim=1)   # (B, Hq, S, D)
     vx = v.transpose(1, 2).repeat_interleave(group, dim=1)
     logits = torch.einsum("bhd,bhsd->bhs", q.float(), kx) * scale
@@ -80,7 +100,8 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
 
 
 def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
-                           window=None, scale=None):
+                           window=None, scale=None, k_scale=None,
+                           v_scale=None):
     """Reference multi-query decode attention over a block-paged cache.
 
     The speculative-decode verify step (and suffix prefill): each
@@ -93,7 +114,8 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
     q: (B, K1, Hq, D); pools: (NB, BS, Hkv, D); block_table: (B, NBMAX)
     int32; lengths: (B,) int32 tokens cached BEFORE the window. Positions
     past the table (``NBMAX * BS``) do not exist. A row that sees no key
-    gives 0. Returns (B, K1, Hq, D) in q.dtype.
+    gives 0. ``k_scale`` / ``v_scale`` as in ``paged_decode_attention``.
+    Returns (B, K1, Hq, D) in q.dtype.
     """
     B, K1, Hq, D = q.shape
     BS, Hkv = k_pool.shape[1], k_pool.shape[2]
@@ -101,8 +123,8 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     S = block_table.shape[1] * BS
     bt = block_table.long()
-    k = k_pool[bt].reshape(B, S, Hkv, D).float()
-    v = v_pool[bt].reshape(B, S, Hkv, D).float()
+    k = _gather_dequant(k_pool, k_scale, bt, B, S, Hkv, D)
+    v = _gather_dequant(v_pool, v_scale, bt, B, S, Hkv, D)
     kx = k.transpose(1, 2).repeat_interleave(group, dim=1)   # (B, Hq, S, D)
     vx = v.transpose(1, 2).repeat_interleave(group, dim=1)
     logits = torch.einsum("bjhd,bhsd->bjhs", q.float(), kx) * scale

@@ -15,6 +15,7 @@ import time
 from typing import Any, Optional, Sequence
 
 from ...models.model import Model, resolve_device
+from ...models.paged_kv import KV_DTYPES
 from ...models.transformer import RunCtx, check_supported
 
 
@@ -296,9 +297,13 @@ class EngineConfig:
     draft_model, draft_params
         The draft ``Model`` (attention-only, same vocabulary, on the
         engine's device) and its params for ``drafter="draft_model"``.
-    kv_dtype : {"bf16"}
-        Pool storage precision; quantized pools are not ported yet. The
-        pool stores the model dtype.
+    kv_dtype : {"bf16", "int8", "fp8"}
+        Paged pool storage precision. ``"bf16"`` stores the model dtype;
+        ``"int8"`` / ``"fp8"`` (float8 e4m3fn) store quantized payloads
+        plus per-(token, kv head) f32 scales, quantized where rows enter
+        the pool and dequantized inside the decode and verify kernels
+        (K4), so no full-precision copy of the pool is made. Requires
+        ``ServingCaps.quantized_kv`` and the paged backend.
     overlap : bool
         Async host/device overlap; not ported yet (must be False).
     """
@@ -327,8 +332,6 @@ class EngineConfig:
         """Raise NotImplementedError for options not ported yet."""
         unported = [
             (self.backend == "static", "backend='static'", "StaticBackend"),
-            (self.kv_dtype != "bf16", f"kv_dtype={self.kv_dtype!r}",
-             "K4 quantized pool"),
             (self.overlap, "overlap=True", "overlap on CUDA streams"),
             (self.mesh is not None, "mesh", "multi-device"),
         ]
@@ -405,16 +408,32 @@ class Engine:
                     "decoding: the verify step consumes the sampled "
                     "tokens on the host before the next dispatch; set "
                     "spec_tokens=0")
+        if self.cfg.kv_dtype not in KV_DTYPES:
+            raise ValueError(
+                f"unknown kv_dtype {self.cfg.kv_dtype!r}; expected one "
+                f"of {KV_DTYPES}")
+        if self.cfg.kv_dtype != "bf16" and self.cfg.backend == "static":
+            raise ValueError(
+                f"quantized KV (kv_dtype={self.cfg.kv_dtype!r}) requires "
+                "the paged backend — the static baseline keeps dense "
+                "full-precision caches; use backend='paged'")
         self.cfg.check_ported()
         self.model = model
         self.caps = model.serving_caps()
+        mc = model.cfg
         if not self.caps.paged_decode:
-            mc = model.cfg
             raise NotImplementedError(
                 f"no paged decode path for config {mc.family}/{mc.name}: "
                 "mrope / visual-prefix frontends (qwen2-vl) and "
                 "decoder-only absolute-position embeddings are not "
                 "served (ServingCaps.paged_decode)")
+        if self.cfg.kv_dtype != "bf16" and not self.caps.quantized_kv:
+            raise ValueError(
+                f"config {mc.family}/{mc.name} does not support a "
+                f"quantized paged KV pool (kv_dtype="
+                f"{self.cfg.kv_dtype!r}): ServingCaps.quantized_kv is "
+                "False — encoder-decoder cross-KV arenas and non-paged "
+                "frontends stay bf16")
         check_supported(model.cfg)
         backend = SpecDecodeBackend if self.cfg.spec_tokens > 0 \
             else PagedBackend

@@ -5,14 +5,15 @@ every decode slot at once from per-slot parameter arrays (temperature /
 top-k / top-p / seed / RNG-stream step). Greedy decoding and the top-k
 and top-p masks follow the JAX package exactly.
 
-Determinism contract: token t of a request is drawn with Gumbel-max from
-uniforms that a counter-based hash computes from ``(seed, t, vocab
-index)`` alone, so sampled outputs do not depend on admission order,
-slot index, co-batched requests, preemption history or device (the hash
-is integer arithmetic, identical on CPU and GPU). The draws are not
-``jax.random``'s threefry bits: bit-for-bit agreement with the JAX
-sampler is a later step (ROADMAP queue 1: 'bit-exact threefry
-sampling'); greedy outputs match JAX already.
+Determinism contract: token t of a request is drawn from
+``fold_in(PRNGKey(seed), t)`` with the Gumbel-max ``categorical``, as in
+the JAX package, so sampled outputs do not depend on admission order,
+slot index, co-batched requests, preemption history or device. The
+random stream is JAX's own (threefry2x32 with
+``jax_threefry_partitionable=True``, jax 0.9.0), written here in torch
+integer ops: the key, ``fold_in`` and the random bits equal JAX's bit
+for bit, and so do the uniforms; the Gumbel values ``-log(-log(u))``
+may differ from XLA's by an ulp of ``log``.
 """
 
 from __future__ import annotations
@@ -21,6 +22,8 @@ import numpy as np
 import torch
 
 _M32 = 0xFFFFFFFF
+_ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
+_F32_TINY = float(np.finfo(np.float32).tiny)
 
 
 def fold_seed(seed: int) -> int:
@@ -30,26 +33,86 @@ def fold_seed(seed: int) -> int:
     return int(seed) & 0x7FFFFFFF
 
 
-def _hash32(x):
-    """Avalanching 32-bit integer hash on int64 tensors holding values in
-    [0, 2**32): xorshift-multiply rounds with multipliers below 2**31, so
-    every product fits in int64 without overflow."""
-    x = (x + 0x9E3779B9) & _M32
-    x = x ^ (x >> 16)
-    x = (x * 0x7FEB352D) & _M32
-    x = x ^ (x >> 15)
-    x = (x * 0x2C1B3C6D) & _M32
-    return x ^ (x >> 16)
+# ---------------------------------------------------------------------------
+# threefry2x32 on int64 tensors holding uint32 words
+# ---------------------------------------------------------------------------
+#
+# torch has no uint32 arithmetic that runs everywhere, so every word is
+# an int64 in [0, 2**32): sums are masked back to 32 bits and rotations
+# are built from a masked left shift and a right shift of a
+# non-negative value.
 
 
-def _uniforms(seeds, steps, V: int):
-    """(B, V) f32 uniforms in (0, 1), a pure function of each row's
-    (seed, step) and the vocab index."""
-    row = _hash32(_hash32(seeds.long() & _M32) ^ (steps.long() & _M32))
-    row = row[:, None]
-    idx = torch.arange(V, dtype=torch.int64, device=seeds.device)[None, :]
-    h = _hash32(_hash32(row ^ idx) ^ row)
-    return ((h >> 8).float() + 0.5) * (1.0 / (1 << 24))
+def _rotl(x, r: int):
+    return ((x << r) & _M32) | (x >> (32 - r))
+
+
+def threefry2x32(k1, k2, x1, x2):
+    """The threefry2x32 hash (20 rounds) of JAX's ``prng.py``: key words
+    ``(k1, k2)``, counter words ``(x1, x2)``, all broadcasting int64
+    tensors (or ints) of uint32 values. Returns the two output words."""
+    ks = (k1, k2, k1 ^ k2 ^ 0x1BD11BDA)
+    x1 = (x1 + ks[0]) & _M32
+    x2 = (x2 + ks[1]) & _M32
+    for i in range(5):
+        for r in _ROTATIONS[i % 2]:
+            x1 = (x1 + x2) & _M32
+            x2 = _rotl(x2, r) ^ x1
+        x1 = (x1 + ks[(i + 1) % 3]) & _M32
+        x2 = (x2 + ks[(i + 2) % 3] + i + 1) & _M32
+    return x1, x2
+
+
+def prng_key(seeds, device=None):
+    """``jax.random.PRNGKey(seed)`` as an int64 tensor ``(..., 2)``. With
+    64-bit types off (JAX's default) a seed is an int32, so the key is
+    ``(0, seed mod 2**32)`` for any integer seed or seed tensor."""
+    seeds = torch.as_tensor(seeds, device=device).long() & _M32
+    return torch.stack([torch.zeros_like(seeds), seeds], -1)
+
+
+def fold_in(key, data):
+    """``jax.random.fold_in(key, data)``: the key hashed with the counter
+    ``(0, data)``. key: (..., 2); data: an int or a tensor broadcasting
+    against ``key[..., 0]``."""
+    data = torch.as_tensor(data, device=key.device).long() & _M32
+    b1, b2 = threefry2x32(key[..., 0], key[..., 1], 0, data)
+    return torch.stack(torch.broadcast_tensors(b1, b2), -1)
+
+
+def random_bits(key, shape):
+    """``jax.random.bits(key, shape, uint32)`` on the partitionable path:
+    the 64-bit iota over ``shape`` split into (hi, lo) counter words,
+    hashed, and the two output words XORed. key: (..., 2) -> int64
+    tensor ``key.shape[:-1] + shape`` of uint32 values."""
+    shape = tuple(shape)
+    n = torch.arange(int(np.prod(shape, dtype=np.int64)),
+                     dtype=torch.int64, device=key.device).reshape(shape)
+    lead = key.shape[:-1] + (1,) * len(shape)
+    b1, b2 = threefry2x32(key[..., 0].reshape(lead),
+                          key[..., 1].reshape(lead), n >> 32, n & _M32)
+    return b1 ^ b2
+
+
+def uniform(key, shape):
+    """``jax.random.uniform(key, shape, float32, minval=tiny, maxval=1)``
+    (the uniforms under ``gumbel``): 23 random mantissa bits under the
+    exponent of 1.0, minus 1, with 0 lifted to the smallest normal."""
+    bits = random_bits(key, shape)
+    f = ((bits >> 9) | 0x3F800000).to(torch.int32).view(torch.float32)
+    return torch.clamp_min(f - 1.0, _F32_TINY)
+
+
+def gumbel(key, shape):
+    """``jax.random.gumbel(key, shape, float32)`` (mode "low")."""
+    return -torch.log(-torch.log(uniform(key, shape)))
+
+
+def categorical(key, logits):
+    """``jax.random.categorical(key, logits)`` over the last axis: the
+    Gumbel-max draw, one key per row. key: (..., 2); logits: (..., V)
+    f32 -> (...) int64."""
+    return (gumbel(key, logits.shape[-1:]) + logits).argmax(-1)
 
 
 def sample_tokens(logits, seeds, steps, temps, top_ks, top_ps):
@@ -69,8 +132,7 @@ def sample_tokens(logits, seeds, steps, temps, top_ks, top_ps):
     thresh_p = desc.gather(1, (kept.sum(-1) - 1).clamp_min(0)[:, None])
     allowed = (scaled >= thresh_k) & (scaled >= thresh_p)
     masked = scaled.masked_fill(~allowed, float("-inf"))
-    gumbel = -torch.log(-torch.log(_uniforms(seeds, steps, V)))
-    sampled = (masked + gumbel).argmax(-1)
+    sampled = categorical(fold_in(prng_key(seeds), steps), masked)
     return torch.where(temps <= 0.0, greedy, sampled).int()
 
 

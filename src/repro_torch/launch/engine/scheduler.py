@@ -27,6 +27,11 @@ without overlap, mesh or cross arena (speculation subclasses it in
   batched full prefill. A write into a shared block copies it first;
   unreferenced indexed blocks park in the allocator's LRU, reclaimed
   only when the free list runs dry.
+* **Quantized pool** (``EngineConfig.kv_dtype`` int8 / fp8) — a
+  ``paged_kv.PoolSpec`` rides in the ``RunCtx``: rows are quantized
+  where they enter the pool (prefill pack, decode and verify frontiers)
+  and dequantized inside the attention kernels (K4); COW copies the
+  scale leaves with the payload.
 
 The pools live on the engine's device and are updated in place; the
 block table, lengths and sampler parameters are host (numpy) state,
@@ -68,11 +73,18 @@ class PagedBackend:
         self.model = model
         self.params = params
         self.cfg = cfg
-        self.ctx = ctx
         self.device = model.device
         self.layout = paged_kv.PagedLayout(
             num_slots=cfg.num_slots, num_blocks=cfg.num_blocks,
             block_size=cfg.block_size, max_len=cfg.max_len)
+        # quantized paged KV: the PoolSpec rides in the RunCtx to the
+        # write frontiers and the kernels; None keeps the model dtype
+        self.kv_spec = None
+        if cfg.kv_dtype != "bf16":
+            self.kv_spec = paged_kv.make_pool_spec(
+                model.cfg, self.layout, kv_dtype=cfg.kv_dtype)
+            ctx = dataclasses.replace(ctx, kv_spec=self.kv_spec)
+        self.ctx = ctx
         caps = model.serving_caps()
         # COW prefix caching: only when EVERY layer's decode state lives
         # in the shared pool blocks
@@ -81,7 +93,7 @@ class PagedBackend:
         self.alloc = paged_kv.BlockAllocator(
             self.layout, watermark=cfg.watermark_blocks,
             on_evict=self._on_evict if self.prefix is not None else None)
-        self.pools = model.init_paged_cache(self.layout)
+        self.pools = model.init_paged_cache(self.layout, spec=self.kv_spec)
         self.table = np.full(
             (cfg.num_slots, self.layout.max_blocks_per_seq),
             paged_kv.NULL_BLOCK, np.int32)
@@ -242,15 +254,16 @@ class PagedBackend:
 
     def _cow_block(self, i: int, idx: int):
         """Copy shared block ``slot.blocks[idx]`` into a freshly owned
-        one (an indexed copy over every layer leaf of the in-place pools)
-        and swap the table entry; the old block keeps its other
+        one (an indexed copy over every layer leaf of the in-place pools,
+        the scale leaves of a quantized pool included) and swap the table
+        entry; the old block keeps its other
         references and its place in the prefix index."""
         slot = self.slots[i]
         old = slot.blocks[idx]
         (new,) = self.alloc.alloc(1)
         for group in self.pools.values():        # {gk: {pk: {"k", "v"}}}
             for pool in group.values():
-                for leaf in pool.values():       # (count, NB, BS, Hkv, D)
+                for leaf in pool.values():       # (count, NB, BS, Hkv[, D])
                     leaf[:, new] = leaf[:, old]
         slot.blocks[idx] = new
         self.table[i, idx] = new
@@ -509,7 +522,7 @@ class PagedBackend:
             self.params, {"tokens": self._dev(toks)}, self.ctx,
             max_len=cache_w, length=length, rows=length - 1)
         self.model.pack_prefill_into_paged(self.layout, self.pools, dense,
-                                           self._dev(ids))
+                                           self._dev(ids), spec=self.kv_spec)
         self.prefill_calls += 1
         self.prefill_reqs += len(rows)
         return logits[:len(rows)]
@@ -569,13 +582,16 @@ class PagedBackend:
     def stats(self) -> dict:
         """Cache/occupancy/scheduling telemetry for the run so far.
         ``device_s`` is host time from each decode's launch to its
-        sampled tokens reaching the host."""
+        sampled tokens reaching the host; ``pool_bytes`` counts every
+        leaf of the block pools, a quantized pool's scales included."""
         cap = self.block_token_steps or 1
         return {
             "steps": self.steps,
             "mean_active_slots": self.slot_steps / max(self.steps, 1),
             "cache_utilization": self.live_token_steps / cap,
             "device_s": self.device_s,
+            "kv_dtype": self.cfg.kv_dtype,
+            "pool_bytes": paged_kv.pool_bytes(self.pools),
             "blocks_free": self.alloc.free_count,
             "blocks_used": self.alloc.used_count,
             "preemptions": self.preemptions,

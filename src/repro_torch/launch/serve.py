@@ -3,6 +3,7 @@
 Run on the card:  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b
 On the CPU:       PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 Speculative:      add --spec-tokens 3 (ngram drafter)
+Quantized pool:   add --kv-dtype int8 (or fp8)
 """
 
 from __future__ import annotations
@@ -30,6 +31,11 @@ def main():
     ap.add_argument("--spec-tokens", type=int, default=0,
                     help="speculative decoding: ngram-drafted tokens per "
                          "step (outputs identical to spec-tokens 0)")
+    ap.add_argument("--kv-dtype", choices=("bf16", "int8", "fp8"),
+                    default="bf16",
+                    help="paged KV pool storage precision: int8/fp8 "
+                         "store quantized blocks + per-(token, head) "
+                         "scales with dequant fused into the kernels")
     args = ap.parse_args()
     cfg = get_config(args.arch)
     if args.smoke:
@@ -39,7 +45,8 @@ def main():
     rng = np.random.default_rng(0)
     engine = Engine(model, params,
                     EngineConfig(num_slots=args.slots, max_len=128,
-                                 spec_tokens=args.spec_tokens),
+                                 spec_tokens=args.spec_tokens,
+                                 kv_dtype=args.kv_dtype),
                     device=args.device)
     prompts = [list(rng.integers(0, cfg.vocab_size,
                                  int(rng.integers(4, 16))))
@@ -53,7 +60,8 @@ def main():
         torch.cuda.synchronize()
     dt = time.time() - t0
     total = sum(len(o) for o in outs)
-    print(f"[paged {model.device} spec={args.spec_tokens}] {total} tokens "
+    print(f"[paged {model.device} spec={args.spec_tokens} "
+          f"kv={args.kv_dtype}] {total} tokens "
           f"over {len(outs)} reqs in {dt:.2f}s ({total / dt:.1f} tok/s)  "
           f"stats={engine.stats()}")
     for i, o in enumerate(outs[:2]):

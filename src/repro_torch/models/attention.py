@@ -5,7 +5,9 @@ Counterpart of ``repro/models/attention.py`` for the full-attention
 path: prefill runs kernel K1 through ``kernels/ops.flash_attention``;
 paged decode appends the new K/V row to the block pool and runs kernel
 K2, the speculative verify (and suffix prefill) appends K1 rows and runs
-kernel K3, both through ``kernels/ops.paged_attention``. The dense
+kernel K3, both through ``kernels/ops.paged_attention``. With a
+quantized ``kv_spec`` the rows are quantized where they enter the pool
+and dequantized inside the kernels (K4). The dense
 decode over linear per-slot caches (the draft model's) is plain torch,
 as JAX computes it in plain jnp. Projections are bias-optional
 (qwen2-vl) with optional per-head QK-norm (qwen3).
@@ -81,10 +83,14 @@ def attend(params, cfg, x, positions):
     return out @ params["wo"], {"k": k, "v": v}
 
 
-def decode_attend_paged(params, cfg, x, pool, block_table, lengths):
+def decode_attend_paged(params, cfg, x, pool, block_table, lengths, *,
+                        kv_spec=None):
     """Single-token decode against a block-paged KV pool.
 
-    x: (B, 1, d); pool: {"k", "v"} of (NB, BS, Hkv, D) for this layer;
+    x: (B, 1, d); pool: {"k", "v"} of (NB, BS, Hkv, D) for this layer
+    (plus ``k_scale`` / ``v_scale`` when ``kv_spec`` is a quantized
+    ``paged_kv.PoolSpec``: the new row is quantized at this write
+    frontier and dequantized inside the kernel);
     block_table: (B, NBMAX) int32; lengths: (B,) int32 tokens already
     cached per slot. The new token lands at position ``lengths[b]`` in
     block ``block_table[b, lengths[b] // BS]``, which the scheduler must
@@ -104,14 +110,15 @@ def decode_attend_paged(params, cfg, x, pool, block_table, lengths):
     bidx = torch.arange(B, device=x.device)
     logical = (lengths // bs).clamp(0, block_table.shape[1] - 1)
     phys = block_table[bidx, logical.long()]
-    write_kv_rows(pool, phys, lengths % bs, k[:, 0], v[:, 0])
+    write_kv_rows(pool, phys, lengths % bs, k[:, 0], v[:, 0], kv_spec)
     out = kops.paged_attention(q.reshape(B, hq, hd), pool, block_table,
-                               lengths + 1, mode="decode")
+                               lengths + 1, mode="decode", kv_format=kv_spec)
     out = out.reshape(B, 1, hq * hd).to(x.dtype)
     return out @ params["wo"], pool
 
 
-def verify_attend_paged(params, cfg, x, pool, block_table, lengths):
+def verify_attend_paged(params, cfg, x, pool, block_table, lengths, *,
+                        kv_spec=None):
     """Multi-token decode (speculative verify, suffix prefill) against a
     paged KV pool, through kernel K3.
 
@@ -121,7 +128,8 @@ def verify_attend_paged(params, cfg, x, pool, block_table, lengths):
     first (IN PLACE), then every row attends causally within the window.
     A write whose logical block lies past the table (a pad row of a slot
     near max_len) goes to the null block 0, never clipped into the
-    slot's own last block, which holds live K/V. Returns
+    slot's own last block, which holds live K/V. With a quantized
+    ``kv_spec`` all K1 rows quantize at the write frontier. Returns
     (out (B, K1, d), pool).
     """
     B, K1, _ = x.shape
@@ -139,9 +147,9 @@ def verify_attend_paged(params, cfg, x, pool, block_table, lengths):
         logical < nbmax,
         block_table.gather(1, logical.clamp(0, nbmax - 1)),
         0)
-    write_kv_rows(pool, phys, pos % bs, k, v)
+    write_kv_rows(pool, phys, pos % bs, k, v, kv_spec)
     out = kops.paged_attention(q.contiguous(), pool, block_table, lengths,
-                               mode="verify")
+                               mode="verify", kv_format=kv_spec)
     out = out.reshape(B, K1, hq * hd).to(x.dtype)
     return out @ params["wo"], pool
 

@@ -114,15 +114,19 @@ class Model:
         return transformer.decode_step(params, self.cfg, cache, tokens, pos,
                                        ctx)
 
-    def init_paged_cache(self, layout):
-        return transformer.init_paged_cache(self.cfg, layout, self.device)
+    def init_paged_cache(self, layout, spec=None):
+        """Block pools on this model's device; ``spec`` (a
+        ``paged_kv.PoolSpec``) selects an int8/fp8 block format."""
+        return transformer.init_paged_cache(self.cfg, layout, self.device,
+                                            spec)
 
     def pack_prefill_into_paged(self, layout, pools, dense_caches,
-                                block_ids):
+                                block_ids, spec=None):
         """Batched install (in place): block_ids (N, nbp) per prefill
-        row."""
+        row; ``spec`` quantizes the pool writes (scales land
+        alongside)."""
         return transformer.pack_prefill_into_paged(
-            self.cfg, layout, pools, dense_caches, block_ids)
+            self.cfg, layout, pools, dense_caches, block_ids, spec)
 
     def decode_step_paged(self, params, pools, block_table, lengths, tokens,
                           ctx: RunCtx):

@@ -1,8 +1,9 @@
 """Paged KV cache: a shared pool of token blocks + per-sequence block tables.
 
 Counterpart of ``repro/models/paged_kv.py`` (bf16/f32 pools, the
-refcounting allocator and the prefix index; quantized pools and the cross
-arena are later slices). Physical
+int8/fp8 pools of ``PoolSpec`` with their per-(token, head) scales, the
+refcounting allocator and the prefix index; the cross arena is a later
+slice). Physical
 storage is a pool of fixed-size blocks shared by all decode slots, and a
 per-sequence block table maps logical token positions to physical
 blocks, so cache memory scales with ``sum(len_i)``.
@@ -10,6 +11,8 @@ blocks, so cache memory scales with ``sum(len_i)``.
 Layout per full-attention layer stack (count = layers in the group):
 
     k_pool, v_pool: (count, num_blocks, block_size, n_kv_heads, head_dim)
+    k_scale, v_scale: (count, num_blocks, block_size, n_kv_heads) f32,
+                      only in a quantized pool (int8 / fp8 payloads)
 
 Physical block 0 is the reserved *null block*: retired or empty slots
 and pad tails point at it, so their discarded writes land somewhere
@@ -28,6 +31,12 @@ import dataclasses
 import torch
 
 NULL_BLOCK = 0
+
+KV_DTYPES = ("bf16", "int8", "fp8")
+
+# fp8 e4m3 saturates at +-448; values past it cast to NaN, not inf, so
+# the quantizer must clip BEFORE the dtype cast.
+_FP8_MAX = 448.0
 
 
 def blocks_for(n_tokens: int, block_size: int) -> int:
@@ -324,55 +333,210 @@ class PrefixIndex:
 
 
 # ---------------------------------------------------------------------------
+# Pool format: PoolSpec + KV quantization
+# ---------------------------------------------------------------------------
+
+
+@dataclasses.dataclass(frozen=True)
+class PoolSpec:
+    """Static description of one paged pool's physical block format.
+
+    The one source of truth for how K/V blocks are stored: the payload
+    dtype (``bf16`` keeps the model compute dtype; ``int8`` / ``fp8``
+    store a low-precision payload plus one f32 scale per (token row, kv
+    head) as extra ``k_scale`` / ``v_scale`` pool leaves), the block
+    geometry, and the physical head dim (``padded_head_dim`` pads
+    blocks wider than the model's head dim; 0 means unpadded). Frozen
+    and hashable, like JAX's. ``kv_dtype="bf16"`` with no padding yields
+    exactly the pool tree of an engine without a spec. Head-sharded
+    pools are not ported (``head_sharded=True`` raises).
+    """
+
+    kv_dtype: str = "bf16"                # "bf16" | "int8" | "fp8"
+    block_size: int = 16
+    n_kv_heads: int = 1
+    head_dim: int = 64
+    padded_head_dim: int = 0              # 0 = no padding
+    head_sharded: bool = False
+
+    def __post_init__(self):
+        if self.kv_dtype not in KV_DTYPES:
+            raise ValueError(f"kv_dtype must be one of {KV_DTYPES}, "
+                             f"got {self.kv_dtype!r}")
+        if self.padded_head_dim and self.padded_head_dim < self.head_dim:
+            raise ValueError("padded_head_dim < head_dim")
+        if self.head_sharded:
+            raise NotImplementedError(
+                "head-sharded paged pools are not ported yet (ROADMAP "
+                "queue 1: 'multi-device')")
+
+    @property
+    def quantized(self) -> bool:
+        return self.kv_dtype != "bf16"
+
+    @property
+    def store_dtype(self):
+        """Payload dtype blocks are stored in (None = the cache dtype)."""
+        if self.kv_dtype == "int8":
+            return torch.int8
+        if self.kv_dtype == "fp8":
+            return torch.float8_e4m3fn
+        return None
+
+    @property
+    def qmax(self) -> float:
+        """Largest representable payload magnitude (scale denominator)."""
+        return 127.0 if self.kv_dtype == "int8" else _FP8_MAX
+
+    @property
+    def pool_head_dim(self) -> int:
+        """Physical last-axis width of pool blocks (padded or not)."""
+        return self.padded_head_dim or self.head_dim
+
+
+def make_pool_spec(cfg, layout: PagedLayout, *,
+                   kv_dtype: str = "bf16") -> PoolSpec:
+    """Build the (unpadded) ``PoolSpec`` for a model config + paged
+    layout."""
+    return PoolSpec(kv_dtype=kv_dtype, block_size=layout.block_size,
+                    n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
+
+
+def quantize_kv(x, spec: PoolSpec):
+    """Quantize K or V rows to the spec's payload dtype + scales.
+
+    x: (..., Hkv, D) rows. Returns ``(payload, scale)``: payload shaped
+    like x in ``spec.store_dtype``, scale (..., Hkv) f32 — one absmax
+    scale per (token row, kv head), so a one-token decode append is
+    self-contained and never requantizes its block. A zero row keeps
+    scale 0 behind a divide guard (payload 0, dequant exact). int8
+    rounds half to even; fp8 clips to +-448 before the cast. Every
+    division is a true f32 division (never a multiply by a rounded
+    reciprocal), so payload and scales equal JAX's bit for bit."""
+    xf = x.float()
+    # a device-side fill, not torch.tensor: no blocking host copy
+    qmax = torch.full((), spec.qmax, dtype=torch.float32, device=x.device)
+    scale = xf.abs().amax(-1) / qmax
+    q = xf / torch.where(scale > 0, scale, 1.0)[..., None]
+    q = q.clamp(-spec.qmax, spec.qmax)
+    if spec.kv_dtype == "int8":
+        q = torch.round(q)
+    return q.to(spec.store_dtype), scale
+
+
+def dequantize_kv(payload, scale):
+    """Inverse of ``quantize_kv``: f32 rows from payload + scales."""
+    return payload.float() * scale[..., None]
+
+
+def _pad_head_dim(x, hd_pool: int):
+    """Zero-pad the last axis of K/V rows to the pool's physical width."""
+    pad = hd_pool - x.shape[-1]
+    return torch.nn.functional.pad(x, (0, pad)) if pad > 0 else x
+
+
+def _raw(t):
+    """A one-byte float pool as uint8 for indexed writes (the same bytes;
+    integer index_put runs on every backend)."""
+    return t.view(torch.uint8) if t.dtype == torch.float8_e4m3fn else t
+
+
+# ---------------------------------------------------------------------------
 # Device side (in place)
 # ---------------------------------------------------------------------------
 
 
-def write_kv_rows(pool, phys, off, k, v):
+def write_kv_rows(pool, phys, off, k, v, spec: PoolSpec = None):
     """Scatter new K/V rows at the decode/verify append frontier, IN
     PLACE.
 
-    pool: {"k", "v"} of (NB, BS, Hkv, D); phys/off: integer index
-    tensors selecting (block, slot-in-block) per row, (B,) for a decode
-    step or (B, K1) for a verify window; k/v: (..., Hkv, D) new rows
-    matching the index shape. Rows aimed at the same place (the null
-    block, from retired slots and pad rows) land in unspecified order,
-    which is harmless because the null block is only read masked."""
+    pool: {"k", "v"} of (NB, BS, Hkv, Dp), plus ``k_scale`` / ``v_scale``
+    (NB, BS, Hkv) when quantized; phys/off: integer index tensors
+    selecting (block, slot-in-block) per row, (B,) for a decode step or
+    (B, K1) for a verify window; k/v: (..., Hkv, D) new rows matching the
+    index shape. With a spec the rows are zero-padded to the pool's head
+    dim, and with a quantized spec they are quantized per (row, head),
+    the scales landing at the same (phys, off). Rows aimed at the same
+    place (the null block, from retired slots and pad rows) land in
+    unspecified order, which is harmless because the null block is only
+    read masked."""
     phys, off = phys.long(), off.long()
-    pool["k"][phys, off] = k.to(pool["k"].dtype)
-    pool["v"][phys, off] = v.to(pool["v"].dtype)
+    if spec is not None:
+        k = _pad_head_dim(k, spec.pool_head_dim)
+        v = _pad_head_dim(v, spec.pool_head_dim)
+    if spec is None or not spec.quantized:
+        pool["k"][phys, off] = k.to(pool["k"].dtype)
+        pool["v"][phys, off] = v.to(pool["v"].dtype)
+        return pool
+    for name, x in (("k", k), ("v", v)):
+        payload, scale = quantize_kv(x, spec)
+        _raw(pool[name])[phys, off] = _raw(payload)
+        pool[name + "_scale"][phys, off] = scale
     return pool
 
 
-def init_layer_pool(cfg, layout: PagedLayout, dtype, device, lead=()):
-    """Zeroed block pool {"k", "v"} of ``lead + (NB, BS, Hkv, D)``."""
+def init_layer_pool(cfg, layout: PagedLayout, dtype, device, lead=(),
+                    spec: PoolSpec = None):
+    """Zeroed block pool {"k", "v"} of ``lead + (NB, BS, Hkv, Dp)``, Dp
+    the spec's pool head dim. A quantized spec stores its payload dtype
+    and adds f32 ``k_scale`` / ``v_scale`` leaves of ``lead + (NB, BS,
+    Hkv)``; ``None`` (or a bf16 spec without padding) yields the pool of
+    an engine without a spec."""
+    hd = spec.pool_head_dim if spec is not None else cfg.head_dim
     shape = tuple(lead) + (layout.num_blocks, layout.block_size,
-                           cfg.n_kv_heads, cfg.head_dim)
-    return {"k": torch.zeros(shape, dtype=dtype, device=device),
-            "v": torch.zeros(shape, dtype=dtype, device=device)}
+                           cfg.n_kv_heads, hd)
+    if spec is None or not spec.quantized:
+        return {"k": torch.zeros(shape, dtype=dtype, device=device),
+                "v": torch.zeros(shape, dtype=dtype, device=device)}
+    return {"k": torch.zeros(shape, dtype=spec.store_dtype, device=device),
+            "v": torch.zeros(shape, dtype=spec.store_dtype, device=device),
+            "k_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device),
+            "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
+                                   device=device)}
 
 
-def pack_prefill_kv(pool, dense_kv, block_ids, block_size):
+def pool_bytes(pools) -> int:
+    """Bytes of every leaf of a (nested) pool tree, scales included."""
+    if isinstance(pools, dict):
+        return sum(pool_bytes(v) for v in pools.values())
+    return pools.numel() * pools.element_size()
+
+
+def pack_prefill_kv(pool, dense_kv, block_ids, block_size,
+                    spec: PoolSpec = None):
     """Scatter a batch of prefilled dense caches into pool blocks, IN
     PLACE.
 
-    pool: {"k", "v"} of (..., NB, BS, Hkv, D); dense_kv: {"k", "v"} of
-    (..., N, S, Hkv, D) with S == block_ids.shape[1] * BS (zero past each
-    row's true length); block_ids: (N, nbp) physical destinations, one
-    row per prefilled sequence. Leading (stacked layer) dims broadcast.
-    Rows' real blocks are disjoint; pad-tail and batch-filler entries all
-    point at the null block, where their writes collide harmlessly.
+    pool: {"k", "v"} of (..., NB, BS, Hkv, Dp) (plus the scale leaves
+    when quantized); dense_kv: {"k", "v"} of (..., N, S, Hkv, D) with
+    S == block_ids.shape[1] * BS (zero past each row's true length);
+    block_ids: (N, nbp) physical destinations, one row per prefilled
+    sequence. Leading (stacked layer) dims broadcast. With a quantized
+    ``spec`` the dense rows are quantized per (token, head) and the
+    scales land in ``k_scale`` / ``v_scale`` through the same flat block
+    indices. Rows' real blocks are disjoint; pad-tail and batch-filler
+    entries all point at the null block, where their writes collide
+    harmlessly.
     """
     if block_ids.dim() == 1:              # single-sequence convenience
         block_ids = block_ids[None]
     n, nbp = block_ids.shape
     flat = block_ids.reshape(-1).long()
+    quant = spec is not None and spec.quantized
     for name in ("k", "v"):
         p, d = pool[name], dense_kv[name]
+        if spec is not None:
+            d = _pad_head_dim(d, spec.pool_head_dim)
         lead = p.shape[:-4]
         hkv, hd = p.shape[-2:]
+        if quant:
+            d, s = quantize_kv(d, spec)
+            sp = pool[name + "_scale"]
+            sp[..., flat, :, :] = s.reshape(lead + (n * nbp, block_size,
+                                                    hkv))
         d = d.reshape(lead + (n * nbp, block_size, hkv, hd))
-        p[..., flat, :, :, :] = d.to(p.dtype)
+        _raw(p)[..., flat, :, :, :] = _raw(d.to(p.dtype))
     return pool
 
 

@@ -40,9 +40,13 @@ class RunCtx:
     """Per-call model context, the counterpart of JAX's ``RunCtx``.
 
     Kernel dispatch needs no field here: the backend follows the tensors'
-    device (``kernels/ops.py``). The sharding and quantized-pool fields
-    of JAX's context arrive with their slices.
+    device (``kernels/ops.py``). ``kv_spec`` is the paged pool's
+    ``paged_kv.PoolSpec`` (None: a pool in the model dtype), threaded to
+    the pool's write frontiers and kernels. The sharding fields of JAX's
+    context arrive with their slice.
     """
+
+    kv_spec: object = None
 
 
 def check_supported(cfg) -> None:
@@ -178,22 +182,26 @@ def apply_block(p, cfg, x, positions):
     return _ffn_part(p, cfg, x + out), kv
 
 
-def apply_block_decode_paged(p, cfg, x, pool, block_table, lengths):
+def apply_block_decode_paged(p, cfg, x, pool, block_table, lengths,
+                             kv_spec=None):
     """One-token ``attn`` block over the paged pool (written in place)."""
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
     out, _ = attn_lib.decode_attend_paged(p["attn"], cfg, xn, pool,
-                                          block_table, lengths)
+                                          block_table, lengths,
+                                          kv_spec=kv_spec)
     return _ffn_part(p, cfg, x + out)
 
 
-def apply_block_verify_paged(p, cfg, x, pool, block_table, lengths):
+def apply_block_verify_paged(p, cfg, x, pool, block_table, lengths,
+                             kv_spec=None):
     """K1-token ``attn`` block for the verify window: ONE multi-query
     pass over the paged pool (written in place). The pool commits by
     construction: the host rewinds the length pointer over a rejected
     tail, no block is copied."""
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
     out, _ = attn_lib.verify_attend_paged(p["attn"], cfg, xn, pool,
-                                          block_table, lengths)
+                                          block_table, lengths,
+                                          kv_spec=kv_spec)
     return _ffn_part(p, cfg, x + out)
 
 
@@ -279,26 +287,32 @@ def init_cache(cfg, batch: int, max_len: int, device):
                                                  device, lead=(count,)))
 
 
-def init_paged_cache(cfg, layout, device):
+def init_paged_cache(cfg, layout, device, spec=None):
     """Stacked per-layer block pools for the paged serving engine
-    (zero-filled; block tables and lengths live with the scheduler)."""
+    (zero-filled; block tables and lengths live with the scheduler).
+    ``spec`` (a ``paged_kv.PoolSpec``) selects the block format: a
+    quantized spec stores int8/fp8 payloads plus scale leaves."""
     check_supported(cfg)
     dtype = model_dtype(cfg)
     return map_layer_tree(cfg, lambda gk, pk, kind, count:
                           paged_kv.init_layer_pool(cfg, layout, dtype,
-                                                   device, lead=(count,)))
+                                                   device, lead=(count,),
+                                                   spec=spec))
 
 
-def pack_prefill_into_paged(cfg, layout, pools, dense_caches, block_ids):
+def pack_prefill_into_paged(cfg, layout, pools, dense_caches, block_ids,
+                            spec=None):
     """Install a batch of prefilled dense caches (``prefill`` with
     ``max_len == block_ids.shape[1] * block_size``) into the pools, IN
     PLACE. ``block_ids`` (N, nbp): per prefill row the physical
-    destinations of its cache blocks, pad tails at the null block."""
+    destinations of its cache blocks, pad tails at the null block.
+    ``spec`` quantizes the rows on the way in (scales land alongside)."""
     for gk, pattern, _ in layer_walk(cfg):
         for pi in range(len(pattern)):
             pk = f"p{pi}"
             paged_kv.pack_prefill_kv(pools[gk][pk], dense_caches[gk][pk],
-                                     block_ids, layout.block_size)
+                                     block_ids, layout.block_size,
+                                     spec=spec)
     return pools
 
 
@@ -313,10 +327,10 @@ def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
     K/V rows are written into ``pools`` IN PLACE. Returns
     (logits (B, V) f32, pools).
     """
-    del ctx
     x = _embed(params, cfg, tokens)
     for _, (lp, pool) in _layers(cfg, params["groups"], pools):
-        x = apply_block_decode_paged(lp, cfg, x, pool, block_table, lengths)
+        x = apply_block_decode_paged(lp, cfg, x, pool, block_table, lengths,
+                                     ctx.kv_spec)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x)[:, 0], pools
 
@@ -348,10 +362,10 @@ def decode_verify_paged(params, cfg, pools, block_table, lengths, tokens,
     [1, K1] counts the fed tokens whose cache state to keep. Returns
     (out_tokens, commit, pools).
     """
-    del ctx
     x = _embed(params, cfg, tokens)
     for _, (lp, pool) in _layers(cfg, params["groups"], pools):
-        x = apply_block_verify_paged(lp, cfg, x, pool, block_table, lengths)
+        x = apply_block_verify_paged(lp, cfg, x, pool, block_table, lengths,
+                                     ctx.kv_spec)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     out_tokens, commit = commit_fn(_logits(params, cfg, x))
     return out_tokens, commit, select_verify_state(cfg, pools, commit)

@@ -1,5 +1,6 @@
-"""The port's hand-written CUDA kernels (K1, K2, K3) against their
-plain-torch versions, on the card.
+"""The port's hand-written CUDA kernels (K1, K2, K3, and K4, the
+quantized-pool path of K2 and K3) against their plain-torch versions, on
+the card.
 
 Marked ``cuda``: on a machine without a GPU every test skips (the
 ``cuda_device`` fixture decides at run time). This file imports no JAX,
@@ -17,8 +18,10 @@ import pytest
 import torch
 
 from repro_torch.kernels import flash_attention as fa_mod
+from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa_mod
 from repro_torch.kernels import ref
+from repro_torch.models import paged_kv
 
 pytestmark = pytest.mark.cuda
 
@@ -204,6 +207,11 @@ def test_kernels_reject_unsupported_shapes(cuda_device):
     bt = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
     with pytest.raises(ValueError, match="group"):
         pa_mod.paged_decode_attention(q, pool, pool, bt, bt[0])
+    with pytest.raises(ValueError, match="group \\* head dim"):
+        wide = torch.zeros((2, 4, 1, 256), device=cuda_device)
+        pa_mod.paged_decode_attention(
+            torch.zeros((1, 8, 256), device=cuda_device), wide, wide, bt,
+            bt[0])
     with pytest.raises(ValueError, match="int32"):
         pa_mod.paged_decode_attention(q[:, :4], pool, pool, bt.long(),
                                       bt[0])
@@ -221,3 +229,163 @@ def test_kernels_reject_unsupported_shapes(cuda_device):
     with pytest.raises(ValueError, match=r"\(B, K1, Hq, D\)"):
         pa_mod.paged_verify_attention(q, pool, pool, bt, bt[0])
 
+
+
+# ---------------------------------------------------------------------------
+# K4: int8 / fp8 payloads with per-(token, head) scales, dequantized inside
+# K2 and K3
+# ---------------------------------------------------------------------------
+
+
+def _quant_pool(kp, vp, kv_dtype):
+    """An int8/fp8 pool (payload + f32 scales) from float pools."""
+    spec = paged_kv.PoolSpec(kv_dtype=kv_dtype, n_kv_heads=kp.shape[2],
+                             head_dim=kp.shape[3])
+    kq, ks = paged_kv.quantize_kv(kp, spec)
+    vq, vs = paged_kv.quantize_kv(vp, spec)
+    return kq, vq, ks, vs
+
+
+K4_CASES = [  # hq, hkv, D, bs, window
+    (4, 4, 16, 4, None), (4, 2, 32, 8, 5), (8, 2, 64, 16, None),
+    (16, 16, 128, 16, None), (16, 4, 128, 16, 40), (8, 1, 128, 16, None),
+    (16, 16, 256, 16, None), (8, 2, 256, 16, 9), (4, 2, 64, 6, None),
+]
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,D,bs,window", K4_CASES)
+def test_paged_decode_k4_matches_plain(cuda_device, kv_dtype, dtype, hq,
+                                       hkv, D, bs, window):
+    """K2 over an int8/fp8 pool (K4): every head dim 16..256, GQA groups
+    1..8, windows, a block size that is no power of two, and a length
+    past the table's end."""
+    gen = torch.Generator().manual_seed(hq * 100 + D + bs + 1)
+    nbmax = 6
+    lengths = [7, 8, 1, bs * nbmax, 2 * bs + 3, bs * nbmax + 5]
+    q, kp, vp, bt, ln = _pool_case(gen, len(lengths), hq, hkv, D, bs,
+                                   nbmax, lengths, dtype, cuda_device)
+    kq, vq, ks, vs = _quant_pool(kp.float(), vp.float(), kv_dtype)
+    n0 = pa_mod.paged_decode_attention.k4_launches
+    n2 = pa_mod.paged_decode_attention.launches
+    got = pa_mod.paged_decode_attention(q, kq, vq, bt, ln, window=window,
+                                        k_scale=ks, v_scale=vs)
+    assert pa_mod.paged_decode_attention.k4_launches == n0 + 1
+    assert pa_mod.paged_decode_attention.launches == n2
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.paged_decode_attention(q, kq, vq, bt, ln, window=window,
+                                           k_scale=ks, v_scale=vs), dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("K1,hq,hkv,D,bs,window", [
+    (5, 4, 4, 16, 4, None), (5, 4, 2, 32, 8, 5), (5, 16, 16, 128, 16, None),
+    (5, 16, 4, 128, 16, 40), (5, 16, 16, 256, 16, None),
+    (5, 8, 1, 64, 16, None), (64, 8, 2, 64, 16, 20),
+    (256, 16, 16, 128, 16, None), (64, 16, 16, 256, 16, None),
+])
+def test_paged_verify_k4_matches_plain(cuda_device, kv_dtype, dtype, K1, hq,
+                                       hkv, D, bs, window):
+    """K3 over an int8/fp8 pool (K4), both regimes (verify windows and
+    suffix prefill), lengths at zero, mid-block, deep and past the
+    table."""
+    gen = torch.Generator().manual_seed(K1 * 1000 + hq * 100 + D + bs + 1)
+    nbmax = -(-(K1 + 3 * bs + 2) // bs) + 2
+    lengths = [0, 3, 2 * bs, nbmax * bs - 2, bs + 1]
+    q, kp, vp, bt, ln = _verify_case(gen, len(lengths), K1, hq, hkv, D, bs,
+                                     nbmax, lengths, dtype, cuda_device)
+    kq, vq, ks, vs = _quant_pool(kp.float(), vp.float(), kv_dtype)
+    n0 = pa_mod.paged_verify_attention.k4_launches
+    n3 = pa_mod.paged_verify_attention.launches
+    got = pa_mod.paged_verify_attention(q, kq, vq, bt, ln, window=window,
+                                        k_scale=ks, v_scale=vs)
+    assert pa_mod.paged_verify_attention.k4_launches == n0 + 1
+    assert pa_mod.paged_verify_attention.launches == n3
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.paged_verify_attention(q, kq, vq, bt, ln, window=window,
+                                           k_scale=ks, v_scale=vs), dtype)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("mode", ["decode", "verify"])
+def test_k4_padded_head_dim_is_exact(cuda_device, kv_dtype, mode):
+    """A 64-wide head in a 128-wide pool (zero tail) through the
+    dispatcher: q is zero-padded, the softmax scale comes from the
+    logical 64, and the result equals the unpadded pool's."""
+    gen = torch.Generator().manual_seed(21)
+    lengths = [9, 40, 1]
+    q, kp, vp, bt, ln = _verify_case(gen, 3, 5, 8, 2, 64, 16, 4, lengths,
+                                     torch.float32, cuda_device)
+    if mode == "decode":
+        q = q[:, 0].contiguous()
+    kq, vq, ks, vs = _quant_pool(kp, vp, kv_dtype)
+    pad = torch.nn.functional.pad
+    wide = {"k": pad(kq.view(torch.uint8), (0, 64)).view(kq.dtype),
+            "v": pad(vq.view(torch.uint8), (0, 64)).view(vq.dtype),
+            "k_scale": ks, "v_scale": vs}
+    got = ops.paged_attention(q, wide, bt, ln, mode=mode)
+    want = ops.paged_attention(q, {"k": kq, "v": vq, "k_scale": ks,
+                                   "v_scale": vs}, bt, ln, mode=mode)
+    assert got.shape == q.shape
+    _close(got, want, torch.float32)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+def test_k4_reads_only_visible_rows(cuda_device, kv_dtype):
+    """Table entries past every row's limit are never dereferenced, and
+    the payload and scales of rows no query can see (past the limits,
+    below the window floors) are never read: poisoned with out-of-range
+    ids and NaN, K2 and K3 still match the plain version on clean data."""
+    gen = torch.Generator().manual_seed(13)
+    lengths, window, bs = [21, 0, 37], 9, 4
+    q, kp, vp, bt, ln = _verify_case(gen, 3, 5, 4, 2, 32, bs, 12, lengths,
+                                     torch.float32, cuda_device)
+    bt[1] = 0
+    kq, vq, ks, vs = _quant_pool(kp, vp, kv_dtype)
+    want_v = ref.paged_verify_attention(q, kq, vq, bt, ln, window=window,
+                                        k_scale=ks, v_scale=vs)
+    want_d = ref.paged_decode_attention(q[:, 0].contiguous(), kq, vq, bt,
+                                        ln + 1, window=window, k_scale=ks,
+                                        v_scale=vs)
+    table = bt.clone()
+    ks2, vs2 = ks.clone(), vs.clone()
+    for b, L in enumerate(lengths):
+        if b == 1:
+            continue
+        for pos in list(range(0, max(L + 1 - window, 0))) \
+                + list(range(L + 5, 12 * bs)):
+            blk = int(bt[b, pos // bs])
+            ks2[blk, pos % bs] = float("nan")
+            vs2[blk, pos % bs] = float("nan")
+        table[b, -(-(L + 5) // bs):] = 1 << 30
+    _close(pa_mod.paged_verify_attention(q, kq, vq, table, ln,
+                                         window=window, k_scale=ks2,
+                                         v_scale=vs2), want_v, torch.float32)
+    _close(pa_mod.paged_decode_attention(q[:, 0].contiguous(), kq, vq, table,
+                                         ln + 1, window=window, k_scale=ks2,
+                                         v_scale=vs2), want_d, torch.float32)
+
+
+def test_k4_rejects_what_it_cannot_take(cuda_device):
+    """No fallback: a payload or scale the kernel cannot take raises."""
+    q = torch.zeros((1, 4, 16), device=cuda_device)
+    bt = torch.zeros((1, 1), dtype=torch.int32, device=cuda_device)
+    pool = torch.zeros((2, 4, 2, 16), device=cuda_device)
+    ks = torch.zeros((2, 4, 2), device=cuda_device)
+    i8 = pool.to(torch.int8)
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
+        pa_mod.paged_decode_attention(q, i8, i8, bt, bt[0], k_scale=ks)
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        pa_mod.paged_decode_attention(q, i8, i8, bt, bt[0])
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        pa_mod.paged_decode_attention(q, pool.to(torch.uint8),
+                                      pool.to(torch.uint8), bt, bt[0],
+                                      k_scale=ks, v_scale=ks)
+    with pytest.raises(ValueError, match="float8_e4m3fn"):
+        pa_mod.paged_verify_attention(q[:, None], i8, i8, bt, bt[0],
+                                      k_scale=ks.double(), v_scale=ks)
+    with pytest.raises(ValueError, match="scales"):
+        pa_mod.paged_verify_attention(q[:, None], i8, i8, bt, bt[0],
+                                      k_scale=ks[:, :2], v_scale=ks)

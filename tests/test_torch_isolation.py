@@ -71,7 +71,6 @@ def test_default_device_raises_without_cuda():
 
 @pytest.mark.parametrize("field,value,item", [
     ("backend", "static", "StaticBackend"),
-    ("kv_dtype", "int8", "K4 quantized pool"),
     ("overlap", True, "overlap on CUDA streams"),
     ("mesh", object(), "multi-device"),
 ])

@@ -111,16 +111,17 @@ def test_paged_decode_scale_from_logical_head_dim(rng):
 
 
 def test_unported_paged_modes_raise(rng):
-    """An unknown mode is a ValueError (JAX ops.py:160); quantized pools
-    (kernel K4) are not ported yet."""
+    """An unknown mode is a ValueError (JAX ops.py:160), and so is a pool
+    that carries only one of the two scale leaves of a quantized pool
+    (kernel K4 reads both)."""
     q, kp, vp, bt, ln = _pool_case(rng, 2, 4, 2, 16, 4, 2, [3, 5],
                                    "float32")
     with pytest.raises(ValueError, match="mode"):
         ops.paged_attention(q[1], {"k": kp[1], "v": vp[1]}, bt[1], ln[1],
                             mode="prefill")
-    with pytest.raises(NotImplementedError, match="K4"):
+    with pytest.raises(ValueError, match="both k_scale and v_scale"):
         ops.paged_attention(q[1], {"k": kp[1], "v": vp[1],
-                                   "k_scale": kp[1]}, bt[1], ln[1])
+                                   "k_scale": kp[1][..., 0]}, bt[1], ln[1])
 
 
 def test_cpu_tensors_never_launch_a_kernel(rng):

@@ -11,8 +11,8 @@ The chain, weakest to strongest:
      on olmo, yi and gemma smoke;
   4. greedy Engine tokens with every drafter equal the JAX
      SpecDecodeBackend and the port's non-speculative engine; seeded
-     tokens equal the port's non-speculative engine (its sampler is not
-     jax.random's);
+     tokens equal the port's non-speculative engine (seeded tokens
+     against the JAX engine: tests/test_torch_threefry.py);
   5. the scheduler invariants of tests/test_spec_decode.py hold.
 
 Inputs are made by numpy from a seed and fed to both packages; weights
