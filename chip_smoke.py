@@ -3,7 +3,8 @@
 check it end to end.
 
     python3 chip_smoke.py            # from the repository root
-    python3 chip_smoke.py --profile  # adds a torch.profiler breakdown
+    python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of
+                                     # serve and recurrent_serve
 
 Phases, one JSON line each (any failed check exits non-zero):
 
@@ -52,6 +53,25 @@ Phases, one JSON line each (any failed check exits non-zero):
               phase's bf16 outputs (reported, not gated); then fp8 with
               speculation on spec_serve's traffic, where every verify
               runs through K4.
+8. parity_recurrent — recurrentgemma_2b (RG-LRU + local attention) and
+              h2o_danube_3_4b (sliding-window attention) smoke in f32, cuda
+              against cpu on a pool tight enough to preempt, with rings
+              (window 16) that wrap: greedy, seeded, speculative (ngram,
+              K 3) and (recurrentgemma) int8 tokens equal, no leak, K5 and
+              K1 launched on cuda.
+9. recurrent_serve — recurrentgemma_2b at full width in bf16 (26
+              layers, seeded random weights, depth not cut; 8 slots,
+              max_len 2560 so the 2048-row rings wrap) serves two
+              2,200-token prompts (one (2, 2560) prefill: K1's window
+              bites, the rings wrap in prefill) and then the serve
+              phase's 16 requests; the K5 and K1 counters are reset before
+              and must be > 0 after, the pool must end empty.
+
+The kernels phase also holds K5 (the RG-LRU scan) at recurrent_serve's
+(8, 512, 2560) and (2, 2560, 2560) f32 shapes (1e-5; in f32 the kernel
+equals its plain version bit for bit) and K1 at head dims 256
+(recurrentgemma MQA 10/1 window 2048 at Sq 512 and 2560; gemma_7b
+16/16 causal) and 120 (h2o_danube GQA 32/8 window 4096).
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power
 limit from nvidia-smi, and as the last line
@@ -75,6 +95,8 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+K5_TOL = 1e-5                      # JAX's rglru_scan tolerance (f32)
+LONG, LONG_NEW = 2200, 64          # recurrent_serve: prompts past the window
 PARITY_TOL = 1e-3                  # f32 logits, cuda vs cpu summation order
 N_REQ, HALF = 16, 8                # serve: first HALF prompts in bucket 512
 SHARED, PHRASE = 256, 8            # spec_serve: shared prefix, repeated phrase
@@ -182,7 +204,11 @@ def phase_build():
           "sources": [s.name for s in _build.sources()]})
 
 
-def k1_case(torch, name, B, hq, hkv, S, D, dtype, library):
+def k1_case(torch, name, B, hq, hkv, S, D, dtype, library, window=None):
+    """K1 at (B, hq/hkv, S, D), causal, optional window; the library
+    time is one ``scaled_dot_product_attention`` call on the same
+    tensors (``enable_gqa`` for hkv < hq), causal, or with a boolean
+    mask where the window bites."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa, ref
@@ -191,24 +217,66 @@ def k1_case(torch, name, B, hq, hkv, S, D, dtype, library):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q, k, v = (torch.randn((B, h, S, D), generator=gen, device="cuda")
                .to(dt) for h in (hq, hkv, hkv))
-    got = fa.flash_attention(q, k, v, causal=True)
-    want = ref.flash_attention(q, k, v, causal=True)
+    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
-    pairs = B * hq * S * (S + 1) // 2            # visible (q, k) pairs
+    w = min(window or S, S)
+    # visible (q, k) pairs: query i sees min(i + 1, window) keys
+    pairs = B * hq * (w * (w + 1) // 2 + (S - w) * w)
     nbytes = q.element_size() * (2 * B * hq * S * D + 2 * B * hkv * S * D)
     bound_ms, bound_by = bound(4 * D * pairs, nbytes, dtype)
+    bites = window is not None and window < S
+    lib = None
+    if library:
+        pos = torch.arange(S, device="cuda")
+        mask = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - (window or S))
+        kw = {"enable_gqa": hkv < hq}
+        kw.update({"attn_mask": mask} if bites else {"is_causal": True})
+        lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
+            q, k, v, **kw))
     row = {"phase": "kernels", "kernel": "K1", "case": name,
-           "shape": [B, hq, hkv, S, D], "dtype": dtype,
+           "shape": [B, hq, hkv, S, D], "dtype": dtype, "window": window,
            "max_abs_err": err, "tol": TOL[dtype],
-           "ms": cuda_ms(torch, lambda: fa.flash_attention(q, k, v)),
-           "plain_ms": cuda_ms(torch, lambda: ref.flash_attention(q, k, v)),
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": cuda_ms(torch, lambda: F.scaled_dot_product_attention(
-               q, k, v, is_causal=True)) if library else None}
+           "ms": cuda_ms(torch, lambda: fa.flash_attention(
+               q, k, v, causal=True, window=window)),
+           "plain_ms": cuda_ms(torch, lambda: ref.flash_attention(
+               q, k, v, causal=True, window=window)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
+           "library": None if lib is None else (
+               "sdpa, boolean causal+window mask" if bites
+               else "sdpa, is_causal")}
     emit(row)
     check(math.isfinite(err) and err <= TOL[dtype],
           f"K1 {name}: max abs err {err} > {TOL[dtype]}")
+    return row
+
+
+def k5_case(torch, name, B, T, D):
+    """K5 at (B, T, D) in f32, the RG-LRU's serving dtype (its
+    coefficients are f32 in a bf16 model): decays in (0.8, 1) like the
+    RG-LRU's, inputs standard normal. No PyTorch call computes a
+    diagonal linear recurrence, so there is no library time."""
+    from repro_torch.kernels import rglru_scan as k5, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    a = 0.8 + 0.2 * torch.rand((B, T, D), generator=gen, device="cuda")
+    x = torch.randn((B, T, D), generator=gen, device="cuda")
+    got = k5.rglru_scan(a, x)
+    want = ref.linear_scan(a, x)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    bound_ms, bound_by = bound(2 * B * T * D, 3 * 4 * B * T * D, "float32")
+    row = {"phase": "kernels", "kernel": "K5", "case": name,
+           "shape": [B, T, D], "dtype": "float32", "max_abs_err": err,
+           "bit_equal": bool(torch.equal(got, want)), "tol": K5_TOL,
+           "ms": cuda_ms(torch, lambda: k5.rglru_scan(a, x)),
+           "plain_ms": cuda_ms(torch, lambda: ref.linear_scan(a, x), reps=3),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    emit(row)
+    check(math.isfinite(err) and err <= K5_TOL,
+          f"K5 {name}: max abs err {err} > {K5_TOL}")
     return row
 
 
@@ -367,7 +435,7 @@ def k4_padded_case(torch, np, name, lengths, hq, hkv, D, Dp, kv_dtype,
 def phase_kernels(torch, np, prompts):
     first = [len(p) + 1 for p in prompts[:HALF]]   # first decode lengths
     k1 = k1_case(torch, "main", HALF, 16, 16, 512, 128, "bfloat16", True)
-    k1_case(torch, "gqa4", 2, 16, 4, 256, 128, "bfloat16", False)
+    k1_case(torch, "gqa4", 2, 16, 4, 256, 128, "bfloat16", True)
     k1_case(torch, "f32", 2, 16, 16, 128, 128, "float32", False)
     k2 = k2_case(torch, np, "main", first, 16, 16, 128, "bfloat16")
     k2_case(torch, np, "gqa4", first, 16, 4, 128, "bfloat16")
@@ -394,7 +462,19 @@ def phase_kernels(torch, np, prompts):
             "bfloat16", "fp8")
     k4_padded_case(torch, np, "decode_int8_d64_in_128", first, 16, 16, 64,
                    128, "int8")
-    return k1, k2, k3, k4d, k4v
+    # recurrent_serve's shapes: K5 over the RG-LRU width 2560 at the
+    # (8, 512) admission and the (2, 2560) long-prompt admission; K1 at
+    # head dim 256 (recurrentgemma MQA, gemma_7b) and 120 (h2o_danube)
+    k5 = k5_case(torch, "admit_8x512", 8, 512, 2560)
+    k5_case(torch, "long_2x2560", 2, 2560, 2560)
+    k1_case(torch, "rg_d256_mqa10", 8, 10, 1, 512, 256, "bfloat16", True,
+            window=2048)
+    k1_case(torch, "rg_d256_long_window", 2, 10, 1, 2560, 256, "bfloat16",
+            True, window=2048)
+    k1_case(torch, "gemma_d256", 8, 16, 16, 512, 256, "bfloat16", True)
+    k1_case(torch, "danube_d120_gqa4", 8, 32, 8, 512, 120, "bfloat16", True,
+            window=4096)
+    return k1, k2, k3, k4d, k4v, k5
 
 
 def phase_parity(torch, np):
@@ -428,8 +508,9 @@ def phase_parity(torch, np):
             return torch.from_numpy(a).to(d)
         pl, dense = m.prefill(params[d], {"tokens": t(toks)}, ctx,
                               max_len=16, length=t(lens))
-        pools = m.pack_prefill_into_paged(layout, m.init_paged_cache(layout),
-                                          dense, t(ids))
+        pools = m.pack_prefill_into_paged(
+            layout, m.init_paged_cache(layout), dense,
+            t(np.arange(3, dtype=np.int32)), t(np.ones(3, bool)), t(ids))
         dl, _ = m.decode_step_paged(params[d], pools, t(table), t(lens),
                                     t(feed), ctx)
         out[d] = (pl.cpu(), dl.cpu())
@@ -651,7 +732,7 @@ def phase_serve(torch, np, prompts, news, warm, profile):
     check(tuple(logits.shape) == (1, 16, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "serve: bad prefill logits")
     if profile:
-        phase_profile(torch, engine, prompts, news)
+        phase_profile(torch, engine, prompts, news, cfg.name)
     return launches, outs, model, params
 
 
@@ -855,7 +936,148 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
     return launches
 
 
-def phase_profile(torch, engine, prompts, news):
+def phase_parity_recurrent(torch, np):
+    """recurrentgemma_2b and h2o_danube_3_4b smoke in f32, cuda against
+    cpu, same weights: five prompts of 6-20 tokens, 16 new each, on 3
+    slots and 13 usable blocks (the pool preempts; every 16-row ring
+    wraps). Greedy, seeded (threefry), speculative (ngram, K 3) and,
+    for recurrentgemma, an int8 pool: tokens equal, no leak, and every
+    cuda run launches K1 (windowed prefill) and, for recurrentgemma, K5."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as k5
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    rng = np.random.default_rng(SEED + 3)
+    prompts = [list(map(int, rng.integers(0, 256, n)))
+               for n in (9, 14, 20, 6, 17)]
+    geo = dict(num_slots=3, block_size=4, num_blocks=14, max_len=64)
+    greedy = [SamplingParams(max_tokens=16)] * len(prompts)
+    seeded = [SamplingParams(max_tokens=16, temperature=0.9, top_k=30,
+                             top_p=0.95, seed=s) for s in range(len(prompts))]
+    runs = {"greedy": ({}, greedy), "seeded": ({}, seeded),
+            "spec3": ({"spec_tokens": 3}, greedy)}
+    out, stats = {}, {}
+    for arch in ("recurrentgemma_2b", "h2o_danube_3_4b"):
+        cfg = get_config(arch).smoke()
+        models = {d: Model(cfg, device=d) for d in ("cpu", "cuda")}
+        params = {"cpu": models["cpu"].init(seed=SEED)}
+        params["cuda"] = weights.to_device(params["cpu"], "cuda")
+        arch_runs = dict(runs)
+        if arch == "recurrentgemma_2b":
+            arch_runs["int8"] = ({"kv_dtype": "int8"}, greedy)
+        for name, (kw, sp) in arch_runs.items():
+            for d, m in models.items():
+                n0 = (fa.flash_attention.launches, k5.rglru_scan.launches)
+                eng = Engine(m, params[d], EngineConfig(**geo, **kw),
+                             device=d)
+                key = (arch, name, d)
+                out[key] = eng.generate(prompts, sp)
+                st = eng.stats()
+                stats[key] = {
+                    "blocks_used": st["blocks_used"],
+                    "preemptions": st["preemptions"],
+                    "K1": fa.flash_attention.launches - n0[0],
+                    "K5": k5.rglru_scan.launches - n0[1]}
+    pairs = {(a, n) for a, n, _ in out}
+    equal = {f"{a}/{n}": out[(a, n, "cpu")] == out[(a, n, "cuda")]
+             for a, n in sorted(pairs)}
+    emit({"phase": "parity_recurrent", "dtype": "float32",
+          "tokens_equal": equal,
+          "stats": {"/".join(k): v for k, v in stats.items()}})
+    check(all(equal.values()), f"parity_recurrent: cuda tokens != cpu "
+          f"tokens {equal}")
+    for key, st in stats.items():
+        check(st["blocks_used"] == 0, f"parity_recurrent: {key} leaked")
+        check(key[1] not in ("greedy", "int8") or st["preemptions"] >= 1,
+              f"parity_recurrent: {key} never preempted")
+        check(key[2] == "cpu" or (st["K1"] > 0 and (
+            key[0] != "recurrentgemma_2b" or st["K5"] > 0)),
+            f"parity_recurrent: {key} never launched K1 / K5 {st}")
+
+
+def long_prompts(np):
+    """recurrent_serve's two prompts past the 2048-token window."""
+    rng = np.random.default_rng(SEED + 4)
+    return [list(map(int, rng.integers(0, 256000, LONG))) for _ in range(2)]
+
+
+def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
+    """Full-width recurrentgemma_2b in bf16 through ``Engine``: two
+    LONG-token prompts first (one (2, 2560) prefill: K1's window bites,
+    the rings wrap in prefill and stay wrapped through decode), then the
+    serve phase's 16 requests (their first admission is one (8, 512)
+    prefill through K5 and K1)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as k5
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    cfg = get_config("recurrentgemma_2b")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=SEED)
+    engine = Engine(model, params, EngineConfig(
+        num_slots=8, block_size=16, num_blocks=1024, max_len=2560),
+        device="cuda")
+    engine.generate([warm], SamplingParams(max_tokens=2))
+    engine.backend.reset_telemetry()              # warm-up excluded
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reqs = long_prompts(np) + prompts
+    budgets = [LONG_NEW, LONG_NEW] + news
+
+    fa.flash_attention.launches = 0
+    k5.rglru_scan.launches = 0
+    t0 = time.monotonic()
+    outs = engine.generate(reqs, [SamplingParams(max_tokens=n)
+                                  for n in budgets])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    launches = {"K1": fa.flash_attention.launches,
+                "K5": k5.rglru_scan.launches}
+    st = engine.stats()
+    ntok = sum(len(o) for o in outs)
+    ring = engine.backend.pools["g0"]["p2"]["k"]  # (count, slots, 2048, ..)
+    logits = model.prefill(params, {"tokens": torch.tensor(
+        [reqs[0][:16]], device="cuda")}, transformer.RunCtx())[0]
+    emit({"phase": "recurrent_serve", "config": cfg.name, "dtype": cfg.dtype,
+          "requests": len(outs), "tokens": ntok, "seconds": secs,
+          "tok_s": ntok / secs, "launches": launches,
+          "steps": st["steps"], "decode_device_s": st["device_s"],
+          "step_ms": 1e3 * st["device_s"] / max(st["steps"], 1),
+          "prefill_calls": st["prefill_calls"],
+          "prefill_tokens": st["prefill_tokens"],
+          "preemptions": st["preemptions"], "blocks_used": st["blocks_used"],
+          "ring_rows": ring.shape[2],
+          "bucketed_prefill": st["bucketed_prefill"],
+          "prefix_cache_enabled": st["prefix_cache"]["enabled"],
+          "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+          "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "first_tokens": outs[0][:8]})
+    check(all(len(o) == n for o, n in zip(outs, budgets)),
+          "recurrent_serve: a request did not emit max_tokens tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "recurrent_serve: token id out of range")
+    check(launches["K5"] > 0 and launches["K1"] > 0,
+          f"recurrent_serve: a kernel was never launched {launches}")
+    check(ring.shape[2] == cfg.local_window < LONG,
+          f"recurrent_serve: ring of {ring.shape[2]} rows does not wrap")
+    check(st["blocks_used"] == 0,
+          f"recurrent_serve: {st['blocks_used']} blocks leaked")
+    check(tuple(logits.shape) == (1, 16, cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "recurrent_serve: bad prefill logits")
+    if profile:
+        phase_profile(torch, engine, prompts, news, cfg.name)
+    return launches
+
+
+def phase_profile(torch, engine, prompts, news, config):
     """Device time by kernel over one admission + 8 decode steps, and
     the share of the window the device was busy (kernel time only)."""
     from torch.autograd import DeviceType
@@ -877,7 +1099,8 @@ def phase_profile(torch, engine, prompts, news):
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    emit({"phase": "profile", "window_s": wall, "device_busy_s": busy,
+    emit({"phase": "profile", "config": config, "window_s": wall,
+          "device_busy_s": busy,
           "busy_share": busy / wall,
           "top": [{"name": e.key[:80], "calls": e.count,
                    "device_ms": e.self_device_time_total / 1e3}
@@ -902,14 +1125,18 @@ def main():
 
     prompts, news, warm = workload(np)
     phase_build()
-    k1, k2, k3, k4d, k4v = phase_kernels(torch, np, prompts)
+    k1, k2, k3, k4d, k4v, k5 = phase_kernels(torch, np, prompts)
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
+    phase_parity_recurrent(torch, np)
     launches, base_outs, model, params = phase_serve(
         torch, np, prompts, news, warm, args.profile)
     launches["K3"] = phase_spec_serve(torch, np)["K3"]
     quant = phase_quant_serve(torch, np, prompts, news, warm, base_outs,
                               model, params)
+    del model, params
+    launches["K5"] = phase_recurrent_serve(torch, np, prompts, news, warm,
+                                           args.profile)["K5"]
 
     kernels = []
     for row, key, name, src, tpu in (
@@ -927,7 +1154,10 @@ def main():
              "src/repro/kernels/paged_attention.py:43"),
             (k4v, "K4_verify", "K4 paged_verify_attention (int8/fp8 pool)",
              "src/repro_torch/csrc/paged_verify_attention.cu",
-             "src/repro/kernels/paged_attention.py:43")):
+             "src/repro/kernels/paged_attention.py:43"),
+            (k5, "K5", "rglru_scan",
+             "src/repro_torch/csrc/rglru_scan.cu",
+             "src/repro/kernels/rglru_scan.py:52")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu,
                         "launches": {**launches, **quant}[key],

@@ -13,18 +13,27 @@
 // rate (989 TFLOP/s bf16) bounds it, not memory. This first version
 // does its products on the CUDA cores in f32 (no wgmma), so it runs far
 // from that bound; what the design does about the rest:
-//   * one CTA per (64-row q tile, b * Hq): the q tile stays in shared
-//     memory and the CTA computes its own kv head, so GQA needs no copy
-//     of k/v and q/k/v are read once per CTA from their strided layout
-//     (no transpose copy in front of the kernel);
+//   * one CTA per (BQ-row q tile, b * Hq): the q tile stays in shared
+//     memory and the CTA computes its own kv head, so GQA and MQA
+//     (group 10 for recurrentgemma) need no copy of k/v and q/k/v are
+//     read once per CTA from their strided layout (no transpose copy in
+//     front of the kernel);
 //   * k/v tiles of 64 keys are staged in shared memory as f32 (k
-//     transposed, padded strides) so the 8 x 4 score and 8 x (D/16)
+//     transposed, padded strides) so the RPT x 4 score and RPT x (DP/16)
 //     output register blocks of each thread read without bank
 //     conflicts;
 //   * kv tiles entirely past the causal diagonal or outside the window
 //     are skipped before any load, the predicate of _fa_kernel;
-//   * the ragged edge (Sq, Skv not multiples of 64) is masked in the
-//     kernel instead of padding the inputs.
+//   * the ragged edge (Sq, Skv not multiples of the tiles) is masked in
+//     the kernel instead of padding the inputs.
+// Head dims: the template width DP is 16, 32, 64, 128 or 256, and the
+// logical head dim D (<= DP) is a runtime value. Lanes past D load zero
+// (the zero tail adds nothing to q.k) and store nothing, so a head dim
+// that is no power of two (h2o-danube's 120, in a DP = 128 tile) runs
+// without a padded copy of q/k/v. DP = 256 (gemma, recurrentgemma)
+// takes BQ = 32 query rows a CTA instead of 64: at 64 the f32 staging
+// needs 214,528 B of shared memory and 128 accumulators a thread on top
+// of the score block, which spills; at 32 it is 173,312 B and 64.
 // Tensor cores (wgmma + TMA) are the next step for this kernel.
 
 #include <math_constants.h>
@@ -37,18 +46,20 @@ using repro::from_f32;
 using repro::kMaskValue;
 using repro::to_f32;
 
-constexpr int BQ = 64;           // query rows per CTA
 constexpr int BK = 64;           // keys per kv tile
 constexpr int THREADS = 128;     // 8 row groups x 16 column lanes
-constexpr int RPT = BQ / 8;      // query rows per thread
 constexpr int KPT = BK / 16;     // keys per thread (cl, cl + 16, ...)
+
+// Query rows per CTA for template width DP (see the head-dim note).
+template <int DP>
+constexpr int kBlockQ = DP > 128 ? 32 : 64;
 
 struct FaParams {
   const void* q;
   const void* k;
   const void* v;
   void* o;
-  int Hq, Sq, Skv, group;
+  int Hq, Sq, Skv, group, D;     // D: logical head dim (<= DP)
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
   long long v_sb, v_sh, v_ss;
@@ -56,20 +67,24 @@ struct FaParams {
   float scale;
 };
 
-template <int D>
+template <int DP>
 constexpr size_t fa_smem_bytes() {
+  constexpr int BQ = kBlockQ<DP>;
   return sizeof(float) *
-         (BQ * (D + 1) + D * (BK + 1) + BK * D + BQ * (BK + 1));
+         (BQ * (DP + 1) + DP * (BK + 1) + BK * DP + BQ * (BK + 1));
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 __global__ void __launch_bounds__(THREADS) fa_kernel(FaParams p) {
-  constexpr int DPT = D / 16;    // output dims per thread (cl + 16 * e)
+  constexpr int BQ = kBlockQ<DP>;
+  constexpr int RPT = BQ / 8;    // query rows per thread
+  constexpr int DPT = DP / 16;   // output dims per thread (cl + 16 * e)
   extern __shared__ float smem[];
-  float* Qs = smem;                       // [BQ][D + 1]
-  float* Kt = Qs + BQ * (D + 1);          // [D][BK + 1]  (k transposed)
-  float* Vs = Kt + D * (BK + 1);          // [BK][D]
-  float* Ps = Vs + BK * D;                // [BQ][BK + 1]
+  float* Qs = smem;                       // [BQ][DP + 1]
+  float* Kt = Qs + BQ * (DP + 1);         // [DP][BK + 1]  (k transposed)
+  float* Vs = Kt + DP * (BK + 1);         // [BK][DP]
+  float* Ps = Vs + BK * DP;               // [BQ][BK + 1]
+  const int D = p.D;
 
   const int tid = threadIdx.x;
   const int rg = tid / 16;
@@ -82,10 +97,11 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(FaParams p) {
   const T* k = static_cast<const T*>(p.k) + b * p.k_sb + hk * p.k_sh;
   const T* v = static_cast<const T*>(p.v) + b * p.v_sb + hk * p.v_sh;
 
-  for (int idx = tid; idx < BQ * D; idx += THREADS) {
-    const int r = idx / D, d = idx % D;
+  for (int idx = tid; idx < BQ * DP; idx += THREADS) {
+    const int r = idx / DP, d = idx % DP;
     const int qp = q_lo + r;
-    Qs[r * (D + 1) + d] = qp < p.Sq ? to_f32(q[qp * p.q_ss + d]) : 0.f;
+    Qs[r * (DP + 1) + d] =
+        qp < p.Sq && d < D ? to_f32(q[qp * p.q_ss + d]) : 0.f;
   }
 
   float m[RPT], l[RPT], acc[RPT][DPT];
@@ -107,12 +123,12 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(FaParams p) {
     if (p.window > 0 && k_lo + BK - 1 <= q_lo - p.window) continue;
 
     __syncthreads();   // previous tile fully consumed (and Qs written)
-    for (int idx = tid; idx < BK * D; idx += THREADS) {
-      const int j = idx / D, d = idx % D;
+    for (int idx = tid; idx < BK * DP; idx += THREADS) {
+      const int j = idx / DP, d = idx % DP;
       const int kp = k_lo + j;
-      const bool in = kp < p.Skv;
+      const bool in = kp < p.Skv && d < D;
       Kt[d * (BK + 1) + j] = in ? to_f32(k[kp * p.k_ss + d]) : 0.f;
-      Vs[j * D + d] = in ? to_f32(v[kp * p.v_ss + d]) : 0.f;
+      Vs[j * DP + d] = in ? to_f32(v[kp * p.v_ss + d]) : 0.f;
     }
     __syncthreads();
 
@@ -122,10 +138,10 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(FaParams p) {
 #pragma unroll
       for (int u = 0; u < KPT; ++u) s[i][u] = 0.f;
 #pragma unroll 4
-    for (int d = 0; d < D; ++d) {
+    for (int d = 0; d < DP; ++d) {
       float qv[RPT], kv[KPT];
 #pragma unroll
-      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(rg * RPT + i) * (D + 1) + d];
+      for (int i = 0; i < RPT; ++i) qv[i] = Qs[(rg * RPT + i) * (DP + 1) + d];
 #pragma unroll
       for (int u = 0; u < KPT; ++u) kv[u] = Kt[d * (BK + 1) + cl + 16 * u];
 #pragma unroll
@@ -176,7 +192,7 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(FaParams p) {
 #pragma unroll
       for (int i = 0; i < RPT; ++i) pv[i] = Ps[(rg * RPT + i) * (BK + 1) + j];
 #pragma unroll
-      for (int e = 0; e < DPT; ++e) vv[e] = Vs[j * D + cl + 16 * e];
+      for (int e = 0; e < DPT; ++e) vv[e] = Vs[j * DP + cl + 16 * e];
 #pragma unroll
       for (int i = 0; i < RPT; ++i)
 #pragma unroll
@@ -192,32 +208,36 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(FaParams p) {
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
-      o[static_cast<long long>(qp) * D + cl + 16 * e] =
-          from_f32<T>(acc[i][e] * inv);
+      if (cl + 16 * e < D)
+        o[static_cast<long long>(qp) * D + cl + 16 * e] =
+            from_f32<T>(acc[i][e] * inv);
   }
 }
 
-template <typename T, int D>
+template <typename T, int DP>
 cudaError_t launch(const FaParams& p, int B, cudaStream_t stream) {
-  constexpr size_t smem = fa_smem_bytes<D>();
+  constexpr int BQ = kBlockQ<DP>;
+  constexpr size_t smem = fa_smem_bytes<DP>();
+  static_assert(smem <= 232448, "K1 tile exceeds the H100's shared memory");
   cudaError_t err = cudaFuncSetAttribute(
-      fa_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fa_kernel<T, DP>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
   const dim3 grid((p.Sq + BQ - 1) / BQ, B * p.Hq);
-  fa_kernel<T, D><<<grid, THREADS, smem, stream>>>(p);
+  fa_kernel<T, DP><<<grid, THREADS, smem, stream>>>(p);
   return cudaGetLastError();
 }
 
+// The narrowest template width that holds the logical head dim.
 template <typename T>
-cudaError_t dispatch(const FaParams& p, int B, int D, cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch<T, 16>(p, B, stream);
-    case 32: return launch<T, 32>(p, B, stream);
-    case 64: return launch<T, 64>(p, B, stream);
-    case 128: return launch<T, 128>(p, B, stream);
-    default: return cudaErrorInvalidValue;
-  }
+cudaError_t dispatch(const FaParams& p, int B, cudaStream_t stream) {
+  if (p.D < 1) return cudaErrorInvalidValue;
+  if (p.D <= 16) return launch<T, 16>(p, B, stream);
+  if (p.D <= 32) return launch<T, 32>(p, B, stream);
+  if (p.D <= 64) return launch<T, 64>(p, B, stream);
+  if (p.D <= 128) return launch<T, 128>(p, B, stream);
+  if (p.D <= 256) return launch<T, 256>(p, B, stream);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
@@ -240,6 +260,7 @@ extern "C" int repro_flash_attention(
   p.Sq = Sq;
   p.Skv = Skv;
   p.group = Hq / Hkv;
+  p.D = D;
   p.q_sb = q_sb; p.q_sh = q_sh; p.q_ss = q_ss;
   p.k_sb = k_sb; p.k_sh = k_sh; p.k_ss = k_ss;
   p.v_sb = v_sb; p.v_sh = v_sh; p.v_ss = v_ss;
@@ -248,7 +269,7 @@ extern "C" int repro_flash_attention(
   p.scale = scale;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   cudaError_t err = dtype == repro::kBF16
-                        ? dispatch<__nv_bfloat16>(p, B, D, s)
-                        : dispatch<float>(p, B, D, s);
+                        ? dispatch<__nv_bfloat16>(p, B, s)
+                        : dispatch<float>(p, B, s);
   return static_cast<int>(err);
 }

@@ -16,12 +16,20 @@ import torch
 
 from . import _build, ref
 
-HEAD_DIMS = (16, 32, 64, 128)       # head dims the CUDA kernel is built for
+MAX_HEAD_DIM = 256                  # widest template tile of the kernel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh DType
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
              + [ctypes.c_float, ctypes.c_void_p])
+
+
+def supports(head_dim: int) -> bool:
+    """True when the CUDA kernel takes this head dim: any width up to
+    256, run in the narrowest template tile of 16, 32, 64, 128 or 256
+    lanes that holds it (lanes past the head dim load zero and store
+    nothing, so 120 runs in the 128 tile without a padded copy)."""
+    return 0 < head_dim <= MAX_HEAD_DIM
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
@@ -49,8 +57,9 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
             or Hq % Hkv != 0:
         raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
                          f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if D not in HEAD_DIMS:
-        raise ValueError(f"flash_attention: head dim {D} not in {HEAD_DIMS}")
+    if not supports(D):
+        raise ValueError(f"flash_attention: head dim {D} is not in "
+                         f"1..{MAX_HEAD_DIM}")
     if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
         raise ValueError("flash_attention: head dim must be contiguous")
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)

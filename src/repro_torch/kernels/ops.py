@@ -3,21 +3,21 @@
 The backend follows the tensors: CPU tensors run the plain versions in
 ``kernels/ref.py``, CUDA tensors the hand-written kernels (K1
 ``flash_attention``, K2 ``paged_decode_attention``, K3
-``paged_verify_attention``, K4 their quantized-pool path). Each kernel
-masks its own ragged edge, so nothing is padded to block multiples here.
+``paged_verify_attention``, K4 their quantized-pool path, K5
+``rglru_scan``). Each kernel masks its own ragged edge, so nothing is
+padded to block multiples here.
 """
 
 from __future__ import annotations
 
 import math
 
-import torch
-
 from .flash_attention import flash_attention
 from .paged_attention import paged_decode_attention as _paged_decode
 from .paged_attention import paged_verify_attention as _paged_verify
+from .rglru_scan import rglru_scan
 
-__all__ = ["flash_attention", "paged_attention"]
+__all__ = ["flash_attention", "paged_attention", "rglru_scan"]
 
 
 def paged_attention(q, pool, block_table, lengths, *, mode="decode",
@@ -33,9 +33,10 @@ def paged_attention(q, pool, block_table, lengths, *, mode="decode",
     ``pool``: ``{"k", "v"}`` of (NB, BS, Hkv, Dp); a quantized pool also
     carries ``k_scale`` / ``v_scale`` (NB, BS, Hkv) f32 leaves, detected
     here and dequantized inside whichever backend runs (kernel K4 on the
-    card). When the pool is wider than q's head dim (a padded pool), q is
-    zero-padded to the pool's width and the output sliced back; the
-    softmax scale always derives from q's logical head dim.
+    card). A pool wider than q's head dim (a padded pool) is read at q's
+    logical width (the plain version drops the zero tail; the kernel
+    wrappers zero-pad q to the pool's width and slice the output back);
+    the softmax scale always derives from q's logical head dim.
     ``kv_format``, the pool's ``paged_kv.PoolSpec`` or None, is checked
     against the pool: its head dims and quantization must match.
     """
@@ -54,10 +55,7 @@ def paged_attention(q, pool, block_table, lengths, *, mode="decode",
             f"pool (head dim {Dp}, leaves {sorted(pool)}) and q (head dim "
             f"{D}) do not match kv_format {kv_format}")
     if scale is None:
-        scale = 1.0 / math.sqrt(D)       # logical head dim, pre-padding
-    if Dp != D:
-        q = torch.nn.functional.pad(q, (0, Dp - D))
+        scale = 1.0 / math.sqrt(D)       # logical head dim
     fn = _paged_decode if mode == "decode" else _paged_verify
-    out = fn(q, pool["k"], pool["v"], block_table, lengths, window=window,
-             scale=scale, k_scale=k_scale, v_scale=v_scale)
-    return out[..., :D] if Dp != D else out
+    return fn(q, pool["k"], pool["v"], block_table, lengths, window=window,
+              scale=scale, k_scale=k_scale, v_scale=v_scale)

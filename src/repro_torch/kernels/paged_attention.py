@@ -12,7 +12,10 @@ the pool exists. A CPU tensor runs the plain version in
 ``kernels/ref.py``; a CUDA tensor launches the hand-written kernel on
 the current stream, or raises. There is no fallback from one to the
 other. Launches are counted per function: ``.launches`` for float pools
-(K2, K3), ``.k4_launches`` for quantized ones (K4).
+(K2, K3), ``.k4_launches`` for quantized ones (K4). A pool wider than
+q's head dim (a padded pool, ``PoolSpec.padded_head_dim``) is read at
+q's width by the plain version; for the kernels, which take one width,
+the wrapper zero-pads q to the pool's and slices the output back.
 """
 
 from __future__ import annotations
@@ -34,6 +37,24 @@ _ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
              + [ctypes.c_float, ctypes.c_void_p])
 _PV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                 + [ctypes.c_float, ctypes.c_void_p])
+
+
+def supports(head_dim: int, group: int, mode: str = "decode") -> bool:
+    """True when the CUDA kernel of ``mode`` ("decode": K2, "verify":
+    K3; K4 likewise) is built for this pool head dim and query-per-kv
+    group. K2 also keeps group * head dim within its merge buffer."""
+    ok = head_dim in HEAD_DIMS and group in GROUPS
+    return ok and (mode != "decode" or group * head_dim <= MAX_GROUP_DIMS)
+
+
+def _pad_q(q, k_pool, scale):
+    """(q zero-padded to the pool's head dim, the logical width, the
+    softmax scale from the logical width)."""
+    D, Dp = q.shape[-1], k_pool.shape[-1]
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    if Dp > D:
+        q = torch.nn.functional.pad(q, (0, Dp - D))
+    return q, D, scale
 
 
 def _check_pool_args(name, q, k_pool, v_pool, block_table, lengths,
@@ -81,9 +102,11 @@ def _check_pool_args(name, q, k_pool, v_pool, block_table, lengths,
             f"lengths {tuple(lengths.shape)}"
             + (f", scales {tuple(k_scale.shape)} / {tuple(v_scale.shape)}"
                if quant else ""))
-    if D not in HEAD_DIMS or Hq // Hkv not in GROUPS:
+    mode = "decode" if q.dim() == 3 else "verify"
+    if not supports(D, Hq // Hkv, mode):
         raise ValueError(f"{name}: head dim {D} / group {Hq // Hkv} not in "
-                         f"{HEAD_DIMS} / {GROUPS}")
+                         f"{HEAD_DIMS} / {GROUPS} (K2: group * head dim <= "
+                         f"{MAX_GROUP_DIMS})")
     if not all(t.is_contiguous() for t in tensors):
         raise ValueError(f"{name}: inputs must be contiguous")
     if k_pool.data_ptr() % 16 or v_pool.data_ptr() % 16:
@@ -115,18 +138,14 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
     if q.dim() != 3:
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} is "
                          "not (B, Hq, D)")
+    q, D0, scale = _pad_q(q, k_pool, scale)
     pdtype = _check_pool_args("paged_decode_attention", q, k_pool, v_pool,
                               block_table, lengths, k_scale, v_scale)
-    if q.shape[2] * (q.shape[1] // k_pool.shape[2]) > MAX_GROUP_DIMS:
-        raise ValueError(f"paged_decode_attention: head dim {q.shape[2]} "
-                         f"with group {q.shape[1] // k_pool.shape[2]}: "
-                         f"group * head dim > {MAX_GROUP_DIMS}")
     B, Hq, D = q.shape
     BS, Hkv = k_pool.shape[1:3]
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out[..., :D0]
     fn = _build.function("repro_paged_decode_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), block_table.data_ptr(),
@@ -138,7 +157,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
         paged_decode_attention.launches += 1
     else:
         paged_decode_attention.k4_launches += 1
-    return out
+    return out[..., :D0]
 
 
 paged_decode_attention.launches = 0      # K2
@@ -166,14 +185,14 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
     if q.dim() != 4:
         raise ValueError(f"paged_verify_attention: q {tuple(q.shape)} is "
                          "not (B, K1, Hq, D)")
+    q, D0, scale = _pad_q(q, k_pool, scale)
     pdtype = _check_pool_args("paged_verify_attention", q, k_pool, v_pool,
                               block_table, lengths, k_scale, v_scale)
     B, K1, Hq, D = q.shape
     BS, Hkv = k_pool.shape[1:3]
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
     out = torch.empty((B, K1, Hq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
-        return out
+        return out[..., :D0]
     fn = _build.function("repro_paged_verify_attention", _PV_ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), block_table.data_ptr(),
@@ -185,7 +204,7 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
         paged_verify_attention.launches += 1
     else:
         paged_verify_attention.k4_launches += 1
-    return out
+    return out[..., :D0]
 
 
 paged_verify_attention.launches = 0      # K3

@@ -50,12 +50,14 @@ def _gather_dequant(pool, scale_pool, bt, B, S, Hkv, D):
     """Gather pool blocks into (B, S, Hkv, D) f32 sequences, applying the
     per-(token, head) dequant scales when the pool is quantized (JAX
     ref.py ``_gather_dequant``). A one-byte float pool is gathered as
-    its bytes, then read back as fp8."""
+    its bytes, then read back as fp8. A pool wider than D (a padded
+    pool) is read at width D: its zero tail adds nothing, and dropping
+    it makes the output bit-equal to the unpadded pool's."""
     if pool.dtype == torch.float8_e4m3fn:
         x = pool.view(torch.uint8)[bt].view(pool.dtype)
     else:
         x = pool[bt]
-    x = x.reshape(B, S, Hkv, D).float()
+    x = x.reshape(B, S, Hkv, pool.shape[-1])[..., :D].float()
     if scale_pool is not None:
         x = x * scale_pool[bt].reshape(B, S, Hkv)[..., None]
     return x
@@ -138,3 +140,25 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
     probs = torch.softmax(logits, dim=-1)
     probs = torch.where(valid.any(-1)[:, :, None, None], probs, 0.0)
     return torch.einsum("bjhs,bhsd->bjhd", probs, vx).to(q.dtype)
+
+
+def linear_scan(a, x, h0=None):
+    """Reference diagonal linear recurrence h_t = a_t * h_{t-1} + x_t
+    along axis 1. a, x: (B, T, D); h0: (B, D) or None (zeros).
+
+    A sequential loop over T with the carry in f32 and each h_t stored
+    in x's dtype: the order of the Pallas kernel body
+    (``rglru_scan.py::_scan_kernel``), not the associative scan of JAX's
+    ``ref.linear_scan`` (the two agree to f32 rounding, ~1e-7
+    relative). The product and the sum round separately, as K5 rounds
+    them, so on f32 inputs the kernel equals this bit for bit.
+    """
+    B, T, D = x.shape
+    h = (torch.zeros((B, D), dtype=torch.float32, device=x.device)
+         if h0 is None else h0.float())
+    af, xf = a.float(), x.float()
+    out = torch.empty((B, T, D), dtype=x.dtype, device=x.device)
+    for t in range(T):
+        h = af[:, t] * h + xf[:, t]
+        out[:, t] = h
+    return out

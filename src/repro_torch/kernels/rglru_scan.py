@@ -1,0 +1,59 @@
+"""K5 wrapper: the RG-LRU's diagonal linear recurrence (prefill scan).
+
+Counterpart of ``repro/kernels/rglru_scan.py::rglru_scan_pallas``.
+A CPU tensor runs the plain version (``kernels/ref.linear_scan``); a
+CUDA tensor launches the hand-written kernel in ``csrc/rglru_scan.cu``
+on the current stream, or raises. There is no fallback from one to the
+other. The kernel masks ragged T and D itself, so nothing is padded.
+"""
+
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _build, ref
+from .flash_attention import DTYPES
+
+_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 + [ctypes.c_void_p]
+
+
+def rglru_scan(a, x, h0=None):
+    """a, x: (B, T, D) float32 or bfloat16 (one dtype); h0: (B, D) or
+    None -> h (B, T, D) in x's dtype, h_t = a_t * h_{t-1} + x_t with the
+    carry in f32."""
+    if x.device.type == "cpu":
+        return ref.linear_scan(a, x, h0)
+    tensors = [a, x] + ([h0] if h0 is not None else [])
+    if x.device.type != "cuda" or any(t.device != x.device for t in tensors):
+        raise ValueError(f"rglru_scan: tensors on "
+                         f"{[str(t.device) for t in tensors]}; expected one "
+                         "CUDA device")
+    if x.dtype not in DTYPES or a.dtype != x.dtype:
+        raise ValueError(f"rglru_scan: dtypes a {a.dtype}, x {x.dtype}; "
+                         "expected both float32 or both bfloat16")
+    if x.dim() != 3 or a.shape != x.shape \
+            or (h0 is not None and h0.shape != (x.shape[0], x.shape[2])):
+        raise ValueError(f"rglru_scan: shapes a {tuple(a.shape)}, x "
+                         f"{tuple(x.shape)}, h0 "
+                         f"{None if h0 is None else tuple(h0.shape)}")
+    if not (a.is_contiguous() and x.is_contiguous()):
+        raise ValueError("rglru_scan: a and x must be contiguous")
+    B, T, D = x.shape
+    out = torch.empty((B, T, D), dtype=x.dtype, device=x.device)
+    if out.numel() == 0:
+        return out
+    if h0 is not None:
+        h0 = h0.float().contiguous()
+    fn = _build.function("repro_rglru_scan", _ARGTYPES)
+    err = fn(a.data_ptr(), x.data_ptr(),
+             h0.data_ptr() if h0 is not None else None, out.data_ptr(),
+             DTYPES[x.dtype], B, T, D,
+             torch.cuda.current_stream(x.device).cuda_stream)
+    _build.check(err, "rglru_scan")
+    rglru_scan.launches += 1
+    return out
+
+
+rglru_scan.launches = 0

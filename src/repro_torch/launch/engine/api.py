@@ -350,8 +350,8 @@ class Engine:
     Parameters
     ----------
     model : Model
-        The target model; configs the port cannot serve yet (windowed,
-        recurrent, MoE, encoder-decoder, VLM) raise NotImplementedError.
+        The target model; configs the port cannot serve yet (xLSTM,
+        MoE, encoder-decoder, VLM) raise NotImplementedError.
     params
         Its parameter tree, on ``device``.
     cfg : EngineConfig, optional

@@ -503,7 +503,9 @@ class PagedBackend:
 
     def _full_batch(self, rows):
         """One right-padded batch prefill; each row's cache is scattered
-        into its blocks (pad tails and filler rows at the null block).
+        into its blocks (pad tails and filler rows at the null block) and
+        its per-slot state (rings, RG-LRU carries) installed in its slot
+        (``row_of_slot`` / ``valid``: filler rows install nothing).
         Returns row-ordered next-token logits (len(rows), V)."""
         tok_w, cache_w, Nb = self._prefill_width(rows[0][3], len(rows))
         self._prefill_shapes.add((tok_w, Nb))
@@ -511,18 +513,23 @@ class PagedBackend:
         toks = np.zeros((Nb, tok_w), np.int32)
         lens = np.ones((Nb,), np.int32)    # batch fillers: harmless len 1
         ids = np.full((Nb, nbc), paged_kv.NULL_BLOCK, np.int32)
+        row_of_slot = np.zeros((self.cfg.num_slots,), np.int32)
+        valid = np.zeros((self.cfg.num_slots,), bool)
         for r, (i, req, cached, S, block_ids) in enumerate(rows):
             toks[r, :S] = cached
             lens[r] = S
             ids[r, :len(block_ids)] = block_ids
+            row_of_slot[i] = r
+            valid[i] = True
             self.lengths[i] = S
             self.prefill_tokens += S
         length = self._dev(lens)
         logits, dense = self.model.prefill(
             self.params, {"tokens": self._dev(toks)}, self.ctx,
             max_len=cache_w, length=length, rows=length - 1)
-        self.model.pack_prefill_into_paged(self.layout, self.pools, dense,
-                                           self._dev(ids), spec=self.kv_spec)
+        self.model.pack_prefill_into_paged(
+            self.layout, self.pools, dense, self._dev(row_of_slot),
+            self._dev(valid), self._dev(ids), spec=self.kv_spec)
         self.prefill_calls += 1
         self.prefill_reqs += len(rows)
         return logits[:len(rows)]

@@ -10,9 +10,11 @@ stream position), so rejection sampling collapses to exact-match
 acceptance and outputs equal the non-speculative engine's, greedy and
 seeded alike (``sampling.verify_accept``).
 
-Rollback is free: every layer the port serves lives in the block pool,
-so a rejected tail is erased by rewinding the slot's length pointer and
-returning surplus tail blocks to the allocator, with no block copies.
+Rollback is free for the block pool: a rejected tail is erased by
+rewinding the slot's length pointer and returning surplus tail blocks to
+the allocator, with no block copies. Per-slot state (windowed rings,
+RG-LRU carries) is committed by picking the candidate state at the
+accept boundary (``transformer.select_verify_state``).
 
 Two drafters:
 

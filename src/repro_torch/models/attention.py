@@ -1,15 +1,16 @@
 """Attention blocks: GQA/MQA projections, prefill attention, paged decode
 and verify, dense decode.
 
-Counterpart of ``repro/models/attention.py`` for the full-attention
-path: prefill runs kernel K1 through ``kernels/ops.flash_attention``;
+Counterpart of ``repro/models/attention.py`` for full and windowed
+attention: prefill runs kernel K1 through ``kernels/ops.flash_attention``
+(with its window for sliding-window and local layers);
 paged decode appends the new K/V row to the block pool and runs kernel
 K2, the speculative verify (and suffix prefill) appends K1 rows and runs
 kernel K3, both through ``kernels/ops.paged_attention``. With a
 quantized ``kv_spec`` the rows are quantized where they enter the pool
-and dequantized inside the kernels (K4). The dense
-decode over linear per-slot caches (the draft model's) is plain torch,
-as JAX computes it in plain jnp. Projections are bias-optional
+and dequantized inside the kernels (K4). The decode over per-slot caches
+(the linear caches of the draft model, the ring buffers of windowed
+layers) is plain torch, as JAX computes it in plain jnp. Projections are bias-optional
 (qwen2-vl) with optional per-head QK-norm (qwen3).
 """
 
@@ -65,8 +66,9 @@ def _project_qkv(params, cfg, xq, xkv):
     return q, k, v
 
 
-def attend(params, cfg, x, positions):
-    """Causal full-sequence (prefill) self-attention through kernel K1.
+def attend(params, cfg, x, positions, window=None):
+    """Causal full-sequence (prefill) self-attention through kernel K1,
+    over the last ``window`` positions when set (SWA, local layers).
 
     x: (B, S, d). Returns ``(output, {"k", "v"})`` with the rotated
     (B, S, Hkv, D) keys and values for the prefill cache. q/k/v enter K1
@@ -77,7 +79,7 @@ def attend(params, cfg, x, positions):
         q = layers.apply_rope(q, positions, cfg.rope_theta)
         k = layers.apply_rope(k, positions, cfg.rope_theta)
     out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=True)
+                               v.transpose(1, 2), causal=True, window=window)
     B, S, _ = x.shape
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"], {"k": k, "v": v}
@@ -154,21 +156,27 @@ def verify_attend_paged(params, cfg, x, pool, block_table, lengths, *,
     return out @ params["wo"], pool
 
 
-def init_kv_cache(cfg, batch: int, max_len: int, dtype, device, lead=()):
-    """Zeroed linear cache {"k", "v"} of ``lead + (batch, max_len, Hkv,
-    D)`` for the dense decode path."""
-    shape = tuple(lead) + (batch, max_len, cfg.n_kv_heads, cfg.head_dim)
+def init_kv_cache(cfg, batch: int, max_len: int, dtype, device, lead=(),
+                  window=None):
+    """Zeroed cache {"k", "v"} of ``lead + (batch, size, Hkv, D)``: a ring
+    buffer of ``size = min(window, max_len)`` for windowed layers, a
+    linear cache of ``max_len`` otherwise."""
+    size = min(window, max_len) if window else max_len
+    shape = tuple(lead) + (batch, size, cfg.n_kv_heads, cfg.head_dim)
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attend_batched(params, cfg, x, cache, pos):
-    """Single-token decode over a linear cache with PER-SLOT positions.
+def decode_attend_batched(params, cfg, x, cache, pos, window=None):
+    """Single-token decode over a per-slot cache with PER-SLOT positions.
 
-    x: (B, 1, d); cache: {"k", "v"} of (B, S, Hkv, D), written IN PLACE;
-    pos: (B,) int each slot's current position (its cached length). The
-    new K/V row lands at ``pos`` (clipped to the cache), and row b
-    attends cache slots <= pos[b]. Plain torch, the jnp math of JAX's
+    x: (B, 1, d); cache: {"k", "v"} of (B, size, Hkv, D), written IN
+    PLACE; pos: (B,) int each slot's current position (its cached
+    length). A linear cache takes the new K/V row at ``pos`` (clipped to
+    the cache) and row b attends slots <= pos[b]. A ring (``window``
+    set) takes it at ``pos % size`` and, once the ring has wrapped, every
+    slot holds an in-window position: RoPE is applied at write time, so
+    ring order does not matter. Plain torch, the jnp math of JAX's
     version. Returns (out (B, 1, d), cache).
     """
     B = x.shape[0]
@@ -179,11 +187,14 @@ def decode_attend_batched(params, cfg, x, cache, pos):
         q = layers.apply_rope(q, posb, cfg.rope_theta)
         k = layers.apply_rope(k, posb, cfg.rope_theta)
     size = cache["k"].shape[1]
-    slot = pos.long().clamp(0, size - 1)
+    p = pos.long()
+    slot = torch.remainder(p, size) if window else p.clamp(0, size - 1)
     bidx = torch.arange(B, device=x.device)
     cache["k"][bidx, slot] = k[:, 0].to(cache["k"].dtype)
     cache["v"][bidx, slot] = v[:, 0].to(cache["v"].dtype)
-    valid = torch.arange(size, device=x.device)[None, :] <= pos.long()[:, None]
+    valid = torch.arange(size, device=x.device)[None, :] <= p[:, None]
+    if window:
+        valid = valid | ((p[:, None] + 1) >= size)
     qg = q.float().reshape(B, hkv, hq // hkv, hd)
     kf = cache["k"].float().transpose(1, 2)                  # (B, Hkv, S, D)
     vf = cache["v"].float().transpose(1, 2)
@@ -193,3 +204,24 @@ def decode_attend_batched(params, cfg, x, cache, pos):
     out = torch.einsum("bhgs,bhsd->bhgd", probs, vf)
     out = out.reshape(B, 1, hq * hd).to(x.dtype)
     return out @ params["wo"], cache
+
+
+def ring_from_prefill(kv, size, length):
+    """Length-aware ring-cache extraction for right-padded prefill.
+
+    kv: (B, S, Hkv, D) full-sequence keys or values whose first
+    ``length[b]`` positions are real (the rest is bucket padding); size:
+    ring capacity; length: (B,) int true lengths. Returns the (B, size,
+    Hkv, D) ring holding positions [max(0, length - size), length) at
+    slot ``pos % size``, the layout ``decode_attend_batched`` continues
+    from, with never-written slots zeroed (masked by the decode validity
+    predicate).
+    """
+    B = kv.shape[0]
+    s = torch.arange(size, device=kv.device)[None, :]
+    last = length.long()[:, None] - 1                        # (B, 1)
+    # largest position p < length with p % size == s (negative: unset)
+    p = last - torch.remainder(last - s, size)
+    pc = p.clamp(0, kv.shape[1] - 1)
+    ring = kv[torch.arange(B, device=kv.device)[:, None], pc]
+    return ring.masked_fill((p < 0)[..., None, None], 0)

@@ -3,7 +3,8 @@
 Counterpart of ``repro/models/layers.py`` for the dense decoder-only
 path: norms rmsnorm (``(1 + scale)`` convention), layernorm and
 nonparametric (OLMo: LayerNorm without affine), gated and plain MLPs,
-half-split RoPE with f32 angles. Params are plain dicts of tensors.
+half-split RoPE with f32 angles, and the causal depthwise temporal conv
+in front of the RG-LRU. Params are plain dicts of tensors.
 Initializers take a ``lead`` shape so a scan group's stacked
 ``(count, ...)`` leaves are drawn in one call.
 """
@@ -122,3 +123,46 @@ def apply_rope(x, positions, theta: float = 10000.0):
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Causal depthwise temporal conv (Griffin front conv)
+# ---------------------------------------------------------------------------
+
+
+def init_conv1d(gen, dim: int, width: int, dtype, lead=()):
+    return {"w": truncated_normal_init(gen, (width, dim), dtype, stddev=0.1,
+                                       lead=lead),
+            "b": torch.zeros(tuple(lead) + (dim,), dtype=dtype,
+                             device=gen.device)}
+
+
+def conv_state_at(x, width, length):
+    """Causal-conv carry state at a per-row offset.
+
+    x: (B, S, D) conv INPUTS whose first ``length[b]`` positions are real
+    (right-padded prefill); length: (B,) int. Returns the (B, width-1,
+    D) tail ``apply_conv1d`` would carry had row b stopped at
+    ``length[b]``: the last width-1 real inputs, zero-prefixed for rows
+    shorter than the kernel.
+    """
+    B = x.shape[0]
+    xc = torch.cat([x.new_zeros((B, width - 1) + x.shape[2:]), x], dim=1)
+    idx = length.long()[:, None] \
+        + torch.arange(width - 1, device=x.device)[None, :]
+    return xc[torch.arange(B, device=x.device)[:, None], idx]
+
+
+def apply_conv1d(params, x, state=None):
+    """Causal depthwise conv. x: (B, S, D); state: (B, width-1, D) or
+    None (zeros). Returns (y, new_state) where new_state holds the last
+    width-1 inputs. The taps sum in x's dtype in JAX's order."""
+    w = params["w"]
+    width = w.shape[0]
+    if state is None:
+        state = x.new_zeros((x.shape[0], width - 1) + x.shape[2:])
+    xc = torch.cat([state, x], dim=1)
+    S = x.shape[1]
+    y = sum(xc[:, i:i + S] * w[i] for i in range(width))
+    y = y + params["b"]
+    return y.to(x.dtype), xc[:, -(width - 1):]

@@ -2,7 +2,8 @@
 dense decode.
 
 Counterpart of ``repro/models/model.py`` (``ServingCaps``, ``Model``)
-for the decoder-only serving path. ``Model`` also owns the device the
+for the decoder-only serving path (full, windowed and RG-LRU layers).
+``Model`` also owns the device the
 model runs on: ``"cuda"`` by default, which raises on a machine without
 a GPU instead of carrying on on the CPU.
 """
@@ -106,7 +107,8 @@ class Model:
         )
 
     def init_cache(self, batch: int, max_len: int):
-        """Linear per-slot decode caches (the draft model's)."""
+        """Per-slot decode caches (the draft model's): linear or ring
+        K/V, RG-LRU state."""
         return transformer.init_cache(self.cfg, batch, max_len, self.device)
 
     def decode_step(self, params, cache, tokens, pos, ctx: RunCtx):
@@ -121,12 +123,14 @@ class Model:
                                             spec)
 
     def pack_prefill_into_paged(self, layout, pools, dense_caches,
-                                block_ids, spec=None):
+                                row_of_slot, valid, block_ids, spec=None):
         """Batched install (in place): block_ids (N, nbp) per prefill
-        row; ``spec`` quantizes the pool writes (scales land
-        alongside)."""
+        row for the pools, ``row_of_slot`` / ``valid`` (num_slots,) for
+        per-slot state (rings, RG-LRU carries); ``spec`` quantizes the
+        pool writes (scales land alongside)."""
         return transformer.pack_prefill_into_paged(
-            self.cfg, layout, pools, dense_caches, block_ids, spec)
+            self.cfg, layout, pools, dense_caches, row_of_slot, valid,
+            block_ids, spec)
 
     def decode_step_paged(self, params, pools, block_table, lengths, tokens,
                           ctx: RunCtx):

@@ -477,11 +477,14 @@ def write_kv_rows(pool, phys, off, k, v, spec: PoolSpec = None):
 
 def init_layer_pool(cfg, layout: PagedLayout, dtype, device, lead=(),
                     spec: PoolSpec = None):
-    """Zeroed block pool {"k", "v"} of ``lead + (NB, BS, Hkv, Dp)``, Dp
-    the spec's pool head dim. A quantized spec stores its payload dtype
-    and adds f32 ``k_scale`` / ``v_scale`` leaves of ``lead + (NB, BS,
-    Hkv)``; ``None`` (or a bf16 spec without padding) yields the pool of
-    an engine without a spec."""
+    """Zeroed block pool {"k", "v"} of ``lead + (NB, BS, Hkv, Dp)`` for a
+    full-attention layer, Dp the spec's pool head dim. A quantized spec
+    stores its payload dtype and adds f32 ``k_scale`` / ``v_scale``
+    leaves of ``lead + (NB, BS, Hkv)``; ``None`` (or a bf16 spec without
+    padding) yields the pool of an engine without a spec. Windowed and
+    RG-LRU layers keep per-slot state instead
+    (``transformer.init_paged_cache``): their state is bounded, so
+    paging buys nothing."""
     hd = spec.pool_head_dim if spec is not None else cfg.head_dim
     shape = tuple(lead) + (layout.num_blocks, layout.block_size,
                            cfg.n_kv_heads, hd)
@@ -542,9 +545,11 @@ def pack_prefill_kv(pool, dense_kv, block_ids, block_size,
 
 def _select_slots(state, dense, row_of_slot, valid, batch_axis):
     """Install per-slot decode state IN PLACE: slot s takes ``dense``
-    row ``row_of_slot[s]`` where ``valid[s]``, else keeps its state.
-    Only valid slots are written, each once, so the result is exact for
-    any (row_of_slot, valid)."""
+    row ``row_of_slot[s]`` where ``valid[s]``, else keeps its state (a
+    batch filler row never overwrites a live slot). A gather of the
+    valid slots' rows and an indexed copy into distinct slots, never a
+    scatter with duplicate indices, so the result is exact for any
+    (row_of_slot, valid)."""
     slots = torch.nonzero(valid.bool()).flatten()
     rows = row_of_slot.long()[slots]
     src = torch.index_select(dense, batch_axis, rows)
@@ -552,12 +557,30 @@ def _select_slots(state, dense, row_of_slot, valid, batch_axis):
     return state
 
 
+def pack_prefill_ring(ring, dense_ring, row_of_slot, valid):
+    """Install a batch of prefilled ring caches into per-slot storage, IN
+    PLACE.
+
+    ring: (..., B, size_e, Hkv, D); dense_ring: (..., N, size_p, Hkv, D)
+    with size_p <= size_e. A prompt shorter than the ring leaves the
+    prefill ring's tail zero (masked by the decode validity predicate
+    until decode overwrites it); a prompt that wrapped has size_p ==
+    size_e, and ring order (slot = pos % size) already matches the
+    decode discipline, so a direct copy is exact.
+    """
+    pad = ring.shape[-3] - dense_ring.shape[-3]
+    if pad:
+        dense_ring = torch.nn.functional.pad(dense_ring, (0, 0, 0, 0, 0, pad))
+    return _select_slots(ring, dense_ring, row_of_slot, valid,
+                         batch_axis=ring.dim() - 4)
+
+
 def pack_prefill_state(state, dense_state, row_of_slot, valid):
-    """Install a batch of prefilled dense decode caches into per-slot
-    storage, IN PLACE (the draft model's linear caches). Both trees are
-    ``init_cache``-shaped stacked caches of one width: a leading
+    """Install a batch of prefilled decode state into per-slot storage,
+    IN PLACE: the draft model's linear caches, RG-LRU carries and conv
+    tails. Both trees are stacked like ``init_cache``: a leading
     layer-count axis, then the slot/batch axis, so the batch axis is
-    axis 1 on every leaf."""
+    axis 1 on every leaf (rglru h (L, B, dr), conv (L, B, 3, dr))."""
     if isinstance(state, dict):
         for k in state:
             pack_prefill_state(state[k], dense_state[k], row_of_slot, valid)

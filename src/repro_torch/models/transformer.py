@@ -1,20 +1,35 @@
 """LM assembly: the decoder-only stack over stacked per-group params.
 
-Counterpart of ``repro/models/transformer.py`` for the ``attn`` block
-kind without a sliding window (the olmo/yi/gemma main path). The layer
-layout stays JAX's: layers are grouped into repeating *pattern periods*
-and every leaf of ``params["groups"]["g0"]["p0"]`` (and of the paged
-pools) is stacked ``(count, ...)``, so the weight bridge and the pool
-comparisons line up leaf for leaf. Where JAX runs ``lax.scan`` over the
-stacked leaves, this module runs a Python loop over the layer index.
+Counterpart of ``repro/models/transformer.py`` for the block kinds
+``attn`` (full or sliding-window), ``local`` (windowed, griffin) and
+``rglru`` (the RG-LRU recurrence). The layer layout stays JAX's: layers
+are grouped into repeating *pattern periods* (recurrentgemma's (rglru,
+rglru, local)) and every leaf of ``params["groups"]["g0"]["p0"]`` (and
+of the caches and paged pools) is stacked ``(count, ...)``, so the
+weight bridge and the pool comparisons line up leaf for leaf. Where JAX
+runs ``lax.scan`` over the stacked leaves, this module runs a Python
+loop over the layer index.
+
+Per-layer decode state follows the kind (``_is_pool_kind``): a
+full-attention layer's K/V lives in the shared block pool, a windowed
+layer keeps a per-slot ring buffer of ``min(window, max_len)`` rows, an
+RG-LRU layer a per-slot f32 carry ``h`` and a conv tail.
 
 Phases sharing one param set:
-  prefill  — full (right-padded) sequence, returns a dense cache
-  decode   — one token per slot against the block-paged pool (K2)
-  verify   — a K1-token window per slot against the pool in one pass
-             (K3): the speculative verify step and the suffix prefill
-  dense decode — one token per slot over linear per-slot caches (the
-             draft model's), plain torch
+  prefill  — full (right-padded) sequence, returns a dense cache;
+             attention through K1 (with the window), RG-LRU through K5
+  decode   — one token per slot: full attention over the block-paged
+             pool (K2), rings and RG-LRU steps in plain torch
+  verify   — a K1-token window per slot: full attention in one pass
+             over the pool (K3); rings and RG-LRU scan the decode cell
+             and keep one candidate state per position, selected at the
+             accept boundary (``select_verify_state``)
+  dense decode — one token per slot over per-slot caches (the draft
+             model's), plain torch
+
+Not ported yet: the xLSTM kinds ``mlstm`` / ``slstm`` (ROADMAP queue 1:
+'mLSTM / sLSTM (xlstm)'), MoE, encoder-decoder and VLM configs ('MoE /
+enc-dec'); ``check_supported`` refuses them.
 """
 
 from __future__ import annotations
@@ -24,14 +39,13 @@ import math
 
 import torch
 
+from ..kernels import ops as kops
 from . import attention as attn_lib
-from . import layers, paged_kv
+from . import layers, paged_kv, ssm
 
 _NOT_PORTED = {
-    "local": "SWA rings",
-    "rglru": "K5 RG-LRU and recurrent kinds",
-    "mlstm": "K5 RG-LRU and recurrent kinds",
-    "slstm": "K5 RG-LRU and recurrent kinds",
+    "mlstm": "mLSTM / sLSTM (xlstm)",
+    "slstm": "mLSTM / sLSTM (xlstm)",
 }
 
 
@@ -51,17 +65,15 @@ class RunCtx:
 
 def check_supported(cfg) -> None:
     """Raise NotImplementedError (naming the ROADMAP queue 1 item) for a
-    config this slice cannot run: only full-attention ``attn`` layers of
-    a decoder-only model with RoPE or no positions."""
+    config the port cannot run yet: xLSTM block kinds, MoE,
+    encoder-decoder and VLM configs, positions other than RoPE or none."""
     for kind in dict.fromkeys(cfg.block_pattern):     # pattern order
-        if kind != "attn":
+        if kind in _NOT_PORTED:
             raise NotImplementedError(
                 f"{cfg.name}: block kind {kind!r} is not ported yet "
-                f"(ROADMAP queue 1: '{_NOT_PORTED.get(kind, kind)}')")
-    if cfg.sliding_window:
-        raise NotImplementedError(
-            f"{cfg.name}: sliding-window attention is not ported yet "
-            "(ROADMAP queue 1: 'SWA rings')")
+                f"(ROADMAP queue 1: '{_NOT_PORTED[kind]}')")
+        if kind not in ("attn", "local", "rglru"):
+            raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
     if cfg.is_moe or cfg.enc_dec or cfg.visual_prefix \
             or cfg.rope_style not in ("rope", "none") \
             or cfg.pos_embed != "none":
@@ -127,14 +139,20 @@ def model_dtype(cfg) -> torch.dtype:
     return getattr(torch, cfg.dtype)
 
 
-def init_block(gen, cfg, dtype, count: int):
-    """Stacked ``(count, ...)`` params of one ``attn`` pattern position."""
+def init_block(gen, cfg, kind, dtype, count: int):
+    """Stacked ``(count, ...)`` params of one pattern position."""
     lead = (count,)
     p = {"ln1": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device,
-                                 lead),
-         "attn": attn_lib.init_attention(gen, cfg, dtype, lead),
-         "ln2": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device,
                                  lead)}
+    if kind in ("attn", "local"):
+        p["attn"] = attn_lib.init_attention(gen, cfg, dtype, lead)
+    elif kind == "rglru":
+        p["rec"] = ssm.init_rglru_block(gen, cfg, dtype, lead)
+    else:
+        raise ValueError(kind)
+    if kind in ("attn", "local") or cfg.d_ff > 0:
+        p["ln2"] = layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device,
+                                    lead)
     if cfg.d_ff > 0:
         p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
                                    gated=cfg.gated_mlp, lead=lead)
@@ -144,15 +162,17 @@ def init_block(gen, cfg, dtype, count: int):
 def init_lm(gen, cfg):
     """Random params from the ``torch.Generator`` ``gen`` on its device,
     with JAX's distributions (truncated normal on [-2, 2], stddev
-    1/sqrt(fan_in), embed stddev 1.0) and JAX's tree layout. The values
-    differ from ``repro``'s ``PRNGKey`` draws; to hold the port against
-    JAX, carry the JAX params over with ``models/weights.py``."""
+    1/sqrt(fan_in), embed stddev 1.0, the RG-LRU's ``lam`` in f32) and
+    JAX's tree layout. The values differ from ``repro``'s ``PRNGKey``
+    draws; to hold the port against JAX, carry the JAX params over with
+    ``models/weights.py``."""
     check_supported(cfg)
     dtype = model_dtype(cfg)
     params = {"embed": layers.truncated_normal_init(
         gen, (cfg.vocab_size, cfg.d_model), dtype, stddev=1.0)}
     params["groups"] = map_layer_tree(
-        cfg, lambda gk, pk, kind, count: init_block(gen, cfg, dtype, count))
+        cfg, lambda gk, pk, kind, count: init_block(gen, cfg, kind, dtype,
+                                                    count))
     params["final_norm"] = layers.init_norm(cfg.norm, cfg.d_model, dtype,
                                             gen.device)
     if not cfg.tie_embeddings:
@@ -166,6 +186,19 @@ def init_lm(gen, cfg):
 # ---------------------------------------------------------------------------
 
 
+def _window_for(cfg, kind):
+    if kind == "local":
+        return cfg.local_window
+    return cfg.sliding_window
+
+
+def _is_pool_kind(cfg, kind) -> bool:
+    """True for layer kinds whose decode state lives in the shared block
+    pool (full attention); windowed rings and RG-LRU carries are
+    per-slot."""
+    return kind in ("attn", "local") and _window_for(cfg, kind) is None
+
+
 def _ffn_part(p, cfg, x):
     """Pre-norm MLP + residual."""
     if "mlp" in p:
@@ -174,43 +207,160 @@ def _ffn_part(p, cfg, x):
     return x
 
 
-def apply_block(p, cfg, x, positions):
-    """Full-sequence ``attn`` block. Returns (x, {"k", "v"}) with the
-    layer's rotated (B, S, Hkv, D) keys and values."""
+def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None):
+    """Full-sequence block that also emits the layer's decode cache.
+    Returns (x, cache).
+
+    ``length`` ((B,) int) marks RIGHT-padded prefill: only the first
+    ``length[b]`` tokens of row b are real. Causal masking keeps pad keys
+    out of every real query's window, so the forward math needs no
+    change, but the emitted caches capture state at the true length:
+    rings are rebuilt from the true tail, the RG-LRU state is gathered
+    at ``length - 1`` and its conv tail rebuilt from the real inputs.
+    """
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
-    out, kv = attn_lib.attend(p["attn"], cfg, xn, positions)
-    return _ffn_part(p, cfg, x + out), kv
+    if kind in ("attn", "local"):
+        out, cache = _attend_with_cache(p["attn"], cfg, xn, positions,
+                                        _window_for(cfg, kind), cache_len,
+                                        length)
+    elif kind == "rglru":
+        out, cache = _rglru_with_cache(p["rec"], cfg, xn, length)
+    else:
+        raise ValueError(kind)
+    return _ffn_part(p, cfg, x + out), cache
 
 
-def apply_block_decode_paged(p, cfg, x, pool, block_table, lengths,
+def _attend_with_cache(params, cfg, xn, positions, window, cache_len,
+                       length=None):
+    """Attention through K1 plus the layer's cache: the rotated (B, S,
+    Hkv, D) K/V for a linear cache, else a ring of ``min(window,
+    cache_len)`` rows in ring order (slot = pos % size)."""
+    out, kv = attn_lib.attend(params, cfg, xn, positions, window=window)
+    S = xn.shape[1]
+    if not window:
+        return out, kv
+    size = min(window, cache_len or S)
+    if length is not None:
+        # Right-padded prefill: the ring comes from the true per-row
+        # tail, not the padded one.
+        return out, {n: attn_lib.ring_from_prefill(t, size, length)
+                     for n, t in kv.items()}
+    if S >= size:
+        return out, {n: torch.roll(t[:, -size:], S % size, dims=1)
+                     for n, t in kv.items()}
+    return out, kv                       # zero tail filled by the caller
+
+
+def _rglru_with_cache(params, cfg, xn, length=None):
+    """RG-LRU mixing with its scan through K5, plus the decode state:
+    the f32 carry after the last real token and the conv tail of the
+    last (width - 1) real inputs (zero-prefixed for short prompts)."""
+    gate, xb = ssm._gate_and_input(params, xn)
+    y, conv_state = layers.apply_conv1d(params["conv"], xb)
+    a, b = ssm._rglru_coeffs(params, y)
+    h = kops.rglru_scan(a, b)
+    out = (gate * h.to(xn.dtype)) @ params["w_out"]
+    if length is None:
+        return out, {"h": h[:, -1].float(), "conv": conv_state}
+    B = xn.shape[0]
+    last = (length.long() - 1).clamp(min=0)
+    h_true = h[torch.arange(B, device=xn.device), last]
+    conv_true = layers.conv_state_at(xb, params["conv"]["w"].shape[0],
+                                     length)
+    return out, {"h": h_true.float(), "conv": conv_true}
+
+
+def apply_block_decode_paged(p, cfg, kind, x, cache, block_table, lengths,
                              kv_spec=None):
-    """One-token ``attn`` block over the paged pool (written in place)."""
+    """One-token block step with PER-SLOT positions ``lengths``: full
+    attention over the paged pool, a windowed layer over its per-slot
+    ring, an RG-LRU layer on its per-slot carry; the cache is written IN
+    PLACE."""
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
-    out, _ = attn_lib.decode_attend_paged(p["attn"], cfg, xn, pool,
+    if kind in ("attn", "local"):
+        window = _window_for(cfg, kind)
+        if window is None:
+            out, _ = attn_lib.decode_attend_paged(
+                p["attn"], cfg, xn, cache, block_table, lengths,
+                kv_spec=kv_spec)
+        else:
+            out, _ = attn_lib.decode_attend_batched(
+                p["attn"], cfg, xn, cache, lengths, window=window)
+    elif kind == "rglru":
+        out, _ = ssm.apply_rglru_decode(p["rec"], cfg, xn, cache)
+    else:
+        raise ValueError(kind)
+    return _ffn_part(p, cfg, x + out)
+
+
+def _decode_window_scan(p, cfg, kind, x, cache, block_table, lengths,
+                        kv_spec=None):
+    """Run the single-token decode cell over a K1-token verify window,
+    keeping the per-position state as candidates.
+
+    x: (B, K1, d). The cell runs on a copy of the per-slot state, so the
+    committed state is untouched until ``select_verify_state``. Returns
+    (out (B, K1, d), candidates) where every cache leaf gains a K1 axis
+    after its batch axis: candidate j is the state after fed tokens
+    0..j. The cells are causal, so candidate j does not depend on a
+    rejected token after j, and each position's math is the plain decode
+    step's (same cells, same order).
+    """
+    B, K1 = x.shape[:2]
+    work = {n: t.clone() for n, t in cache.items()}
+    cands = {n: t.new_empty((B, K1) + t.shape[1:]) for n, t in cache.items()}
+    outs = []
+    for j in range(K1):
+        xo = apply_block_decode_paged(p, cfg, kind, x[:, j:j + 1], work,
+                                      block_table, lengths + j, kv_spec)
+        outs.append(xo)
+        for n, t in work.items():
+            cands[n][:, j] = t
+    return torch.cat(outs, dim=1), cands
+
+
+def apply_block_verify_paged(p, cfg, kind, x, cache, block_table, lengths,
+                             kv_spec=None):
+    """K1-token block step for the verify window. A full-attention layer
+    runs ONE multi-query pass over the paged pool (written in place; the
+    pool commits by construction: the host rewinds the length pointer
+    over a rejected tail, no block is copied) and returns the pool;
+    rings and RG-LRU layers scan the decode cell and return per-position
+    candidate states (``_decode_window_scan``)."""
+    if not _is_pool_kind(cfg, kind):
+        return _decode_window_scan(p, cfg, kind, x, cache, block_table,
+                                   lengths, kv_spec)
+    xn = layers.apply_norm(cfg.norm, p["ln1"], x)
+    out, _ = attn_lib.verify_attend_paged(p["attn"], cfg, xn, cache,
                                           block_table, lengths,
                                           kv_spec=kv_spec)
-    return _ffn_part(p, cfg, x + out)
+    return _ffn_part(p, cfg, x + out), cache
 
 
-def apply_block_verify_paged(p, cfg, x, pool, block_table, lengths,
-                             kv_spec=None):
-    """K1-token ``attn`` block for the verify window: ONE multi-query
-    pass over the paged pool (written in place). The pool commits by
-    construction: the host rewinds the length pointer over a rejected
-    tail, no block is copied."""
+def apply_block_decode(p, cfg, kind, x, cache, pos):
+    """One-token block over a per-slot cache (linear or ring; RG-LRU
+    state), written in place; ``pos`` (B,) per-slot positions."""
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
-    out, _ = attn_lib.verify_attend_paged(p["attn"], cfg, xn, pool,
-                                          block_table, lengths,
-                                          kv_spec=kv_spec)
+    if kind in ("attn", "local"):
+        out, _ = attn_lib.decode_attend_batched(
+            p["attn"], cfg, xn, cache, pos, window=_window_for(cfg, kind))
+    elif kind == "rglru":
+        out, _ = ssm.apply_rglru_decode(p["rec"], cfg, xn, cache)
+    else:
+        raise ValueError(kind)
     return _ffn_part(p, cfg, x + out)
 
 
-def apply_block_decode(p, cfg, x, cache, pos):
-    """One-token ``attn`` block over a linear per-slot cache (written in
-    place); ``pos`` (B,) per-slot positions."""
-    xn = layers.apply_norm(cfg.norm, p["ln1"], x)
-    out, _ = attn_lib.decode_attend_batched(p["attn"], cfg, xn, cache, pos)
-    return _ffn_part(p, cfg, x + out)
+def init_block_cache(cfg, kind, batch: int, max_len: int, dtype, device,
+                     lead=()):
+    """Zeroed per-slot decode state of one layer kind: a linear or ring
+    K/V cache, or the RG-LRU carry and conv tail."""
+    if kind in ("attn", "local"):
+        return attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device,
+                                      lead, window=_window_for(cfg, kind))
+    if kind == "rglru":
+        return ssm.init_rglru_cache(cfg, batch, dtype, device, lead)
+    raise ValueError(kind)
 
 
 # ---------------------------------------------------------------------------
@@ -233,13 +383,24 @@ def _logits(params, cfg, x):
 
 
 def prefill_supports_ragged(cfg) -> bool:
-    """True when right-padded (bucketed) prefill is exact: causal
-    attention hides pad keys from every real query, and positions are
-    relative (rope) or absent."""
-    return (set(cfg.block_pattern) == {"attn"} and not cfg.enc_dec
-            and not cfg.visual_prefix
+    """True when right-padded (bucketed) prefill is exact for this
+    architecture (JAX's predicate): every decoder-only block kind
+    captures its decode state at the true length (rings and RG-LRU by
+    gather / recompute; JAX's mlstm and slstm by gate freezing and carry
+    selection), and positions are relative (rope) or absent."""
+    kinds = set(cfg.block_pattern)
+    return (kinds <= {"attn", "local", "rglru", "mlstm", "slstm"}
+            and not cfg.enc_dec and not cfg.visual_prefix
             and cfg.rope_style in ("rope", "none")
             and cfg.pos_embed == "none")
+
+
+def _store(dst, src):
+    """Copy a layer's emitted cache into the leading corner of its
+    zeroed slot (a linear cache of S rows into max_len rows; a short
+    ring into its full size)."""
+    for name, t in src.items():
+        dst[name][tuple(slice(0, n) for n in t.shape)] = t
 
 
 def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
@@ -248,28 +409,26 @@ def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
 
     tokens: (B, S). ``length`` ((B,) int) marks RIGHT-padded prompts:
     row b's real tokens are ``tokens[b, :length[b]]``; causal attention
-    keeps the pad tail invisible to every real query, and cache entries
-    past ``length`` are never read unmasked. ``rows`` ((B,) int) selects
-    one position per row whose logits to return, (B, V) f32 — the
-    scheduler asks for ``length - 1`` only; None returns all (B, S, V).
-    The cache mirrors ``params["groups"]``: {"k", "v"} leaves of
-    (count, B, max_len, Hkv, D), zero past S.
+    keeps the pad tail invisible to every real query, and the emitted
+    per-slot state (rings, RG-LRU carries) is taken at the true length.
+    ``rows`` ((B,) int) selects one position per row whose logits to
+    return, (B, V) f32 — the scheduler asks for ``length - 1`` only; None
+    returns all (B, S, V). The cache is ``init_cache``-shaped with batch
+    B: linear {"k", "v"} of (count, B, max_len, Hkv, D), zero past S;
+    rings of (count, B, min(window, max_len), Hkv, D); RG-LRU {"h",
+    "conv"}.
     """
-    del ctx, length        # pad keys are masked by causality alone
+    del ctx
     check_supported(cfg)
     B, S = tokens.shape
     cache_len = max_len or S
     x = _embed(params, cfg, tokens)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    dtype = model_dtype(cfg)
-    caches = map_layer_tree(cfg, lambda gk, pk, kind, count: {
-        name: torch.zeros((count, B, cache_len, cfg.n_kv_heads,
-                           cfg.head_dim), dtype=dtype, device=x.device)
-        for name in ("k", "v")})
-    for _, (lp, lc) in _layers(cfg, params["groups"], caches):
-        x, kv = apply_block(lp, cfg, x, positions)
-        lc["k"][:, :S] = kv["k"]
-        lc["v"][:, :S] = kv["v"]
+    caches = init_cache(cfg, B, cache_len, x.device)
+    for kind, (lp, lc) in _layers(cfg, params["groups"], caches):
+        x, cache = apply_block(lp, cfg, kind, x, positions, cache_len,
+                               length)
+        _store(lc, cache)
     if rows is not None:
         x = x[torch.arange(B, device=x.device), rows.long()][:, None]
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
@@ -278,41 +437,59 @@ def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
 
 
 def init_cache(cfg, batch: int, max_len: int, device):
-    """Stacked linear decode caches {"k", "v"} of (count, batch, max_len,
-    Hkv, D) mirroring the group structure (zero-filled)."""
+    """Stacked per-slot decode caches mirroring the group structure
+    (zero-filled): linear or ring K/V per attention layer, the carry and
+    conv tail per RG-LRU layer."""
     check_supported(cfg)
     dtype = model_dtype(cfg)
-    return map_layer_tree(cfg, lambda gk, pk, kind, count:
-                          attn_lib.init_kv_cache(cfg, batch, max_len, dtype,
-                                                 device, lead=(count,)))
+    return map_layer_tree(cfg, lambda gk, pk, kind, count: init_block_cache(
+        cfg, kind, batch, max_len, dtype, device, lead=(count,)))
 
 
 def init_paged_cache(cfg, layout, device, spec=None):
-    """Stacked per-layer block pools for the paged serving engine
+    """Stacked per-layer caches for the paged serving engine
     (zero-filled; block tables and lengths live with the scheduler).
-    ``spec`` (a ``paged_kv.PoolSpec``) selects the block format: a
-    quantized spec stores int8/fp8 payloads plus scale leaves."""
+    Full-attention layers share a block pool, whose format ``spec`` (a
+    ``paged_kv.PoolSpec``) selects: a quantized spec stores int8/fp8
+    payloads plus scale leaves. Windowed and RG-LRU layers keep per-slot
+    state in the model dtype (the carry in f32), as in ``init_cache``."""
     check_supported(cfg)
     dtype = model_dtype(cfg)
-    return map_layer_tree(cfg, lambda gk, pk, kind, count:
-                          paged_kv.init_layer_pool(cfg, layout, dtype,
-                                                   device, lead=(count,),
-                                                   spec=spec))
+
+    def one(gk, pk, kind, count):
+        if _is_pool_kind(cfg, kind):
+            return paged_kv.init_layer_pool(cfg, layout, dtype, device,
+                                            lead=(count,), spec=spec)
+        return init_block_cache(cfg, kind, layout.num_slots, layout.max_len,
+                                dtype, device, lead=(count,))
+
+    return map_layer_tree(cfg, one)
 
 
-def pack_prefill_into_paged(cfg, layout, pools, dense_caches, block_ids,
-                            spec=None):
+def pack_prefill_into_paged(cfg, layout, pools, dense_caches, row_of_slot,
+                            valid, block_ids, spec=None):
     """Install a batch of prefilled dense caches (``prefill`` with
-    ``max_len == block_ids.shape[1] * block_size``) into the pools, IN
-    PLACE. ``block_ids`` (N, nbp): per prefill row the physical
-    destinations of its cache blocks, pad tails at the null block.
-    ``spec`` quantizes the rows on the way in (scales land alongside)."""
+    ``max_len == block_ids.shape[1] * block_size``) into the paged tree,
+    IN PLACE. ``block_ids`` (N, nbp): per prefill row the physical
+    destinations of its pool blocks, pad tails at the null block;
+    ``spec`` quantizes those rows on the way in (scales land alongside).
+    ``row_of_slot`` ((num_slots,) int) and ``valid`` ((num_slots,) bool)
+    map slots to rows for the per-slot state (rings, RG-LRU carries,
+    conv tails): slot s takes row ``row_of_slot[s]`` where ``valid[s]``,
+    so a batch filler row never overwrites a live slot."""
     for gk, pattern, _ in layer_walk(cfg):
-        for pi in range(len(pattern)):
+        for pi, kind in enumerate(pattern):
             pk = f"p{pi}"
-            paged_kv.pack_prefill_kv(pools[gk][pk], dense_caches[gk][pk],
-                                     block_ids, layout.block_size,
-                                     spec=spec)
+            pool, dense = pools[gk][pk], dense_caches[gk][pk]
+            if _is_pool_kind(cfg, kind):
+                paged_kv.pack_prefill_kv(pool, dense, block_ids,
+                                         layout.block_size, spec=spec)
+            elif kind in ("attn", "local"):
+                for name in ("k", "v"):
+                    paged_kv.pack_prefill_ring(pool[name], dense[name],
+                                               row_of_slot, valid)
+            else:
+                paged_kv.pack_prefill_state(pool, dense, row_of_slot, valid)
     return pools
 
 
@@ -323,14 +500,14 @@ def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
     tokens: (B, 1) — one token per decode slot; lengths: (B,) int32
     tokens already cached per slot (the new token's position);
     block_table: (B, NBMAX) int32. Retired slots ride along pointed at
-    the null block, their outputs discarded by the scheduler. The new
-    K/V rows are written into ``pools`` IN PLACE. Returns
-    (logits (B, V) f32, pools).
+    the null block, their outputs discarded by the scheduler. Pool
+    rows, ring rows and RG-LRU states are written into ``pools`` IN
+    PLACE. Returns (logits (B, V) f32, pools).
     """
     x = _embed(params, cfg, tokens)
-    for _, (lp, pool) in _layers(cfg, params["groups"], pools):
-        x = apply_block_decode_paged(lp, cfg, x, pool, block_table, lengths,
-                                     ctx.kv_spec)
+    for kind, (lp, pool) in _layers(cfg, params["groups"], pools):
+        x = apply_block_decode_paged(lp, cfg, kind, x, pool, block_table,
+                                     lengths, ctx.kv_spec)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x)[:, 0], pools
 
@@ -338,15 +515,22 @@ def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
 def select_verify_state(cfg, cands, commit):
     """Commit a verify window's per-slot state at the accept boundary.
 
-    JAX's version selects the candidate state after fed token
-    ``commit - 1`` for every per-slot leaf (windowed rings, SSM carries)
-    and keeps pool leaves as they are (length-pointer rollback). Every
-    layer this port serves is a full-attention ``attn`` layer whose state
-    is a pool leaf, so the pools are already final and are returned.
-    """
-    del commit
-    check_supported(cfg)
-    return cands
+    ``cands`` mirrors the paged tree: full-attention pool leaves are
+    already final (length-pointer rollback); every other leaf is
+    (count, B, K1, ...), candidate j being the state after fed token j.
+    ``commit``: (B,) int in [1, K1]: keep the state after fed token
+    ``commit - 1``. Returns the committed tree (pool leaves as they
+    are, per-slot leaves (count, B, ...))."""
+    idx = (commit.long() - 1).clamp(min=0)
+    bidx = torch.arange(idx.shape[0], device=idx.device)
+
+    def one(gk, pk, kind, count):
+        sub = cands[gk][pk]
+        if _is_pool_kind(cfg, kind):
+            return sub
+        return {n: t[:, bidx, idx] for n, t in sub.items()}
+
+    return map_layer_tree(cfg, one)
 
 
 def decode_verify_paged(params, cfg, pools, block_table, lengths, tokens,
@@ -355,20 +539,36 @@ def decode_verify_paged(params, cfg, pools, block_table, lengths, tokens,
 
     tokens: (B, K1): per slot, the last accepted token followed by K
     draft tokens; fed token j is cached at position ``lengths[b] + j``
-    (IN PLACE) and logits row j scores the NEXT position, so row j is
-    what ``decode_step_paged`` would return after feeding tokens 0..j.
+    and logits row j scores the NEXT position, so row j is what
+    ``decode_step_paged`` would return after feeding tokens 0..j.
     ``commit_fn(logits (B, K1, V) f32) -> (out_tokens, commit)`` is the
     accept rule (``engine/sampling.verify_accept``); ``commit[b]`` in
-    [1, K1] counts the fed tokens whose cache state to keep. Returns
-    (out_tokens, commit, pools).
+    [1, K1] counts the fed tokens whose cache state to keep. Pools are
+    written in place; per-slot state is selected at the accept boundary
+    (``select_verify_state``). Returns (out_tokens, commit, pools).
     """
     x = _embed(params, cfg, tokens)
-    for _, (lp, pool) in _layers(cfg, params["groups"], pools):
-        x = apply_block_verify_paged(lp, cfg, x, pool, block_table, lengths,
-                                     ctx.kv_spec)
+    per_layer = map_layer_tree(cfg, lambda gk, pk, kind, count: [])
+    for gk, pattern, count in layer_walk(cfg):
+        for i in range(count):
+            for pi, kind in enumerate(pattern):
+                pk = f"p{pi}"
+                x, c = apply_block_verify_paged(
+                    layer_slice(params["groups"][gk][pk], i), cfg, kind, x,
+                    layer_slice(pools[gk][pk], i), block_table, lengths,
+                    ctx.kv_spec)
+                per_layer[gk][pk].append(c)
+
+    def stacked(gk, pk, kind, count):
+        if _is_pool_kind(cfg, kind):
+            return pools[gk][pk]
+        cs = per_layer[gk][pk]
+        return {n: torch.stack([c[n] for c in cs]) for n in cs[0]}
+
+    cands = map_layer_tree(cfg, stacked)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     out_tokens, commit = commit_fn(_logits(params, cfg, x))
-    return out_tokens, commit, select_verify_state(cfg, pools, commit)
+    return out_tokens, commit, select_verify_state(cfg, cands, commit)
 
 
 def decode_step(params, cfg, cache, tokens, pos, ctx: RunCtx):
@@ -377,7 +577,7 @@ def decode_step(params, cfg, cache, tokens, pos, ctx: RunCtx):
     f32, cache)."""
     del ctx
     x = _embed(params, cfg, tokens)
-    for _, (lp, lc) in _layers(cfg, params["groups"], cache):
-        x = apply_block_decode(lp, cfg, x, lc, pos)
+    for kind, (lp, lc) in _layers(cfg, params["groups"], cache):
+        x = apply_block_decode(lp, cfg, kind, x, lc, pos)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x)[:, 0], cache

@@ -7,6 +7,10 @@ the same paths, the stacked ``(count, ...)`` group leaves included, so
 the port runs on exactly the reference's weights. ``to_numpy`` is the
 inverse. Both are exact: values are copied, never recomputed.
 
+Some leaves stay f32 whatever the model dtype: the RG-LRU's decay
+parameter ``lam`` (JAX ``ssm.py:321``), so a cast to bf16 leaves it
+alone (``F32_LEAVES``).
+
 numpy has no bfloat16 of its own: JAX's bf16 leaves arrive as a numpy
 dtype named ``bfloat16`` (2-byte payloads, reinterpreted bit for bit
 here), and ``to_numpy`` returns bf16 leaves as float32 arrays, which hold
@@ -19,6 +23,9 @@ import numpy as np
 import torch
 
 from .transformer import layer_walk
+
+
+F32_LEAVES = ("lam",)                 # leaf names kept f32 in any dtype
 
 
 def map_tree(fn, tree):
@@ -56,12 +63,13 @@ def check_layout(tree, cfg):
 
 
 def to_device(tree, device, dtype=None):
-    """Copy every leaf to ``device`` (and floating leaves to ``dtype``)."""
-    def move(t):
-        t = t.to(device)
-        return t.to(dtype) if dtype is not None and t.is_floating_point() \
-            else t
-    return map_tree(move, tree)
+    """Copy every leaf to ``device`` (and floating leaves to ``dtype``,
+    except those named in ``F32_LEAVES``)."""
+    if isinstance(tree, dict):
+        return {k: v.to(device) if k in F32_LEAVES
+                else to_device(v, device, dtype) for k, v in tree.items()}
+    t = tree.to(device)
+    return t.to(dtype) if dtype is not None and t.is_floating_point() else t
 
 
 def from_jax_numpy(tree, cfg, device, dtype=None):

@@ -1,6 +1,6 @@
-"""The port's hand-written CUDA kernels (K1, K2, K3, and K4, the
-quantized-pool path of K2 and K3) against their plain-torch versions, on
-the card.
+"""The port's hand-written CUDA kernels (K1, K2, K3, K4, the
+quantized-pool path of K2 and K3, and K5, the RG-LRU scan) against their
+plain-torch versions, on the card.
 
 Marked ``cuda``: on a machine without a GPU every test skips (the
 ``cuda_device`` fixture decides at run time). This file imports no JAX,
@@ -21,6 +21,7 @@ from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa_mod
 from repro_torch.kernels import ref
+from repro_torch.kernels import rglru_scan as k5_mod
 from repro_torch.models import paged_kv
 
 pytestmark = pytest.mark.cuda
@@ -69,6 +70,31 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, hq, hkv,
     assert fa_mod.flash_attention.launches == n0 + 1
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, ref.flash_attention(q, k, v, causal=causal, window=window),
+           dtype)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,hq,hkv,Sq,D,window", [
+    (2, 16, 16, 300, 256, None),          # gemma_7b: causal, D 256
+    (1, 10, 1, 2304, 256, 2048),          # recurrentgemma: MQA, window bites
+    (2, 32, 8, 512, 120, 4096),           # h2o-danube: GQA 4, D 120
+    (1, 8, 2, 200, 120, 64),              # D 120 with a biting window
+    (2, 4, 2, 70, 48, None),              # a head dim in a wider tile
+])
+def test_flash_attention_kernel_wide_and_odd_head_dims(
+        cuda_device, dtype, B, hq, hkv, Sq, D, window):
+    """K1 at head dims 256 (32-row query tiles) and 120 / 48 (a logical
+    width inside a wider template tile, loads past it zero, stores
+    skipped), MQA group 10, windows that bite."""
+    gen = torch.Generator().manual_seed(B * 1000 + Sq + D)
+    q = _randn(gen, (B, hq, Sq, D), dtype, cuda_device)
+    k = _randn(gen, (B, hkv, Sq, D), dtype, cuda_device)
+    v = _randn(gen, (B, hkv, Sq, D), dtype, cuda_device)
+    n0 = fa_mod.flash_attention.launches
+    got = fa_mod.flash_attention(q, k, v, causal=True, window=window)
+    assert fa_mod.flash_attention.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.flash_attention(q, k, v, causal=True, window=window),
            dtype)
 
 
@@ -199,7 +225,7 @@ def test_paged_verify_kernel_reads_only_visible_blocks(cuda_device):
 
 
 def test_kernels_reject_unsupported_shapes(cuda_device):
-    t = torch.zeros((1, 2, 8, 48), device=cuda_device)
+    t = torch.zeros((1, 2, 8, 264), device=cuda_device)
     with pytest.raises(ValueError, match="head dim"):
         fa_mod.flash_attention(t, t, t)
     q = torch.zeros((1, 6, 16), device=cuda_device)
@@ -389,3 +415,46 @@ def test_k4_rejects_what_it_cannot_take(cuda_device):
     with pytest.raises(ValueError, match="scales"):
         pa_mod.paged_verify_attention(q[:, None], i8, i8, bt, bt[0],
                                       k_scale=ks[:, :2], v_scale=ks)
+
+
+# ---------------------------------------------------------------------------
+# K5: the RG-LRU's diagonal linear recurrence
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,T,D", [(8, 512, 2560), (3, 100, 40),
+                                   (2, 37, 2561), (1, 1, 5)])
+def test_rglru_scan_kernel_matches_plain(cuda_device, dtype, B, T, D,
+                                         with_h0):
+    """Serving's (8, 512, 2560) and ragged T and D (a partial last chunk,
+    a partial last CTA): in f32 the kernel rounds the product and the
+    sum one at a time like the plain version, so they are equal bit for
+    bit; in bf16 within the bf16 tolerance."""
+    gen = torch.Generator().manual_seed(B * 7 + T + D)
+    a = (0.8 + 0.2 * torch.rand((B, T, D), generator=gen)).to(
+        device=cuda_device, dtype=dtype)
+    x = _randn(gen, (B, T, D), dtype, cuda_device)
+    h0 = _randn(gen, (B, D), torch.float32, cuda_device) if with_h0 \
+        else None
+    n0 = k5_mod.rglru_scan.launches
+    got = k5_mod.rglru_scan(a, x, h0)
+    assert k5_mod.rglru_scan.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = ref.linear_scan(a, x, h0)
+    _close(got, want, dtype)
+    if dtype == torch.float32:
+        assert torch.equal(got, want)
+
+
+def test_rglru_scan_kernel_rejects_what_it_cannot_take(cuda_device):
+    a = torch.zeros((2, 8, 16), device=cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        k5_mod.rglru_scan(a.bfloat16(), a)
+    with pytest.raises(ValueError, match="shapes"):
+        k5_mod.rglru_scan(a, a, torch.zeros((2, 8), device=cuda_device))
+    with pytest.raises(ValueError, match="contiguous"):
+        k5_mod.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
+    with pytest.raises(ValueError, match="CUDA"):
+        k5_mod.rglru_scan(a.cpu(), a)

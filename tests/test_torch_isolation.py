@@ -83,9 +83,7 @@ def test_unported_engine_options_raise(field, value, item):
 
 
 @pytest.mark.parametrize("arch,item", [
-    ("h2o_danube_3_4b", "SWA rings"),
-    ("recurrentgemma_2b", "K5 RG-LRU"),
-    ("xlstm_1_3b", "K5 RG-LRU"),
+    ("xlstm_1_3b", "mLSTM / sLSTM"),
     ("qwen3_moe_30b_a3b", "MoE / enc-dec"),
     ("whisper_base", "MoE / enc-dec"),
     ("qwen2_vl_2b", "paged decode"),

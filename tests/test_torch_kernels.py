@@ -18,8 +18,11 @@ import torch
 
 from repro.kernels import ops as jops
 from repro.kernels import ref as jref
+from repro_torch import configs
 from repro_torch.kernels import flash_attention as fa_mod
 from repro_torch.kernels import ops, paged_attention as pa_mod
+from repro_torch.models import transformer
+from repro_torch.models.model import Model
 
 torch.set_num_threads(1)
 
@@ -156,3 +159,40 @@ def test_wrappers_reject_other_devices():
         pa_mod.paged_decode_attention(q, pool, pool, idx, idx[0])
     with pytest.raises(ValueError, match="CUDA"):
         pa_mod.paged_verify_attention(q[:, None], pool, pool, idx, idx[0])
+
+
+@pytest.mark.parametrize("arch", configs.ARCH_IDS)
+def test_every_accepted_config_has_kernels_built_for_it(arch):
+    """Every full-size config the port accepts (``check_supported`` and a
+    paged decode path in ``serving_caps``) has a head dim K1 is built for
+    (gemma's 256, danube's 120 among them) and, where a layer keeps its
+    K/V in the block pool, the head dim and group K2 and K3 are built
+    for. A config the port refuses has nothing to check."""
+    cfg = configs.get_config(arch)
+    try:
+        transformer.check_supported(cfg)
+    except NotImplementedError:
+        return
+    if not Model(cfg, device="cpu").serving_caps().paged_decode:
+        return
+    assert fa_mod.supports(cfg.head_dim), (arch, cfg.head_dim)
+    if any(transformer._is_pool_kind(cfg, k) for k in cfg.block_pattern):
+        group = cfg.n_heads // cfg.n_kv_heads
+        for mode in ("decode", "verify"):
+            assert pa_mod.supports(cfg.head_dim, group, mode), (arch, mode)
+
+
+def test_flash_attention_head_dims_past_a_power_of_two(rng):
+    """The plain version at head dims 120 and 256 (danube, recurrentgemma
+    / gemma) with GQA and MQA windows, against JAX's oracle; the K1
+    wrapper takes any head dim up to 256 and no wider."""
+    for hq, hkv, D, window in ((8, 2, 120, 16), (10, 1, 256, 24)):
+        (jq, tq), (jk, tk), (jv, tv) = (
+            _pair(rng.normal(size=(1, h, 40, D)), "float32")
+            for h in (hq, hkv, hkv))
+        got = ops.flash_attention(tq, tk, tv, causal=True, window=window)
+        want = jref.flash_attention(jq, jk, jv, causal=True, window=window)
+        np.testing.assert_allclose(_f32(got), _f32(want), rtol=1e-4,
+                                   atol=1e-4)
+    assert fa_mod.supports(120) and fa_mod.supports(256)
+    assert not fa_mod.supports(0) and not fa_mod.supports(264)

@@ -152,9 +152,10 @@ def test_paged_decode_and_pool_match_jax(rng, arch):
         jnp.asarray(ids))
     _, tdense = tm.prefill(tparams, {"tokens": torch.from_numpy(toks)},
                            CTX, max_len=width, length=torch.from_numpy(lens))
-    tpools = tm.pack_prefill_into_paged(tlayout,
-                                        tm.init_paged_cache(tlayout), tdense,
-                                        torch.from_numpy(ids))
+    tpools = tm.pack_prefill_into_paged(
+        tlayout, tm.init_paged_cache(tlayout), tdense,
+        torch.arange(B, dtype=torch.int32), torch.ones(B, dtype=torch.bool),
+        torch.from_numpy(ids))
 
     def check_pools():
         for name in ("k", "v"):
@@ -182,8 +183,7 @@ def test_paged_decode_and_pool_match_jax(rng, arch):
 def test_unported_kinds_raise():
     """Configs outside this slice raise NotImplementedError naming the
     ROADMAP item, at init and at prefill."""
-    for arch, item in (("h2o_danube_3_4b", "SWA rings"),
-                       ("recurrentgemma_2b", "K5 RG-LRU"),
+    for arch, item in (("xlstm_1_3b", "mLSTM / sLSTM"),
                        ("qwen3_moe_30b_a3b", "MoE / enc-dec"),
                        ("whisper_base", "MoE / enc-dec")):
         cfg = get_config(arch).smoke()

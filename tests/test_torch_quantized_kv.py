@@ -294,11 +294,10 @@ def test_padded_head_dim_is_exact(rng, mode):
     per-row absmax, hence every scale and payload value, is invariant
     under zero padding), and attention over it gives the unpadded
     output: q is zero-padded, the scale comes from the logical head dim,
-    the tail is sliced off. The zero tail adds exact zeros, but torch's
-    CPU einsum blocks a 128-wide reduction differently from a 16-wide
-    one, so the outputs agree to f32 summation order (1e-6), where JAX's
-    oracle is bit-equal (ROADMAP queue 3). The same padded pool through
-    JAX agrees within 1e-4."""
+    the tail is sliced off. The plain version reads the padded pool at
+    the logical head dim (the zero tail adds nothing), so its output is
+    bit-equal to the unpadded pool's, as JAX's oracle is. The same
+    padded pool through JAX agrees within 1e-4."""
     K1 = None if mode == "decode" else 3
     q, _, upool, bt, ln, _ = _quant_case(rng, 4, 4, 2, 16, 4, 5,
                                          [7, 8, 1, 16], "int8", K1)
@@ -325,8 +324,7 @@ def test_padded_head_dim_is_exact(rng, mode):
     out_p = ops.paged_attention(args[0], ppool, *args[1:], mode=mode,
                                 kv_format=spec_p)
     assert out_p.shape == out_u.shape == args[0].shape
-    np.testing.assert_allclose(out_p.numpy(), out_u.numpy(), rtol=0,
-                               atol=1e-6)
+    assert torch.equal(out_p, out_u)
     jpool = {n: jnp.asarray(t.numpy()) for n, t in ppool.items()}
     want = jops.paged_attention(jnp.asarray(q), jpool, jnp.asarray(bt),
                                 jnp.asarray(ln), mode=mode, kernel_mode="ref",
@@ -532,11 +530,11 @@ def test_encdec_rejects_quantized_naming_cap():
                device="cpu")
 
 
-@pytest.mark.parametrize("arch,item", [("recurrentgemma_2b", "K5 RG-LRU"),
-                                       ("xlstm_1_3b", "K5 RG-LRU")])
+@pytest.mark.parametrize("arch,item", [("xlstm_1_3b", "mLSTM / sLSTM")])
 def test_quantized_recurrent_not_ported(arch, item):
-    """Quantized pools under recurrent models stay unported, raising
-    NotImplementedError that names the roadmap item."""
+    """Quantized pools under xLSTM models stay unported, raising
+    NotImplementedError that names the roadmap item (recurrentgemma
+    serves over them: tests/test_torch_recurrent.py)."""
     model = Model(get_config(arch).smoke(), device="cpu")
     assert model.serving_caps().quantized_kv
     with pytest.raises(NotImplementedError, match=item):
