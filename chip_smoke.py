@@ -4,7 +4,8 @@ check it end to end.
 
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of
-                                     # serve and recurrent_serve
+                                     # serve, recurrent_serve and
+                                     # tile_path
 
 Phases, one JSON line each (any failed check exits non-zero):
 
@@ -67,11 +68,41 @@ Phases, one JSON line each (any failed check exits non-zero):
               phase's 16 requests; the K5 and K1 counters are reset before
               and must be > 0 after, the pool must end empty.
 
+10. tile_path — the EPAC tile layer (``repro_torch.core``) through its
+              entry points, every tile kernel's counter reset first:
+              (a) 200 steps of 2-D heat diffusion on an (8192, 8192) f32
+              plate through ``DEFAULT_CLUSTER.stencil2d`` (K7a must count
+              200; the peak decays inside (0, 1), the total and the
+              energy, summed through K8b and K8a, do not rise and equal
+              the plain lanes' finalized sums bit for bit), one
+              7-point ``stencil3d`` step on 512^3 (K7b), and the
+              example's own sizes (96^2 for 8 steps, one 64^3 step) equal
+              on cuda and cpu; (b) ``dispatch_matmul`` of (8, 512, 2048)
+              @ (2048, 8192) bf16 under STX_POLICY (one K6 launch) and
+              DEFAULT_POLICY (``torch.matmul``, none) within the bf16
+              tolerance, and a vrp ``dispatch_reduction`` equal on cuda
+              and cpu; (c) the adaptive CG ladder f64 -> vp128 -> vp256
+              -> vp512 on hilbert(12) and hilbert_like(64, cond 1e8) (cut
+              to LADDER_ITERS a rung), and the extended-precision
+              right-hand side, each on cuda and cpu with the same matrix
+              (equal iterations, x within 1e-12), then vp128 CG on
+              hilbert_like(1024, cond 1e8) for 200 iterations (ms per
+              iteration).
+
 The kernels phase also holds K5 (the RG-LRU scan) at recurrent_serve's
 (8, 512, 2560) and (2, 2560, 2560) f32 shapes (1e-5; in f32 the kernel
-equals its plain version bit for bit) and K1 at head dims 256
+equals its plain version bit for bit), K1 at head dims 256
 (recurrentgemma MQA 10/1 window 2048 at Sq 512 and 2560; gemma_7b
-16/16 causal) and 120 (h2o_danube GQA 32/8 window 4096).
+16/16 causal) and 120 (h2o_danube GQA 32/8 window 4096), and the tile
+kernels at tile_path's shapes: K6 (4096, 2048) @ (2048, 8192) bf16 to
+bf16 and to f32, 1024^3 and ragged (1000, 700, 300) f32 (relative
+tolerance 3e-2 / 3e-1 for bf16 operands, 1e-5 / 1e-4 for f32 ones,
+against ``torch.matmul``); K7a on 8192^2 (five-point, ones) and 4097 x
+4099, K7b on 512^3 (seven-point, 27 random weights), bit-equal to the
+plain version, against cuDNN ``conv2d`` / ``conv3d``; K8a / K8b at n =
+8192^2 (the plate's size) and 2^24 + 3 through ``ops.vrp_dot`` /
+``ops.vrp_sum``: lanes bit-equal, hi + lo within max(naive error / 100,
+1e-8) of the exact sum.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power
 limit from nvidia-smi, and as the last line
@@ -97,6 +128,12 @@ PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
 K5_TOL = 1e-5                      # JAX's rglru_scan tolerance (f32)
 LONG, LONG_NEW = 2200, 64          # recurrent_serve: prompts past the window
+K6_TOL = {"bfloat16": (3e-2, 3e-1),  # (rtol, atol) by operand dtype, as
+          "float32": (1e-5, 1e-4)}   # tests/test_kernels.py holds K6
+K8_N = 2**24 + 3                   # K8 cases: a ragged tail of 3
+DIFF_N, DIFF_STEPS, ALPHA = 8192, 200, 0.20   # tile_path diffusion
+LADDER = ("f64", "vp128", "vp256", "vp512")   # adaptive CG precisions
+LADDER_ITERS = 100                 # problem 1's cut (the example's 400)
 PARITY_TOL = 1e-3                  # f32 logits, cuda vs cpu summation order
 N_REQ, HALF = 16, 8                # serve: first HALF prompts in bucket 512
 SHARED, PHRASE = 256, 8            # spec_serve: shared prefix, repeated phrase
@@ -1077,34 +1114,471 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
     return launches
 
 
-def phase_profile(torch, engine, prompts, news, config):
-    """Device time by kernel over one admission + 8 decode steps, and
-    the share of the window the device was busy (kernel time only)."""
+# ---------------------------------------------------------------------------
+# the EPAC tile layer: K6, K7, K8 and the tile_path phase
+# ---------------------------------------------------------------------------
+
+
+def k6_case(torch, name, M, K, N, dtype, out_dtype):
+    """K6 (M, K) @ (K, N) in ``dtype`` to ``out_dtype``, held relatively
+    (K6_TOL by operand dtype). The library time is one ``torch.matmul``
+    on the same tensors (TF32 off) where the output dtype is the
+    operands', else one ``torch.mm(..., out_dtype=)`` where the installed
+    torch has it (None where it does not)."""
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stx_matmul as k6
+
+    dt, odt = getattr(torch, dtype), getattr(torch, out_dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
+    w = torch.randn((K, N), generator=gen, device="cuda").to(dt)
+    got = k6.stx_matmul(x, w, out_dtype=odt)
+    want = ref.matmul(x, w, out_dtype=odt)
+    torch.cuda.synchronize()
+    rtol, atol = K6_TOL[dtype]
+    diff = (got.float() - want.float()).abs()
+    err = diff.max().item()
+    excess = (diff - (atol + rtol * want.float().abs())).max().item()
+    nbytes = x.element_size() * (M * K + K * N) + got.element_size() * M * N
+    bound_ms, bound_by = bound(2 * M * N * K, nbytes, dtype)
+    lib_fn, lib_name = (lambda: torch.matmul(x, w)), "torch.matmul"
+    if odt != dt:
+        lib_fn, lib_name = (lambda: torch.mm(x, w, out_dtype=odt)), \
+            "torch.mm(out_dtype)"
+    try:
+        lib_out = lib_fn()
+    except (TypeError, RuntimeError) as e:
+        lib_fn, lib_name = None, f"none ({type(e).__name__}: {e})"[:200]
+    lib_err = (None if lib_fn is None
+               else (lib_out.float() - want.float()).abs().max().item())
+    row = {"phase": "kernels", "kernel": "K6", "case": name,
+           "shape": [M, K, N], "dtype": dtype, "out_dtype": out_dtype,
+           "max_abs_err": err, "rtol": rtol, "atol": atol,
+           "within_tol": excess <= 0,
+           "ms": cuda_ms(torch, lambda: k6.stx_matmul(x, w, out_dtype=odt)),
+           "plain_ms": cuda_ms(torch, lambda: ref.matmul(x, w, out_dtype=odt)),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": lib_fn and cuda_ms(torch, lib_fn),
+           "library": lib_name, "library_max_abs_err": lib_err}
+    emit(row)
+    check(math.isfinite(err) and excess <= 0,
+          f"K6 {name}: outside rtol {rtol} / atol {atol} (max abs err {err})")
+    return row
+
+
+def k7_case(torch, name, shape, kind):
+    """K7a (2-D) or K7b (3-D) in f32 with ``kind`` weights ("laplace":
+    five- or seven-point, "ones", "random": seeded), held bit for bit;
+    the library time is one cuDNN ``F.conv2d`` / ``F.conv3d`` with
+    padding 1 (the same cross-correlation; TF32 off)."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stx_stencil as k7
+
+    dims = len(shape)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(shape, generator=gen, device="cuda")
+    if kind == "laplace":
+        w = (ref.five_point_weights(device="cuda") if dims == 2
+             else ref.seven_point_weights(device="cuda"))
+    elif kind == "ones":
+        w = torch.ones((3,) * dims, device="cuda")
+    else:
+        w = torch.randn((3,) * dims, generator=gen, device="cuda")
+    fn, plain, conv = ((k7.stencil2d, ref.stencil2d, F.conv2d) if dims == 2
+                       else (k7.stencil3d, ref.stencil3d, F.conv3d))
+    got, want = fn(x, w), plain(x, w)
+    torch.cuda.synchronize()
+    err = (got - want).abs().max().item()
+    equal = bool(torch.equal(got, want))
+    bound_ms, bound_by = bound(2 * 3**dims * x.numel(), 2 * 4 * x.numel(),
+                               "float32")
+    row = {"phase": "kernels", "kernel": "K7a" if dims == 2 else "K7b",
+           "case": name, "shape": list(shape), "weights": kind,
+           "dtype": "float32", "max_abs_err": err, "bit_equal": equal,
+           "ms": cuda_ms(torch, lambda: fn(x, w)),
+           "plain_ms": cuda_ms(torch, lambda: plain(x, w), reps=5),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": cuda_ms(torch, lambda: conv(
+               x[None, None], w[None, None], padding=1)),
+           "library": f"F.conv{dims}d, padding 1"}
+    emit(row)
+    check(equal, f"{row['kernel']} {name}: kernel != plain version "
+                 f"(max abs err {err})")
+    return row
+
+
+def exact_sum(t):
+    """The f64 sum of a tensor's values, correctly rounded (fsum)."""
+    return math.fsum(t.double().cpu().numpy().tolist())
+
+
+def k8_case(torch, np, dot, n):
+    """K8a (``dot``) or K8b through ``ops.vrp_dot`` / ``ops.vrp_sum`` on
+    n values, x scaled by 1e4 (tests/test_kernels.py's data): the
+    kernel's lanes equal the plain version's bit for bit, and the
+    finalized hi + lo lies within max(naive error / 100, 1e-8) of the
+    exact sum. The plain version (16,385 sequential vector steps) is
+    timed once; the finalize (a compensated tree in torch) apart. No
+    PyTorch call returns the compensated expansion: no library time."""
+    from repro_torch.kernels import ops, ref
+    from repro_torch.kernels import vrp_dot as k8
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn(n, generator=gen, device="cuda") * 1e4
+    y = torch.randn(n, generator=gen, device="cuda")
+    if dot:
+        lanes_fn, plain_fn = (lambda: k8.vrp_dot_lanes(x, y),
+                              lambda: ref.vrp_dot_lanes(x, y))
+        final_fn = lambda: ops.vrp_dot(x, y)   # noqa: E731
+        exact = exact_sum(x.double() * y.double())
+        naive = float(torch.dot(x, y))
+    else:
+        lanes_fn, plain_fn = (lambda: k8.vrp_sum_lanes(x),
+                              lambda: ref.vrp_sum_lanes(x))
+        final_fn = lambda: ops.vrp_sum(x)      # noqa: E731
+        exact = exact_sum(x)
+        naive = float(torch.sum(x))
+    got = lanes_fn()
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    want = plain_fn()
+    end.record()
+    end.synchronize()
+    plain_ms = start.elapsed_time(end)
+    err = (got - want).abs().max().item()
+    equal = bool(torch.equal(got, want))
+    hi, lo = final_fn().tolist()
+    final_err = abs(hi + lo - exact)
+    naive_err = abs(naive - exact)
+    limit = max(naive_err / 100, 1e-8)
+    flops = (25 if dot else 7) * n       # two_prod 17, two_sum 6, c 1-2
+    bound_ms, bound_by = bound(flops, (8 if dot else 4) * n + 8192,
+                               "float32")
+    t0 = time.monotonic()
+    for _ in range(5):
+        final_fn()
+        torch.cuda.synchronize()
+    row = {"phase": "kernels", "kernel": "K8a" if dot else "K8b",
+           "case": f"{'dot' if dot else 'sum'}_{n}", "n": n, "dtype": "float32",
+           "max_abs_err": err, "lanes_bit_equal": equal,
+           "final": [hi, lo], "exact": exact, "final_err": final_err,
+           "naive_err": naive_err, "limit": limit,
+           "ms": cuda_ms(torch, lanes_fn), "plain_ms": plain_ms,
+           "finalize_ms": cuda_ms(torch, lambda: ops._finalize_expansion(
+               got), reps=5),
+           "call_host_ms": 1e3 * (time.monotonic() - t0) / 5,
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    emit(row)
+    check(equal, f"{row['kernel']} n {n}: lanes != plain version (max abs "
+                 f"err {err})")
+    check(final_err <= limit, f"{row['kernel']} n {n}: finalized error "
+                              f"{final_err} > {limit}")
+    return row
+
+
+def phase_tile_kernels(torch, np):
+    """The tile layer's kernels at the tile_path's shapes: K6 at olmo_1b's
+    MLP up-projection for 8 x 512 tokens (bf16, to bf16 and to f32),
+    bench_stx's 1024^3 f32 and a ragged f32 case; K7a on 8192^2
+    (five-point and ones) and a ragged 4097 x 4099; K7b on 512^3
+    (seven-point and 27 random weights); K8a and K8b on the diffusion
+    plate's 8192^2 values (the summary's rows) and on 2^24 + 3 (a ragged
+    tail of 3)."""
+    k6 = k6_case(torch, "olmo_mlp_bf16", 4096, 2048, 8192, "bfloat16",
+                 "bfloat16")
+    k6_case(torch, "olmo_mlp_bf16_to_f32", 4096, 2048, 8192, "bfloat16",
+            "float32")
+    k6_case(torch, "bench_stx_f32", 1024, 1024, 1024, "float32", "float32")
+    k6_case(torch, "ragged_f32", 1000, 700, 300, "float32", "float32")
+    k7a = k7_case(torch, "diffusion_8192", (DIFF_N, DIFF_N), "laplace")
+    k7_case(torch, "ones_8192", (DIFF_N, DIFF_N), "ones")
+    k7_case(torch, "ragged_4097x4099", (4097, 4099), "laplace")
+    k7b = k7_case(torch, "seven_point_512", (512, 512, 512), "laplace")
+    k7_case(torch, "random27_512", (512, 512, 512), "random")
+    k8a = k8_case(torch, np, True, DIFF_N * DIFF_N)
+    k8_case(torch, np, True, K8_N)
+    k8b = k8_case(torch, np, False, DIFF_N * DIFF_N)
+    k8_case(torch, np, False, K8_N)
+    return k6, k7a, k7b, k8a, k8b
+
+
+def hot_plate(torch, n, device):
+    """The diffusion example's plate: 24-cell hot squares (1.0) on a
+    cold plate, one every 96 cells from the corner, so the squares on
+    the edges touch the cold (zero) boundary and heat leaks out."""
+    i = torch.arange(n, device=device) % 96 < 24
+    return (i[:, None] & i[None, :]).float()
+
+
+def k8_totals(torch, u):
+    """The plate's total and energy through K8b / K8a (``ops.vrp_sum`` /
+    ``ops.vrp_dot``), and whether both expansions equal, bit for bit,
+    the plain lanes (``ref.vrp_*_lanes`` on the same tensor) finalized
+    alike: the plain route launches no K8."""
+    from repro_torch.kernels import ops, ref
+
+    flat = u.reshape(-1)
+    got = (ops.vrp_sum(u), ops.vrp_dot(u, u))
+    want = (ops._finalize_expansion(ref.vrp_sum_lanes(flat)),
+            ops._finalize_expansion(ref.vrp_dot_lanes(flat, flat)))
+    return ([sum(g.tolist()) for g in got],
+            all(bool(torch.equal(g, w)) for g, w in zip(got, want)))
+
+
+def diffuse(u, w, steps, cluster):
+    for _ in range(steps):
+        u = u + ALPHA * cluster.stencil2d(u, w)
+    return u
+
+
+def adaptive_cg(torch, solvers, A, b, tol, maxiter):
+    """Escalate the precision until CG converges (examples/vrp_solver.py):
+    a list of (env, iterations, residual, seconds, x) per rung run."""
+    from repro_torch.core.precision import PRESETS
+
+    rungs = []
+    for name in LADDER:
+        t0 = time.monotonic()
+        res = solvers.cg(A, b, PRESETS[name], tol=tol, maxiter=maxiter)
+        torch.cuda.synchronize()
+        rungs.append((name, res.iterations, res.residual,
+                      time.monotonic() - t0, res.x))
+        if res.converged:
+            break
+    return rungs
+
+
+def compare_solves(torch, name, got, want):
+    """cuda rungs against cpu rungs: same rungs, equal iteration counts,
+    x within 1e-12 relative; reports whether the bits are equal."""
+    out = {"rungs": [], "x_bits_equal": True}
+    check(len(got) == len(want), f"tile_path {name}: the ladders differ")
+    for (env, it, res, secs, x), (env_c, it_c, res_c, secs_c, x_c) in zip(
+            got, want):
+        rel = ((x.cpu() - x_c).abs().max() / x_c.abs().max()).item()
+        equal = bool(torch.equal(x.cpu(), x_c))
+        out["rungs"].append({"env": env, "iterations": it,
+                             "iterations_cpu": it_c, "residual": res,
+                             "residual_cpu": res_c, "x_rel_diff": rel,
+                             "x_bits_equal": equal, "cuda_s": secs,
+                             "cpu_s": secs_c,
+                             "cuda_ms_per_iter": 1e3 * secs / max(it, 1)})
+        out["x_bits_equal"] &= equal
+        check(env == env_c and it == it_c,
+              f"tile_path {name} {env}: {it} iterations on cuda, {it_c} on "
+              "cpu")
+        check(rel <= 1e-12, f"tile_path {name} {env}: x differs by {rel}")
+    return out
+
+
+def phase_tile_path(torch, np, profile):
+    """The EPAC tile layer end to end through its entry points (the
+    port's counterparts of examples/stencil_diffusion.py and
+    examples/vrp_solver.py, and the tile policies): every tile kernel's
+    counter is reset first and read last. ``profile`` adds device time
+    by kernel over 20 diffusion steps and 5 vp128 CG iterations on
+    n = 1024."""
+    from repro_torch.core import solvers, stx, tiles, vrp
+    from repro_torch.core.precision import PRESETS
+    from repro_torch.kernels import ref
+    from repro_torch.kernels import stx_matmul as k6
+    from repro_torch.kernels import stx_stencil as k7
+    from repro_torch.kernels import vrp_dot as k8
+
+    counters = {"K6": k6.stx_matmul, "K7a": k7.stencil2d,
+                "K7b": k7.stencil3d, "K8a": k8.vrp_dot_lanes,
+                "K8b": k8.vrp_sum_lanes}
+    for fn in counters.values():
+        fn.launches = 0
+    cluster = stx.DEFAULT_CLUSTER
+    out = {"phase": "tile_path"}
+
+    # (a) diffusion at full size: K7a steps, the totals through K8
+    w5 = ref.five_point_weights(device="cuda")
+    u0 = hot_plate(torch, DIFF_N, "cuda")
+    (total0, energy0), k8_equal0 = k8_totals(torch, u0)
+    n7 = counters["K7a"].launches
+    start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    start.record()
+    u = diffuse(u0, w5, DIFF_STEPS, cluster)
+    end.record()
+    end.synchronize()
+    step_ms = start.elapsed_time(end) / DIFF_STEPS
+    k7_steps = counters["K7a"].launches - n7
+    (total, energy), k8_equal = k8_totals(torch, u)
+    peak = u.max().item()
+    finite = bool(torch.isfinite(u).all())
+    vol = torch.randn((512, 512, 512), device="cuda",
+                      generator=torch.Generator(device="cuda").manual_seed(SEED))
+    v7 = cluster.stencil3d(vol, ref.seven_point_weights(device="cuda"))
+    finite3 = bool(torch.isfinite(v7).all())
+    del vol, v7
+    # at the example's own sizes, cuda against cpu
+    small = {d: diffuse(hot_plate(torch, 96, d),
+                        ref.five_point_weights(device=d), 8, cluster)
+             for d in ("cuda", "cpu")}
+    vol = torch.from_numpy(np.random.default_rng(SEED).normal(
+        size=(64, 64, 64)).astype(np.float32))
+    w7 = ref.seven_point_weights()
+    small3 = (cluster.stencil3d(vol.cuda(), w7.cuda()).cpu(),
+              cluster.stencil3d(vol, w7))
+    out["diffusion"] = {
+        "grid": [DIFF_N, DIFF_N], "steps": DIFF_STEPS, "alpha": ALPHA,
+        "k7a_launches": k7_steps, "step_ms": step_ms,
+        "mpts_s": DIFF_N * DIFF_N / (step_ms * 1e-3) / 1e6,
+        "peak": peak, "finite": finite, "total0": total0, "total": total,
+        "energy0": energy0, "energy": energy,
+        "k8_totals_equal_plain": k8_equal0 and k8_equal,
+        "stencil3d_512_finite": finite3,
+        "small_96x96_8_steps_equal": bool(torch.equal(small["cuda"].cpu(),
+                                                      small["cpu"])),
+        "small_64cube_equal": bool(torch.equal(*small3))}
+    d = out["diffusion"]
+    check(k7_steps == DIFF_STEPS, f"tile_path: {k7_steps} K7a launches over "
+                                  f"{DIFF_STEPS} steps")
+    check(0.0 < peak < 1.0 and finite and finite3,
+          f"tile_path: diffusion peak {peak}, finite {finite}/{finite3}")
+    check(total <= total0, f"tile_path: total rose {total0} -> {total}")
+    check(energy <= energy0, f"tile_path: energy rose {energy0} -> {energy}")
+    check(d["k8_totals_equal_plain"],
+          "tile_path: K8 totals differ from the plain lanes' finalized sums")
+    check(d["small_96x96_8_steps_equal"] and d["small_64cube_equal"],
+          "tile_path: example-size stencils differ on cuda and cpu")
+
+    # (b) the tile policies' dispatch
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    x = torch.randn((8, 512, 2048), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    w = torch.randn((2048, 8192), generator=gen, device="cuda") \
+        .to(torch.bfloat16)
+    n6 = counters["K6"].launches
+    y_stx = tiles.dispatch_matmul(x, w, tiles.STX_POLICY)
+    k6_stx = counters["K6"].launches - n6
+    y_vec = tiles.dispatch_matmul(x, w, tiles.DEFAULT_POLICY)
+    k6_vec = counters["K6"].launches - n6 - k6_stx
+    rtol, atol = K6_TOL["bfloat16"]
+    diff = (y_stx.float() - y_vec.float()).abs()
+    excess = (diff - (atol + rtol * y_vec.float().abs())).max().item()
+    vrp_policy = tiles.TilePolicy(reduction="vrp")
+    r_cuda = tiles.dispatch_reduction(x, vrp_policy)
+    r_cpu = tiles.dispatch_reduction(x.cpu(), vrp_policy)
+    out["dispatch"] = {"matmul_shape": [8, 512, 2048, 8192],
+                       "stx_k6_launches": k6_stx, "vec_k6_launches": k6_vec,
+                       "max_abs_diff": diff.max().item(),
+                       "within_tol": excess <= 0,
+                       "vrp_reduction": [r_cuda.item(), r_cpu.item()],
+                       "vrp_reduction_equal": bool(torch.equal(
+                           r_cuda.cpu(), r_cpu))}
+    check(k6_stx == 1 and k6_vec == 0,
+          f"tile_path: K6 launches stx {k6_stx}, vec {k6_vec}")
+    check(excess <= 0, "tile_path: STX and VEC matmuls disagree")
+    check(out["dispatch"]["vrp_reduction_equal"],
+          "tile_path: vrp reduction differs on cuda and cpu")
+    del x, w, y_stx, y_vec, diff
+
+    # (c) the VRP solvers: the adaptive ladder on cuda and cpu
+    problems = {}
+    for name, A, tol, maxiter in (
+            ("hilbert12", solvers.hilbert(12), 1e-13, 400),
+            ("hilbert_like64_cond1e8",
+             solvers.hilbert_like(64, cond=1e8, seed=SEED), 1e-12,
+             LADDER_ITERS)):
+        b = A @ torch.ones(A.shape[0], dtype=A.dtype)
+        got = adaptive_cg(torch, solvers, A.cuda(), b.cuda(), tol, maxiter)
+        want = adaptive_cg(torch, solvers, A, b, tol, maxiter)
+        problems[name] = compare_solves(torch, name, got, want)
+        problems[name].update(tol=tol, maxiter=maxiter,
+                              solved_at=got[-1][0] if got[-1][2] <= tol
+                              else None)
+    # problem 3: the right-hand side in extended precision
+    env = PRESETS["vp256"]
+    A = solvers.hilbert_like(24, cond=1e6, seed=1)
+    res3 = {}
+    for dev in ("cuda", "cpu"):
+        Ad = A.to(dev)
+        xs = vrp.from_float(torch.ones(24, dtype=torch.float64, device=dev),
+                            env)
+        bE = vrp.tree_sum(vrp.mul(vrp.from_float(Ad, env), xs[None], env),
+                          env, axis=1)
+        res3[dev] = []
+        for name, rhs in (("f64", vrp.to_float(bE)), ("vp128", bE[:, :2])):
+            t0 = time.monotonic()
+            r = solvers.cg(Ad, rhs, PRESETS[name], tol=1e-24, maxiter=600)
+            torch.cuda.synchronize()
+            res3[dev].append((name, r.iterations, r.residual,
+                              time.monotonic() - t0, r.x))
+    problems["extended_rhs"] = compare_solves(torch, "extended_rhs",
+                                              res3["cuda"], res3["cpu"])
+    problems["extended_rhs"]["x_err"] = {
+        r[0]: float((r[4] - 1).abs().max()) for r in res3["cuda"]}
+    # cg at vp128 on n = 1024: time per iteration on the card
+    A = solvers.hilbert_like(1024, cond=1e8, seed=SEED).cuda()
+    b = A @ torch.ones(1024, dtype=A.dtype, device="cuda")
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    big = solvers.cg(A, b, PRESETS["vp128"], tol=1e-12, maxiter=200)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    problems["cg_vp128_n1024"] = {"iterations": big.iterations,
+                                  "residual": big.residual, "seconds": secs,
+                                  "ms_per_iter": 1e3 * secs / big.iterations}
+    check(math.isfinite(big.residual) and big.iterations > 0,
+          "tile_path: vp128 CG on n 1024 failed")
+    out["solvers"] = problems
+    out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    emit(out)
+    if profile:
+        emit({"phase": "profile", "config": "tile_path diffusion 20 steps",
+              **profile_window(torch, lambda: diffuse(u0, w5, 20, cluster))})
+        emit({"phase": "profile", "config": "tile_path cg vp128 n 1024, "
+                                            "5 iterations",
+              **profile_window(torch, lambda: solvers.cg(
+                  A, b, PRESETS["vp128"], tol=0.0, maxiter=5))})
+    for k in ("K6", "K7a", "K7b", "K8a", "K8b"):
+        check(out["launches"][k] > 0,
+              f"tile_path: {k} was never launched {out['launches']}")
+    return out["launches"]
+
+
+def profile_window(torch, fn):
+    """Device time by kernel over one call of ``fn``, and the share of
+    the window the device was busy (kernel time only)."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
-    from repro_torch.launch.engine import SamplingParams
-
-    for p, n in zip(prompts[:HALF], news):
-        engine.add_request(p, SamplingParams(max_tokens=n))
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.monotonic()
-        for _ in range(9):
-            engine.step()
+        fn()
         torch.cuda.synchronize()
         wall = time.monotonic() - t0
-    engine.drain()
     kernels = sorted((e for e in prof.key_averages()
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
-    emit({"phase": "profile", "config": config, "window_s": wall,
-          "device_busy_s": busy,
-          "busy_share": busy / wall,
-          "top": [{"name": e.key[:80], "calls": e.count,
-                   "device_ms": e.self_device_time_total / 1e3}
-                  for e in kernels[:12]]})
+    return {"window_s": wall, "device_busy_s": busy,
+            "busy_share": busy / wall,
+            "top": [{"name": e.key[:80], "calls": e.count,
+                     "device_ms": e.self_device_time_total / 1e3}
+                    for e in kernels[:12]]}
+
+
+def phase_profile(torch, engine, prompts, news, config):
+    """Device time by kernel over one admission + 8 decode steps."""
+    from repro_torch.launch.engine import SamplingParams
+
+    for p, n in zip(prompts[:HALF], news):
+        engine.add_request(p, SamplingParams(max_tokens=n))
+
+    def window():
+        for _ in range(9):
+            engine.step()
+
+    emit({"phase": "profile", "config": config,
+          **profile_window(torch, window)})
+    engine.drain()
 
 
 def main():
@@ -1126,6 +1600,7 @@ def main():
     prompts, news, warm = workload(np)
     phase_build()
     k1, k2, k3, k4d, k4v, k5 = phase_kernels(torch, np, prompts)
+    k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np)
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
     phase_parity_recurrent(torch, np)
@@ -1137,6 +1612,8 @@ def main():
     del model, params
     launches["K5"] = phase_recurrent_serve(torch, np, prompts, news, warm,
                                            args.profile)["K5"]
+    torch.cuda.empty_cache()
+    launches.update(phase_tile_path(torch, np, args.profile))
 
     kernels = []
     for row, key, name, src, tpu in (
@@ -1157,7 +1634,22 @@ def main():
              "src/repro/kernels/paged_attention.py:43"),
             (k5, "K5", "rglru_scan",
              "src/repro_torch/csrc/rglru_scan.cu",
-             "src/repro/kernels/rglru_scan.py:52")):
+             "src/repro/kernels/rglru_scan.py:52"),
+            (k6, "K6", "stx_matmul",
+             "src/repro_torch/csrc/stx_matmul.cu",
+             "src/repro/kernels/stx_matmul.py:53"),
+            (k7a, "K7a", "stencil2d",
+             "src/repro_torch/csrc/stx_stencil.cu",
+             "src/repro/kernels/stx_stencil.py:53"),
+            (k7b, "K7b", "stencil3d",
+             "src/repro_torch/csrc/stx_stencil.cu",
+             "src/repro/kernels/stx_stencil.py:86"),
+            (k8a, "K8a", "vrp_dot",
+             "src/repro_torch/csrc/vrp_dot.cu",
+             "src/repro/kernels/vrp_dot.py:69"),
+            (k8b, "K8b", "vrp_sum",
+             "src/repro_torch/csrc/vrp_dot.cu",
+             "src/repro/kernels/vrp_dot.py:109")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu,
                         "launches": {**launches, **quant}[key],

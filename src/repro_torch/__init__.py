@@ -5,8 +5,10 @@ Module paths mirror ``repro`` so each piece has an obvious counterpart:
 versions in ``kernels/ref.py`` plus hand-written CUDA kernels under
 ``csrc/``, dispatched by the tensor's device in ``kernels/ops.py``),
 ``models`` (layers, attention, the paged KV pool, the decoder-only LM
-and the JAX weight bridge) and ``launch`` (the paged serving Engine and
-its CLI).
+and the JAX weight bridge), ``launch`` (the paged serving Engine and
+its CLI) and ``core`` (the EPAC tile layer: precision environments, VRP
+expansion arithmetic, VBLAS, Krylov solvers, the VEC and STX tiles and
+the tile policy).
 
 The package imports ``torch`` and ``numpy`` only: never ``jax`` and
 nothing of ``repro``. Entry points take ``device`` (default ``"cuda"``)

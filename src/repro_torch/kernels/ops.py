@@ -4,20 +4,26 @@ The backend follows the tensors: CPU tensors run the plain versions in
 ``kernels/ref.py``, CUDA tensors the hand-written kernels (K1
 ``flash_attention``, K2 ``paged_decode_attention``, K3
 ``paged_verify_attention``, K4 their quantized-pool path, K5
-``rglru_scan``). Each kernel masks its own ragged edge, so nothing is
-padded to block multiples here.
+``rglru_scan``, K6 ``stx_matmul``, K7 ``stencil2d`` / ``stencil3d``, K8
+``vrp_dot`` / ``vrp_sum``). Each kernel masks its own ragged edge, so
+nothing is padded to block multiples here.
 """
 
 from __future__ import annotations
 
 import math
 
+from . import ref as _ref
+from . import stx_matmul as _k6
 from .flash_attention import flash_attention
 from .paged_attention import paged_decode_attention as _paged_decode
 from .paged_attention import paged_verify_attention as _paged_verify
 from .rglru_scan import rglru_scan
+from .stx_stencil import stencil2d, stencil3d
+from .vrp_dot import vrp_dot_lanes, vrp_sum_lanes
 
-__all__ = ["flash_attention", "paged_attention", "rglru_scan"]
+__all__ = ["flash_attention", "paged_attention", "rglru_scan", "stx_matmul",
+           "stencil2d", "stencil3d", "vrp_dot", "vrp_sum"]
 
 
 def paged_attention(q, pool, block_table, lengths, *, mode="decode",
@@ -59,3 +65,30 @@ def paged_attention(q, pool, block_table, lengths, *, mode="decode",
     fn = _paged_decode if mode == "decode" else _paged_verify
     return fn(q, pool["k"], pool["v"], block_table, lengths, window=window,
               scale=scale, k_scale=k_scale, v_scale=v_scale)
+
+
+def stx_matmul(x, w, *, out_dtype=None):
+    """(..., K) @ (K, N) through the STX tile (kernel K6), the products
+    summed in f32, cast to ``out_dtype`` (default x's)."""
+    out = _k6.stx_matmul(x.reshape(-1, x.shape[-1]), w.contiguous(),
+                         out_dtype=out_dtype)
+    return out.reshape(*x.shape[:-1], w.shape[-1])
+
+
+def _finalize_expansion(lanes):
+    """Compensated tree over per-lane (8, 128, 2) partials -> (2,)."""
+    from ..core import vrp
+
+    return vrp.tree_sum(lanes.reshape(-1, 2), _ref.double_word(lanes.dtype))
+
+
+def vrp_dot(x, y):
+    """Double-word dot of float32 vectors -> (2,) expansion [hi, lo]
+    (kernel K8a, then a compensated tree over its lanes)."""
+    return _finalize_expansion(vrp_dot_lanes(x.reshape(-1), y.reshape(-1)))
+
+
+def vrp_sum(x):
+    """Double-word sum of a float32 vector -> (2,) expansion [hi, lo]
+    (kernel K8b, then a compensated tree over its lanes)."""
+    return _finalize_expansion(vrp_sum_lanes(x.reshape(-1)))

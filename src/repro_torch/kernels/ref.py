@@ -4,7 +4,9 @@ contract).
 Each function mirrors its counterpart in ``repro/kernels/ref.py`` line
 for line: the same masks, f32 softmax, the same fully-masked-row -> 0
 rule, the same dequantization of an int8/fp8 pool (payload in f32 times
-its per-(token, head) scale). The wrappers in ``kernels/*.py`` run these
+its per-(token, head) scale), the stencils' term order. The per-lane
+versions of K8 (``vrp_dot_lanes``, ``vrp_sum_lanes``) follow the Pallas
+bodies instead, whose lanes are the kernel's output. The wrappers in ``kernels/*.py`` run these
 for CPU tensors, and ``chip_smoke.py`` holds every CUDA kernel against
 them on the card.
 """
@@ -13,7 +15,9 @@ from __future__ import annotations
 
 import math
 
+import numpy as np
 import torch
+import torch.nn.functional as F
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
@@ -162,3 +166,130 @@ def linear_scan(a, x, h0=None):
         h = af[:, t] * h + xf[:, t]
         out[:, t] = h
     return out
+
+
+# ---------------------------------------------------------------------------
+# STX matmul (K6)
+# ---------------------------------------------------------------------------
+
+
+def matmul(x, w, out_dtype=None):
+    """(..., K) @ (K, N), f32 accumulation, cast to ``out_dtype``
+    (default x's)."""
+    out = torch.matmul(x.to(torch.float32), w.to(torch.float32))
+    return out.to(out_dtype or x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# STX stencils (K7): the SPU workload, structured grid, fixed pattern
+# ---------------------------------------------------------------------------
+
+
+def _stencil(x, weights, dims):
+    """Weighted 3^dims stencil over x's last ``dims`` axes, zero
+    boundary: terms accumulated from 0 in JAX's order (the first axis
+    offset outermost), each product and sum rounded on its own. bf16 x
+    accumulates in f32 (the weights' dtype), cast back once."""
+    acc_dtype = torch.promote_types(x.dtype, weights.dtype)
+    xp = F.pad(x.to(acc_dtype), (1, 1) * dims)
+    grid = x.shape[-dims:]
+    out = torch.zeros(x.shape, dtype=acc_dtype, device=x.device)
+    for offs in np.ndindex(*(3,) * dims):
+        sl = xp[(...,) + tuple(slice(o, o + n) for o, n in zip(offs, grid))]
+        out = out + weights[offs] * sl
+    return out.to(x.dtype)
+
+
+def stencil2d(x, weights):
+    """3x3 weighted stencil on (..., M, N); zero boundary (halo = 0)."""
+    return _stencil(x, weights, 2)
+
+
+def stencil3d(x, weights):
+    """3x3x3 weighted stencil on (..., D, M, N); zero boundary."""
+    return _stencil(x, weights, 3)
+
+
+def seven_point_weights(dtype=torch.float32, device=None):
+    """Classic 7-point Laplacian weights as a 3x3x3 mask."""
+    w = np.zeros((3, 3, 3), dtype=np.float64)
+    w[1, 1, 1] = -6.0
+    for d in ((0, 1, 1), (2, 1, 1), (1, 0, 1), (1, 2, 1), (1, 1, 0), (1, 1, 2)):
+        w[d] = 1.0
+    return torch.tensor(w, dtype=dtype, device=device)
+
+
+def five_point_weights(dtype=torch.float32, device=None):
+    w = np.zeros((3, 3), dtype=np.float64)
+    w[1, 1] = -4.0
+    w[0, 1] = w[2, 1] = w[1, 0] = w[1, 2] = 1.0
+    return torch.tensor(w, dtype=dtype, device=device)
+
+
+# ---------------------------------------------------------------------------
+# VRP compensated reductions (K8; double-word = 2-term expansion)
+# ---------------------------------------------------------------------------
+
+LANES = 1024                     # the (8, 128) lane tile
+_F32_SPLITTER = float(2**12 + 1)
+
+
+def double_word(dtype):
+    """The K=2 expansion environment in ``dtype`` (float32 / float64)."""
+    from ..core.precision import PrecisionEnv
+
+    return PrecisionEnv(compute_terms=2,
+                        base_dtype=str(dtype).removeprefix("torch."))
+
+
+def vrp_dot(x, y):
+    """Double-word dot oracle via core.vrp at K=2 in the input dtype ->
+    (2,) expansion [hi, lo]."""
+    from ..core import vrp
+
+    return vrp.dot(x, y, double_word(x.dtype))
+
+
+def vrp_sum(x):
+    from ..core import vrp
+
+    return vrp.sum_floats(x.reshape(-1), double_word(x.dtype))
+
+
+def _lane_blocks(x):
+    """Flat x zero-padded to whole lane tiles -> (n / 1024, 8, 128)."""
+    nb = -(-x.shape[0] // LANES)
+    return F.pad(x, (0, nb * LANES - x.shape[0])).reshape(nb, 8, 128)
+
+
+def _lanes(blocks, step):
+    """Walk the (8, 128) lanes' Neumaier pairs over the blocks in order
+    (the Pallas grid's sequential axis) -> (8, 128, 2)."""
+    from ..core.vrp import two_sum
+
+    s = torch.zeros((8, 128), dtype=torch.float32, device=blocks[0].device)
+    c = torch.zeros_like(s)
+    for args in zip(*blocks):
+        val, e = step(*args)
+        s, err = two_sum(s, val)
+        c = c + err
+        if e is not None:
+            c = c + e   # product error is already second-order
+    return torch.stack([s, c], dim=-1)
+
+
+def vrp_dot_lanes(x, y):
+    """Per-lane compensated dot of flat f32 x, y -> (8, 128, 2): lane l
+    holds elements l, l + 1024, ... (``vrp_dot.py::_dot_kernel``):
+    two_prod(x, y) -> (p, e), two_sum(s, p) -> (s, err), c += err,
+    c += e. The tail past len(x) reads as zeros."""
+    from ..core.vrp import two_prod
+
+    return _lanes((_lane_blocks(x), _lane_blocks(y)),
+                  lambda a, b: two_prod(a, b, splitter=_F32_SPLITTER))
+
+
+def vrp_sum_lanes(x):
+    """Per-lane compensated sum of flat f32 x -> (8, 128, 2)
+    (``vrp_dot.py::_sum_kernel``)."""
+    return _lanes((_lane_blocks(x),), lambda a: (a, None))

@@ -1,6 +1,7 @@
 """The port's hand-written CUDA kernels (K1, K2, K3, K4, the
-quantized-pool path of K2 and K3, and K5, the RG-LRU scan) against their
-plain-torch versions, on the card.
+quantized-pool path of K2 and K3, K5, the RG-LRU scan, and the tile
+layer's K6 matmul, K7 stencils and K8 compensated dot / sum) against
+their plain-torch versions, on the card.
 
 Marked ``cuda``: on a machine without a GPU every test skips (the
 ``cuda_device`` fixture decides at run time). This file imports no JAX,
@@ -11,7 +12,11 @@ so it also runs on a GPU machine that has none:
 
 Tolerances are the JAX package's kernel tolerances: 1e-4 in f32 (the
 kernels sum in another order than the plain version) and 3e-2 in bf16
-(the output is rounded to bf16).
+(the output is rounded to bf16). K6 is held relatively, as
+``tests/test_kernels.py`` holds the Pallas matmul (rtol 1e-5 / atol
+1e-4 in f32, 3e-2 / 3e-1 in bf16: a long f32 sum in another order), K7
+in f32 and the K8 lanes exactly (``torch.equal``: they round every
+operation as their plain versions do, in the same order).
 """
 
 import pytest
@@ -22,6 +27,9 @@ from repro_torch.kernels import ops
 from repro_torch.kernels import paged_attention as pa_mod
 from repro_torch.kernels import ref
 from repro_torch.kernels import rglru_scan as k5_mod
+from repro_torch.kernels import stx_matmul as k6_mod
+from repro_torch.kernels import stx_stencil as k7_mod
+from repro_torch.kernels import vrp_dot as k8_mod
 from repro_torch.models import paged_kv
 
 pytestmark = pytest.mark.cuda
@@ -458,3 +466,196 @@ def test_rglru_scan_kernel_rejects_what_it_cannot_take(cuda_device):
         k5_mod.rglru_scan(a.transpose(1, 2), a.transpose(1, 2))
     with pytest.raises(ValueError, match="CUDA"):
         k5_mod.rglru_scan(a.cpu(), a)
+
+
+# ---------------------------------------------------------------------------
+# K6: the STX matmul (f32 accumulator)
+# ---------------------------------------------------------------------------
+
+K6_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
+          torch.bfloat16: dict(rtol=3e-2, atol=3e-1)}
+
+
+@pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(256, 512, 384), (1000, 700, 300),
+                                   (1, 7, 300), (129, 1, 127),
+                                   (70, 50, 130)])
+def test_stx_matmul_kernel_matches_plain(cuda_device, dtype, out_dtype, M,
+                                         K, N):
+    """Block multiples and ragged M, N and K (masked in the kernel)."""
+    gen = torch.Generator().manual_seed(M + K + N)
+    x = _randn(gen, (M, K), dtype, cuda_device)
+    w = _randn(gen, (K, N), dtype, cuda_device)
+    n0 = k6_mod.stx_matmul.launches
+    got = k6_mod.stx_matmul(x, w, out_dtype=out_dtype)
+    assert k6_mod.stx_matmul.launches == n0 + 1
+    assert got.dtype == (out_dtype or dtype) and got.shape == (M, N)
+    want = ref.matmul(x, w, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(), **K6_TOL[dtype])
+
+
+def test_stx_matmul_through_ops_and_policy(cuda_device):
+    from repro_torch.core import tiles
+
+    gen = torch.Generator().manual_seed(0)
+    x = _randn(gen, (2, 33, 64), torch.bfloat16, cuda_device)
+    w = _randn(gen, (64, 48), torch.bfloat16, cuda_device)
+    n0 = k6_mod.stx_matmul.launches
+    got = tiles.dispatch_matmul(x, w, tiles.STX_POLICY)
+    assert k6_mod.stx_matmul.launches == n0 + 1 and got.shape == (2, 33, 48)
+    vec = tiles.dispatch_matmul(x, w, tiles.DEFAULT_POLICY)
+    assert k6_mod.stx_matmul.launches == n0 + 1
+    torch.testing.assert_close(got.float(), vec.float(),
+                               **K6_TOL[torch.bfloat16])
+
+
+def test_stx_matmul_kernel_rejects_what_it_cannot_take(cuda_device):
+    x = torch.zeros((4, 8), device=cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        k6_mod.stx_matmul(x, x.T.contiguous().bfloat16())
+    with pytest.raises(ValueError, match="dtypes"):
+        k6_mod.stx_matmul(x.double(), x.T.contiguous().double())
+    with pytest.raises(ValueError, match="dtypes"):
+        k6_mod.stx_matmul(x, x.T.contiguous(), out_dtype=torch.float16)
+    with pytest.raises(ValueError, match="contiguous"):
+        k6_mod.stx_matmul(x, x.T)
+    with pytest.raises(ValueError, match="CUDA"):
+        k6_mod.stx_matmul(x, x.T.contiguous().cpu())
+    with pytest.raises(ValueError, match="shapes"):
+        k6_mod.stx_matmul(x, x)
+    assert torch.equal(k6_mod.stx_matmul(x[:, :0], x[:0]),
+                       torch.zeros((4, 8), device=cuda_device))
+
+
+# ---------------------------------------------------------------------------
+# K7: the STX stencils (2-D and 3-D)
+# ---------------------------------------------------------------------------
+
+
+def _weights(kind, dims, gen):
+    if kind == "laplace":
+        return (ref.five_point_weights() if dims == 2
+                else ref.seven_point_weights())
+    if kind == "ones":
+        return torch.ones((3,) * dims)
+    if kind == "zeros":
+        return torch.zeros((3,) * dims)
+    return torch.randn((3,) * dims, generator=gen)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["laplace", "ones", "random", "zeros"])
+@pytest.mark.parametrize("shape", [(64, 64), (65, 70), (128, 33), (1, 1),
+                                   (17, 1000), (3, 16, 64)])
+def test_stencil2d_kernel_equals_plain(cuda_device, dtype, kind, shape):
+    """Tile multiples, ragged edges, a single cell and a leading batch
+    dim; f32 bit-equal, bf16 (f32 accumulator, one rounding) too."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = _randn(gen, shape, dtype, cuda_device)
+    w = _weights(kind, 2, gen).to(cuda_device)
+    n0 = k7_mod.stencil2d.launches
+    got = k7_mod.stencil2d(x, w)
+    assert k7_mod.stencil2d.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = ref.stencil2d(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["laplace", "random", "zeros"])
+@pytest.mark.parametrize("shape", [(8, 16, 32), (9, 20, 33), (70, 9, 65),
+                                   (1, 1, 1), (2, 33, 8, 64)])
+def test_stencil3d_kernel_equals_plain(cuda_device, dtype, kind, shape):
+    """Plane chunks of 32 with a ragged last chunk (70), ragged M and N,
+    a single cell and a leading batch dim."""
+    gen = torch.Generator().manual_seed(sum(shape))
+    x = _randn(gen, shape, dtype, cuda_device)
+    w = _weights(kind, 3, gen).to(cuda_device)
+    n0 = k7_mod.stencil3d.launches
+    got = k7_mod.stencil3d(x, w)
+    assert k7_mod.stencil3d.launches == n0 + 1
+    assert got.dtype == dtype and got.shape == x.shape
+    want = ref.stencil3d(x, w)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+def test_stencil_kernel_takes_cpu_weights(cuda_device):
+    x = torch.randn((40, 50), device=cuda_device)
+    w = ref.five_point_weights()
+    assert torch.equal(k7_mod.stencil2d(x, w), ref.stencil2d(x, w))
+
+
+def test_stencil_kernels_reject_what_they_cannot_take(cuda_device):
+    x = torch.zeros((8, 8), device=cuda_device)
+    w = ref.five_point_weights().to(cuda_device)
+    with pytest.raises(ValueError, match="dtypes"):
+        k7_mod.stencil2d(x.double(), w)
+    with pytest.raises(ValueError, match="dtypes"):
+        k7_mod.stencil2d(x, w.double())
+    with pytest.raises(ValueError, match="shapes"):
+        k7_mod.stencil2d(x, ref.seven_point_weights())
+    with pytest.raises(ValueError, match="shapes"):
+        k7_mod.stencil3d(x, ref.seven_point_weights())
+    with pytest.raises(ValueError, match="contiguous"):
+        k7_mod.stencil2d(torch.zeros((8, 9), device=cuda_device).T, w)
+
+
+# ---------------------------------------------------------------------------
+# K8: the VRP compensated dot and sum (per-lane Neumaier pairs)
+# ---------------------------------------------------------------------------
+
+
+@pytest.mark.parametrize("n", [1024, 3000, 1, 40 * 1024 + 17, 2**20 + 3])
+def test_vrp_lanes_kernels_equal_plain(cuda_device, n):
+    """Whole lane tiles and the n % 1024 != 0 tail (read as zeros): the
+    lanes, and the finalized expansion, equal the plain version's."""
+    gen = torch.Generator().manual_seed(n)
+    x = (torch.randn(n, generator=gen) * 1e4).to(cuda_device)
+    y = torch.randn(n, generator=gen).to(cuda_device)
+    n0 = (k8_mod.vrp_dot_lanes.launches, k8_mod.vrp_sum_lanes.launches)
+    dot, tot = k8_mod.vrp_dot_lanes(x, y), k8_mod.vrp_sum_lanes(x)
+    assert (k8_mod.vrp_dot_lanes.launches,
+            k8_mod.vrp_sum_lanes.launches) == (n0[0] + 1, n0[1] + 1)
+    assert dot.shape == (8, 128, 2) and dot.dtype == torch.float32
+    want_dot, want_tot = ref.vrp_dot_lanes(x, y), ref.vrp_sum_lanes(x)
+    torch.cuda.synchronize()
+    assert torch.equal(dot, want_dot)
+    assert torch.equal(tot, want_tot)
+    assert torch.equal(ops.vrp_dot(x, y), ops.vrp_dot(x.cpu(), y.cpu()).to(
+        cuda_device))
+    assert torch.equal(ops.vrp_sum(x), ops.vrp_sum(x.cpu()).to(cuda_device))
+
+
+def test_vrp_dot_kernel_of_a_vector_with_itself(cuda_device):
+    x = torch.randn(5000, generator=torch.Generator().manual_seed(1)) \
+        .to(cuda_device)
+    assert torch.equal(k8_mod.vrp_dot_lanes(x, x), ref.vrp_dot_lanes(x, x))
+
+
+def test_vrp_dot_kernel_beats_naive(cuda_device):
+    gen = torch.Generator().manual_seed(0)
+    x = torch.randn(2**20 + 3, generator=gen, dtype=torch.float64) * 1e4
+    y = torch.randn(2**20 + 3, generator=gen, dtype=torch.float64)
+    xs, ys = x.float().to(cuda_device), y.float().to(cuda_device)
+    exact = float(torch.dot(xs.double().cpu(), ys.double().cpu()))
+    naive_err = abs(float(torch.dot(xs, ys)) - exact)
+    d = ops.vrp_dot(xs, ys)
+    assert abs(float(d[0]) + float(d[1]) - exact) < max(naive_err / 100, 1e-8)
+
+
+def test_vrp_kernels_reject_what_they_cannot_take(cuda_device):
+    x = torch.zeros(2048, device=cuda_device)
+    with pytest.raises(ValueError, match="float32"):
+        k8_mod.vrp_dot_lanes(x.double(), x.double())
+    with pytest.raises(ValueError, match="float32"):
+        k8_mod.vrp_sum_lanes(x.bfloat16())
+    with pytest.raises(ValueError, match="one length"):
+        k8_mod.vrp_dot_lanes(x, x[:100])
+    with pytest.raises(ValueError, match="device"):
+        k8_mod.vrp_dot_lanes(x, x.cpu())
+    with pytest.raises(ValueError, match="contiguous"):
+        k8_mod.vrp_sum_lanes(x[::2])

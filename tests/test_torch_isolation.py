@@ -1,6 +1,7 @@
 """The port stands on its own: no module of src/repro_torch/ nor
-chip_smoke.py imports JAX or the JAX package; its configs mirror
-``repro.configs`` field for field; entry points refuse to fall back to
+chip_smoke.py imports JAX or the JAX package; its configs, the tile
+layer's ``TilePolicy`` op classes and the ``PrecisionEnv`` presets
+mirror ``repro``'s field for field; entry points refuse to fall back to
 the CPU when a GPU is asked for and none is present; options and
 configs this slice does not serve raise NotImplementedError."""
 
@@ -13,7 +14,10 @@ import pytest
 import torch
 
 from repro import configs as jax_configs
+from repro.core import precision as jax_precision
+from repro.core import tiles as jax_tiles
 from repro_torch import configs
+from repro_torch.core import precision, tiles
 from repro_torch.launch.engine import Engine, EngineConfig
 from repro_torch.models.model import Model
 
@@ -55,6 +59,27 @@ def test_configs_mirror_jax_field_for_field(arch):
     assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
     assert dataclasses.asdict(mine.smoke()) == dataclasses.asdict(ref.smoke())
     assert mine.layer_kinds == ref.layer_kinds
+
+
+@pytest.mark.parametrize("name", sorted(jax_precision.PRESETS))
+def test_precision_presets_mirror_jax_field_for_field(name):
+    mine, ref = precision.PRESETS[name], jax_precision.PRESETS[name]
+    assert dataclasses.asdict(mine) == dataclasses.asdict(ref)
+    assert mine.significand_bits == ref.significand_bits
+
+
+@pytest.mark.parametrize("policy", ["DEFAULT_POLICY", "STX_POLICY"])
+def test_tile_policy_mirrors_jax_field_for_field(policy):
+    """The op-class fields and ``vrp_env``; JAX's ``interpret`` and
+    ``stx_block_*`` have no counterpart (the device decides)."""
+    assert tiles.OP_CLASSES == jax_tiles.OP_CLASSES
+    mine, ref = getattr(tiles, policy), getattr(jax_tiles, policy)
+    fields = [f.name for f in dataclasses.fields(mine)]
+    assert fields == list(tiles.OP_CLASSES) + ["vrp_env"]
+    assert all(getattr(mine, f) == getattr(ref, f) for f in fields)
+    dropped = {f.name for f in dataclasses.fields(ref)} - set(fields)
+    assert dropped == {"interpret", "stx_block_m", "stx_block_n",
+                       "stx_block_k"}
 
 
 def test_default_device_raises_without_cuda():
