@@ -5,7 +5,18 @@ check it end to end.
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of
                                      # serve, recurrent_serve and
-                                     # tile_path
+                                     # tile_path (each window also lists
+                                     # the port's own kernels and their
+                                     # share of device time)
+
+K1 (flash attention) and K6 (the STX matmul) have two bodies each,
+chosen by their wrappers from the inputs before the launch and counted
+in ``launches_by_body``: "wgmma" (Hopper's tensor cores, wgmma on
+TMA-fed bf16 tiles) for bf16 inputs a tensor map can describe, "simt"
+(the CUDA cores in f32) for f32 and everything else. Every K1 and K6
+row of the kernels phase names the body its checked call ran; the bf16
+cases with aligned shapes must run "wgmma", the f32 cases and the one
+misaligned bf16 K6 case "simt".
 
 Phases, one JSON line each (any failed check exits non-zero):
 
@@ -37,8 +48,9 @@ Phases, one JSON line each (any failed check exits non-zero):
               seeded torch.Generator) serves 16 requests of 32-512 prompt
               tokens and 32-64 new tokens through ``Engine`` (prefix
               cache on, the default); the K1 and K2 launch counters are
-              reset before and must be > 0 after, and the pool must end
-              with zero blocks in use.
+              reset before and must be > 0 after, K1's tensor-core
+              launches among them, and the pool must end with zero
+              blocks in use.
 6. spec_serve — the same model with ``spec_tokens=4`` (ngram drafter)
               and the prefix cache serves 16 requests that share a
               256-token prefix; the K3 launch counter is reset before and
@@ -66,7 +78,8 @@ Phases, one JSON line each (any failed check exits non-zero):
               2,200-token prompts (one (2, 2560) prefill: K1's window
               bites, the rings wrap in prefill) and then the serve
               phase's 16 requests; the K5 and K1 counters are reset before
-              and must be > 0 after, the pool must end empty.
+              and must be > 0 after (K1's tensor-core launches among
+              them), the pool must end empty.
 
 10. tile_path — the EPAC tile layer (``repro_torch.core``) through its
               entry points, every tile kernel's counter reset first:
@@ -78,7 +91,8 @@ Phases, one JSON line each (any failed check exits non-zero):
               7-point ``stencil3d`` step on 512^3 (K7b), and the
               example's own sizes (96^2 for 8 steps, one 64^3 step) equal
               on cuda and cpu; (b) ``dispatch_matmul`` of (8, 512, 2048)
-              @ (2048, 8192) bf16 under STX_POLICY (one K6 launch) and
+              @ (2048, 8192) bf16 under STX_POLICY (one K6 launch, on
+              the tensor-core body) and
               DEFAULT_POLICY (``torch.matmul``, none) within the bf16
               tolerance, and a vrp ``dispatch_reduction`` equal on cuda
               and cpu; (c) the adaptive CG ladder f64 -> vp128 -> vp256
@@ -93,9 +107,11 @@ The kernels phase also holds K5 (the RG-LRU scan) at recurrent_serve's
 (8, 512, 2560) and (2, 2560, 2560) f32 shapes (1e-5; in f32 the kernel
 equals its plain version bit for bit), K1 at head dims 256
 (recurrentgemma MQA 10/1 window 2048 at Sq 512 and 2560; gemma_7b
-16/16 causal) and 120 (h2o_danube GQA 32/8 window 4096), and the tile
-kernels at tile_path's shapes: K6 (4096, 2048) @ (2048, 8192) bf16 to
-bf16 and to f32, 1024^3 and ragged (1000, 700, 300) f32 (relative
+16/16 causal), 120 (h2o_danube GQA 32/8 window 4096) and 64 (a ragged
+(2, 8/2, 300) case), and the tile kernels at tile_path's shapes: K6
+(4096, 2048) @ (2048, 8192) bf16 to bf16 and to f32 (tensor cores),
+1024^3 and ragged (1000, 700, 300) f32, and (1000, 700, 300) bf16 (rows
+of 1400 bytes, which no tensor map takes: the SIMT body) (relative
 tolerance 3e-2 / 3e-1 for bf16 operands, 1e-5 / 1e-4 for f32 ones,
 against ``torch.matmul``); K7a on 8192^2 (five-point, ones) and 4097 x
 4099, K7b on 512^3 (seven-point, 27 random weights), bit-equal to the
@@ -116,6 +132,7 @@ import argparse
 import json
 import math
 import os
+import re
 import subprocess
 import sys
 import time
@@ -191,6 +208,21 @@ def bound(flops, nbytes, dtype):
                                      else "bytes")
 
 
+def zero_bodies(counter):
+    """Set a two-body kernel's per-body launch counts to 0."""
+    counter.launches_by_body = dict.fromkeys(counter.launches_by_body, 0)
+
+
+def ran_body(counter, before):
+    """The one body of a two-body kernel (K1, K6) that a single call
+    launched, from its per-body counts before and after the call."""
+    moved = {b: n - before[b] for b, n in counter.launches_by_body.items()
+             if n != before[b]}
+    check(len(moved) == 1 and set(moved.values()) == {1},
+          f"{counter.__name__}: one call launched bodies {moved}")
+    return next(iter(moved))
+
+
 # ---------------------------------------------------------------------------
 # phases
 # ---------------------------------------------------------------------------
@@ -254,7 +286,9 @@ def k1_case(torch, name, B, hq, hkv, S, D, dtype, library, window=None):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     q, k, v = (torch.randn((B, h, S, D), generator=gen, device="cuda")
                .to(dt) for h in (hq, hkv, hkv))
+    before = dict(fa.flash_attention.launches_by_body)
     got = fa.flash_attention(q, k, v, causal=True, window=window)
+    body = ran_body(fa.flash_attention, before)
     want = ref.flash_attention(q, k, v, causal=True, window=window)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -275,7 +309,7 @@ def k1_case(torch, name, B, hq, hkv, S, D, dtype, library, window=None):
             q, k, v, **kw))
     row = {"phase": "kernels", "kernel": "K1", "case": name,
            "shape": [B, hq, hkv, S, D], "dtype": dtype, "window": window,
-           "max_abs_err": err, "tol": TOL[dtype],
+           "body": body, "max_abs_err": err, "tol": TOL[dtype],
            "ms": cuda_ms(torch, lambda: fa.flash_attention(
                q, k, v, causal=True, window=window)),
            "plain_ms": cuda_ms(torch, lambda: ref.flash_attention(
@@ -287,6 +321,10 @@ def k1_case(torch, name, B, hq, hkv, S, D, dtype, library, window=None):
     emit(row)
     check(math.isfinite(err) and err <= TOL[dtype],
           f"K1 {name}: max abs err {err} > {TOL[dtype]}")
+    # every bf16 case here is aligned: the tensor cores; f32 the CUDA cores
+    want_body = "wgmma" if dtype == "bfloat16" else "simt"
+    check(body == want_body, f"K1 {name}: ran the {body} body, "
+          f"expected {want_body}")
     return row
 
 
@@ -511,6 +549,7 @@ def phase_kernels(torch, np, prompts):
     k1_case(torch, "gemma_d256", 8, 16, 16, 512, 256, "bfloat16", True)
     k1_case(torch, "danube_d120_gqa4", 8, 32, 8, 512, 120, "bfloat16", True,
             window=4096)
+    k1_case(torch, "d64_ragged_gqa4", 2, 8, 2, 300, 64, "bfloat16", True)
     return k1, k2, k3, k4d, k4v, k5
 
 
@@ -735,6 +774,7 @@ def phase_serve(torch, np, prompts, news, warm, profile):
     torch.cuda.reset_peak_memory_stats()
 
     fa.flash_attention.launches = 0
+    zero_bodies(fa.flash_attention)
     pa.paged_decode_attention.launches = 0
     t0 = time.monotonic()
     outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
@@ -743,6 +783,7 @@ def phase_serve(torch, np, prompts, news, warm, profile):
     secs = time.monotonic() - t0
     launches = {"K1": fa.flash_attention.launches,
                 "K2": pa.paged_decode_attention.launches}
+    k1_bodies = dict(fa.flash_attention.launches_by_body)
 
     st = engine.stats()
     ntok = sum(len(o) for o in outs)
@@ -751,6 +792,7 @@ def phase_serve(torch, np, prompts, news, warm, profile):
     emit({"phase": "serve", "config": cfg.name, "dtype": cfg.dtype,
           "requests": len(outs), "tokens": ntok, "seconds": secs,
           "tok_s": ntok / secs, "launches": launches,
+          "k1_launches_by_body": k1_bodies,
           "steps": st["steps"], "decode_device_s": st["device_s"],
           "prefill_calls": st["prefill_calls"],
           "prefill_tokens": st["prefill_tokens"],
@@ -765,6 +807,8 @@ def phase_serve(torch, np, prompts, news, warm, profile):
           "serve: token id out of range")
     check(launches["K1"] > 0 and launches["K2"] > 0,
           f"serve: a kernel was never launched on the main path {launches}")
+    check(k1_bodies["wgmma"] > 0,
+          f"serve: no prefill ran K1's tensor-core body {k1_bodies}")
     check(st["blocks_used"] == 0, f"serve: {st['blocks_used']} blocks leaked")
     check(tuple(logits.shape) == (1, 16, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "serve: bad prefill logits")
@@ -1068,6 +1112,7 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
     budgets = [LONG_NEW, LONG_NEW] + news
 
     fa.flash_attention.launches = 0
+    zero_bodies(fa.flash_attention)
     k5.rglru_scan.launches = 0
     t0 = time.monotonic()
     outs = engine.generate(reqs, [SamplingParams(max_tokens=n)
@@ -1076,6 +1121,7 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
     secs = time.monotonic() - t0
     launches = {"K1": fa.flash_attention.launches,
                 "K5": k5.rglru_scan.launches}
+    k1_bodies = dict(fa.flash_attention.launches_by_body)
     st = engine.stats()
     ntok = sum(len(o) for o in outs)
     ring = engine.backend.pools["g0"]["p2"]["k"]  # (count, slots, 2048, ..)
@@ -1084,6 +1130,7 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
     emit({"phase": "recurrent_serve", "config": cfg.name, "dtype": cfg.dtype,
           "requests": len(outs), "tokens": ntok, "seconds": secs,
           "tok_s": ntok / secs, "launches": launches,
+          "k1_launches_by_body": k1_bodies,
           "steps": st["steps"], "decode_device_s": st["device_s"],
           "step_ms": 1e3 * st["device_s"] / max(st["steps"], 1),
           "prefill_calls": st["prefill_calls"],
@@ -1102,6 +1149,9 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
           "recurrent_serve: token id out of range")
     check(launches["K5"] > 0 and launches["K1"] > 0,
           f"recurrent_serve: a kernel was never launched {launches}")
+    check(k1_bodies["wgmma"] > 0,
+          f"recurrent_serve: no prefill ran K1's tensor-core body "
+          f"{k1_bodies}")
     check(ring.shape[2] == cfg.local_window < LONG,
           f"recurrent_serve: ring of {ring.shape[2]} rows does not wrap")
     check(st["blocks_used"] == 0,
@@ -1119,7 +1169,7 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
 # ---------------------------------------------------------------------------
 
 
-def k6_case(torch, name, M, K, N, dtype, out_dtype):
+def k6_case(torch, name, M, K, N, dtype, out_dtype, want_body):
     """K6 (M, K) @ (K, N) in ``dtype`` to ``out_dtype``, held relatively
     (K6_TOL by operand dtype). The library time is one ``torch.matmul``
     on the same tensors (TF32 off) where the output dtype is the
@@ -1132,7 +1182,9 @@ def k6_case(torch, name, M, K, N, dtype, out_dtype):
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     x = torch.randn((M, K), generator=gen, device="cuda").to(dt)
     w = torch.randn((K, N), generator=gen, device="cuda").to(dt)
+    before = dict(k6.stx_matmul.launches_by_body)
     got = k6.stx_matmul(x, w, out_dtype=odt)
+    body = ran_body(k6.stx_matmul, before)
     want = ref.matmul(x, w, out_dtype=odt)
     torch.cuda.synchronize()
     rtol, atol = K6_TOL[dtype]
@@ -1153,7 +1205,7 @@ def k6_case(torch, name, M, K, N, dtype, out_dtype):
                else (lib_out.float() - want.float()).abs().max().item())
     row = {"phase": "kernels", "kernel": "K6", "case": name,
            "shape": [M, K, N], "dtype": dtype, "out_dtype": out_dtype,
-           "max_abs_err": err, "rtol": rtol, "atol": atol,
+           "body": body, "max_abs_err": err, "rtol": rtol, "atol": atol,
            "within_tol": excess <= 0,
            "ms": cuda_ms(torch, lambda: k6.stx_matmul(x, w, out_dtype=odt)),
            "plain_ms": cuda_ms(torch, lambda: ref.matmul(x, w, out_dtype=odt)),
@@ -1163,6 +1215,8 @@ def k6_case(torch, name, M, K, N, dtype, out_dtype):
     emit(row)
     check(math.isfinite(err) and excess <= 0,
           f"K6 {name}: outside rtol {rtol} / atol {atol} (max abs err {err})")
+    check(body == want_body, f"K6 {name}: ran the {body} body, expected "
+          f"{want_body}")
     return row
 
 
@@ -1287,11 +1341,15 @@ def phase_tile_kernels(torch, np):
     plate's 8192^2 values (the summary's rows) and on 2^24 + 3 (a ragged
     tail of 3)."""
     k6 = k6_case(torch, "olmo_mlp_bf16", 4096, 2048, 8192, "bfloat16",
-                 "bfloat16")
+                 "bfloat16", "wgmma")
     k6_case(torch, "olmo_mlp_bf16_to_f32", 4096, 2048, 8192, "bfloat16",
-            "float32")
-    k6_case(torch, "bench_stx_f32", 1024, 1024, 1024, "float32", "float32")
-    k6_case(torch, "ragged_f32", 1000, 700, 300, "float32", "float32")
+            "float32", "wgmma")
+    k6_case(torch, "bench_stx_f32", 1024, 1024, 1024, "float32", "float32",
+            "simt")
+    k6_case(torch, "ragged_f32", 1000, 700, 300, "float32", "float32", "simt")
+    # K = 700 rows are 1400 bytes, no tensor-map stride: the SIMT body
+    k6_case(torch, "ragged_bf16_simt", 1000, 700, 300, "bfloat16", "bfloat16",
+            "simt")
     k7a = k7_case(torch, "diffusion_8192", (DIFF_N, DIFF_N), "laplace")
     k7_case(torch, "ones_8192", (DIFF_N, DIFF_N), "ones")
     k7_case(torch, "ragged_4097x4099", (4097, 4099), "laplace")
@@ -1392,6 +1450,7 @@ def phase_tile_path(torch, np, profile):
                 "K8b": k8.vrp_sum_lanes}
     for fn in counters.values():
         fn.launches = 0
+    zero_bodies(k6.stx_matmul)
     cluster = stx.DEFAULT_CLUSTER
     out = {"phase": "tile_path"}
 
@@ -1454,8 +1513,10 @@ def phase_tile_path(torch, np, profile):
     w = torch.randn((2048, 8192), generator=gen, device="cuda") \
         .to(torch.bfloat16)
     n6 = counters["K6"].launches
+    before = dict(k6.stx_matmul.launches_by_body)
     y_stx = tiles.dispatch_matmul(x, w, tiles.STX_POLICY)
     k6_stx = counters["K6"].launches - n6
+    stx_body = ran_body(k6.stx_matmul, before)
     y_vec = tiles.dispatch_matmul(x, w, tiles.DEFAULT_POLICY)
     k6_vec = counters["K6"].launches - n6 - k6_stx
     rtol, atol = K6_TOL["bfloat16"]
@@ -1466,6 +1527,7 @@ def phase_tile_path(torch, np, profile):
     r_cpu = tiles.dispatch_reduction(x.cpu(), vrp_policy)
     out["dispatch"] = {"matmul_shape": [8, 512, 2048, 8192],
                        "stx_k6_launches": k6_stx, "vec_k6_launches": k6_vec,
+                       "stx_k6_body": stx_body,
                        "max_abs_diff": diff.max().item(),
                        "within_tol": excess <= 0,
                        "vrp_reduction": [r_cuda.item(), r_cpu.item()],
@@ -1473,6 +1535,8 @@ def phase_tile_path(torch, np, profile):
                            r_cuda.cpu(), r_cpu))}
     check(k6_stx == 1 and k6_vec == 0,
           f"tile_path: K6 launches stx {k6_stx}, vec {k6_vec}")
+    check(stx_body == "wgmma",
+          f"tile_path: the STX_POLICY matmul ran K6's {stx_body} body")
     check(excess <= 0, "tile_path: STX and VEC matmuls disagree")
     check(out["dispatch"]["vrp_reduction_equal"],
           "tile_path: vrp reduction differs on cuda and cpu")
@@ -1528,6 +1592,7 @@ def phase_tile_path(torch, np, profile):
           "tile_path: vp128 CG on n 1024 failed")
     out["solvers"] = problems
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
+    out["k6_launches_by_body"] = dict(k6.stx_matmul.launches_by_body)
     emit(out)
     if profile:
         emit({"phase": "profile", "config": "tile_path diffusion 20 steps",
@@ -1542,9 +1607,17 @@ def phase_tile_path(torch, np, profile):
     return out["launches"]
 
 
+# The port's kernel functions (csrc/*.cu), as torch.profiler names them.
+PORT_KERNEL = re.compile(
+    r"\(anonymous namespace\)::(tc::)?(fa_kernel|fa_wgmma|pa_kernel|"
+    r"pv_kernel|scan_kernel|mm_kernel|mm_wgmma|stencil2d_kernel|"
+    r"stencil3d_kernel|lanes_kernel)<")
+
+
 def profile_window(torch, fn):
-    """Device time by kernel over one call of ``fn``, and the share of
-    the window the device was busy (kernel time only)."""
+    """Device time by kernel over one call of ``fn``, the share of the
+    window the device was busy (kernel time only), and each of the
+    port's own kernels with its share of the busy time."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
@@ -1558,11 +1631,16 @@ def profile_window(torch, fn):
                       if e.device_type == DeviceType.CUDA),
                      key=lambda e: -e.self_device_time_total)
     busy = sum(e.self_device_time_total for e in kernels) / 1e6
+    ours = [e for e in kernels if PORT_KERNEL.search(e.key)]
     return {"window_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall,
             "top": [{"name": e.key[:80], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3}
-                    for e in kernels[:12]]}
+                    for e in kernels[:12]],
+            "port_kernels": [{"name": e.key[:80], "calls": e.count,
+                              "device_ms": e.self_device_time_total / 1e3,
+                              "busy_share": e.self_device_time_total / 1e6
+                              / busy} for e in ours]}
 
 
 def phase_profile(torch, engine, prompts, news, config):

@@ -5,6 +5,13 @@ A CPU tensor runs the plain version (``kernels/ref.flash_attention``); a
 CUDA tensor launches the hand-written kernel in
 ``csrc/flash_attention.cu`` on the current stream, or raises. There is
 no fallback from one to the other.
+
+The kernel has two bodies, and ``body`` picks one from the inputs alone
+before the launch: "wgmma" (Hopper's tensor cores on TMA-fed bf16 tiles)
+for bf16 inputs that TMA can describe, "simt" (the CUDA cores in f32)
+for everything else, f32 among it. A launch that fails raises; it is
+never rerun on the other body. ``flash_attention.launches`` counts every
+launch and ``flash_attention.launches_by_body`` each body's.
 """
 
 from __future__ import annotations
@@ -18,10 +25,11 @@ from . import _build, ref
 
 MAX_HEAD_DIM = 256                  # widest template tile of the kernel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh DType
+BODIES = ("simt", "wgmma")          # the C entry's body codes 0 and 1
 
 _ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
-             + [ctypes.c_float, ctypes.c_void_p])
+             + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def supports(head_dim: int) -> bool:
@@ -30,6 +38,30 @@ def supports(head_dim: int) -> bool:
     lanes that holds it (lanes past the head dim load zero and store
     nothing, so 120 runs in the 128 tile without a padded copy)."""
     return 0 < head_dim <= MAX_HEAD_DIM
+
+
+def _strides(t):
+    """t's (batch, head, seq) strides in elements, with the stride of a
+    dim of size 1 (never stepped along) replaced by 8, so that it cannot
+    keep a tensor map from describing t."""
+    return tuple(st if n > 1 else 8 for n, st in zip(t.shape[:3], t.stride()))
+
+
+def body(q, k, v) -> str:
+    """The body the kernel runs for these inputs, from their dtype, head
+    dim, strides and alignment alone: "wgmma" when all three are bf16,
+    the head dim is a multiple of 8 up to 256, each has a contiguous head
+    dim, every other stride a positive multiple of 8 elements (16 bytes,
+    what a tensor map takes) and a 16-byte aligned base; else "simt"."""
+    D = q.shape[-1]
+    if any(t.dtype != torch.bfloat16 for t in (q, k, v)) \
+            or D % 8 or not 0 < D <= MAX_HEAD_DIM:
+        return "simt"
+    for t in (q, k, v):
+        if t.stride(-1) != 1 or t.data_ptr() % 16 \
+                or any(st <= 0 or st % 8 for st in _strides(t)):
+            return "simt"
+    return "wgmma"
 
 
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
@@ -66,15 +98,18 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out
+    which = body(q, k, v)
     fn = _build.function("repro_flash_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
              DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D,
-             *q.stride()[:3], *k.stride()[:3], *v.stride()[:3],
-             int(causal), int(window or 0), scale,
+             *_strides(q), *_strides(k), *_strides(v),
+             int(causal), int(window or 0), scale, BODIES.index(which),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention")
+    _build.check(err, f"flash_attention ({which} body)")
     flash_attention.launches += 1
+    flash_attention.launches_by_body[which] += 1
     return out
 
 
 flash_attention.launches = 0
+flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)

@@ -5,6 +5,13 @@ A CPU tensor runs the plain version (``kernels/ref.matmul``); a CUDA
 tensor launches the hand-written kernel in ``csrc/stx_matmul.cu`` on the
 current stream, or raises. There is no fallback from one to the other.
 The kernel masks ragged M, N and K itself, so nothing is padded.
+
+The kernel has two bodies, and ``body`` picks one from the inputs alone
+before the launch: "wgmma" (Hopper's tensor cores on TMA-fed bf16 tiles)
+for bf16 operands that TMA can describe, "simt" (the CUDA cores in f32)
+for everything else, f32 operands among it. A launch that fails raises;
+it is never rerun on the other body. ``stx_matmul.launches`` counts every
+launch and ``stx_matmul.launches_by_body`` each body's.
 """
 
 from __future__ import annotations
@@ -14,9 +21,22 @@ import ctypes
 import torch
 
 from . import _build, ref
-from .flash_attention import DTYPES
+from .flash_attention import BODIES, DTYPES
 
-_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
+_ARGTYPES = [ctypes.c_void_p] * 3 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
+
+
+def body(x, w) -> str:
+    """The body the kernel runs for x (M, K) @ w (K, N), from their dtype,
+    shape and alignment alone: "wgmma" when both are bf16, K and N are
+    multiples of 8 (rows of 16-byte multiples, what a tensor map takes)
+    and both bases are 16-byte aligned; else "simt"."""
+    K, N = w.shape
+    if x.dtype == w.dtype == torch.bfloat16 and K % 8 == 0 \
+            and N % 8 == 0 and x.data_ptr() % 16 == 0 \
+            and w.data_ptr() % 16 == 0:
+        return "wgmma"
+    return "simt"
 
 
 def stx_matmul(x, w, out_dtype=None):
@@ -46,13 +66,16 @@ def stx_matmul(x, w, out_dtype=None):
     out = torch.empty((M, N), dtype=out_dtype, device=x.device)
     if out.numel() == 0:
         return out
+    which = body(x, w)
     fn = _build.function("repro_stx_matmul", _ARGTYPES)
     err = fn(x.data_ptr(), w.data_ptr(), out.data_ptr(), DTYPES[x.dtype],
-             DTYPES[out_dtype], M, N, K,
+             DTYPES[out_dtype], M, N, K, BODIES.index(which),
              torch.cuda.current_stream(x.device).cuda_stream)
-    _build.check(err, "stx_matmul")
+    _build.check(err, f"stx_matmul ({which} body)")
     stx_matmul.launches += 1
+    stx_matmul.launches_by_body[which] += 1
     return out
 
 
 stx_matmul.launches = 0
+stx_matmul.launches_by_body = dict.fromkeys(BODIES, 0)

@@ -56,6 +56,16 @@ def _close(got, want, dtype):
     assert err <= TOL[dtype], f"max abs err {err} > {TOL[dtype]}"
 
 
+def _ran_body(counter, before):
+    """The one body a single launch went through, from the per-body
+    counters before and after it."""
+    moved = [b for b, n in counter.launches_by_body.items()
+             if n != before[b]]
+    assert len(moved) == 1 and counter.launches_by_body[moved[0]] \
+        == before[moved[0]] + 1, (before, counter.launches_by_body)
+    return moved[0]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("B,hq,hkv,Sq,Skv,D,causal,window", [
     (2, 4, 4, 80, 80, 32, True, None),
@@ -66,19 +76,40 @@ def _close(got, want, dtype):
     (1, 4, 1, 7, 130, 16, False, 5),
     (2, 16, 16, 512, 512, 128, True, None),
     (1, 16, 4, 200, 200, 128, True, None),
+    (2, 4, 4, 200, 200, 16, True, None),     # D 16 in the 64-wide tile
+    (2, 4, 2, 130, 130, 48, True, 40),       # D 48, a window that bites
+    (2, 8, 2, 300, 300, 64, True, None),     # GQA 4, ragged Sq
+    (1, 8, 2, 333, 333, 120, True, 100),     # danube's D 120 in 128
+    (2, 16, 4, 256, 256, 128, True, None),   # GQA 4 at D 128
+    (1, 10, 1, 700, 700, 256, True, 128),    # MQA 10, D 256, window
+    (2, 4, 4, 200, 200, 256, True, None),    # D 256, causal
+    (1, 4, 1, 77, 300, 64, False, None),     # Sq < Skv, not causal
+    (2, 4, 4, 100, 37, 128, False, None),    # Sq > Skv, ragged both
+    (1, 2, 2, 300, 100, 64, False, 50),      # rows >= 149 see no key
+    (1, 4, 2, 64, 200, 128, False, 20),      # a window, not causal
 ])
 def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, hq, hkv,
                                               Sq, Skv, D, causal, window):
+    """Both bodies (bf16 the tensor cores, f32 the CUDA cores) against the
+    plain version: head dims 16 to 256, GQA 4 and MQA 10, windows that
+    bite, kv tiles skipped whole and rows with no visible key (output
+    0), ragged Sq and Skv."""
     gen = torch.Generator().manual_seed(B * 1000 + Sq + D)
     q = _randn(gen, (B, hq, Sq, D), dtype, cuda_device)
     k = _randn(gen, (B, hkv, Skv, D), dtype, cuda_device)
     v = _randn(gen, (B, hkv, Skv, D), dtype, cuda_device)
     n0 = fa_mod.flash_attention.launches
+    before = dict(fa_mod.flash_attention.launches_by_body)
     got = fa_mod.flash_attention(q, k, v, causal=causal, window=window)
     assert fa_mod.flash_attention.launches == n0 + 1
+    assert _ran_body(fa_mod.flash_attention, before) == (
+        "wgmma" if dtype == torch.bfloat16 else "simt")
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, ref.flash_attention(q, k, v, causal=causal, window=window),
            dtype)
+    if window is not None and not causal and Sq > Skv + window:
+        assert torch.equal(got[:, :, Skv + window:],
+                           torch.zeros_like(got[:, :, Skv + window:]))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -91,30 +122,63 @@ def test_flash_attention_kernel_matches_plain(cuda_device, dtype, B, hq, hkv,
 ])
 def test_flash_attention_kernel_wide_and_odd_head_dims(
         cuda_device, dtype, B, hq, hkv, Sq, D, window):
-    """K1 at head dims 256 (32-row query tiles) and 120 / 48 (a logical
-    width inside a wider template tile, loads past it zero, stores
-    skipped), MQA group 10, windows that bite."""
+    """K1 at head dims 256 and 120 / 48 (a logical width inside a wider
+    tile: loads past it zero, stores skipped), MQA group 10, windows that
+    bite; bf16 on the tensor-core body (64-row query tiles at D 256),
+    f32 on the SIMT body (32-row tiles at D 256)."""
     gen = torch.Generator().manual_seed(B * 1000 + Sq + D)
     q = _randn(gen, (B, hq, Sq, D), dtype, cuda_device)
     k = _randn(gen, (B, hkv, Sq, D), dtype, cuda_device)
     v = _randn(gen, (B, hkv, Sq, D), dtype, cuda_device)
     n0 = fa_mod.flash_attention.launches
+    before = dict(fa_mod.flash_attention.launches_by_body)
     got = fa_mod.flash_attention(q, k, v, causal=True, window=window)
     assert fa_mod.flash_attention.launches == n0 + 1
+    assert _ran_body(fa_mod.flash_attention, before) == (
+        "wgmma" if dtype == torch.bfloat16 else "simt")
     assert got.dtype == dtype and got.shape == q.shape
     _close(got, ref.flash_attention(q, k, v, causal=True, window=window),
            dtype)
 
 
-def test_flash_attention_kernel_strided_inputs(cuda_device):
-    """(B, S, H, D) projections pass as transposed views, no copy."""
-    gen = torch.Generator().manual_seed(7)
-    x = _randn(gen, (2, 96, 3, 4, 64), torch.bfloat16, cuda_device)
-    q, k, v = (x[:, :, i].transpose(1, 2) for i in range(3))
+@pytest.mark.parametrize("D", [64, 120, 256])
+def test_flash_attention_kernel_strided_inputs(cuda_device, D):
+    """(B, S, H, D) projections pass as transposed views, no copy: the
+    model's layout (head stride D, row stride H * D), GQA 2, read by the
+    tensor-core body's 4-D tensor maps."""
+    gen = torch.Generator().manual_seed(D)
+    x = _randn(gen, (2, 150, 4 + 2 + 2, D), torch.bfloat16, cuda_device)
+    q = x[:, :, :4].transpose(1, 2)
+    k, v = x[:, :, 4:6].transpose(1, 2), x[:, :, 6:].transpose(1, 2)
     assert not q.is_contiguous()
+    before = dict(fa_mod.flash_attention.launches_by_body)
     got = fa_mod.flash_attention(q, k, v)
+    assert _ran_body(fa_mod.flash_attention, before) == "wgmma"
     _close(got, ref.flash_attention(q.contiguous(), k.contiguous(),
                                     v.contiguous()), torch.bfloat16)
+
+
+def test_flash_attention_bodies_by_input(cuda_device):
+    """f32, a head dim that is no multiple of 8 and a misaligned base run
+    the SIMT body (and match the plain version); aligned bf16 the
+    tensor-core one."""
+    gen = torch.Generator().manual_seed(3)
+    counter = fa_mod.flash_attention
+    cases = []
+    a = _randn(gen, (1, 4, 90, 64), torch.bfloat16, cuda_device)
+    cases.append(((a, a, a), "wgmma"))
+    f = a.float()
+    cases.append(((f, f, f), "simt"))
+    odd = _randn(gen, (1, 4, 90, 100), torch.bfloat16, cuda_device)
+    cases.append(((odd, odd, odd), "simt"))
+    buf = _randn(gen, (1 + a.numel(),), torch.bfloat16, cuda_device)
+    mis = buf[1:].view(a.shape)
+    cases.append(((mis, a, a), "simt"))
+    for (q, k, v), want in cases:
+        before = dict(counter.launches_by_body)
+        got = counter(q, k, v)
+        assert _ran_body(counter, before) == want
+        _close(got, ref.flash_attention(q, k, v), q.dtype)
 
 
 def _pool_case(gen, B, hq, hkv, D, bs, nbmax, lengths, dtype, device):
@@ -488,12 +552,37 @@ def test_stx_matmul_kernel_matches_plain(cuda_device, dtype, out_dtype, M,
     x = _randn(gen, (M, K), dtype, cuda_device)
     w = _randn(gen, (K, N), dtype, cuda_device)
     n0 = k6_mod.stx_matmul.launches
+    before = dict(k6_mod.stx_matmul.launches_by_body)
     got = k6_mod.stx_matmul(x, w, out_dtype=out_dtype)
     assert k6_mod.stx_matmul.launches == n0 + 1
+    tc = dtype == torch.bfloat16 and K % 8 == 0 and N % 8 == 0
+    assert _ran_body(k6_mod.stx_matmul, before) == ("wgmma" if tc
+                                                    else "simt")
     assert got.dtype == (out_dtype or dtype) and got.shape == (M, N)
     want = ref.matmul(x, w, out_dtype=out_dtype)
     torch.cuda.synchronize()
     torch.testing.assert_close(got.float(), want.float(), **K6_TOL[dtype])
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("M,K,N", [(256, 512, 384), (128, 64, 128),
+                                   (1000, 64, 296), (77, 136, 200),
+                                   (1, 8, 8), (300, 2048, 1032)])
+def test_stx_matmul_wgmma_body_matches_plain(cuda_device, out_dtype, M, K,
+                                             N):
+    """K6's tensor-core body: block multiples, ragged M and N (masked
+    stores), ragged K (TMA's zero fill), one row."""
+    gen = torch.Generator().manual_seed(M + K + N)
+    x = _randn(gen, (M, K), torch.bfloat16, cuda_device)
+    w = _randn(gen, (K, N), torch.bfloat16, cuda_device)
+    before = dict(k6_mod.stx_matmul.launches_by_body)
+    got = k6_mod.stx_matmul(x, w, out_dtype=out_dtype)
+    assert _ran_body(k6_mod.stx_matmul, before) == "wgmma"
+    assert got.dtype == out_dtype and got.shape == (M, N)
+    want = ref.matmul(x, w, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got.float(), want.float(),
+                               **K6_TOL[torch.bfloat16])
 
 
 def test_stx_matmul_through_ops_and_policy(cuda_device):
@@ -503,8 +592,10 @@ def test_stx_matmul_through_ops_and_policy(cuda_device):
     x = _randn(gen, (2, 33, 64), torch.bfloat16, cuda_device)
     w = _randn(gen, (64, 48), torch.bfloat16, cuda_device)
     n0 = k6_mod.stx_matmul.launches
+    before = dict(k6_mod.stx_matmul.launches_by_body)
     got = tiles.dispatch_matmul(x, w, tiles.STX_POLICY)
     assert k6_mod.stx_matmul.launches == n0 + 1 and got.shape == (2, 33, 48)
+    assert _ran_body(k6_mod.stx_matmul, before) == "wgmma"
     vec = tiles.dispatch_matmul(x, w, tiles.DEFAULT_POLICY)
     assert k6_mod.stx_matmul.launches == n0 + 1
     torch.testing.assert_close(got.float(), vec.float(),

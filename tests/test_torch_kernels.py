@@ -196,3 +196,103 @@ def test_flash_attention_head_dims_past_a_power_of_two(rng):
                                    atol=1e-4)
     assert fa_mod.supports(120) and fa_mod.supports(256)
     assert not fa_mod.supports(0) and not fa_mod.supports(264)
+
+
+# ---------------------------------------------------------------------------
+# K1 / K6 body choice: a function of the inputs alone (dtype, head dim,
+# strides, alignment), so CPU tensors show it without a launch
+# ---------------------------------------------------------------------------
+
+SERVED_ARCHS = ("olmo_1b", "yi_6b", "gemma_7b", "recurrentgemma_2b",
+                "h2o_danube_3_4b")
+
+
+@pytest.mark.parametrize("arch", SERVED_ARCHS)
+def test_flash_attention_body_of_every_served_config(arch, monkeypatch):
+    """K1's inputs as the model's prefill passes them (the (B, S, H, D)
+    projections, rotated where the config rotates, as transposed views)
+    at the config's own head counts and head dim: bf16 takes the
+    tensor-core body, f32 the SIMT body. A narrow d_model keeps it
+    small; it changes no stride K1 sees."""
+    from repro_torch.models import attention
+
+    cfg = configs.get_config(arch)
+    hq, hkv, hd, d, S = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim, 16, 8
+    seen = []
+
+    def spy(q, k, v, **kw):
+        seen.append((fa_mod.body(q, k, v), q.dtype, q.shape[-1],
+                     q.is_contiguous()))
+        return fa_mod.flash_attention(q, k, v, **kw)
+
+    monkeypatch.setattr(ops, "flash_attention", spy)
+    gen = torch.Generator().manual_seed(0)
+    for dtype in (torch.bfloat16, torch.float32):
+        params = {name: torch.randn(shape, generator=gen).to(dtype)
+                  for name, shape in (("wq", (d, hq * hd)),
+                                      ("wk", (d, hkv * hd)),
+                                      ("wv", (d, hkv * hd)),
+                                      ("wo", (hq * hd, d)))}
+        x = torch.randn((2, S, d), generator=gen).to(dtype)
+        out, _ = attention.attend(params, cfg, x, torch.arange(S))
+        assert out.shape == (2, S, d)
+    assert seen == [("wgmma", torch.bfloat16, hd, False),
+                    ("simt", torch.float32, hd, False)]
+
+
+def test_flash_attention_body_rejects_what_tma_cannot_describe():
+    bf = torch.bfloat16
+    q = torch.zeros((1, 4, 32, 64), dtype=bf)
+    assert fa_mod.body(q, q, q) == "wgmma"
+    f = q.float()
+    assert fa_mod.body(f, f, f) == "simt"                  # f32
+    for D in (100, 12, 264):                               # D % 8, > 256
+        odd = torch.zeros((1, 4, 32, D), dtype=bf)
+        assert fa_mod.body(odd, odd, odd) == "simt", D
+    mis = torch.zeros(1 + q.numel(), dtype=bf)[1:].view(q.shape)
+    assert mis.data_ptr() % 16
+    assert fa_mod.body(mis, q, q) == fa_mod.body(q, q, mis) == "simt"
+    # a head stride of 36 elements (72 bytes) is no tensor-map stride
+    x = torch.zeros((1, 32, 4, 36), dtype=bf)[..., :32].transpose(1, 2)
+    assert fa_mod.body(x, x, x) == "simt"
+    # size-1 dims are never stepped along: their strides do not matter
+    one = torch.zeros((1, 9, 1, 64), dtype=bf).transpose(1, 2)
+    assert one.stride()[:3] == (576, 64, 64) and one.shape[:2] == (1, 1)
+    assert fa_mod.body(one, one, one) == "wgmma"
+    assert fa_mod._strides(one) == (8, 8, 64)
+
+
+def test_stx_matmul_body_from_shape_dtype_and_alignment():
+    from repro_torch.kernels import stx_matmul as k6_mod
+
+    bf = torch.bfloat16
+
+    def mats(M, K, N, dtype=bf):
+        return torch.empty((M, K), dtype=dtype), torch.empty((K, N),
+                                                             dtype=dtype)
+
+    assert k6_mod.body(*mats(4096, 2048, 8192)) == "wgmma"   # tile_path
+    assert k6_mod.body(*mats(1000, 64, 296)) == "wgmma"      # ragged M, N
+    assert k6_mod.body(*mats(77, 136, 200)) == "wgmma"       # ragged K
+    assert k6_mod.body(*mats(4096, 2048, 8192, torch.float32)) == "simt"
+    for M, K, N in ((1000, 700, 300), (1, 7, 300), (129, 1, 127),
+                    (70, 50, 130), (64, 64, 300)):
+        assert k6_mod.body(*mats(M, K, N)) == "simt", (M, K, N)
+    mis = torch.empty(1 + 64 * 64, dtype=bf)[1:].view(64, 64)
+    assert k6_mod.body(mis, torch.empty((64, 64), dtype=bf)) == "simt"
+    assert k6_mod.body(torch.empty((64, 64), dtype=bf), mis) == "simt"
+
+
+def test_cpu_tensors_count_no_body():
+    """The per-body counters move only with a CUDA launch."""
+    from repro_torch.kernels import stx_matmul as k6_mod
+
+    before = (dict(fa_mod.flash_attention.launches_by_body),
+              dict(k6_mod.stx_matmul.launches_by_body))
+    t = torch.zeros((1, 2, 8, 16), dtype=torch.bfloat16)
+    ops.flash_attention(t, t, t)
+    ops.stx_matmul(torch.zeros((8, 16), dtype=torch.bfloat16),
+                   torch.zeros((16, 8), dtype=torch.bfloat16))
+    assert (fa_mod.flash_attention.launches_by_body,
+            k6_mod.stx_matmul.launches_by_body) == before
+    assert set(before[0]) == set(before[1]) == {"simt", "wgmma"}
