@@ -18,6 +18,16 @@ row of the kernels phase names the body its checked call ran; the bf16
 cases with aligned shapes must run "wgmma", the f32 cases and the one
 misaligned bf16 K6 case "simt".
 
+K2 (paged decode, and K4 inside it) splits each sequence's keys over
+CTAs (``paged_attention.split_plan``, shapes only) and merges the splits
+in a combine kernel launched by the same call: its kernels-phase rows
+carry ``splits``, and beside ``ms`` (the eager call, as every row) the
+CUDA-event time of a graph replay of the call, ``graph_ms`` (both
+kernels back to back, the host's enqueue out of the timing); with
+``--profile`` also ``kernel_ms``, the profiler's durations of the two
+kernels. The combine kernel has its own row (``K2_combine``) and its
+launches must be counted on the serve and quant_serve paths.
+
 Phases, one JSON line each (any failed check exits non-zero):
 
 1. build    — nvcc builds every kernel under src/repro_torch/csrc/.
@@ -27,7 +37,9 @@ Phases, one JSON line each (any failed check exits non-zero):
               with per-(token, head) scales, fused dequant; a GQA case
               and a D-64-in-128 padded case) against their plain-torch
               versions at the main path's shapes (bf16, D 128, 16 heads),
-              plus a GQA (group 4) and an f32 case: max abs error within
+              plus a GQA (group 4) and an f32 case, and K2 / K4 decode
+              at olmo_1b's 2048-token context (8 sequences, one alone,
+              fp8; off every phase's path): max abs error within
               3e-2 (bf16) / 1e-4 (f32), CUDA-event times for kernel,
               plain version and (K1) ``F.scaled_dot_product_attention``,
               and the H100 bound.
@@ -197,6 +209,42 @@ def cuda_ms(torch, fn, reps=20):
         end.synchronize()
         total += start.elapsed_time(end)
     return total / reps
+
+
+def graph_ms(torch, fn, reps=20):
+    """``cuda_ms`` of one replay of ``fn`` captured in a CUDA graph: the
+    device time of the launches ``fn`` makes, back to back, with the
+    host's enqueue out of the timing (a replay costs the host a few us,
+    hidden behind the L2 flush; an eager call of a Python wrapper can
+    cost more than its kernels)."""
+    fn()
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        fn()
+    return cuda_ms(torch, graph.replay, reps)
+
+
+def kernel_ms(torch, fn, names, reps=10):
+    """Mean device time one call of ``fn`` spends in the kernels whose
+    names match ``names`` (torch.profiler's kernel durations), each call
+    after ``cuda_ms``'s L2 flush: set beside a CUDA-event time it shows
+    whether the event time is the kernels' own or the host's enqueue."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    flush = torch.empty(256 << 20, dtype=torch.uint8, device="cuda")
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            flush.zero_()
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA and names.search(e.key))
+    return us / 1e3 / reps
 
 
 def bound(flops, nbytes, dtype):
@@ -377,8 +425,12 @@ def pool_case(torch, np, gen, B, hkv, D, dtype, kv_dtype, bs, nb, nbmax):
 
 
 def k2_case(torch, np, name, lengths, hq, hkv, D, dtype, kv_dtype=None,
-            bs=16, nb=1024, nbmax=40):
-    """K2 (float pool) or K4 (``kv_dtype`` int8 / fp8) decode case."""
+            bs=16, nb=1024, nbmax=40, profile=False):
+    """K2 (float pool) or K4 (``kv_dtype`` int8 / fp8) decode case, with
+    the split plan it ran with (``splits``, ``blocks_per_split``), its
+    graph-replay time (``graph_ms``) and, with ``profile``, the
+    profiler's durations of its split and combine kernels
+    (``kernel_ms``)."""
     from repro_torch.kernels import paged_attention as pa, ref
 
     dt = getattr(torch, dtype)
@@ -397,18 +449,62 @@ def k2_case(torch, np, name, lengths, hq, hkv, D, dtype, kv_dtype=None,
     nbytes = q.element_size() * 2 * B * hq * D + toks * row_bytes \
         + 4 * (blocks + B)                        # table entries, lengths
     bound_ms, bound_by = bound(4 * toks * hq * D, nbytes, dtype)
+    bps, nsplit = pa.split_plan(B, hkv, nbmax, bs, pa.sm_count(q.device))
+
+    def call():
+        return pa.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+
     row = {"phase": "kernels", "kernel": "K4" if kw else "K2", "case": name,
            "shape": [B, hq, hkv, D, bs, nbmax], "lengths": list(lengths),
-           "dtype": dtype, "kv_dtype": kv_dtype, "max_abs_err": err,
-           "tol": TOL[dtype],
-           "ms": cuda_ms(torch, lambda: pa.paged_decode_attention(
-               q, kp, vp, bt, ln, **kw)),
+           "dtype": dtype, "kv_dtype": kv_dtype, "splits": nsplit,
+           "blocks_per_split": bps, "max_abs_err": err, "tol": TOL[dtype],
+           "ms": cuda_ms(torch, call), "graph_ms": graph_ms(torch, call),
            "plain_ms": cuda_ms(torch, lambda: ref.paged_decode_attention(
                q, kp, vp, bt, ln, **kw)),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    if profile:
+        row["kernel_ms"] = kernel_ms(torch, call, SPLIT_KERNELS)
     emit(row)
     check(math.isfinite(err) and err <= TOL[dtype],
           f"{row['kernel']} {name}: max abs err {err} > {TOL[dtype]}")
+    return row
+
+
+def combine_case(torch, name, B, hq, nsplit, D, dtype):
+    """K2's combine kernel on random partial states of the main path's
+    decode shape, about half its splits empty (m = kMaskValue, l = 0,
+    acc = 0: serve's lengths reach half of its 40-block table)."""
+    from repro_torch.kernels import paged_attention as pa, ref
+
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    m = torch.randn((B, hq, nsplit), generator=gen, device="cuda") * 3
+    l = torch.rand((B, hq, nsplit), generator=gen, device="cuda") * 30 + 1
+    acc = torch.randn((B, hq, nsplit, D), generator=gen, device="cuda") * 8
+    empty = torch.rand((B, hq, nsplit), generator=gen, device="cuda") < 0.5
+    m[empty], l[empty], acc[empty] = ref.MASK_VALUE, 0.0, 0.0
+    dt = getattr(torch, dtype)
+    got = pa.paged_decode_combine(m, l, acc, dt)
+    want = ref.paged_decode_combine(m, l, acc, dt)
+    torch.cuda.synchronize()
+    err = (got.float() - want.float()).abs().max().item()
+    rows = B * hq
+    nbytes = 4 * rows * nsplit * (2 + D) + got.element_size() * rows * D
+    bound_ms, bound_by = bound(2 * rows * nsplit * (D + 1), nbytes,
+                               "float32")
+
+    def call():
+        return pa.paged_decode_combine(m, l, acc, dt)
+
+    row = {"phase": "kernels", "kernel": "K2_combine", "case": name,
+           "shape": [B, hq, nsplit, D], "dtype": dtype, "max_abs_err": err,
+           "tol": TOL[dtype], "ms": cuda_ms(torch, call),
+           "graph_ms": graph_ms(torch, call),
+           "plain_ms": cuda_ms(torch, lambda: ref.paged_decode_combine(
+               m, l, acc, dt)),
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    emit(row)
+    check(math.isfinite(err) and err <= TOL[dtype],
+          f"K2 combine {name}: max abs err {err} > {TOL[dtype]}")
     return row
 
 
@@ -507,14 +603,27 @@ def k4_padded_case(torch, np, name, lengths, hq, hkv, D, Dp, kv_dtype,
     return row
 
 
-def phase_kernels(torch, np, prompts):
+def phase_kernels(torch, np, prompts, profile):
     first = [len(p) + 1 for p in prompts[:HALF]]   # first decode lengths
     k1 = k1_case(torch, "main", HALF, 16, 16, 512, 128, "bfloat16", True)
     k1_case(torch, "gqa4", 2, 16, 4, 256, 128, "bfloat16", True)
     k1_case(torch, "f32", 2, 16, 16, 128, 128, "float32", False)
-    k2 = k2_case(torch, np, "main", first, 16, 16, 128, "bfloat16")
-    k2_case(torch, np, "gqa4", first, 16, 4, 128, "bfloat16")
-    k2_case(torch, np, "f32", first, 16, 16, 128, "float32")
+    k2 = k2_case(torch, np, "main", first, 16, 16, 128, "bfloat16",
+                 profile=profile)
+    k2_case(torch, np, "gqa4", first, 16, 4, 128, "bfloat16", profile=profile)
+    k2_case(torch, np, "f32", first, 16, 16, 128, "float32", profile=profile)
+    # olmo_1b's 2048-token context, off every phase's path: 8 sequences
+    # near the end of a 128-block table, one alone (the first design's
+    # worst grid: 16 CTAs), and the same over an fp8 pool
+    long = [int(n) for n in np.random.default_rng(SEED).integers(
+        1900, 2049, HALF)]
+    wide = dict(nb=2048, nbmax=128, profile=profile)
+    k2_case(torch, np, "long_8x2048", long, 16, 16, 128, "bfloat16", **wide)
+    k2_case(torch, np, "single_2048", [2048], 16, 16, 128, "bfloat16", **wide)
+    k2_case(torch, np, "long_fp8", long, 16, 16, 128, "bfloat16", "fp8",
+            **wide)
+    k2c = combine_case(torch, "main", HALF, 16, k2["splits"], 128,
+                       "bfloat16")
     # K3 counts the tokens before the window: a verify window at the
     # first decode starts at len(prompt)
     cached = [n - 1 for n in first]
@@ -525,10 +634,11 @@ def phase_kernels(torch, np, prompts):
     k3_case(torch, np, "f32", cached, 5, 16, 16, 128, "float32")
     # K4: the quantized pool through K2 and K3 at the same shapes
     k4d = k2_case(torch, np, "decode_fp8", first, 16, 16, 128, "bfloat16",
-                  "fp8")
-    k2_case(torch, np, "decode_int8", first, 16, 16, 128, "bfloat16", "int8")
+                  "fp8", profile=profile)
+    k2_case(torch, np, "decode_int8", first, 16, 16, 128, "bfloat16", "int8",
+            profile=profile)
     k2_case(torch, np, "decode_int8_gqa4", first, 16, 4, 128, "bfloat16",
-            "int8")
+            "int8", profile=profile)
     k4v = k3_case(torch, np, "verify_fp8", cached, 5, 16, 16, 128,
                   "bfloat16", "fp8")
     k3_case(torch, np, "verify_int8", cached, 5, 16, 16, 128, "bfloat16",
@@ -550,7 +660,7 @@ def phase_kernels(torch, np, prompts):
     k1_case(torch, "danube_d120_gqa4", 8, 32, 8, 512, 120, "bfloat16", True,
             window=4096)
     k1_case(torch, "d64_ragged_gqa4", 2, 8, 2, 300, 64, "bfloat16", True)
-    return k1, k2, k3, k4d, k4v, k5
+    return k1, k2, k2c, k3, k4d, k4v, k5
 
 
 def phase_parity(torch, np):
@@ -776,13 +886,15 @@ def phase_serve(torch, np, prompts, news, warm, profile):
     fa.flash_attention.launches = 0
     zero_bodies(fa.flash_attention)
     pa.paged_decode_attention.launches = 0
+    pa.paged_decode_combine.launches = 0
     t0 = time.monotonic()
     outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
                                      for n in news])
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
     launches = {"K1": fa.flash_attention.launches,
-                "K2": pa.paged_decode_attention.launches}
+                "K2": pa.paged_decode_attention.launches,
+                "K2_combine": pa.paged_decode_combine.launches}
     k1_bodies = dict(fa.flash_attention.launches_by_body)
 
     st = engine.stats()
@@ -805,7 +917,7 @@ def phase_serve(torch, np, prompts, news, warm, profile):
           "serve: a request did not emit max_tokens tokens")
     check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
           "serve: token id out of range")
-    check(launches["K1"] > 0 and launches["K2"] > 0,
+    check(all(n > 0 for n in launches.values()),
           f"serve: a kernel was never launched on the main path {launches}")
     check(k1_bodies["wgmma"] > 0,
           f"serve: no prefill ran K1's tensor-core body {k1_bodies}")
@@ -936,6 +1048,7 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
         fa.flash_attention.launches = 0
         pa.paged_decode_attention.launches = 0
         pa.paged_decode_attention.k4_launches = 0
+        pa.paged_decode_combine.launches = 0
         pa.paged_verify_attention.k4_launches = 0
         t0 = time.monotonic()
         outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
@@ -945,6 +1058,7 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
         runs = {"K1": fa.flash_attention.launches,
                 "K2": pa.paged_decode_attention.launches,
                 "K4_decode": pa.paged_decode_attention.k4_launches,
+                "K2_combine": pa.paged_decode_combine.launches,
                 "K4_verify": pa.paged_verify_attention.k4_launches}
         launches["K4_decode"] += runs["K4_decode"]
         st = engine.stats()
@@ -975,8 +1089,10 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
               f"quant_serve {kv_dtype}: a request did not finish")
         check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
               f"quant_serve {kv_dtype}: token id out of range")
-        check(runs["K4_decode"] > 0 and runs["K2"] == 0,
-              f"quant_serve {kv_dtype}: decode did not go through K4 {runs}")
+        check(runs["K4_decode"] > 0 and runs["K2"] == 0
+              and runs["K2_combine"] > 0,
+              f"quant_serve {kv_dtype}: decode did not go through K4 and "
+              f"the combine {runs}")
         check(st["blocks_used"] == 0,
               f"quant_serve {kv_dtype}: {st['blocks_used']} blocks leaked")
         del engine
@@ -1609,9 +1725,14 @@ def phase_tile_path(torch, np, profile):
 
 # The port's kernel functions (csrc/*.cu), as torch.profiler names them.
 PORT_KERNEL = re.compile(
-    r"\(anonymous namespace\)::(tc::)?(fa_kernel|fa_wgmma|pa_kernel|"
-    r"pv_kernel|scan_kernel|mm_kernel|mm_wgmma|stencil2d_kernel|"
-    r"stencil3d_kernel|lanes_kernel)<")
+    r"\(anonymous namespace\)::(tc::)?(fa_kernel|fa_wgmma|pa_split_kernel|"
+    r"pa_combine_kernel|pv_kernel|scan_kernel|mm_kernel|mm_wgmma|"
+    r"stencil2d_kernel|stencil3d_kernel|lanes_kernel)<")
+
+
+# K2's two kernels: the split kernel and the combine pass.
+SPLIT_KERNELS = re.compile(
+    r"\(anonymous namespace\)::pa_(split|combine)_kernel<")
 
 
 def profile_window(torch, fn):
@@ -1677,7 +1798,8 @@ def main():
 
     prompts, news, warm = workload(np)
     phase_build()
-    k1, k2, k3, k4d, k4v, k5 = phase_kernels(torch, np, prompts)
+    k1, k2, k2c, k3, k4d, k4v, k5 = phase_kernels(torch, np, prompts,
+                                                  args.profile)
     k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np)
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
@@ -1699,6 +1821,9 @@ def main():
              "src/repro_torch/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention.py:109"),
             (k2, "K2", "paged_decode_attention",
+             "src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:158"),
+            (k2c, "K2_combine", "paged_decode_combine (K2's split merge)",
              "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:158"),
             (k3, "K3", "paged_verify_attention",
@@ -1733,7 +1858,8 @@ def main():
                         "launches": {**launches, **quant}[key],
                         **{k: row[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms")}})
+                            "bound_by", "library_ms", "splits")
+                           if k in row}})
     emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,

@@ -120,4 +120,30 @@ __device__ __forceinline__ void unpack16(const uint4& u, float* out) {
   Word<P>::unpack(u.w, out + 3 * N);
 }
 
+// Asynchronous copies from device memory to shared memory (sm_80+),
+// used by K2's ring of key/value tiles. ``n`` of the copy's bytes are
+// read and the rest zero-filled, so n = 0 reads nothing and stores
+// zeros (a masked token never touches the pool).
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async4(void* dst, const void* src, int n) {
+  const unsigned s = static_cast<unsigned>(__cvta_generic_to_shared(dst));
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(s),
+               "l"(src), "r"(n)
+               : "memory");
+}
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+// Wait until at most N of this thread's committed groups are in flight.
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
 }  // namespace repro

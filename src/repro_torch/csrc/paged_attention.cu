@@ -1,249 +1,136 @@
-// K2: single-token decode attention over the block-paged KV pool.
+// K2: single-token decode attention over the block-paged KV pool, split
+// over the keys (flash-decoding), and the pass that combines the splits.
 //
 // Replaces repro/kernels/paged_attention.py::paged_decode_attention_pallas
 // (body _pa_kernel). Same function: q (B, Hq, D) holds one query row per
 // sequence; k/v pools are (NB, BS, Hkv, D); logical block i of sequence
 // b lives in physical block block_table[b, i]; keys are visible when
 // kpos < lengths[b] (the count includes the current token) and, with a
-// window, kpos >= lengths[b] - window. Softmax runs online in f32 and a
-// sequence that sees no key gives a zero row. Output (B, Hq, D).
+// window, kpos >= lengths[b] - window; positions past the table (nbmax *
+// BS) do not exist. Softmax runs online in f32 and a sequence that sees
+// no key gives a zero row. Output (B, Hq, D).
 //
-// What bounds it on the H100: memory. Every visible K/V row is read
-// once and used for `group` dot products of length D, ~1 flop per byte,
-// far below the ~295 flop/byte where the tensor cores would take over.
-// The design therefore only tries to read each needed byte once and
-// keep enough loads in flight:
-//   * one CTA per (sequence, kv head): the CTA reads block_table[b, i]
-//     and lengths[b] itself (no scalar prefetch) and serves all `group`
-//     query heads of that kv head, so GQA reads each K/V row once;
-//   * it walks only the logical blocks the length and window can see,
-//     O(sum ceil(len / BS)) block reads as in _pa_kernel, and never
-//     dereferences a table entry outside that range (retired slots and
-//     pad tails point at the null block 0, which is therefore never
-//     read unmasked);
-//   * the CTA's 8 warps take interleaved blocks; in a warp each lane
-//     owns D/32 consecutive elements of a row (coalesced 256-byte row
-//     reads at D = 128 bf16), TC tokens are loaded together before their
-//     shuffle reductions so loads overlap, and the 8 warp-partial
-//     softmax states are merged through shared memory at the end.
+// What bounds it on the H100: bytes. Every visible K/V row is read once
+// and used for `group` dot products of length D, ~1 flop per byte, far
+// below the ~295 flop/byte where the tensor cores would take over, so
+// the arithmetic stays on the CUDA cores in f32. The first design (one
+// CTA per (kv head, sequence), each warp walking its blocks with
+// element-wide loads) was bound by latency instead: 128 CTAs on 132
+// SMs, and the longest sequence's warps waited on ~20 round trips to
+// memory one after another. This design keeps the bytes in flight:
+//   * split-K: the grid is (Hkv, B, nsplit). CTA s of a (kv head,
+//     sequence) takes logical blocks [s * bps, (s + 1) * bps) of its
+//     table, clipped to what the length and window can see; a split that
+//     sees nothing writes an empty state and exits. bps and nsplit come
+//     from the wrapper's plan (kernels/paged_attention.py split_plan),
+//     a function of shapes only, so a captured CUDA graph replays for any
+//     lengths and table;
+//   * table first: the CTA reads its split's visible table entries into
+//     shared memory in one load before it touches the pool. Entries of
+//     blocks no key of the split can see are never read (they may hold
+//     anything);
+//   * 16-byte asynchronous copies: every visible token's K and V row for
+//     this kv head (D payload elements, strided by Hkv * D in the pool)
+//     streams into a ring of S tiles of TT tokens in shared memory with
+//     cp.async.cg, one commit group per tile and all S tiles in flight
+//     (64 tokens at D 128 bf16: the whole 4-block split of the main
+//     path). Masked tokens of a tile are zero-filled, never read;
+//   * each lane owns a CB-byte chunk of a row (16 bytes, narrower where a
+//     large GQA group would run out of registers), so R = row bytes / CB
+//     lanes share a row and a warp takes 32 / R tokens at once; shared
+//     memory is read in CB-byte words, bank-conflict free (a warp reads
+//     32 consecutive chunks), and unpacked with repro::Word. Each token
+//     slot keeps its own online-softmax state, merged across slots with
+//     shuffles and across the 4 warps through shared memory;
+//   * every split writes its (m, l) and unnormalised f32 accumulator to
+//     scratch (m = kMaskValue, l = 0, acc = 0 where it saw no key: finite,
+//     so exp(m_s - m*) never meets inf - inf); pa_combine_kernel merges
+//     them in split order, a warp per query row. With one split the
+//     kernel normalises and writes the output itself.
 // K4 (the quantized pool, JAX's _dequant inside _pa_kernel): the payload
 // type P is a template parameter apart from the query/output type T. An
-// int8 or fp8 (e4m3) payload carries f32 scales of (NB, BS, Hkv); each
-// lane converts its row slice to f32 as it loads it and, once the loads
-// of its TC tokens are in flight, multiplies it by the (token, head)
-// scale, so the dequantized rows exist only in registers. The bytes per
-// visible token and kv head fall from 2 * D * 2 (bf16) to 2 * (D + 4),
-// and the bound with them.
-// Split-K across CTAs (flash-decoding) and TMA are later steps.
+// int8 or fp8 (e4m3) payload rides the same 16-byte copies (16 elements
+// a copy against 8 in bf16), and the f32 per-(token, head) scales, 4
+// bytes strided by Hkv (below the 16-byte minimum of a TMA box), ride
+// 4-byte cp.async.ca copies in the same commit group. Each element is
+// converted to f32 and then multiplied by its scale, _dequant's order,
+// in registers; the dequantized rows exist nowhere else. The bytes per
+// visible token and kv head fall from 2 * D * 2 (bf16) to 2 * (D + 4).
+//
+// The split kernel lives in paged_attention_split.cuh and is built one
+// (query type, payload) pair a file (paged_attention_<t>_<p>.cu); this
+// file holds the combine kernel and the C entry points.
 
-#include "common.cuh"
+#include "paged_attention.cuh"
 
 namespace {
 
 using repro::from_f32;
-using repro::IsQuant;
 using repro::kMaskValue;
-using repro::to_f32;
+using repro::kMaxSplitBlocks;
+using repro::launch_split;
+using repro::PaParams;
 
-constexpr int NW = 8;            // warps per CTA
-constexpr int TC = 4;            // tokens loaded together per warp
+constexpr int kCombineRows = 4;       // query rows (warps) per combine CTA
 
-struct PaParams {
-  const void* q;
-  const void* k_pool;
-  const void* v_pool;
-  const float* k_scale;          // (NB, BS, Hkv), quantized pools only
-  const float* v_scale;
-  const int* block_table;
-  const int* lengths;
-  void* o;
-  int Hq, Hkv, BS, nbmax, window;
-  float scale;
-};
-
-template <typename T, typename P, int D, int G>
-__global__ void __launch_bounds__(NW * 32) pa_kernel(PaParams p) {
-  constexpr int DPL = D >= 32 ? D / 32 : 1;   // elements per lane
-  constexpr bool Q = IsQuant<P>::value;
-  __shared__ float sm_m[NW][G];
-  __shared__ float sm_l[NW][G];
-  __shared__ float sm_acc[NW][G][D];
-
-  const int hk = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
+// The splits' partial states of each query row merged in a fixed order:
+// m* = max_s m_s, w_s = exp(m_s - m*), out = sum_s w_s acc_s / sum_s w_s
+// l_s (0 where the row saw no key). A warp per row: its lanes load the
+// splits' m and l together and reduce them with shuffles, then every
+// lane sums the float4s of the row it owns over the splits.
+template <typename T, int D>
+__global__ void __launch_bounds__(kCombineRows * 32)
+    pa_combine_kernel(const float* m, const float* l, const float* acc,
+                      T* o, int rows, int nsplit) {
+  constexpr int V4 = D / 4;                  // float4s in a row
+  constexpr int PER = (V4 + 31) / 32;        // per lane
+  const int row = blockIdx.x * kCombineRows + threadIdx.x / 32;
   const int lane = threadIdx.x % 32;
-  const int d0 = lane * DPL;
-  const bool lane_on = d0 < D;                // D = 16: lanes 16.. idle
-  const int len = p.lengths[b];
-
-  const T* qb = static_cast<const T*>(p.q) +
-                (static_cast<long long>(b) * p.Hq + hk * G) * D;
-  float qv[G][DPL];
+  if (row >= rows) return;
+  const float* mr = m + static_cast<long long>(row) * nsplit;
+  const float* lr = l + static_cast<long long>(row) * nsplit;
+  float mx = kMaskValue;
+  for (int s = lane; s < nsplit; s += 32) mx = fmaxf(mx, mr[s]);
 #pragma unroll
-  for (int g = 0; g < G; ++g)
+  for (int off = 16; off > 0; off >>= 1)
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+  float lsum = 0.f;
+  for (int s = lane; s < nsplit; s += 32)
+    lsum = fmaf(expf(mr[s] - mx), lr[s], lsum);
 #pragma unroll
-    for (int e = 0; e < DPL; ++e)
-      qv[g][e] = lane_on ? to_f32(qb[g * D + d0 + e]) : 0.f;
-
-  float m[G], l[G], acc[G][DPL];
+  for (int off = 16; off > 0; off >>= 1)
+    lsum += __shfl_xor_sync(0xffffffffu, lsum, off);
+  float4 a[PER];
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    m[g] = kMaskValue;
-    l[g] = 0.f;
+  for (int k = 0; k < PER; ++k) a[k] = make_float4(0.f, 0.f, 0.f, 0.f);
+#pragma unroll 8
+  for (int s = 0; s < nsplit; ++s) {
+    const float w = expf(mr[s] - mx);
+    const float4* ar = reinterpret_cast<const float4*>(
+        acc + (static_cast<long long>(row) * nsplit + s) * D);
 #pragma unroll
-    for (int e = 0; e < DPL; ++e) acc[g][e] = 0.f;
-  }
-
-  const int lo = p.window > 0 ? max(0, len - p.window) : 0;
-  const int i_lo = lo / p.BS;
-  const int i_hi = min((len + p.BS - 1) / p.BS, p.nbmax);
-  const int* table = p.block_table + static_cast<long long>(b) * p.nbmax;
-  const long long row = static_cast<long long>(p.Hkv) * D;  // token stride
-  const P* kp = static_cast<const P*>(p.k_pool) + hk * D + d0;
-  const P* vp = static_cast<const P*>(p.v_pool) + hk * D + d0;
-
-  for (int i = i_lo + warp; i < i_hi; i += NW) {
-    // the block's first token row, and its offset in payload elements:
-    // a token's offset then costs one multiply-add
-    const long long brow = static_cast<long long>(table[i]) * p.BS;
-    const long long blk = brow * row;
-    for (int t0 = 0; t0 < p.BS; t0 += TC) {
-      bool valid[TC];
-      float kv[TC][DPL], vv[TC][DPL], ks[TC], vs[TC];
-#pragma unroll
-      for (int t = 0; t < TC; ++t) {
-        const int tok = t0 + t;
-        const int kpos = i * p.BS + tok;
-        valid[t] = tok < p.BS && kpos < len && kpos >= lo;
-        const bool ld = valid[t] && lane_on;
-        const long long off = blk + tok * row;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          kv[t][e] = ld ? to_f32(kp[off + e]) : 0.f;
-          vv[t][e] = ld ? to_f32(vp[off + e]) : 0.f;
-        }
-        if constexpr (Q) {     // one scale per (row, head)
-          const long long s = (brow + tok) * p.Hkv + hk;
-          ks[t] = ld ? p.k_scale[s] : 0.f;
-          vs[t] = ld ? p.v_scale[s] : 0.f;
-        }
-      }
-      if constexpr (Q) {       // fused dequant (K4), after every load
-#pragma unroll
-        for (int t = 0; t < TC; ++t)
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) {
-            kv[t][e] *= ks[t];
-            vv[t][e] *= vs[t];
-          }
-      }
-#pragma unroll
-      for (int g = 0; g < G; ++g) {
-        float s[TC];
-#pragma unroll
-        for (int t = 0; t < TC; ++t) {
-          float part = 0.f;
-#pragma unroll
-          for (int e = 0; e < DPL; ++e) part = fmaf(qv[g][e], kv[t][e], part);
-          s[t] = part;
-        }
-#pragma unroll
-        for (int off = 16; off > 0; off >>= 1)
-#pragma unroll
-          for (int t = 0; t < TC; ++t)
-            s[t] += __shfl_xor_sync(0xffffffffu, s[t], off);
-        float mx = kMaskValue;
-#pragma unroll
-        for (int t = 0; t < TC; ++t) {
-          s[t] *= p.scale;
-          if (valid[t]) mx = fmaxf(mx, s[t]);
-        }
-        const float m_new = fmaxf(m[g], mx);
-        const float corr = expf(m[g] - m_new);
-        float sum = 0.f;
-        float pr[TC];
-#pragma unroll
-        for (int t = 0; t < TC; ++t) {
-          pr[t] = valid[t] ? expf(s[t] - m_new) : 0.f;
-          sum += pr[t];
-        }
-        l[g] = l[g] * corr + sum;
-        m[g] = m_new;
-#pragma unroll
-        for (int e = 0; e < DPL; ++e) {
-          float a = acc[g][e] * corr;
-#pragma unroll
-          for (int t = 0; t < TC; ++t) a = fmaf(pr[t], vv[t][e], a);
-          acc[g][e] = a;
-        }
+    for (int k = 0; k < PER; ++k) {
+      const int v = lane + 32 * k;
+      if (v < V4) {
+        const float4 x = ar[v];
+        a[k].x = fmaf(w, x.x, a[k].x);
+        a[k].y = fmaf(w, x.y, a[k].y);
+        a[k].z = fmaf(w, x.z, a[k].z);
+        a[k].w = fmaf(w, x.w, a[k].w);
       }
     }
   }
-
-  // Merge the NW warp-partial (m, l, acc) states of each query row.
+  const float den = lsum == 0.f ? 1.f : lsum;
+  T* orow = o + static_cast<long long>(row) * D;
 #pragma unroll
-  for (int g = 0; g < G; ++g) {
-    if (lane == 0) {
-      sm_m[warp][g] = m[g];
-      sm_l[warp][g] = l[g];
+  for (int k = 0; k < PER; ++k) {
+    const int v = lane + 32 * k;
+    if (v < V4) {
+      orow[4 * v] = from_f32<T>(a[k].x / den);
+      orow[4 * v + 1] = from_f32<T>(a[k].y / den);
+      orow[4 * v + 2] = from_f32<T>(a[k].z / den);
+      orow[4 * v + 3] = from_f32<T>(a[k].w / den);
     }
-    if (lane_on) {
-#pragma unroll
-      for (int e = 0; e < DPL; ++e) sm_acc[warp][g][d0 + e] = acc[g][e];
-    }
-  }
-  __syncthreads();
-  T* ob = static_cast<T*>(p.o) +
-          (static_cast<long long>(b) * p.Hq + hk * G) * D;
-  for (int idx = threadIdx.x; idx < G * D; idx += NW * 32) {
-    const int g = idx / D, d = idx % D;
-    float mx = kMaskValue;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) mx = fmaxf(mx, sm_m[w][g]);
-    float lsum = 0.f, a = 0.f;
-#pragma unroll
-    for (int w = 0; w < NW; ++w) {
-      const float c = expf(sm_m[w][g] - mx);
-      lsum += sm_l[w][g] * c;
-      a += sm_acc[w][g][d] * c;
-    }
-    ob[idx] = from_f32<T>(a / (lsum == 0.f ? 1.f : lsum));
-  }
-}
-
-// The merge keeps NW * G * D f32 in static shared memory (at most 48
-// KB), so G * D is at most 1024: D 256 takes groups up to 4.
-constexpr int kMaxGroupDims = 1024;
-
-template <typename T, typename P, int D>
-cudaError_t launch_g(const PaParams& p, int B, int G, cudaStream_t stream) {
-  const dim3 grid(p.Hkv, B);
-  switch (G) {
-    case 1: pa_kernel<T, P, D, 1><<<grid, NW * 32, 0, stream>>>(p); break;
-    case 2: pa_kernel<T, P, D, 2><<<grid, NW * 32, 0, stream>>>(p); break;
-    case 4: pa_kernel<T, P, D, 4><<<grid, NW * 32, 0, stream>>>(p); break;
-    case 8:
-      if constexpr (8 * D <= kMaxGroupDims) {
-        pa_kernel<T, P, D, 8><<<grid, NW * 32, 0, stream>>>(p);
-        break;
-      }
-      return cudaErrorInvalidValue;
-    default: return cudaErrorInvalidValue;
-  }
-  return cudaGetLastError();
-}
-
-template <typename T, typename P>
-cudaError_t dispatch_d(const PaParams& p, int B, int G, int D,
-                       cudaStream_t stream) {
-  switch (D) {
-    case 16: return launch_g<T, P, 16>(p, B, G, stream);
-    case 32: return launch_g<T, P, 32>(p, B, G, stream);
-    case 64: return launch_g<T, P, 64>(p, B, G, stream);
-    case 128: return launch_g<T, P, 128>(p, B, G, stream);
-    case 256: return launch_g<T, P, 256>(p, B, G, stream);
-    default: return cudaErrorInvalidValue;
   }
 }
 
@@ -251,28 +138,64 @@ cudaError_t dispatch_d(const PaParams& p, int B, int G, int D,
 template <typename T>
 cudaError_t dispatch(const PaParams& p, int pdtype, int B, int G, int D,
                      cudaStream_t stream) {
-  if (pdtype == repro::kI8) return dispatch_d<T, int8_t>(p, B, G, D, stream);
+  if (pdtype == repro::kI8) return launch_split<T, int8_t>(p, B, G, D, stream);
   if (pdtype == repro::kFP8)
-    return dispatch_d<T, __nv_fp8_e4m3>(p, B, G, D, stream);
-  return dispatch_d<T, T>(p, B, G, D, stream);
+    return launch_split<T, __nv_fp8_e4m3>(p, B, G, D, stream);
+  return launch_split<T, T>(p, B, G, D, stream);
+}
+
+template <typename T, int D>
+cudaError_t combine_launch(const float* m, const float* l, const float* acc,
+                           void* o, int rows, int nsplit,
+                           cudaStream_t stream) {
+  const int grid = (rows + kCombineRows - 1) / kCombineRows;
+  pa_combine_kernel<T, D><<<grid, kCombineRows * 32, 0, stream>>>(
+      m, l, acc, static_cast<T*>(o), rows, nsplit);
+  return cudaGetLastError();
+}
+
+template <typename T>
+cudaError_t combine_d(const float* m, const float* l, const float* acc,
+                      void* o, int rows, int nsplit, int D,
+                      cudaStream_t s) {
+  switch (D) {
+    case 16: return combine_launch<T, 16>(m, l, acc, o, rows, nsplit, s);
+    case 32: return combine_launch<T, 32>(m, l, acc, o, rows, nsplit, s);
+    case 64: return combine_launch<T, 64>(m, l, acc, o, rows, nsplit, s);
+    case 128: return combine_launch<T, 128>(m, l, acc, o, rows, nsplit, s);
+    case 256: return combine_launch<T, 256>(m, l, acc, o, rows, nsplit, s);
+    default: return cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
 
-// C entry point (loaded with ctypes by repro_torch/kernels/
+// C entry points (loaded with ctypes by repro_torch/kernels/
 // paged_attention.py). All tensors contiguous, the pools 16-byte
 // aligned; block_table and lengths int32; k_scale / v_scale (NB, BS,
-// Hkv) f32 when pdtype is kI8 or kFP8 (else unused). Returns the
-// launch's cudaGetLastError() code.
+// Hkv) f32 when pdtype is kI8 or kFP8 (else unused). The split plan:
+// bps blocks a split, nsplit splits covering the table (nsplit * bps >=
+// nbmax). o is (B, Hq, D) in dtype. With nsplit > 1, ``scratch`` holds
+// B * Hq * nsplit * (D + 2) f32: the splits' acc (B, Hq, nsplit, D), then
+// m and l (B, Hq, nsplit); the split kernel fills it and the combine
+// kernel, launched next on the same stream, writes o. Returns the first
+// non-zero cudaGetLastError() of its launches, each checked as it is
+// made.
 extern "C" int repro_paged_decode_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* block_table,
-    const void* lengths, void* o, int dtype, int pdtype, int B, int Hq,
-    int Hkv, int D, int BS, int nbmax, int window, float scale,
-    void* stream) {
+    const void* lengths, void* o, void* scratch, int dtype, int pdtype,
+    int B, int Hq, int Hkv, int D, int BS, int nbmax, int window,
+    float scale, int bps, int nsplit, void* stream) {
   const bool quant = pdtype == repro::kI8 || pdtype == repro::kFP8;
   if (quant ? (k_scale == nullptr || v_scale == nullptr) : pdtype != dtype)
     return static_cast<int>(cudaErrorInvalidValue);
+  if (bps < 1 || bps > kMaxSplitBlocks || nsplit < 1 || nsplit > 65535 ||
+      static_cast<long long>(nsplit) * bps < nbmax || o == nullptr ||
+      (nsplit > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long parts = static_cast<long long>(B) * Hq * nsplit;
+  float* acc = static_cast<float*>(scratch);
   PaParams p;
   p.q = q;
   p.k_pool = k_pool;
@@ -282,16 +205,44 @@ extern "C" int repro_paged_decode_attention(
   p.block_table = static_cast<const int*>(block_table);
   p.lengths = static_cast<const int*>(lengths);
   p.o = o;
+  p.acc = nsplit > 1 ? acc : nullptr;
+  p.m = nsplit > 1 ? acc + parts * D : nullptr;
+  p.l = nsplit > 1 ? acc + parts * (D + 1) : nullptr;
   p.Hq = Hq;
   p.Hkv = Hkv;
   p.BS = BS;
   p.nbmax = nbmax;
   p.window = window;
+  p.bps = bps;
+  p.nsplit = nsplit;
   p.scale = scale;
   const int G = Hq / Hkv;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == repro::kBF16
-                        ? dispatch<__nv_bfloat16>(p, pdtype, B, G, D, s)
-                        : dispatch<float>(p, pdtype, B, G, D, s);
+  const bool bf16 = dtype == repro::kBF16;
+  cudaError_t err = bf16 ? dispatch<__nv_bfloat16>(p, pdtype, B, G, D, s)
+                         : dispatch<float>(p, pdtype, B, G, D, s);
+  if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
+  const int rows = B * Hq;
+  err = bf16 ? combine_d<__nv_bfloat16>(p.m, p.l, acc, o, rows, nsplit, D, s)
+             : combine_d<float>(p.m, p.l, acc, o, rows, nsplit, D, s);
+  return static_cast<int>(err);
+}
+
+// The combine pass alone, over partial states the caller holds: m, l
+// (rows, nsplit) and acc (rows, nsplit, D) f32 -> o (rows, D) in dtype.
+extern "C" int repro_paged_decode_combine(const void* m, const void* l,
+                                          const void* acc, void* o,
+                                          int dtype, int rows, int nsplit,
+                                          int D, void* stream) {
+  if (rows < 0 || nsplit < 1) return static_cast<int>(cudaErrorInvalidValue);
+  if (rows == 0) return 0;
+  const float* mp = static_cast<const float*>(m);
+  const float* lp = static_cast<const float*>(l);
+  const float* ap = static_cast<const float*>(acc);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err =
+      dtype == repro::kBF16
+          ? combine_d<__nv_bfloat16>(mp, lp, ap, o, rows, nsplit, D, s)
+          : combine_d<float>(mp, lp, ap, o, rows, nsplit, D, s);
   return static_cast<int>(err);
 }

@@ -12,15 +12,24 @@ the pool exists. A CPU tensor runs the plain version in
 ``kernels/ref.py``; a CUDA tensor launches the hand-written kernel on
 the current stream, or raises. There is no fallback from one to the
 other. Launches are counted per function: ``.launches`` for float pools
-(K2, K3), ``.k4_launches`` for quantized ones (K4). A pool wider than
-q's head dim (a padded pool, ``PoolSpec.padded_head_dim``) is read at
-q's width by the plain version; for the kernels, which take one width,
-the wrapper zero-pads q to the pool's and slices the output back.
+(K2, K3), ``.k4_launches`` for quantized ones (K4), one per call. A pool
+wider than q's head dim (a padded pool, ``PoolSpec.padded_head_dim``) is
+read at q's width by the plain version; for the kernels, which take one
+width, the wrapper zero-pads q to the pool's and slices the output back.
+
+K2 cuts each sequence's table into ``split_plan``'s splits, one CTA
+each (flash-decoding); with more than one split, the combine kernel
+merges their partial softmax states, launched by the same C call and
+counted in ``paged_decode_combine.launches`` (that wrapper runs the
+combine alone). The plan reads shapes only, never ``lengths``: nothing
+syncs with the card, and a captured CUDA graph replays for any lengths
+and table.
 """
 
 from __future__ import annotations
 
 import ctypes
+import functools
 import math
 
 import torch
@@ -33,8 +42,13 @@ GROUPS = (1, 2, 4, 8)               # Hq // Hkv the CUDA kernel is built for
 MAX_GROUP_DIMS = 1024               # K2: group * head dim (shared memory)
 PAYLOADS = {torch.int8: 2, torch.float8_e4m3fn: 3}   # csrc/common.cuh DType
 
-_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-             + [ctypes.c_float, ctypes.c_void_p])
+SPLIT_TOKENS = (64, 128)   # K2: keys a split takes, least and most
+CTAS_PER_SM = 8            # K2: the plan's aim, 2 waves of 4 CTAs an SM
+
+_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
+             + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+_COMBINE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
+    + [ctypes.c_void_p]
 _PV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
                 + [ctypes.c_float, ctypes.c_void_p])
 
@@ -118,6 +132,32 @@ def _ptr(t):
     return t.data_ptr() if t is not None else None
 
 
+@functools.lru_cache(maxsize=None)
+def split_plan(B: int, Hkv: int, nbmax: int, BS: int,
+               n_sm: int) -> tuple[int, int]:
+    """K2's split of the key axis: (blocks per split, number of splits).
+
+    A split takes between ``SPLIT_TOKENS`` keys (64-128, so 4-8 blocks
+    at BS 16; one block where a block is larger): the largest split that
+    still gives ``B * Hkv * nsplit >= CTAS_PER_SM * n_sm`` CTAs at full
+    table width, else the smallest. Split s covers logical blocks
+    [s * bps, min((s + 1) * bps, nbmax)), so the splits cover the table
+    once. Shapes only: a length never changes the plan."""
+    least = max(1, -(-SPLIT_TOKENS[0] // BS))
+    most = max(least, SPLIT_TOKENS[1] // BS)
+    bps = least
+    for c in range(most, least - 1, -1):
+        if B * Hkv * -(-nbmax // c) >= CTAS_PER_SM * n_sm:
+            bps = c
+            break
+    return bps, max(1, -(-nbmax // bps))
+
+
+@functools.lru_cache(maxsize=None)
+def sm_count(device) -> int:
+    return torch.cuda.get_device_properties(device).multi_processor_count
+
+
 def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
                            window=None, scale=None, k_scale=None,
                            v_scale=None):
@@ -143,16 +183,24 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
                               block_table, lengths, k_scale, v_scale)
     B, Hq, D = q.shape
     BS, Hkv = k_pool.shape[1:3]
+    nbmax = block_table.shape[1]
+    if B * Hq * D == 0:
+        return torch.empty((B, Hq, D0), dtype=q.dtype, device=q.device)
+    bps, nsplit = split_plan(B, Hkv, nbmax, BS, sm_count(q.device))
     out = torch.empty((B, Hq, D), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out[..., :D0]
+    # every split writes its state here: acc (B, Hq, nsplit, D), m, l
+    scratch = torch.empty(B * Hq * nsplit * (D + 2), dtype=torch.float32,
+                          device=q.device) if nsplit > 1 else None
     fn = _build.function("repro_paged_decode_attention", _ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), block_table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), DTYPES[q.dtype], pdtype,
-             B, Hq, Hkv, D, BS, block_table.shape[1], int(window or 0),
-             scale, torch.cuda.current_stream(q.device).cuda_stream)
+             lengths.data_ptr(), out.data_ptr(), _ptr(scratch),
+             DTYPES[q.dtype], pdtype, B, Hq, Hkv, D, BS, nbmax,
+             int(window or 0), scale, bps, nsplit,
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
+    if nsplit > 1:           # the same call launched the combine kernel
+        paged_decode_combine.launches += 1
     if k_scale is None:
         paged_decode_attention.launches += 1
     else:
@@ -162,6 +210,46 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
 
 paged_decode_attention.launches = 0      # K2
 paged_decode_attention.k4_launches = 0   # K4 (quantized pool)
+
+
+def paged_decode_combine(m, l, acc, out_dtype):
+    """Merge K2's per-split softmax states: m, l (B, Hq, nsplit) and the
+    unnormalised acc (B, Hq, nsplit, D), f32 -> (B, Hq, D) in
+    ``out_dtype`` (f32 or bf16). A split that saw no key holds m =
+    kMaskValue, l = 0, acc = 0; a row whose splits all saw none gives 0.
+    A CPU tensor runs ``ref.paged_decode_combine``, a CUDA tensor the
+    combine kernel (``csrc/paged_attention.cu``). K2 launches the same
+    kernel from its own C call, and counts it here too."""
+    if m.device.type == "cpu":
+        return ref.paged_decode_combine(m, l, acc, out_dtype)
+    if m.device.type != "cuda" or any(t.device != m.device
+                                      for t in (l, acc)):
+        raise ValueError("paged_decode_combine: tensors on "
+                         f"{[str(t.device) for t in (m, l, acc)]}; "
+                         "expected one CUDA device")
+    if any(t.dtype != torch.float32 or not t.is_contiguous()
+           for t in (m, l, acc)) or out_dtype not in DTYPES:
+        raise ValueError("paged_decode_combine: m, l, acc must be "
+                         "contiguous float32 and out_dtype float32 or "
+                         f"bfloat16, got {[t.dtype for t in (m, l, acc)]} "
+                         f"-> {out_dtype}")
+    B, Hq, nsplit, D = acc.shape
+    if m.shape != (B, Hq, nsplit) or l.shape != m.shape or nsplit < 1 \
+            or D not in HEAD_DIMS:
+        raise ValueError(f"paged_decode_combine: shapes m {tuple(m.shape)},"
+                         f" l {tuple(l.shape)}, acc {tuple(acc.shape)}; "
+                         f"head dim in {HEAD_DIMS}")
+    out = torch.empty((B, Hq, D), dtype=out_dtype, device=m.device)
+    fn = _build.function("repro_paged_decode_combine", _COMBINE_ARGTYPES)
+    err = fn(m.data_ptr(), l.data_ptr(), acc.data_ptr(), out.data_ptr(),
+             DTYPES[out_dtype], B * Hq, nsplit, D,
+             torch.cuda.current_stream(m.device).cuda_stream)
+    _build.check(err, "paged_decode_combine")
+    paged_decode_combine.launches += 1
+    return out
+
+
+paged_decode_combine.launches = 0
 
 
 def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,

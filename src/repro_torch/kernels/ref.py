@@ -105,6 +105,25 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
     return torch.einsum("bhs,bhsd->bhd", probs, vx).to(q.dtype)
 
 
+MASK_VALUE = -0.7 * float(np.finfo(np.float32).max)   # csrc kMaskValue
+
+
+def paged_decode_combine(m, l, acc, out_dtype):
+    """Merge the split-K partial softmax states of a decode step.
+
+    m, l: (B, Hq, nsplit) f32, each split's running max of its scaled
+    scores and sum of exp(score - m); acc: (B, Hq, nsplit, D) f32, its
+    unnormalised sum of exp(score - m) * v. A split that saw no key
+    holds m = ``MASK_VALUE`` (finite), l = 0, acc = 0. Returns
+    sum_s w_s acc_s / sum_s w_s l_s with w_s = exp(m_s - max_s m_s), in
+    ``out_dtype``; a row whose splits all saw no key gives 0.
+    """
+    w = torch.exp(m - m.amax(-1, keepdim=True))
+    den = (w * l).sum(-1)
+    out = (w[..., None] * acc).sum(-2)
+    return (out / torch.where(den == 0, 1.0, den)[..., None]).to(out_dtype)
+
+
 def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
                            window=None, scale=None, k_scale=None,
                            v_scale=None):

@@ -228,6 +228,150 @@ def test_paged_decode_kernel_reads_only_visible_blocks(cuda_device):
            torch.float32)
 
 
+def _plan(B, hkv, nbmax, bs, device):
+    return pa_mod.split_plan(B, hkv, nbmax, bs, pa_mod.sm_count(device))
+
+
+SPLIT_CASES = [  # hq, hkv, D, bs, nbmax, lengths, window
+    (16, 16, 128, 16, 40, [513, 300, 258, 17], None),   # serve's decode
+    (16, 4, 128, 16, 128, [2048], None),                # B 1, GQA 4
+    (8, 2, 64, 16, 64, [1000, 700, 5, 0], 200),         # floors mid-split
+    (4, 2, 32, 6, 60, [359, 100, 369], None),           # BS 6, past the end
+    (8, 1, 16, 4, 96, [387, 200, 33], 50),              # MQA 8, window
+    (8, 2, 256, 16, 48, [700, 768, 769], 300),          # D 256, past the end
+]
+
+
+def _split_call(gen, dtype, kv_dtype, hq, hkv, D, bs, nbmax, lengths,
+                window, device):
+    """K2 (or K4 with ``kv_dtype``) at a table the plan cuts into 4 or
+    more splits: one call checked against the plain version, the call
+    counters and the combine's."""
+    B = len(lengths)
+    bps, nsplit = _plan(B, hkv, nbmax, bs, device)
+    assert nsplit >= 4, (bps, nsplit)
+    q, kp, vp, bt, ln = _pool_case(gen, B, hq, hkv, D, bs, nbmax, lengths,
+                                   dtype, device)
+    kw = {}
+    if kv_dtype is not None:
+        kp, vp, kw["k_scale"], kw["v_scale"] = _quant_pool(
+            kp.float(), vp.float(), kv_dtype)
+    fn = pa_mod.paged_decode_attention
+    before = (fn.launches, fn.k4_launches,
+              pa_mod.paged_decode_combine.launches)
+    got = fn(q, kp, vp, bt, ln, window=window, **kw)
+    assert (fn.launches, fn.k4_launches,
+            pa_mod.paged_decode_combine.launches) == (
+        before[0] + (kv_dtype is None), before[1] + (kv_dtype is not None),
+        before[2] + 1)
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, ref.paged_decode_attention(q, kp, vp, bt, ln, window=window,
+                                           **kw), dtype)
+    if 0 in lengths:
+        row = lengths.index(0)
+        assert torch.equal(got[row], torch.zeros_like(got[row]))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,D,bs,nbmax,lengths,window", SPLIT_CASES)
+def test_paged_decode_split_kernel_matches_plain(cuda_device, dtype, hq, hkv,
+                                                 D, bs, nbmax, lengths,
+                                                 window):
+    """K2 split over 4 to 32 CTAs a (sequence, kv head): one sequence
+    alone, window floors inside a split and splits wholly below them,
+    splits past the length, block size 6, lengths past the table's end,
+    a sequence with no key (a zero row)."""
+    gen = torch.Generator().manual_seed(nbmax * 100 + D + bs)
+    _split_call(gen, dtype, None, hq, hkv, D, bs, nbmax, lengths, window,
+                cuda_device)
+
+
+@pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,D,bs,nbmax,lengths,window", SPLIT_CASES)
+def test_paged_decode_split_k4_matches_plain(cuda_device, kv_dtype, dtype,
+                                             hq, hkv, D, bs, nbmax, lengths,
+                                             window):
+    """The same split cases over an int8 / fp8 pool (K4)."""
+    gen = torch.Generator().manual_seed(nbmax * 100 + D + bs + 1)
+    _split_call(gen, dtype, kv_dtype, hq, hkv, D, bs, nbmax, lengths, window,
+                cuda_device)
+
+
+def test_paged_decode_split_reads_only_visible_blocks(cuda_device):
+    """At a table wide enough to split (10 splits of 4 blocks), entries
+    past each sequence's last visible block are never dereferenced: a
+    split reads only its visible entries, so poisoned ids change
+    nothing."""
+    gen = torch.Generator().manual_seed(4)
+    lengths = [70, 1, 300]
+    assert _plan(3, 2, 40, 16, cuda_device)[1] == 10
+    q, kp, vp, bt, ln = _pool_case(gen, 3, 4, 2, 32, 16, 40, lengths,
+                                   torch.float32, cuda_device)
+    want = ref.paged_decode_attention(q, kp, vp, bt, ln)
+    poisoned = bt.clone()
+    for b, L in enumerate(lengths):
+        poisoned[b, -(-L // 16):] = 1 << 30
+    _close(pa_mod.paged_decode_attention(q, kp, vp, poisoned, ln), want,
+           torch.float32)
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nsplit,D", [(1, 16), (5, 128), (10, 128),
+                                      (33, 256), (7, 64)])
+def test_paged_decode_combine_kernel_matches_plain(cuda_device, out_dtype,
+                                                   nsplit, D):
+    """The combine kernel against ``ref.paged_decode_combine`` on random
+    partial states: splits that saw no key (m = kMaskValue, l = 0, acc =
+    0) among live ones, and rows whose splits all saw none (exactly 0)."""
+    gen = torch.Generator().manual_seed(nsplit * 1000 + D)
+    B, Hq = 3, 8
+    m = torch.randn((B, Hq, nsplit), generator=gen) * 3
+    l = torch.rand((B, Hq, nsplit), generator=gen) * 5 + 0.1
+    acc = torch.randn((B, Hq, nsplit, D), generator=gen) * 4
+    empty = torch.rand((B, Hq, nsplit), generator=gen) < 0.4
+    empty[1, 2] = True                                 # a row with no key
+    m[empty] = ref.MASK_VALUE
+    l[empty] = 0.0
+    acc[empty] = 0.0
+    m, l, acc = (t.to(cuda_device) for t in (m, l, acc))
+    n0 = pa_mod.paged_decode_combine.launches
+    got = pa_mod.paged_decode_combine(m, l, acc, out_dtype)
+    assert pa_mod.paged_decode_combine.launches == n0 + 1
+    assert got.dtype == out_dtype and got.shape == (B, Hq, D)
+    _close(got, ref.paged_decode_combine(m, l, acc, out_dtype), out_dtype)
+    assert torch.equal(got[1, 2], torch.zeros_like(got[1, 2]))
+
+
+def test_paged_decode_replays_in_a_cuda_graph(cuda_device):
+    """One K2 call (split kernel + combine) captured in a CUDA graph and
+    replayed after q, the lengths and the table change in place equals
+    the plain version on the new inputs: the plan reads no device value
+    and the scratch comes from the graph's pool."""
+    gen = torch.Generator().manual_seed(8)
+    q, kp, vp, bt, ln = _pool_case(gen, 4, 16, 4, 128, 16, 40,
+                                   [300, 17, 513, 64], torch.bfloat16,
+                                   cuda_device)
+    assert _plan(4, 4, 40, 16, cuda_device)[1] > 1
+    fn = pa_mod.paged_decode_attention
+    fn(q, kp, vp, bt, ln)                          # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0, c0 = fn.launches, pa_mod.paged_decode_combine.launches
+    with torch.cuda.graph(graph):
+        out = fn(q, kp, vp, bt, ln)
+    assert (fn.launches, pa_mod.paged_decode_combine.launches) == (
+        n0 + 1, c0 + 1)
+    for lengths in ([640, 1, 200, 0], [5, 639, 77, 400]):
+        q.copy_(_randn(gen, tuple(q.shape), q.dtype, cuda_device))
+        ln.copy_(torch.tensor(lengths, dtype=torch.int32))
+        bt.copy_(bt.flip(0).roll(1, dims=1))
+        graph.replay()
+        _close(out, ref.paged_decode_attention(q, kp, vp, bt, ln),
+               torch.bfloat16)
+    assert fn.launches == n0 + 1                  # replays count nothing
+
+
 def _verify_case(gen, B, K1, hq, hkv, D, bs, nbmax, lengths, dtype, device):
     nb = B * nbmax + 1
     q = _randn(gen, (B, K1, hq, D), dtype, device)
@@ -540,6 +684,14 @@ K6_TOL = {torch.float32: dict(rtol=1e-5, atol=1e-4),
           torch.bfloat16: dict(rtol=3e-2, atol=3e-1)}
 
 
+def _k6_tol(dtype, out_dtype):
+    """K6's tolerance: bf16's where the operands or the output are bf16
+    (a bf16 output rounds the f32 sum, so two summation orders may land
+    one bf16 ulp apart), f32's only where both are f32."""
+    return K6_TOL[torch.bfloat16 if torch.bfloat16 in (dtype, out_dtype)
+                  else torch.float32]
+
+
 @pytest.mark.parametrize("out_dtype", [None, torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("M,K,N", [(256, 512, 384), (1000, 700, 300),
@@ -561,7 +713,8 @@ def test_stx_matmul_kernel_matches_plain(cuda_device, dtype, out_dtype, M,
     assert got.dtype == (out_dtype or dtype) and got.shape == (M, N)
     want = ref.matmul(x, w, out_dtype=out_dtype)
     torch.cuda.synchronize()
-    torch.testing.assert_close(got.float(), want.float(), **K6_TOL[dtype])
+    torch.testing.assert_close(got.float(), want.float(),
+                               **_k6_tol(dtype, out_dtype))
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
