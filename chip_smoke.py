@@ -4,8 +4,8 @@ check it end to end.
 
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of
-                                     # serve, recurrent_serve and
-                                     # tile_path (each window also lists
+                                     # serve, spec_serve, recurrent_serve
+                                     # and tile_path (each window lists
                                      # the port's own kernels and their
                                      # share of device time)
 
@@ -27,6 +27,26 @@ kernels back to back, the host's enqueue out of the timing); with
 ``--profile`` also ``kernel_ms``, the profiler's durations of the two
 kernels. The combine kernel has its own row (``K2_combine``) and its
 launches must be counted on the serve and quant_serve paths.
+
+K3 (paged verify, and K4 inside it) has three bodies, chosen by
+``paged_attention.verify_body`` from shapes and dtypes and counted in
+``paged_verify_attention.launches_by_body``: "split" for fewer than 32
+(row, group) pairs a kv head (the verify step, on K2's split plan and
+combine pass), "wgmma" for a bf16 suffix prefill over a bf16, int8 or
+fp8 pool (tensor cores on paged TMA tiles), "simt" for the rest. Every
+K3 / K4-verify row of the kernels phase names its ``body`` and carries
+``splits``, ``graph_ms`` and (``--profile``) ``kernel_ms``: the bf16
+verify rows must run "split" with more than one split, the bf16 and fp8
+suffix rows "wgmma", the f32 verify "split" and the f32 suffix "simt".
+The bf16 and fp8 suffix rows run at spec_serve's buckets (K1 32, 64 and
+128 over its 256-token prefix; the summary line takes the 64-row bucket)
+and at a 256-row suffix off its path; ``verify_k1`` / ``_k2`` / ``_k8``
+hold the split body at 1, 2 and 8 rows on the verify step's bytes.
+spec_serve and quant_serve's fp8 speculative run report
+``launches_by_body``: every verify launch (spec steps x layers) must be
+"split" and every suffix-prefill launch "wgmma". ``--profile`` also
+profiles a spec_serve window (one admission of partial prefix hits and
+8 verify steps), so that ``port_kernels`` shows K3's device share.
 
 Phases, one JSON line each (any failed check exits non-zero):
 
@@ -166,6 +186,7 @@ LADDER_ITERS = 100                 # problem 1's cut (the example's 400)
 PARITY_TOL = 1e-3                  # f32 logits, cuda vs cpu summation order
 N_REQ, HALF = 16, 8                # serve: first HALF prompts in bucket 512
 SHARED, PHRASE = 256, 8            # spec_serve: shared prefix, repeated phrase
+SUFFIX_BUCKETS = (32, 64, 128)     # spec_serve: its suffixes' K3 widths
 
 
 def emit(obj):
@@ -257,13 +278,13 @@ def bound(flops, nbytes, dtype):
 
 
 def zero_bodies(counter):
-    """Set a two-body kernel's per-body launch counts to 0."""
+    """Set a kernel's per-body launch counts to 0."""
     counter.launches_by_body = dict.fromkeys(counter.launches_by_body, 0)
 
 
 def ran_body(counter, before):
-    """The one body of a two-body kernel (K1, K6) that a single call
-    launched, from its per-body counts before and after the call."""
+    """The one body of a kernel with several (K1, K3, K6) that a single
+    call launched, from its per-body counts before and after the call."""
     moved = {b: n - before[b] for b, n in counter.launches_by_body.items()
              if n != before[b]}
     check(len(moved) == 1 and set(moved.values()) == {1},
@@ -508,9 +529,13 @@ def combine_case(torch, name, B, hq, nsplit, D, dtype):
     return row
 
 
-def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, kv_dtype=None,
-            bs=16, nb=1024, nbmax=40):
-    """K3 (float pool) or K4 (``kv_dtype`` int8 / fp8) verify case."""
+def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, want_body,
+            kv_dtype=None, bs=16, nb=1024, nbmax=40, profile=False):
+    """K3 (float pool) or K4 (``kv_dtype`` int8 / fp8) verify or suffix
+    case, with the body its checked call ran (``body``, which must be
+    ``want_body``), its split plan (``splits``; 1 outside the split
+    body), its graph-replay time (``graph_ms``) and, with ``profile``,
+    the profiler's durations of its kernels (``kernel_ms``)."""
     from repro_torch.kernels import paged_attention as pa, ref
 
     dt = getattr(torch, dtype)
@@ -520,7 +545,10 @@ def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, kv_dtype=None,
     kp, vp, kw, bt, row_bytes = pool_case(torch, np, gen, B, hkv, D, dtype,
                                           kv_dtype, bs, nb, nbmax)
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    got = pa.paged_verify_attention(q, kp, vp, bt, ln, **kw)
+    fn = pa.paged_verify_attention
+    before = dict(fn.launches_by_body)
+    got = fn(q, kp, vp, bt, ln, **kw)
+    body = ran_body(fn, before)
     want = ref.paged_verify_attention(q, kp, vp, bt, ln, **kw)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
@@ -533,18 +561,29 @@ def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, kv_dtype=None,
     nbytes = q.element_size() * 2 * B * K1 * hq * D + rows * row_bytes \
         + 4 * (blocks + B)                        # table entries, lengths
     bound_ms, bound_by = bound(4 * D * hq * pairs, nbytes, dtype)
+    nsplit = pa.split_plan(B, hkv, nbmax, bs, pa.sm_count(q.device))[1] \
+        if body == "split" else 1
+
+    def call():
+        return fn(q, kp, vp, bt, ln, **kw)
+
     row = {"phase": "kernels", "kernel": "K4" if kw else "K3", "case": name,
            "shape": [B, K1, hq, hkv, D, bs, nbmax], "lengths": list(lengths),
-           "dtype": dtype, "kv_dtype": kv_dtype, "max_abs_err": err,
-           "tol": TOL[dtype],
-           "ms": cuda_ms(torch, lambda: pa.paged_verify_attention(
-               q, kp, vp, bt, ln, **kw)),
+           "dtype": dtype, "kv_dtype": kv_dtype, "body": body,
+           "splits": nsplit, "max_abs_err": err, "tol": TOL[dtype],
+           "ms": cuda_ms(torch, call), "graph_ms": graph_ms(torch, call),
            "plain_ms": cuda_ms(torch, lambda: ref.paged_verify_attention(
                q, kp, vp, bt, ln, **kw)),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    if profile:
+        row["kernel_ms"] = kernel_ms(torch, call, VERIFY_KERNELS)
     emit(row)
     check(math.isfinite(err) and err <= TOL[dtype],
           f"{row['kernel']} {name}: max abs err {err} > {TOL[dtype]}")
+    check(body == want_body,
+          f"{row['kernel']} {name}: ran the {body} body, not {want_body}")
+    check(body != "split" or dtype != "bfloat16" or nsplit > 1,
+          f"{row['kernel']} {name}: the split body ran one split")
     return row
 
 
@@ -627,11 +666,31 @@ def phase_kernels(torch, np, prompts, profile):
     # K3 counts the tokens before the window: a verify window at the
     # first decode starts at len(prompt)
     cached = [n - 1 for n in first]
-    k3 = k3_case(torch, np, "verify", cached, 5, 16, 16, 128, "bfloat16")
-    k3_case(torch, np, "suffix", [SHARED] * HALF, SHARED, 16, 16, 128,
-            "bfloat16")
-    k3_case(torch, np, "gqa4", cached, 5, 16, 4, 128, "bfloat16")
-    k3_case(torch, np, "f32", cached, 5, 16, 16, 128, "float32")
+    sfx = [SHARED] * HALF                  # spec_serve's shared prefix
+    kw3 = dict(profile=profile)
+    k3 = k3_case(torch, np, "verify", cached, 5, 16, 16, 128, "bfloat16",
+                 "split", **kw3)
+    # the split body's fixed cost against its rows: 1, 2 and 8 rows a
+    # sequence on the verify step's bytes (K2 main is 1 row), and the
+    # combine over the verify step's 5 rows a sequence
+    for rows in (1, 2, 8):
+        k3_case(torch, np, f"verify_k{rows}", cached, rows, 16, 16, 128,
+                "bfloat16", "split", **kw3)
+    combine_case(torch, "verify_rows", HALF * 5, 16, k3["splits"], 128,
+                 "bfloat16")
+    # spec_serve's suffix prefills: its 16..128-token suffixes take the
+    # buckets 32, 64 (the summary's row: half its requests) and 128 over
+    # the shared prefix; "suffix" is a 256-token suffix, off its path
+    k3s = {w: k3_case(torch, np, f"suffix_w{w}", sfx, w, 16, 16, 128,
+                      "bfloat16", "wgmma", **kw3) for w in SUFFIX_BUCKETS}
+    k3_case(torch, np, "suffix", sfx, SHARED, 16, 16, 128, "bfloat16",
+            "wgmma", **kw3)
+    k3_case(torch, np, "gqa4", cached, 5, 16, 4, 128, "bfloat16", "split",
+            **kw3)
+    k3_case(torch, np, "f32", cached, 5, 16, 16, 128, "float32", "split",
+            **kw3)
+    k3_case(torch, np, "suffix_f32", sfx, SHARED, 16, 16, 128, "float32",
+            "simt", **kw3)
     # K4: the quantized pool through K2 and K3 at the same shapes
     k4d = k2_case(torch, np, "decode_fp8", first, 16, 16, 128, "bfloat16",
                   "fp8", profile=profile)
@@ -640,11 +699,16 @@ def phase_kernels(torch, np, prompts, profile):
     k2_case(torch, np, "decode_int8_gqa4", first, 16, 4, 128, "bfloat16",
             "int8", profile=profile)
     k4v = k3_case(torch, np, "verify_fp8", cached, 5, 16, 16, 128,
-                  "bfloat16", "fp8")
+                  "bfloat16", "split", "fp8", **kw3)
     k3_case(torch, np, "verify_int8", cached, 5, 16, 16, 128, "bfloat16",
-            "int8")
-    k3_case(torch, np, "suffix_fp8", [SHARED] * HALF, SHARED, 16, 16, 128,
-            "bfloat16", "fp8")
+            "split", "int8", **kw3)
+    k4s = {w: k3_case(torch, np, f"suffix_fp8_w{w}", sfx, w, 16, 16, 128,
+                      "bfloat16", "wgmma", "fp8", **kw3)
+           for w in SUFFIX_BUCKETS}
+    k3_case(torch, np, "suffix_fp8", sfx, SHARED, 16, 16, 128, "bfloat16",
+            "wgmma", "fp8", **kw3)
+    k3_case(torch, np, "suffix_int8", sfx, SHARED, 16, 16, 128, "bfloat16",
+            "wgmma", "int8", **kw3)
     k4_padded_case(torch, np, "decode_int8_d64_in_128", first, 16, 16, 64,
                    128, "int8")
     # recurrent_serve's shapes: K5 over the RG-LRU width 2560 at the
@@ -660,7 +724,7 @@ def phase_kernels(torch, np, prompts, profile):
     k1_case(torch, "danube_d120_gqa4", 8, 32, 8, 512, 120, "bfloat16", True,
             window=4096)
     k1_case(torch, "d64_ragged_gqa4", 2, 8, 2, 300, 64, "bfloat16", True)
-    return k1, k2, k2c, k3, k4d, k4v, k5
+    return k1, k2, k2c, k3, k3s[64], k4d, k4v, k4s[64], k5
 
 
 def phase_parity(torch, np):
@@ -929,10 +993,31 @@ def phase_serve(torch, np, prompts, news, warm, profile):
     return launches, outs, model, params
 
 
-def phase_spec_serve(torch, np):
+def verify_bodies(pa, cfg, st, k3, k1):
+    """K3's launches on a speculative path split by regime: the verify
+    step (spec steps x layers) and the suffix prefill (the rest), with
+    the per-body counts; fails unless every verify launch ran "split"
+    and every suffix launch "wgmma". ``k3`` counts the path's K3 or K4
+    calls, ``k1`` its full prefills (K1, none when every admission hits
+    the prefix cache)."""
+    by_body = dict(pa.paged_verify_attention.launches_by_body)
+    verify = st["spec"]["steps"] * cfg.n_layers
+    suffix = k3 - verify
+    check(by_body == {"simt": 0, "split": verify, "wgmma": suffix}
+          and suffix > 0 and suffix % cfg.n_layers == 0,
+          f"K3 bodies {by_body}: expected {verify} verify launches on "
+          f"split and {suffix} suffix launches on wgmma (K1 {k1})")
+    return {"verify_launches": verify, "suffix_launches": suffix,
+            "launches_by_body": by_body}
+
+
+def phase_spec_serve(torch, np, profile):
     """Full-width olmo_1b, bf16, speculative decoding (ngram, K = 4) with
     the prefix cache, on shared-prefix traffic; then the same prompts
-    through a non-speculative, cache-off engine for the token match."""
+    through a non-speculative, cache-off engine for the token match.
+    With ``profile``, a window of one admission of partial prefix hits
+    (fresh suffixes after the shared prefix: K3's suffix prefill) and 8
+    verify steps."""
     from repro_torch.configs import get_config
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
@@ -955,6 +1040,7 @@ def phase_spec_serve(torch, np):
     fa.flash_attention.launches = 0
     pa.paged_decode_attention.launches = 0
     pa.paged_verify_attention.launches = 0
+    zero_bodies(pa.paged_verify_attention)
     t0 = time.monotonic()
     outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
                                      for n in news])
@@ -964,6 +1050,12 @@ def phase_spec_serve(torch, np):
                 "K2": pa.paged_decode_attention.launches,
                 "K3": pa.paged_verify_attention.launches}
     st = engine.stats()
+    bodies = verify_bodies(pa, cfg, st, launches["K3"], launches["K1"])
+    if profile:
+        rng = np.random.default_rng(SEED + 2)
+        fresh = [p[:SHARED] + list(map(int, rng.integers(
+            0, 50304, len(p) - SHARED))) for p in prompts]
+        phase_profile(torch, engine, fresh, news, f"{cfg.name} spec_serve")
     del engine
     base = Engine(model, params, EngineConfig(prefix_cache=False, **geo),
                   device="cuda")
@@ -979,7 +1071,7 @@ def phase_spec_serve(torch, np):
     emit({"phase": "spec_serve", "config": cfg.name, "dtype": cfg.dtype,
           "spec_tokens": 4, "drafter": "ngram", "requests": len(outs),
           "tokens": ntok, "seconds": secs, "tok_s": ntok / secs,
-          "launches": launches, "steps": st["steps"],
+          "launches": launches, **bodies, "steps": st["steps"],
           "decode_device_s": st["device_s"],
           "emitted_per_step": spec["emitted_per_step"],
           "accept_rate": spec["accept_rate"],
@@ -1001,7 +1093,8 @@ def phase_spec_serve(torch, np):
     check(pc["hits"] >= N_REQ, f"spec_serve: {pc['hits']} prefix hits")
     check(st["blocks_used"] == 0,
           f"spec_serve: {st['blocks_used']} blocks leaked")
-    return launches
+    return {**launches, "K3_verify": bodies["verify_launches"],
+            "K3_suffix": bodies["suffix_launches"]}
 
 
 def pool_block_bytes(torch, cfg, kv_dtype):
@@ -1104,8 +1197,10 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
     engine.generate([swarm], SamplingParams(max_tokens=2))
     engine.backend.reset_telemetry()
     torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
     pa.paged_verify_attention.launches = 0
     pa.paged_verify_attention.k4_launches = 0
+    zero_bodies(pa.paged_verify_attention)
     t0 = time.monotonic()
     outs = engine.generate(sprompts, [SamplingParams(max_tokens=n)
                                       for n in snews])
@@ -1113,14 +1208,16 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
     secs = time.monotonic() - t0
     k3, k4v = (pa.paged_verify_attention.launches,
                pa.paged_verify_attention.k4_launches)
-    launches["K4_verify"] = k4v
     st = engine.stats()
+    bodies = verify_bodies(pa, cfg, st, k4v, fa.flash_attention.launches)
+    launches["K4_verify"] = bodies["verify_launches"]
+    launches["K4_verify_suffix"] = bodies["suffix_launches"]
     ntok = sum(len(o) for o in outs)
     emit({"phase": "quant_serve", "config": cfg.name, "dtype": cfg.dtype,
           "kv_dtype": "fp8", "spec_tokens": 4, "drafter": "ngram",
           "requests": len(outs), "tokens": ntok, "seconds": secs,
           "tok_s": ntok / secs,
-          "launches": {"K3": k3, "K4_verify": k4v},
+          "launches": {"K3": k3, "K4_verify": k4v}, **bodies,
           "steps": st["steps"], "accept_rate": st["spec"]["accept_rate"],
           "prefix_hits": st["prefix_cache"]["hits"],
           "blocks_used": st["blocks_used"]})
@@ -1725,14 +1822,19 @@ def phase_tile_path(torch, np, profile):
 
 # The port's kernel functions (csrc/*.cu), as torch.profiler names them.
 PORT_KERNEL = re.compile(
-    r"\(anonymous namespace\)::(tc::)?(fa_kernel|fa_wgmma|pa_split_kernel|"
-    r"pa_combine_kernel|pv_kernel|scan_kernel|mm_kernel|mm_wgmma|"
-    r"stencil2d_kernel|stencil3d_kernel|lanes_kernel)<")
+    r"\(anonymous namespace\)::(tc::|pvs::|pvw::)?(fa_kernel|fa_wgmma|"
+    r"pa_split_kernel|pa_combine_kernel|pv_kernel|pv_split_kernel|pv_wgmma|"
+    r"scan_kernel|mm_kernel|mm_wgmma|stencil2d_kernel|stencil3d_kernel|"
+    r"lanes_kernel)<")
 
 
 # K2's two kernels: the split kernel and the combine pass.
 SPLIT_KERNELS = re.compile(
     r"\(anonymous namespace\)::pa_(split|combine)_kernel<")
+# K3's kernels: its three bodies and the combine pass after the split one.
+VERIFY_KERNELS = re.compile(
+    r"\(anonymous namespace\)::(pvs::|pvw::)?(pv_kernel|pv_split_kernel|"
+    r"pv_wgmma|pa_combine_kernel)<")
 
 
 def profile_window(torch, fn):
@@ -1798,15 +1900,16 @@ def main():
 
     prompts, news, warm = workload(np)
     phase_build()
-    k1, k2, k2c, k3, k4d, k4v, k5 = phase_kernels(torch, np, prompts,
-                                                  args.profile)
+    k1, k2, k2c, k3, k3s, k4d, k4v, k4s, k5 = phase_kernels(
+        torch, np, prompts, args.profile)
     k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np)
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
     phase_parity_recurrent(torch, np)
     launches, base_outs, model, params = phase_serve(
         torch, np, prompts, news, warm, args.profile)
-    launches["K3"] = phase_spec_serve(torch, np)["K3"]
+    spec = phase_spec_serve(torch, np, args.profile)
+    launches.update(K3=spec["K3_verify"], K3_suffix=spec["K3_suffix"])
     quant = phase_quant_serve(torch, np, prompts, news, warm, base_outs,
                               model, params)
     del model, params
@@ -1826,14 +1929,25 @@ def main():
             (k2c, "K2_combine", "paged_decode_combine (K2's split merge)",
              "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:158"),
-            (k3, "K3", "paged_verify_attention",
-             "src/repro_torch/csrc/paged_verify_attention.cu",
+            (k3, "K3", "paged_verify_attention (verify: split body)",
+             "src/repro_torch/csrc/paged_verify_split.cuh",
+             "src/repro/kernels/paged_attention.py:301"),
+            (k3s, "K3_suffix",
+             "paged_verify_attention (suffix prefill, 64-row bucket: "
+             "wgmma body)",
+             "src/repro_torch/csrc/paged_verify_wgmma.cuh",
              "src/repro/kernels/paged_attention.py:301"),
             (k4d, "K4_decode", "K4 paged_decode_attention (int8/fp8 pool)",
              "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:43"),
-            (k4v, "K4_verify", "K4 paged_verify_attention (int8/fp8 pool)",
-             "src/repro_torch/csrc/paged_verify_attention.cu",
+            (k4v, "K4_verify",
+             "K4 paged_verify_attention (fp8 pool, verify: split body)",
+             "src/repro_torch/csrc/paged_verify_split.cuh",
+             "src/repro/kernels/paged_attention.py:43"),
+            (k4s, "K4_verify_suffix",
+             "K4 paged_verify_attention (fp8 pool, suffix prefill, "
+             "64-row bucket: wgmma body)",
+             "src/repro_torch/csrc/paged_verify_wgmma.cuh",
              "src/repro/kernels/paged_attention.py:43"),
             (k5, "K5", "rglru_scan",
              "src/repro_torch/csrc/rglru_scan.cu",
@@ -1858,7 +1972,8 @@ def main():
                         "launches": {**launches, **quant}[key],
                         **{k: row[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
-                            "bound_by", "library_ms", "splits")
+                            "bound_by", "library_ms", "body", "splits",
+                            "graph_ms")
                            if k in row}})
     emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,6 +1,6 @@
 // Hopper building blocks shared by the tensor-core bodies of K1
-// (flash_attention.cu) and K6 (stx_matmul.cu), as inline PTX for
-// sm_90a:
+// (flash_attention.cu), K3 (paged_verify_wgmma.cuh) and K6
+// (stx_matmul.cu), as inline PTX for sm_90a:
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     and a wait on a phase's parity;
 //   * TMA tile loads (cp.async.bulk.tensor, 2-D and 4-D) that complete on
@@ -185,6 +185,13 @@ __device__ __forceinline__ uint64_t sw128_desc(const void* smem, uint32_t lbo,
          (static_cast<uint64_t>((lbo >> 4) & 0x3FFF) << 16) |
          (static_cast<uint64_t>((sbo >> 4) & 0x3FFF) << 32) |
          (1ull << 62);
+}
+
+// Makes this thread's ordinary shared-memory stores (a tile written by
+// threads, not by TMA) visible to the async proxy that wgmma reads
+// through; followed by a barrier before the first wgmma on the tile.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
 __device__ __forceinline__ void wgmma_fence() {

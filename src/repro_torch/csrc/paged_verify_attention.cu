@@ -1,5 +1,5 @@
 // K3: multi-query attention over the block-paged KV pool (speculative
-// verify and suffix prefill).
+// verify and suffix prefill), and K4 inside it (an int8 / fp8 pool).
 //
 // Replaces repro/kernels/paged_attention.py::paged_verify_attention_pallas
 // (body _pv_kernel). Same function: q (B, K1, Hq, D) holds K1 query rows
@@ -7,53 +7,90 @@
 // D); logical block i of sequence b lives in block_table[b, i]. lengths
 // counts the tokens cached BEFORE the window (K2's counts the current
 // token too). Row j sees keys kpos < lengths[b] + 1 + j and, with a
-// window, kpos >= that limit - window; positions past the table
-// (nbmax * BS) do not exist. f32 online softmax, a row that sees no key
-// gives 0. Output (B, K1, Hq, D).
+// window, kpos >= that limit - window; positions past the table (nbmax *
+// BS) do not exist. f32 online softmax, a row that sees no key gives 0.
+// Output (B, K1, Hq, D). K4 (JAX's _dequant inside _pv_kernel): an int8
+// or fp8 (e4m3) payload times f32 per-(token, kv head) scales, the
+// dequantized rows existing only on chip.
 //
 // What bounds it on the H100, in its two regimes on the main path:
-//   * the verify step (K1 = spec_tokens + 1, about 5): ~1 flop per byte
-//     of K/V, so memory. Every visible K/V row must be read once for all
-//     K1 rows of its sequence, as the TPU kernel's point was;
-//   * the suffix prefill of a partial prefix hit (K1 = W, 16..640): ~4 D
-//     flops per K/V element per row, so operations. Done here on the CUDA
-//     cores in f32 (no tensor cores yet), far from the bf16 tensor-core
-//     bound.
-// The design, one simple kernel for both:
-//   * the query rows of one kv head are (row j, group g) PAIRS, K1 * G of
-//     them; a CTA of 8 warps serves a tile of R pairs of one (sequence,
-//     kv head), grid (Hkv, B, ceil(K1 * G / R)). Two tile shapes: R = 8
-//     (a warp per pair) when the window has at most 32 pairs, so a verify
-//     window of K1 <= 8 / G rows reads each pool block once and a smaller
-//     one spreads over more CTAs; R = 64 (16 x 16 lanes, 4 pairs a
-//     thread) for the suffix regime, where each K/V tile is reused by 64
-//     rows. A warp whose pairs are all past the window skips the math;
-//   * the CTA walks keys from the lowest window floor to the highest
-//     limit of its pairs, clamped at nbmax * BS, 64 tokens at a time. It
-//     looks up block_table[b, kpos / BS] only for positions in that
-//     range, so rows whose limit runs past the table, the NULL tail of a
-//     suffix-prefill chain and unallocated growth are never dereferenced;
-//   * each 64-token K/V tile is gathered from the pool with 16-byte
-//     coalesced loads into registers while the previous tile is being
-//     computed, then stored to shared memory as f32 (K transposed, padded
-//     strides); every thread computes a (pairs x keys) block of scores
-//     and a (pairs x dims) block of the output, as K1 does for prefill.
-// K4 (the quantized pool, JAX's _dequant inside _pv_kernel): the payload
-// type P is a template parameter apart from the query/output type T. An
-// int8 or fp8 (e4m3) payload travels in the same 16-byte loads (16
-// elements a load against 8 in bf16, so a warp covers twice the tokens
-// per load) together with the row's f32 (token, head) scale; the
-// multiply happens where the tile is unpacked into shared memory as f32,
-// so the math after the gather is unchanged and the dequantized rows
-// exist only in shared memory.
-// Tensor cores (wgmma + TMA) for the suffix regime and split-K across
-// CTAs for long verify contexts are later steps.
+//   * the verify step (K1 = spec_tokens + 1, 5; (row, group) pairs of a
+//     kv head K1 * G = 5 to 20): bytes. Every visible K/V row is read
+//     once for all pairs of its kv head, the TPU kernel's point; that is
+//     2 * 2 * D bytes against 4 * D * pairs flops a token, under the ~295
+//     flop/byte where the tensor cores would take over. The first design
+//     (one CTA a (kv head, sequence) walking the whole context, 128 CTAs
+//     on 132 SMs, 5 of 8 warps busy) ran at 0.29 TB/s of 3.35;
+//   * the suffix prefill of a partial prefix hit (K1 = the suffix bucket
+//     W, 32..max_len): operations, 4 D flops a (pair, key), 6.45 GFLOP at
+//     the main path's (8, 256, 16/16, 128) over a 256-token prefix. On the
+//     CUDA cores in f32 that is 15x from the tensor cores' bf16 rate.
+// Three bodies, chosen by the wrapper from shapes and dtypes alone
+// (kernels/paged_attention.py verify_body; never from lengths, so a
+// captured CUDA graph replays for any lengths and table):
+//   * split (fewer than 32 pairs, any q type and payload;
+//     paged_verify_split.cuh): flash-decoding on K2's machinery. K2's plan
+//     (split_plan, shapes only) cuts the keys into nsplit splits of bps
+//     blocks, grid (Hkv, B, nsplit): 1280 CTAs at the main path's verify
+//     where the first design had 128. A CTA reads its split's visible
+//     table entries into shared memory first, then streams 32-token K/V
+//     tiles through a ring of 16-byte cp.async copies (scales by 4-byte
+//     copies), each tile read once for all pairs: pair r is row r / 4 of
+//     warp r % 4 (2 or 8 rows a warp), its q row in shared memory in f32.
+//     Scores run lane per token (K rows padded by 16 bytes, so a
+//     quarter-warp's 16-byte reads hit distinct banks), the products lane
+//     per head-dim slice with each row's probability by shuffle; K4's key
+//     scale multiplies the score, its value scale the probability. The
+//     math stays f32 on the CUDA cores (f32 verify within 1e-4, cuda ==
+//     cpu tokens in the parity runs). A split's key range is clipped at
+//     min(len + K1, nbmax * BS) and at row 0's floor; each row masks its
+//     own limit and floor. Each split writes (m, l, acc) for every pair to
+//     scratch and K2's combine kernel (paged_attention.cu), launched next
+//     by the same C call, merges them over the B * K1 * Hq rows; with one
+//     split the kernel normalises and writes the output itself;
+//   * wgmma (bf16 q over a bf16, int8 or fp8 pool; D a multiple of 16 up
+//     to 256; BS a multiple of 8 that divides 64 or is a multiple of it;
+//     a table of at most 1024 entries; paged_verify_wgmma.cuh): a
+//     FlashAttention-3-style forward on the tensor cores from K1's
+//     blocks (hopper.cuh). A CTA holds BQ = 128 pairs (two consumer
+//     warpgroups; 64 at D 256) of one (kv head, sequence), grid
+//     (ceil(K1 G / BQ), Hkv, B): 256 CTAs at the main path's suffix, no
+//     split. Q is loaded once with 16-byte loads into the 128B-swizzled
+//     layout (the (j, g) pairs of G > 1 are no 2-D box of q). Over a bf16
+//     pool a producer warp TMA-loads each 64-key K/V tile block by block
+//     from the pool through a 4-D map over (D, Hkv, BS, NB) with box (64,
+//     1, min(BS, 64), 1) per 128-byte column, one lane a box, from the
+//     table entries staged in shared memory; a box no row sees loads from
+//     block NB, past the map, as zeros. S = Q K^T and O += P V run as
+//     wgmma m64nNk16 with f32 accumulators, P rounded to bf16 in
+//     registers. The limit len + 1 + j is a causal diagonal shifted by
+//     len: tiles past every limit or below every floor are never loaded,
+//     tiles inside all of them run unmasked, the rest mask per element.
+//     K4 here: TMA cannot dequantize, so the consumers stream payload
+//     rows and scales by cp.async into a two-stage staging ring, multiply
+//     each element by its scale, round to bf16 and write the swizzled
+//     layout wgmma reads, then fence.proxy.async before the first wgmma
+//     on the tile;
+//   * simt (everything else: f32 suffix prefill, block sizes no tensor
+//     map tiles, e.g. 6): the first design, below, unchanged. A CTA of 8
+//     warps serves R pairs of one (sequence, kv head), grid (Hkv, B,
+//     ceil(K1 G / R)), R = 8 up to 32 pairs and 64 past them; it walks
+//     keys from the lowest floor to the highest limit of its pairs, 64 at
+//     a time, gathering each tile with 16-byte loads into registers while
+//     the previous one is computed, staged in shared memory as f32 (K
+//     transposed); K4 multiplies the scale in as the tile is unpacked.
+// No body dereferences a table entry of a block that no row of its CTA
+// can see. A request a body cannot take is refused (cudaErrorInvalidValue,
+// the wrapper raises), never rerouted to another body.
+// The split and wgmma bodies are built one (query type, payload) pair a
+// file (paged_verify_<t>_<p>.cu); this file holds the simt body and the
+// C entry point.
 
 #include <math_constants.h>
 
 #include <climits>
 
-#include "common.cuh"
+#include "paged_verify_attention.cuh"
 
 namespace {
 
@@ -345,23 +382,65 @@ cudaError_t dispatch(const PvParams& p, int pdtype, int B, int D,
   return dispatch_d<T, T>(p, B, D, stream);
 }
 
+// The split body's instance for payload code pdtype (the query type's
+// own code, kI8 or kFP8).
+template <typename T>
+cudaError_t split_dispatch(const repro::PvsParams& p, int pdtype, int B,
+                           int D, cudaStream_t stream) {
+  if (pdtype == repro::kI8)
+    return repro::launch_pv_split<T, int8_t>(p, B, D, stream);
+  if (pdtype == repro::kFP8)
+    return repro::launch_pv_split<T, __nv_fp8_e4m3>(p, B, D, stream);
+  return repro::launch_pv_split<T, T>(p, B, D, stream);
+}
+
 }  // namespace
 
 // C entry point (loaded with ctypes by repro_torch/kernels/
 // paged_attention.py). All tensors contiguous, the pools 16-byte
 // aligned; block_table and lengths int32; k_scale / v_scale (NB, BS,
-// Hkv) f32 when pdtype is kI8 or kFP8 (else unused). Returns the
-// launch's cudaGetLastError() code.
+// Hkv) f32 when pdtype is kI8 or kFP8 (else unused). body: 0 simt, 1
+// wgmma, 2 split (the wrapper's verify_body). The split plan (body 2):
+// bps blocks a split, nsplit splits covering the table (nsplit * bps >=
+// nbmax); with nsplit > 1, ``scratch`` holds B * K1 * Hq * nsplit * (D +
+// 2) f32: the splits' acc (B, K1, Hq, nsplit, D), then m and l (B, K1,
+// Hq, nsplit), which K2's combine kernel, launched next on the same
+// stream, merges into o. Returns the first non-zero cudaGetLastError()
+// of its launches, each checked as it is made.
 extern "C" int repro_paged_verify_attention(
     const void* q, const void* k_pool, const void* v_pool,
     const void* k_scale, const void* v_scale, const void* block_table,
-    const void* lengths, void* o, int dtype, int pdtype, int B, int K1,
-    int Hq, int Hkv, int D, int BS, int nbmax, int window, float scale,
-    void* stream) {
+    const void* lengths, void* o, void* scratch, int dtype, int pdtype,
+    int B, int K1, int Hq, int Hkv, int D, int BS, int NB, int nbmax,
+    int window, float scale, int body, int bps, int nsplit, void* stream) {
   const bool quant = pdtype == repro::kI8 || pdtype == repro::kFP8;
   if (quant ? (k_scale == nullptr || v_scale == nullptr) : pdtype != dtype)
     return static_cast<int>(cudaErrorInvalidValue);
-  PvParams p;
+  if (Hkv < 1 || Hq % Hkv != 0)
+    return static_cast<int>(cudaErrorInvalidValue);
+  const cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const bool bf16 = dtype == repro::kBF16;
+  if (body == 0) {
+    PvParams p;
+    p.q = q;
+    p.k_pool = k_pool;
+    p.v_pool = v_pool;
+    p.k_scale = static_cast<const float*>(k_scale);
+    p.v_scale = static_cast<const float*>(v_scale);
+    p.block_table = static_cast<const int*>(block_table);
+    p.lengths = static_cast<const int*>(lengths);
+    p.o = o;
+    p.K1 = K1;
+    p.Hq = Hq;
+    p.Hkv = Hkv;
+    p.BS = BS;
+    p.nbmax = nbmax;
+    p.window = window;
+    p.scale = scale;
+    return static_cast<int>(bf16 ? dispatch<__nv_bfloat16>(p, pdtype, B, D, s)
+                                 : dispatch<float>(p, pdtype, B, D, s));
+  }
+  repro::PvsParams p;
   p.q = q;
   p.k_pool = k_pool;
   p.v_pool = v_pool;
@@ -370,16 +449,42 @@ extern "C" int repro_paged_verify_attention(
   p.block_table = static_cast<const int*>(block_table);
   p.lengths = static_cast<const int*>(lengths);
   p.o = o;
+  p.m = p.l = p.acc = nullptr;
   p.K1 = K1;
   p.Hq = Hq;
   p.Hkv = Hkv;
+  p.D = D;
   p.BS = BS;
+  p.NB = NB;
   p.nbmax = nbmax;
   p.window = window;
+  p.bps = bps;
+  p.nsplit = nsplit;
   p.scale = scale;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err = dtype == repro::kBF16
-                        ? dispatch<__nv_bfloat16>(p, pdtype, B, D, s)
-                        : dispatch<float>(p, pdtype, B, D, s);
-  return static_cast<int>(err);
+  if (body == 1) {                 // bf16 queries only
+    if (!bf16) return static_cast<int>(cudaErrorInvalidValue);
+    cudaError_t err =
+        pdtype == repro::kI8    ? repro::launch_pv_wgmma<int8_t>(p, B, D, s)
+        : pdtype == repro::kFP8 ? repro::launch_pv_wgmma<__nv_fp8_e4m3>(
+                                      p, B, D, s)
+                                : repro::launch_pv_wgmma<__nv_bfloat16>(
+                                      p, B, D, s);
+    return static_cast<int>(err);
+  }
+  if (body != 2 || bps < 1 || bps > repro::kPvMaxSplitBlocks || nsplit < 1 ||
+      nsplit > 65535 || static_cast<long long>(nsplit) * bps < nbmax ||
+      (nsplit > 1 && scratch == nullptr))
+    return static_cast<int>(cudaErrorInvalidValue);
+  const long long parts = static_cast<long long>(B) * K1 * Hq * nsplit;
+  float* acc = static_cast<float*>(scratch);
+  if (nsplit > 1) {
+    p.acc = acc;
+    p.m = acc + parts * D;
+    p.l = acc + parts * (D + 1);
+  }
+  cudaError_t err = bf16 ? split_dispatch<__nv_bfloat16>(p, pdtype, B, D, s)
+                         : split_dispatch<float>(p, pdtype, B, D, s);
+  if (err != cudaSuccess || nsplit == 1) return static_cast<int>(err);
+  return repro_paged_decode_combine(p.m, p.l, acc, o, dtype, B * K1 * Hq,
+                                    nsplit, D, stream);
 }

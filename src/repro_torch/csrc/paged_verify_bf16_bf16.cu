@@ -1,0 +1,9 @@
+// K3's split and wgmma bodies for bf16 queries over a bf16 pool, in a file
+// of its own so that nvcc builds the six (query, payload) pairs in parallel.
+#include "paged_verify_split.cuh"
+#include "paged_verify_wgmma.cuh"
+
+template cudaError_t repro::launch_pv_split<__nv_bfloat16, __nv_bfloat16>(
+    const repro::PvsParams&, int, int, cudaStream_t);
+template cudaError_t repro::launch_pv_wgmma<__nv_bfloat16>(
+    const repro::PvsParams&, int, int, cudaStream_t);

@@ -24,6 +24,17 @@ counted in ``paged_decode_combine.launches`` (that wrapper runs the
 combine alone). The plan reads shapes only, never ``lengths``: nothing
 syncs with the card, and a captured CUDA graph replays for any lengths
 and table.
+
+K3 has three bodies, and ``verify_body`` picks one from shapes, dtypes
+and q's alignment alone, never from ``lengths``: "split" for a window
+of fewer than ``SPLIT_PAIRS`` (row, group) pairs a kv head (the verify
+step: K2's plan and combine pass, f32 on the CUDA cores), "wgmma" for a
+bf16 q over a bf16, int8 or fp8 pool that a tensor map takes (the
+suffix prefill on Hopper's tensor cores), "simt" for the rest (f32
+suffix prefill, block sizes the tensor map cannot tile).
+``paged_verify_attention.launches_by_body`` counts each body's calls,
+float and quantized pools alike; a split call with more than one split
+also counts one combine launch in ``paged_decode_combine.launches``.
 """
 
 from __future__ import annotations
@@ -49,8 +60,13 @@ _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
              + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
 _COMBINE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
-_PV_ARGTYPES = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 10
-                + [ctypes.c_float, ctypes.c_void_p])
+_PV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
+                + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+
+VERIFY_BODIES = ("simt", "wgmma", "split")   # the C entry's body codes
+SPLIT_PAIRS = 32        # K3 "split": fewer than 32 (row, group) pairs
+WGMMA_TILE_KEYS = 64    # K3 "wgmma": keys a K/V tile
+WGMMA_MAX_TABLE = 1024  # K3 "wgmma": table entries a CTA stages
 
 
 def supports(head_dim: int, group: int, mode: str = "decode") -> bool:
@@ -252,6 +268,36 @@ def paged_decode_combine(m, l, acc, out_dtype):
 paged_decode_combine.launches = 0
 
 
+def verify_body(q, k_pool, block_table) -> str:
+    """The body K3 runs for a q (B, K1, Hq, D) over a pool (NB, BS, Hkv,
+    D) and a (B, NBMAX) table, from their shapes, dtypes and q's
+    alignment alone (never a length, so a captured graph replays for any):
+
+    * "split" when K1 * Hq / Hkv < ``SPLIT_PAIRS``: the verify step
+      (spec_tokens + 1 rows), any dtype and payload. At 32 pairs and
+      more the f32 products outweigh the bytes, and the smallest suffix
+      bucket past the block size (32 rows at group 1) goes to the tensor
+      cores;
+    * "wgmma" for a bf16 q (16-byte aligned) over a bf16, int8 or fp8
+      pool whose blocks a tensor map tiles: D a multiple of 16 up to 256,
+      BS a multiple of 8 that divides ``WGMMA_TILE_KEYS`` or is a
+      multiple of it, NBMAX <= ``WGMMA_MAX_TABLE``;
+    * "simt" for everything else (an f32 suffix prefill, BS 6).
+    """
+    K1, Hq, D = q.shape[1:]
+    BS, Hkv = k_pool.shape[1:3]
+    if K1 * (Hq // max(Hkv, 1)) < SPLIT_PAIRS:
+        return "split"
+    tiles = BS % 8 == 0 and (WGMMA_TILE_KEYS % BS == 0
+                             or BS % WGMMA_TILE_KEYS == 0)
+    if q.dtype == torch.bfloat16 and q.data_ptr() % 16 == 0 \
+            and k_pool.dtype in (torch.bfloat16, *PAYLOADS) \
+            and D % 16 == 0 and 0 < D <= 256 and tiles \
+            and block_table.shape[1] <= WGMMA_MAX_TABLE:
+        return "wgmma"
+    return "simt"
+
+
 def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
                            window=None, scale=None, k_scale=None,
                            v_scale=None):
@@ -277,23 +323,38 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
     pdtype = _check_pool_args("paged_verify_attention", q, k_pool, v_pool,
                               block_table, lengths, k_scale, v_scale)
     B, K1, Hq, D = q.shape
-    BS, Hkv = k_pool.shape[1:3]
+    NB, BS, Hkv = k_pool.shape[:3]
+    nbmax = block_table.shape[1]
     out = torch.empty((B, K1, Hq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out[..., :D0]
+    which = verify_body(q, k_pool, block_table)
+    bps, nsplit, scratch = 0, 1, None
+    if which == "split":
+        bps, nsplit = split_plan(B, Hkv, nbmax, BS, sm_count(q.device))
+        # every split writes its state here: acc (B, K1, Hq, nsplit, D),
+        # then m and l (B, K1, Hq, nsplit), as K2's combine reads them
+        if nsplit > 1:
+            scratch = torch.empty(B * K1 * Hq * nsplit * (D + 2),
+                                  dtype=torch.float32, device=q.device)
     fn = _build.function("repro_paged_verify_attention", _PV_ARGTYPES)
     err = fn(q.data_ptr(), k_pool.data_ptr(), v_pool.data_ptr(),
              _ptr(k_scale), _ptr(v_scale), block_table.data_ptr(),
-             lengths.data_ptr(), out.data_ptr(), DTYPES[q.dtype], pdtype,
-             B, K1, Hq, Hkv, D, BS, block_table.shape[1], int(window or 0),
-             scale, torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "paged_verify_attention")
+             lengths.data_ptr(), out.data_ptr(), _ptr(scratch),
+             DTYPES[q.dtype], pdtype, B, K1, Hq, Hkv, D, BS, NB, nbmax,
+             int(window or 0), scale, VERIFY_BODIES.index(which), bps,
+             nsplit, torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, f"paged_verify_attention ({which} body)")
+    if nsplit > 1:           # the same call launched the combine kernel
+        paged_decode_combine.launches += 1
     if k_scale is None:
         paged_verify_attention.launches += 1
     else:
         paged_verify_attention.k4_launches += 1
+    paged_verify_attention.launches_by_body[which] += 1
     return out[..., :D0]
 
 
 paged_verify_attention.launches = 0      # K3
 paged_verify_attention.k4_launches = 0   # K4 (quantized pool)
+paged_verify_attention.launches_by_body = dict.fromkeys(VERIFY_BODIES, 0)

@@ -165,6 +165,53 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
     return torch.einsum("bjhs,bhsd->bjhd", probs, vx).to(q.dtype)
 
 
+def paged_verify_split_partials(q, k_pool, v_pool, block_table, lengths,
+                                bps, nsplit, *, window=None, scale=None,
+                                k_scale=None, v_scale=None):
+    """The partial softmax states of K3's split body: the keys of each
+    sequence cut into ``nsplit`` splits of ``bps`` logical blocks
+    (``kernels/paged_attention.split_plan``), and each query row's state
+    over the keys of one split that it can see, as in
+    ``paged_verify_attention``.
+
+    Returns m, l (B, K1, Hq, nsplit) and the unnormalised acc (B, K1,
+    Hq, nsplit, D), all f32: a split's max of the scaled scores, its sum
+    of exp(score - m) and of exp(score - m) * v. A split that a row
+    sees no key of holds m = ``MASK_VALUE``, l = 0, acc = 0.
+    ``paged_decode_combine`` of the three, over the rows (B, K1 * Hq),
+    gives ``paged_verify_attention``.
+    """
+    B, K1, Hq, D = q.shape
+    BS, Hkv = k_pool.shape[1], k_pool.shape[2]
+    group = Hq // Hkv
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    S = block_table.shape[1] * BS
+    bt = block_table.long()
+    k = _gather_dequant(k_pool, k_scale, bt, B, S, Hkv, D)
+    v = _gather_dequant(v_pool, v_scale, bt, B, S, Hkv, D)
+    kx = k.transpose(1, 2).repeat_interleave(group, dim=1)   # (B, Hq, S, D)
+    vx = v.transpose(1, 2).repeat_interleave(group, dim=1)
+    logits = torch.einsum("bjhd,bhsd->bjhs", q.float(), kx) * scale
+    kpos = torch.arange(S, device=q.device)[None, None, :]
+    limit = lengths.long()[:, None, None] \
+        + 1 + torch.arange(K1, device=q.device)[None, :, None]
+    valid = kpos < limit                                     # (B, K1, S)
+    if window is not None:
+        valid = valid & (kpos >= limit - window)
+    m = torch.full((B, K1, Hq, nsplit), MASK_VALUE, device=q.device)
+    l = torch.zeros((B, K1, Hq, nsplit), device=q.device)
+    acc = torch.zeros((B, K1, Hq, nsplit, D), device=q.device)
+    for s in range(nsplit):
+        mask = (valid & (kpos // (bps * BS) == s))[:, :, None, :]
+        part = logits.masked_fill(~mask, float("-inf"))
+        seen = mask.any(-1)                                  # (B, K1, 1)
+        ms = torch.where(seen, part.amax(-1), MASK_VALUE)    # (B, K1, Hq)
+        p = torch.exp(part - ms[..., None])                  # 0 where masked
+        m[..., s], l[..., s] = ms, p.sum(-1)
+        acc[..., s, :] = torch.einsum("bjhs,bhsd->bjhd", p, vx)
+    return m, l, acc
+
+
 def linear_scan(a, x, h0=None):
     """Reference diagonal linear recurrence h_t = a_t * h_{t-1} + x_t
     along axis 1. a, x: (B, T, D); h0: (B, D) or None (zeros).

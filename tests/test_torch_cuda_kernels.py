@@ -383,31 +383,109 @@ def _verify_case(gen, B, K1, hq, hkv, D, bs, nbmax, lengths, dtype, device):
     return q, kp, vp, bt, ln
 
 
+def _verify_call(fn_args, kw, dtype, want_body, quant=False):
+    """One K3 / K4 call: the call counters, the combine's (a split call
+    with more than one split launches it) and the body it ran."""
+    fn = pa_mod.paged_verify_attention
+    q, kp, vp, bt, ln = fn_args
+    before = dict(fn.launches_by_body)
+    counts = (fn.launches, fn.k4_launches,
+              pa_mod.paged_decode_combine.launches)
+    got = fn(q, kp, vp, bt, ln, **kw)
+    assert _ran_body(fn, before) == want_body
+    nsplit = _plan(q.shape[0], kp.shape[2], bt.shape[1], kp.shape[1],
+                   q.device)[1] if want_body == "split" else 1
+    assert (fn.launches, fn.k4_launches,
+            pa_mod.paged_decode_combine.launches) == (
+        counts[0] + (not quant), counts[1] + quant,
+        counts[2] + (nsplit > 1))
+    assert got.dtype == dtype and got.shape == q.shape
+    return got
+
+
+# (K1, hq, hkv, D, bs, window, body): the body an f32 and a bf16 q run,
+# from verify_body's rule: fewer than 32 (row, group) pairs "split", a
+# bf16 q over blocks a tensor map tiles "wgmma", else "simt"
+VERIFY_CASES = [
+    (5, 4, 4, 16, 4, None, ("split", "split")),
+    (5, 4, 2, 16, 4, 5, ("split", "split")),
+    (5, 8, 1, 16, 4, None, ("simt", "simt")),       # 40 pairs, BS 4
+    (5, 4, 2, 32, 8, None, ("split", "split")),
+    (5, 8, 2, 64, 16, 7, ("split", "split")),
+    (5, 16, 16, 128, 16, None, ("split", "split")),
+    (5, 16, 4, 128, 16, 40, ("split", "split")),
+    (7, 16, 4, 128, 16, None, ("split", "split")),  # 28 pairs: 8 a warp
+    (4, 4, 2, 16, 6, None, ("split", "split")),     # BS 6
+    (5, 16, 2, 128, 16, None, ("simt", "wgmma")),   # verify at group 8
+    (64, 4, 4, 32, 4, None, ("simt", "simt")),      # BS 4
+    (64, 8, 2, 64, 16, 20, ("simt", "wgmma")),
+    (64, 8, 2, 32, 8, None, ("simt", "wgmma")),     # D 32 in a 64 tile
+    (64, 4, 4, 128, 64, 100, ("simt", "wgmma")),    # BS 64
+    (40, 4, 2, 64, 128, None, ("simt", "wgmma")),   # BS 128: half a block
+    (256, 16, 16, 128, 16, None, ("simt", "wgmma")),
+    (256, 4, 1, 16, 16, None, ("simt", "wgmma")),
+    (128, 16, 4, 256, 16, 50, ("simt", "wgmma")),   # D 256, GQA 4
+]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K1,hq,hkv,D,bs,window", [
-    (5, 4, 4, 16, 4, None), (5, 4, 2, 16, 4, 5), (5, 8, 1, 16, 4, None),
-    (5, 4, 2, 32, 8, None), (5, 8, 2, 64, 16, 7), (5, 16, 16, 128, 16, None),
-    (5, 16, 4, 128, 16, 40), (4, 4, 2, 16, 6, None),
-    (64, 4, 4, 32, 4, None), (64, 8, 2, 64, 16, 20),
-    (256, 16, 16, 128, 16, None), (256, 4, 1, 16, 16, None),
-])
+@pytest.mark.parametrize("K1,hq,hkv,D,bs,window,bodies", VERIFY_CASES)
 def test_paged_verify_kernel_matches_plain(cuda_device, dtype, K1, hq, hkv,
-                                           D, bs, window):
-    """K3 over both regimes: verify windows (K1 5) and suffix prefill
-    (K1 64 and 256), every head dim and group, windows, a block size
-    that is no power of two; lengths at zero, mid-block, a block
-    boundary and deep, and a row whose limits run past the table."""
+                                           D, bs, window, bodies):
+    """K3 over both regimes: verify windows (K1 4 to 7) and suffix
+    prefill (K1 40 to 256), every head dim and group, windows, block
+    sizes 4 to 128 and one that is no power of two; lengths at zero,
+    mid-block, a block boundary and deep, and a row whose limits run
+    past the table. Each case names the body it runs."""
     gen = torch.Generator().manual_seed(K1 * 1000 + hq * 100 + D + bs)
     nbmax = -(-(K1 + 3 * bs + 2) // bs) + 2
     lengths = [0, 3, 2 * bs, nbmax * bs - 2, bs + 1]
-    q, kp, vp, bt, ln = _verify_case(gen, len(lengths), K1, hq, hkv, D, bs,
-                                     nbmax, lengths, dtype, cuda_device)
-    n0 = pa_mod.paged_verify_attention.launches
-    got = pa_mod.paged_verify_attention(q, kp, vp, bt, ln, window=window)
-    assert pa_mod.paged_verify_attention.launches == n0 + 1
-    assert got.dtype == dtype and got.shape == q.shape
-    _close(got, ref.paged_verify_attention(q, kp, vp, bt, ln, window=window),
-           dtype)
+    args = _verify_case(gen, len(lengths), K1, hq, hkv, D, bs, nbmax,
+                        lengths, dtype, cuda_device)
+    got = _verify_call(args, {"window": window}, dtype,
+                       bodies[dtype == torch.bfloat16])
+    _close(got, ref.paged_verify_attention(*args, window=window), dtype)
+
+
+# (hq, hkv, D, bs, nbmax, lengths, window): split verify at tables the
+# plan cuts into 4 or more splits
+VERIFY_SPLIT_CASES = [
+    (16, 16, 128, 16, 40, [513, 300, 258, 17, 0, 600, 44, 250], None),
+    (16, 4, 128, 16, 128, [2040], None),                # B 1, GQA 4
+    (8, 2, 64, 16, 64, [1000, 700, 5, 0], 200),         # floors mid-split
+    (4, 2, 32, 6, 60, [357, 100, 369], None),           # BS 6, past the end
+    (8, 1, 16, 4, 96, [387, 200, 33], 50),              # MQA 8 (40 pairs)
+    (8, 2, 256, 16, 48, [700, 766, 769], 300),          # D 256, past the end
+]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,D,bs,nbmax,lengths,window",
+                         VERIFY_SPLIT_CASES)
+def test_paged_verify_split_kernel_matches_plain(cuda_device, kv_dtype,
+                                                 dtype, hq, hkv, D, bs,
+                                                 nbmax, lengths, window):
+    """K3's split body (and K4 inside it) over 4 to 32 splits a (sequence,
+    kv head), the combine launched by the same call: window floors inside
+    a split and splits wholly below them, splits past the limits, lengths
+    past the table's end, a sequence of length 0. MQA 8's 40 pairs are
+    past the split body: it runs "simt" there (f32 q, and BS 4 for bf16)."""
+    K1 = 5
+    B = len(lengths)
+    pairs = K1 * hq // hkv
+    assert _plan(B, hkv, nbmax, bs, cuda_device)[1] >= 4
+    gen = torch.Generator().manual_seed(nbmax * 100 + D + bs + 7)
+    q, kp, vp, bt, ln = _verify_case(gen, B, K1, hq, hkv, D, bs, nbmax,
+                                     lengths, dtype, cuda_device)
+    kw = {"window": window}
+    if kv_dtype is not None:
+        kp, vp, kw["k_scale"], kw["v_scale"] = _quant_pool(
+            kp.float(), vp.float(), kv_dtype)
+    want_body = "split" if pairs < pa_mod.SPLIT_PAIRS else "simt"
+    got = _verify_call((q, kp, vp, bt, ln), kw, dtype, want_body,
+                       quant=kv_dtype is not None)
+    _close(got, ref.paged_verify_attention(q, kp, vp, bt, ln, **kw), dtype)
 
 
 def test_paged_verify_kernel_row_j_is_decode_at_length(cuda_device):
@@ -422,22 +500,72 @@ def test_paged_verify_kernel_row_j_is_decode_at_length(cuda_device):
             q[:, j].contiguous(), kp, vp, bt, ln + 1 + j), torch.float32)
 
 
-def test_paged_verify_kernel_reads_only_visible_blocks(cuda_device):
+@pytest.mark.parametrize("dtype,K1,bs,body", [
+    (torch.float32, 5, 4, "split"), (torch.float32, 40, 8, "simt"),
+    (torch.bfloat16, 40, 8, "wgmma")])
+def test_paged_verify_kernel_reads_only_visible_blocks(cuda_device, dtype,
+                                                       K1, bs, body):
     """Table entries past every row's limit (the NULL tail of a suffix
-    chain, unallocated growth) are never dereferenced: poisoned with
-    out-of-range ids, the result still matches the clean table. A slot
-    with length 0 and an all-null table reads only block 0."""
+    chain, unallocated growth) are never dereferenced, by any of the
+    three bodies: poisoned with out-of-range ids, the result still
+    matches the clean table. A slot with length 0 and an all-null table
+    reads only block 0."""
     gen = torch.Generator().manual_seed(5)
     lengths = [5, 0, 9]
-    q, kp, vp, bt, ln = _verify_case(gen, 3, 5, 4, 2, 32, 4, 8, lengths,
-                                     torch.float32, cuda_device)
+    nbmax = -(-(max(lengths) + K1) // bs) + 3
+    q, kp, vp, bt, ln = _verify_case(gen, 3, K1, 4, 2, 32, bs, nbmax,
+                                     lengths, dtype, cuda_device)
     bt[1] = 0
     want = ref.paged_verify_attention(q, kp, vp, bt, ln)
     poisoned = bt.clone()
     for b, L in enumerate(lengths):
-        poisoned[b, -(-(L + 5) // 4):] = 1 << 30
-    _close(pa_mod.paged_verify_attention(q, kp, vp, poisoned, ln), want,
-           torch.float32)
+        poisoned[b, -(-(L + K1) // bs):] = 1 << 30
+    before = dict(pa_mod.paged_verify_attention.launches_by_body)
+    got = pa_mod.paged_verify_attention(q, kp, vp, poisoned, ln)
+    assert _ran_body(pa_mod.paged_verify_attention, before) == body
+    _close(got, want, dtype)
+
+
+def test_paged_verify_replays_in_a_cuda_graph(cuda_device):
+    """A K3 call of each body captured in a CUDA graph and replayed after
+    q, the lengths and the table change in place equals the plain version
+    on the new inputs: the body and the split plan read no device value,
+    and the split body's scratch (and its combine) come from the graph's
+    pool. bf16 verify runs "split" with more than one split, bf16 suffix
+    "wgmma" (bf16 and fp8 pools), f32 suffix "simt"."""
+    fn = pa_mod.paged_verify_attention
+    for dtype, K1, kv_dtype, body in (
+            (torch.bfloat16, 5, None, "split"),
+            (torch.bfloat16, 64, None, "wgmma"),
+            (torch.bfloat16, 64, "fp8", "wgmma"),
+            (torch.float32, 40, None, "simt")):
+        gen = torch.Generator().manual_seed(9 + K1)
+        nbmax = 40
+        q, kp, vp, bt, ln = _verify_case(gen, 4, K1, 16, 4, 128, 16, nbmax,
+                                         [300, 17, 513, 64], dtype,
+                                         cuda_device)
+        kw = {}
+        if kv_dtype is not None:
+            kp, vp, kw["k_scale"], kw["v_scale"] = _quant_pool(
+                kp.float(), vp.float(), kv_dtype)
+        if body == "split":
+            assert _plan(4, 4, nbmax, 16, cuda_device)[1] > 1
+        fn(q, kp, vp, bt, ln, **kw)                # build and warm up
+        torch.cuda.synchronize()
+        graph = torch.cuda.CUDAGraph()
+        before = dict(fn.launches_by_body)
+        with torch.cuda.graph(graph):
+            out = fn(q, kp, vp, bt, ln, **kw)
+        assert _ran_body(fn, before) == body
+        for lengths in ([640 - K1, 1, 200, 0], [5, 639 - K1, 77, 400]):
+            q.copy_(_randn(gen, tuple(q.shape), q.dtype, cuda_device))
+            ln.copy_(torch.tensor(lengths, dtype=torch.int32))
+            bt.copy_(bt.flip(0).roll(1, dims=1))
+            graph.replay()
+            _close(out, ref.paged_verify_attention(q, kp, vp, bt, ln, **kw),
+                   dtype)
+        after = dict(fn.launches_by_body)
+        assert after[body] == before[body] + 1    # replays count nothing
 
 
 def test_kernels_reject_unsupported_shapes(cuda_device):
@@ -522,32 +650,35 @@ def test_paged_decode_k4_matches_plain(cuda_device, kv_dtype, dtype, hq,
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("K1,hq,hkv,D,bs,window", [
-    (5, 4, 4, 16, 4, None), (5, 4, 2, 32, 8, 5), (5, 16, 16, 128, 16, None),
-    (5, 16, 4, 128, 16, 40), (5, 16, 16, 256, 16, None),
-    (5, 8, 1, 64, 16, None), (64, 8, 2, 64, 16, 20),
-    (256, 16, 16, 128, 16, None), (64, 16, 16, 256, 16, None),
+@pytest.mark.parametrize("K1,hq,hkv,D,bs,window,bodies", [
+    (5, 4, 4, 16, 4, None, ("split", "split")),
+    (5, 4, 2, 32, 8, 5, ("split", "split")),
+    (5, 16, 16, 128, 16, None, ("split", "split")),
+    (5, 16, 4, 128, 16, 40, ("split", "split")),
+    (5, 16, 16, 256, 16, None, ("split", "split")),
+    (5, 8, 1, 64, 16, None, ("simt", "wgmma")),     # 40 pairs
+    (64, 8, 2, 64, 16, 20, ("simt", "wgmma")),
+    (64, 4, 4, 16, 8, None, ("simt", "wgmma")),     # D 16, BS 8
+    (256, 16, 16, 128, 16, None, ("simt", "wgmma")),
+    (64, 16, 16, 256, 16, None, ("simt", "wgmma")),
+    (64, 8, 2, 64, 6, None, ("simt", "simt")),      # BS 6
 ])
 def test_paged_verify_k4_matches_plain(cuda_device, kv_dtype, dtype, K1, hq,
-                                       hkv, D, bs, window):
+                                       hkv, D, bs, window, bodies):
     """K3 over an int8/fp8 pool (K4), both regimes (verify windows and
     suffix prefill), lengths at zero, mid-block, deep and past the
-    table."""
+    table; each case names the body it runs (K4 inside split, wgmma's
+    staged dequant, or simt)."""
     gen = torch.Generator().manual_seed(K1 * 1000 + hq * 100 + D + bs + 1)
     nbmax = -(-(K1 + 3 * bs + 2) // bs) + 2
     lengths = [0, 3, 2 * bs, nbmax * bs - 2, bs + 1]
     q, kp, vp, bt, ln = _verify_case(gen, len(lengths), K1, hq, hkv, D, bs,
                                      nbmax, lengths, dtype, cuda_device)
     kq, vq, ks, vs = _quant_pool(kp.float(), vp.float(), kv_dtype)
-    n0 = pa_mod.paged_verify_attention.k4_launches
-    n3 = pa_mod.paged_verify_attention.launches
-    got = pa_mod.paged_verify_attention(q, kq, vq, bt, ln, window=window,
-                                        k_scale=ks, v_scale=vs)
-    assert pa_mod.paged_verify_attention.k4_launches == n0 + 1
-    assert pa_mod.paged_verify_attention.launches == n3
-    assert got.dtype == dtype and got.shape == q.shape
-    _close(got, ref.paged_verify_attention(q, kq, vq, bt, ln, window=window,
-                                           k_scale=ks, v_scale=vs), dtype)
+    kw = {"window": window, "k_scale": ks, "v_scale": vs}
+    got = _verify_call((q, kq, vq, bt, ln), kw, dtype,
+                       bodies[dtype == torch.bfloat16], quant=True)
+    _close(got, ref.paged_verify_attention(q, kq, vq, bt, ln, **kw), dtype)
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
@@ -575,17 +706,24 @@ def test_k4_padded_head_dim_is_exact(cuda_device, kv_dtype, mode):
 
 
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
-def test_k4_reads_only_visible_rows(cuda_device, kv_dtype):
+@pytest.mark.parametrize("dtype,K1,bs,nbmax,body", [
+    (torch.float32, 5, 4, 12, "split"),
+    (torch.float32, 40, 4, 24, "simt"),
+    (torch.bfloat16, 40, 8, 12, "wgmma")])
+def test_k4_reads_only_visible_rows(cuda_device, kv_dtype, dtype, K1, bs,
+                                    nbmax, body):
     """Table entries past every row's limit are never dereferenced, and
     the payload and scales of rows no query can see (past the limits,
     below the window floors) are never read: poisoned with out-of-range
-    ids and NaN, K2 and K3 still match the plain version on clean data."""
+    ids and NaN, K2 and every K3 body still match the plain version on
+    clean data. Block size 4 (smaller than a tile or a 16-byte chunk of
+    rows) where the body takes it; the wgmma body's tensor map needs 8."""
     gen = torch.Generator().manual_seed(13)
-    lengths, window, bs = [21, 0, 37], 9, 4
-    q, kp, vp, bt, ln = _verify_case(gen, 3, 5, 4, 2, 32, bs, 12, lengths,
-                                     torch.float32, cuda_device)
+    lengths, window = [21, 0, 37], 9
+    q, kp, vp, bt, ln = _verify_case(gen, 3, K1, 4, 2, 32, bs, nbmax,
+                                     lengths, dtype, cuda_device)
     bt[1] = 0
-    kq, vq, ks, vs = _quant_pool(kp, vp, kv_dtype)
+    kq, vq, ks, vs = _quant_pool(kp.float(), vp.float(), kv_dtype)
     want_v = ref.paged_verify_attention(q, kq, vq, bt, ln, window=window,
                                         k_scale=ks, v_scale=vs)
     want_d = ref.paged_decode_attention(q[:, 0].contiguous(), kq, vq, bt,
@@ -597,17 +735,19 @@ def test_k4_reads_only_visible_rows(cuda_device, kv_dtype):
         if b == 1:
             continue
         for pos in list(range(0, max(L + 1 - window, 0))) \
-                + list(range(L + 5, 12 * bs)):
+                + list(range(L + K1, nbmax * bs)):
             blk = int(bt[b, pos // bs])
             ks2[blk, pos % bs] = float("nan")
             vs2[blk, pos % bs] = float("nan")
-        table[b, -(-(L + 5) // bs):] = 1 << 30
-    _close(pa_mod.paged_verify_attention(q, kq, vq, table, ln,
-                                         window=window, k_scale=ks2,
-                                         v_scale=vs2), want_v, torch.float32)
+        table[b, -(-(L + K1) // bs):] = 1 << 30
+    before = dict(pa_mod.paged_verify_attention.launches_by_body)
+    got = pa_mod.paged_verify_attention(q, kq, vq, table, ln, window=window,
+                                        k_scale=ks2, v_scale=vs2)
+    assert _ran_body(pa_mod.paged_verify_attention, before) == body
+    _close(got, want_v, dtype)
     _close(pa_mod.paged_decode_attention(q[:, 0].contiguous(), kq, vq, table,
                                          ln + 1, window=window, k_scale=ks2,
-                                         v_scale=vs2), want_d, torch.float32)
+                                         v_scale=vs2), want_d, dtype)
 
 
 def test_k4_rejects_what_it_cannot_take(cuda_device):
