@@ -119,7 +119,8 @@ Phases, one JSON line each (any failed check exits non-zero):
               plate through ``DEFAULT_CLUSTER.stencil2d`` (K7a must count
               200; the peak decays inside (0, 1), the total and the
               energy, summed through K8b and K8a, do not rise and equal
-              the plain lanes' finalized sums bit for bit), one
+              the plain lanes' finalized sums bit for bit; every K8
+              call runs the "ring" body and the finalize kernel), one
               7-point ``stencil3d`` step on 512^3 (K7b), and the
               example's own sizes (96^2 for 8 steps, one 64^3 step) equal
               on cuda and cpu; (b) ``dispatch_matmul`` of (8, 512, 2048)
@@ -150,7 +151,22 @@ against ``torch.matmul``); K7a on 8192^2 (five-point, ones) and 4097 x
 plain version, against cuDNN ``conv2d`` / ``conv3d``; K8a / K8b at n =
 8192^2 (the plate's size) and 2^24 + 3 through ``ops.vrp_dot`` /
 ``ops.vrp_sum``: lanes bit-equal, hi + lo within max(naive error / 100,
-1e-8) of the exact sum.
+1e-8) of the exact sum. K8's lane kernel has two bodies, chosen by
+``vrp_dot.body`` from n and alignment and counted in
+``launches_by_body``: "ring" (a TMA ring, the walk split over warps)
+for n >= 1024 on 16-byte aligned bases, "simt" for the rest; the rows
+at 8192^2 and 2^24 + 3 must run "ring", a K8a case one float off its
+buffer's base "simt". ``ops.vrp_*`` on the card is one call that
+launches the lane kernel and the finalize kernel (the 1024 lanes'
+compensated tree): each K8 row checks that the finalized (2,) equals
+the plain lanes finalized by the torch tree and that the finalize
+kernel alone equals the tree, and carries ``body``, ``call_ms`` /
+``graph_ms`` (the whole call eager / replayed), ``finalize_ms`` beside
+the torch tree's ``tree_finalize_ms``, ``call_host_ms`` (host wall time
+a call, synced) and ``enqueue_ms`` (not synced), ``--profile``
+``kernel_ms``; the 8192^2 rows time the ring at 8, 16 and 32 lanes a
+CTA (``ring_ms_by_lanes_per_cta``). The summary line has a
+``vrp_finalize`` row.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power
 limit from nvidia-smi, and as the last line
@@ -180,6 +196,7 @@ LONG, LONG_NEW = 2200, 64          # recurrent_serve: prompts past the window
 K6_TOL = {"bfloat16": (3e-2, 3e-1),  # (rtol, atol) by operand dtype, as
           "float32": (1e-5, 1e-4)}   # tests/test_kernels.py holds K6
 K8_N = 2**24 + 3                   # K8 cases: a ragged tail of 3
+K8_LANES_PER_CTA = (8, 16, 32)     # the ring body's lanes a CTA, timed
 DIFF_N, DIFF_STEPS, ALPHA = 8192, 200, 0.20   # tile_path diffusion
 LADDER = ("f64", "vp128", "vp256", "vp512")   # adaptive CG precisions
 LADDER_ITERS = 100                 # problem 1's cut (the example's 400)
@@ -338,8 +355,31 @@ def phase_build():
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "Used" in line or "spill" in line:
             print(line.strip(), file=sys.stderr)
+    ffma = k8_ffma(lib)
     emit({"phase": "build", "seconds": round(secs, 3), "library": lib.name,
-          "sources": [s.name for s in _build.sources()]})
+          "sources": [s.name for s in _build.sources()], "k8_ffma": ffma})
+    check(ffma and not any(ffma.values()),
+          f"build: K8's kernels hold fused multiply-adds {ffma}")
+
+
+def k8_ffma(lib):
+    """FFMA instructions in the SASS of K8's kernels (cuobjdump), by
+    kernel: every operation there must round on its own, so each count
+    must be 0."""
+    tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                        "bin", "cuobjdump")
+    sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
+                          text=True, check=True).stdout
+    counts, name = {}, None
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1) if K8_KERNELS.search(m.group(1)) else None
+            if name:
+                counts[name] = 0
+        elif name and "FFMA" in line:
+            counts[name] += 1
+    return counts
 
 
 def k1_case(torch, name, B, hq, hkv, S, D, dtype, library, window=None):
@@ -1481,33 +1521,49 @@ def exact_sum(t):
     return math.fsum(t.double().cpu().numpy().tolist())
 
 
-def k8_case(torch, np, dot, n):
+def k8_case(torch, np, dot, n, offset=0, sweep=False, profile=False):
     """K8a (``dot``) or K8b through ``ops.vrp_dot`` / ``ops.vrp_sum`` on
-    n values, x scaled by 1e4 (tests/test_kernels.py's data): the
-    kernel's lanes equal the plain version's bit for bit, and the
-    finalized hi + lo lies within max(naive error / 100, 1e-8) of the
-    exact sum. The plain version (16,385 sequential vector steps) is
-    timed once; the finalize (a compensated tree in torch) apart. No
-    PyTorch call returns the compensated expansion: no library time."""
+    n values, x scaled by 1e4 (tests/test_kernels.py's data), the inputs
+    ``offset`` floats into their buffers (1: a base no tensor map takes):
+    the body the wrapper chose ("ring" for n >= 1024 on aligned bases,
+    else "simt"); the lanes equal the plain version's bit for bit; the
+    finalized (2,) of the one-call ``ops.vrp_*`` (lane kernel + finalize
+    kernel) equals the plain lanes finalized by the torch tree
+    (``ops._finalize_expansion``), and the finalize kernel alone equals
+    the tree on the kernel's lanes; hi + lo lies within max(naive error
+    / 100, 1e-8) of the exact sum. ``ms`` is the eager lane call,
+    ``call_ms`` / ``graph_ms`` the whole ``ops.vrp_*`` call eager and
+    replayed from a CUDA graph, ``finalize_ms`` the finalize kernel and
+    ``tree_finalize_ms`` the torch tree (the finalize before the kernel),
+    ``call_host_ms`` the host's wall time of a call with its sync and
+    ``enqueue_ms`` without; ``kernel_ms`` (``profile``) the profiler's
+    device time of both kernels in one call. ``sweep`` times the ring at
+    8, 16 and 32 lanes a CTA (each checked bit-equal). The plain version
+    (n / 1024 sequential vector steps) is timed once. No PyTorch call
+    returns the compensated expansion: no library time."""
     from repro_torch.kernels import ops, ref
     from repro_torch.kernels import vrp_dot as k8
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    x = torch.randn(n, generator=gen, device="cuda") * 1e4
-    y = torch.randn(n, generator=gen, device="cuda")
+    x = (torch.randn(n + offset, generator=gen, device="cuda") * 1e4)[offset:]
+    y = torch.randn(n + offset, generator=gen, device="cuda")[offset:]
     if dot:
-        lanes_fn, plain_fn = (lambda: k8.vrp_dot_lanes(x, y),
-                              lambda: ref.vrp_dot_lanes(x, y))
-        final_fn = lambda: ops.vrp_dot(x, y)   # noqa: E731
+        counter, args = k8.vrp_dot_lanes, (x, y)
+        plain_fn = lambda: ref.vrp_dot_lanes(x, y)   # noqa: E731
+        final_fn = lambda: ops.vrp_dot(x, y)         # noqa: E731
         exact = exact_sum(x.double() * y.double())
         naive = float(torch.dot(x, y))
     else:
-        lanes_fn, plain_fn = (lambda: k8.vrp_sum_lanes(x),
-                              lambda: ref.vrp_sum_lanes(x))
-        final_fn = lambda: ops.vrp_sum(x)      # noqa: E731
+        counter, args = k8.vrp_sum_lanes, (x,)
+        plain_fn = lambda: ref.vrp_sum_lanes(x)      # noqa: E731
+        final_fn = lambda: ops.vrp_sum(x)            # noqa: E731
         exact = exact_sum(x)
         naive = float(torch.sum(x))
+    lanes_fn = lambda: counter(*args)                # noqa: E731
+    before = dict(counter.launches_by_body)
     got = lanes_fn()
+    body = ran_body(counter, before)
+    want_body = "simt" if offset % 4 or n < 1024 else "ring"
     start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
     start.record()
     want = plain_fn()
@@ -1516,36 +1572,73 @@ def k8_case(torch, np, dot, n):
     plain_ms = start.elapsed_time(end)
     err = (got - want).abs().max().item()
     equal = bool(torch.equal(got, want))
-    hi, lo = final_fn().tolist()
+    f0 = k8.vrp_finalize.launches
+    final = final_fn()
+    finalize_launched = k8.vrp_finalize.launches - f0
+    tree = ops._finalize_expansion(want)
+    fin_alone = k8.vrp_finalize(got)
+    final_equal = bool(torch.equal(final, tree))
+    fin_alone_equal = bool(torch.equal(fin_alone, ops._finalize_expansion(got)))
+    hi, lo = final.tolist()
     final_err = abs(hi + lo - exact)
     naive_err = abs(naive - exact)
     limit = max(naive_err / 100, 1e-8)
     flops = (25 if dot else 7) * n       # two_prod 17, two_sum 6, c 1-2
     bound_ms, bound_by = bound(flops, (8 if dot else 4) * n + 8192,
                                "float32")
+    torch.cuda.synchronize()
     t0 = time.monotonic()
     for _ in range(5):
         final_fn()
         torch.cuda.synchronize()
+    call_host_ms = 1e3 * (time.monotonic() - t0) / 5
+    t0 = time.monotonic()
+    for _ in range(20):
+        final_fn()
+    enqueue_ms = 1e3 * (time.monotonic() - t0) / 20
+    torch.cuda.synchronize()
     row = {"phase": "kernels", "kernel": "K8a" if dot else "K8b",
-           "case": f"{'dot' if dot else 'sum'}_{n}", "n": n, "dtype": "float32",
+           "case": f"{'dot' if dot else 'sum'}_{n}"
+                   + (f"_offset{offset}" if offset else ""),
+           "n": n, "dtype": "float32", "body": body,
            "max_abs_err": err, "lanes_bit_equal": equal,
-           "final": [hi, lo], "exact": exact, "final_err": final_err,
+           "final": [hi, lo], "final_equal_plain": final_equal,
+           "finalize_alone_equal_tree": fin_alone_equal,
+           "finalize_launches": finalize_launched,
+           "exact": exact, "final_err": final_err,
            "naive_err": naive_err, "limit": limit,
            "ms": cuda_ms(torch, lanes_fn), "plain_ms": plain_ms,
-           "finalize_ms": cuda_ms(torch, lambda: ops._finalize_expansion(
-               got), reps=5),
-           "call_host_ms": 1e3 * (time.monotonic() - t0) / 5,
+           "call_ms": cuda_ms(torch, final_fn),
+           "graph_ms": graph_ms(torch, final_fn),
+           "finalize_ms": cuda_ms(torch, lambda: k8.vrp_finalize(got)),
+           "tree_finalize_ms": cuda_ms(
+               torch, lambda: ops._finalize_expansion(got), reps=5),
+           "call_host_ms": call_host_ms, "enqueue_ms": enqueue_ms,
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+    if profile:
+        row["kernel_ms"] = kernel_ms(torch, final_fn, K8_KERNELS)
+    if sweep:
+        row["ring_ms_by_lanes_per_cta"] = {}
+        for L in K8_LANES_PER_CTA:
+            call = lambda: k8.launch(x, args[-1], dot, "sweep",  # noqa: E731
+                                     lanes_per_cta=L)[0]
+            check(torch.equal(call(), want),
+                  f"{row['kernel']} ring at {L} lanes a CTA != plain")
+            row["ring_ms_by_lanes_per_cta"][L] = cuda_ms(torch, call)
     emit(row)
+    check(body == want_body, f"{row['kernel']} {row['case']}: ran the "
+                             f"{body} body, expected {want_body}")
     check(equal, f"{row['kernel']} n {n}: lanes != plain version (max abs "
                  f"err {err})")
+    check(finalize_launched == 1 and final_equal and fin_alone_equal,
+          f"{row['kernel']} n {n}: finalize launched {finalize_launched}, "
+          f"equal to the tree {final_equal} / {fin_alone_equal}")
     check(final_err <= limit, f"{row['kernel']} n {n}: finalized error "
                               f"{final_err} > {limit}")
     return row
 
 
-def phase_tile_kernels(torch, np):
+def phase_tile_kernels(torch, np, profile):
     """The tile layer's kernels at the tile_path's shapes: K6 at olmo_1b's
     MLP up-projection for 8 x 512 tokens (bf16, to bf16 and to f32),
     bench_stx's 1024^3 f32 and a ragged f32 case; K7a on 8192^2
@@ -1568,10 +1661,13 @@ def phase_tile_kernels(torch, np):
     k7_case(torch, "ragged_4097x4099", (4097, 4099), "laplace")
     k7b = k7_case(torch, "seven_point_512", (512, 512, 512), "laplace")
     k7_case(torch, "random27_512", (512, 512, 512), "random")
-    k8a = k8_case(torch, np, True, DIFF_N * DIFF_N)
-    k8_case(torch, np, True, K8_N)
-    k8b = k8_case(torch, np, False, DIFF_N * DIFF_N)
-    k8_case(torch, np, False, K8_N)
+    k8a = k8_case(torch, np, True, DIFF_N * DIFF_N, sweep=True,
+                  profile=profile)
+    k8_case(torch, np, True, K8_N, profile=profile)
+    k8_case(torch, np, True, K8_N, offset=1)
+    k8b = k8_case(torch, np, False, DIFF_N * DIFF_N, sweep=True,
+                  profile=profile)
+    k8_case(torch, np, False, K8_N, profile=profile)
     return k6, k7a, k7b, k8a, k8b
 
 
@@ -1661,9 +1757,11 @@ def phase_tile_path(torch, np, profile):
     counters = {"K6": k6.stx_matmul, "K7a": k7.stencil2d,
                 "K7b": k7.stencil3d, "K8a": k8.vrp_dot_lanes,
                 "K8b": k8.vrp_sum_lanes}
+    counters["K8_finalize"] = k8.vrp_finalize
     for fn in counters.values():
         fn.launches = 0
-    zero_bodies(k6.stx_matmul)
+    for fn in (k6.stx_matmul, k8.vrp_dot_lanes, k8.vrp_sum_lanes):
+        zero_bodies(fn)
     cluster = stx.DEFAULT_CLUSTER
     out = {"phase": "tile_path"}
 
@@ -1806,6 +1904,9 @@ def phase_tile_path(torch, np, profile):
     out["solvers"] = problems
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
     out["k6_launches_by_body"] = dict(k6.stx_matmul.launches_by_body)
+    out["k8_launches_by_body"] = {
+        "K8a": dict(k8.vrp_dot_lanes.launches_by_body),
+        "K8b": dict(k8.vrp_sum_lanes.launches_by_body)}
     emit(out)
     if profile:
         emit({"phase": "profile", "config": "tile_path diffusion 20 steps",
@@ -1814,10 +1915,30 @@ def phase_tile_path(torch, np, profile):
                                             "5 iterations",
               **profile_window(torch, lambda: solvers.cg(
                   A, b, PRESETS["vp128"], tol=0.0, maxiter=5))})
-    for k in ("K6", "K7a", "K7b", "K8a", "K8b"):
+    for k in ("K6", "K7a", "K7b", "K8a", "K8b", "K8_finalize"):
         check(out["launches"][k] > 0,
               f"tile_path: {k} was never launched {out['launches']}")
+    # the plate's totals: every K8 call on the ring body, each finalized
+    # on the card in the same call
+    by_body = out["k8_launches_by_body"]
+    check(all(b["simt"] == 0 and b["ring"] > 0 for b in by_body.values())
+          and out["launches"]["K8_finalize"]
+          == out["launches"]["K8a"] + out["launches"]["K8b"],
+          f"tile_path: K8 bodies {by_body}, finalize launches "
+          f"{out['launches']['K8_finalize']}")
     return out["launches"]
+
+
+def k8_finalize_row(k8a):
+    """The finalize kernel's summary row, from K8a's plate case: its time
+    and the torch tree's on the same lanes (equal bit for bit there).
+    Bound: 8 KB of lanes read once; 1023 merges of 6 two_sums (6 flops
+    each), in f32."""
+    bound_ms, bound_by = bound(1023 * 6 * 6, 8192 + 8, "float32")
+    return {"max_abs_err": 0.0 if k8a["finalize_alone_equal_tree"]
+            else float("nan"), "ms": k8a["finalize_ms"],
+            "plain_ms": k8a["tree_finalize_ms"], "bound_ms": bound_ms,
+            "bound_by": bound_by, "library_ms": None}
 
 
 # The port's kernel functions (csrc/*.cu), as torch.profiler names them.
@@ -1825,7 +1946,10 @@ PORT_KERNEL = re.compile(
     r"\(anonymous namespace\)::(tc::|pvs::|pvw::)?(fa_kernel|fa_wgmma|"
     r"pa_split_kernel|pa_combine_kernel|pv_kernel|pv_split_kernel|pv_wgmma|"
     r"scan_kernel|mm_kernel|mm_wgmma|stencil2d_kernel|stencil3d_kernel|"
-    r"lanes_kernel)<")
+    r"lanes_kernel|ring_kernel|finalize_kernel)\b")
+# K8's kernels (the lane kernel's two bodies and the finalize), in the
+# profiler's names and in cuobjdump's mangled ones.
+K8_KERNELS = re.compile(r"(lanes|ring|finalize)_kernel")
 
 
 # K2's two kernels: the split kernel and the combine pass.
@@ -1902,7 +2026,7 @@ def main():
     phase_build()
     k1, k2, k2c, k3, k3s, k4d, k4v, k4s, k5 = phase_kernels(
         torch, np, prompts, args.profile)
-    k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np)
+    k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np, args.profile)
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
     phase_parity_recurrent(torch, np)
@@ -1966,14 +2090,18 @@ def main():
              "src/repro/kernels/vrp_dot.py:69"),
             (k8b, "K8b", "vrp_sum",
              "src/repro_torch/csrc/vrp_dot.cu",
-             "src/repro/kernels/vrp_dot.py:109")):
+             "src/repro/kernels/vrp_dot.py:109"),
+            (k8_finalize_row(k8a), "K8_finalize",
+             "vrp_finalize (K8's compensated tree over the 1024 lanes)",
+             "src/repro_torch/csrc/vrp_dot.cu",
+             "src/repro/kernels/ops.py:278")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu,
                         "launches": {**launches, **quant}[key],
                         **{k: row[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "body", "splits",
-                            "graph_ms")
+                            "graph_ms", "call_ms", "call_host_ms")
                            if k in row}})
     emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

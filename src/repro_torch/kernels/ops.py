@@ -15,12 +15,12 @@ import math
 
 from . import ref as _ref
 from . import stx_matmul as _k6
+from . import vrp_dot as _k8
 from .flash_attention import flash_attention
 from .paged_attention import paged_decode_attention as _paged_decode
 from .paged_attention import paged_verify_attention as _paged_verify
 from .rglru_scan import rglru_scan
 from .stx_stencil import stencil2d, stencil3d
-from .vrp_dot import vrp_dot_lanes, vrp_sum_lanes
 
 __all__ = ["flash_attention", "paged_attention", "rglru_scan", "stx_matmul",
            "stencil2d", "stencil3d", "vrp_dot", "vrp_sum"]
@@ -75,20 +75,19 @@ def stx_matmul(x, w, *, out_dtype=None):
     return out.reshape(*x.shape[:-1], w.shape[-1])
 
 
-def _finalize_expansion(lanes):
-    """Compensated tree over per-lane (8, 128, 2) partials -> (2,)."""
-    from ..core import vrp
-
-    return vrp.tree_sum(lanes.reshape(-1, 2), _ref.double_word(lanes.dtype))
+# Compensated tree over per-lane (8, 128, 2) partials -> (2,), in torch
+# ops: the plain version of K8's finalize kernel (JAX ops.py's name).
+_finalize_expansion = _ref.vrp_finalize
 
 
 def vrp_dot(x, y):
     """Double-word dot of float32 vectors -> (2,) expansion [hi, lo]
-    (kernel K8a, then a compensated tree over its lanes)."""
-    return _finalize_expansion(vrp_dot_lanes(x.reshape(-1), y.reshape(-1)))
+    (kernel K8a, then a compensated tree over its lanes: on the card one
+    call launching the lane kernel and the finalize kernel)."""
+    return _k8.vrp_dot(x.reshape(-1), y.reshape(-1))
 
 
 def vrp_sum(x):
     """Double-word sum of a float32 vector -> (2,) expansion [hi, lo]
     (kernel K8b, then a compensated tree over its lanes)."""
-    return _finalize_expansion(vrp_sum_lanes(x.reshape(-1)))
+    return _k8.vrp_sum(x.reshape(-1))

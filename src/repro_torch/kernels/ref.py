@@ -359,3 +359,39 @@ def vrp_sum_lanes(x):
     """Per-lane compensated sum of flat f32 x -> (8, 128, 2)
     (``vrp_dot.py::_sum_kernel``)."""
     return _lanes((_lane_blocks(x),), lambda a: (a, None))
+
+
+def vrp_finalize(lanes):
+    """Compensated tree over per-lane (8, 128, 2) partials -> (2,)
+    (JAX ops.py ``_finalize_expansion``: ``core.vrp.tree_sum`` of the
+    1024 pairs at K = 2, in torch ops on the lanes' device)."""
+    from ..core import vrp
+
+    return vrp.tree_sum(lanes.reshape(-1, 2), double_word(lanes.dtype))
+
+
+def vrp_finalize_pairs(lanes):
+    """The finalize kernel's order as a scalar loop over float32 values
+    (``csrc/vrp_dot.cu::finalize_kernel``): 10 levels, each merging the
+    pairs (2k, 2k + 1) of the level before (lane r * 128 + c first) by
+    ``vrp.add`` at K = 2, the four terms through two bubble passes of
+    (t_i, t_{i+1}) = two_sum(t_i, t_{i+1}) for i = 2, 1, 0 -> (2,)."""
+    f32 = np.float32
+
+    def two_sum(a, b):
+        s = f32(a + b)
+        a1 = f32(s - b)
+        b1 = f32(s - a1)
+        return s, f32(f32(a - a1) + f32(b - b1))
+
+    pairs = [tuple(p) for p in lanes.reshape(-1, 2).cpu().numpy()]
+    while len(pairs) > 1:
+        level = []
+        for k in range(0, len(pairs), 2):
+            t = [*pairs[k], *pairs[k + 1]]
+            for _ in range(2):
+                for i in (2, 1, 0):
+                    t[i], t[i + 1] = two_sum(t[i], t[i + 1])
+            level.append((t[0], t[1]))
+        pairs = level
+    return torch.tensor(np.array(pairs[0], dtype=f32))

@@ -1043,3 +1043,208 @@ def test_vrp_kernels_reject_what_they_cannot_take(cuda_device):
         k8_mod.vrp_dot_lanes(x, x.cpu())
     with pytest.raises(ValueError, match="contiguous"):
         k8_mod.vrp_sum_lanes(x[::2])
+
+
+
+K8_N = [1, 1023, 1024, 3000, 40 * 1024 + 17, 2**20 + 3, 2**24 + 3]
+
+
+def _k8_inputs(gen, n, offset, device):
+    """x (scaled by 1e4) and y of n values, ``offset`` floats into their
+    buffers: 0 keeps the bases 16-byte aligned, 1 puts them where no
+    tensor map can start (a contiguous ``x[1:]``)."""
+    x = (torch.randn(n + offset, generator=gen) * 1e4).to(device)[offset:]
+    y = torch.randn(n + offset, generator=gen).to(device)[offset:]
+    return x, y
+
+
+def _k8_expect_body(n, offset):
+    return "ring" if n >= 1024 and offset % 4 == 0 else "simt"
+
+
+def _k8_check(x, y):
+    """Both K8 kernels and their one-call finalized forms on x, y: the
+    body each ran, lanes equal to the plain versions, the finalized (2,)
+    equal to the plain lanes finalized by the torch tree. Returns the
+    bodies (dot, sum)."""
+    bodies = []
+    for dot, lanes_fn, plain, final_fn in (
+            (True, k8_mod.vrp_dot_lanes, ref.vrp_dot_lanes, ops.vrp_dot),
+            (False, k8_mod.vrp_sum_lanes, ref.vrp_sum_lanes, ops.vrp_sum)):
+        args = (x, y) if dot else (x,)
+        before = dict(lanes_fn.launches_by_body)
+        got = lanes_fn(*args)
+        which = _ran_body(lanes_fn, before)
+        assert which == k8_mod.body(*args)
+        want = plain(*args)
+        torch.cuda.synchronize()
+        assert torch.equal(got, want)
+        f0 = k8_mod.vrp_finalize.launches
+        before = dict(lanes_fn.launches_by_body)
+        final = final_fn(*args)
+        assert _ran_body(lanes_fn, before) == which
+        assert k8_mod.vrp_finalize.launches == f0 + 1
+        tree = ops._finalize_expansion(want)
+        torch.cuda.synchronize()
+        assert final.shape == (2,) and torch.equal(final, tree)
+        bodies.append(which)
+    return tuple(bodies)
+
+
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("n", K8_N)
+def test_vrp_bodies_equal_plain(cuda_device, n, offset):
+    """Each body at each length, ragged tails included: the aligned
+    inputs run "ring" from n = 1024 on ("simt" below), the inputs one
+    float off their buffers' bases "simt"; lanes and the one-call
+    finalized expansion equal the plain versions bit for bit."""
+    gen = torch.Generator().manual_seed(n + offset)
+    x, y = _k8_inputs(gen, n, offset, cuda_device)
+    want = _k8_expect_body(n, offset)
+    assert _k8_check(x, y) == (want, want)
+
+
+@pytest.mark.parametrize("dot", [True, False])
+def test_vrp_ring_at_the_plate_size(cuda_device, dot):
+    """The tile path's 8192^2 plate through the ring body: lanes and the
+    finalized expansion equal the plain versions'."""
+    n = 8192 * 8192
+    x = torch.rand(n, generator=torch.Generator().manual_seed(5)) \
+        .to(cuda_device)
+    fn, plain = ((k8_mod.vrp_dot_lanes, ref.vrp_dot_lanes) if dot
+                 else (k8_mod.vrp_sum_lanes, ref.vrp_sum_lanes))
+    args = (x, x) if dot else (x,)
+    before = dict(fn.launches_by_body)
+    got = fn(*args)
+    assert _ran_body(fn, before) == "ring"
+    want = plain(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    final = (ops.vrp_dot if dot else ops.vrp_sum)(*args)
+    assert torch.equal(final, ops._finalize_expansion(want))
+
+
+def _adversarial(gen, n):
+    """Values that stress the error-free transforms: exact cancellation
+    (each lane's step j + 1 the negative of its step j), magnitudes from
+    1e-30 to 1e30, subnormals, a mix of 1e30 and 1e-38, and zeros."""
+    base = torch.randn(n, generator=gen)
+    cancel = base * 1e20
+    m = n // 2048 * 2048
+    rows = cancel[:m].view(-1, 2, 1024)
+    rows[:, 1] = -rows[:, 0]
+    return {
+        "cancel": cancel,
+        "magnitudes": base.sign() * 10.0 ** (
+            torch.rand(n, generator=gen) * 60 - 30),
+        "subnormals": base * 1e-40,
+        "mixed": torch.where(torch.arange(n) % 3 == 0, base * 1e30,
+                             base * 1e-38),
+        "zeros": torch.zeros(n),
+    }
+
+
+@pytest.mark.parametrize("n", [3000, 40 * 1024 + 17])
+def test_vrp_adversarial_data(cuda_device, n):
+    """The adversarial values through both kernels (y standard normal, so
+    no product overflows): lanes and finalized expansions bit-equal."""
+    gen = torch.Generator().manual_seed(11)
+    y = torch.randn(n, generator=gen).to(cuda_device)
+    for name, x in _adversarial(gen, n).items():
+        assert _k8_check(x.float().to(cuda_device), y) == ("ring", "ring"), \
+            name
+
+
+def test_vrp_misaligned_base_runs_simt(cuda_device):
+    """A contiguous x[1:] (or y[1:] beside an aligned x) is 4 bytes off
+    its buffer's 16-byte alignment: no tensor map takes it, so the
+    wrapper picks "simt" before the launch; x[4:] is aligned again."""
+    gen = torch.Generator().manual_seed(3)
+    buf = torch.randn(2**16 + 8, generator=gen).to(cuda_device)
+    x, y = buf[4: 4 + 2**16], buf[1: 1 + 2**16]
+    assert k8_mod.body(buf[1:]) == "simt"
+    assert k8_mod.body(x) == "ring" and k8_mod.body(x, y) == "simt"
+    before = dict(k8_mod.vrp_dot_lanes.launches_by_body)
+    got = k8_mod.vrp_dot_lanes(x, y)
+    assert _ran_body(k8_mod.vrp_dot_lanes, before) == "simt"
+    assert torch.equal(got, ref.vrp_dot_lanes(x, y))
+    assert _k8_check(buf[1: 1 + 5000], buf[2: 2 + 5000]) == ("simt",
+                                                             "simt")
+    with pytest.raises(RuntimeError, match="ring body"):
+        k8_mod.launch(x, x, False, "vrp_sum_lanes", lanes_per_cta=3)
+
+
+@pytest.mark.parametrize("L", [8, 16, 32])
+def test_vrp_ring_lanes_per_cta(cuda_device, L):
+    """The ring at each CTA width chip_smoke.py times: the same lanes."""
+    gen = torch.Generator().manual_seed(L)
+    x, y = _k8_inputs(gen, 300 * 1024 + 5, 0, cuda_device)
+    for dot in (True, False):
+        got, _, which = k8_mod.launch(x, y if dot else x, dot, "ring",
+                                      lanes_per_cta=L)
+        want = ref.vrp_dot_lanes(x, y) if dot else ref.vrp_sum_lanes(x)
+        torch.cuda.synchronize()
+        assert which == "ring" and torch.equal(got, want)
+
+
+def test_vrp_finalize_kernel_equals_tree(cuda_device):
+    """The finalize kernel alone on given lanes: random pairs, pairs that
+    cancel between neighbours, 1e-30..1e30, subnormals, zeros, and real
+    lanes of the dot kernel; equal to ``ops._finalize_expansion`` (the
+    torch tree) and to the scalar loop of its order."""
+    gen = torch.Generator().manual_seed(12)
+    r = torch.randn((8, 128, 2), generator=gen)
+    cancel = r.clone()
+    cancel.view(-1, 4)[:, 2:] = -cancel.view(-1, 4)[:, :2]
+    cancel.view(-1, 4)[::3, 3] *= 0.5
+    cases = {
+        "random": r * 10.0 ** torch.randint(-5, 5, r.shape, generator=gen),
+        "cancel": cancel * 1e20,
+        "magnitudes": r.sign() * 10.0 ** (torch.rand(r.shape, generator=gen)
+                                          * 60 - 30),
+        "subnormals": r * 1e-40,
+        "zeros": torch.zeros_like(r),
+    }
+    x = (torch.randn(5000, generator=gen) * 1e4).to(cuda_device)
+    cases["dot_lanes"] = k8_mod.vrp_dot_lanes(x, x).cpu()
+    for name, lanes in cases.items():
+        lanes = lanes.float().contiguous()
+        n0 = k8_mod.vrp_finalize.launches
+        got = k8_mod.vrp_finalize(lanes.to(cuda_device))
+        assert k8_mod.vrp_finalize.launches == n0 + 1
+        want = ops._finalize_expansion(lanes.to(cuda_device))
+        torch.cuda.synchronize()
+        assert torch.equal(got.cpu().view(torch.int32),
+                           want.cpu().view(torch.int32)), name
+        assert torch.equal(got.cpu(), ref.vrp_finalize_pairs(lanes)), name
+
+
+def test_vrp_replays_in_a_cuda_graph(cuda_device):
+    """``ops.vrp_dot`` / ``ops.vrp_sum`` (lane kernel + finalize, one C
+    call) captured in a CUDA graph and replayed after x and y change in
+    place equal the plain versions on the new values: the body comes from
+    n and alignment, the scratch from the graph's pool, nothing syncs."""
+    gen = torch.Generator().manual_seed(13)
+    x, y = _k8_inputs(gen, 50 * 1024 + 7, 0, cuda_device)
+    ops.vrp_dot(x, y)
+    ops.vrp_sum(x)                                  # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    n0 = (k8_mod.vrp_dot_lanes.launches, k8_mod.vrp_sum_lanes.launches,
+          k8_mod.vrp_finalize.launches)
+    with torch.cuda.graph(graph):
+        dot, tot = ops.vrp_dot(x, y), ops.vrp_sum(x)
+    assert (k8_mod.vrp_dot_lanes.launches, k8_mod.vrp_sum_lanes.launches,
+            k8_mod.vrp_finalize.launches) == (n0[0] + 1, n0[1] + 1,
+                                              n0[2] + 2)
+    for seed in (1, 2):
+        g = torch.Generator().manual_seed(seed)
+        x.copy_(torch.randn(x.shape, generator=g) * 10.0**seed)
+        y.copy_(torch.randn(y.shape, generator=g))
+        graph.replay()
+        torch.cuda.synchronize()
+        assert torch.equal(dot, ops._finalize_expansion(
+            ref.vrp_dot_lanes(x, y)))
+        assert torch.equal(tot, ops._finalize_expansion(
+            ref.vrp_sum_lanes(x)))
+    assert k8_mod.vrp_finalize.launches == n0[2] + 2   # replays count nothing
