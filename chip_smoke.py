@@ -50,7 +50,10 @@ profiles a spec_serve window (one admission of partial prefix hits and
 
 Phases, one JSON line each (any failed check exits non-zero):
 
-1. build    — nvcc builds every kernel under src/repro_torch/csrc/.
+1. build    — nvcc builds every kernel under src/repro_torch/csrc/;
+              the SASS of K5's, K7's and K8's kernels must hold no FFMA
+              (``ffma``, by kernel: their bits depend on every operation
+              rounding on its own).
 2. kernels  — K1 (prefill flash attention), K2 (paged decode attention),
               K3 (paged verify attention: the verify window and the
               suffix prefill) and K4 (K2 and K3 over an int8 / fp8 pool
@@ -111,7 +114,10 @@ Phases, one JSON line each (any failed check exits non-zero):
               bites, the rings wrap in prefill) and then the serve
               phase's 16 requests; the K5 and K1 counters are reset before
               and must be > 0 after (K1's tensor-core launches among
-              them), the pool must end empty.
+              them), the pool must end empty. K5's launches are tallied
+              by shape and body (``k5_launches_by_shape``,
+              ``k5_launches_by_body``): the long admission must launch
+              one K5 a RG-LRU layer (18), all on the ring body.
 
 10. tile_path — the EPAC tile layer (``repro_torch.core``) through its
               entry points, every tile kernel's counter reset first:
@@ -121,7 +127,7 @@ Phases, one JSON line each (any failed check exits non-zero):
               energy, summed through K8b and K8a, do not rise and equal
               the plain lanes' finalized sums bit for bit; every K8
               call runs the "ring" body and the finalize kernel), one
-              7-point ``stencil3d`` step on 512^3 (K7b), and the
+              7-point ``stencil3d`` step on 512^3 (K7b, ring body), and the
               example's own sizes (96^2 for 8 steps, one 64^3 step) equal
               on cuda and cpu; (b) ``dispatch_matmul`` of (8, 512, 2048)
               @ (2048, 8192) bf16 under STX_POLICY (one K6 launch, on
@@ -137,8 +143,16 @@ Phases, one JSON line each (any failed check exits non-zero):
               iteration).
 
 The kernels phase also holds K5 (the RG-LRU scan) at recurrent_serve's
-(8, 512, 2560) and (2, 2560, 2560) f32 shapes (1e-5; in f32 the kernel
-equals its plain version bit for bit), K1 at head dims 256
+(8, 512, 2560) and (2, 2560, 2560) f32 shapes, bit-equal to its plain
+version. K5 and K7b have two bodies each, chosen by their wrappers from
+dtype, shape and alignment and counted in ``launches_by_body``: "ring"
+(TMA tiles in a ring of shared-memory stages fed by a producer thread)
+where a tensor map takes the input, "simt" (the first port's kernel)
+for the rest. Their rows name the body (both K5 shapes and K7b at 512^3
+must run "ring") and carry ``graph_ms`` and ``simt_ms`` (the simt body
+forced on the same input, bit-equal too), and the summary line has a
+``K5_long`` row for the long admission beside ``K5``. K1 at head
+dims 256
 (recurrentgemma MQA 10/1 window 2048 at Sq 512 and 2560; gemma_7b
 16/16 causal), 120 (h2o_danube GQA 32/8 window 4096) and 64 (a ragged
 (2, 8/2, 300) case), and the tile kernels at tile_path's shapes: K6
@@ -355,17 +369,21 @@ def phase_build():
     for line in lib.with_suffix(".log").read_text().splitlines():
         if "Used" in line or "spill" in line:
             print(line.strip(), file=sys.stderr)
-    ffma = k8_ffma(lib)
+    ffma = ffma_counts(lib)
     emit({"phase": "build", "seconds": round(secs, 3), "library": lib.name,
-          "sources": [s.name for s in _build.sources()], "k8_ffma": ffma})
-    check(ffma and not any(ffma.values()),
-          f"build: K8's kernels hold fused multiply-adds {ffma}")
+          "sources": [s.name for s in _build.sources()], "ffma": ffma})
+    check(ffma and not any(ffma.values())
+          and all(any(re.search(k, n) for n in ffma)
+                  for k in ("scan_tma", "stencil3d_tma", "ring_kernel")),
+          f"build: K5's, K7's and K8's kernels hold fused multiply-adds, "
+          f"or one is missing {ffma}")
 
 
-def k8_ffma(lib):
-    """FFMA instructions in the SASS of K8's kernels (cuobjdump), by
-    kernel: every operation there must round on its own, so each count
-    must be 0."""
+def ffma_counts(lib):
+    """FFMA instructions in the SASS (cuobjdump) of the kernels whose
+    order is their contract (K5, K7, K8: BIT_EXACT_KERNELS), by kernel:
+    every operation there must round on its own, so each count must
+    be 0."""
     tool = os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
                         "bin", "cuobjdump")
     sass = subprocess.run([tool, "-sass", str(lib)], capture_output=True,
@@ -374,7 +392,8 @@ def k8_ffma(lib):
     for line in sass.splitlines():
         m = re.search(r"Function : (\S+)", line)
         if m:
-            name = m.group(1) if K8_KERNELS.search(m.group(1)) else None
+            name = (m.group(1) if BIT_EXACT_KERNELS.search(m.group(1))
+                    else None)
             if name:
                 counts[name] = 0
         elif name and "FFMA" in line:
@@ -440,27 +459,43 @@ def k1_case(torch, name, B, hq, hkv, S, D, dtype, library, window=None):
 def k5_case(torch, name, B, T, D):
     """K5 at (B, T, D) in f32, the RG-LRU's serving dtype (its
     coefficients are f32 in a bf16 model): decays in (0.8, 1) like the
-    RG-LRU's, inputs standard normal. No PyTorch call computes a
-    diagonal linear recurrence, so there is no library time."""
+    RG-LRU's, inputs standard normal. The body the wrapper chose
+    (``rglru_scan.body``: "ring" at both of recurrent_serve's shapes)
+    must equal the plain version bit for bit, and so must the simt body
+    forced on the same inputs: ``simt_ms`` (the kernel before the ring)
+    times it beside ``ms`` (the eager call) and ``graph_ms`` (its
+    replay). No PyTorch
+    call computes a diagonal linear recurrence, so there is no library
+    time."""
     from repro_torch.kernels import rglru_scan as k5, ref
 
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     a = 0.8 + 0.2 * torch.rand((B, T, D), generator=gen, device="cuda")
     x = torch.randn((B, T, D), generator=gen, device="cuda")
+    before = dict(k5.rglru_scan.launches_by_body)
     got = k5.rglru_scan(a, x)
+    body = ran_body(k5.rglru_scan, before)
     want = ref.linear_scan(a, x)
+    simt = lambda: k5.launch(a, x, which="simt")[0]  # noqa: E731
+    simt_equal = bool(torch.equal(simt(), want))
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
+    equal = bool(torch.equal(got, want))
     bound_ms, bound_by = bound(2 * B * T * D, 3 * 4 * B * T * D, "float32")
+    call = lambda: k5.rglru_scan(a, x)               # noqa: E731
     row = {"phase": "kernels", "kernel": "K5", "case": name,
-           "shape": [B, T, D], "dtype": "float32", "max_abs_err": err,
-           "bit_equal": bool(torch.equal(got, want)), "tol": K5_TOL,
-           "ms": cuda_ms(torch, lambda: k5.rglru_scan(a, x)),
+           "shape": [B, T, D], "dtype": "float32", "body": body,
+           "max_abs_err": err, "bit_equal": equal,
+           "simt_bit_equal": simt_equal, "tol": K5_TOL,
+           "ms": cuda_ms(torch, call), "graph_ms": graph_ms(torch, call),
+           "simt_ms": cuda_ms(torch, simt),
            "plain_ms": cuda_ms(torch, lambda: ref.linear_scan(a, x), reps=3),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     emit(row)
-    check(math.isfinite(err) and err <= K5_TOL,
-          f"K5 {name}: max abs err {err} > {K5_TOL}")
+    check(math.isfinite(err) and err <= K5_TOL and equal and simt_equal,
+          f"K5 {name}: not bit-equal to the plain version (max abs err "
+          f"{err}; simt body {simt_equal})")
+    check(body == "ring", f"K5 {name}: ran the {body} body, expected ring")
     return row
 
 
@@ -755,7 +790,7 @@ def phase_kernels(torch, np, prompts, profile):
     # (8, 512) admission and the (2, 2560) long-prompt admission; K1 at
     # head dim 256 (recurrentgemma MQA, gemma_7b) and 120 (h2o_danube)
     k5 = k5_case(torch, "admit_8x512", 8, 512, 2560)
-    k5_case(torch, "long_2x2560", 2, 2560, 2560)
+    k5_long = k5_case(torch, "long_2x2560", 2, 2560, 2560)
     k1_case(torch, "rg_d256_mqa10", 8, 10, 1, 512, 256, "bfloat16", True,
             window=2048)
     k1_case(torch, "rg_d256_long_window", 2, 10, 1, 2560, 256, "bfloat16",
@@ -764,7 +799,7 @@ def phase_kernels(torch, np, prompts, profile):
     k1_case(torch, "danube_d120_gqa4", 8, 32, 8, 512, 120, "bfloat16", True,
             window=4096)
     k1_case(torch, "d64_ragged_gqa4", 2, 8, 2, 300, 64, "bfloat16", True)
-    return k1, k2, k2c, k3, k3s[64], k4d, k4v, k4s[64], k5
+    return k1, k2, k2c, k3, k3s[64], k4d, k4v, k4s[64], k5, k5_long
 
 
 def phase_parity(torch, np):
@@ -1348,6 +1383,7 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import rglru_scan as k5
     from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.launch.engine.api import prefill_bucket
     from repro_torch.models import transformer
     from repro_torch.models.model import Model
 
@@ -1367,14 +1403,26 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
     fa.flash_attention.launches = 0
     zero_bodies(fa.flash_attention)
     k5.rglru_scan.launches = 0
+    zero_bodies(k5.rglru_scan)
+    k5.rglru_scan.launches_by_shape = {}
     t0 = time.monotonic()
     outs = engine.generate(reqs, [SamplingParams(max_tokens=n)
                                   for n in budgets])
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
+    by_shape = dict(k5.rglru_scan.launches_by_shape)
+    # the long admission: both LONG prompts in one prefill of the bucket
+    # that holds them, through every RG-LRU layer
+    rg_layers = sum(cfg.block_pattern[i % len(cfg.block_pattern)] == "rglru"
+                    for i in range(cfg.n_layers))
+    long_key = "x".join(map(str, (2, prefill_bucket(LONG, 16, 2560),
+                                  cfg.rnn_width)))
+    long_bodies = by_shape.get(long_key, {})
+    n_long = sum(long_bodies.values())
     launches = {"K1": fa.flash_attention.launches,
-                "K5": k5.rglru_scan.launches}
+                "K5": k5.rglru_scan.launches - n_long, "K5_long": n_long}
     k1_bodies = dict(fa.flash_attention.launches_by_body)
+    k5_bodies = dict(k5.rglru_scan.launches_by_body)
     st = engine.stats()
     ntok = sum(len(o) for o in outs)
     ring = engine.backend.pools["g0"]["p2"]["k"]  # (count, slots, 2048, ..)
@@ -1384,6 +1432,8 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
           "requests": len(outs), "tokens": ntok, "seconds": secs,
           "tok_s": ntok / secs, "launches": launches,
           "k1_launches_by_body": k1_bodies,
+          "k5_launches_by_body": k5_bodies,
+          "k5_launches_by_shape": by_shape,
           "steps": st["steps"], "decode_device_s": st["device_s"],
           "step_ms": 1e3 * st["device_s"] / max(st["steps"], 1),
           "prefill_calls": st["prefill_calls"],
@@ -1402,6 +1452,9 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
           "recurrent_serve: token id out of range")
     check(launches["K5"] > 0 and launches["K1"] > 0,
           f"recurrent_serve: a kernel was never launched {launches}")
+    check(long_bodies == {"ring": rg_layers},
+          f"recurrent_serve: the long admission ({long_key}) launched K5 "
+          f"{long_bodies}, expected {rg_layers} on the ring body")
     check(k1_bodies["wgmma"] > 0,
           f"recurrent_serve: no prefill ran K1's tensor-core body "
           f"{k1_bodies}")
@@ -1477,7 +1530,11 @@ def k7_case(torch, name, shape, kind):
     """K7a (2-D) or K7b (3-D) in f32 with ``kind`` weights ("laplace":
     five- or seven-point, "ones", "random": seeded), held bit for bit;
     the library time is one cuDNN ``F.conv2d`` / ``F.conv3d`` with
-    padding 1 (the same cross-correlation; TF32 off)."""
+    padding 1 (the same cross-correlation; TF32 off). K7b rows name the
+    body the wrapper chose (``stx_stencil.body3d``: "ring" at 512^3) and
+    add ``graph_ms`` (the call replayed) and ``simt_ms`` (the simt body,
+    the kernel before the ring, forced on the same input and held bit
+    for bit too)."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
@@ -1495,7 +1552,14 @@ def k7_case(torch, name, shape, kind):
         w = torch.randn((3,) * dims, generator=gen, device="cuda")
     fn, plain, conv = ((k7.stencil2d, ref.stencil2d, F.conv2d) if dims == 2
                        else (k7.stencil3d, ref.stencil3d, F.conv3d))
+    if dims == 3:
+        before = dict(k7.stencil3d.launches_by_body)
     got, want = fn(x, w), plain(x, w)
+    extra = {}
+    if dims == 3:
+        simt = lambda: k7.launch3d(x, w, "simt")[0]  # noqa: E731
+        extra = {"body": ran_body(k7.stencil3d, before),
+                 "simt_bit_equal": bool(torch.equal(simt(), want))}
     torch.cuda.synchronize()
     err = (got - want).abs().max().item()
     equal = bool(torch.equal(got, want))
@@ -1503,16 +1567,22 @@ def k7_case(torch, name, shape, kind):
                                "float32")
     row = {"phase": "kernels", "kernel": "K7a" if dims == 2 else "K7b",
            "case": name, "shape": list(shape), "weights": kind,
-           "dtype": "float32", "max_abs_err": err, "bit_equal": equal,
-           "ms": cuda_ms(torch, lambda: fn(x, w)),
-           "plain_ms": cuda_ms(torch, lambda: plain(x, w), reps=5),
-           "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": cuda_ms(torch, lambda: conv(
-               x[None, None], w[None, None], padding=1)),
-           "library": f"F.conv{dims}d, padding 1"}
+           "dtype": "float32", **extra, "max_abs_err": err,
+           "bit_equal": equal, "ms": cuda_ms(torch, lambda: fn(x, w))}
+    if dims == 3:
+        row.update(graph_ms=graph_ms(torch, lambda: fn(x, w)),
+                   simt_ms=cuda_ms(torch, simt))
+    row.update({"plain_ms": cuda_ms(torch, lambda: plain(x, w), reps=5),
+                "bound_ms": bound_ms, "bound_by": bound_by,
+                "library_ms": cuda_ms(torch, lambda: conv(
+                    x[None, None], w[None, None], padding=1)),
+                "library": f"F.conv{dims}d, padding 1"})
     emit(row)
-    check(equal, f"{row['kernel']} {name}: kernel != plain version "
-                 f"(max abs err {err})")
+    check(equal and extra.get("simt_bit_equal", True),
+          f"{row['kernel']} {name}: kernel != plain version (max abs err "
+          f"{err}; simt body {extra.get('simt_bit_equal')})")
+    check(dims == 2 or row["body"] == "ring",
+          f"K7b {name}: ran the {row.get('body')} body, expected ring")
     return row
 
 
@@ -1760,7 +1830,8 @@ def phase_tile_path(torch, np, profile):
     counters["K8_finalize"] = k8.vrp_finalize
     for fn in counters.values():
         fn.launches = 0
-    for fn in (k6.stx_matmul, k8.vrp_dot_lanes, k8.vrp_sum_lanes):
+    for fn in (k6.stx_matmul, k7.stencil3d, k8.vrp_dot_lanes,
+               k8.vrp_sum_lanes):
         zero_bodies(fn)
     cluster = stx.DEFAULT_CLUSTER
     out = {"phase": "tile_path"}
@@ -1782,7 +1853,9 @@ def phase_tile_path(torch, np, profile):
     finite = bool(torch.isfinite(u).all())
     vol = torch.randn((512, 512, 512), device="cuda",
                       generator=torch.Generator(device="cuda").manual_seed(SEED))
+    before = dict(k7.stencil3d.launches_by_body)
     v7 = cluster.stencil3d(vol, ref.seven_point_weights(device="cuda"))
+    body3 = ran_body(k7.stencil3d, before)
     finite3 = bool(torch.isfinite(v7).all())
     del vol, v7
     # at the example's own sizes, cuda against cpu
@@ -1801,7 +1874,7 @@ def phase_tile_path(torch, np, profile):
         "peak": peak, "finite": finite, "total0": total0, "total": total,
         "energy0": energy0, "energy": energy,
         "k8_totals_equal_plain": k8_equal0 and k8_equal,
-        "stencil3d_512_finite": finite3,
+        "stencil3d_512_finite": finite3, "stencil3d_512_body": body3,
         "small_96x96_8_steps_equal": bool(torch.equal(small["cuda"].cpu(),
                                                       small["cpu"])),
         "small_64cube_equal": bool(torch.equal(*small3))}
@@ -1810,6 +1883,8 @@ def phase_tile_path(torch, np, profile):
                                   f"{DIFF_STEPS} steps")
     check(0.0 < peak < 1.0 and finite and finite3,
           f"tile_path: diffusion peak {peak}, finite {finite}/{finite3}")
+    check(body3 == "ring", f"tile_path: the 512^3 stencil3d step ran K7b's "
+                           f"{body3} body")
     check(total <= total0, f"tile_path: total rose {total0} -> {total}")
     check(energy <= energy0, f"tile_path: energy rose {energy0} -> {energy}")
     check(d["k8_totals_equal_plain"],
@@ -1904,6 +1979,7 @@ def phase_tile_path(torch, np, profile):
     out["solvers"] = problems
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
     out["k6_launches_by_body"] = dict(k6.stx_matmul.launches_by_body)
+    out["k7b_launches_by_body"] = dict(k7.stencil3d.launches_by_body)
     out["k8_launches_by_body"] = {
         "K8a": dict(k8.vrp_dot_lanes.launches_by_body),
         "K8b": dict(k8.vrp_sum_lanes.launches_by_body)}
@@ -1945,11 +2021,17 @@ def k8_finalize_row(k8a):
 PORT_KERNEL = re.compile(
     r"\(anonymous namespace\)::(tc::|pvs::|pvw::)?(fa_kernel|fa_wgmma|"
     r"pa_split_kernel|pa_combine_kernel|pv_kernel|pv_split_kernel|pv_wgmma|"
-    r"scan_kernel|mm_kernel|mm_wgmma|stencil2d_kernel|stencil3d_kernel|"
-    r"lanes_kernel|ring_kernel|finalize_kernel)\b")
+    r"scan_kernel|scan_tma_kernel|mm_kernel|mm_wgmma|stencil2d_kernel|"
+    r"stencil3d_kernel|stencil3d_tma_kernel|lanes_kernel|ring_kernel|"
+    r"finalize_kernel)\b")
 # K8's kernels (the lane kernel's two bodies and the finalize), in the
 # profiler's names and in cuobjdump's mangled ones.
 K8_KERNELS = re.compile(r"(lanes|ring|finalize)_kernel")
+# Every kernel held bit for bit to its plain version by its order: K5's
+# two bodies, K7's (2-D, 3-D simt and 3-D ring) and K8's.
+BIT_EXACT_KERNELS = re.compile(
+    r"(scan|scan_tma|stencil2d|stencil3d|stencil3d_tma|lanes|ring|finalize)"
+    r"_kernel")
 
 
 # K2's two kernels: the split kernel and the combine pass.
@@ -2024,7 +2106,7 @@ def main():
 
     prompts, news, warm = workload(np)
     phase_build()
-    k1, k2, k2c, k3, k3s, k4d, k4v, k4s, k5 = phase_kernels(
+    k1, k2, k2c, k3, k3s, k4d, k4v, k4s, k5, k5_long = phase_kernels(
         torch, np, prompts, args.profile)
     k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np, args.profile)
     phase_parity(torch, np)
@@ -2037,8 +2119,8 @@ def main():
     quant = phase_quant_serve(torch, np, prompts, news, warm, base_outs,
                               model, params)
     del model, params
-    launches["K5"] = phase_recurrent_serve(torch, np, prompts, news, warm,
-                                           args.profile)["K5"]
+    rec = phase_recurrent_serve(torch, np, prompts, news, warm, args.profile)
+    launches.update(K5=rec["K5"], K5_long=rec["K5_long"])
     torch.cuda.empty_cache()
     launches.update(phase_tile_path(torch, np, args.profile))
 
@@ -2073,7 +2155,12 @@ def main():
              "64-row bucket: wgmma body)",
              "src/repro_torch/csrc/paged_verify_wgmma.cuh",
              "src/repro/kernels/paged_attention.py:43"),
-            (k5, "K5", "rglru_scan",
+            (k5, "K5", "rglru_scan (admissions other than the long one; "
+             "timed at (8, 512, 2560))",
+             "src/repro_torch/csrc/rglru_scan.cu",
+             "src/repro/kernels/rglru_scan.py:52"),
+            (k5_long, "K5_long",
+             "rglru_scan (recurrent_serve's long admission, (2, 2560, 2560))",
              "src/repro_torch/csrc/rglru_scan.cu",
              "src/repro/kernels/rglru_scan.py:52"),
             (k6, "K6", "stx_matmul",
@@ -2101,7 +2188,7 @@ def main():
                         **{k: row[k] for k in (
                             "max_abs_err", "ms", "plain_ms", "bound_ms",
                             "bound_by", "library_ms", "body", "splits",
-                            "graph_ms", "call_ms", "call_host_ms")
+                            "graph_ms", "simt_ms", "call_ms", "call_host_ms")
                            if k in row}})
     emit({"kernels": kernels})
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",

@@ -1,15 +1,18 @@
 // Hopper building blocks shared by the tensor-core bodies of K1
 // (flash_attention.cu), K3 (paged_verify_wgmma.cuh) and K6
-// (stx_matmul.cu), as inline PTX for sm_90a:
+// (stx_matmul.cu), and by the TMA rings of K5 (rglru_scan.cu), K7b
+// (stx_stencil.cu) and K8 (vrp_dot.cu), as inline PTX for sm_90a:
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
-//     and a wait on a phase's parity;
-//   * TMA tile loads (cp.async.bulk.tensor, 2-D and 4-D) that complete on
-//     an mbarrier, from a CUtensorMap passed to the kernel by value as a
-//     __grid_constant__ parameter (never written to a device buffer, so
-//     a launch can be captured in a CUDA graph);
-//   * the host-side encoder of those maps: cuTensorMapEncodeTiled is a
-//     driver function, fetched once through cudaGetDriverEntryPoint so
-//     that the library links no libcuda;
+//     a wait on a phase's parity, and the same wait with a deadline that
+//     traps (bar_wait) for the rings;
+//   * TMA tile loads (cp.async.bulk.tensor, 2-D, 3-D and 4-D) that
+//     complete on an mbarrier, from a CUtensorMap passed to the kernel by
+//     value as a __grid_constant__ parameter (never written to a device
+//     buffer, so a launch can be captured in a CUDA graph);
+//   * the host-side encoders of those maps (bf16 with the 128-byte
+//     swizzle, and plain f32 / bf16 boxes with no swizzle):
+//     cuTensorMapEncodeTiled is a driver function, fetched once through
+//     cudaGetDriverEntryPoint so that the library links no libcuda;
 //   * the shared-memory matrix descriptor of wgmma for the 128-byte
 //     swizzle that the maps write (every tile is a column of 64 bf16 =
 //     128 bytes a row, 1024-byte aligned, 8-row swizzle atoms of 1024 B);
@@ -85,6 +88,33 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+__device__ __forceinline__ uint64_t globaltimer() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
+  return t;
+}
+
+// mbar_wait with a deadline: a phase that never completes (a fault in a
+// ring's protocol) traps after 4 s instead of hanging the card.
+__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint64_t t0 = 0;
+  for (;;) {
+    uint32_t done;
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+    if (done) return;
+    const uint64_t t = globaltimer();
+    if (t0 == 0) t0 = t;
+    else if (t - t0 > 4000000000ull) __trap();
+  }
+}
+
 // ---------------------------------------------------------------------------
 // TMA tile loads (global -> shared, completing on an mbarrier). Elements of
 // the box outside the tensor's dims are written as zeros and still count
@@ -101,6 +131,17 @@ __device__ __forceinline__ void tma_load_2d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+__device__ __forceinline__ void tma_load_3d(void* dst, const CUtensorMap* map,
+                                            uint64_t* bar, int c0, int c1,
+                                            int c2) {
+  asm volatile(
+      "cp.async.bulk.tensor.3d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0),
+      "r"(c1), "r"(c2)
+      : "memory");
+}
+
 __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
                                             uint64_t* bar, int c0, int c1,
                                             int c2, int c3) {
@@ -113,7 +154,7 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
 }
 
 // ---------------------------------------------------------------------------
-// host: tensor maps of bf16 tensors with the 128-byte swizzle
+// host: tensor maps (bf16 with the 128-byte swizzle; plain f32 / bf16 tiles)
 // ---------------------------------------------------------------------------
 
 using EncodeTiledFn = CUresult (*)(CUtensorMap*, CUtensorMapDataType,
@@ -141,14 +182,20 @@ inline EncodeTiledFn encode_tiled_fn() {
   return fn;
 }
 
-// A rank-`rank` (2..5) map over a bf16 tensor: dims[0] is the contiguous
-// one, strides[i] the byte stride of dims[i + 1] (multiples of 16), box
-// the tile each load writes; box[0] must be 64 (128 bytes, the swizzle's
-// row). Out-of-range elements load as zeros. False when the driver
-// refuses the map (or its entry point is missing).
-inline bool make_bf16_map(CUtensorMap* map, const void* base, int rank,
-                          const uint64_t* dims, const uint64_t* strides,
-                          const uint32_t* box) {
+// A rank-`rank` (1..5) map over a dense tensor of `type`: dims[0] is the
+// contiguous one, strides[i] the byte stride of dims[i + 1] (multiples of
+// 16), box the tile each load writes (box[0] times the element size a
+// multiple of 16 bytes). Coordinates may be negative, but the innermost
+// one must put the box's start on 16 bytes (else the load faults with an
+// illegal instruction); elements of the box outside the dims load as
+// zeros. False when the driver refuses the map (a base that is not
+// 16-byte aligned, a stride that is not a multiple of 16) or its entry
+// point is missing.
+inline bool encode_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                       const void* base, const uint64_t* dims,
+                       const uint64_t* strides, const uint32_t* box,
+                       CUtensorMapSwizzle swizzle,
+                       CUtensorMapL2promotion l2) {
   const EncodeTiledFn fn = encode_tiled_fn();
   if (fn == nullptr) return false;
   cuuint64_t d[5], s[4];
@@ -159,11 +206,29 @@ inline bool make_bf16_map(CUtensorMap* map, const void* base, int rank,
     e[i] = 1;
     if (i + 1 < rank) s[i] = strides[i];
   }
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank,
-            const_cast<void*>(base), d, s, b, e,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+  return fn(map, type, rank, const_cast<void*>(base), d, s, b, e,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, swizzle, l2,
             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// The tensor cores' bf16 operands: the 128-byte swizzle, so box[0] must be
+// 64 (128 bytes, the swizzle's row).
+inline bool make_bf16_map(CUtensorMap* map, const void* base, int rank,
+                          const uint64_t* dims, const uint64_t* strides,
+                          const uint32_t* box) {
+  return encode_map(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, rank, base, dims,
+                    strides, box, CU_TENSOR_MAP_SWIZZLE_128B,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_128B);
+}
+
+// The rings' f32 / bf16 tiles (K5, K7b, K8): no swizzle, each box written
+// densely into shared memory, row after row.
+inline bool make_map(CUtensorMap* map, CUtensorMapDataType type, int rank,
+                     const void* base, const uint64_t* dims,
+                     const uint64_t* strides, const uint32_t* box) {
+  return encode_map(map, type, rank, base, dims, strides, box,
+                    CU_TENSOR_MAP_SWIZZLE_NONE,
+                    CU_TENSOR_MAP_L2_PROMOTION_L2_256B);
 }
 
 // ---------------------------------------------------------------------------

@@ -190,33 +190,6 @@ struct Ring {
   static_assert(SMEM <= 232448, "shared memory");
 };
 
-__device__ __forceinline__ uint64_t globaltimer() {
-  uint64_t t;
-  asm volatile("mov.u64 %0, %%globaltimer;" : "=l"(t));
-  return t;
-}
-
-// hw::mbar_wait with a deadline: a phase that never completes (a fault
-// in the ring's protocol) traps after 4 s instead of hanging the card.
-__device__ __forceinline__ void bar_wait(uint64_t* bar, uint32_t parity) {
-  const uint32_t addr = hw::smem_u32(bar);
-  uint64_t t0 = 0;
-  for (;;) {
-    uint32_t done;
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(addr), "r"(parity)
-        : "memory");
-    if (done) return;
-    const uint64_t t = globaltimer();
-    if (t0 == 0) t0 = t;
-    else if (t - t0 > 4000000000ull) __trap();
-  }
-}
-
 // GROUP rows of a lane, contiguous: four 16-byte loads.
 __device__ __forceinline__ void load_rows(float4 (&d)[GROUP / 4],
                                           const float* v, int r0) {
@@ -385,7 +358,7 @@ __global__ void __launch_bounds__(Ring<DOT, L>::THREADS)
     if (lane == 0) {
       for (int t = 0; t < ntiles; ++t) {
         const int k = t % SL;
-        if (t >= SL) bar_wait(freed + k, ((t / SL) - 1) & 1);
+        if (t >= SL) hw::bar_wait(freed + k, ((t / SL) - 1) & 1);
         hw::mbar_arrive_expect_tx(full + k, G::LOAD_SLOT);
         hw::tma_load_2d(xs(k), &xmap, full + k, l0, t * R);
         if (DOT) hw::tma_load_2d(ys(k), &ymap, full + k, l0, t * R);
@@ -394,7 +367,7 @@ __global__ void __launch_bounds__(Ring<DOT, L>::THREADS)
   } else if (warp == W_S) {
     for (int t = 0; t < ntiles; ++t) {
       const int k = t % SW, rows = rows_of(t);
-      bar_wait(prep + k, (t / SW) & 1);
+      hw::bar_wait(prep + k, (t / SW) & 1);
       if (lane < L)
         s = carry_s<R>(s, vs(k) + lane * RS + 4, ss(k) + lane * RS, rows);
       hw::mbar_arrive(sdone + k);
@@ -402,7 +375,7 @@ __global__ void __launch_bounds__(Ring<DOT, L>::THREADS)
   } else if (warp == W_C) {
     for (int t = 0; t < ntiles; ++t) {
       const int k = t % SW, rows = rows_of(t);
-      bar_wait(edone + k, (t / SW) & 1);
+      hw::bar_wait(edone + k, (t / SW) & 1);
       if (lane < L)
         c = carry_c<DOT, R>(c, vs(k) + lane * RS + 4, es(k) + lane * RS + 4,
                             rows);
@@ -415,8 +388,8 @@ __global__ void __launch_bounds__(Ring<DOT, L>::THREADS)
     constexpr int STRIDE = 32 * G::HP;
     for (int t = 0; t < ntiles; ++t) {
       const int kl = t % SL, k = t % SW, m = rows_of(t) * L;
-      bar_wait(full + kl, (t / SL) & 1);
-      if (t >= SW) bar_wait(empty + k, ((t / SW) - 1) & 1);
+      hw::bar_wait(full + kl, (t / SL) & 1);
+      if (t >= SW) hw::bar_wait(empty + k, ((t / SW) - 1) & 1);
       const float* xt = xs(kl);
       const float* yt = ys(kl);
       float* vt = vs(k);
@@ -454,7 +427,7 @@ __global__ void __launch_bounds__(Ring<DOT, L>::THREADS)
     constexpr int STRIDE = 32 * G::HE;
     for (int t = 0; t < ntiles; ++t) {
       const int k = t % SW, m = rows_of(t) * L;
-      bar_wait(sdone + k, (t / SW) & 1);
+      hw::bar_wait(sdone + k, (t / SW) & 1);
       float* vt = vs(k);
       const float* sb = ss(k);
       for (int i0 = h; i0 < TILE; i0 += STRIDE * HB) {
@@ -515,17 +488,11 @@ __global__ void __launch_bounds__(Ring<DOT, L>::THREADS)
 // cuTensorMapEncodeTiled refuses it (a base that is not 16-byte aligned).
 bool rows_map(CUtensorMap* map, const float* base, long long rows, int L,
               int R) {
-  const hw::EncodeTiledFn fn = hw::encode_tiled_fn();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {LANES, static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {LANES * sizeof(float)};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(L),
-                             static_cast<cuuint32_t>(R)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, const_cast<float*>(base),
-            dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+  const uint64_t dims[2] = {LANES, static_cast<uint64_t>(rows)};
+  const uint64_t strides[1] = {LANES * sizeof(float)};
+  const uint32_t box[2] = {static_cast<uint32_t>(L), static_cast<uint32_t>(R)};
+  return hw::make_map(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2, base, dims,
+                      strides, box);
 }
 
 template <bool DOT, int L>

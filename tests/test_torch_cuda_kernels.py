@@ -16,7 +16,10 @@ kernels sum in another order than the plain version) and 3e-2 in bf16
 ``tests/test_kernels.py`` holds the Pallas matmul (rtol 1e-5 / atol
 1e-4 in f32, 3e-2 / 3e-1 in bf16: a long f32 sum in another order), K7
 in f32 and the K8 lanes exactly (``torch.equal``: they round every
-operation as their plain versions do, in the same order).
+operation as their plain versions do, in the same order). K1, K3, K5,
+K6, K7b and K8 have several bodies; their tests name the body each case
+must run (``launches_by_body``), and K5 and K7b hold both bodies to the
+plain version bit for bit.
 """
 
 import pytest
@@ -816,6 +819,99 @@ def test_rglru_scan_kernel_rejects_what_it_cannot_take(cuda_device):
         k5_mod.rglru_scan(a.cpu(), a)
 
 
+def _k5_inputs(gen, B, T, D, dtype, device, offset=0):
+    """a (decays in (0.8, 1)) and x of (B, T, D), ``offset`` elements into
+    their buffers: 0 keeps the bases 16-byte aligned, 1 puts them where no
+    tensor map can start."""
+    n = B * T * D
+    a = (0.8 + 0.2 * torch.rand(n + offset, generator=gen)).to(
+        device=device, dtype=dtype)[offset:].view(B, T, D)
+    x = _randn(gen, (n + offset,), dtype, device)[offset:].view(B, T, D)
+    return a, x
+
+
+K5_BODY_CASES = [  # B, T, D, dtype, offset, body
+    (2, 2560, 2560, torch.float32, 0, "ring"),     # the long admission
+    (8, 512, 2560, torch.float32, 0, "ring"),      # serving's admission
+    (2, 300, 2560, torch.float32, 0, "ring"),      # ragged T: a partial tile
+    (1, 2560, 2560, torch.float32, 0, "ring"),     # one prompt: 4 stages
+    (1, 9000, 64, torch.float32, 0, "ring"),       # 8 stages, the cap
+    (3, 37, 64, torch.float32, 0, "ring"),         # T under one tile
+    (3, 100, 40, torch.float32, 0, "ring"),        # a partial last CTA
+    (1, 1, 16, torch.float32, 0, "ring"),
+    (2, 300, 512, torch.bfloat16, 0, "ring"),
+    (2, 37, 2561, torch.float32, 0, "simt"),       # rows of 10244 bytes
+    (1, 1, 5, torch.float32, 0, "simt"),
+    (2, 300, 2560, torch.float32, 1, "simt"),      # a base 4 bytes off
+    (2, 37, 2561, torch.bfloat16, 0, "simt"),
+]
+
+
+@pytest.mark.parametrize("with_h0", [False, True], ids=["zero", "h0"])
+@pytest.mark.parametrize("B,T,D,dtype,offset,want", K5_BODY_CASES)
+def test_rglru_scan_bodies_equal_plain(cuda_device, B, T, D, dtype, offset,
+                                       want, with_h0):
+    """Each case runs the body its dtype, shape and alignment pick, and
+    equals the plain version bit for bit (f32, and bf16: the carry is f32
+    in both and each h_t is rounded to bf16 once)."""
+    gen = torch.Generator().manual_seed(B * 7 + T + D + offset)
+    a, x = _k5_inputs(gen, B, T, D, dtype, cuda_device, offset)
+    h0 = _randn(gen, (B, D), torch.float32, cuda_device) if with_h0 \
+        else None
+    assert k5_mod.body(a, x) == want
+    before = dict(k5_mod.rglru_scan.launches_by_body)
+    got = k5_mod.rglru_scan(a, x, h0)
+    assert _ran_body(k5_mod.rglru_scan, before) == want
+    want_h = ref.linear_scan(a, x, h0)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want_h), (got.float() - want_h.float()).abs().max()
+
+
+def test_rglru_scan_ring_refuses_what_no_map_takes(cuda_device):
+    """A ring launch the inputs cannot take raises; it never reruns on
+    the simt body."""
+    gen = torch.Generator().manual_seed(9)
+    a, x = _k5_inputs(gen, 2, 64, 2561, torch.float32, cuda_device)
+    with pytest.raises(RuntimeError, match="ring body"):
+        k5_mod.launch(a, x, which="ring")
+    a, x = _k5_inputs(gen, 2, 64, 256, torch.float32, cuda_device, offset=1)
+    with pytest.raises(RuntimeError, match="ring body"):
+        k5_mod.launch(a, x, which="ring")
+
+
+def test_rglru_scan_replays_in_a_cuda_graph(cuda_device):
+    """Both bodies captured in a CUDA graph and replayed after a, x and h0
+    change in place equal the plain version on the new values: the body
+    and the plan come from shapes, nothing syncs."""
+    gen = torch.Generator().manual_seed(14)
+    cases = [_k5_inputs(gen, 2, 300, D, torch.float32, cuda_device)
+             for D in (2560, 2561)]
+    h0s = [_randn(gen, (2, D), torch.float32, cuda_device)
+           for D in (2560, 2561)]
+    for (a, x), h0 in zip(cases, h0s):
+        k5_mod.rglru_scan(a, x, h0)                # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(k5_mod.rglru_scan.launches_by_body)
+    with torch.cuda.graph(graph):
+        outs = [k5_mod.rglru_scan(a, x, h0)
+                for (a, x), h0 in zip(cases, h0s)]
+    assert {b: n - before[b] for b, n in
+            k5_mod.rglru_scan.launches_by_body.items()} \
+        == {"ring": 1, "simt": 1}
+    for seed in (1, 2):
+        g = torch.Generator().manual_seed(seed)
+        for (a, x), h0 in zip(cases, h0s):
+            a.copy_(0.8 + 0.2 * torch.rand(a.shape, generator=g))
+            x.copy_(torch.randn(x.shape, generator=g))
+            h0.copy_(torch.randn(h0.shape, generator=g))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, (a, x), h0 in zip(outs, cases, h0s):
+            assert torch.equal(out, ref.linear_scan(a, x, h0))
+
+
 # ---------------------------------------------------------------------------
 # K6: the STX matmul (f32 accumulator)
 # ---------------------------------------------------------------------------
@@ -965,6 +1061,81 @@ def test_stencil3d_kernel_equals_plain(cuda_device, dtype, kind, shape):
     want = ref.stencil3d(x, w)
     torch.cuda.synchronize()
     assert torch.equal(got, want), (got.float() - want.float()).abs().max()
+
+
+K7B_BODY_CASES = [  # shape, dtype, offset, body
+    ((512, 512, 512), torch.float32, 0, "ring"),   # tile_path's step
+    ((2, 33, 8, 64), torch.float32, 0, "ring"),    # a box past D reads 0
+    ((130, 40, 36), torch.float32, 0, "ring"),     # ragged M, partial chunk
+    ((70, 9, 64), torch.float32, 0, "ring"),       # 64 + 6 planes
+    ((3, 1, 1, 4), torch.float32, 0, "ring"),
+    ((2, 20, 30, 100), torch.float32, 0, "ring"),  # N ragged in the tile
+    ((9, 20, 33), torch.float32, 0, "simt"),       # N not a multiple of 4
+    ((70, 9, 64), torch.float32, 1, "simt"),       # a base 4 bytes off
+    ((70, 9, 64), torch.bfloat16, 0, "simt"),
+]
+
+
+@pytest.mark.parametrize("kind", ["laplace", "random"])
+@pytest.mark.parametrize("shape,dtype,offset,want", K7B_BODY_CASES)
+def test_stencil3d_bodies_equal_plain(cuda_device, shape, dtype, offset,
+                                      want, kind):
+    """Each case runs the body its dtype, shape and alignment pick, and
+    equals the plain version bit for bit: seven-point and random weights,
+    every term computed in (dd, di, dj) order."""
+    gen = torch.Generator().manual_seed(sum(shape) + offset)
+    n = torch.Size(shape).numel()
+    x = _randn(gen, (n + offset,), dtype, cuda_device)[offset:].view(shape)
+    w = _weights(kind, 3, gen).to(cuda_device)
+    assert k7_mod.body3d(x) == want
+    before = dict(k7_mod.stencil3d.launches_by_body)
+    got = k7_mod.stencil3d(x, w)
+    assert _ran_body(k7_mod.stencil3d, before) == want
+    want_y = ref.stencil3d(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == dtype and got.shape == x.shape
+    assert torch.equal(got, want_y), (got.float() - want_y.float()).abs().max()
+
+
+def test_stencil3d_ring_refuses_what_no_map_takes(cuda_device):
+    """A ring launch the input cannot take raises; it never reruns on the
+    simt body."""
+    w = ref.seven_point_weights().to(cuda_device)
+    for x in (torch.zeros((4, 8, 33), device=cuda_device),
+              torch.zeros(4 * 8 * 32 + 1, device=cuda_device)[1:].view(
+                  4, 8, 32),
+              torch.zeros((4, 8, 32), device=cuda_device,
+                          dtype=torch.bfloat16)):
+        with pytest.raises(RuntimeError, match="ring body"):
+            k7_mod.launch3d(x, w, "ring")
+
+
+def test_stencil3d_replays_in_a_cuda_graph(cuda_device):
+    """Both bodies captured in a CUDA graph and replayed after x and the
+    weights change in place equal the plain version on the new values."""
+    gen = torch.Generator().manual_seed(15)
+    xs = [_randn(gen, shape, torch.float32, cuda_device)
+          for shape in ((70, 40, 64), (70, 40, 65))]
+    w = torch.randn((3, 3, 3), generator=gen).to(cuda_device)
+    for x in xs:
+        k7_mod.stencil3d(x, w)                      # build and warm up
+    torch.cuda.synchronize()
+    graph = torch.cuda.CUDAGraph()
+    before = dict(k7_mod.stencil3d.launches_by_body)
+    with torch.cuda.graph(graph):
+        outs = [k7_mod.stencil3d(x, w) for x in xs]
+    assert {b: n - before[b] for b, n in
+            k7_mod.stencil3d.launches_by_body.items()} \
+        == {"ring": 1, "simt": 1}
+    for seed in (1, 2):
+        g = torch.Generator().manual_seed(seed)
+        for x in xs:
+            x.copy_(torch.randn(x.shape, generator=g))
+        w.copy_(torch.randn(w.shape, generator=g))
+        graph.replay()
+        torch.cuda.synchronize()
+        for out, x in zip(outs, xs):
+            assert torch.equal(out, ref.stencil3d(x, w))
 
 
 def test_stencil_kernel_takes_cpu_weights(cuda_device):
