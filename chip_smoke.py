@@ -4,10 +4,19 @@ check it end to end.
 
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of
-                                     # serve, spec_serve, recurrent_serve
+                                     # serve (overlap off and on),
+                                     # spec_serve, recurrent_serve
                                      # and tile_path (each window lists
                                      # the port's own kernels and their
                                      # share of device time)
+
+Every paged engine decodes through the captured step
+(``launch/engine/step_graph.py``): feed select, the decode and sampling
+as one CUDA graph replay a step. The serve phases print
+``graph_replays`` (must equal their decode ``steps``) and
+``eager_decode_steps`` (must be 0), and hold the launch counters, which
+count replays, to one K2 (or K4) and one combine launch per layer per
+decode step.
 
 K1 (flash attention) and K6 (the STX matmul) have two bodies each,
 chosen by their wrappers from the inputs before the launch and counted
@@ -84,8 +93,16 @@ Phases, one JSON line each (any failed check exits non-zero):
               tokens and 32-64 new tokens through ``Engine`` (prefix
               cache on, the default); the K1 and K2 launch counters are
               reset before and must be > 0 after, K1's tensor-core
-              launches among them, and the pool must end with zero
-              blocks in use.
+              launches among them, K2 and its combine 16 x decode steps,
+              and the pool must end with zero blocks in use. Then the
+              same requests on an ``overlap=True`` engine (dispatch the
+              next step before fetching this one's tokens): the same
+              checks, and tokens equal to the first turn's. Each turn
+              prints ``tok_s`` and ``decode_device_s``.
+   static_serve — the same model and requests on ``backend="static"``
+              (lockstep batches of 8 over a dense (8, 640) cache): tok/s,
+              steps, batches (2), cache utilization, K1 launches (one a
+              layer a batch); every request emits max_tokens in range.
 6. spec_serve — the same model with ``spec_tokens=4`` (ngram drafter)
               and the prefix cache serves 16 requests that share a
               256-token prefix; the K3 launch counter is reset before and
@@ -94,9 +111,11 @@ Phases, one JSON line each (any failed check exits non-zero):
               tokens equal a non-speculative, cache-off engine's (bf16
               argmax may flip on near-ties, so that share is no check).
 7. quant_serve — the serve phase's model, requests and geometry over an
-              fp8 and then an int8 pool that gets the bf16 pool's usable
+              fp8 pool (overlap off, then on: equal tokens) and an int8
+              pool that gets the bf16 pool's usable
               bytes (so 1.94x its blocks): capacity ratio, tok/s, TTFT /
-              TPOT p50, K4 launches (must be > 0, K2 none), zero leaked
+              TPOT p50, K4 launches (16 x decode steps, as the combine's;
+              K2 none), zero leaked
               blocks, and the greedy token match rate against the serve
               phase's bf16 outputs (reported, not gated); then fp8 with
               speculation on spec_serve's traffic, where every verify
@@ -107,6 +126,11 @@ Phases, one JSON line each (any failed check exits non-zero):
               (window 16) that wrap: greedy, seeded, speculative (ngram,
               K 3) and (recurrentgemma) int8 tokens equal, no leak, K5 and
               K1 launched on cuda.
+   parity_overlap_static — olmo_1b and recurrentgemma_2b smoke in f32,
+              cuda against cpu: ``overlap=True`` with seeded and greedy
+              rows on a pool that preempts (the sampled graph), and
+              ``backend="static"`` over two batches; tokens equal, and
+              the overlap tokens equal a cpu run with overlap off.
 9. recurrent_serve — recurrentgemma_2b at full width in bf16 (26
               layers, seeded random weights, depth not cut; 8 slots,
               max_len 2560 so the 2048-row rings wrap) serves two
@@ -117,7 +141,9 @@ Phases, one JSON line each (any failed check exits non-zero):
               them), the pool must end empty. K5's launches are tallied
               by shape and body (``k5_launches_by_shape``,
               ``k5_launches_by_body``): the long admission must launch
-              one K5 a RG-LRU layer (18), all on the ring body.
+              one K5 a RG-LRU layer (18), all on the ring body. Then
+              the same requests with ``overlap=True``: equal tokens, the
+              same K1 and K5 launches.
 
 10. tile_path — the EPAC tile layer (``repro_torch.core``) through its
               entry points, every tile kernel's counter reset first:
@@ -1003,29 +1029,38 @@ def phase_parity_quant(torch, np):
             f"parity_quant: {key} never launched K4 {st}")
 
 
-def phase_serve(torch, np, prompts, news, warm, profile):
-    from repro_torch.configs import get_config
+def decode_launches(st, runs, cfg, k2="K2"):
+    """The captured step's launch rule: every decode step ran by graph
+    replay (``graph_replays`` = steps, ``eager_decode_steps`` = 0) and
+    each replay launched one K2 (or K4, ``k2``) and one combine a
+    layer."""
+    want = cfg.n_layers * st["steps"]
+    check(st["graph_replays"] == st["steps"] > 0
+          and st["eager_decode_steps"] == 0,
+          f"decode ran {st['graph_replays']} replays and "
+          f"{st['eager_decode_steps']} eager steps in {st['steps']} steps")
+    check(runs[k2] == runs["K2_combine"] == want,
+          f"{k2} / combine launches {runs[k2]} / {runs['K2_combine']}, "
+          f"expected {cfg.n_layers} x {st['steps']} steps = {want}")
+
+
+def serve_turn(torch, engine, prompts, news, warm):
+    """One timed turn of ``engine`` over the requests, after a warm-up
+    request and with the K1 / K2 / combine counters set to 0 just
+    before: (outputs, seconds, launches, K1 launches by body, stats)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
-    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
-    from repro_torch.models import transformer
-    from repro_torch.models.model import Model
+    from repro_torch.launch.engine import SamplingParams
 
-    cfg = get_config("olmo_1b")
-    model = Model(cfg, device="cuda")
-    params = model.init(seed=SEED)
-    ecfg = EngineConfig(num_slots=8, block_size=16, num_blocks=1024,
-                        max_len=640)
-    engine = Engine(model, params, ecfg, device="cuda")
     engine.generate([warm], SamplingParams(max_tokens=2))
     engine.backend.reset_telemetry()              # warm-up excluded
     torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-
     fa.flash_attention.launches = 0
     zero_bodies(fa.flash_attention)
     pa.paged_decode_attention.launches = 0
+    pa.paged_decode_attention.k4_launches = 0
     pa.paged_decode_combine.launches = 0
+    pa.paged_verify_attention.k4_launches = 0
     t0 = time.monotonic()
     outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
                                      for n in news])
@@ -1033,39 +1068,124 @@ def phase_serve(torch, np, prompts, news, warm, profile):
     secs = time.monotonic() - t0
     launches = {"K1": fa.flash_attention.launches,
                 "K2": pa.paged_decode_attention.launches,
-                "K2_combine": pa.paged_decode_combine.launches}
-    k1_bodies = dict(fa.flash_attention.launches_by_body)
+                "K2_combine": pa.paged_decode_combine.launches,
+                "K4_decode": pa.paged_decode_attention.k4_launches,
+                "K4_verify": pa.paged_verify_attention.k4_launches}
+    return (outs, secs, launches, dict(fa.flash_attention.launches_by_body),
+            engine.stats())
 
-    st = engine.stats()
-    ntok = sum(len(o) for o in outs)
+
+def phase_serve(torch, np, prompts, news, warm, profile):
+    """olmo_1b at full width through ``Engine``: the 16 requests with
+    overlap off (the captured step replayed, its tokens fetched at once),
+    then again on a second engine with ``overlap=True``; the tokens must
+    be equal."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Engine, EngineConfig
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    cfg = get_config("olmo_1b")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=SEED)
+    engines = {}
+    turns = {}
+    for overlap in (False, True):
+        engines[overlap] = Engine(model, params, EngineConfig(
+            num_slots=8, block_size=16, num_blocks=1024, max_len=640,
+            overlap=overlap), device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        outs, secs, runs, k1_bodies, st = serve_turn(
+            torch, engines[overlap], prompts, news, warm)
+        launches = {k: runs[k] for k in ("K1", "K2", "K2_combine")}
+        turns[overlap] = outs
+        ntok = sum(len(o) for o in outs)
+        emit({"phase": "serve", "config": cfg.name, "dtype": cfg.dtype,
+              "overlap": overlap, "requests": len(outs), "tokens": ntok,
+              "seconds": secs, "tok_s": ntok / secs, "launches": launches,
+              "k1_launches_by_body": k1_bodies,
+              "steps": st["steps"], "graph_replays": st["graph_replays"],
+              "eager_decode_steps": st["eager_decode_steps"],
+              "decode_device_s": st["device_s"],
+              "prefill_calls": st["prefill_calls"],
+              "prefill_tokens": st["prefill_tokens"],
+              "preemptions": st["preemptions"],
+              "blocks_used": st["blocks_used"],
+              "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+              "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              "first_tokens": outs[0][:8],
+              **({"tokens_equal_overlap_off": outs == turns[False]}
+                 if overlap else {})})
+        check(all(len(o) == n for o, n in zip(outs, news)),
+              "serve: a request did not emit max_tokens tokens")
+        check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+              "serve: token id out of range")
+        check(all(n > 0 for n in launches.values()),
+              f"serve: a kernel was never launched on the main path "
+              f"{launches}")
+        decode_launches(st, runs, cfg)
+        check(k1_bodies["wgmma"] > 0,
+              f"serve: no prefill ran K1's tensor-core body {k1_bodies}")
+        check(st["blocks_used"] == 0,
+              f"serve: {st['blocks_used']} blocks leaked")
+        if overlap:
+            check(outs == turns[False],
+                  "serve: overlap=True tokens differ from overlap off")
+        else:
+            base = launches
     logits = model.prefill(params, {"tokens": torch.tensor(
         [prompts[0][:16]], device="cuda")}, transformer.RunCtx())[0]
-    emit({"phase": "serve", "config": cfg.name, "dtype": cfg.dtype,
-          "requests": len(outs), "tokens": ntok, "seconds": secs,
-          "tok_s": ntok / secs, "launches": launches,
-          "k1_launches_by_body": k1_bodies,
-          "steps": st["steps"], "decode_device_s": st["device_s"],
-          "prefill_calls": st["prefill_calls"],
-          "prefill_tokens": st["prefill_tokens"],
-          "preemptions": st["preemptions"], "blocks_used": st["blocks_used"],
-          "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
-          "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
-          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
-          "first_tokens": outs[0][:8]})
-    check(all(len(o) == n for o, n in zip(outs, news)),
-          "serve: a request did not emit max_tokens tokens")
-    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
-          "serve: token id out of range")
-    check(all(n > 0 for n in launches.values()),
-          f"serve: a kernel was never launched on the main path {launches}")
-    check(k1_bodies["wgmma"] > 0,
-          f"serve: no prefill ran K1's tensor-core body {k1_bodies}")
-    check(st["blocks_used"] == 0, f"serve: {st['blocks_used']} blocks leaked")
     check(tuple(logits.shape) == (1, 16, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()), "serve: bad prefill logits")
     if profile:
-        phase_profile(torch, engine, prompts, news, cfg.name)
-    return launches, outs, model, params
+        for overlap, engine in engines.items():
+            phase_profile(torch, engine, prompts, news,
+                          f"{cfg.name} serve overlap={overlap}")
+    return base, turns[False], model, params
+
+
+def phase_static_serve(torch, np, prompts, news, model, params):
+    """olmo_1b at full width on the lockstep ``backend="static"``: serve's
+    16 requests in batches of 8 over a dense (8, 640) cache, prefilled at
+    the bucket of each batch's longest prompt through K1, decoded in
+    plain torch."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+
+    cfg = model.cfg
+    engine = Engine(model, params, EngineConfig(
+        backend="static", num_slots=8, block_size=16, max_len=640),
+        device="cuda")
+    engine.generate([prompts[0][:40]], SamplingParams(max_tokens=2))
+    engine.backend.reset_telemetry()
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    t0 = time.monotonic()
+    outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
+                                     for n in news])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    st = engine.stats()
+    ntok = sum(len(o) for o in outs)
+    k1 = fa.flash_attention.launches
+    emit({"phase": "static_serve", "config": cfg.name, "dtype": cfg.dtype,
+          "requests": len(outs), "tokens": ntok, "seconds": secs,
+          "tok_s": ntok / secs, "steps": st["steps"],
+          "batches": st["batches"],
+          "mean_active_slots": st["mean_active_slots"],
+          "cache_utilization": st["cache_utilization"],
+          "prefill_compiles": st["prefill_compiles"],
+          "launches": {"K1": k1},
+          "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+          "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+          "first_tokens": outs[0][:8]})
+    check(all(len(o) == n for o, n in zip(outs, news)),
+          "static_serve: a request did not emit max_tokens tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          "static_serve: token id out of range")
+    check(st["batches"] == 2 and k1 == 2 * cfg.n_layers,
+          f"static_serve: {st['batches']} batches, {k1} K1 launches")
 
 
 def verify_bodies(pa, cfg, st, k3, k1):
@@ -1188,7 +1308,8 @@ def pool_block_bytes(torch, cfg, kv_dtype):
 
 def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
                       params, usable_bf16=1023):
-    """Full-width olmo_1b (bf16 compute) over an fp8 then an int8 pool:
+    """Full-width olmo_1b (bf16 compute) over an fp8 pool (overlap off,
+    then on: equal tokens) and an int8 pool:
     the serve phase's 16 requests and geometry, with the serve pool's
     usable BYTES (1023 bf16 blocks) spent on quantized blocks. Reports
     the capacity ratio, tok/s, TTFT/TPOT p50, the greedy token match rate
@@ -1204,38 +1325,26 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
     bf16_block = pool_block_bytes(torch, cfg, "bf16")
     budget = usable_bf16 * bf16_block
     launches = {"K4_decode": 0, "K4_verify": 0}
-    for kv_dtype in ("fp8", "int8"):
+    turns = {}
+    for kv_dtype, overlap in (("fp8", False), ("fp8", True),
+                              ("int8", False)):
         q_block = pool_block_bytes(torch, cfg, kv_dtype)
         usable = budget // q_block
         engine = Engine(model, params, EngineConfig(
             num_slots=8, block_size=16, num_blocks=usable + 1, max_len=640,
-            kv_dtype=kv_dtype), device="cuda")
-        engine.generate([warm], SamplingParams(max_tokens=2))
-        engine.backend.reset_telemetry()
-        torch.cuda.synchronize()
-        fa.flash_attention.launches = 0
-        pa.paged_decode_attention.launches = 0
-        pa.paged_decode_attention.k4_launches = 0
-        pa.paged_decode_combine.launches = 0
-        pa.paged_verify_attention.k4_launches = 0
-        t0 = time.monotonic()
-        outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
-                                         for n in news])
-        torch.cuda.synchronize()
-        secs = time.monotonic() - t0
-        runs = {"K1": fa.flash_attention.launches,
-                "K2": pa.paged_decode_attention.launches,
-                "K4_decode": pa.paged_decode_attention.k4_launches,
-                "K2_combine": pa.paged_decode_combine.launches,
-                "K4_verify": pa.paged_verify_attention.k4_launches}
-        launches["K4_decode"] += runs["K4_decode"]
-        st = engine.stats()
+            kv_dtype=kv_dtype, overlap=overlap), device="cuda")
+        outs, secs, runs, _, st = serve_turn(torch, engine, prompts, news,
+                                             warm)
+        turns[(kv_dtype, overlap)] = outs
+        if not overlap:
+            launches["K4_decode"] += runs["K4_decode"]
         ntok = sum(len(o) for o in outs)
         match = sum(a == b for o, w in zip(outs, base_outs)
                     for a, b in zip(o, w)) / max(
             sum(len(w) for w in base_outs), 1)
         emit({"phase": "quant_serve", "config": cfg.name, "dtype": cfg.dtype,
-              "kv_dtype": kv_dtype, "block_bytes_bf16": bf16_block,
+              "kv_dtype": kv_dtype, "overlap": overlap,
+              "block_bytes_bf16": bf16_block,
               "block_bytes": q_block, "pool_budget_bytes": budget,
               "usable_blocks_bf16": usable_bf16, "usable_blocks": usable,
               "num_blocks": usable + 1,
@@ -1243,13 +1352,17 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
               "pool_bytes": st["pool_bytes"], "requests": len(outs),
               "tokens": ntok, "seconds": secs, "tok_s": ntok / secs,
               "launches": runs, "steps": st["steps"],
+              "graph_replays": st["graph_replays"],
+              "eager_decode_steps": st["eager_decode_steps"],
               "decode_device_s": st["device_s"],
               "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
               "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
               "match_rate_vs_bf16": match,
               "blocks_used": st["blocks_used"],
               "preemptions": st["preemptions"],
-              "first_tokens": outs[0][:8]})
+              "first_tokens": outs[0][:8],
+              **({"tokens_equal_overlap_off":
+                  outs == turns[(kv_dtype, False)]} if overlap else {})})
         check(st["pool_bytes"] <= budget + bf16_block,
               f"quant_serve {kv_dtype}: pool of {st['pool_bytes']} bytes "
               f"exceeds the bf16 pool's {budget + bf16_block}")
@@ -1257,12 +1370,15 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
               f"quant_serve {kv_dtype}: a request did not finish")
         check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
               f"quant_serve {kv_dtype}: token id out of range")
-        check(runs["K4_decode"] > 0 and runs["K2"] == 0
-              and runs["K2_combine"] > 0,
-              f"quant_serve {kv_dtype}: decode did not go through K4 and "
-              f"the combine {runs}")
+        check(runs["K2"] == 0,
+              f"quant_serve {kv_dtype}: decode launched K2 {runs}")
+        decode_launches(st, runs, cfg, k2="K4_decode")
         check(st["blocks_used"] == 0,
               f"quant_serve {kv_dtype}: {st['blocks_used']} blocks leaked")
+        if overlap:
+            check(outs == turns[(kv_dtype, False)],
+                  f"quant_serve {kv_dtype}: overlap=True tokens differ "
+                  "from overlap off")
         del engine
 
     sprompts, snews, swarm = spec_workload(np)
@@ -1367,6 +1483,73 @@ def phase_parity_recurrent(torch, np):
             f"parity_recurrent: {key} never launched K1 / K5 {st}")
 
 
+def phase_parity_overlap_static(torch, np):
+    """olmo_1b and recurrentgemma_2b smoke in f32, cuda against cpu, same
+    weights: ``overlap=True`` on a pool small enough to preempt, with
+    seeded rows beside greedy ones (the sampled graph), and the static
+    backend over more requests than slots. Tokens equal on both devices,
+    and the overlap runs equal a cpu run with overlap off; no leak, and
+    every cuda decode step a graph replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    rng = np.random.default_rng(SEED + 5)
+    prompts = [list(map(int, rng.integers(0, 256, n)))
+               for n in (9, 14, 20, 6, 17, 11)]
+    sps = [SamplingParams(max_tokens=16) if i % 2 else
+           SamplingParams(max_tokens=16, temperature=0.9, top_k=30,
+                          top_p=0.95, seed=i) for i in range(len(prompts))]
+    runs = {"overlap": dict(num_slots=3, block_size=4, num_blocks=14,
+                            max_len=64, overlap=True),
+            "overlap_off": dict(num_slots=3, block_size=4, num_blocks=14,
+                                max_len=64),
+            "static": dict(backend="static", num_slots=4, block_size=4,
+                           max_len=64)}
+    out, stats = {}, {}
+    for arch in ("olmo_1b", "recurrentgemma_2b"):
+        cfg = get_config(arch).smoke()
+        models = {d: Model(cfg, device=d) for d in ("cpu", "cuda")}
+        params = {"cpu": models["cpu"].init(seed=SEED)}
+        params["cuda"] = weights.to_device(params["cpu"], "cuda")
+        for name, kw in runs.items():
+            for d, m in models.items():
+                if name == "overlap_off" and d == "cuda":
+                    continue
+                eng = Engine(m, params[d], EngineConfig(**kw), device=d)
+                out[(arch, name, d)] = eng.generate(prompts, sps)
+                st = eng.stats()
+                stats[(arch, name, d)] = {
+                    k: st[k] for k in ("steps", "preemptions", "blocks_used",
+                                       "graph_replays", "batches")
+                    if k in st}
+    equal = {f"{a}/{n}": out[(a, n, "cuda")] == out[(a, n, "cpu")]
+             for a in ("olmo_1b", "recurrentgemma_2b")
+             for n in ("overlap", "static")}
+    identity = {a: out[(a, "overlap", "cuda")] == out[(a, "overlap_off",
+                                                       "cpu")]
+                for a in ("olmo_1b", "recurrentgemma_2b")}
+    emit({"phase": "parity_overlap_static", "dtype": "float32",
+          "tokens_equal": equal, "overlap_equals_off": identity,
+          "stats": {"/".join(k): v for k, v in stats.items()}})
+    check(all(equal.values()), f"parity_overlap_static: cuda tokens != "
+          f"cpu tokens {equal}")
+    check(all(identity.values()), f"parity_overlap_static: overlap "
+          f"tokens != overlap-off tokens {identity}")
+    for key, st in stats.items():
+        check(st.get("blocks_used", 0) == 0,
+              f"parity_overlap_static: {key} leaked")
+        if key[1] == "overlap":
+            check(st["preemptions"] >= 1,
+                  f"parity_overlap_static: {key} never preempted")
+            check(key[2] == "cpu" or st["graph_replays"] == st["steps"] > 0,
+                  f"parity_overlap_static: {key} decoded off the graph")
+        if key[1] == "static":
+            check(st["batches"] >= 2,
+                  f"parity_overlap_static: {key} ran one batch")
+
+
 def long_prompts(np):
     """recurrent_serve's two prompts past the 2048-token window."""
     rng = np.random.default_rng(SEED + 4)
@@ -1429,12 +1612,14 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
     logits = model.prefill(params, {"tokens": torch.tensor(
         [reqs[0][:16]], device="cuda")}, transformer.RunCtx())[0]
     emit({"phase": "recurrent_serve", "config": cfg.name, "dtype": cfg.dtype,
-          "requests": len(outs), "tokens": ntok, "seconds": secs,
-          "tok_s": ntok / secs, "launches": launches,
+          "overlap": False, "requests": len(outs), "tokens": ntok,
+          "seconds": secs, "tok_s": ntok / secs, "launches": launches,
           "k1_launches_by_body": k1_bodies,
           "k5_launches_by_body": k5_bodies,
           "k5_launches_by_shape": by_shape,
-          "steps": st["steps"], "decode_device_s": st["device_s"],
+          "steps": st["steps"], "graph_replays": st["graph_replays"],
+          "eager_decode_steps": st["eager_decode_steps"],
+          "decode_device_s": st["device_s"],
           "step_ms": 1e3 * st["device_s"] / max(st["steps"], 1),
           "prefill_calls": st["prefill_calls"],
           "prefill_tokens": st["prefill_tokens"],
@@ -1465,6 +1650,51 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
     check(tuple(logits.shape) == (1, 16, cfg.vocab_size)
           and bool(torch.isfinite(logits).all()),
           "recurrent_serve: bad prefill logits")
+    check(st["graph_replays"] == st["steps"] > 0
+          and st["eager_decode_steps"] == 0,
+          f"recurrent_serve: {st['graph_replays']} replays, "
+          f"{st['eager_decode_steps']} eager steps in {st['steps']} steps")
+
+    # the same requests with overlap on: equal tokens, the same K5 work
+    ov = Engine(model, params, EngineConfig(
+        num_slots=8, block_size=16, num_blocks=1024, max_len=2560,
+        overlap=True), device="cuda")
+    ov.generate([warm], SamplingParams(max_tokens=2))
+    ov.backend.reset_telemetry()
+    torch.cuda.synchronize()
+    k5.rglru_scan.launches = 0
+    fa.flash_attention.launches = 0
+    t0 = time.monotonic()
+    ov_outs = ov.generate(reqs, [SamplingParams(max_tokens=n)
+                                 for n in budgets])
+    torch.cuda.synchronize()
+    ov_secs = time.monotonic() - t0
+    ov_st = ov.stats()
+    ov_launches = {"K1": fa.flash_attention.launches,
+                   "K5": k5.rglru_scan.launches}
+    emit({"phase": "recurrent_serve", "config": cfg.name,
+          "dtype": cfg.dtype, "overlap": True, "requests": len(ov_outs),
+          "tokens": ntok, "seconds": ov_secs, "tok_s": ntok / ov_secs,
+          "launches": ov_launches, "steps": ov_st["steps"],
+          "graph_replays": ov_st["graph_replays"],
+          "eager_decode_steps": ov_st["eager_decode_steps"],
+          "decode_device_s": ov_st["device_s"],
+          "step_ms": 1e3 * ov_st["device_s"] / max(ov_st["steps"], 1),
+          "blocks_used": ov_st["blocks_used"],
+          "ttft_p50_s": ov_st["latency"]["ttft"]["p50_s"],
+          "tpot_p50_s": ov_st["latency"]["tpot"]["p50_s"],
+          "tokens_equal_overlap_off": ov_outs == outs})
+    check(ov_outs == outs,
+          "recurrent_serve: overlap=True tokens differ from overlap off")
+    check(ov_launches == {"K1": launches["K1"],
+                          "K5": launches["K5"] + launches["K5_long"]},
+          f"recurrent_serve: overlap launched {ov_launches}, off "
+          f"{launches}")
+    check(ov_st["graph_replays"] == ov_st["steps"] > 0
+          and ov_st["eager_decode_steps"] == 0
+          and ov_st["blocks_used"] == 0,
+          f"recurrent_serve overlap: replays / eager / leaked {ov_st}")
+    del ov
     if profile:
         phase_profile(torch, engine, prompts, news, cfg.name)
     return launches
@@ -2112,8 +2342,10 @@ def main():
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
     phase_parity_recurrent(torch, np)
+    phase_parity_overlap_static(torch, np)
     launches, base_outs, model, params = phase_serve(
         torch, np, prompts, news, warm, args.profile)
+    phase_static_serve(torch, np, prompts, news, model, params)
     spec = phase_spec_serve(torch, np, args.profile)
     launches.update(K3=spec["K3_verify"], K3_suffix=spec["K3_suffix"])
     quant = phase_quant_serve(torch, np, prompts, news, warm, base_outs,

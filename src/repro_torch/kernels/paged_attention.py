@@ -12,7 +12,8 @@ the pool exists. A CPU tensor runs the plain version in
 ``kernels/ref.py``; a CUDA tensor launches the hand-written kernel on
 the current stream, or raises. There is no fallback from one to the
 other. Launches are counted per function: ``.launches`` for float pools
-(K2, K3), ``.k4_launches`` for quantized ones (K4), one per call. A pool
+(K2, K3), ``.k4_launches`` for quantized ones (K4), one per call and one
+per replay of the captured decode step (``kernels/counters.py``). A pool
 wider than q's head dim (a padded pool, ``PoolSpec.padded_head_dim``) is
 read at q's width by the plain version; for the kernels, which take one
 width, the wrapper zero-pads q to the pool's and slices the output back.

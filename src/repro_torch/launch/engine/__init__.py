@@ -1,4 +1,5 @@
-"""Serving engine of the port: one front-end over the paged backend.
+"""Serving engine of the port: one front-end over the paged and static
+backends.
 
     engine = Engine(model, params, EngineConfig(), device="cuda")
     handle = engine.add_request(prompt, SamplingParams(max_tokens=8))
@@ -9,9 +10,12 @@
 ``PagedBackend`` runs continuous batching over the block-paged KV pool
 with optimistic admission, LIFO preemption, power-of-two bucketed,
 batched prefill and the copy-on-write prefix cache;
-``SpecDecodeBackend`` adds speculative decoding (``spec_tokens > 0``,
-ngram or draft-model drafter). The JAX engine's other backends and
-options arrive with later slices (see ``EngineConfig``).
+its decode step is one fused call (one CUDA graph replay on the card),
+and ``overlap=True`` dispatches the next step before fetching this
+one's tokens. ``SpecDecodeBackend`` adds speculative decoding
+(``spec_tokens > 0``, ngram or draft-model drafter); ``StaticBackend``
+is the lockstep baseline (``backend="static"``). Multi-device serving
+arrives with a later slice (see ``EngineConfig``).
 """
 
 from .api import (Engine, EngineConfig, Request, RequestHandle,
@@ -19,9 +23,10 @@ from .api import (Engine, EngineConfig, Request, RequestHandle,
 from .sampling import sample_tokens
 from .scheduler import PagedBackend
 from .speculative import NgramDrafter, SpecDecodeBackend
+from .static import StaticBackend
 
 __all__ = [
     "Engine", "EngineConfig", "NgramDrafter", "PagedBackend", "Request",
     "RequestHandle", "RequestOutput", "SamplingParams", "SpecDecodeBackend",
-    "sample_tokens",
+    "StaticBackend", "sample_tokens",
 ]

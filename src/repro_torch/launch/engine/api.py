@@ -1,9 +1,10 @@
 """Engine front-end: SamplingParams, request handles, streaming outputs.
 
 Counterpart of ``repro/launch/engine/api.py``. The Engine owns request
-admission and the step loop; the backend (``PagedBackend``, or
-``SpecDecodeBackend`` when ``spec_tokens > 0``) owns the device state and
-implements ``enqueue(handle)``, ``step()`` and ``stats()``. Every token
+admission and the step loop; the backend (``PagedBackend``,
+``SpecDecodeBackend`` when ``spec_tokens > 0``, or the lockstep
+``StaticBackend``) owns the device state and implements
+``enqueue(handle)``, ``step()`` and ``stats()``. Every token
 is *emitted the step it is sampled* (prefill included), so ``step()``
 doubles as the streaming interface.
 """
@@ -253,10 +254,11 @@ class EngineConfig:
 
     Parameters
     ----------
-    backend : {"paged"}
-        Continuous batching over the block-paged KV pool (the speculative
-        backend when ``spec_tokens > 0``). ``"static"`` is not ported
-        yet.
+    backend : {"paged", "static"}
+        ``"paged"``: continuous batching over the block-paged KV pool
+        (the speculative backend when ``spec_tokens > 0``);
+        ``"static"``: the lockstep right-padded baseline over a dense
+        (num_slots, max_len) cache (``static.StaticBackend``).
     num_slots : int
         Decode batch width (concurrent sequences on device).
     block_size, num_blocks : int
@@ -273,8 +275,9 @@ class EngineConfig:
         Right-pad prompts to power-of-two buckets (exact for every
         served config).
     max_prefill_batch : int
-        Cap on requests prefilled in one batched admission call; <= 0
-        lifts the cap to the slot count.
+        Cap on requests prefilled in one batched admission call (the
+        static backend's lockstep batch width); <= 0 lifts the cap to
+        the slot count.
     prefix_cache : bool
         Copy-on-write prefix caching: admissions match the longest
         block-aligned cached prefix, share those blocks by refcount and
@@ -305,7 +308,12 @@ class EngineConfig:
         (K4), so no full-precision copy of the pool is made. Requires
         ``ServingCaps.quantized_kv`` and the paged backend.
     overlap : bool
-        Async host/device overlap; not ported yet (must be False).
+        Host/device overlap on the paged backend: ``step()`` dispatches
+        the NEXT decode (feeding the in-flight sampled tokens device to
+        device) before it fetches the previous step's tokens, so host
+        scheduling and admission hide under device work. Outputs are
+        bit-identical with it on or off. Requires the paged backend and
+        ``spec_tokens == 0``.
     """
 
     backend: str = "paged"
@@ -330,22 +338,16 @@ class EngineConfig:
 
     def check_ported(self):
         """Raise NotImplementedError for options not ported yet."""
-        unported = [
-            (self.backend == "static", "backend='static'", "StaticBackend"),
-            (self.overlap, "overlap=True", "overlap on CUDA streams"),
-            (self.mesh is not None, "mesh", "multi-device"),
-        ]
-        for bad, what, item in unported:
-            if bad:
-                raise NotImplementedError(
-                    f"EngineConfig {what} is not ported yet (ROADMAP "
-                    f"queue 1: '{item}')")
-        if self.backend != "paged":
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "EngineConfig mesh is not ported yet (ROADMAP queue 1: "
+                "'multi-device')")
+        if self.backend not in ("paged", "static"):
             raise ValueError(f"unknown backend {self.backend!r}")
 
 
 class Engine:
-    """Serving front-end over the paged backend on one device.
+    """Serving front-end over the paged or static backend on one device.
 
     Parameters
     ----------
@@ -364,7 +366,7 @@ class Engine:
 
     Attributes
     ----------
-    backend : PagedBackend | SpecDecodeBackend
+    backend : PagedBackend | SpecDecodeBackend | StaticBackend
         The execution backend selected by ``cfg``.
     finished : list of RequestHandle
         Handles retired so far, in completion order.
@@ -392,22 +394,28 @@ class Engine:
                  ctx: Optional[RunCtx] = None, device="cuda"):
         from .scheduler import PagedBackend
         from .speculative import SpecDecodeBackend
+        from .static import StaticBackend
 
         self.device = resolve_device(device)
         if self.device != model.device:
             raise ValueError(f"engine device {self.device} != model "
                              f"device {model.device}")
         self.cfg = cfg or EngineConfig()
-        if self.cfg.spec_tokens > 0:
+        if self.cfg.overlap:
             if self.cfg.backend != "paged":
                 raise ValueError(
-                    "speculative decoding requires the paged backend")
-            if self.cfg.overlap:
+                    "overlap=True requires the paged backend — the "
+                    "static baseline fetches lockstep; use "
+                    "backend='paged'")
+            if self.cfg.spec_tokens > 0:
                 raise ValueError(
                     "overlap=True is incompatible with speculative "
                     "decoding: the verify step consumes the sampled "
                     "tokens on the host before the next dispatch; set "
                     "spec_tokens=0")
+        if self.cfg.spec_tokens > 0 and self.cfg.backend != "paged":
+            raise ValueError(
+                "speculative decoding requires the paged backend")
         if self.cfg.kv_dtype not in KV_DTYPES:
             raise ValueError(
                 f"unknown kv_dtype {self.cfg.kv_dtype!r}; expected one "
@@ -435,8 +443,12 @@ class Engine:
                 "False — encoder-decoder cross-KV arenas and non-paged "
                 "frontends stay bf16")
         check_supported(model.cfg)
-        backend = SpecDecodeBackend if self.cfg.spec_tokens > 0 \
-            else PagedBackend
+        if self.cfg.backend == "static":
+            backend = StaticBackend
+        elif self.cfg.spec_tokens > 0:
+            backend = SpecDecodeBackend
+        else:
+            backend = PagedBackend
         self.backend = backend(model, params, self.cfg, ctx or RunCtx())
         self._uid = 0
 
@@ -459,7 +471,9 @@ class Engine:
             raise ValueError(
                 f"encoder features on a non-encoder-decoder config: "
                 f"{mc.family}/{mc.name} has no cross-attention")
-        self.backend.check_request(len(prompt), sampling)
+        check = getattr(self.backend, "check_request", None)
+        if check is not None:            # paged: worst-case pool bound
+            check(len(prompt), sampling)
 
     def add_request(self, prompt,
                     sampling: Optional[SamplingParams] = None,

@@ -136,6 +136,19 @@ def sample_tokens(logits, seeds, steps, temps, top_ks, top_ps):
     return torch.where(temps <= 0.0, greedy, sampled).int()
 
 
+def fused_sample(logits, steps, samp):
+    """Sampling tail of the fused decode step: the greedy argmax when
+    ``samp`` is None (first-occurrence tie-break, as the host fast path
+    in ``SlotSampler.sample``), else the full per-slot sampler, ``samp``
+    being the (seeds, temps, top_ks, top_ps) tensors and ``steps`` the
+    per-slot RNG-stream positions. Returns the (B,) int32 tokens on the
+    logits' device; nothing is read back to the host."""
+    if samp is None:
+        return logits.argmax(-1).int()
+    seeds, temps, top_ks, top_ps = samp
+    return sample_tokens(logits, seeds, steps, temps, top_ks, top_ps)
+
+
 def verify_accept(logits, tokens, num_drafts, seeds, steps, temps,
                   top_ks, top_ps):
     """Accept/resample rule for a speculative verify window.
@@ -240,6 +253,17 @@ class SlotSampler:
         return [torch.from_numpy(a[sl]).to(device) for a in
                 (self.seeds, self.steps, self.temps, self.top_ks,
                  self.top_ps)]
+
+    def fused_args(self, steps):
+        """The (steps, samp) pair of the fused decode step: ``samp`` is
+        None on the all-greedy fast path (the step's argmax variant),
+        else the host (seeds, temps, top_ks, top_ps) arrays. ``steps``
+        overrides ``self.steps``: under overlap a slot whose token is
+        still on the device sits one stream position ahead of the host
+        mirror."""
+        if (self.temps <= 0.0).all():
+            return steps, None
+        return steps, (self.seeds, self.temps, self.top_ks, self.top_ps)
 
     def sample_one(self, slot: int, row_logits) -> int:
         """Sample for ONE slot (prefill admission) from the parameters

@@ -1,7 +1,7 @@
 """PagedBackend: continuous batching over the block-paged KV cache.
 
 Counterpart of ``repro/launch/engine/scheduler.py::PagedBackend``
-without overlap, mesh or cross arena (speculation subclasses it in
+without mesh or cross arena (speculation subclasses it in
 ``speculative.py``):
 
 * **Optimistic admission** — a request is admitted when the pool covers
@@ -32,10 +32,22 @@ without overlap, mesh or cross arena (speculation subclasses it in
   where they enter the pool (prefill pack, decode and verify frontiers)
   and dequantized inside the attention kernels (K4); COW copies the
   scale leaves with the payload.
+* **The fused decode step** (``step_graph.DecodeStep``) — token-feed
+  select, decode and on-device sampling as one call; on the card one
+  replay of a captured CUDA graph, its host inputs packed into one
+  copy. The sequential path dispatches it and fetches the tokens at
+  once.
+* **Host/device overlap** (``EngineConfig.overlap``) — ``step()``
+  dispatches the NEXT decode, feeding the in-flight sampled tokens
+  device to device, before it fetches the previous step's tokens, so
+  host scheduling hides under device work. Admission tickets discard
+  the draws of rows retired in between; outputs are bit-identical with
+  it on or off.
 
-The pools live on the engine's device and are updated in place; the
-block table, lengths and sampler parameters are host (numpy) state,
-copied to the device once per call.
+The pools live on the engine's device and are updated in place (the
+captured step replays over their storage: every writer keeps each leaf
+where it is); the block table, lengths and sampler parameters are host
+(numpy) state, copied to the device once per call.
 """
 
 from __future__ import annotations
@@ -54,6 +66,7 @@ from ...models.transformer import RunCtx
 from .api import (EngineConfig, RequestHandle, RequestOutput, prefill_bucket,
                   register_sample)
 from .sampling import SlotSampler
+from .step_graph import DecodeStep, Tokens
 
 
 @dataclasses.dataclass
@@ -65,8 +78,24 @@ class _Slot:
     shared: int = 0              # leading blocks held by shared reference
 
 
+@dataclasses.dataclass
+class _Pending:
+    """One dispatched decode whose sampled tokens are not fetched yet.
+    ``rows`` records (slot, ticket) pairs so a harvest can discard draws
+    whose slot retired or was re-admitted in between (tickets are
+    monotonic: equality proves the same request); ``t_dispatch`` feeds
+    the device-busy clock."""
+    rows: list
+    toks: Tokens
+    t_dispatch: float
+
+
 class PagedBackend:
     """Host-side scheduler state + device steps over the paged pools."""
+
+    # False for a subclass that never decodes through ``_dispatch_decode``
+    # (the speculative backend's verify step): it captures no graph
+    fused_decode = True
 
     def __init__(self, model: Model, params, cfg: EngineConfig,
                  ctx: RunCtx):
@@ -107,7 +136,18 @@ class PagedBackend:
         self._ticket = 0
         self._prefill_shapes: set = set()
         self._suffix_shapes: set = set()
+        # overlap: the one in-flight decode, and outputs harvested
+        # outside step() (flush_overlap) owed to the next step
+        self._pending: Optional[_Pending] = None
+        self._flushed: list[RequestOutput] = []
+        self._no_prev = np.zeros((cfg.num_slots,), bool)
+        self._t_fetch_done = 0.0
         self.reset_telemetry()
+        # captured on the card now, while no slot is live (step_graph)
+        self.decode = DecodeStep(model, params, self.pools, self.ctx,
+                                 cfg.num_slots,
+                                 self.layout.max_blocks_per_seq) \
+            if self.fused_decode else None
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
         return torch.from_numpy(a).to(self.device)
@@ -136,40 +176,205 @@ class PagedBackend:
 
     @property
     def has_work(self) -> bool:
-        """True while any request is waiting or active."""
-        return bool(self.waiting) or self.num_active > 0
+        """True while any request is waiting or active (or a flush
+        harvested outputs the next step still owes the stream)."""
+        return bool(self.waiting) or self.num_active > 0 \
+            or bool(self._flushed)
 
     def step(self) -> list[RequestOutput]:
-        """Admissions, growth (with preemption), one decode, sampling."""
+        """Admissions, growth (with preemption), one decode, sampling.
+
+        With ``cfg.overlap`` the call routes through ``_step_overlap``:
+        the decode for THIS step is dispatched before the previous
+        step's sampled tokens are fetched. Token values are identical
+        either way (the RNG-stream contract)."""
         outs: list[RequestOutput] = []
         self.made_progress = False
+        if self._flushed:
+            outs.extend(self._flushed)
+            self._flushed = []
+            self.made_progress = True
+        if self.cfg.overlap:
+            return self._step_overlap(outs)
         self._admit(outs)
+        if self._dispatch_sequential():
+            pend, self._pending = self._pending, None
+            outs.extend(self._harvest(pend))   # replay, then fetch at once
+        return outs
+
+    def _dispatch_sequential(self) -> bool:
+        """The sequential shape: growth (with LIFO preemption), COW of
+        shared tail blocks, then one decode dispatch over the host
+        tokens with the dead feed, left in ``self._pending``. Returns
+        False when no slot is left to decode."""
         self._grow_blocks()
         active = [i for i, s in enumerate(self.slots) if s.req is not None]
         if not active:
-            return outs
+            return False
         self._ensure_cow(active)       # may LIFO-preempt under pressure
         active = [i for i in active if self.slots[i].req is not None]
         if not active:
-            return outs
+            return False
         tokens = np.zeros((self.cfg.num_slots, 1), np.int32)
         for i in active:
             tokens[i, 0] = self.slots[i].last_token
+        self._dispatch_decode(active, tokens, self._no_prev, None,
+                              self.sampler.steps)
+        return True
+
+    # -- host/device overlap (cfg.overlap) -------------------------------
+
+    def _step_overlap(self, outs: list[RequestOutput]):
+        """One overlapped step: (1) with a decode in flight, try to
+        dispatch THIS step's decode first, feeding the in-flight tokens
+        device to device (``_try_followup``); (2) fetch the in-flight
+        tokens and register them; (3) admit: the admission prefill is
+        enqueued after whichever decode was dispatched last, on the same
+        stream, so its pool writes come after that decode's; (4) when no
+        follow-up went out, take the sequential shape (growth with
+        preemption, COW, dispatch) and leave the new decode pending.
+
+        Outputs equal the sequential path's: every fed token and stream
+        position matches, and a follow-up's writes for a row retired at
+        harvest land only where nothing live reads (the row's own
+        frontier, or blocks whose reuse is enqueued after this decode)."""
+        pend, self._pending = self._pending, None
+        followed = False
+        if pend is not None:
+            followed = self._try_followup(pend)
+            outs.extend(self._harvest(pend))
+        self._admit(outs)
+        if not followed:
+            self._dispatch_sequential()
+        return outs
+
+    def _try_followup(self, pend: _Pending) -> bool:
+        """Dispatch the next decode BEFORE harvesting ``pend`` when that
+        is safe without the in-flight tokens on the host:
+
+        * rows whose in-flight token retires them for sure (max_tokens
+          reached) are left out: their slot frees at harvest;
+        * growth blocks and COW copies for every dispatched row must be
+          allocatable WITHOUT preemption (preempting a row whose last
+          token is still on the device would need that token for its
+          recompute record); any shortfall bails to the sequential
+          path, which may preempt after the harvest. Allocations made
+          before a bail are kept: the sequential growth and COW passes
+          skip rows already extended or privatized.
+
+        An in-flight token that turns out to be a stop token retires its
+        row at harvest anyway; the follow-up's draw for that row is
+        discarded by the ticket check one step later, and its cache
+        write landed one past the row's final frontier, never read.
+        Returns True when the follow-up was dispatched."""
+        bs = self.cfg.block_size
+        inflight = set()
+        for i, ticket in pend.rows:
+            s = self.slots[i]
+            if s.req is not None and s.ticket == ticket:
+                inflight.add(i)
+        dispatch = []
+        for i, s in enumerate(self.slots):
+            if s.req is None:
+                continue
+            if i in inflight and \
+                    len(s.req.token_ids) + 1 >= s.req.sampling.max_tokens:
+                continue              # harvest retires this row for sure
+            dispatch.append(i)
+        if not dispatch:
+            return False
+        for i in dispatch:
+            slot = self.slots[i]
+            L = int(self.lengths[i])
+            if L % bs == 0 and L // bs >= len(slot.blocks):
+                if not self.alloc.can_alloc(1):
+                    return False      # pool dry: sequential path preempts
+                (nb,) = self.alloc.alloc(1)
+                slot.blocks.append(nb)
+                self.table[i, len(slot.blocks) - 1] = nb
+            if self.prefix is not None:
+                idx = L // bs
+                if idx < slot.shared:
+                    assert idx == slot.shared - 1, \
+                        "write frontier deeper than the shared tail block"
+                    if not self.alloc.can_alloc(1):
+                        return False
+                    self._cow_block(i, idx)
+        host = np.zeros((self.cfg.num_slots, 1), np.int32)
+        use_prev = np.zeros((self.cfg.num_slots,), bool)
+        for i in dispatch:
+            if i in inflight:
+                use_prev[i] = True    # its token is still on the device
+            else:
+                host[i, 0] = self.slots[i].last_token
+        steps = self.sampler.steps.copy()
+        steps[use_prev] += 1          # one draw ahead of the host mirror
+        self._dispatch_decode(dispatch, host, use_prev, pend.toks, steps)
+        return True
+
+    def _dispatch_decode(self, active, host_tokens, use_prev, prev_toks,
+                         steps):
+        """Enqueue the fused feed-select + decode + sample WITHOUT
+        fetching its tokens; the step parks in ``self._pending``.
+        Lengths advance at dispatch (the fed token's cache write is in
+        flight), so the harvest only registers the sampled values. The
+        host arrays go to the device inside the dispatch, so bumping
+        ``lengths`` and ``table`` afterwards is safe."""
+        steps, samp = self.sampler.fused_args(steps)
         t0 = time.monotonic()
-        logits, self.pools = self.model.decode_step_paged(
-            self.params, self.pools, self._dev(self.table),
-            self._dev(self.lengths), self._dev(tokens), self.ctx)
-        toks = self.sampler.sample(logits)       # waits for the device
-        self.device_s += time.monotonic() - t0
+        toks = self.decode.dispatch(self.pools, self.table, self.lengths,
+                                    host_tokens, use_prev, prev_toks,
+                                    steps, samp)
         self.steps += 1
+        if self.decode.graphed:
+            self.graph_replays += 1
+        else:
+            self.eager_decode_steps += 1
         self.slot_steps += len(active)
         self.block_token_steps += self.alloc.used_count * self.cfg.block_size
         self.made_progress = True
+        rows = []
         for i in active:
             self.lengths[i] += 1          # the fed token got cached
             self.live_token_steps += int(self.lengths[i])
+            rows.append((i, self.slots[i].ticket))
+        self._pending = _Pending(rows, toks, t0)
+
+    def _harvest(self, pend: _Pending) -> list[RequestOutput]:
+        """Fetch an in-flight decode's tokens and register the draws.
+        Rows whose slot retired or was re-admitted since the dispatch
+        (ticket mismatch) are discarded: their cache writes landed where
+        nothing live reads."""
+        toks = pend.toks.fetch()            # the one blocking fetch
+        self._mark_device(pend.t_dispatch)
+        outs = []
+        for i, ticket in pend.rows:
+            slot = self.slots[i]
+            if slot.req is None or slot.ticket != ticket:
+                continue
             outs.append(self._accept(i, int(toks[i])))
+        if outs:
+            self.made_progress = True
         return outs
+
+    def flush_overlap(self):
+        """Harvest any in-flight decode NOW (no new dispatch) and buffer
+        its outputs for the next ``step()``. A caller that reads host
+        slot state calls this first (``lengths`` already counts the
+        in-flight fed token, but ``slot.last_token`` is current only
+        after the harvest); a flush may retire slots."""
+        if self._pending is None:
+            return
+        pend, self._pending = self._pending, None
+        self._flushed.extend(self._harvest(pend))
+
+    def _mark_device(self, t_dispatch: float):
+        """Account one dispatch-to-fetch interval into the device-busy
+        clock, unioned with the previous fetch so overlapped dispatches
+        never count device time twice."""
+        t1 = time.monotonic()
+        self.device_s += t1 - max(t_dispatch, self._t_fetch_done)
+        self._t_fetch_done = t1
 
     def live_handles(self) -> list[RequestHandle]:
         """Resident + queued request handles (latency aggregation)."""
@@ -578,6 +783,7 @@ class PagedBackend:
         does not touch scheduling state."""
         self.finished.clear()
         self.steps = self.slot_steps = 0
+        self.graph_replays = self.eager_decode_steps = 0
         self.block_token_steps = self.live_token_steps = 0
         self.device_s = 0.0
         self.preemptions = 0
@@ -588,15 +794,21 @@ class PagedBackend:
 
     def stats(self) -> dict:
         """Cache/occupancy/scheduling telemetry for the run so far.
-        ``device_s`` is host time from each decode's launch to its
-        sampled tokens reaching the host; ``pool_bytes`` counts every
-        leaf of the block pools, a quantized pool's scales included."""
+        ``device_s`` is the union of the host-clock intervals from each
+        decode's dispatch to its sampled tokens reaching the host;
+        ``graph_replays`` / ``eager_decode_steps`` count the decode
+        steps run by replay of the captured step (the card) and eagerly
+        (the CPU); ``pool_bytes`` counts every leaf of the block pools,
+        a quantized pool's scales included."""
         cap = self.block_token_steps or 1
         return {
             "steps": self.steps,
             "mean_active_slots": self.slot_steps / max(self.steps, 1),
             "cache_utilization": self.live_token_steps / cap,
+            "overlap": bool(self.cfg.overlap),
             "device_s": self.device_s,
+            "graph_replays": self.graph_replays,
+            "eager_decode_steps": self.eager_decode_steps,
             "kv_dtype": self.cfg.kv_dtype,
             "pool_bytes": paged_kv.pool_bytes(self.pools),
             "blocks_free": self.alloc.free_count,

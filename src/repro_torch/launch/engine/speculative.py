@@ -265,6 +265,10 @@ class SpecDecodeBackend(PagedBackend):
     ahead on the same stream positions.
     """
 
+    # the verify step stays eager: no captured decode step (``self.decode``
+    # is None)
+    fused_decode = False
+
     def __init__(self, model: Model, params, cfg: EngineConfig,
                  ctx: RunCtx):
         super().__init__(model, params, cfg, ctx)

@@ -4,6 +4,7 @@ Run on the card:  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_
 On the CPU:       PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 Speculative:      add --spec-tokens 3 (ngram drafter)
 Quantized pool:   add --kv-dtype int8 (or fp8)
+Lockstep static:  add --backend static
 """
 
 from __future__ import annotations
@@ -23,6 +24,8 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo_1b")
     ap.add_argument("--smoke", action="store_true")
+    ap.add_argument("--backend", choices=("static", "paged"),
+                    default="paged")
     ap.add_argument("--n-new", type=int, default=16)
     ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--requests", type=int, default=8)
@@ -44,7 +47,8 @@ def main():
     params = model.init(seed=0)
     rng = np.random.default_rng(0)
     engine = Engine(model, params,
-                    EngineConfig(num_slots=args.slots, max_len=128,
+                    EngineConfig(backend=args.backend,
+                                 num_slots=args.slots, max_len=128,
                                  spec_tokens=args.spec_tokens,
                                  kv_dtype=args.kv_dtype),
                     device=args.device)
@@ -60,7 +64,7 @@ def main():
         torch.cuda.synchronize()
     dt = time.time() - t0
     total = sum(len(o) for o in outs)
-    print(f"[paged {model.device} spec={args.spec_tokens} "
+    print(f"[{args.backend} {model.device} spec={args.spec_tokens} "
           f"kv={args.kv_dtype}] {total} tokens "
           f"over {len(outs)} reqs in {dt:.2f}s ({total / dt:.1f} tok/s)  "
           f"stats={engine.stats()}")

@@ -371,8 +371,10 @@ def init_block_cache(cfg, kind, batch: int, max_len: int, dtype, device,
 def _embed(params, cfg, tokens):
     x = params["embed"][tokens.long()]
     if cfg.embed_scale:
-        x = x * torch.tensor(math.sqrt(cfg.d_model), dtype=x.dtype,
-                             device=x.device)
+        # the scale rounded to the model dtype, by a device-side fill
+        # (torch.tensor would copy from the host: no capture, a sync)
+        x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
+                           device=x.device)
     return x
 
 

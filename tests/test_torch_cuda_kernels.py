@@ -22,6 +22,7 @@ must run (``launches_by_body``), and K5 and K7b hold both bodies to the
 plain version bit for bit.
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -1419,3 +1420,146 @@ def test_vrp_replays_in_a_cuda_graph(cuda_device):
         assert torch.equal(tot, ops._finalize_expansion(
             ref.vrp_sum_lanes(x)))
     assert k8_mod.vrp_finalize.launches == n0[2] + 2   # replays count nothing
+
+
+# -- the captured decode step (launch/engine/step_graph.py) --------------
+
+
+def _smoke_model(arch, device):
+    from repro_torch.configs import get_config
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch).smoke()
+    cpu = Model(cfg, device="cpu")
+    params = cpu.init(seed=0)
+    return cpu, params, Model(cfg, device=device), weights.to_device(
+        params, device)
+
+
+def _step_inputs(gen, N, MB, nb, vocab):
+    table = torch.randperm(nb - 1, generator=gen)[:N * MB] \
+        .reshape(N, MB).add(1).to(torch.int32)
+    lengths = torch.randint(0, MB * 4 - 1, (N,), generator=gen,
+                            dtype=torch.int32)
+    tokens = torch.randint(0, vocab, (N, 1), generator=gen,
+                           dtype=torch.int32)
+    steps = torch.randint(0, 50, (N,), generator=gen, dtype=torch.int32)
+    samp = (torch.arange(N, dtype=torch.int32) * 977,
+            torch.tensor([0.0, 0.7, 1.0, 1.3][:N], dtype=torch.float32),
+            torch.tensor([0, 9, 0, 3][:N], dtype=torch.int32),
+            torch.tensor([1.0, 0.95, 0.9, 1.0][:N], dtype=torch.float32))
+    return [t.numpy() for t in (table, lengths, tokens, steps)], \
+        tuple(t.numpy() for t in samp)
+
+
+@pytest.mark.parametrize("sampled", [False, True], ids=["greedy", "seeded"])
+def test_captured_step_equals_eager_step(cuda_device, sampled):
+    """olmo_1b smoke in f32: two dispatches of the captured step (the
+    second feeding two rows from the first's tokens on the device) give
+    the eager ``fused_step``'s tokens and pools on a copy of the same
+    pools, and the replays count one K2 launch a layer each (the capture
+    and its warm-up count none)."""
+    from repro_torch.launch.engine import step_graph
+    from repro_torch.models import paged_kv, transformer
+
+    _, _, model, params = _smoke_model("olmo_1b", cuda_device)
+    N, MB, nb = 4, 8, 40
+    layout = paged_kv.PagedLayout(num_slots=N, num_blocks=nb, block_size=4,
+                                  max_len=MB * 4)
+    ctx = transformer.RunCtx()
+    pools = model.init_paged_cache(layout)
+    gen = torch.Generator().manual_seed(21)
+    n0 = (pa_mod.paged_decode_attention.launches,
+          pa_mod.paged_decode_combine.launches)
+    runner = step_graph.DecodeStep(model, params, pools, ctx, N, MB)
+    assert runner.graphed
+    assert (pa_mod.paged_decode_attention.launches,
+            pa_mod.paged_decode_combine.launches) == n0
+    for leaf in step_graph._leaves(pools):          # filled after capture
+        leaf.copy_(torch.randn(leaf.shape, generator=gen))
+    twin = {g: {p: {k: v.clone() for k, v in pool.items()}
+                for p, pool in grp.items()} for g, grp in pools.items()}
+    (table, lengths, tokens, steps), samp = _step_inputs(
+        gen, N, MB, nb, model.cfg.vocab_size)
+    samp = samp if sampled else None
+    use = np.zeros(N, bool)
+
+    def eager(pools_, use_, prev_):
+        dev = lambda a: torch.from_numpy(np.asarray(a)).to(cuda_device)  # noqa: E731
+        return step_graph.fused_step(
+            model, ctx, params, pools_, dev(table), dev(lengths),
+            dev(tokens), prev_, dev(use_), dev(steps),
+            None if samp is None else tuple(map(dev, samp)))
+
+    nsplit = _plan(N, model.cfg.n_kv_heads, MB, 4, cuda_device)[1]
+    L = model.cfg.n_layers
+
+    def replay(*args):               # one dispatch, one K2 a layer
+        n = (pa_mod.paged_decode_attention.launches,
+             pa_mod.paged_decode_combine.launches)
+        toks = runner.dispatch(pools, table, *args)
+        assert (pa_mod.paged_decode_attention.launches - n[0],
+                pa_mod.paged_decode_combine.launches - n[1]) \
+            == (L, L if nsplit > 1 else 0)
+        return toks
+
+    first = replay(lengths, tokens, use, None, steps, samp)
+    want1 = eager(twin, use, torch.zeros(N, dtype=torch.int32,
+                                         device=cuda_device))
+    assert np.array_equal(first.fetch(), want1.cpu().numpy())
+    use = np.array([True, False, True, False])
+    lengths = lengths + 1
+    steps = steps + use
+    second = replay(lengths, tokens, use, first, steps, samp)
+    want2 = eager(twin, use, want1)
+    assert np.array_equal(second.fetch(), want2.cpu().numpy())
+    for got, want in zip(step_graph._leaves(pools), step_graph._leaves(twin)):
+        torch.testing.assert_close(got, want, rtol=0, atol=1e-5)
+
+
+def test_captured_step_refuses_moved_pools(cuda_device):
+    """A replay over pools that are not the captured tensors raises; no
+    eager step runs in its place."""
+    from repro_torch.launch.engine import step_graph
+    from repro_torch.models import paged_kv, transformer
+
+    _, _, model, params = _smoke_model("olmo_1b", cuda_device)
+    layout = paged_kv.PagedLayout(num_slots=2, num_blocks=9, block_size=4,
+                                  max_len=16)
+    pools = model.init_paged_cache(layout)
+    runner = step_graph.DecodeStep(model, params, pools,
+                                   transformer.RunCtx(), 2, 4)
+    moved = model.init_paged_cache(layout)
+    z = np.zeros(2, np.int32)
+    with pytest.raises(RuntimeError, match="moved"):
+        runner.dispatch(moved, np.zeros((2, 4), np.int32), z,
+                        z[:, None], np.zeros(2, bool), None, z, None)
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_captured_engine_equals_cpu_engine(cuda_device, overlap):
+    """recurrentgemma_2b smoke in f32: the backend captures its step while
+    no slot is live, then serves greedy and seeded requests with
+    preemption by replay alone; the tokens equal a CPU engine's, so the
+    capture's warm-up left no admitted slot's rings or carries changed."""
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+
+    cpu, params, model, dparams = _smoke_model("recurrentgemma_2b",
+                                               cuda_device)
+    gen = torch.Generator().manual_seed(5)
+    prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in (9, 14, 20, 6, 17)]
+    sps = [SamplingParams(max_tokens=16) if i % 2 else
+           SamplingParams(max_tokens=16, temperature=0.9, top_k=30, seed=i)
+           for i in range(len(prompts))]
+    geo = EngineConfig(num_slots=3, block_size=4, num_blocks=14, max_len=64,
+                       overlap=overlap)
+    want = Engine(cpu, params, geo, device="cpu").generate(prompts, sps)
+    eng = Engine(model, dparams, geo, device="cuda")
+    got = eng.generate(prompts, sps)
+    st = eng.stats()
+    assert got == want
+    assert st["graph_replays"] == st["steps"] > 0
+    assert st["eager_decode_steps"] == 0 and st["blocks_used"] == 0
+    assert st["preemptions"] >= 1

@@ -95,8 +95,6 @@ def test_default_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("backend", "static", "StaticBackend"),
-    ("overlap", True, "overlap on CUDA streams"),
     ("mesh", object(), "multi-device"),
 ])
 def test_unported_engine_options_raise(field, value, item):
