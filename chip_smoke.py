@@ -5,7 +5,8 @@ check it end to end.
     python3 chip_smoke.py            # from the repository root
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of
                                      # serve (overlap off and on),
-                                     # spec_serve, recurrent_serve
+                                     # spec_serve, recurrent_serve,
+                                     # xlstm_serve, moe_serve
                                      # and tile_path (each window lists
                                      # the port's own kernels and their
                                      # share of device time)
@@ -144,8 +145,32 @@ Phases, one JSON line each (any failed check exits non-zero):
               one K5 a RG-LRU layer (18), all on the ring body. Then
               the same requests with ``overlap=True``: equal tokens, the
               same K1 and K5 launches.
+   parity_xlstm_moe — xlstm_1_3b, qwen3_moe_30b_a3b and kimi_k2_1t_a32b
+              smoke in f32, cuda against cpu, on prompts behind a shared
+              two-block prefix (prefix hits for the MoE configs), 3 slots
+              and 13 usable blocks: greedy (the pool preempts), seeded,
+              speculative (ngram, K 3), fp8, ``overlap=True`` and
+              ``backend="static"``; tokens equal, no leak, every cuda
+              paged decode step a graph replay. Prints its seconds.
+10. xlstm_serve — xlstm_1_3b at full width and depth in bf16 (48 layers:
+              42 mLSTM, 6 sLSTM; d_model 2048, 4 heads x 512; seeded
+              random weights; 8 slots, max_len 640) serves the serve
+              phase's 16 requests with overlap off, then on (equal
+              tokens), then on ``backend="static"``: tok/s, TTFT / TPOT
+              p50, decode device ms a step, the seconds of the (8, 512)
+              first admission alone, the decode state bytes a slot;
+              ``graph_replays`` = steps and ``eager_decode_steps`` = 0.
+              No port kernel is on this path (mLSTM and sLSTM are plain
+              torch, as JAX's are plain jnp).
+11. moe_serve — qwen3_moe_30b_a3b at full width in bf16 (d_model 2048,
+              32 / 4 heads x 128 with qk_norm, 128 experts top-8 of width
+              768, vocab 151936), depth cut to MOE_LAYERS = 12 of 48 (the
+              cut is printed: 48 layers are ~61 GB of random init), the
+              same requests with overlap off, then on (equal tokens): K1
+              (its tensor-core body) at every prefill, K2 and its combine
+              12 x decode steps by replay.
 
-10. tile_path — the EPAC tile layer (``repro_torch.core``) through its
+12. tile_path — the EPAC tile layer (``repro_torch.core``) through its
               entry points, every tile kernel's counter reset first:
               (a) 200 steps of 2-D heat diffusion on an (8192, 8192) f32
               plate through ``DEFAULT_CLUSTER.stencil2d`` (K7a must count
@@ -181,7 +206,10 @@ forced on the same input, bit-equal too), and the summary line has a
 dims 256
 (recurrentgemma MQA 10/1 window 2048 at Sq 512 and 2560; gemma_7b
 16/16 causal), 120 (h2o_danube GQA 32/8 window 4096) and 64 (a ragged
-(2, 8/2, 300) case), and the tile kernels at tile_path's shapes: K6
+(2, 8/2, 300) case) and at qwen3_moe's GQA 32/4 (D 128, (8, 512)
+causal: moe_serve's prefill; summary row ``K1_moe``) beside K2 at that
+head layout over serve's first decode lengths (``K2_moe``), and the
+tile kernels at tile_path's shapes: K6
 (4096, 2048) @ (2048, 8192) bf16 to bf16 and to f32 (tensor cores),
 1024^3 and ragged (1000, 700, 300) f32, and (1000, 700, 300) bf16 (rows
 of 1400 bytes, which no tensor map takes: the SIMT body) (relative
@@ -825,7 +853,14 @@ def phase_kernels(torch, np, prompts, profile):
     k1_case(torch, "danube_d120_gqa4", 8, 32, 8, 512, 120, "bfloat16", True,
             window=4096)
     k1_case(torch, "d64_ragged_gqa4", 2, 8, 2, 300, 64, "bfloat16", True)
-    return k1, k2, k2c, k3, k3s[64], k4d, k4v, k4s[64], k5, k5_long
+    # moe_serve's shapes (qwen3_moe_30b_a3b): GQA 32 / 4 at head dim 128,
+    # the first admission's prefill and the decode over serve's lengths
+    k1_moe = k1_case(torch, "qwen3_gqa8", HALF, 32, 4, 512, 128, "bfloat16",
+                     True)
+    k2_moe = k2_case(torch, np, "qwen3_gqa8", first, 32, 4, 128, "bfloat16",
+                     profile=profile)
+    return (k1, k2, k2c, k3, k3s[64], k4d, k4v, k4s[64], k5, k5_long, k1_moe,
+            k2_moe)
 
 
 def phase_parity(torch, np):
@@ -1701,6 +1736,267 @@ def phase_recurrent_serve(torch, np, prompts, news, warm, profile):
 
 
 # ---------------------------------------------------------------------------
+# xLSTM and MoE: parity_xlstm_moe, xlstm_serve, moe_serve
+# ---------------------------------------------------------------------------
+
+
+def phase_parity_xlstm_moe(torch, np):
+    """xlstm_1_3b, qwen3_moe_30b_a3b and kimi_k2_1t_a32b smoke in f32,
+    cuda against cpu, same weights: five prompts behind a shared
+    two-block prefix (and a repeat: prefix hits for the MoE configs), 16
+    new tokens each on 3 slots and 13 usable blocks (the pool preempts).
+    Greedy, seeded (threefry), speculative (ngram, K 3), fp8 pools,
+    ``overlap=True`` and ``backend="static"``: tokens equal on both
+    devices, no leak, and every cuda decode step of a paged non-spec
+    engine a graph replay."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    rng = np.random.default_rng(SEED + 6)
+    common = list(map(int, rng.integers(0, 256, 8)))
+    prompts = [common + list(map(int, rng.integers(0, 256, n)))
+               for n in (1, 6, 12, 3, 9)]
+    prompts.append(list(prompts[1]))
+    geo = dict(num_slots=3, block_size=4, num_blocks=14, max_len=64)
+    greedy = [SamplingParams(max_tokens=16)] * len(prompts)
+    seeded = [SamplingParams(max_tokens=16, temperature=0.9, top_k=30,
+                             top_p=0.95, seed=s) for s in range(len(prompts))]
+    runs = {"greedy": ({}, greedy), "seeded": ({}, seeded),
+            "spec3": ({"spec_tokens": 3}, greedy),
+            "fp8": ({"kv_dtype": "fp8"}, greedy),
+            "overlap": ({"overlap": True}, seeded),
+            "static": ({"backend": "static", "num_slots": 4}, greedy)}
+    out, stats = {}, {}
+    t0 = time.monotonic()
+    for arch in ("xlstm_1_3b", "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b"):
+        cfg = get_config(arch).smoke()
+        models = {d: Model(cfg, device=d) for d in ("cpu", "cuda")}
+        params = {"cpu": models["cpu"].init(seed=SEED)}
+        params["cuda"] = weights.to_device(params["cpu"], "cuda")
+        for name, (kw, sp) in runs.items():
+            for d, m in models.items():
+                eng = Engine(m, params[d], EngineConfig(**{**geo, **kw}),
+                             device=d)
+                key = (arch, name, d)
+                out[key] = eng.generate(prompts, sp)
+                st = eng.stats()
+                stats[key] = {k: st[k] for k in (
+                    "steps", "preemptions", "blocks_used", "graph_replays",
+                    "eager_decode_steps", "batches") if k in st}
+                if "prefix_cache" in st:
+                    stats[key]["prefix_hits"] = st["prefix_cache"]["hits"]
+    equal = {f"{a}/{n}": out[(a, n, "cpu")] == out[(a, n, "cuda")]
+             for a, n, _ in out}
+    emit({"phase": "parity_xlstm_moe", "dtype": "float32",
+          "seconds": time.monotonic() - t0, "tokens_equal": equal,
+          "stats": {"/".join(k): v for k, v in stats.items()}})
+    check(all(equal.values()), f"parity_xlstm_moe: cuda tokens != cpu "
+          f"tokens {equal}")
+    for (arch, name, d), st in stats.items():
+        key = f"{arch}/{name}/{d}"
+        check(st.get("blocks_used", 0) == 0,
+              f"parity_xlstm_moe: {key} leaked")
+        if name == "greedy":
+            check(st["preemptions"] >= 1,
+                  f"parity_xlstm_moe: {key} never preempted")
+        if d == "cuda" and name not in ("spec3", "static"):
+            check(st["graph_replays"] == st["steps"] > 0
+                  and st["eager_decode_steps"] == 0,
+                  f"parity_xlstm_moe: {key} decoded off the graph {st}")
+        if arch != "xlstm_1_3b" and name not in ("static",):
+            check(st["prefix_hits"] >= 1,
+                  f"parity_xlstm_moe: {key} never hit the prefix cache")
+
+
+def state_bytes_per_slot(pools, num_slots):
+    """Bytes of decode state a slot holds, for a model whose whole paged
+    tree is per-slot state (xLSTM: mLSTM C / n / m and conv tails, sLSTM
+    carries; no layer keeps a block pool)."""
+    return sum(t.numel() * t.element_size() for group in pools.values()
+               for leaf in group.values() for t in leaf.values()) / num_slots
+
+
+def serve_pair(torch, model, params, prompts, news, warm, geo, phase):
+    """Serve the requests on a paged engine with overlap off, then on a
+    second with ``overlap=True``: (engines, per-turn (outputs, seconds,
+    launches, K1 bodies, stats)). Each turn sets the K1 / K2 / combine
+    counters to 0 just before its requests."""
+    from repro_torch.launch.engine import Engine, EngineConfig
+
+    engines, turns = {}, {}
+    for overlap in (False, True):
+        engines[overlap] = Engine(model, params, EngineConfig(
+            **geo, overlap=overlap), device="cuda")
+        turns[overlap] = serve_turn(torch, engines[overlap], prompts, news,
+                                    warm)
+        st = turns[overlap][4]
+        check(st["graph_replays"] == st["steps"] > 0
+              and st["eager_decode_steps"] == 0,
+              f"{phase}: overlap={overlap} ran {st['graph_replays']} "
+              f"replays and {st['eager_decode_steps']} eager steps in "
+              f"{st['steps']} steps")
+        check(st["blocks_used"] == 0,
+              f"{phase}: overlap={overlap} leaked {st['blocks_used']} "
+              "blocks")
+    check(turns[True][0] == turns[False][0],
+          f"{phase}: overlap=True tokens differ from overlap off")
+    return engines, turns
+
+
+def turn_line(phase, cfg, overlap, turn, news):
+    outs, secs, runs, k1_bodies, st = turn
+    check(all(len(o) == n for o, n in zip(outs, news)),
+          f"{phase}: a request did not emit max_tokens tokens")
+    check(all(0 <= t < cfg.vocab_size for o in outs for t in o),
+          f"{phase}: token id out of range")
+    ntok = sum(len(o) for o in outs)
+    return {"phase": phase, "config": cfg.name, "dtype": cfg.dtype,
+            "overlap": overlap, "requests": len(outs), "tokens": ntok,
+            "seconds": secs, "tok_s": ntok / secs,
+            "steps": st["steps"], "graph_replays": st["graph_replays"],
+            "eager_decode_steps": st["eager_decode_steps"],
+            "decode_device_s": st["device_s"],
+            "decode_device_ms_per_step": 1e3 * st["device_s"]
+            / max(st["steps"], 1),
+            "prefill_calls": st["prefill_calls"],
+            "prefill_tokens": st["prefill_tokens"],
+            "preemptions": st["preemptions"],
+            "blocks_used": st["blocks_used"],
+            "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+            "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+            "first_tokens": outs[0][:8]}
+
+
+def admission_s(torch, model, params, prompts):
+    """Seconds of the serve workload's first admission alone: one (8,
+    512) right-padded prefill of its first HALF prompts, synced."""
+    from repro_torch.models import transformer
+
+    toks = torch.zeros((HALF, 512), dtype=torch.int32, device="cuda")
+    lens = torch.tensor([len(p) for p in prompts[:HALF]], dtype=torch.int32,
+                        device="cuda")
+    for r, p in enumerate(prompts[:HALF]):
+        toks[r, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    torch.cuda.synchronize()
+    t0 = time.monotonic()
+    logits, _ = model.prefill(params, {"tokens": toks}, transformer.RunCtx(),
+                              max_len=512, length=lens, rows=lens - 1)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    check(tuple(logits.shape) == (HALF, model.cfg.vocab_size)
+          and bool(torch.isfinite(logits).all()),
+          "admission: bad prefill logits")
+    return secs
+
+
+def phase_xlstm_serve(torch, np, prompts, news, warm, profile):
+    """xlstm_1_3b at full width and depth in bf16 (48 layers: 42 mLSTM,
+    6 sLSTM; d_model 2048, 4 heads x 512; seeded random weights) serves
+    the 16 requests with overlap off, then on (equal tokens), then on
+    ``backend="static"``. No port kernel runs on this path (mLSTM and
+    sLSTM are plain torch, as in JAX); every decode step is a replay of
+    the captured step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    cfg = get_config("xlstm_1_3b")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=SEED)
+    geo = dict(num_slots=8, block_size=16, num_blocks=1024, max_len=640)
+    adm = admission_s(torch, model, params, prompts)
+    torch.cuda.reset_peak_memory_stats()
+    engines, turns = serve_pair(torch, model, params, prompts, news, warm,
+                                geo, "xlstm_serve")
+    per_slot = state_bytes_per_slot(engines[False].backend.pools,
+                                    geo["num_slots"])
+    for overlap, turn in turns.items():
+        emit({**turn_line("xlstm_serve", cfg, overlap, turn, news),
+              "launches": {k: turn[2][k] for k in ("K1", "K2")},
+              "admission_8x512_s": adm, "state_bytes_per_slot": per_slot,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9})
+    if profile:
+        phase_profile(torch, engines[False], prompts, news,
+                      f"{cfg.name} xlstm_serve")
+    del engines
+    static = Engine(model, params, EngineConfig(
+        backend="static", num_slots=8, block_size=16, max_len=640),
+        device="cuda")
+    static.generate([warm], SamplingParams(max_tokens=2))
+    static.backend.reset_telemetry()
+    torch.cuda.synchronize()
+    ts = time.monotonic()
+    outs = static.generate(prompts, [SamplingParams(max_tokens=n)
+                                     for n in news])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - ts
+    st = static.stats()
+    ntok = sum(len(o) for o in outs)
+    emit({"phase": "xlstm_serve", "config": cfg.name, "dtype": cfg.dtype,
+          "backend": "static", "requests": len(outs), "tokens": ntok,
+          "seconds": secs, "tok_s": ntok / secs, "steps": st["steps"],
+          "batches": st["batches"],
+          "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+          "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+          "phase_seconds": time.monotonic() - t0})
+    check(all(len(o) == n for o, n in zip(outs, news))
+          and all(0 <= t < cfg.vocab_size for o in outs for t in o)
+          and st["batches"] == 2,
+          f"xlstm_serve static: bad outputs or {st['batches']} batches")
+
+
+MOE_LAYERS = 12                     # moe_serve: depth cut from 48
+
+
+def phase_moe_serve(torch, np, prompts, news, warm, profile):
+    """qwen3_moe_30b_a3b at full width in bf16 (d_model 2048, 32 / 4
+    heads x 128 with qk_norm, 128 experts top-8 of width 768, vocab
+    151936), depth cut to MOE_LAYERS of 48 (all 48 would be ~61 GB of
+    random init), serves the 16 requests with overlap off, then on
+    (equal tokens). K1 runs every prefill (GQA 32 / 4), K2 and its
+    combine one launch a layer per decode step by replay; the dropless
+    MoE reads every expert each step."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    full = get_config("qwen3_moe_30b_a3b")
+    cfg = dataclasses.replace(full, n_layers=MOE_LAYERS)
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=SEED)
+    geo = dict(num_slots=8, block_size=16, num_blocks=1024, max_len=640)
+    adm = admission_s(torch, model, params, prompts)
+    torch.cuda.reset_peak_memory_stats()
+    engines, turns = serve_pair(torch, model, params, prompts, news, warm,
+                                geo, "moe_serve")
+    launches = {}
+    for overlap, turn in turns.items():
+        runs, k1_bodies, st = turn[2], turn[3], turn[4]
+        decode_launches(st, runs, cfg)
+        check(runs["K1"] > 0 and k1_bodies["wgmma"] > 0,
+              f"moe_serve: no prefill ran K1's tensor-core body "
+              f"{k1_bodies}")
+        launches[overlap] = {k: runs[k] for k in ("K1", "K2", "K2_combine")}
+        emit({**turn_line("moe_serve", cfg, overlap, turn, news),
+              "layers": f"{MOE_LAYERS} of {full.n_layers} (depth cut)",
+              "launches": launches[overlap],
+              "k1_launches_by_body": k1_bodies,
+              "admission_8x512_s": adm,
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **({"phase_seconds": time.monotonic() - t0} if overlap
+                 else {})})
+    if profile:
+        phase_profile(torch, engines[False], prompts, news,
+                      f"{cfg.name} moe_serve ({MOE_LAYERS} layers)")
+    return launches[False]
+
+
+# ---------------------------------------------------------------------------
 # the EPAC tile layer: K6, K7, K8 and the tile_path phase
 # ---------------------------------------------------------------------------
 
@@ -2336,13 +2632,14 @@ def main():
 
     prompts, news, warm = workload(np)
     phase_build()
-    k1, k2, k2c, k3, k3s, k4d, k4v, k4s, k5, k5_long = phase_kernels(
-        torch, np, prompts, args.profile)
+    (k1, k2, k2c, k3, k3s, k4d, k4v, k4s, k5, k5_long, k1_moe,
+     k2_moe) = phase_kernels(torch, np, prompts, args.profile)
     k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np, args.profile)
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
     phase_parity_recurrent(torch, np)
     phase_parity_overlap_static(torch, np)
+    phase_parity_xlstm_moe(torch, np)
     launches, base_outs, model, params = phase_serve(
         torch, np, prompts, news, warm, args.profile)
     phase_static_serve(torch, np, prompts, news, model, params)
@@ -2353,6 +2650,11 @@ def main():
     del model, params
     rec = phase_recurrent_serve(torch, np, prompts, news, warm, args.profile)
     launches.update(K5=rec["K5"], K5_long=rec["K5_long"])
+    torch.cuda.empty_cache()
+    phase_xlstm_serve(torch, np, prompts, news, warm, args.profile)
+    torch.cuda.empty_cache()
+    moe = phase_moe_serve(torch, np, prompts, news, warm, args.profile)
+    launches.update(K1_moe=moe["K1"], K2_moe=moe["K2"])
     torch.cuda.empty_cache()
     launches.update(phase_tile_path(torch, np, args.profile))
 
@@ -2365,6 +2667,15 @@ def main():
              "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:158"),
             (k2c, "K2_combine", "paged_decode_combine (K2's split merge)",
+             "src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:158"),
+            (k1_moe, "K1_moe",
+             "flash_attention (qwen3_moe GQA 32/4, moe_serve's prefill)",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:109"),
+            (k2_moe, "K2_moe",
+             "paged_decode_attention (qwen3_moe GQA 32/4, moe_serve's "
+             "decode)",
              "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:158"),
             (k3, "K3", "paged_verify_attention (verify: split body)",

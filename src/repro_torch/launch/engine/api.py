@@ -352,8 +352,8 @@ class Engine:
     Parameters
     ----------
     model : Model
-        The target model; configs the port cannot serve yet (xLSTM,
-        MoE, encoder-decoder, VLM) raise NotImplementedError.
+        The target model; configs the port cannot serve yet
+        (encoder-decoder, VLM) raise NotImplementedError.
     params
         Its parameter tree, on ``device``.
     cfg : EngineConfig, optional

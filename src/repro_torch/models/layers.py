@@ -2,9 +2,10 @@
 
 Counterpart of ``repro/models/layers.py`` for the dense decoder-only
 path: norms rmsnorm (``(1 + scale)`` convention), layernorm and
-nonparametric (OLMo: LayerNorm without affine), gated and plain MLPs,
-half-split RoPE with f32 angles, and the causal depthwise temporal conv
-in front of the RG-LRU. Params are plain dicts of tensors.
+nonparametric (OLMo: LayerNorm without affine), the per-head group norm
+of the xLSTM cells, gated and plain MLPs, half-split RoPE with f32
+angles, and the causal depthwise temporal conv in front of the RG-LRU
+and the mLSTM. Params are plain dicts of tensors.
 Initializers take a ``lead`` shape so a scan group's stacked
 ``(count, ...)`` leaves are drawn in one call.
 """
@@ -62,6 +63,19 @@ def apply_norm(kind: str, params, x, eps: float = 1e-6):
             xf = xf * params["scale"].float() + params["bias"].float()
         return xf.to(dt)
     raise ValueError(kind)
+
+
+def group_norm(x, scale, groups: int, eps: float = 1e-6):
+    """Per-head group norm (the xLSTM cell output's): each of ``groups``
+    slices of the last axis is normalized in f32, then scaled (no
+    bias)."""
+    dt = x.dtype
+    lead, d = x.shape[:-1], x.shape[-1]
+    xf = x.float().reshape(*lead, groups, d // groups)
+    mu = xf.mean(-1, keepdim=True)
+    var = (xf - mu).square().mean(-1, keepdim=True)
+    xf = ((xf - mu) * torch.rsqrt(var + eps)).reshape(*lead, d)
+    return (xf * scale.float()).to(dt)
 
 
 # ---------------------------------------------------------------------------

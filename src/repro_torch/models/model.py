@@ -2,7 +2,8 @@
 dense decode.
 
 Counterpart of ``repro/models/model.py`` (``ServingCaps``, ``Model``)
-for the decoder-only serving path (full, windowed and RG-LRU layers).
+for the decoder-only serving path (full and windowed attention, RG-LRU,
+mLSTM and sLSTM layers; dense or MoE FFNs).
 ``Model`` also owns the device the
 model runs on: ``"cuda"`` by default, which raises on a machine without
 a GPU instead of carrying on on the CPU.

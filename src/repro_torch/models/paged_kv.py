@@ -482,7 +482,7 @@ def init_layer_pool(cfg, layout: PagedLayout, dtype, device, lead=(),
     stores its payload dtype and adds f32 ``k_scale`` / ``v_scale``
     leaves of ``lead + (NB, BS, Hkv)``; ``None`` (or a bf16 spec without
     padding) yields the pool of an engine without a spec. Windowed and
-    RG-LRU layers keep per-slot state instead
+    recurrent layers keep per-slot state instead
     (``transformer.init_paged_cache``): their state is bounded, so
     paging buys nothing."""
     hd = spec.pool_head_dim if spec is not None else cfg.head_dim

@@ -1,24 +1,311 @@
-"""Recurrent blocks: RecurrentGemma's RG-LRU.
+"""Recurrent blocks: xLSTM's mLSTM / sLSTM and RecurrentGemma's RG-LRU.
 
-Counterpart of ``repro/models/ssm.py`` for the RG-LRU (the Griffin
-recurrent block): a gated diagonal linear recurrence whose prefill scan
-runs through kernel K5 (``kernels/ops.rglru_scan``) and whose decode is
-one O(1)-state step in plain torch, as JAX computes it outside any
-Pallas kernel. The decay parameter ``lam`` and the carried state ``h``
-stay f32 in a bf16 model; the conv tail is in the model dtype.
+Counterpart of ``repro/models/ssm.py``. mLSTM runs its prefill in the
+chunkwise-parallel stabilized form (``mlstm_chunkwise``) and its decode
+as the O(1)-state step (``mlstm_step``); the two are algebraically
+equal, and every constant that decides whether a padded tail moves the
+carried state is JAX's (chunk padding ig = -1e30 and fg = 30, m starting
+at -1e30, gate freezing at +-1e30). sLSTM has a true recurrent matrix
+and runs one cell a token. Both are plain torch, as JAX computes them in
+plain jnp (no Pallas kernel).
 
-xLSTM's mLSTM and sLSTM blocks are not ported yet (ROADMAP queue 1:
-'mLSTM / sLSTM (xlstm)'): ``transformer.check_supported`` refuses their
-configs.
+The RG-LRU is a gated diagonal linear recurrence whose prefill scan runs
+through kernel K5 (``kernels/ops.rglru_scan``) and whose decode is one
+O(1)-state step in plain torch, as JAX computes it outside any Pallas
+kernel. The decay parameter ``lam`` and the carried states (RG-LRU
+``h``; mLSTM ``C``, ``n``, ``m``; sLSTM ``h``, ``c``, ``n``, ``m``)
+stay f32 in a bf16 model; the conv tails are in the model dtype. Every
+decode step writes its state into the cache leaves IN PLACE (JAX
+returns new ones), so a captured decode step keeps its addresses.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 import torch.nn.functional as F
 
 from ..kernels import ops as kops
 from . import layers
+
+# ---------------------------------------------------------------------------
+# mLSTM (matrix-memory LSTM)
+# ---------------------------------------------------------------------------
+
+
+def init_mlstm_block(gen, cfg, dtype, lead=()):
+    """Stacked ``lead + (...)`` mLSTM params drawn from ``gen``: JAX's
+    tree; the forget-gate bias ``linspace(3, 6)`` (long memory at
+    init) and the input-gate bias zero."""
+    d, H = cfg.d_model, cfg.n_heads
+    lead = tuple(lead)
+
+    def dense(shape):
+        return layers.truncated_normal_init(gen, shape, dtype, lead=lead)
+
+    b_if = torch.cat([torch.zeros(H, dtype=dtype),
+                      torch.linspace(3.0, 6.0, H).to(dtype)])
+    return {
+        "w_up": dense((d, 2 * d)),
+        "conv": layers.init_conv1d(gen, d, 4, dtype, lead=lead),
+        "wq": dense((d, d)),
+        "wk": dense((d, d)),
+        "wv": dense((d, d)),
+        "w_if": dense((d, 2 * H)),
+        "b_if": b_if.to(gen.device).expand(lead + (2 * H,)).clone(),
+        "gn_scale": torch.ones(lead + (d,), dtype=dtype, device=gen.device),
+        "w_down": dense((d, d)),
+    }
+
+
+def _mlstm_init_state(B, H, hd, device):
+    """(C, n, m) before any token: zeros, m at -1e30, all f32."""
+    return (torch.zeros((B, H, hd, hd), dtype=torch.float32, device=device),
+            torch.zeros((B, H, hd), dtype=torch.float32, device=device),
+            torch.full((B, H), -1e30, dtype=torch.float32, device=device))
+
+
+def mlstm_chunkwise(q, k, v, ig, fg, chunk: int = 256, state=None):
+    """Chunkwise-parallel stabilized mLSTM (JAX's chunk loop, chunk by
+    chunk in Python).
+
+    q, k, v: (B, H, S, hd); ig / fg: (B, H, S) raw gate pre-activations.
+    A tail that does not fill the last chunk is padded so that it leaves
+    the carried state alone (input gate -1e30, forget gate 30). Returns
+    (h (B, H, S, hd) in q's dtype, final state (C, n, m) in f32).
+    """
+    B, H, S, hd = q.shape
+    S0 = S
+    pad = (-S) % chunk
+    if pad:
+        q, k, v = (F.pad(t, (0, 0, 0, pad)) for t in (q, k, v))
+        ig = F.pad(ig, (0, pad), value=-1e30)
+        fg = F.pad(fg, (0, pad), value=30.0)
+        S += pad
+    L = chunk
+    scale = 1.0 / math.sqrt(hd)
+    qf = q.float() * scale
+    kf, vf = k.float(), v.float()
+    lf = F.logsigmoid(fg.float())                       # log forget
+    li = ig.float()                                     # log input
+    C, n, m = state if state is not None else \
+        _mlstm_init_state(B, H, hd, q.device)
+    tri = torch.ones((L, L), dtype=torch.bool, device=q.device).tril()
+    hs = []
+    for c0 in range(0, S, L):
+        qj, kj, vj = (t[:, :, c0:c0 + L] for t in (qf, kf, vf))
+        lfj, lij = lf[..., c0:c0 + L], li[..., c0:c0 + L]
+        a = torch.cumsum(lfj, dim=-1)                   # inclusive decay
+        A = a[..., -1:]
+        # intra-chunk log weights D_ij = a_i - a_j + li_j (j <= i)
+        D = a[..., :, None] - a[..., None, :] + lij[..., None, :]
+        D = torch.where(tri, D, -math.inf)
+        m_intra = D.amax(-1)
+        m_inter = m[..., None] + a
+        m_i = torch.maximum(m_inter, m_intra).clamp(min=-1e30)
+        Sij = (qj @ kj.transpose(-1, -2)) * torch.exp(D - m_i[..., None])
+        inter_w = torch.exp(m_inter - m_i)
+        num = inter_w[..., None] * (qj @ C) + Sij @ vj
+        den = inter_w * (qj @ n[..., None])[..., 0] + Sij.sum(-1)
+        hs.append(num / torch.maximum(den.abs(),
+                                      torch.exp(-m_i))[..., None])
+        # carry update
+        m_k = A - a + lij                               # per-key weight
+        m_new = torch.maximum(m[..., None] + A,
+                              m_k.amax(-1, keepdim=True))[..., 0]
+        carry_w = torch.exp(m[..., None] + A - m_new[..., None])[..., 0]
+        kw = torch.exp(m_k - m_new[..., None])[..., None] * kj
+        C = carry_w[..., None, None] * C + kw.transpose(-1, -2) @ vj
+        n = carry_w[..., None] * n + kw.sum(-2)
+        m = m_new
+    h = torch.cat(hs, dim=2)[:, :, :S0]
+    return h.to(q.dtype), (C, n, m)
+
+
+def mlstm_step(q, k, v, ig, fg, state):
+    """One-token recurrent mLSTM: q, k, v (B, H, hd), gates (B, H),
+    state (C, n, m). Returns (h in q's dtype, new (C, n, m))."""
+    C, n, m = state
+    scale = 1.0 / math.sqrt(q.shape[-1])
+    qf = q.float() * scale
+    kf, vf = k.float(), v.float()
+    lf = F.logsigmoid(fg.float())
+    li = ig.float()
+    m_new = torch.maximum(lf + m, li)
+    fw = torch.exp(lf + m - m_new)
+    iw = torch.exp(li - m_new)
+    C = fw[..., None, None] * C \
+        + iw[..., None, None] * (kf[..., :, None] * vf[..., None, :])
+    n = fw[..., None] * n + iw[..., None] * kf
+    num = (qf[..., None, :] @ C)[..., 0, :]
+    den = (qf * n).sum(-1)
+    h = num / torch.maximum(den.abs(), torch.exp(-m_new))[..., None]
+    return h.to(q.dtype), (C, n, m_new)
+
+
+def mlstm_qkv_gates(params, cfg, xn, conv_state=None, length=None):
+    """Up-projection, causal conv, q / k / v heads and the raw gates.
+
+    xn: (B, S, d) pre-normed. Returns (q, k, v (B, H, S, hd), ig, fg
+    (B, H, S), z (B, S, d), conv tail). With ``length`` (right-padded
+    prefill) the conv tail holds the last width-1 REAL conv inputs."""
+    B, S, d = xn.shape
+    H = cfg.n_heads
+    hd = d // H
+    c, z = (xn @ params["w_up"]).chunk(2, dim=-1)
+    cc, conv_state = layers.apply_conv1d(params["conv"], c, conv_state)
+    if length is not None:
+        conv_state = layers.conv_state_at(c, params["conv"]["w"].shape[0],
+                                          length)
+    cc = F.silu(cc)
+
+    def heads(t):
+        return t.reshape(B, S, H, hd).transpose(1, 2)
+
+    q, k, v = heads(cc @ params["wq"]), heads(cc @ params["wk"]), \
+        heads(c @ params["wv"])
+    ig, fg = (c @ params["w_if"] + params["b_if"]).chunk(2, dim=-1)
+    return q, k, v, ig.transpose(1, 2), fg.transpose(1, 2), z, conv_state
+
+
+def freeze_gates_past(ig, fg, length):
+    """Gate pre-activations masked past each row's true length so the
+    chunkwise scan carries its state FROZEN at ``length``: input gate
+    -1e30 (zero key weight), forget gate 1e30 (log-sigmoid -0.0: no
+    decay). ig / fg: (B, H, S); length: (B,)."""
+    pad = torch.arange(ig.shape[-1], device=ig.device)[None, None, :] \
+        >= length.long()[:, None, None]
+    return torch.where(pad, -1e30, ig), torch.where(pad, 1e30, fg)
+
+
+def mlstm_output(params, cfg, h, z):
+    """Group norm over the heads, the silu(z) gate, the down-projection.
+    h: (B, H, S, hd); z: (B, S, d)."""
+    B, _, S, _ = h.shape
+    h = h.transpose(1, 2).reshape(B, S, cfg.d_model)
+    h = layers.group_norm(h, params["gn_scale"], cfg.n_heads)
+    return (h * F.silu(z)) @ params["w_down"]
+
+
+def init_mlstm_cache(cfg, batch, dtype, device, lead=()):
+    """Zeroed per-slot state: ``C`` (B, H, hd, hd), ``n`` (B, H, hd),
+    ``m`` (B, H) at -1e30, all f32, and the conv tail (B, 3, d) in
+    ``dtype``."""
+    H, d = cfg.n_heads, cfg.d_model
+    hd = d // H
+    lead = tuple(lead) + (batch,)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"C": torch.zeros(lead + (H, hd, hd), **f32),
+            "n": torch.zeros(lead + (H, hd), **f32),
+            "m": torch.full(lead + (H,), -1e30, **f32),
+            "conv": torch.zeros(lead + (3, d), dtype=dtype, device=device)}
+
+
+def apply_mlstm_decode(params, cfg, xn, cache):
+    """One-token mLSTM step; ``cache`` ({"C", "n", "m", "conv"}) is
+    updated IN PLACE and returned with the output."""
+    q, k, v, ig, fg, z, conv_state = mlstm_qkv_gates(params, cfg, xn,
+                                                     cache["conv"])
+    h, state = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], ig[:, :, 0],
+                          fg[:, :, 0], (cache["C"], cache["n"], cache["m"]))
+    out = mlstm_output(params, cfg, h[:, :, None], z)
+    for name, t in zip(("C", "n", "m"), state):
+        cache[name].copy_(t)
+    cache["conv"].copy_(conv_state)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# sLSTM (scalar-memory LSTM with a recurrent matrix; sequential)
+# ---------------------------------------------------------------------------
+
+
+def slstm_ffn_width(d: int) -> int:
+    """The gated GeGLU FFN inside the sLSTM block: xLSTM's 4/3 factor,
+    rounded to a multiple of 64."""
+    return int(round(d * 4 / 3 / 64)) * 64 or 64
+
+
+def init_slstm_block(gen, cfg, dtype, lead=()):
+    """Stacked ``lead + (...)`` sLSTM params drawn from ``gen``: JAX's
+    tree; the recurrent ``r_zifo`` (4, H, hd, hd) with stddev
+    1/sqrt(hd), forget-gate bias 4."""
+    d, H = cfg.d_model, cfg.n_heads
+    hd = d // H
+    lead = tuple(lead)
+    b = torch.cat([torch.zeros(2 * d), torch.full((d,), 4.0),
+                   torch.zeros(d)]).to(dtype)
+    return {
+        "w_zifo": layers.truncated_normal_init(gen, (d, 4 * d), dtype,
+                                               lead=lead),
+        "r_zifo": layers.truncated_normal_init(
+            gen, (4, H, hd, hd), dtype, stddev=1.0 / math.sqrt(hd),
+            lead=lead),
+        "b_zifo": b.to(gen.device).expand(lead + (4 * d,)).clone(),
+        "gn_scale": torch.ones(lead + (d,), dtype=dtype, device=gen.device),
+        "ff": layers.init_mlp(gen, d, slstm_ffn_width(d), dtype, gated=True,
+                              lead=lead),
+    }
+
+
+def slstm_cell(cfg, x_part, state, r, b):
+    """One sLSTM step. x_part: (B, 4d) input projection; state (h, c, n,
+    m) each (B, H, hd) f32; ``r`` / ``b`` the recurrent matrix and bias
+    in f32. Returns (hidden, new state)."""
+    h, c, n, m = state
+    B = x_part.shape[0]
+    H, d = cfg.n_heads, cfg.d_model
+    hd = d // H
+    rec = torch.einsum("bhd,ghde->bghe", h, r).reshape(B, 4 * d)
+    zt, it, ft, ot = (x_part.float() + rec + b).chunk(4, dim=-1)
+    zt = torch.tanh(zt).reshape(B, H, hd)
+    ot = torch.sigmoid(ot).reshape(B, H, hd)
+    li = it.reshape(B, H, hd)
+    lf = F.logsigmoid(ft).reshape(B, H, hd)
+    m_new = torch.maximum(lf + m, li)
+    fw = torch.exp(lf + m - m_new)
+    iw = torch.exp(li - m_new)
+    c = fw * c + iw * zt
+    n = fw * n + iw
+    hidden = ot * c / torch.maximum(n, torch.exp(-m_new))
+    return hidden, (hidden, c, n, m_new)
+
+
+def slstm_output(params, cfg, hidden, dtype):
+    """Group norm of the (B, S, d) cell outputs, then the gated GeGLU."""
+    h = layers.group_norm(hidden.to(dtype), params["gn_scale"], cfg.n_heads)
+    return layers.apply_mlp(params["ff"], h, "gelu")
+
+
+def init_slstm_cache(cfg, batch, dtype, device, lead=()):
+    """Zeroed per-slot state ``h``, ``c``, ``n`` and ``m`` (at -1e30),
+    each (B, H, hd) f32."""
+    H, d = cfg.n_heads, cfg.d_model
+    lead = tuple(lead) + (batch, H, d // H)
+    f32 = dict(dtype=torch.float32, device=device)
+    return {"h": torch.zeros(lead, **f32), "c": torch.zeros(lead, **f32),
+            "n": torch.zeros(lead, **f32),
+            "m": torch.full(lead, -1e30, **f32)}
+
+
+def apply_slstm_decode(params, cfg, xn, cache):
+    """One-token sLSTM step; ``cache`` ({"h", "c", "n", "m"}) is updated
+    IN PLACE and returned with the output."""
+    B, _, d = xn.shape
+    hidden, state = slstm_cell(
+        cfg, (xn @ params["w_zifo"])[:, 0],
+        (cache["h"], cache["c"], cache["n"], cache["m"]),
+        params["r_zifo"].float(), params["b_zifo"].float())
+    out = slstm_output(params, cfg, hidden.reshape(B, 1, d), xn.dtype)
+    for name, t in zip(("h", "c", "n", "m"), state):
+        cache[name].copy_(t)
+    return out, cache
+
+
+# ---------------------------------------------------------------------------
+# RG-LRU (RecurrentGemma / Griffin recurrent block)
+# ---------------------------------------------------------------------------
 
 _RGLRU_C = 8.0
 

@@ -1,11 +1,14 @@
 """LM assembly: the decoder-only stack over stacked per-group params.
 
 Counterpart of ``repro/models/transformer.py`` for the block kinds
-``attn`` (full or sliding-window), ``local`` (windowed, griffin) and
-``rglru`` (the RG-LRU recurrence). The layer layout stays JAX's: layers
-are grouped into repeating *pattern periods* (recurrentgemma's (rglru,
-rglru, local)) and every leaf of ``params["groups"]["g0"]["p0"]`` (and
-of the caches and paged pools) is stacked ``(count, ...)``, so the
+``attn`` (full or sliding-window), ``local`` (windowed, griffin),
+``rglru`` (the RG-LRU recurrence) and xLSTM's ``mlstm`` / ``slstm``,
+with a dense gated MLP or the dropless MoE (``moe.py``) after an
+attention block. The layer layout stays JAX's: layers are grouped into
+repeating *pattern periods* (recurrentgemma's (rglru, rglru, local),
+xLSTM's seven mlstm and one slstm) and every leaf of
+``params["groups"]["g0"]["p0"]`` (and of the caches and paged pools) is
+stacked ``(count, ...)``, so the
 weight bridge and the pool comparisons line up leaf for leaf. Where JAX
 runs ``lax.scan`` over the stacked leaves, this module runs a Python
 loop over the layer index.
@@ -13,23 +16,26 @@ loop over the layer index.
 Per-layer decode state follows the kind (``_is_pool_kind``): a
 full-attention layer's K/V lives in the shared block pool, a windowed
 layer keeps a per-slot ring buffer of ``min(window, max_len)`` rows, an
-RG-LRU layer a per-slot f32 carry ``h`` and a conv tail.
+RG-LRU layer a per-slot f32 carry ``h`` and a conv tail, an mLSTM layer
+its f32 ``C`` / ``n`` / ``m`` and a conv tail, an sLSTM layer its f32
+``h`` / ``c`` / ``n`` / ``m``. An mLSTM or sLSTM block has no second
+norm and no FFN after it (``x + out``).
 
 Phases sharing one param set:
   prefill  — full (right-padded) sequence, returns a dense cache;
-             attention through K1 (with the window), RG-LRU through K5
+             attention through K1 (with the window), RG-LRU through K5,
+             mLSTM chunkwise and sLSTM cell by cell in plain torch
   decode   — one token per slot: full attention over the block-paged
-             pool (K2), rings and RG-LRU steps in plain torch
+             pool (K2), rings and recurrent steps in plain torch
   verify   — a K1-token window per slot: full attention in one pass
-             over the pool (K3); rings and RG-LRU scan the decode cell
-             and keep one candidate state per position, selected at the
-             accept boundary (``select_verify_state``)
+             over the pool (K3); rings and recurrent layers scan the
+             decode cell and keep one candidate state per position,
+             selected at the accept boundary (``select_verify_state``)
   dense decode — one token per slot over per-slot caches (the draft
-             model's), plain torch
+             model's and the static backend's), plain torch
 
-Not ported yet: the xLSTM kinds ``mlstm`` / ``slstm`` (ROADMAP queue 1:
-'mLSTM / sLSTM (xlstm)'), MoE, encoder-decoder and VLM configs ('MoE /
-enc-dec'); ``check_supported`` refuses them.
+Not ported yet: encoder-decoder and VLM configs (ROADMAP queue 1:
+'Enc-dec / VLM'); ``check_supported`` refuses them.
 """
 
 from __future__ import annotations
@@ -41,12 +47,9 @@ import torch
 
 from ..kernels import ops as kops
 from . import attention as attn_lib
-from . import layers, paged_kv, ssm
+from . import layers, moe, paged_kv, ssm
 
-_NOT_PORTED = {
-    "mlstm": "mLSTM / sLSTM (xlstm)",
-    "slstm": "mLSTM / sLSTM (xlstm)",
-}
+KINDS = ("attn", "local", "rglru", "mlstm", "slstm")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -65,21 +68,18 @@ class RunCtx:
 
 def check_supported(cfg) -> None:
     """Raise NotImplementedError (naming the ROADMAP queue 1 item) for a
-    config the port cannot run yet: xLSTM block kinds, MoE,
-    encoder-decoder and VLM configs, positions other than RoPE or none."""
+    config the port cannot run yet: encoder-decoder and VLM configs,
+    positions other than RoPE or none; ValueError for an unknown block
+    kind."""
     for kind in dict.fromkeys(cfg.block_pattern):     # pattern order
-        if kind in _NOT_PORTED:
-            raise NotImplementedError(
-                f"{cfg.name}: block kind {kind!r} is not ported yet "
-                f"(ROADMAP queue 1: '{_NOT_PORTED[kind]}')")
-        if kind not in ("attn", "local", "rglru"):
+        if kind not in KINDS:
             raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
-    if cfg.is_moe or cfg.enc_dec or cfg.visual_prefix \
+    if cfg.enc_dec or cfg.visual_prefix \
             or cfg.rope_style not in ("rope", "none") \
             or cfg.pos_embed != "none":
         raise NotImplementedError(
-            f"{cfg.name}: MoE, encoder-decoder and VLM configs are not "
-            "ported yet (ROADMAP queue 1: 'MoE / enc-dec')")
+            f"{cfg.name}: encoder-decoder and VLM configs are not "
+            "ported yet (ROADMAP queue 1: 'Enc-dec / VLM')")
 
 
 # ---------------------------------------------------------------------------
@@ -140,29 +140,47 @@ def model_dtype(cfg) -> torch.dtype:
 
 
 def init_block(gen, cfg, kind, dtype, count: int):
-    """Stacked ``(count, ...)`` params of one pattern position."""
+    """Stacked ``(count, ...)`` params of one pattern position, JAX's
+    tree: attention blocks carry ``ln2`` and the MoE (an MoE config) or
+    the MLP; an RG-LRU block ``ln2`` and the MLP when ``d_ff > 0``; an
+    mLSTM / sLSTM block only its mixer ``mix``."""
     lead = (count,)
-    p = {"ln1": layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device,
-                                 lead)}
+
+    def norm():
+        return layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device,
+                                lead)
+
+    def mlp():
+        return layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
+                               gated=cfg.gated_mlp, lead=lead)
+
+    p = {"ln1": norm()}
     if kind in ("attn", "local"):
         p["attn"] = attn_lib.init_attention(gen, cfg, dtype, lead)
+        p["ln2"] = norm()
+        if cfg.is_moe:
+            p["moe"] = moe.init_moe(gen, cfg, dtype, lead)
+        elif cfg.d_ff > 0:
+            p["mlp"] = mlp()
     elif kind == "rglru":
         p["rec"] = ssm.init_rglru_block(gen, cfg, dtype, lead)
+        if cfg.d_ff > 0:
+            p["ln2"] = norm()
+            p["mlp"] = mlp()
+    elif kind == "mlstm":
+        p["mix"] = ssm.init_mlstm_block(gen, cfg, dtype, lead)
+    elif kind == "slstm":
+        p["mix"] = ssm.init_slstm_block(gen, cfg, dtype, lead)
     else:
         raise ValueError(kind)
-    if kind in ("attn", "local") or cfg.d_ff > 0:
-        p["ln2"] = layers.init_norm(cfg.norm, cfg.d_model, dtype, gen.device,
-                                    lead)
-    if cfg.d_ff > 0:
-        p["mlp"] = layers.init_mlp(gen, cfg.d_model, cfg.d_ff, dtype,
-                                   gated=cfg.gated_mlp, lead=lead)
     return p
 
 
 def init_lm(gen, cfg):
     """Random params from the ``torch.Generator`` ``gen`` on its device,
     with JAX's distributions (truncated normal on [-2, 2], stddev
-    1/sqrt(fan_in), embed stddev 1.0, the RG-LRU's ``lam`` in f32) and
+    1/sqrt(fan_in), embed stddev 1.0, the RG-LRU's ``lam`` and the MoE
+    router in f32) and
     JAX's tree layout. The values differ from ``repro``'s ``PRNGKey``
     draws; to hold the port against JAX, carry the JAX params over with
     ``models/weights.py``."""
@@ -194,14 +212,19 @@ def _window_for(cfg, kind):
 
 def _is_pool_kind(cfg, kind) -> bool:
     """True for layer kinds whose decode state lives in the shared block
-    pool (full attention); windowed rings and RG-LRU carries are
+    pool (full attention); windowed rings and recurrent carries are
     per-slot."""
     return kind in ("attn", "local") and _window_for(cfg, kind) is None
 
 
 def _ffn_part(p, cfg, x):
-    """Pre-norm MLP + residual."""
-    if "mlp" in p:
+    """Pre-norm MoE or MLP + residual; an mLSTM / sLSTM block has
+    neither and passes ``x`` through. The MoE is dropless on every path
+    (all of them serve), as JAX's serving paths run it."""
+    if "moe" in p:
+        xn = layers.apply_norm(cfg.norm, p["ln2"], x)
+        x = x + moe.apply_moe(p["moe"], cfg, xn)
+    elif "mlp" in p:
         xn = layers.apply_norm(cfg.norm, p["ln2"], x)
         x = x + layers.apply_mlp(p["mlp"], xn, cfg.activation)
     return x
@@ -216,7 +239,9 @@ def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None):
     out of every real query's window, so the forward math needs no
     change, but the emitted caches capture state at the true length:
     rings are rebuilt from the true tail, the RG-LRU state is gathered
-    at ``length - 1`` and its conv tail rebuilt from the real inputs.
+    at ``length - 1`` and its conv tail rebuilt from the real inputs,
+    the mLSTM scan is frozen past it by gate masking and the sLSTM by
+    carry selection.
     """
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
     if kind in ("attn", "local"):
@@ -225,6 +250,10 @@ def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None):
                                         length)
     elif kind == "rglru":
         out, cache = _rglru_with_cache(p["rec"], cfg, xn, length)
+    elif kind == "mlstm":
+        out, cache = _mlstm_with_cache(p["mix"], cfg, xn, length)
+    elif kind == "slstm":
+        out, cache = _slstm_with_cache(p["mix"], cfg, xn, length)
     else:
         raise ValueError(kind)
     return _ffn_part(p, cfg, x + out), cache
@@ -270,12 +299,66 @@ def _rglru_with_cache(params, cfg, xn, length=None):
     return out, {"h": h_true.float(), "conv": conv_true}
 
 
+def _mlstm_with_cache(params, cfg, xn, length=None):
+    """Chunkwise mLSTM mixing plus the decode state (C, n, m) and conv
+    tail. Right-padded rows freeze the scan past their true length
+    (``ssm.freeze_gates_past``), so the carried state is the state at
+    ``length``; pad-position outputs are never read. The chunk is
+    ``min(cfg.mlstm_chunk, S)`` of the padded width S, as in JAX."""
+    S = xn.shape[1]
+    q, k, v, ig, fg, z, conv_state = ssm.mlstm_qkv_gates(
+        params, cfg, xn, length=length)
+    if length is not None:
+        ig, fg = ssm.freeze_gates_past(ig, fg, length)
+    h, (C, n, m) = ssm.mlstm_chunkwise(q, k, v, ig, fg,
+                                       chunk=min(cfg.mlstm_chunk, S))
+    return ssm.mlstm_output(params, cfg, h, z), \
+        {"C": C, "n": n, "m": m, "conv": conv_state}
+
+
+def _slstm_with_cache(params, cfg, xn, length=None):
+    """The sLSTM over the sequence, one cell a token, plus the final
+    (h, c, n, m). On right-padded rows a pad step keeps the carry it was
+    given, so the state is frozen bit for bit at each true length."""
+    B, S, d = xn.shape
+    x_parts = xn @ params["w_zifo"]
+    r, b = params["r_zifo"].float(), params["b_zifo"].float()
+    init = ssm.init_slstm_cache(cfg, B, xn.dtype, xn.device)
+    state = tuple(init[n] for n in ("h", "c", "n", "m"))
+    keep = None if length is None else \
+        torch.arange(S, device=xn.device)[None, :] < length.long()[:, None]
+    hs = []
+    for t in range(S):
+        hidden, new = ssm.slstm_cell(cfg, x_parts[:, t], state, r, b)
+        if keep is None:
+            state = new
+        else:
+            kt = keep[:, t, None, None]
+            state = tuple(torch.where(kt, a, o) for a, o in zip(new, state))
+        hs.append(hidden)
+    out = ssm.slstm_output(params, cfg,
+                           torch.stack(hs, dim=1).reshape(B, S, d), xn.dtype)
+    return out, dict(zip(("h", "c", "n", "m"), state))
+
+
+def _recurrent_decode(p, cfg, kind, xn, cache):
+    """One-token step of an RG-LRU, mLSTM or sLSTM layer on its per-slot
+    state, written IN PLACE; returns the mixer's output."""
+    if kind == "rglru":
+        return ssm.apply_rglru_decode(p["rec"], cfg, xn, cache)[0]
+    if kind == "mlstm":
+        return ssm.apply_mlstm_decode(p["mix"], cfg, xn, cache)[0]
+    if kind == "slstm":
+        return ssm.apply_slstm_decode(p["mix"], cfg, xn, cache)[0]
+    raise ValueError(kind)
+
+
 def apply_block_decode_paged(p, cfg, kind, x, cache, block_table, lengths,
                              kv_spec=None):
     """One-token block step with PER-SLOT positions ``lengths``: full
     attention over the paged pool, a windowed layer over its per-slot
-    ring, an RG-LRU layer on its per-slot carry; the cache is written IN
-    PLACE."""
+    ring, a recurrent layer on its per-slot state; the cache is written
+    IN PLACE."""
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
     if kind in ("attn", "local"):
         window = _window_for(cfg, kind)
@@ -286,10 +369,8 @@ def apply_block_decode_paged(p, cfg, kind, x, cache, block_table, lengths,
         else:
             out, _ = attn_lib.decode_attend_batched(
                 p["attn"], cfg, xn, cache, lengths, window=window)
-    elif kind == "rglru":
-        out, _ = ssm.apply_rglru_decode(p["rec"], cfg, xn, cache)
     else:
-        raise ValueError(kind)
+        out = _recurrent_decode(p, cfg, kind, xn, cache)
     return _ffn_part(p, cfg, x + out)
 
 
@@ -325,8 +406,8 @@ def apply_block_verify_paged(p, cfg, kind, x, cache, block_table, lengths,
     runs ONE multi-query pass over the paged pool (written in place; the
     pool commits by construction: the host rewinds the length pointer
     over a rejected tail, no block is copied) and returns the pool;
-    rings and RG-LRU layers scan the decode cell and return per-position
-    candidate states (``_decode_window_scan``)."""
+    rings and recurrent layers scan the decode cell and return
+    per-position candidate states (``_decode_window_scan``)."""
     if not _is_pool_kind(cfg, kind):
         return _decode_window_scan(p, cfg, kind, x, cache, block_table,
                                    lengths, kv_spec)
@@ -338,29 +419,27 @@ def apply_block_verify_paged(p, cfg, kind, x, cache, block_table, lengths,
 
 
 def apply_block_decode(p, cfg, kind, x, cache, pos):
-    """One-token block over a per-slot cache (linear or ring; RG-LRU
+    """One-token block over a per-slot cache (linear or ring; recurrent
     state), written in place; ``pos`` (B,) per-slot positions."""
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
     if kind in ("attn", "local"):
         out, _ = attn_lib.decode_attend_batched(
             p["attn"], cfg, xn, cache, pos, window=_window_for(cfg, kind))
-    elif kind == "rglru":
-        out, _ = ssm.apply_rglru_decode(p["rec"], cfg, xn, cache)
     else:
-        raise ValueError(kind)
+        out = _recurrent_decode(p, cfg, kind, xn, cache)
     return _ffn_part(p, cfg, x + out)
 
 
 def init_block_cache(cfg, kind, batch: int, max_len: int, dtype, device,
                      lead=()):
     """Zeroed per-slot decode state of one layer kind: a linear or ring
-    K/V cache, or the RG-LRU carry and conv tail."""
+    K/V cache, or a recurrent layer's carries and conv tail."""
     if kind in ("attn", "local"):
         return attn_lib.init_kv_cache(cfg, batch, max_len, dtype, device,
                                       lead, window=_window_for(cfg, kind))
-    if kind == "rglru":
-        return ssm.init_rglru_cache(cfg, batch, dtype, device, lead)
-    raise ValueError(kind)
+    init = {"rglru": ssm.init_rglru_cache, "mlstm": ssm.init_mlstm_cache,
+            "slstm": ssm.init_slstm_cache}[kind]
+    return init(cfg, batch, dtype, device, lead)
 
 
 # ---------------------------------------------------------------------------
@@ -388,10 +467,9 @@ def prefill_supports_ragged(cfg) -> bool:
     """True when right-padded (bucketed) prefill is exact for this
     architecture (JAX's predicate): every decoder-only block kind
     captures its decode state at the true length (rings and RG-LRU by
-    gather / recompute; JAX's mlstm and slstm by gate freezing and carry
+    gather / recompute; mlstm and slstm by gate freezing and carry
     selection), and positions are relative (rope) or absent."""
-    kinds = set(cfg.block_pattern)
-    return (kinds <= {"attn", "local", "rglru", "mlstm", "slstm"}
+    return (set(cfg.block_pattern) <= set(KINDS)
             and not cfg.enc_dec and not cfg.visual_prefix
             and cfg.rope_style in ("rope", "none")
             and cfg.pos_embed == "none")
@@ -412,13 +490,13 @@ def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
     tokens: (B, S). ``length`` ((B,) int) marks RIGHT-padded prompts:
     row b's real tokens are ``tokens[b, :length[b]]``; causal attention
     keeps the pad tail invisible to every real query, and the emitted
-    per-slot state (rings, RG-LRU carries) is taken at the true length.
+    per-slot state (rings, recurrent carries) is taken at the true length.
     ``rows`` ((B,) int) selects one position per row whose logits to
     return, (B, V) f32 — the scheduler asks for ``length - 1`` only; None
     returns all (B, S, V). The cache is ``init_cache``-shaped with batch
     B: linear {"k", "v"} of (count, B, max_len, Hkv, D), zero past S;
     rings of (count, B, min(window, max_len), Hkv, D); RG-LRU {"h",
-    "conv"}.
+    "conv"}; mLSTM {"C", "n", "m", "conv"}; sLSTM {"h", "c", "n", "m"}.
     """
     del ctx
     check_supported(cfg)
@@ -440,8 +518,8 @@ def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
 
 def init_cache(cfg, batch: int, max_len: int, device):
     """Stacked per-slot decode caches mirroring the group structure
-    (zero-filled): linear or ring K/V per attention layer, the carry and
-    conv tail per RG-LRU layer."""
+    (zero-filled): linear or ring K/V per attention layer, the carries
+    (and conv tail) per recurrent layer."""
     check_supported(cfg)
     dtype = model_dtype(cfg)
     return map_layer_tree(cfg, lambda gk, pk, kind, count: init_block_cache(
@@ -453,8 +531,9 @@ def init_paged_cache(cfg, layout, device, spec=None):
     (zero-filled; block tables and lengths live with the scheduler).
     Full-attention layers share a block pool, whose format ``spec`` (a
     ``paged_kv.PoolSpec``) selects: a quantized spec stores int8/fp8
-    payloads plus scale leaves. Windowed and RG-LRU layers keep per-slot
-    state in the model dtype (the carry in f32), as in ``init_cache``."""
+    payloads plus scale leaves. Windowed and recurrent layers keep
+    per-slot state in the model dtype (the carries in f32), as in
+    ``init_cache``."""
     check_supported(cfg)
     dtype = model_dtype(cfg)
 
@@ -476,7 +555,7 @@ def pack_prefill_into_paged(cfg, layout, pools, dense_caches, row_of_slot,
     destinations of its pool blocks, pad tails at the null block;
     ``spec`` quantizes those rows on the way in (scales land alongside).
     ``row_of_slot`` ((num_slots,) int) and ``valid`` ((num_slots,) bool)
-    map slots to rows for the per-slot state (rings, RG-LRU carries,
+    map slots to rows for the per-slot state (rings, recurrent carries,
     conv tails): slot s takes row ``row_of_slot[s]`` where ``valid[s]``,
     so a batch filler row never overwrites a live slot."""
     for gk, pattern, _ in layer_walk(cfg):
@@ -503,7 +582,7 @@ def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
     tokens already cached per slot (the new token's position);
     block_table: (B, NBMAX) int32. Retired slots ride along pointed at
     the null block, their outputs discarded by the scheduler. Pool
-    rows, ring rows and RG-LRU states are written into ``pools`` IN
+    rows, ring rows and recurrent states are written into ``pools`` IN
     PLACE. Returns (logits (B, V) f32, pools).
     """
     x = _embed(params, cfg, tokens)

@@ -8,8 +8,8 @@ the port runs on exactly the reference's weights. ``to_numpy`` is the
 inverse. Both are exact: values are copied, never recomputed.
 
 Some leaves stay f32 whatever the model dtype: the RG-LRU's decay
-parameter ``lam`` (JAX ``ssm.py:321``), so a cast to bf16 leaves it
-alone (``F32_LEAVES``).
+parameter ``lam`` (JAX ``ssm.py:321``) and the MoE ``router`` (JAX
+``moe.py:37``), so a cast to bf16 leaves them alone (``F32_LEAVES``).
 
 numpy has no bfloat16 of its own: JAX's bf16 leaves arrive as a numpy
 dtype named ``bfloat16`` (2-byte payloads, reinterpreted bit for bit
@@ -25,7 +25,7 @@ import torch
 from .transformer import layer_walk
 
 
-F32_LEAVES = ("lam",)                 # leaf names kept f32 in any dtype
+F32_LEAVES = ("lam", "router")   # leaf names kept f32 in any dtype
 
 
 def map_tree(fn, tree):

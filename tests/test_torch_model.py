@@ -183,12 +183,27 @@ def test_paged_decode_and_pool_match_jax(rng, arch):
 def test_unported_kinds_raise():
     """Configs outside this slice raise NotImplementedError naming the
     ROADMAP item, at init and at prefill."""
-    for arch, item in (("xlstm_1_3b", "mLSTM / sLSTM"),
-                       ("qwen3_moe_30b_a3b", "MoE / enc-dec"),
-                       ("whisper_base", "MoE / enc-dec")):
+    for arch in ("whisper_base", "qwen2_vl_2b"):
         cfg = get_config(arch).smoke()
-        with pytest.raises(NotImplementedError, match=item):
+        with pytest.raises(NotImplementedError, match="Enc-dec / VLM"):
             Model(cfg, device="cpu").init(seed=0)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             transformer.prefill({}, cfg, torch.zeros((1, 4), dtype=torch.int32),
                                 CTX)
+
+
+@pytest.mark.parametrize("arch", ["xlstm_1_3b", "qwen3_moe_30b_a3b",
+                                  "kimi_k2_1t_a32b"])
+def test_xlstm_and_moe_init_and_prefill(arch):
+    """The xLSTM and MoE families, refused until their slice, init from
+    the port's own generator and prefill right-padded rows to finite
+    logits of the vocabulary's width."""
+    cfg = get_config(arch).smoke()
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32)
+    logits, cache = model.prefill(params, {"tokens": toks}, CTX,
+                                  length=torch.tensor([5, 8]))
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert set(cache) == set(params["groups"])

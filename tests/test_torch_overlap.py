@@ -365,7 +365,8 @@ def _leaves(tree):
 
 @pytest.mark.parametrize("arch,kv_dtype", [
     ("olmo_1b", "bf16"), ("recurrentgemma_2b", "bf16"),
-    ("h2o_danube_3_4b", "bf16"), ("olmo_1b", "int8")])
+    ("h2o_danube_3_4b", "bf16"), ("olmo_1b", "int8"),
+    ("xlstm_1_3b", "bf16"), ("qwen3_moe_30b_a3b", "fp8")])
 def test_pools_keep_their_storage(rng, arch, kv_dtype):
     """``decode_step_paged`` writes every leaf in place, and so does a
     whole engine run (prefill packs, COW copies, preemption): each leaf

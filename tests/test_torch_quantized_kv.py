@@ -530,15 +530,23 @@ def test_encdec_rejects_quantized_naming_cap():
                device="cpu")
 
 
-@pytest.mark.parametrize("arch,item", [("xlstm_1_3b", "mLSTM / sLSTM")])
-def test_quantized_recurrent_not_ported(arch, item):
-    """Quantized pools under xLSTM models stay unported, raising
-    NotImplementedError that names the roadmap item (recurrentgemma
-    serves over them: tests/test_torch_recurrent.py)."""
-    model = Model(get_config(arch).smoke(), device="cpu")
-    assert model.serving_caps().quantized_kv
-    with pytest.raises(NotImplementedError, match=item):
-        Engine(model, {}, EngineConfig(**GEO, kv_dtype="fp8"), device="cpu")
+@pytest.mark.parametrize("arch", ["xlstm_1_3b"])
+def test_quantized_recurrent_serves_fp8_as_jax(rng, arch):
+    """xLSTM over an fp8 pool: no layer keeps its K/V in the pool, so
+    the mLSTM / sLSTM states stay f32 and the tokens equal the JAX
+    engine's over fp8 and the port's bf16 engine's."""
+    jm, jparams, tm, tparams = _pair(arch)
+    assert tm.serving_caps().quantized_kv
+    prompts = [list(map(int, rng.integers(0, tm.cfg.vocab_size, L)))
+               for L in (3, 9, 14)]
+    want = _jrun(jm, jparams, prompts, JSamplingParams(max_tokens=8),
+                 kv_dtype="fp8")
+    got, eng = _run(tm, tparams, prompts, SamplingParams(max_tokens=8),
+                    kv_dtype="fp8")
+    assert got == want
+    assert eng.stats()["kv_dtype"] == "fp8"
+    assert _run(tm, tparams, prompts, SamplingParams(max_tokens=8))[0] \
+        == got
 
 
 def test_serve_cli_rejects_unknown_kv_dtype():

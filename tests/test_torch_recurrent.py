@@ -488,15 +488,27 @@ def test_draft_model_refuses_a_recurrent_draft(rg):
             draft_params=tparams), device="cpu")
 
 
-def test_xlstm_still_raises_naming_its_item():
-    """xlstm_1_3b (mLSTM / sLSTM) is outside this slice: init, prefill
-    and the Engine raise NotImplementedError naming its ROADMAP item."""
-    cfg = get_config("xlstm_1_3b").smoke()
-    model = Model(cfg, device="cpu")
-    for call in (lambda: model.init(seed=0),
-                 lambda: transformer.prefill(
-                     {}, cfg, torch.zeros((1, 4), dtype=torch.int32), CTX),
-                 lambda: Engine(model, {}, EngineConfig(), device="cpu")):
-        with pytest.raises(NotImplementedError,
-                           match=r"mLSTM / sLSTM \(xlstm\)"):
-            call()
+def test_xlstm_target_with_a_draft_model_matches_jax(rng):
+    """xlstm_1_3b, refused until its slice, as the target of the
+    draft-model drafter (an attention-only olmo_1b draft, which JAX
+    allows for a recurrent target): the verify window scans the mLSTM /
+    sLSTM cells and the tokens equal the JAX speculative engine's and
+    the port's plain engine's."""
+    _, _, jm, jparams, tm, tparams = _models("xlstm_1_3b")
+    _, _, jdm, jdparams, dm, dparams = _models("olmo_1b")
+    prompts = [(list(rng.integers(0, 256, 3)) * 6)[:10 + i]
+               for i in range(3)]
+    sps = [SamplingParams(max_tokens=10)] * len(prompts)
+    jsp = [JSamplingParams(**dataclasses.asdict(sp)) for sp in sps]
+    kw = dict(spec_tokens=3, drafter="draft_model")
+    want = JEngine(jm, jparams, JEngineConfig(
+        backend="paged", **GEO, **kw, draft_model=jdm,
+        draft_params=jdparams)).generate(prompts, jsp)
+    eng = Engine(tm, tparams, EngineConfig(**GEO, **kw, draft_model=dm,
+                                           draft_params=dparams),
+                 device="cpu")
+    got = eng.generate(prompts, sps)
+    assert got == want
+    assert eng.stats()["blocks_used"] == 0
+    plain = Engine(tm, tparams, EngineConfig(**GEO), device="cpu")
+    assert plain.generate(prompts, sps) == got
