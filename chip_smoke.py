@@ -6,7 +6,8 @@ check it end to end.
     python3 chip_smoke.py --profile  # adds torch.profiler breakdowns of
                                      # serve (overlap off and on),
                                      # spec_serve, recurrent_serve,
-                                     # xlstm_serve, moe_serve
+                                     # xlstm_serve, moe_serve,
+                                     # encdec_serve, vlm_dense
                                      # and tile_path (each window lists
                                      # the port's own kernels and their
                                      # share of device time)
@@ -169,6 +170,35 @@ Phases, one JSON line each (any failed check exits non-zero):
               same requests with overlap off, then on (equal tokens): K1
               (its tensor-core body) at every prefill, K2 and its combine
               12 x decode steps by replay.
+   parity_encdec_vlm — whisper_base and qwen2_vl_2b smoke in f32, cuda
+              against cpu: whisper through the Engine (greedy on a pool
+              that preempts, seeded, ``overlap=True``; two requests on one
+              feature array): tokens equal, every cuda step a replay, no
+              block or arena row left; the greedy cuda engine equals the
+              dense prefill + decode_step oracle on cuda, beside the two
+              admissions' largest logits gap; qwen2-vl's dense prefill
+              (visual embeddings, M-RoPE, nonzero q/k/v biases) and 8
+              greedy steps: tokens equal. Prints its seconds.
+   encdec_serve — whisper_base at full width and depth in bf16 (6 + 6
+              layers, d_model 512, 8 heads x 64; 8 slots, block 16,
+              max_len 448, 225 blocks) serves a transcription service's
+              16 requests (12 full 30 s windows of 1500 frames, 4 last
+              windows of 300-1499; 10 start-of-transcript prompts, 6 with
+              64-192 tokens of previous text; two pairs best-of-2 on one
+              array each) with overlap off, then on (equal tokens):
+              tok/s, TTFT / TPOT p50, decode device ms a step, the (8,
+              1500-frame) admission's seconds, the arena's bytes and
+              ``cross_arena`` (shared_hits >= 2, rows_used 0), K1 = 6 x
+              prefill calls, K2 = combine = 6 x steps by replay; then
+              the dense path (the exact-length encoder through K1,
+              non-causal: 6 launches; its greedy tokens beside the
+              engine's, reported).
+   vlm_dense — qwen2-vl-2b at full width and depth in bf16: an (8, 512)
+              dense prefill whose first 64 positions take visual
+              embeddings on an 8 x 8 patch grid's M-RoPE ids, then 32
+              greedy decode steps; twice, equal tokens; K1 = 28 launches
+              on its tensor-core body; prefill ms, decode ms a step and
+              tok/s.
 
 12. tile_path — the EPAC tile layer (``repro_torch.core``) through its
               entry points, every tile kernel's counter reset first:
@@ -208,7 +238,12 @@ dims 256
 16/16 causal), 120 (h2o_danube GQA 32/8 window 4096) and 64 (a ragged
 (2, 8/2, 300) case) and at qwen3_moe's GQA 32/4 (D 128, (8, 512)
 causal: moe_serve's prefill; summary row ``K1_moe``) beside K2 at that
-head layout over serve's first decode lengths (``K2_moe``), and the
+head layout over serve's first decode lengths (``K2_moe``); K1 at
+whisper's decoder prefill (8, 8/8, 256, 64), its encoder over full
+windows (8, 8/8, 1500, 64) non-causal (``K1_whisper_enc``, SDPA without
+a mask beside it) and qwen2-vl's prefill (8, 12/2, 512, 128)
+(``K1_qwen2vl``), K2 at whisper's (8, 8/8, 64) over encdec_serve's first
+decode lengths (``K2_whisper``); and the
 tile kernels at tile_path's shapes: K6
 (4096, 2048) @ (2048, 8192) bf16 to bf16 and to f32 (tensor cores),
 1024^3 and ragged (1000, 700, 300) f32, and (1000, 700, 300) bf16 (rows
@@ -272,6 +307,10 @@ PARITY_TOL = 1e-3                  # f32 logits, cuda vs cpu summation order
 N_REQ, HALF = 16, 8                # serve: first HALF prompts in bucket 512
 SHARED, PHRASE = 256, 8            # spec_serve: shared prefix, repeated phrase
 SUFFIX_BUCKETS = (32, 64, 128)     # spec_serve: its suffixes' K3 widths
+ENC_FRAMES = 1500                  # encdec_serve: a full 30 s window
+SOT = [50258, 50259, 50359, 50363]  # whisper's start-of-transcript tokens
+VLM_GRID, VLM_STEPS = 8, 32        # vlm_dense: 8 x 8 patches, decode steps
+VLM_PROBE = 8                      # vlm_dense: decode steps under the profiler
 
 
 def emit(obj):
@@ -455,29 +494,38 @@ def ffma_counts(lib):
     return counts
 
 
-def k1_case(torch, name, B, hq, hkv, S, D, dtype, library, window=None):
-    """K1 at (B, hq/hkv, S, D), causal, optional window; the library
-    time is one ``scaled_dot_product_attention`` call on the same
-    tensors (``enable_gqa`` for hkv < hq), causal, or with a boolean
-    mask where the window bites."""
+def k1_case(torch, name, B, hq, hkv, S, D, dtype, library, window=None,
+            causal=True, Skv=None, seq_major=False):
+    """K1 at (B, hq/hkv, S, D), causal (or not: whisper's encoder),
+    optional window; non-causal queries may read ``Skv`` keys (whisper's
+    cross-attention). ``seq_major`` makes q, k and v as the models pass
+    them: (B, S, H, D) projections seen through ``.transpose(1, 2)``.
+    The library time is one ``scaled_dot_product_attention`` call on
+    the same tensors (``enable_gqa`` for hkv < hq), causal or not, or
+    with a boolean mask where the window bites."""
     import torch.nn.functional as F
 
     from repro_torch.kernels import flash_attention as fa, ref
 
+    Skv = Skv or S
+    assert Skv == S or not causal
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v = (torch.randn((B, h, S, D), generator=gen, device="cuda")
-               .to(dt) for h in (hq, hkv, hkv))
+    q, k, v = ((torch.randn((B, n, h, D), generator=gen, device="cuda")
+                .transpose(1, 2) if seq_major else
+                torch.randn((B, h, n, D), generator=gen, device="cuda"))
+               .to(dt) for h, n in ((hq, S), (hkv, Skv), (hkv, Skv)))
     before = dict(fa.flash_attention.launches_by_body)
-    got = fa.flash_attention(q, k, v, causal=True, window=window)
+    got = fa.flash_attention(q, k, v, causal=causal, window=window)
     body = ran_body(fa.flash_attention, before)
-    want = ref.flash_attention(q, k, v, causal=True, window=window)
+    want = ref.flash_attention(q, k, v, causal=causal, window=window)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     w = min(window or S, S)
-    # visible (q, k) pairs: query i sees min(i + 1, window) keys
-    pairs = B * hq * (w * (w + 1) // 2 + (S - w) * w)
-    nbytes = q.element_size() * (2 * B * hq * S * D + 2 * B * hkv * S * D)
+    # visible (q, k) pairs: query i sees min(i + 1, window) keys (all Skv
+    # without the causal mask)
+    pairs = B * hq * (w * (w + 1) // 2 + (S - w) * w if causal else S * Skv)
+    nbytes = q.element_size() * (2 * B * hq * S * D + 2 * B * hkv * Skv * D)
     bound_ms, bound_by = bound(4 * D * pairs, nbytes, dtype)
     bites = window is not None and window < S
     lib = None
@@ -486,20 +534,22 @@ def k1_case(torch, name, B, hq, hkv, S, D, dtype, library, window=None):
         mask = (pos[None, :] <= pos[:, None]) \
             & (pos[None, :] > pos[:, None] - (window or S))
         kw = {"enable_gqa": hkv < hq}
-        kw.update({"attn_mask": mask} if bites else {"is_causal": True})
+        kw.update({"attn_mask": mask} if bites else {"is_causal": causal})
         lib = cuda_ms(torch, lambda: F.scaled_dot_product_attention(
             q, k, v, **kw))
     row = {"phase": "kernels", "kernel": "K1", "case": name,
-           "shape": [B, hq, hkv, S, D], "dtype": dtype, "window": window,
-           "body": body, "max_abs_err": err, "tol": TOL[dtype],
+           "shape": [B, hq, hkv, S, D], "keys": Skv, "seq_major": seq_major,
+           "dtype": dtype, "window": window,
+           "causal": causal, "body": body, "max_abs_err": err,
+           "tol": TOL[dtype],
            "ms": cuda_ms(torch, lambda: fa.flash_attention(
-               q, k, v, causal=True, window=window)),
+               q, k, v, causal=causal, window=window)),
            "plain_ms": cuda_ms(torch, lambda: ref.flash_attention(
-               q, k, v, causal=True, window=window)),
+               q, k, v, causal=causal, window=window)),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": lib,
            "library": None if lib is None else (
                "sdpa, boolean causal+window mask" if bites
-               else "sdpa, is_causal")}
+               else "sdpa, is_causal" if causal else "sdpa, no mask")}
     emit(row)
     check(math.isfinite(err) and err <= TOL[dtype],
           f"K1 {name}: max abs err {err} > {TOL[dtype]}")
@@ -859,8 +909,31 @@ def phase_kernels(torch, np, prompts, profile):
                      True)
     k2_moe = k2_case(torch, np, "qwen3_gqa8", first, 32, 4, 128, "bfloat16",
                      profile=profile)
+    # encdec_serve's and vlm_dense's shapes: whisper's decoder prefill at
+    # its longest prompt bucket, its exact-length encoder over full
+    # windows (the dense path: non-causal), the dense path's
+    # cross-attention of the start-of-transcript prefill and of one
+    # decode token over full windows (non-causal, q / k / v laid out as
+    # the model passes them), K2 at whisper's head layout
+    # over encdec_serve's first decode lengths; qwen2-vl's (8, 512)
+    # prefill at GQA 12/2
+    k1_case(torch, "whisper_dec", HALF, 8, 8, 256, 64, "bfloat16", True)
+    k1_wenc = k1_case(torch, "whisper_enc", HALF, 8, 8, ENC_FRAMES, 64,
+                      "bfloat16", True, causal=False)
+    k1_wx = {n: k1_case(torch, f"whisper_xattn_{n}", HALF, 8, 8, Sq, 64,
+                        "bfloat16", True, causal=False, Skv=ENC_FRAMES,
+                        seq_major=True)
+             for n, Sq in (("prefill", len(SOT)), ("decode", 1))}
+    from repro_torch.configs import get_config
+
+    wfirst = [len(p) + 1 for p in encdec_workload(
+        np, get_config("whisper_base").d_model)[0][:HALF]]
+    k2_wh = k2_case(torch, np, "whisper", wfirst, 8, 8, 64, "bfloat16",
+                    profile=profile)
+    k1_vl = k1_case(torch, "qwen2vl_gqa6", HALF, 12, 2, 512, 128,
+                    "bfloat16", True)
     return (k1, k2, k2c, k3, k3s[64], k4d, k4v, k4s[64], k5, k5_long, k1_moe,
-            k2_moe)
+            k2_moe, k1_wenc, k1_wx["decode"], k2_wh, k1_vl)
 
 
 def phase_parity(torch, np):
@@ -1997,6 +2070,488 @@ def phase_moe_serve(torch, np, prompts, news, warm, profile):
 
 
 # ---------------------------------------------------------------------------
+# the encoder-decoder (whisper_base) and the VLM (qwen2-vl)
+# ---------------------------------------------------------------------------
+
+
+def encdec_workload(np, d_model):
+    """encdec_serve's 16 requests, a transcription service's traffic:
+    12 carry a full 30 s window (ENC_FRAMES frames), 4 a file's last
+    window (300-1499 frames); 10 prompts are the 4-token
+    start-of-transcript sequence, 6 carry the previous window's text
+    (64-192 tokens); 48-128 new tokens each. The first HALF are short
+    prompts over full windows (one (8, 1500-frame) admission), among
+    them two adjacent pairs that submit one array each (best-of-2,
+    seeded, temperature 0.7); the rest are greedy. Frames are seeded
+    N(0, 1) features (the frontend is a stub). Returns (prompts,
+    features, max_tokens, sampling kwargs per request)."""
+    rng = np.random.default_rng(SEED + 9)
+    short = [True] * HALF + [True, False, False, True, False, False, False,
+                             False]
+    full = [True] * HALF + [False, True, False, True, True, False, True,
+                            False]
+    prompts = [SOT if s else SOT + list(map(int, rng.integers(
+        0, 50257, int(rng.integers(64, 193)) - len(SOT)))) for s in short]
+    feats = [rng.standard_normal(
+        (ENC_FRAMES if f else int(rng.integers(300, ENC_FRAMES)), d_model),
+        dtype=np.float32) for f in full]
+    feats[3], feats[5] = feats[2], feats[4]
+    news = [int(n) for n in rng.integers(48, 129, len(prompts))]
+    samp = [dict(temperature=0.7, seed=i) if i in (2, 3, 4, 5) else {}
+            for i in range(len(prompts))]
+    return prompts, feats, news, samp
+
+
+def smoke_pair(torch, arch):
+    """``arch``'s smoke config in f32 on cpu and cuda, the same weights
+    (the port's init from SEED; q/k/v biases redrawn nonzero where the
+    config has them, so the bias path is exercised)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch).smoke()
+    models = {d: Model(cfg, device=d) for d in ("cpu", "cuda")}
+    params = {"cpu": models["cpu"].init(seed=SEED)}
+    gen = torch.Generator().manual_seed(SEED)
+
+    def biased(tree):
+        return {k: (torch.randn(v.shape, generator=gen) * 0.5
+                    if k in ("bq", "bk", "bv") else
+                    biased(v) if isinstance(v, dict) else v)
+                for k, v in tree.items()}
+    params["cpu"] = biased(params["cpu"])
+    params["cuda"] = weights.to_device(params["cpu"], "cuda")
+    return cfg, models, params
+
+
+def vlm_batch(torch, cfg, B, S, device, gen):
+    """Tokens (B, S), visual embeddings for the first ``visual_prefix``
+    positions and their M-RoPE ids: the prefix on a square patch grid
+    (t 0, h row, w column), text after it at grid + j on all three
+    streams. Returns (batch, the next text id)."""
+    P = cfg.visual_prefix
+    grid = math.isqrt(P)
+    i = torch.arange(S)
+    text = grid + (i - P)
+    pos = torch.stack([torch.where(i < P, 0, text),
+                       torch.where(i < P, i // grid, text),
+                       torch.where(i < P, i % grid, text)])
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (B, S),
+                                     generator=gen, dtype=torch.int32),
+             "visual_embeds": torch.randn((B, P, cfg.d_model),
+                                          generator=gen),
+             "mrope_positions": pos[:, None].expand(3, B, S).contiguous()}
+    return {k: v.to(device) for k, v in batch.items()}, grid + S - P
+
+
+def dense_greedy(torch, model, params, batch, max_len, steps, rows=True,
+                 mrope_next=None, after_prefill=None):
+    """Dense prefill of ``batch`` then ``steps`` greedy decode steps at
+    continuing positions (with ``mrope_next``, all three M-RoPE streams
+    at the text id from there); ``after_prefill()`` runs between the
+    two. Returns (prefill logits at the last position, (B, steps + 1)
+    tokens on the device, the last step's logits)."""
+    from repro_torch.models import transformer
+
+    ctx = transformer.RunCtx()
+    B, S = batch["tokens"].shape
+    dev = batch["tokens"].device
+    logits, cache = model.prefill(
+        params, batch, ctx, max_len=max_len,
+        rows=torch.full((B,), S - 1, device=dev) if rows else None)
+    if not rows:
+        logits = logits[:, -1]
+    first = logits
+    toks = [logits.argmax(-1).int()]
+    if after_prefill is not None:
+        after_prefill()
+    for t in range(steps):
+        kw = {} if mrope_next is None else {"mrope_positions": torch.full(
+            (3, B, 1), mrope_next + t, dtype=torch.int32, device=dev)}
+        logits, cache = model.decode_step(
+            params, cache, toks[-1][:, None],
+            torch.full((B,), S + t, device=dev), ctx, **kw)
+        toks.append(logits.argmax(-1).int())
+    return first, torch.stack(toks, 1), logits
+
+
+def encdec_oracle(torch, model, params, prompts, feats, max_len, steps):
+    """The dense greedy oracle, one request at a time: exact-length
+    prefill (encoder and cross-attention through K1) and ``steps - 1``
+    decode steps. Returns the token lists."""
+    return [dense_greedy(torch, model, params, {
+        "tokens": torch.tensor([prompt], dtype=torch.int32, device="cuda"),
+        "frames": torch.from_numpy(f)[None].cuda()}, max_len,
+        steps - 1)[1][0].tolist() for prompt, f in zip(prompts, feats)]
+
+
+def admission_gap(torch, np, model, params, prompts, feats):
+    """Largest logits gap at each request's last prompt position between
+    the dense prefill (exact length: the encoder through K1) and the
+    engine's admission (``prefill_paged_encdec``: the masked plain
+    encoder), on one right-padded batch over scratch pools."""
+    from repro_torch.models import paged_kv, transformer
+
+    ctx = transformer.RunCtx()
+    N = len(prompts)
+    Sb = max(len(p) for p in prompts)
+    Fb = max(f.shape[0] for f in feats)
+    bs = 4
+    nbp = -(-Sb // bs)
+    layout = paged_kv.PagedLayout(num_slots=N, num_blocks=N * nbp + 1,
+                                  block_size=bs, max_len=nbp * bs)
+    toks = np.zeros((N, Sb), np.int32)
+    frames = np.zeros((N, Fb, model.cfg.d_model), np.float32)
+    for r, (p, f) in enumerate(zip(prompts, feats)):
+        toks[r, :len(p)] = p
+        frames[r, :len(f)] = f
+    ids = (np.arange(N * nbp, dtype=np.int32) + 1).reshape(N, nbp)
+    args = [torch.from_numpy(a).cuda() for a in (
+        toks, frames, np.asarray([len(f) for f in feats], np.int32),
+        np.asarray([len(p) for p in prompts], np.int32), ids,
+        np.arange(1, N + 1, dtype=np.int32))]
+    rows, _ = model.prefill_paged_encdec(
+        params, model.init_paged_cache(layout), *args, ctx)
+    gap = 0.0
+    for r, (p, f) in enumerate(zip(prompts, feats)):
+        dense, _ = model.prefill(params, {
+            "tokens": torch.tensor([p], dtype=torch.int32, device="cuda"),
+            "frames": torch.from_numpy(f)[None].cuda()}, ctx)
+        gap = max(gap, (dense[0, -1] - rows[r]).abs().max().item())
+    return gap
+
+
+def phase_parity_encdec_vlm(torch, np):
+    """whisper_base and qwen2_vl_2b smoke in f32, cuda against cpu, the
+    same weights. whisper through the Engine on 8 usable blocks (the
+    pool preempts), requests 1 and 2 on one feature array: greedy,
+    seeded, and seeded with ``overlap=True``; tokens equal on both
+    devices, every cuda step a replay, no block or arena row left in
+    use. The greedy engine on cuda equals the dense prefill +
+    decode_step oracle on cuda (JAX's own contract), beside the largest
+    logits gap between the two admissions (the dense encoder runs K1,
+    the engine's the masked plain one). qwen2-vl: a dense prefill with
+    visual embeddings and M-RoPE ids, then 8 greedy decode steps;
+    tokens equal on both devices."""
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+
+    t0 = time.monotonic()
+    cfg, models, params = smoke_pair(torch, "whisper_base")
+    rng = np.random.default_rng(SEED + 8)
+    prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+               for n in (3, 7, 5, 9, 4, 6)]
+    feats = [rng.standard_normal((f, cfg.d_model), dtype=np.float32)
+             for f in (5, 16, 9, 12, 7, 16)]
+    feats[2] = feats[1]           # one admission run: one arena row
+    greedy = [SamplingParams(max_tokens=10)] * len(prompts)
+    seeded = [SamplingParams(max_tokens=10, temperature=8.0, top_k=32,
+                             seed=s) for s in range(len(prompts))]
+    geo = dict(num_slots=4, block_size=4, num_blocks=9, max_len=32)
+    runs = {"greedy": (False, greedy), "seeded": (False, seeded),
+            "overlap": (True, seeded)}
+    out, stats = {}, {}
+    for name, (overlap, sps) in runs.items():
+        for d, m in models.items():
+            eng = Engine(m, params[d], EngineConfig(**geo, overlap=overlap),
+                         device=d)
+            out[(name, d)] = eng.generate(prompts, sps,
+                                          encoder_features=feats)
+            st = eng.stats()
+            stats[f"{name}/{d}"] = {
+                **{k: st[k] for k in ("steps", "preemptions", "blocks_used",
+                                      "graph_replays",
+                                      "eager_decode_steps")},
+                "cross_arena": st["cross_arena"]}
+    oracle = encdec_oracle(torch, models["cuda"], params["cuda"], prompts,
+                           feats, geo["max_len"], 10)
+    gap = admission_gap(torch, np, models["cuda"], params["cuda"], prompts,
+                        feats)
+    equal = {n: out[(n, "cpu")] == out[(n, "cuda")] for n in runs}
+
+    vcfg, vmodels, vparams = smoke_pair(torch, "qwen2_vl_2b")
+    vout, vfirst = {}, {}
+    for d, m in vmodels.items():
+        batch, nxt = vlm_batch(torch, vcfg, 2, 12, d,
+                               torch.Generator().manual_seed(SEED))
+        first, toks, _ = dense_greedy(torch, m, vparams[d], batch, 24, 8,
+                                      rows=False, mrope_next=nxt)
+        vout[d], vfirst[d] = toks.cpu().tolist(), first.cpu()
+    vgap = (vfirst["cpu"] - vfirst["cuda"]).abs().max().item()
+    emit({"phase": "parity_encdec_vlm", "dtype": "float32",
+          "seconds": time.monotonic() - t0, "tokens_equal": equal,
+          "engine_equals_dense_oracle": out[("greedy", "cuda")] == oracle,
+          "engine_tokens": out[("greedy", "cuda")][:2],
+          "oracle_tokens": oracle[:2],
+          "admission_logits_max_gap": gap, "stats": stats,
+          "vlm_tokens_equal": vout["cpu"] == vout["cuda"],
+          "vlm_prefill_max_abs_diff": vgap, "tol": PARITY_TOL})
+    check(all(equal.values()), f"parity_encdec_vlm: cuda tokens != cpu "
+          f"tokens {equal}")
+    check(out[("greedy", "cuda")] == oracle,
+          f"parity_encdec_vlm: the engine's greedy tokens differ from the "
+          f"dense oracle's (admission logits gap {gap})")
+    for key, st in stats.items():
+        check(st["blocks_used"] == 0 and st["cross_arena"]["rows_used"] == 0
+              and st["cross_arena"]["shared_hits"] >= 1,
+              f"parity_encdec_vlm: {key} leaked or shared no row {st}")
+        check(st["preemptions"] >= 1 or not key.startswith("greedy"),
+              f"parity_encdec_vlm: {key} never preempted")
+        if key.endswith("cuda"):
+            check(st["graph_replays"] == st["steps"] > 0
+                  and st["eager_decode_steps"] == 0,
+                  f"parity_encdec_vlm: {key} decoded off the graph {st}")
+    check(vout["cpu"] == vout["cuda"] and vgap <= PARITY_TOL,
+          f"parity_encdec_vlm: qwen2-vl cuda != cpu (prefill gap {vgap})")
+
+
+def encdec_turn(torch, engine, reqs):
+    """One timed turn of the whisper engine over encdec_serve's requests
+    after a warm-up request, the K1 / K2 / combine counters set to 0
+    just before: (outputs, seconds, launches, K1 launches by body,
+    stats)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.engine import SamplingParams
+
+    prompts, feats, news, samp = reqs
+    engine.generate([SOT], SamplingParams(max_tokens=2),
+                    encoder_features=[feats[0]])
+    engine.backend.reset_telemetry()
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    zero_bodies(fa.flash_attention)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_combine.launches = 0
+    t0 = time.monotonic()
+    outs = engine.generate(prompts, [SamplingParams(max_tokens=n, **kw)
+                                     for n, kw in zip(news, samp)],
+                           encoder_features=feats)
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    return (outs, secs, {"K1": fa.flash_attention.launches,
+                         "K2": pa.paged_decode_attention.launches,
+                         "K2_combine": pa.paged_decode_combine.launches},
+            dict(fa.flash_attention.launches_by_body), engine.stats())
+
+
+def encdec_admission_s(torch, np, model, params, feats):
+    """Seconds of one (8, 1500-frame) admission alone, synced, after one
+    warm-up call: ``prefill_paged_encdec`` of HALF start-of-transcript
+    prompts over full windows into scratch pools (the masked encoder,
+    the arena write, the decoder prefill)."""
+    from repro_torch.models import paged_kv, transformer
+
+    layout = paged_kv.PagedLayout(num_slots=HALF, num_blocks=HALF + 1,
+                                  block_size=16, max_len=16)
+    pools = model.init_paged_cache(layout)
+    toks = np.zeros((HALF, 16), np.int32)
+    toks[:, :len(SOT)] = SOT
+    args = [torch.from_numpy(a).cuda() for a in (
+        toks, np.stack(feats[:HALF]), np.full(HALF, ENC_FRAMES, np.int32),
+        np.full(HALF, len(SOT), np.int32),
+        np.arange(1, HALF + 1, dtype=np.int32)[:, None],
+        np.arange(1, HALF + 1, dtype=np.int32))]
+    secs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        rows, _ = model.prefill_paged_encdec(params, pools, *args,
+                                             transformer.RunCtx())
+        torch.cuda.synchronize()
+        secs.append(time.monotonic() - t0)
+    check(bool(torch.isfinite(rows).all()), "encdec admission: bad logits")
+    return secs[1]
+
+
+def phase_encdec_serve(torch, np, profile):
+    """whisper_base at full width and depth in bf16 (6 + 6 layers, d_model
+    512, 8 heads x 64, vocab 51865; seeded random weights) through the
+    Engine: 8 slots, block 16, max_len 448 (the decoder's context), 225
+    blocks (every slot's full context), the cross arena of 9 rows of 6 x
+    8 x 1500 x 64. encdec_workload's 16 requests with overlap off, then
+    on (equal tokens). K1 runs the decoder's prefill (one a layer a
+    prefill call), K2 and its combine the decode step by replay (one a
+    layer a step); the engine's encoder and cross-attention are plain
+    torch, as in JAX. Then the dense path on the first HALF requests
+    (one (8, 4)-token prefill over full windows and greedy steps): its
+    encoder and cross-attention run K1 (``K1_whisper_enc``'s launches:
+    one a layer of the exact-length encoder), its greedy tokens against
+    the engine's (bf16: reported, not gated)."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch.engine import Engine, EngineConfig
+    from repro_torch.models import encdec, paged_kv
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    cfg = get_config("whisper_base")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=SEED)
+    reqs = encdec_workload(np, cfg.d_model)
+    prompts, feats, news, samp = reqs
+    geo = dict(num_slots=HALF, block_size=16, num_blocks=225, max_len=448)
+    adm = encdec_admission_s(torch, np, model, params, feats)
+    torch.cuda.reset_peak_memory_stats()
+    engines, turns = {}, {}
+    for overlap in (False, True):
+        engines[overlap] = Engine(model, params, EngineConfig(
+            **geo, overlap=overlap), device="cuda")
+        turns[overlap] = encdec_turn(torch, engines[overlap], reqs)
+        outs, secs, runs, k1_bodies, st = turns[overlap]
+        arena = st["cross_arena"]
+        emit({**turn_line("encdec_serve", cfg, overlap,
+                          (outs, secs, runs, k1_bodies, st), news),
+              "launches": runs, "k1_launches_by_body": k1_bodies,
+              "admission_8x1500_s": adm,
+              "arena_bytes": paged_kv.pool_bytes(
+                  engines[overlap].backend.pools["cross"]),
+              "cross_arena": arena, "prefill_shapes": st["prefill_shapes"],
+              "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+              **({"tokens_equal_overlap_off": outs == turns[False][0]}
+                 if overlap else {})})
+        decode_launches(st, runs, cfg)
+        check(runs["K1"] == cfg.n_layers * st["prefill_calls"] > 0
+              and k1_bodies["wgmma"] == runs["K1"],
+              f"encdec_serve: K1 launches {runs['K1']} {k1_bodies} for "
+              f"{st['prefill_calls']} prefill calls x {cfg.n_layers} layers")
+        check(arena["shared_hits"] >= 2 and arena["rows_used"] == 0
+              and st["blocks_used"] == 0,
+              f"encdec_serve: arena {arena}, {st['blocks_used']} blocks")
+    check(turns[True][0] == turns[False][0],
+          "encdec_serve: overlap=True tokens differ from overlap off")
+
+    # the dense path: the exact-length encoder through K1, non-causal
+    frames = torch.from_numpy(np.stack(feats[:HALF])).cuda()
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    te = time.monotonic()
+    enc = encdec.encode(params, cfg, frames)
+    torch.cuda.synchronize()
+    enc_s = time.monotonic() - te
+    enc_launches = fa.flash_attention.launches
+    check(enc_launches == cfg.n_encoder_layers
+          and bool(torch.isfinite(enc).all()),
+          f"encdec_serve: the dense encoder ran {enc_launches} K1 launches")
+    greedy = [r for r in range(HALF) if not samp[r]]
+    steps = min(news[r] for r in greedy)
+    fa.flash_attention.launches = 0
+    batch = {"tokens": torch.tensor([SOT] * HALF, dtype=torch.int32,
+                                    device="cuda"), "frames": frames}
+    counts = []
+
+    def prefilled():             # from here K1 runs the cross-attention
+        counts.append(fa.flash_attention.launches)
+        fa.flash_attention.launches = 0
+
+    _, toks, _ = dense_greedy(torch, model, params, batch, geo["max_len"],
+                              steps - 1, after_prefill=prefilled)
+    dense = toks.tolist()
+    pre_launches, xattn_launches = counts[0], fa.flash_attention.launches
+    L = cfg.n_layers
+    match = [sum(a == b for a, b in zip(dense[r], turns[False][0][r]))
+             / steps for r in greedy]
+    emit({"phase": "encdec_serve", "config": cfg.name, "path": "dense",
+          "encode_8x1500_s": enc_s, "k1_encoder_launches": enc_launches,
+          "k1_prefill_launches": pre_launches,
+          "k1_decode_xattn_launches": xattn_launches, "steps": steps,
+          "greedy_token_match_vs_engine": match,
+          "phase_seconds": time.monotonic() - t0})
+    check(pre_launches == cfg.n_encoder_layers + 2 * L
+          and xattn_launches == L * (steps - 1),
+          f"encdec_serve: the dense path ran {pre_launches} K1 launches at "
+          f"its prefill, {xattn_launches} over {steps - 1} decode steps")
+    if profile:
+        phase_profile(torch, engines[False], prompts, news,
+                      f"{cfg.name} encdec_serve", feats)
+    return {"K1_whisper_enc": enc_launches,
+            "K1_whisper_xattn": xattn_launches,
+            "K2_whisper": turns[False][2]["K2"]}
+
+
+def phase_vlm_dense(torch, np, profile):
+    """qwen2-vl-2b at full width and depth in bf16 (28 layers, d_model
+    1536, GQA 12/2 x 128, M-RoPE sections 16/24/24, q/k/v biases, vocab
+    151936; seeded random weights): an (8, 512) dense prefill whose first
+    64 positions take visual embeddings on an 8 x 8 patch grid's M-RoPE
+    ids, text after them, then VLM_STEPS greedy decode steps at
+    continuing ids. Twice: equal tokens. K1 runs once a layer (28) at
+    the prefill, on its tensor-core body; the decode is plain torch over
+    linear caches (JAX's dense decode). ``profile`` adds windows over a
+    prefill alone and over a prefill and VLM_PROBE decode steps, and
+    from their difference the device ops a step issues and their busy
+    time, beside the unprofiled wall time a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    cfg = get_config("qwen2_vl_2b")
+    model = Model(cfg, device="cuda")
+    params = model.init(seed=SEED)
+    batch, nxt = vlm_batch(torch, cfg, HALF, 512, "cuda",
+                           torch.Generator().manual_seed(SEED))
+    torch.cuda.reset_peak_memory_stats()
+    runs = []
+    for _ in range(2):
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        zero_bodies(fa.flash_attention)
+        stamps = [time.monotonic()]
+
+        def prefilled():
+            torch.cuda.synchronize()
+            stamps.append(time.monotonic())
+            stamps.append((fa.flash_attention.launches,
+                           dict(fa.flash_attention.launches_by_body)))
+
+        first, toks, last = dense_greedy(torch, model, params, batch,
+                                         512 + VLM_STEPS, VLM_STEPS,
+                                         mrope_next=nxt,
+                                         after_prefill=prefilled)
+        torch.cuda.synchronize()
+        t_end = time.monotonic()
+        (k1, bodies) = stamps[2]
+        runs.append((toks.tolist(), stamps[1] - stamps[0], t_end - stamps[1],
+                     k1, bodies, bool(torch.isfinite(first).all()
+                                      and torch.isfinite(last).all())))
+    toks, pre_s, dec_s, k1, bodies, finite = runs[-1]
+    emit({"phase": "vlm_dense", "config": cfg.name, "dtype": cfg.dtype,
+          "shape": [HALF, 512], "visual_prefix": cfg.visual_prefix,
+          "prefill_ms": [r[1] * 1e3 for r in runs],
+          "decode_ms_per_step": [r[2] * 1e3 / VLM_STEPS for r in runs],
+          "decode_tok_s": [HALF * VLM_STEPS / r[2] for r in runs],
+          "k1_launches": k1, "k1_launches_by_body": bodies,
+          "finite": finite, "tokens_equal": runs[0][0] == runs[1][0],
+          "first_tokens": toks[0][:8],
+          "peak_mem_gb": torch.cuda.max_memory_allocated() / 1e9,
+          "phase_seconds": time.monotonic() - t0})
+    check(k1 == cfg.n_layers and bodies["wgmma"] == k1,
+          f"vlm_dense: K1 ran {k1} launches {bodies}, expected "
+          f"{cfg.n_layers} on wgmma")
+    check(finite and runs[0][5], "vlm_dense: logits not finite")
+    check(runs[0][0] == runs[1][0], "vlm_dense: tokens differ across runs")
+    if profile:
+        # what a decode step issues: the device ops (kernels, copies,
+        # fills) and busy time over a prefill and VLM_PROBE steps less
+        # those over the prefill alone, beside the unprofiled wall time
+        probe = [profile_window(torch, lambda n=n: dense_greedy(
+            torch, model, params, batch, 512 + n, n, mrope_next=nxt))
+            for n in (0, VLM_PROBE)]
+        ops = (probe[1]["device_ops"] - probe[0]["device_ops"]) / VLM_PROBE
+        emit({"phase": "profile", "config": f"{cfg.name} vlm_dense",
+              **probe[1], "decode_steps": VLM_PROBE,
+              "decode_device_ops_per_step": ops,
+              "decode_device_busy_ms_per_step": (
+                  probe[1]["device_busy_s"] - probe[0]["device_busy_s"])
+              * 1e3 / VLM_PROBE,
+              "decode_wall_ms_per_step": dec_s * 1e3 / VLM_STEPS,
+              "decode_wall_us_per_op": dec_s * 1e6 / VLM_STEPS / ops
+              if ops else None})
+    return {"K1_qwen2vl": k1}
+
+
+# ---------------------------------------------------------------------------
 # the EPAC tile layer: K6, K7, K8 and the tile_path phase
 # ---------------------------------------------------------------------------
 
@@ -2589,6 +3144,7 @@ def profile_window(torch, fn):
     ours = [e for e in kernels if PORT_KERNEL.search(e.key)]
     return {"window_s": wall, "device_busy_s": busy,
             "busy_share": busy / wall,
+            "device_ops": sum(e.count for e in kernels),
             "top": [{"name": e.key[:80], "calls": e.count,
                      "device_ms": e.self_device_time_total / 1e3}
                     for e in kernels[:12]],
@@ -2598,12 +3154,15 @@ def profile_window(torch, fn):
                               / busy} for e in ours]}
 
 
-def phase_profile(torch, engine, prompts, news, config):
-    """Device time by kernel over one admission + 8 decode steps."""
+def phase_profile(torch, engine, prompts, news, config, feats=None):
+    """Device time by kernel over one admission + 8 decode steps
+    (``feats``: an encoder-decoder's features, one per prompt)."""
     from repro_torch.launch.engine import SamplingParams
 
-    for p, n in zip(prompts[:HALF], news):
-        engine.add_request(p, SamplingParams(max_tokens=n))
+    for r, (p, n) in enumerate(zip(prompts[:HALF], news)):
+        engine.add_request(p, SamplingParams(max_tokens=n),
+                           encoder_features=None if feats is None
+                           else feats[r])
 
     def window():
         for _ in range(9):
@@ -2633,13 +3192,15 @@ def main():
     prompts, news, warm = workload(np)
     phase_build()
     (k1, k2, k2c, k3, k3s, k4d, k4v, k4s, k5, k5_long, k1_moe,
-     k2_moe) = phase_kernels(torch, np, prompts, args.profile)
+     k2_moe, k1_wenc, k1_wx, k2_wh, k1_vl) = phase_kernels(
+         torch, np, prompts, args.profile)
     k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np, args.profile)
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
     phase_parity_recurrent(torch, np)
     phase_parity_overlap_static(torch, np)
     phase_parity_xlstm_moe(torch, np)
+    phase_parity_encdec_vlm(torch, np)
     launches, base_outs, model, params = phase_serve(
         torch, np, prompts, news, warm, args.profile)
     phase_static_serve(torch, np, prompts, news, model, params)
@@ -2655,6 +3216,10 @@ def main():
     torch.cuda.empty_cache()
     moe = phase_moe_serve(torch, np, prompts, news, warm, args.profile)
     launches.update(K1_moe=moe["K1"], K2_moe=moe["K2"])
+    torch.cuda.empty_cache()
+    launches.update(phase_encdec_serve(torch, np, args.profile))
+    torch.cuda.empty_cache()
+    launches.update(phase_vlm_dense(torch, np, args.profile))
     torch.cuda.empty_cache()
     launches.update(phase_tile_path(torch, np, args.profile))
 
@@ -2678,6 +3243,26 @@ def main():
              "decode)",
              "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:158"),
+            (k1_wenc, "K1_whisper_enc",
+             "flash_attention (whisper's encoder, non-causal over 1500 "
+             "frames: the dense path's)",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:109"),
+            (k1_wx, "K1_whisper_xattn",
+             "flash_attention (whisper's cross-attention, non-causal over "
+             "1500 frames: the dense path's decode steps; timed at one "
+             "query row)",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:109"),
+            (k2_wh, "K2_whisper",
+             "paged_decode_attention (whisper 8/8 x 64, encdec_serve's "
+             "decode)",
+             "src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:158"),
+            (k1_vl, "K1_qwen2vl",
+             "flash_attention (qwen2-vl GQA 12/2, vlm_dense's prefill)",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:109"),
             (k3, "K3", "paged_verify_attention (verify: split body)",
              "src/repro_torch/csrc/paged_verify_split.cuh",
              "src/repro/kernels/paged_attention.py:301"),

@@ -94,8 +94,13 @@ class Request:
     sampling : SamplingParams, optional
         Decoding parameters; defaults to ``SamplingParams()``.
     encoder_features : array or None
-        Encoder-frontend embeddings for encoder-decoder configs, which
-        this port does not serve yet; must be None.
+        Precomputed encoder-frontend embeddings of shape ``(frames,
+        d_model)`` on the host (a numpy array or a CPU tensor; whisper's
+        mel-conv frames, the frontend being a stub). Required for
+        encoder-decoder configs, refused otherwise
+        (``Engine.check_request``). Submitting the SAME array object with
+        several requests shares one cross-KV arena row by refcount (e.g.
+        best-of-n over one clip).
     """
 
     prompt: Sequence[int]
@@ -132,11 +137,16 @@ class RequestHandle:
         sampled token (TTFT, aggregated by ``latency_stats``).
     t_tokens : list of float
         Monotonic stamp per *sampled* token (TPOT, ``latency_stats``).
+    encoder_features : array or None
+        The submitted ``Request.encoder_features``, kept with the handle:
+        a preempted request's arena row is recomputed from it on
+        re-admission.
     """
 
     uid: int
     prompt: list[int]
     sampling: SamplingParams
+    encoder_features: Any = None
     token_ids: list[int] = dataclasses.field(default_factory=list)
     finished: bool = False
     finish_reason: Optional[str] = None      # "length" | "stop"
@@ -352,8 +362,10 @@ class Engine:
     Parameters
     ----------
     model : Model
-        The target model; configs the port cannot serve yet
-        (encoder-decoder, VLM) raise NotImplementedError.
+        The target model. A config without a paged decode path (the
+        VLM, qwen2-vl) raises NotImplementedError; an encoder-decoder
+        config (whisper) needs the paged backend without speculation and
+        with a model-dtype pool (ValueError otherwise).
     params
         Its parameter tree, on ``device``.
     cfg : EngineConfig, optional
@@ -435,6 +447,16 @@ class Engine:
                 "mrope / visual-prefix frontends (qwen2-vl) and "
                 "decoder-only absolute-position embeddings are not "
                 "served (ServingCaps.paged_decode)")
+        if self.caps.cross_attn and self.cfg.backend == "static":
+            raise ValueError(
+                "encoder-decoder serving needs the paged backend "
+                "(the cross-KV arena lives in the paged pool); use "
+                "backend='paged'")
+        if self.caps.cross_attn and self.cfg.spec_tokens > 0:
+            raise ValueError(
+                "speculative decoding is decoder-only: the verify pass "
+                "has no cross-attention path; set spec_tokens=0 for "
+                f"{mc.family}/{mc.name}")
         if self.cfg.kv_dtype != "bf16" and not self.caps.quantized_kv:
             raise ValueError(
                 f"config {mc.family}/{mc.name} does not support a "
@@ -458,7 +480,9 @@ class Engine:
                       sampling: SamplingParams, encoder_features=None):
         """Raise ValueError when this engine could never serve the
         request (empty prompt, position cap, pool capacity, encoder
-        features on a decoder-only config)."""
+        features absent on an encoder-decoder config, present on any
+        other, or not a (frames, d_model) array of 1..encoder_len
+        frames)."""
         mc = self.model.cfg
         if len(prompt) < 1:
             raise ValueError("empty prompt")
@@ -467,10 +491,30 @@ class Engine:
                 f"prompt ({len(prompt)}) + max_tokens "
                 f"({sampling.max_tokens}) exceeds max_len "
                 f"{self.cfg.max_len}")
-        if encoder_features is not None:
+        if encoder_features is not None and not self.caps.cross_attn:
             raise ValueError(
                 f"encoder features on a non-encoder-decoder config: "
-                f"{mc.family}/{mc.name} has no cross-attention")
+                f"{mc.family}/{mc.name} has no cross-attention "
+                f"(enc_dec=False) — drop Request.encoder_features, or "
+                f"serve an enc-dec config (e.g. whisper)")
+        if self.caps.cross_attn:
+            if encoder_features is None:
+                raise ValueError(
+                    f"encoder-decoder config {mc.family}/{mc.name} "
+                    f"needs Request.encoder_features (a "
+                    f"(frames, {mc.d_model}) array — whisper mel-conv "
+                    f"frames, the frontend being a stub); bare prompts "
+                    f"are decoder-only")
+            shape = getattr(encoder_features, "shape", None)
+            if shape is None or len(shape) != 2 or shape[1] != mc.d_model:
+                raise ValueError(
+                    f"encoder_features must be a (frames, d_model="
+                    f"{mc.d_model}) array, got shape {shape}")
+            if not 1 <= shape[0] <= mc.encoder_len:
+                raise ValueError(
+                    f"encoder_features frames ({shape[0]}) outside "
+                    f"[1, encoder_len={mc.encoder_len}] for "
+                    f"{mc.family}/{mc.name}")
         check = getattr(self.backend, "check_request", None)
         if check is not None:            # paged: worst-case pool bound
             check(len(prompt), sampling)
@@ -490,7 +534,8 @@ class Engine:
         sampling = sampling or SamplingParams()
         prompt = [int(t) for t in prompt]
         self.check_request(prompt, sampling, encoder_features)
-        handle = RequestHandle(self._uid, prompt, sampling)
+        handle = RequestHandle(self._uid, prompt, sampling,
+                               encoder_features=encoder_features)
         self._uid += 1
         self.backend.enqueue(handle)
         return handle
@@ -530,11 +575,16 @@ class Engine:
                      "engine stalled: waiting requests cannot be admitted")
 
     def generate(self, prompts: Sequence[Sequence[int]], sampling=None,
-                 max_steps: int = 100_000) -> list[list[int]]:
+                 max_steps: int = 100_000,
+                 encoder_features=None) -> list[list[int]]:
         """Submit ``prompts`` and drive to completion; returns token ids
         per prompt in submission order. ``sampling`` is one
-        SamplingParams for all or a per-prompt sequence."""
-        return run_generate(self, prompts, sampling, max_steps)
+        SamplingParams for all or a per-prompt sequence;
+        ``encoder_features`` a per-prompt sequence of feature arrays for
+        encoder-decoder configs (entries may repeat to share arena
+        rows)."""
+        return run_generate(self, prompts, sampling, max_steps,
+                            encoder_features=encoder_features)
 
 
 def drive(engine, max_steps: int, stall_msg: str) -> list[RequestOutput]:
@@ -553,14 +603,22 @@ def drive(engine, max_steps: int, stall_msg: str) -> list[RequestOutput]:
     return stream
 
 
-def run_generate(engine, prompts, sampling, max_steps) -> list[list[int]]:
-    """The ``generate`` loop: broadcast/validate sampling params,
-    submit everything, drain, collect per-prompt tokens in order."""
+def run_generate(engine, prompts, sampling, max_steps,
+                 encoder_features=None) -> list[list[int]]:
+    """The ``generate`` loop: broadcast/validate sampling params and
+    encoder features, submit everything, drain, collect per-prompt
+    tokens in order."""
     if sampling is None or isinstance(sampling, SamplingParams):
         sampling = [sampling or SamplingParams()] * len(prompts)
     if len(sampling) != len(prompts):
         raise ValueError(f"{len(sampling)} sampling params for "
                          f"{len(prompts)} prompts")
-    handles = [engine.add_request(p, s) for p, s in zip(prompts, sampling)]
+    if encoder_features is None:
+        encoder_features = [None] * len(prompts)
+    if len(encoder_features) != len(prompts):
+        raise ValueError(f"{len(encoder_features)} encoder features for "
+                         f"{len(prompts)} prompts")
+    handles = [engine.add_request(p, s, encoder_features=f)
+               for p, s, f in zip(prompts, sampling, encoder_features)]
     engine.drain(max_steps=max_steps)
     return [list(h.token_ids) for h in handles]

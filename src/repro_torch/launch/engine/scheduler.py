@@ -1,8 +1,7 @@
 """PagedBackend: continuous batching over the block-paged KV cache.
 
 Counterpart of ``repro/launch/engine/scheduler.py::PagedBackend``
-without mesh or cross arena (speculation subclasses it in
-``speculative.py``):
+without mesh (speculation subclasses it in ``speculative.py``):
 
 * **Optimistic admission** — a request is admitted when the pool covers
   its *current* footprint (plus an optional free-block watermark), not
@@ -37,6 +36,15 @@ without mesh or cross arena (speculation subclasses it in
   replay of a captured CUDA graph, its host inputs packed into one
   copy. The sequential path dispatches it and fetches the tokens at
   once.
+* **Encoder-decoder admission** (``ServingCaps.cross_attn``) — requests
+  carry encoder features; the admission key adds the frame bucket
+  (powers of two from 8, capped at ``encoder_len``), one call runs the
+  masked encoder, writes each fresh row's cross K/V into its arena row
+  (``paged_kv.CrossArena``: identity-shared features ride one row's
+  refcount, and a row already written is not rewritten) and packs the
+  decoder prefill; the decode step reads each
+  slot's arena row. Rows are freed with the slot at retirement and
+  preemption (a resumed request re-encodes).
 * **Host/device overlap** (``EngineConfig.overlap``) — ``step()``
   dispatches the NEXT decode, feeding the in-flight sampled tokens
   device to device, before it fetches the previous step's tokens, so
@@ -115,6 +123,11 @@ class PagedBackend:
             ctx = dataclasses.replace(ctx, kv_spec=self.kv_spec)
         self.ctx = ctx
         caps = model.serving_caps()
+        # cross-KV arena (encoder-decoder): one row per resident request
+        self.arena = paged_kv.CrossArena(cfg.num_slots) \
+            if caps.cross_attn else None
+        self.arena_ids = np.zeros((cfg.num_slots,), np.int32)
+        self.enc_lengths = np.zeros((cfg.num_slots,), np.int32)
         # COW prefix caching: only when EVERY layer's decode state lives
         # in the shared pool blocks
         self.prefix = paged_kv.PrefixIndex(cfg.block_size) \
@@ -146,7 +159,8 @@ class PagedBackend:
         # captured on the card now, while no slot is live (step_graph)
         self.decode = DecodeStep(model, params, self.pools, self.ctx,
                                  cfg.num_slots,
-                                 self.layout.max_blocks_per_seq) \
+                                 self.layout.max_blocks_per_seq,
+                                 cross=self.arena is not None) \
             if self.fused_decode else None
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -321,10 +335,12 @@ class PagedBackend:
         host arrays go to the device inside the dispatch, so bumping
         ``lengths`` and ``table`` afterwards is safe."""
         steps, samp = self.sampler.fused_args(steps)
+        cross = None if self.arena is None else (self.arena_ids,
+                                                  self.enc_lengths)
         t0 = time.monotonic()
         toks = self.decode.dispatch(self.pools, self.table, self.lengths,
                                     host_tokens, use_prev, prev_toks,
-                                    steps, samp)
+                                    steps, samp, cross)
         self.steps += 1
         if self.decode.graphed:
             self.graph_replays += 1
@@ -512,15 +528,26 @@ class PagedBackend:
         cap = paged_kv.blocks_for(self.cfg.max_len, bs) * bs
         return prefill_bucket(n, bs, cap)
 
-    def _admit_key(self, S: int, matched: int):
+    def _enc_bucket(self, F: int) -> int:
+        """The frame bucket of F encoder frames: a power of two from 8,
+        capped at ``encoder_len`` (a full 1500-frame clip takes 1500)."""
+        return prefill_bucket(F, 8, self.model.cfg.encoder_len)
+
+    def _admit_key(self, S: int, matched: int, req: RequestHandle):
         """The admission-shape identity: full-hit installs (no device
         call), suffix prefills by suffix bucket, full prefills by the
-        prompt bucket. Requests batch together iff their keys match."""
+        prompt bucket, times the frame bucket for encoder-decoder
+        requests. Requests batch together iff their keys match."""
         if matched == S:
-            return ("hit",)
-        if matched > 0:
-            return ("sfx", self._suffix_bucket(S - matched))
-        return self._bucket_key(S)
+            key = ("hit",)
+        elif matched > 0:
+            key = ("sfx", self._suffix_bucket(S - matched))
+        else:
+            key = self._bucket_key(S)
+        if self.arena is not None:
+            key = (key, "enc",
+                   self._enc_bucket(req.encoder_features.shape[0]))
+        return key
 
     def _drain_bucket_run(self):
         """Pop the maximal FCFS PREFIX of the queue that fits the free
@@ -545,6 +572,8 @@ class PagedBackend:
         run = []
         need = self._imminent_growth()
         key0 = None
+        arena_need = 0
+        seen_feats: set[int] = set()
         for req in self.waiting:
             if len(run) >= cap:
                 break
@@ -552,9 +581,21 @@ class PagedBackend:
             S = len(cached)
             m = self.prefix.match(cached) if self.prefix is not None \
                 else []
-            key = self._admit_key(S, len(m) * bs)
+            key = self._admit_key(S, len(m) * bs, req)
             if run and key != key0:
                 break
+            if self.arena is not None:
+                # a fresh feature array claims an arena row; identity-
+                # shared features (resident or earlier in this run) ride
+                # an existing row's refcount
+                fk = id(req.encoder_features)
+                fresh = (fk not in seen_feats and self.arena.lookup(fk)
+                         == paged_kv.NULL_ARENA)
+                if fresh and not self.arena.can_admit(arena_need + 1):
+                    break
+                if fresh:
+                    arena_need += 1
+                    seen_feats.add(fk)
             for b in m:                   # pin against mid-run reclaim
                 self.alloc.share(b)
             # + 1: the admitted slot decodes THIS step, caching the fed
@@ -593,6 +634,7 @@ class PagedBackend:
         bs = self.cfg.block_size
         free_slots = [i for i, s in enumerate(self.slots) if s.req is None]
         rows = []                          # (slot, req, cached, S, ids)
+        fresh = set()                      # slots whose arena row is new
         for req, m, cached, S in run:
             # matched blocks were share()'d at drain time; only the
             # non-shared tail is allocated
@@ -607,6 +649,8 @@ class PagedBackend:
             self._ticket += 1
             self.table[i, :] = paged_kv.NULL_BLOCK
             self.table[i, :len(block_ids)] = block_ids
+            if self.arena is not None and self._install_arena(i, req):
+                fresh.add(i)
             rows.append((i, req, cached, S, block_ids))
             if self.prefix is not None:
                 self.prefix_lookups += 1
@@ -618,6 +662,8 @@ class PagedBackend:
             row_logits = self._install_hits(rows)
         elif m0:
             row_logits = self._suffix_batch(rows)
+        elif self.arena is not None:
+            row_logits = self._encdec_batch(rows, fresh)
         else:
             row_logits = self._full_batch(rows)
         self.made_progress = True
@@ -739,6 +785,74 @@ class PagedBackend:
         self.prefill_reqs += len(rows)
         return logits[:len(rows)]
 
+    def _install_arena(self, i: int, req: RequestHandle) -> bool:
+        """Bind slot ``i`` to a cross-arena row: share the resident row
+        when the SAME feature array (by identity) is encoded already,
+        else claim a fresh one; ``_clear_slot`` frees it. Returns True
+        for a fresh row, which the admission call writes. A shared row
+        is not rewritten: this admission encodes at its own batch bucket,
+        whose GEMMs may round differently from the ones that wrote the
+        row, and live requests read it."""
+        feats = req.encoder_features
+        a = self.arena.lookup(id(feats))
+        fresh = a == paged_kv.NULL_ARENA
+        if fresh:
+            a = self.arena.alloc(key=id(feats))
+        else:
+            self.arena.share(a)
+            self.arena_hits += 1
+        self.arena_ids[i] = a
+        self.enc_lengths[i] = feats.shape[0]
+        return fresh
+
+    def _encdec_batch(self, rows, fresh):
+        """The encoder-decoder admission: one right-padded call at
+        (prompt bucket, frame bucket, batch bucket) runs the masked
+        encoder, writes the cross K/V of each row in ``fresh`` (slots)
+        into its new arena row and packs the decoder prefill into its
+        blocks (fillers, and rows on a row already written, point their
+        arena write at the null row; fillers also take one token, no
+        frames and the null block). The cache width is the
+        prompt bucket's blocks. The frames go to the device as one
+        (Nb, Fb, d) f32 batch staged in pinned memory, by one
+        non-blocking copy. Returns row-ordered next-token logits
+        (len(rows), V)."""
+        bs = self.cfg.block_size
+        _, req0, _, S0, _ = rows[0]
+        tok_w = self._bucket_key(S0) if self.ragged_prefill else S0
+        Fb = self._enc_bucket(req0.encoder_features.shape[0])
+        Nb = min(1 << max(len(rows) - 1, 0).bit_length(),
+                 self.cfg.num_slots)
+        self._prefill_shapes.add(("encdec", tok_w, Fb, Nb))
+        nbc = paged_kv.blocks_for(tok_w, bs)
+        toks = np.zeros((Nb, tok_w), np.int32)
+        lens = np.ones((Nb,), np.int32)
+        frames = torch.zeros((Nb, Fb, self.model.cfg.d_model),
+                             dtype=torch.float32,
+                             pin_memory=self.device.type == "cuda")
+        enc_lens = np.zeros((Nb,), np.int32)
+        ids = np.full((Nb, nbc), paged_kv.NULL_BLOCK, np.int32)
+        aids = np.zeros((Nb,), np.int32)
+        for r, (i, req, cached, S, block_ids) in enumerate(rows):
+            toks[r, :S] = cached
+            lens[r] = S
+            F = req.encoder_features.shape[0]
+            frames[r, :F] = torch.as_tensor(np.asarray(
+                req.encoder_features, np.float32))
+            enc_lens[r] = F
+            ids[r, :len(block_ids)] = block_ids
+            aids[r] = self.arena_ids[i] if i in fresh \
+                else paged_kv.NULL_ARENA
+            self.lengths[i] = S
+            self.prefill_tokens += S
+        logits, _ = self.model.prefill_paged_encdec(
+            self.params, self.pools, self._dev(toks),
+            frames.to(self.device, non_blocking=True), self._dev(enc_lens),
+            self._dev(lens), self._dev(ids), self._dev(aids), self.ctx)
+        self.prefill_calls += 1
+        self.prefill_reqs += len(rows)
+        return logits[:len(rows)]
+
     def _preempt(self, i: int):
         """Evict slot i to a host-side recompute record (LIFO victim).
         Not progress: only admissions and decodes flip
@@ -766,6 +880,12 @@ class PagedBackend:
         slot.shared = 0
         self.table[i, :] = paged_kv.NULL_BLOCK
         self.lengths[i] = 0
+        if self.arena is not None and self.arena_ids[i]:
+            # retirement and preemption both land here: the row's
+            # refcount drops with the slot (a resumed request re-encodes)
+            self.arena.free(int(self.arena_ids[i]))
+            self.arena_ids[i] = paged_kv.NULL_ARENA
+            self.enc_lengths[i] = 0
         self.sampler.clear(i)
         self._post_clear(i)
 
@@ -791,6 +911,7 @@ class PagedBackend:
         self.prefix_lookups = self.prefix_hits = 0
         self.prefix_hit_tokens = 0
         self.cow_copies = self.prefix_evictions = 0
+        self.arena_hits = 0          # admissions sharing a resident row
 
     def stats(self) -> dict:
         """Cache/occupancy/scheduling telemetry for the run so far.
@@ -799,7 +920,10 @@ class PagedBackend:
         ``graph_replays`` / ``eager_decode_steps`` count the decode
         steps run by replay of the captured step (the card) and eagerly
         (the CPU); ``pool_bytes`` counts every leaf of the block pools,
-        a quantized pool's scales included."""
+        a quantized pool's scales included (and the cross arena's
+        leaves); ``prefill_shapes`` counts the distinct admission shapes
+        (JAX's ``prefill_compiles``), ``cross_arena`` the arena's rows
+        and shared admissions."""
         cap = self.block_token_steps or 1
         return {
             "steps": self.steps,
@@ -829,5 +953,11 @@ class PagedBackend:
                 "evictions": self.prefix_evictions,
                 "lru_blocks": self.alloc.lru_count,
                 "suffix_shapes": len(self._suffix_shapes),
+            },
+            "cross_arena": {
+                "enabled": self.arena is not None,
+                "rows_used": self.arena.used_count if self.arena else 0,
+                "rows_free": self.arena.free_count if self.arena else 0,
+                "shared_hits": self.arena_hits,
             },
         }

@@ -3,7 +3,8 @@ sample.
 
 ``fused_step`` is the JAX scheduler's ``overlap_fn``: each slot's fed
 token is the host's or, where ``use_prev`` is set, the previous step's
-sampled token still on the device; then ``Model.decode_step_paged`` and
+sampled token still on the device; then ``Model.decode_step_paged`` (an
+encoder-decoder's with each slot's arena row and frame count) and
 ``sampling.fused_sample``. It returns the (num_slots,) int32 tokens on
 the device and writes the pools in place.
 
@@ -14,12 +15,14 @@ one for the sampled one, chosen on the host before the replay. Both are
 captured when the runner is built, which ``PagedBackend`` does before
 any slot is live (table at the null block, lengths 0, the dead feed),
 so the warm-up's writes land in the null block and in free slots' rings
-and carries, which admission overwrites. A failed capture raises; a
+and carries, which admission overwrites (an encoder-decoder's slots read
+the null arena row with no frames: zeros). A failed capture raises; a
 replay whose pools or params have moved raises. Nothing falls back to
 the eager step on the card.
 
 Per dispatch the host arrays (the fed tokens, ``use_prev``, lengths,
-RNG-stream steps, the four sampler arrays and the block table) are
+RNG-stream steps, the four sampler arrays, an encoder-decoder's arena
+rows and frame counts, and the block table) are
 packed into one pinned int32 buffer and copied to the device in one
 non-blocking copy; the sampled tokens come back by one non-blocking copy
 into pinned memory behind an event. Two such staging sets alternate, so
@@ -49,15 +52,18 @@ from .sampling import fused_sample
 
 
 def fused_step(model, ctx, params, pools, table, lengths, host_tokens,
-               prev_toks, use_prev, steps, samp):
+               prev_toks, use_prev, steps, samp, cross=None):
     """Feed select + ``decode_step_paged`` + ``fused_sample``: tokens
     (B, 1) are ``prev_toks`` where ``use_prev`` else ``host_tokens``;
     ``samp`` is None (greedy) or the (seeds, temps, top_ks, top_ps)
-    tensors. Returns the (B,) int32 sampled tokens on the device."""
+    tensors; ``cross`` None or an encoder-decoder's (arena_ids,
+    enc_lengths). Returns the (B,) int32 sampled tokens on the device."""
     tokens = torch.where(use_prev[:, None], prev_toks[:, None].int(),
                          host_tokens)
+    kw = {} if cross is None else {"arena_ids": cross[0],
+                                   "enc_lengths": cross[1]}
     logits, _ = model.decode_step_paged(params, pools, table, lengths,
-                                        tokens, ctx)
+                                        tokens, ctx, **kw)
     return fused_sample(logits, steps, samp)
 
 
@@ -93,14 +99,17 @@ class DecodeStep:
     """
 
     # the packed int32 words a slot takes before its table row: fed
-    # token, use_prev, length, step, seed, temp, top_k, top_p
+    # token, use_prev, length, step, seed, temp, top_k, top_p, and an
+    # encoder-decoder's arena row and frame count
     _FIELDS = ("tok", "use", "len", "step", "seed", "temp", "top_k", "top_p")
+    _CROSS = ("arena", "enc_len")
 
     def __init__(self, model, params, pools, ctx, num_slots: int,
-                 max_blocks: int):
+                 max_blocks: int, cross: bool = False):
         self.model, self.params, self.ctx = model, params, ctx
         self.device = model.device
         self.N, self.MB = num_slots, max_blocks
+        self.fields = self._FIELDS + (self._CROSS if cross else ())
         self._graphs = None
         if self.device.type == "cuda":
             self._capture(pools)
@@ -113,24 +122,25 @@ class DecodeStep:
 
     def _views(self, words):
         N = self.N
-        v = {f: words[i * N:(i + 1) * N] for i, f in enumerate(self._FIELDS)}
+        v = {f: words[i * N:(i + 1) * N] for i, f in enumerate(self.fields)}
         v["temp"] = v["temp"].view(torch.float32)
         v["top_p"] = v["top_p"].view(torch.float32)
-        v["table"] = words[len(self._FIELDS) * N:].view(N, self.MB)
+        v["table"] = words[len(self.fields) * N:].view(N, self.MB)
         return v
 
     def _body(self, pools, greedy: bool):
         v = self._in
         samp = None if greedy else (v["seed"], v["temp"], v["top_k"],
                                     v["top_p"])
+        cross = (v["arena"], v["enc_len"]) if "arena" in v else None
         toks = fused_step(self.model, self.ctx, self.params, pools,
                           v["table"], v["len"], v["tok"][:, None],
-                          self._out, v["use"] != 0, v["step"], samp)
+                          self._out, v["use"] != 0, v["step"], samp, cross)
         self._out.copy_(toks)
 
     def _capture(self, pools):
         dev = self.device
-        n_words = len(self._FIELDS) * self.N + self.N * self.MB
+        n_words = len(self.fields) * self.N + self.N * self.MB
         self._words = torch.zeros(n_words, dtype=torch.int32, device=dev)
         self._in = self._views(self._words)
         self._in["top_p"].fill_(1.0)
@@ -179,7 +189,7 @@ class DecodeStep:
         counters.restore(before)
 
     def _replay(self, pools, table, lengths, host_tokens, use_prev, steps,
-                samp) -> Tokens:
+                samp, cross) -> Tokens:
         ptrs = [t.data_ptr() for t in _leaves(pools) + _leaves(self.params)]
         if ptrs != self._ptrs:
             raise RuntimeError(
@@ -197,6 +207,8 @@ class DecodeStep:
         h["table"][:] = table
         if samp is not None:
             h["seed"][:], h["temp"][:], h["top_k"][:], h["top_p"][:] = samp
+        if cross is not None:
+            h["arena"][:], h["enc_len"][:] = cross
         self._words.copy_(st["in"], non_blocking=True)
         graph, delta = self._graphs[samp is None]
         graph.replay()
@@ -209,18 +221,20 @@ class DecodeStep:
     # -- both devices ----------------------------------------------------
 
     def dispatch(self, pools, table, lengths, host_tokens, use_prev,
-                 prev: Tokens | None, steps, samp) -> Tokens:
+                 prev: Tokens | None, steps, samp, cross=None) -> Tokens:
         """Enqueue one step without waiting for it. ``table`` (N, MB),
         ``lengths``, ``host_tokens`` (N, 1), ``use_prev`` (bool) and
         ``steps`` are host numpy arrays, ``samp`` None or the host
-        (seeds, temps, top_ks, top_ps); ``prev`` is the in-flight step
-        whose tokens feed the ``use_prev`` rows (None: the dead feed)."""
+        (seeds, temps, top_ks, top_ps), ``cross`` None or the host
+        (arena_ids, enc_lengths) of an encoder-decoder; ``prev`` is the
+        in-flight step whose tokens feed the ``use_prev`` rows (None:
+        the dead feed)."""
         if self._graphs is not None:
             if prev is not None and prev.device is not self._out:
                 raise RuntimeError("captured decode step: the feed is not "
                                    "the previous dispatch's tokens")
             return self._replay(pools, table, lengths, host_tokens,
-                                use_prev, steps, samp)
+                                use_prev, steps, samp, cross)
 
         def dev(a):
             return torch.from_numpy(a).to(self.device)
@@ -228,7 +242,9 @@ class DecodeStep:
         prev_toks = prev.device if prev is not None else \
             torch.zeros(self.N, dtype=torch.int32, device=self.device)
         samp_t = None if samp is None else tuple(dev(a) for a in samp)
+        cross_t = None if cross is None else tuple(dev(a) for a in cross)
         toks = fused_step(self.model, self.ctx, self.params, pools,
                           dev(table), dev(lengths), dev(host_tokens),
-                          prev_toks, dev(use_prev), dev(steps), samp_t)
+                          prev_toks, dev(use_prev), dev(steps), samp_t,
+                          cross_t)
         return Tokens(toks)

@@ -1,17 +1,31 @@
 """Attention blocks: GQA/MQA projections, prefill attention, paged decode
 and verify, dense decode.
 
-Counterpart of ``repro/models/attention.py`` for full and windowed
-attention: prefill runs kernel K1 through ``kernels/ops.flash_attention``
-(with its window for sliding-window and local layers);
-paged decode appends the new K/V row to the block pool and runs kernel
-K2, the speculative verify (and suffix prefill) appends K1 rows and runs
-kernel K3, both through ``kernels/ops.paged_attention``. With a
-quantized ``kv_spec`` the rows are quantized where they enter the pool
-and dequantized inside the kernels (K4). The decode over per-slot caches
-(the linear caches of the draft model, the ring buffers of windowed
-layers) is plain torch, as JAX computes it in plain jnp. Projections are bias-optional
-(qwen2-vl) with optional per-head QK-norm (qwen3).
+Counterpart of ``repro/models/attention.py`` for full, windowed and
+cross attention: prefill runs kernel K1 through
+``kernels/ops.flash_attention`` (causal, with its window for
+sliding-window and local layers; bidirectional for whisper's exact-length
+encoder); paged decode appends the new K/V row to the block pool and
+runs kernel K2, the speculative verify (and suffix prefill) appends K1
+rows and runs kernel K3, both through ``kernels/ops.paged_attention``.
+With a quantized ``kv_spec`` the rows are quantized where they enter the
+pool and dequantized inside the kernels (K4). The decode over per-slot
+caches (the linear caches of the draft model and of dense decode, the
+ring buffers of windowed layers) is plain torch, as JAX computes it in
+plain jnp. Projections are bias-optional (qwen2-vl) with optional
+per-head QK-norm (qwen3); qwen2-vl rotates by M-RoPE.
+
+Cross-attention (whisper's decoder over the encoder's K/V):
+``attend_cross``, the dense path's, runs K1 non-causal (Sq query rows
+over all F encoder positions); JAX pins this call to its plain
+``mode="ref"`` oracle, and on the CPU the port runs K1's plain version,
+which is that oracle. The serving engine's encoder (``attend_masked``)
+and its cross-attention over the arena (``attend_cross_masked``) mask
+right-padded keys per row and stay plain torch on both devices, as
+JAX's stay plain jnp: f32 einsums, a ``1/sqrt(hd)`` scale, pad keys at
+-inf, and a fully masked row (a batch filler, an empty decode slot on
+the null arena row) set to zeros by a ``where``, never NaN and never a
+value read back to the host.
 """
 
 from __future__ import annotations
@@ -48,41 +62,116 @@ def init_attention(gen, cfg, dtype, lead=()):
     return p
 
 
+def _proj(params, x, name, heads, hd):
+    """x (B, S, d) @ ``w<name>`` (+ ``b<name>`` where the config has
+    biases) as (B, S, heads, hd)."""
+    y = x @ params["w" + name]
+    if "b" + name in params:
+        y = y + params["b" + name]
+    return y.reshape(x.shape[0], x.shape[1], heads, hd)
+
+
 def _project_qkv(params, cfg, xq, xkv):
-    B, Sq, _ = xq.shape
-    Skv = xkv.shape[1]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
-    q = xq @ params["wq"]
-    k = xkv @ params["wk"]
-    v = xkv @ params["wv"]
-    if "bq" in params:
-        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
-    q = q.reshape(B, Sq, hq, hd)
-    k = k.reshape(B, Skv, hkv, hd)
-    v = v.reshape(B, Skv, hkv, hd)
+    q = _proj(params, xq, "q", hq, hd)
+    k = _proj(params, xkv, "k", hkv, hd)
+    v = _proj(params, xkv, "v", hkv, hd)
     if "q_norm" in params:
         q = layers.apply_norm("rmsnorm", params["q_norm"], q)
         k = layers.apply_norm("rmsnorm", params["k_norm"], k)
     return q, k, v
 
 
-def attend(params, cfg, x, positions, window=None):
-    """Causal full-sequence (prefill) self-attention through kernel K1,
-    over the last ``window`` positions when set (SWA, local layers).
+def _rotate_qk(cfg, q, k, positions, mrope_positions):
+    """RoPE at ``positions`` or M-RoPE at ``mrope_positions`` (3, B, S),
+    by the config's ``rope_style``; none leaves q and k alone."""
+    if cfg.rope_style == "mrope":
+        return (layers.apply_mrope(q, mrope_positions, cfg.mrope_sections,
+                                   cfg.rope_theta),
+                layers.apply_mrope(k, mrope_positions, cfg.mrope_sections,
+                                   cfg.rope_theta))
+    if cfg.rope_style == "rope":
+        return (layers.apply_rope(q, positions, cfg.rope_theta),
+                layers.apply_rope(k, positions, cfg.rope_theta))
+    return q, k
+
+
+def attend(params, cfg, x, positions, window=None, causal=True,
+           mrope_positions=None):
+    """Full-sequence (prefill) self-attention through kernel K1: causal,
+    over the last ``window`` positions when set (SWA, local layers), or
+    bidirectional (``causal=False``: whisper's exact-length encoder).
 
     x: (B, S, d). Returns ``(output, {"k", "v"})`` with the rotated
     (B, S, Hkv, D) keys and values for the prefill cache. q/k/v enter K1
     as transposed views, without a copy.
     """
     q, k, v = _project_qkv(params, cfg, x, x)
-    if cfg.rope_style == "rope":
-        q = layers.apply_rope(q, positions, cfg.rope_theta)
-        k = layers.apply_rope(k, positions, cfg.rope_theta)
+    q, k = _rotate_qk(cfg, q, k, positions, mrope_positions)
     out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=True, window=window)
+                               v.transpose(1, 2), causal=causal,
+                               window=window)
     B, S, _ = x.shape
     out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
     return out @ params["wo"], {"k": k, "v": v}
+
+
+def attend_cross(params, cfg, x, kv):
+    """Cross-attention of x (B, Sq, d) over the encoder's K/V
+    ``{"k", "v"}`` of (B, Hkv, F, D), every position visible: kernel K1,
+    non-causal (its plain version on the CPU)."""
+    B, Sq, _ = x.shape
+    q = _proj(params, x, "q", cfg.n_heads, cfg.head_dim).transpose(1, 2)
+    out = kops.flash_attention(q, kv["k"], kv["v"], causal=False)
+    out = out.transpose(1, 2).reshape(B, Sq, cfg.n_heads * cfg.head_dim)
+    return out @ params["wo"]
+
+
+def _masked_softmax_attend(q, k, v, lengths, dtype):
+    """q (B, Sq, Hq, D); k, v (B, Hkv, Skv, D) of which the first
+    ``lengths[b]`` keys are real. f32 math with pad keys at -inf; a row
+    with no real key gives zeros. Returns (B, Sq, Hq * D) in ``dtype``."""
+    B, Sq, hq, hd = q.shape
+    group = hq // k.shape[1]
+    kx = k.repeat_interleave(group, dim=1).float()
+    vx = v.repeat_interleave(group, dim=1).float()
+    logits = torch.einsum("bqhd,bhkd->bhqk", q.float(), kx) \
+        * float(1.0 / math.sqrt(hd))
+    valid = torch.arange(k.shape[2], device=q.device)[None, :] \
+        < lengths[:, None]                                   # (B, Skv)
+    logits = logits.masked_fill(~valid[:, None, None, :], float("-inf"))
+    probs = torch.softmax(logits, dim=-1)
+    probs = torch.where(valid.any(-1)[:, None, None, None], probs, 0.0)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vx)
+    return out.transpose(1, 2).reshape(B, Sq, hq * hd).to(dtype)
+
+
+def attend_masked(params, cfg, x, lengths):
+    """Bidirectional self-attention over a right-padded batch (the
+    serving encoder): x (B, S, d) of which the first ``lengths[b]`` rows
+    are real. Pad keys carry no mass; pad query rows are computed and
+    never read. Plain torch (see the module docstring)."""
+    q, k, v = _project_qkv(params, cfg, x, x)
+    out = _masked_softmax_attend(q, k.transpose(1, 2), v.transpose(1, 2),
+                                 lengths, x.dtype)
+    return out @ params["wo"]
+
+
+def attend_cross_masked(params, cfg, x, kv, enc_lengths):
+    """Cross-attention of x (B, Sq, d) over ``{"k", "v"}`` (B, Hkv, F, D)
+    of which the first ``enc_lengths[b]`` positions are real (the rest is
+    frame-bucket padding or arena capacity). Plain torch (see the module
+    docstring)."""
+    q = _proj(params, x, "q", cfg.n_heads, cfg.head_dim)
+    return _masked_softmax_attend(q, kv["k"], kv["v"], enc_lengths,
+                                  x.dtype) @ params["wo"]
+
+
+def encode_cross_kv(params, cfg, enc_out):
+    """The cross-attention K/V of encoder output (B, F, d): ``{"k",
+    "v"}`` of (B, Hkv, F, D), transposed views of the projections."""
+    return {n: _proj(params, enc_out, n, cfg.n_kv_heads,
+                     cfg.head_dim).transpose(1, 2) for n in ("k", "v")}
 
 
 def decode_attend_paged(params, cfg, x, pool, block_table, lengths, *,
@@ -167,13 +256,15 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, device, lead=(),
             "v": torch.zeros(shape, dtype=dtype, device=device)}
 
 
-def decode_attend_batched(params, cfg, x, cache, pos, window=None):
+def decode_attend_batched(params, cfg, x, cache, pos, window=None,
+                          mrope_positions=None):
     """Single-token decode over a per-slot cache with PER-SLOT positions.
 
     x: (B, 1, d); cache: {"k", "v"} of (B, size, Hkv, D), written IN
     PLACE; pos: (B,) int each slot's current position (its cached
-    length). A linear cache takes the new K/V row at ``pos`` (clipped to
-    the cache) and row b attends slots <= pos[b]. A ring (``window``
+    length); ``mrope_positions`` (3, B, 1) the new token's M-RoPE ids
+    (qwen2-vl). A linear cache takes the new K/V row at ``pos`` (clipped
+    to the cache) and row b attends slots <= pos[b]. A ring (``window``
     set) takes it at ``pos % size`` and, once the ring has wrapped, every
     slot holds an in-window position: RoPE is applied at write time, so
     ring order does not matter. Plain torch, the jnp math of JAX's
@@ -182,10 +273,7 @@ def decode_attend_batched(params, cfg, x, cache, pos, window=None):
     B = x.shape[0]
     hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q, k, v = _project_qkv(params, cfg, x, x)
-    posb = pos[:, None]
-    if cfg.rope_style == "rope":
-        q = layers.apply_rope(q, posb, cfg.rope_theta)
-        k = layers.apply_rope(k, posb, cfg.rope_theta)
+    q, k = _rotate_qk(cfg, q, k, pos[:, None], mrope_positions)
     size = cache["k"].shape[1]
     p = pos.long()
     slot = torch.remainder(p, size) if window else p.clamp(0, size - 1)

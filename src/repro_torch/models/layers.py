@@ -4,7 +4,8 @@ Counterpart of ``repro/models/layers.py`` for the dense decoder-only
 path: norms rmsnorm (``(1 + scale)`` convention), layernorm and
 nonparametric (OLMo: LayerNorm without affine), the per-head group norm
 of the xLSTM cells, gated and plain MLPs, half-split RoPE with f32
-angles, and the causal depthwise temporal conv in front of the RG-LRU
+angles, Qwen2-VL's three-stream M-RoPE, whisper's sinusoidal position
+table, and the causal depthwise temporal conv in front of the RG-LRU
 and the mLSTM. Params are plain dicts of tensors.
 Initializers take a ``lead`` shape so a scan group's stacked
 ``(count, ...)`` leaves are drawn in one call.
@@ -126,17 +127,62 @@ def _rope_angles(positions, head_dim: int, theta: float):
     return torch.cos(ang), torch.sin(ang)
 
 
+def _rotate(x, cos, sin):
+    """Half-split rotation of x (B, S, H, D) by (B, S, 1, D/2) cos / sin
+    in f32, cast back to x's dtype."""
+    x1, x2 = x.float().chunk(2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+    return out.to(x.dtype)
+
+
 def apply_rope(x, positions, theta: float = 10000.0):
     """Half-split RoPE. x: (B, S, H, D); positions: (B, S) or (S,)."""
     B, S, H, D = x.shape
     if positions.dim() == 1:
         positions = positions[None].expand(B, S)
     cos, sin = _rope_angles(positions, D, theta)       # (B, S, D/2)
-    cos = cos[:, :, None, :]
-    sin = sin[:, :, None, :]
-    x1, x2 = x.float().chunk(2, dim=-1)
-    out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
-    return out.to(x.dtype)
+    return _rotate(x, cos[:, :, None, :], sin[:, :, None, :])
+
+
+def apply_mrope(x, positions3, sections, theta: float = 10000.0):
+    """Qwen2-VL's multimodal RoPE. x: (B, S, H, D); positions3: (3, B, S)
+    [t, h, w] ids. ``sections`` splits the D/2 frequency slots among the
+    three streams (stream i's slots take ``theta ** (-j / (D/2))`` at
+    its own positions); text tokens carry equal t / h / w ids, which
+    reduces to ``apply_rope``."""
+    D = x.shape[-1]
+    half = D // 2
+    if sum(sections) != half:
+        raise ValueError(f"mrope sections {tuple(sections)} do not sum to "
+                         f"head_dim / 2 = {half}")
+    cos_parts, sin_parts = [], []
+    start = 0
+    for stream, sec in enumerate(sections):
+        exps = torch.arange(start, start + sec, dtype=torch.float32,
+                            device=x.device) / half
+        ang = positions3[stream][..., None].float() * (1.0 / (theta ** exps))
+        cos_parts.append(torch.cos(ang))
+        sin_parts.append(torch.sin(ang))
+        start += sec
+    cos = torch.cat(cos_parts, -1)[:, :, None, :]
+    sin = torch.cat(sin_parts, -1)[:, :, None, :]
+    return _rotate(x, cos, sin)
+
+
+def sinusoidal_embed(positions, d: int, dtype=torch.float32):
+    """Whisper's sinusoidal embeddings at integer ``positions`` (...,) ->
+    (..., d): the inverse frequencies ``exp(-log(10000) * i / max(d/2 -
+    1, 1))``, the table selected by one ``where`` (sin on the first half
+    of the lanes, cos on the second) in f32, then cast to ``dtype``.
+    The f32 arguments are JAX's bit for bit; torch's exp / sin / cos
+    may round the last bit otherwise than XLA's."""
+    half = d // 2
+    dim = torch.arange(half, dtype=torch.float32, device=positions.device)
+    inv = torch.exp(-math.log(10000.0) * dim / max(half - 1, 1))
+    idx = torch.arange(d, device=positions.device)
+    ang = positions[..., None].float() * inv[idx % half]
+    return torch.where(idx < half, torch.sin(ang),
+                       torch.cos(ang)).to(dtype)
 
 
 # ---------------------------------------------------------------------------

@@ -1,10 +1,11 @@
 """Unified model API: config -> init / prefill / paged decode and verify /
 dense decode.
 
-Counterpart of ``repro/models/model.py`` (``ServingCaps``, ``Model``)
-for the decoder-only serving path (full and windowed attention, RG-LRU,
-mLSTM and sLSTM layers; dense or MoE FFNs).
-``Model`` also owns the device the
+Counterpart of ``repro/models/model.py`` (``ServingCaps``, ``Model``):
+``Model`` dispatches on ``cfg.enc_dec`` between the decoder-only stack
+(``transformer.py``: full and windowed attention, RG-LRU, mLSTM and
+sLSTM layers, dense or MoE FFNs, the VLM's visual prefix and M-RoPE)
+and the encoder-decoder (``encdec.py``). ``Model`` also owns the device the
 model runs on: ``"cuda"`` by default, which raises on a machine without
 a GPU instead of carrying on on the CPU.
 """
@@ -15,7 +16,7 @@ import dataclasses
 
 import torch
 
-from . import transformer
+from . import encdec, transformer
 from .transformer import RunCtx
 
 
@@ -64,7 +65,8 @@ class ServingCaps:
 
 
 class Model:
-    """Thin functional wrapper over the decoder-only LM on one device."""
+    """Thin functional wrapper selecting the decoder-only or the
+    encoder-decoder path, on one device."""
 
     def __init__(self, cfg, device="cuda"):
         self.cfg = cfg
@@ -74,16 +76,34 @@ class Model:
 
     def init(self, seed: int = 0):
         """Random params from a ``torch.Generator`` seeded with ``seed``
-        on this model's device (see ``transformer.init_lm``)."""
+        on this model's device (see ``transformer.init_lm`` and
+        ``encdec.init_encdec``)."""
         gen = torch.Generator(device=self.device).manual_seed(seed)
+        if self.cfg.enc_dec:
+            return encdec.init_encdec(gen, self.cfg)
         return transformer.init_lm(gen, self.cfg)
 
     # -- serving --------------------------------------------------------
 
     def prefill(self, params, batch, ctx: RunCtx, max_len=None, length=None,
                 rows=None):
-        return transformer.prefill(params, self.cfg, batch["tokens"], ctx,
-                                   max_len=max_len, length=length, rows=rows)
+        """Dense prefill of ``batch["tokens"]`` (B, S); an enc-dec config
+        also takes ``batch["frames"]`` (B, F, d) (exact length only), a
+        VLM ``batch["visual_embeds"]`` and ``batch["mrope_positions"]``.
+        ``rows`` selects one position per row whose logits to return."""
+        if self.cfg.enc_dec:
+            if length is not None:
+                raise NotImplementedError(
+                    "padded prefill is decoder-only: the engine's "
+                    "encoder-decoder admission is prefill_paged_encdec")
+            return encdec.prefill(params, self.cfg, batch["tokens"],
+                                  batch["frames"], ctx, max_len=max_len,
+                                  rows=rows)
+        return transformer.prefill(
+            params, self.cfg, batch["tokens"], ctx, max_len=max_len,
+            length=length, rows=rows,
+            visual_embeds=batch.get("visual_embeds"),
+            mrope_positions=batch.get("mrope_positions"))
 
     def serving_caps(self) -> ServingCaps:
         """The declared ``ServingCaps`` for this configuration (the same
@@ -108,18 +128,33 @@ class Model:
         )
 
     def init_cache(self, batch: int, max_len: int):
-        """Per-slot decode caches (the draft model's): linear or ring
-        K/V, RG-LRU state."""
+        """Per-slot decode caches (the draft model's, dense decode's):
+        linear or ring K/V, recurrent state; an enc-dec config's self-KV
+        and cross K/V."""
+        if self.cfg.enc_dec:
+            return encdec.init_cache(self.cfg, batch, max_len, self.device)
         return transformer.init_cache(self.cfg, batch, max_len, self.device)
 
-    def decode_step(self, params, cache, tokens, pos, ctx: RunCtx):
-        """Dense decode: tokens (B, 1) at per-slot positions ``pos``."""
+    def decode_step(self, params, cache, tokens, pos, ctx: RunCtx,
+                    mrope_positions=None):
+        """Dense decode: tokens (B, 1) at per-slot positions ``pos``; a
+        VLM also takes their ``mrope_positions`` (3, B, 1)."""
+        if self.cfg.enc_dec:
+            return encdec.decode_step(params, self.cfg, cache, tokens, pos,
+                                      ctx)
         return transformer.decode_step(params, self.cfg, cache, tokens, pos,
-                                       ctx)
+                                       ctx, mrope_positions=mrope_positions)
 
     def init_paged_cache(self, layout, spec=None):
         """Block pools on this model's device; ``spec`` (a
-        ``paged_kv.PoolSpec``) selects an int8/fp8 block format."""
+        ``paged_kv.PoolSpec``) selects an int8/fp8 block format. An
+        enc-dec config's tree is its self-KV pool and the cross arena,
+        always in the model dtype."""
+        if self.cfg.enc_dec:
+            if spec is not None and spec.quantized:
+                raise ValueError("quantized KV is decoder-only "
+                                 "(ServingCaps.quantized_kv)")
+            return encdec.init_paged_cache(self.cfg, layout, self.device)
         return transformer.init_paged_cache(self.cfg, layout, self.device,
                                             spec)
 
@@ -133,8 +168,24 @@ class Model:
             self.cfg, layout, pools, dense_caches, row_of_slot, valid,
             block_ids, spec)
 
+    def prefill_paged_encdec(self, params, pools, tokens, frames,
+                             enc_lengths, lengths, block_ids, arena_ids,
+                             ctx: RunCtx):
+        """Encoder-decoder admission (in place): masked encoder, cross
+        K/V into the arena rows, the ragged decoder prefill packed into
+        the pool. See ``encdec.prefill_paged``."""
+        return encdec.prefill_paged(params, self.cfg, pools, tokens, frames,
+                                    enc_lengths, lengths, block_ids,
+                                    arena_ids, ctx)
+
     def decode_step_paged(self, params, pools, block_table, lengths, tokens,
-                          ctx: RunCtx):
+                          ctx: RunCtx, arena_ids=None, enc_lengths=None):
+        """One paged decode step; an enc-dec config also takes each
+        slot's arena row and frame count."""
+        if self.cfg.enc_dec:
+            return encdec.decode_step_paged(params, self.cfg, pools,
+                                            block_table, lengths, tokens,
+                                            arena_ids, enc_lengths, ctx)
         return transformer.decode_step_paged(params, self.cfg, pools,
                                              block_table, lengths, tokens,
                                              ctx)

@@ -2,8 +2,8 @@
 
 Counterpart of ``repro/models/paged_kv.py`` (bf16/f32 pools, the
 int8/fp8 pools of ``PoolSpec`` with their per-(token, head) scales, the
-refcounting allocator and the prefix index; the cross arena is a later
-slice). Physical
+refcounting allocator, the prefix index, and the encoder-decoder's
+cross-KV arena with its refcounting ``CrossArena``). Physical
 storage is a pool of fixed-size blocks shared by all decode slots, and a
 per-sequence block table maps logical token positions to physical
 blocks, so cache memory scales with ``sum(len_i)``.
@@ -31,6 +31,7 @@ import dataclasses
 import torch
 
 NULL_BLOCK = 0
+NULL_ARENA = 0
 
 KV_DTYPES = ("bf16", "int8", "fp8")
 
@@ -332,6 +333,102 @@ class PrefixIndex:
             del kids[node.chunk]
 
 
+class CrossArena:
+    """Refcounting allocator over cross-KV arena rows 1..num_arenas.
+
+    An encoder-decoder request's cross-attention K/V is a pure function
+    of its encoder features: written once at admission, read every
+    decode step. It lives in one row of the arena (``init_cross_arena``);
+    row 0 is the null row that empty slots and batch fillers point at.
+    Two live requests built from the SAME feature array (``key`` is the
+    caller's identity key, ``id(features)``) share one row by refcount.
+    Rows partition into owned (refcount >= 1, keyed) and free (FIFO);
+    an unreferenced row is freed at once (it is recomputable), so there
+    is no LRU tier. ``check_invariant`` runs after every transition.
+    """
+
+    def __init__(self, num_arenas: int):
+        self.num_arenas = num_arenas
+        self._free = collections.deque(range(1, num_arenas + 1))
+        self._refs: dict[int, int] = {}       # row -> live references
+        self._key_of: dict[int, object] = {}  # row -> identity key
+        self._by_key: dict[object, int] = {}  # identity key -> row
+
+    @property
+    def free_count(self) -> int:
+        return len(self._free)
+
+    @property
+    def used_count(self) -> int:
+        """Rows with at least one live reference."""
+        return len(self._refs)
+
+    def refcount(self, a: int) -> int:
+        return self._refs.get(a, 0)
+
+    def can_admit(self, n: int) -> bool:
+        """True when ``n`` fresh (unshared) rows are allocatable."""
+        return n <= len(self._free)
+
+    def lookup(self, key) -> int:
+        """The row holding ``key``'s cross-KV, or ``NULL_ARENA``."""
+        return self._by_key.get(key, NULL_ARENA)
+
+    def alloc(self, key=None) -> int:
+        """Claim one row (refcount 1), keyed for ``lookup`` when ``key``
+        is given. Raises MemoryError when none is free."""
+        if not self._free:
+            raise MemoryError("cross-KV arena exhausted")
+        a = self._free.popleft()
+        self._refs[a] = 1
+        if key is not None:
+            self._key_of[a] = key
+            self._by_key[key] = a
+        self.check_invariant()
+        return a
+
+    def share(self, a: int) -> int:
+        """One more reference on a live row; raises on a free row."""
+        if a not in self._refs:
+            raise ValueError(f"sharing unreferenced arena row {a}")
+        self._refs[a] += 1
+        return a
+
+    def free(self, a: int):
+        """Drop one reference; the last returns the row to the free list
+        and unlinks its key. Raises on the null row and on a free row."""
+        if a == NULL_ARENA:
+            raise ValueError("freeing the reserved null arena row")
+        r = self._refs.get(a, 0)
+        if r <= 0:
+            raise ValueError(f"double-free of arena row {a}")
+        if r > 1:
+            self._refs[a] = r - 1
+        else:
+            del self._refs[a]
+            key = self._key_of.pop(a, None)
+            if key is not None:
+                self._by_key.pop(key, None)
+            self._free.append(a)
+        self.check_invariant()
+
+    def check_invariant(self):
+        """Owned and free partition rows 1..A; the key maps mirror each
+        other and name owned rows only."""
+        owned, free = set(self._refs), set(self._free)
+        if owned & free:
+            raise AssertionError(f"arena states overlap: {owned & free}")
+        universe = set(range(1, self.num_arenas + 1))
+        if (owned | free) != universe:
+            raise AssertionError(
+                f"arena lost rows: missing {universe - (owned | free)}, "
+                f"foreign {(owned | free) - universe}")
+        if not set(self._key_of) <= owned:
+            raise AssertionError("keys on non-owned arena rows")
+        if {self._by_key[k]: k for k in self._by_key} != self._key_of:
+            raise AssertionError("arena key maps disagree")
+
+
 # ---------------------------------------------------------------------------
 # Pool format: PoolSpec + KV quantization
 # ---------------------------------------------------------------------------
@@ -497,6 +594,36 @@ def init_layer_pool(cfg, layout: PagedLayout, dtype, device, lead=(),
                                    device=device),
             "v_scale": torch.zeros(shape[:-1], dtype=torch.float32,
                                    device=device)}
+
+
+def init_cross_arena(cfg, layout: PagedLayout, dtype, device):
+    """The cross-attention K/V arena: ``{"k", "v"}`` of (n_layers,
+    num_slots + 1, Hkv, encoder_len, D), zeroed, row 0 the null row.
+    Allocated once with the pools and written in place, so the captured
+    decode step reads the same storage forever."""
+    shape = (cfg.n_layers, layout.num_slots + 1, cfg.n_kv_heads,
+             cfg.encoder_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def pack_cross_arena(arena, cross_kv, arena_ids):
+    """Write freshly encoded cross-KV rows into the arena, IN PLACE.
+
+    arena: {"k", "v"} of (L, A+1, Hkv, encoder_len, D); cross_kv: {"k",
+    "v"} of (L, N, Hkv, Fb, D) with the frame bucket Fb <= encoder_len,
+    zero-padded here to encoder_len (reads are masked to each row's true
+    length); arena_ids: (N,) int destination rows. Batch fillers, and
+    rows whose features' row is written already, point at the null row,
+    where their writes collide harmlessly (its reads are masked to 0
+    frames); every other destination appears once.
+    """
+    ids = arena_ids.long()
+    for name in ("k", "v"):
+        a, c = arena[name], cross_kv[name]
+        c = torch.nn.functional.pad(c, (0, 0, 0, a.shape[3] - c.shape[3]))
+        a[:, ids] = c.to(a.dtype)
+    return arena
 
 
 def pool_bytes(pools) -> int:

@@ -32,10 +32,14 @@ Phases sharing one param set:
              decode cell and keep one candidate state per position,
              selected at the accept boundary (``select_verify_state``)
   dense decode — one token per slot over per-slot caches (the draft
-             model's and the static backend's), plain torch
+             model's, the static backend's and the VLM's), plain torch
 
-Not ported yet: encoder-decoder and VLM configs (ROADMAP queue 1:
-'Enc-dec / VLM'); ``check_supported`` refuses them.
+The VLM (qwen2-vl) runs the dense path only, as in JAX (no paged decode:
+``ServingCaps.paged_decode``): its prefill splices ``visual_embeds`` over
+the first ``visual_prefix`` token embeddings and rotates q / k by M-RoPE
+at caller-given ``mrope_positions`` (3, B, S); its decode takes the new
+token's (3, B, 1) ids. The encoder-decoder (whisper) has its own
+assembly, ``encdec.py``.
 """
 
 from __future__ import annotations
@@ -67,19 +71,15 @@ class RunCtx:
 
 
 def check_supported(cfg) -> None:
-    """Raise NotImplementedError (naming the ROADMAP queue 1 item) for a
-    config the port cannot run yet: encoder-decoder and VLM configs,
-    positions other than RoPE or none; ValueError for an unknown block
-    kind."""
+    """Raise ValueError for a config the port cannot run: an unknown
+    block kind, rotary style or position embedding."""
     for kind in dict.fromkeys(cfg.block_pattern):     # pattern order
         if kind not in KINDS:
             raise ValueError(f"{cfg.name}: unknown block kind {kind!r}")
-    if cfg.enc_dec or cfg.visual_prefix \
-            or cfg.rope_style not in ("rope", "none") \
-            or cfg.pos_embed != "none":
-        raise NotImplementedError(
-            f"{cfg.name}: encoder-decoder and VLM configs are not "
-            "ported yet (ROADMAP queue 1: 'Enc-dec / VLM')")
+    if cfg.rope_style not in ("rope", "mrope", "none") \
+            or cfg.pos_embed not in ("none", "sinusoidal"):
+        raise ValueError(f"{cfg.name}: unknown positions "
+                         f"{cfg.rope_style!r} / {cfg.pos_embed!r}")
 
 
 # ---------------------------------------------------------------------------
@@ -230,9 +230,11 @@ def _ffn_part(p, cfg, x):
     return x
 
 
-def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None):
+def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None,
+                mrope_positions=None):
     """Full-sequence block that also emits the layer's decode cache.
-    Returns (x, cache).
+    Returns (x, cache). ``mrope_positions`` (3, B, S): the M-RoPE ids of
+    an mrope config's attention layers.
 
     ``length`` ((B,) int) marks RIGHT-padded prefill: only the first
     ``length[b]`` tokens of row b are real. Causal masking keeps pad keys
@@ -247,7 +249,7 @@ def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None):
     if kind in ("attn", "local"):
         out, cache = _attend_with_cache(p["attn"], cfg, xn, positions,
                                         _window_for(cfg, kind), cache_len,
-                                        length)
+                                        length, mrope_positions)
     elif kind == "rglru":
         out, cache = _rglru_with_cache(p["rec"], cfg, xn, length)
     elif kind == "mlstm":
@@ -260,11 +262,12 @@ def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None):
 
 
 def _attend_with_cache(params, cfg, xn, positions, window, cache_len,
-                       length=None):
+                       length=None, mrope_positions=None):
     """Attention through K1 plus the layer's cache: the rotated (B, S,
     Hkv, D) K/V for a linear cache, else a ring of ``min(window,
     cache_len)`` rows in ring order (slot = pos % size)."""
-    out, kv = attn_lib.attend(params, cfg, xn, positions, window=window)
+    out, kv = attn_lib.attend(params, cfg, xn, positions, window=window,
+                              mrope_positions=mrope_positions)
     S = xn.shape[1]
     if not window:
         return out, kv
@@ -418,13 +421,15 @@ def apply_block_verify_paged(p, cfg, kind, x, cache, block_table, lengths,
     return _ffn_part(p, cfg, x + out), cache
 
 
-def apply_block_decode(p, cfg, kind, x, cache, pos):
+def apply_block_decode(p, cfg, kind, x, cache, pos, mrope_positions=None):
     """One-token block over a per-slot cache (linear or ring; recurrent
-    state), written in place; ``pos`` (B,) per-slot positions."""
+    state), written in place; ``pos`` (B,) per-slot positions,
+    ``mrope_positions`` (3, B, 1) an mrope config's ids."""
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
     if kind in ("attn", "local"):
         out, _ = attn_lib.decode_attend_batched(
-            p["attn"], cfg, xn, cache, pos, window=_window_for(cfg, kind))
+            p["attn"], cfg, xn, cache, pos, window=_window_for(cfg, kind),
+            mrope_positions=mrope_positions)
     else:
         out = _recurrent_decode(p, cfg, kind, xn, cache)
     return _ffn_part(p, cfg, x + out)
@@ -447,13 +452,25 @@ def init_block_cache(cfg, kind, batch: int, max_len: int, dtype, device,
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg, tokens):
+def _embed(params, cfg, tokens, visual_embeds=None, pos_offset=None):
+    """Token embeddings (scaled for gemma); a VLM's first
+    ``visual_prefix`` positions replaced by ``visual_embeds`` cast to the
+    model dtype; a sinusoidal config's table added at ``pos_offset``
+    ((B,) int, default 0) + the position in the sequence."""
     x = params["embed"][tokens.long()]
     if cfg.embed_scale:
         # the scale rounded to the model dtype, by a device-side fill
         # (torch.tensor would copy from the host: no capture, a sync)
         x = x * torch.full((), math.sqrt(cfg.d_model), dtype=x.dtype,
                            device=x.device)
+    if cfg.visual_prefix and visual_embeds is not None:
+        x = torch.cat([visual_embeds.to(x.dtype), x[:, cfg.visual_prefix:]],
+                      dim=1)
+    if cfg.pos_embed == "sinusoidal":
+        positions = torch.arange(x.shape[1], device=x.device)[None]
+        if pos_offset is not None:
+            positions = pos_offset.long()[:, None] + positions
+        x = x + layers.sinusoidal_embed(positions, cfg.d_model, x.dtype)
     return x
 
 
@@ -484,7 +501,7 @@ def _store(dst, src):
 
 
 def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
-            rows=None):
+            rows=None, visual_embeds=None, mrope_positions=None):
     """Prefill: logits plus a dense decode cache of width ``max_len``.
 
     tokens: (B, S). ``length`` ((B,) int) marks RIGHT-padded prompts:
@@ -497,17 +514,24 @@ def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
     B: linear {"k", "v"} of (count, B, max_len, Hkv, D), zero past S;
     rings of (count, B, min(window, max_len), Hkv, D); RG-LRU {"h",
     "conv"}; mLSTM {"C", "n", "m", "conv"}; sLSTM {"h", "c", "n", "m"}.
+    A VLM takes ``visual_embeds`` (B, visual_prefix, d) and, being
+    mrope, ``mrope_positions`` (3, B, S); it has no right-padded form
+    (``length`` raises, as in JAX).
     """
     del ctx
     check_supported(cfg)
+    if length is not None and not prefill_supports_ragged(cfg):
+        raise NotImplementedError(
+            f"{cfg.name}: padded prefill needs a decoder-only stack "
+            "with relative/absent positions")
     B, S = tokens.shape
     cache_len = max_len or S
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, visual_embeds)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
     caches = init_cache(cfg, B, cache_len, x.device)
     for kind, (lp, lc) in _layers(cfg, params["groups"], caches):
         x, cache = apply_block(lp, cfg, kind, x, positions, cache_len,
-                               length)
+                               length, mrope_positions)
         _store(lc, cache)
     if rows is not None:
         x = x[torch.arange(B, device=x.device), rows.long()][:, None]
@@ -652,13 +676,15 @@ def decode_verify_paged(params, cfg, pools, block_table, lengths, tokens,
     return out_tokens, commit, select_verify_state(cfg, cands, commit)
 
 
-def decode_step(params, cfg, cache, tokens, pos, ctx: RunCtx):
+def decode_step(params, cfg, cache, tokens, pos, ctx: RunCtx,
+                mrope_positions=None):
     """Dense decode step: tokens (B, 1) at per-slot positions ``pos``
     (B,) over ``init_cache`` caches (written IN PLACE) -> (logits (B, V)
-    f32, cache)."""
+    f32, cache). An mrope config takes the tokens' ``mrope_positions``
+    (3, B, 1)."""
     del ctx
-    x = _embed(params, cfg, tokens)
+    x = _embed(params, cfg, tokens, pos_offset=pos)
     for kind, (lp, lc) in _layers(cfg, params["groups"], cache):
-        x = apply_block_decode(lp, cfg, kind, x, lc, pos)
+        x = apply_block_decode(lp, cfg, kind, x, lc, pos, mrope_positions)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x)[:, 0], cache

@@ -4,8 +4,9 @@
 numpy arrays (``jax.tree.map(np.asarray, params)``, or the ``.npy`` per
 leaf a checkpoint holds) and returns the same tree of torch tensors under
 the same paths, the stacked ``(count, ...)`` group leaves included, so
-the port runs on exactly the reference's weights. ``to_numpy`` is the
-inverse. Both are exact: values are copied, never recomputed.
+the port runs on exactly the reference's weights: the decoder-only
+``groups`` layout, or the encoder-decoder's ``enc`` / ``dec`` stacks.
+``to_numpy`` is the inverse. Both are exact: values are copied, never recomputed.
 
 Some leaves stay f32 whatever the model dtype: the RG-LRU's decay
 parameter ``lam`` (JAX ``ssm.py:321``) and the MoE ``router`` (JAX
@@ -22,6 +23,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .encdec import DEC_KEYS, ENC_KEYS
 from .transformer import layer_walk
 
 
@@ -42,24 +44,36 @@ def _from_numpy(a) -> torch.Tensor:
     return torch.from_numpy(a)
 
 
+def _check_stacked(name, sub, keys, count):
+    if set(sub) != set(keys):
+        raise ValueError(f"{name}: keys {sorted(sub)} != {sorted(keys)}")
+
+    def lead(t):
+        if t.shape[0] != count:
+            raise ValueError(f"{name}: leaf of shape {tuple(t.shape)} is "
+                             f"not stacked over {count} layers")
+    map_tree(lead, sub)
+
+
 def check_layout(tree, cfg):
-    """Raise ValueError unless ``tree["groups"]`` has the stacked group
-    layout of ``cfg`` (one ``g{g}/p{pi}`` subtree per pattern position,
-    every leaf led by the group's layer count)."""
+    """Raise ValueError unless the tree has ``cfg``'s stacked layout: for
+    an encoder-decoder, ``enc`` / ``dec`` with ``encdec.ENC_KEYS`` /
+    ``DEC_KEYS``, every leaf led by the stack's layer count; else
+    ``tree["groups"]`` with one ``g{g}/p{pi}`` subtree per pattern
+    position, every leaf led by the group's layer count."""
+    if cfg.enc_dec:
+        _check_stacked("enc", tree.get("enc", {}), ENC_KEYS,
+                       cfg.n_encoder_layers)
+        _check_stacked("dec", tree.get("dec", {}), DEC_KEYS, cfg.n_layers)
+        return
     groups = tree.get("groups", {})
     want = {gk: (len(pattern), count) for gk, pattern, count in
             layer_walk(cfg)}
     if set(groups) != set(want):
         raise ValueError(f"groups {sorted(groups)} != {sorted(want)}")
     for gk, (n_pos, count) in want.items():
-        if set(groups[gk]) != {f"p{pi}" for pi in range(n_pos)}:
-            raise ValueError(f"{gk}: pattern keys {sorted(groups[gk])}")
-
-        def lead(t, gk=gk, count=count):
-            if t.shape[0] != count:
-                raise ValueError(f"{gk}: leaf of shape {tuple(t.shape)} is "
-                                 f"not stacked over {count} layers")
-        map_tree(lead, groups[gk])
+        _check_stacked(gk, groups[gk], [f"p{pi}" for pi in range(n_pos)],
+                       count)
 
 
 def to_device(tree, device, dtype=None):
@@ -77,7 +91,7 @@ def from_jax_numpy(tree, cfg, device, dtype=None):
 
     ``dtype`` (optional) casts floating leaves, e.g. to run f32 reference
     weights in bf16 on the card. Raises ValueError when the tree does not
-    have ``cfg``'s stacked group layout.
+    have ``cfg``'s stacked layout (``check_layout``).
     """
     params = map_tree(_from_numpy, tree)
     check_layout(params, cfg)

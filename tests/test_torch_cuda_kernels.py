@@ -145,6 +145,30 @@ def test_flash_attention_kernel_wide_and_odd_head_dims(
            dtype)
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("B,hq,hkv,Sq,Skv,D,causal", [
+    (2, 8, 8, 1500, 1500, 64, False),     # whisper's exact-length encoder
+    (2, 8, 8, 37, 1500, 64, False),       # whisper's dense cross-attention
+    (2, 12, 2, 512, 512, 128, True),      # qwen2-vl: GQA 12/2, group 6
+])
+def test_flash_attention_kernel_at_encdec_and_vlm_shapes(
+        cuda_device, dtype, B, hq, hkv, Sq, Skv, D, causal):
+    """K1 at the shapes the encoder-decoder and the VLM give it: the
+    non-causal encoder over 1500 frames, the non-causal cross-attention
+    of a prompt over them, and qwen2-vl's causal prefill at GQA 12/2
+    (group 6), against the plain version; bf16 on the tensor-core body,
+    f32 on the SIMT body."""
+    gen = torch.Generator().manual_seed(Sq + Skv + D)
+    q = _randn(gen, (B, hq, Sq, D), dtype, cuda_device)
+    k = _randn(gen, (B, hkv, Skv, D), dtype, cuda_device)
+    v = _randn(gen, (B, hkv, Skv, D), dtype, cuda_device)
+    before = dict(fa_mod.flash_attention.launches_by_body)
+    got = fa_mod.flash_attention(q, k, v, causal=causal)
+    assert _ran_body(fa_mod.flash_attention, before) == (
+        "wgmma" if dtype == torch.bfloat16 else "simt")
+    _close(got, ref.flash_attention(q, k, v, causal=causal), dtype)
+
+
 @pytest.mark.parametrize("D", [64, 120, 256])
 def test_flash_attention_kernel_strided_inputs(cuda_device, D):
     """(B, S, H, D) projections pass as transposed views, no copy: the
@@ -1589,3 +1613,78 @@ def test_moe_on_the_card_is_deterministic_and_matches_cpu(cuda_device):
     want = moe.apply_moe(params, cfg, x).float()
     err = (first.cpu().float() - want).norm() / want.norm()
     assert err.item() < 1e-2, err.item()
+
+
+def _whisper_work(gen, cfg):
+    """Six whisper-smoke requests: prompts of 3-9 tokens, frame counts
+    over buckets 8 and 16, requests 1 and 4 on one feature array;
+    greedy and seeded rows alternating."""
+    from repro_torch.launch.engine import SamplingParams
+
+    prompts = [torch.randint(0, 256, (n,), generator=gen).tolist()
+               for n in (3, 7, 5, 9, 4, 6)]
+    feats = [torch.randn((f, cfg.d_model), generator=gen).numpy()
+             for f in (5, 16, 9, 12, 7, 16)]
+    feats[4] = feats[1]
+    sps = [SamplingParams(max_tokens=10) if i % 2 else
+           SamplingParams(max_tokens=10, temperature=8.0, top_k=32, seed=i)
+           for i in range(len(prompts))]
+    return prompts, feats, sps
+
+
+@pytest.mark.parametrize("overlap", [False, True])
+def test_captured_encdec_engine_equals_cpu_engine(cuda_device, overlap):
+    """whisper_base smoke in f32: the backend captures its step (every
+    slot on the null arena row, no frames) while no slot is live, then
+    serves greedy and seeded requests with preemption (8 usable blocks)
+    and a shared feature array by replay alone: tokens equal a CPU
+    engine's, one K2 a decoder layer each step, no block and no arena row
+    left in use."""
+    from repro_torch.launch.engine import Engine, EngineConfig
+
+    cpu, params, model, dparams = _smoke_model("whisper_base", cuda_device)
+    prompts, feats, sps = _whisper_work(torch.Generator().manual_seed(7),
+                                        cpu.cfg)
+    geo = EngineConfig(num_slots=4, block_size=4, num_blocks=9, max_len=32,
+                       overlap=overlap)
+    want = Engine(cpu, params, geo, device="cpu").generate(
+        prompts, sps, encoder_features=feats)
+    eng = Engine(model, dparams, geo, device="cuda")
+    n0 = pa_mod.paged_decode_attention.launches
+    got = eng.generate(prompts, sps, encoder_features=feats)
+    st = eng.stats()
+    assert got == want
+    assert st["graph_replays"] == st["steps"] > 0
+    assert st["eager_decode_steps"] == 0 and st["blocks_used"] == 0
+    assert st["preemptions"] >= 1
+    assert st["cross_arena"]["rows_used"] == 0
+    assert pa_mod.paged_decode_attention.launches - n0 \
+        == cpu.cfg.n_layers * st["steps"]
+
+
+def test_encdec_arena_keeps_its_storage_across_admissions(cuda_device):
+    """The cross arena is written in place: every pool and arena leaf
+    keeps its ``data_ptr()`` from the capture through admissions,
+    preemptions and retirements (a moved leaf would make the replay
+    raise), and the null row is all the step ever reads for an empty
+    slot."""
+    from repro_torch.launch.engine import Engine, EngineConfig
+    from repro_torch.launch.engine import step_graph
+
+    _, _, model, dparams = _smoke_model("whisper_base", cuda_device)
+    prompts, feats, sps = _whisper_work(torch.Generator().manual_seed(8),
+                                        model.cfg)
+    eng = Engine(model, dparams, EngineConfig(
+        num_slots=4, block_size=4, num_blocks=9, max_len=32), device="cuda")
+    pools = eng.backend.pools
+    ptrs = [t.data_ptr() for t in step_graph._leaves(pools)]
+    for p, f, sp in zip(prompts, feats, sps):
+        eng.add_request(p, sp, encoder_features=f)
+    seen = set()
+    while eng.has_work:
+        eng.step()
+        seen.update(int(a) for a in eng.backend.arena_ids if a)
+        assert [t.data_ptr() for t in step_graph._leaves(
+            eng.backend.pools)] == ptrs
+    assert eng.backend.pools is pools and len(seen) >= 2
+    assert eng.stats()["cross_arena"]["rows_used"] == 0

@@ -2,8 +2,9 @@
 chip_smoke.py imports JAX or the JAX package; its configs, the tile
 layer's ``TilePolicy`` op classes and the ``PrecisionEnv`` presets
 mirror ``repro``'s field for field; entry points refuse to fall back to
-the CPU when a GPU is asked for and none is present; options and
-configs this slice does not serve raise NotImplementedError."""
+the CPU when a GPU is asked for and none is present; options not
+ported yet raise NotImplementedError, as does a config the JAX engine
+does not serve either (qwen2-vl)."""
 
 import ast
 import dataclasses
@@ -105,15 +106,26 @@ def test_unported_engine_options_raise(field, value, item):
         Engine(model, params, cfg, device="cpu")
 
 
-@pytest.mark.parametrize("arch,item", [
-    ("whisper_base", "Enc-dec / VLM"),
-    ("qwen2_vl_2b", "paged decode"),
-])
-def test_unported_configs_raise_at_engine(arch, item):
+@pytest.mark.parametrize("arch", ["whisper_base", "qwen2_vl_2b"])
+def test_encdec_serves_and_vlm_is_refused_at_engine(arch):
+    """whisper, refused until its slice, builds an ``Engine`` from the
+    port's own init and serves a request with encoder features; qwen2-vl
+    has no paged decode path, in the port as in JAX, and is refused by
+    name."""
     cfg = configs.get_config(arch).smoke()
     model = Model(cfg, device="cpu")
-    with pytest.raises(NotImplementedError, match=item):
-        Engine(model, {}, EngineConfig(), device="cpu")
+    params = model.init(seed=0)
+    if not cfg.enc_dec:
+        with pytest.raises(NotImplementedError, match="paged decode"):
+            Engine(model, params, EngineConfig(), device="cpu")
+        return
+    eng = Engine(model, params, EngineConfig(), device="cpu")
+    feats = torch.randn((9, cfg.d_model)).numpy()
+    out = eng.generate([[1, 2, 3]], SamplingParams(max_tokens=3),
+                       encoder_features=[feats])
+    st = eng.stats()
+    assert len(out[0]) == 3 and st["blocks_used"] == 0
+    assert st["cross_arena"]["rows_used"] == 0
 
 
 @pytest.mark.parametrize("arch", ["xlstm_1_3b", "qwen3_moe_30b_a3b"])

@@ -163,23 +163,20 @@ def test_wrappers_reject_other_devices():
 
 @pytest.mark.parametrize("arch", configs.ARCH_IDS)
 def test_every_accepted_config_has_kernels_built_for_it(arch):
-    """Every full-size config the port accepts (``check_supported`` and a
-    paged decode path in ``serving_caps``) with attention layers has a
-    head dim K1 is built for (gemma's 256, danube's 120 among them) and,
-    where a layer keeps its K/V in the block pool, the head dim and
-    group K2 and K3 are built for (qwen3's and kimi's group 8). A config
-    the port refuses, or one without attention (xLSTM), has nothing to
-    check."""
+    """Every full-size config the port accepts (``check_supported``)
+    with attention layers has a head dim K1 is built for (gemma's 256,
+    danube's 120, whisper's 64, qwen2-vl's 128 at group 6 among them)
+    and, where it has a paged decode path and a layer keeps its K/V in
+    the block pool, the head dim and group K2 and K3 are built for
+    (qwen3's and kimi's group 8, whisper's decoder). A config without
+    attention (xLSTM) has nothing to check."""
     cfg = configs.get_config(arch)
-    try:
-        transformer.check_supported(cfg)
-    except NotImplementedError:
-        return
-    if not Model(cfg, device="cpu").serving_caps().paged_decode:
-        return
+    transformer.check_supported(cfg)
     if not {"attn", "local"} & set(cfg.block_pattern):
         return
     assert fa_mod.supports(cfg.head_dim), (arch, cfg.head_dim)
+    if not Model(cfg, device="cpu").serving_caps().paged_decode:
+        return
     if any(transformer._is_pool_kind(cfg, k) for k in cfg.block_pattern):
         group = cfg.n_heads // cfg.n_kv_heads
         for mode in ("decode", "verify"):

@@ -180,16 +180,30 @@ def test_paged_decode_and_pool_match_jax(rng, arch):
         length = length + 1
 
 
-def test_unported_kinds_raise():
-    """Configs outside this slice raise NotImplementedError naming the
-    ROADMAP item, at init and at prefill."""
-    for arch in ("whisper_base", "qwen2_vl_2b"):
-        cfg = get_config(arch).smoke()
-        with pytest.raises(NotImplementedError, match="Enc-dec / VLM"):
-            Model(cfg, device="cpu").init(seed=0)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            transformer.prefill({}, cfg, torch.zeros((1, 4), dtype=torch.int32),
-                                CTX)
+@pytest.mark.parametrize("arch", ["whisper_base", "qwen2_vl_2b"])
+def test_encdec_and_vlm_init_and_prefill(arch):
+    """The encoder-decoder and the VLM, refused until their slice, init
+    from the port's own generator and prefill (whisper: 8 tokens over 12
+    frames; qwen2-vl: 8 tokens behind its visual prefix, text M-RoPE
+    ids) to finite logits of the vocabulary's width."""
+    cfg = get_config(arch).smoke()
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=0)
+    gen = torch.Generator().manual_seed(0)
+    toks = torch.randint(0, cfg.vocab_size, (2, 8), dtype=torch.int32,
+                         generator=gen)
+    batch = {"tokens": toks}
+    if cfg.enc_dec:
+        batch["frames"] = torch.randn((2, 12, cfg.d_model), generator=gen)
+    else:
+        batch["visual_embeds"] = torch.randn(
+            (2, cfg.visual_prefix, cfg.d_model), generator=gen)
+        batch["mrope_positions"] = torch.arange(8).expand(3, 2, 8)
+    logits, cache = model.prefill(params, batch, CTX, max_len=12)
+    assert logits.shape == (2, 8, cfg.vocab_size)
+    assert torch.isfinite(logits).all()
+    assert set(cache) == ({"self", "cross"} if cfg.enc_dec
+                          else set(params["groups"]))
 
 
 @pytest.mark.parametrize("arch", ["xlstm_1_3b", "qwen3_moe_30b_a3b",
