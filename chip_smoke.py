@@ -222,6 +222,39 @@ Phases, one JSON line each (any failed check exits non-zero):
               (equal iterations, x within 1e-12), then vp128 CG on
               hilbert_like(1024, cond 1e8) for 200 iterations (ms per
               iteration).
+13. parity_train — the training path at smoke sizes in f32: olmo_1b,
+              h2o_danube_3_4b and recurrentgemma_2b ``loss_fn`` loss and
+              every grad leaf, cuda against cpu on the same params and
+              batch (loss 1e-5 relative, grads 1e-4 x max(1, max|g|)),
+              K1, its backward and (recurrentgemma) K5 launched on cuda;
+              three ``make_train_step`` steps of olmo_1b smoke for AdamW,
+              ``grad_accum=2`` and ``norm_tile="vrp"`` (K8b), cuda
+              against cpu by loss (1e-4 relative). Then, at the
+              training shapes, K1's forward with its row lse against
+              ``ref.flash_attention(..., return_lse=True)`` (output
+              within TOL, lse within 1e-4 f32 / 3e-3 bf16; bf16 on the
+              wgmma body) and K1's backward kernel
+              (``csrc/flash_attention_bwd.cu``) against
+              ``ref.flash_attention_bwd``, element by element within
+              TOL + BWD_RTOL |plain| (BWD_RTOL 2^-7 in bf16, one ulp; 0
+              in f32), each a kernels row (``K1_bwd``: ms, plain ms, the
+              bound, SDPA's backward as the library time; the forward's
+              ``fwd_ms``, ``fwd_plain_ms``, ``fwd_bound_ms`` and SDPA's
+              forward beside them): olmo_1b (4, 16/16, 2048, 128)
+              causal, recurrentgemma's local (2, 10/1, 2048, 256)
+              window 2048 and h2o_danube (2, 32/8, 2048, 120) window
+              4096, each in bf16 and in f32.
+14. train   — ``launch.train.train_loop`` on olmo_1b at full width and
+              depth in bf16: AdamW on ``SyntheticLM`` at batch 4 x 2048,
+              20 steps, a checkpoint every 10; the loss must fall, K1
+              and its backward launch 16 a step; then a second
+              ``train_loop`` restores step 10 and runs to 20 (losses
+              within 1e-2 relative, the largest difference and bit
+              equality printed); the step's ms (median of steps 2..19),
+              tokens/s, one step split into forward / backward /
+              optimizer, K1's backward's share of a profiled step's
+              device time, peak memory and the card. The summary line's
+              ``K1_bwd`` row takes its launches from this phase.
 
 The kernels phase also holds K5 (the RG-LRU scan) at recurrent_serve's
 (8, 512, 2560) and (2, 2560, 2560) f32 shapes, bit-equal to its plain
@@ -294,6 +327,11 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM data sheet
 PEAK_FLOPS = {"bfloat16": 989e12,  # dense tensor-core bf16
               "float32": 67e12}    # f32 outside the tensor cores
 TOL = {"bfloat16": 3e-2, "float32": 1e-4}
+LSE_TOL = {"bfloat16": 3e-3,       # K1's row lse: f32 of a few units; bf16
+           "float32": 1e-4}        # inputs only reorder the products
+BWD_RTOL = {"bfloat16": 2.0 ** -7,  # K1_bwd, per element |g - w| <= TOL +
+            "float32": 0.0}         # BWD_RTOL |w|: one bf16 ulp of w (both
+#                                     sides round an f32 sum to bf16)
 K5_TOL = 1e-5                      # JAX's rglru_scan tolerance (f32)
 LONG, LONG_NEW = 2200, 64          # recurrent_serve: prompts past the window
 K6_TOL = {"bfloat16": (3e-2, 3e-1),  # (rtol, atol) by operand dtype, as
@@ -3086,6 +3124,370 @@ def phase_tile_path(torch, np, profile):
     return out["launches"]
 
 
+# ---------------------------------------------------------------------------
+# training: K1's backward, parity_train, train
+# ---------------------------------------------------------------------------
+
+
+def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
+    """K1's forward with its row lse and K1's backward kernel at (B,
+    hq/hkv, S, D), causal, q / k / v laid out as the training path
+    passes them ((B, S, H, D) projections seen through
+    ``.transpose(1, 2)``). The forward's output is held against
+    ``ref.flash_attention(..., return_lse=True)`` within TOL and its lse
+    within LSE_TOL, on the body the wrapper picks (bf16: wgmma, f32:
+    simt), so that a wrong lse cannot cancel out of the backward's check
+    below. The backward is held against ``ref.flash_attention_bwd`` on
+    the same q, k, v, output, lse and output gradient, element by
+    element: |got - plain| <= TOL + BWD_RTOL * |plain|. Bounds: the
+    forward's 4 D flops a visible pair and q, k, v, O, lse moved once;
+    the backward's 2.5x the forward's products (five matmuls against
+    two) and q, k, v, O, dO, lse, dQ, dK, dV moved once. The library
+    times are SDPA's forward and its backward (forward + backward under
+    autograd less the forward), on the same tensors."""
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import flash_attention as fa, ref
+
+    dt = getattr(torch, dtype)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda")
+               .to(dt).transpose(1, 2) for h in (hq, hkv, hkv))
+    do = torch.randn((B, hq, S, D), generator=gen, device="cuda").to(dt)
+    before = dict(fa.flash_attention.launches_by_body)
+    out, lse = fa._forward(q, k, v, True, window, None, True)
+    fwd_body = ran_body(fa.flash_attention, before)
+    want_out, want_lse = ref.flash_attention(q, k, v, window=window,
+                                             return_lse=True)
+    fwd_err = (out.float() - want_out.float()).abs().max().item()
+    lse_err = (lse - want_lse).abs().max().item()
+    del want_out, want_lse
+    call = lambda: fa.flash_attention_bwd(  # noqa: E731
+        q, k, v, out, lse, do, window=window)
+    before = fa.flash_attention_bwd.launches
+    got = call()
+    check(fa.flash_attention_bwd.launches == before + 1,
+          f"K1_bwd {name}: not one counted launch")
+    want = ref.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    torch.cuda.synchronize()
+    errs, excess = {}, {}
+    for n, g, w in zip(("dq", "dk", "dv"), got, want):
+        diff = (g.float() - w.float()).abs()
+        errs[n] = diff.max().item()
+        # the largest ratio of an element's error to its own limit
+        excess[n] = (diff / (TOL[dtype] + BWD_RTOL[dtype] * w.float().abs())
+                     ).max().item()
+    del got, want
+    w = min(window or S, S)
+    pairs = B * hq * (w * (w + 1) // 2 + (S - w) * w)
+    elem = q.element_size()
+    fwd_bound_ms, fwd_bound_by = bound(
+        4 * D * pairs, elem * (2 * B * hq * S * D + 2 * B * hkv * S * D)
+        + 4 * B * hq * S, dtype)
+    nbytes = elem * (4 * B * hq * S * D + 4 * B * hkv * S * D) \
+        + 4 * B * hq * S
+    bound_ms, bound_by = bound(2.5 * 4 * D * pairs, nbytes, dtype)
+    qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
+    kw = {"enable_gqa": hkv < hq}
+    if window is not None and window < S:
+        pos = torch.arange(S, device="cuda")
+        kw["attn_mask"] = (pos[None, :] <= pos[:, None]) \
+            & (pos[None, :] > pos[:, None] - window)
+    else:
+        kw["is_causal"] = True
+    sdpa = lambda: F.scaled_dot_product_attention(  # noqa: E731
+        qs, ks, vs, **kw)
+    sdpa_fwd = cuda_ms(torch, sdpa)
+    sdpa_fb = cuda_ms(torch, lambda: torch.autograd.grad(
+        sdpa(), (qs, ks, vs), do))
+    row = {"phase": "kernels", "kernel": "K1_bwd", "case": name,
+           "shape": [B, hq, hkv, S, D], "dtype": dtype, "window": window,
+           "causal": True, "body": "simt", "max_abs_err": max(errs.values()),
+           "err_by_grad": errs, "err_over_limit_by_grad": excess,
+           "tol": TOL[dtype], "rtol": BWD_RTOL[dtype],
+           "ms": cuda_ms(torch, call),
+           "plain_ms": cuda_ms(torch, lambda: ref.flash_attention_bwd(
+               q, k, v, out, lse, do, window=window), reps=3),
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "library_ms": sdpa_fb - sdpa_fwd,
+           "library": "sdpa backward (forward + backward under autograd "
+                      "less the forward), " + (
+                          "boolean causal+window mask" if "attn_mask" in kw
+                          else "is_causal"),
+           "fwd_body": fwd_body, "fwd_max_abs_err": fwd_err,
+           "fwd_lse_max_abs_err": lse_err, "lse_tol": LSE_TOL[dtype],
+           "fwd_ms": cuda_ms(torch, lambda: fa._forward(
+               q, k, v, True, window, None, True)),
+           "fwd_plain_ms": cuda_ms(torch, lambda: ref.flash_attention(
+               q, k, v, window=window, return_lse=True), reps=3),
+           "fwd_bound_ms": fwd_bound_ms, "fwd_bound_by": fwd_bound_by,
+           "library_fwd_ms": sdpa_fwd}
+    emit(row)
+    want_body = "wgmma" if dtype == "bfloat16" else "simt"
+    check(fwd_body == want_body and math.isfinite(fwd_err)
+          and fwd_err <= TOL[dtype] and math.isfinite(lse_err)
+          and lse_err <= LSE_TOL[dtype],
+          f"K1 (lse) {name}: {fwd_body} body (expected {want_body}), "
+          f"output err {fwd_err} (tol {TOL[dtype]}), lse err {lse_err} "
+          f"(tol {LSE_TOL[dtype]})")
+    check(all(math.isfinite(e) and e <= 1.0 for e in excess.values()),
+          f"K1_bwd {name}: errors {errs}, over their per-element limits "
+          f"{TOL[dtype]} + {BWD_RTOL[dtype]} |plain| by {excess}")
+    return row
+
+
+def training_counters():
+    """The launch counters of the training path's kernels: K1's forward,
+    its backward, K5 (forward and reversed backward) and K8b."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import rglru_scan as k5
+    from repro_torch.kernels import vrp_dot as k8
+
+    return {"K1": (fa.flash_attention, "launches"),
+            "K1_bwd": (fa.flash_attention_bwd, "launches"),
+            "K5": (k5.rglru_scan, "launches"),
+            "K8b": (k8.vrp_sum_lanes, "launches")}
+
+
+def zero_training_counters():
+    for fn, attr in training_counters().values():
+        setattr(fn, attr, 0)
+
+
+def read_training_counters():
+    return {k: getattr(fn, attr) for k, (fn, attr)
+            in training_counters().items()}
+
+
+def phase_parity_train(torch, np):
+    """The training path at smoke sizes in f32 (TF32 off), cuda against
+    cpu on the same params and batch: olmo_1b, h2o_danube_3_4b (SWA) and
+    recurrentgemma_2b (RG-LRU + local attention), loss within 1e-5
+    relative and every grad leaf within 1e-4 * max(1, max|g_cpu|) (the
+    CPU tests' tolerance against JAX); the cuda run must launch K1, its
+    backward and (recurrentgemma) K5. Then three steps of
+    ``make_train_step`` on olmo_1b smoke for each of AdamW, AdamW with
+    ``grad_accum=2`` and AdamW with ``norm_tile="vrp"`` (K8b on the
+    norm), cuda against cpu by loss within 1e-4 relative. Then K1's
+    forward (with lse) and backward against their plain versions at the
+    training shapes, in bf16 and in f32 (``k1_bwd_case``)."""
+    import functools
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import RunCtx
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.schedule import constant
+
+    t0 = time.monotonic()
+    ctx = RunCtx()
+    grads_rows = {}
+    for arch in ("olmo_1b", "h2o_danube_3_4b", "recurrentgemma_2b"):
+        cfg = get_config(arch).smoke()
+        cpu = Model(cfg, device="cpu")
+        gpu = Model(cfg, device="cuda")
+        params = cpu.init(seed=SEED)
+        src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                     global_batch=4, seed=SEED))
+        batch = src.batch_at(0)
+        want_loss, _, want = train.value_and_grad(cpu, ctx, params, batch)
+        zero_training_counters()
+        loss, _, got = train.value_and_grad(
+            gpu, ctx, tr.map_tree(lambda t: t.cuda(), params),
+            {k: v.cuda() for k, v in batch.items()})
+        torch.cuda.synchronize()
+        counts = read_training_counters()
+        rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+        ratio = max((g.cpu() - w).abs().max().item()
+                    / max(1.0, w.abs().max().item())
+                    for g, w in zip(got, want))
+        grads_rows[arch] = {"loss_cpu": want_loss.item(),
+                            "loss_cuda": loss.item(), "loss_rel_err": rel,
+                            "grad_err_over_scale": ratio,
+                            "launches": counts}
+        check(rel <= 1e-5 and ratio <= 1e-4,
+              f"parity_train {arch}: loss rel err {rel}, grad err / scale "
+              f"{ratio}")
+        check(counts["K1"] > 0 and counts["K1_bwd"] > 0
+              and (counts["K5"] > 0) == (arch == "recurrentgemma_2b"),
+              f"parity_train {arch}: launches {counts}")
+    steps = {}
+    cfg = get_config("olmo_1b").smoke()
+    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                 global_batch=4, seed=SEED))
+    lr = functools.partial(constant, peak_lr=1e-3)
+    for name, kw in (("adamw", {}), ("grad_accum_2", {"grad_accum": 2}),
+                     ("norm_vrp", {"norm_tile": "vrp"})):
+        losses = {}
+        for dev in ("cpu", "cuda"):
+            model = Model(cfg, device=dev)
+            state = train.init_state(Model(cfg, device="cpu"),
+                                     OptConfig(**kw), seed=SEED)
+            state = tr.map_tree(lambda t: t.to(dev), state)
+            step = train.make_train_step(model, OptConfig(**kw), ctx, lr)
+            zero_training_counters()
+            losses[dev] = []
+            for i in range(3):
+                batch = {k: v.to(dev) for k, v in src.batch_at(i).items()}
+                state, metrics = step(state, batch)
+                losses[dev].append(float(metrics["loss"]))
+            counts = read_training_counters()
+        rel = max(abs(a - b) / abs(b)
+                  for a, b in zip(losses["cuda"], losses["cpu"]))
+        steps[name] = {"losses_cuda": losses["cuda"],
+                       "losses_cpu": losses["cpu"], "max_rel_err": rel,
+                       "launches": counts}
+        check(rel <= 1e-4, f"parity_train steps {name}: loss rel err {rel}")
+        check(counts["K1_bwd"] > 0 and (counts["K8b"] > 0)
+              == (name == "norm_vrp"),
+              f"parity_train steps {name}: launches {counts}")
+    emit({"phase": "parity_train", "grads": grads_rows, "steps": steps,
+          "seconds": time.monotonic() - t0})
+    rows = {"olmo": k1_bwd_case(torch, "olmo_train", 4, 16, 16, 2048, 128,
+                                "bfloat16")}
+    k1_bwd_case(torch, "rg_local_d256", 2, 10, 1, 2048, 256, "bfloat16",
+                window=2048)
+    k1_bwd_case(torch, "danube_d120_gqa4", 2, 32, 8, 2048, 120, "bfloat16",
+                window=4096)
+    k1_bwd_case(torch, "olmo_train_f32", 4, 16, 16, 2048, 128, "float32")
+    k1_bwd_case(torch, "rg_local_d256_f32", 2, 10, 1, 2048, 256, "float32",
+                window=2048)
+    k1_bwd_case(torch, "danube_d120_gqa4_f32", 2, 32, 8, 2048, 120,
+                "float32", window=4096)
+    return rows["olmo"]
+
+
+TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 20   # train: olmo_1b's batch
+
+
+def phase_train(torch, np):
+    """``train_loop`` on olmo_1b at full width and depth in bf16 (16
+    layers, d_model 2048, 16 heads x 128, vocab 50304; seeded random
+    weights): AdamW on ``SyntheticLM`` at batch 4 x 2048, 20 steps
+    (``warmup_cosine`` to a peak lr of 1e-3 after 2 steps), a checkpoint
+    every 10. The loss at step 19 must be below step 0's. Then
+    the step-20 checkpoint is removed and a second ``train_loop`` on the
+    same directory restores step 10 and runs to 20: its losses of steps
+    10..19 within 1e-2 relative of the first run's (bf16 weights; torch's
+    scatter-add in the embedding's backward may add in another order, so
+    the updates need not be bit-equal; the largest difference and
+    whether every loss was bit-equal are printed). Then one step more of
+    ``make_train_step``, timed in parts (forward, backward, optimizer)
+    by CUDA events its ``mark`` hook records, and one more profiled:
+    K1's backward kernels' share of device time. Prints the
+    step's ms (median of steps 2..19), tokens/s, peak
+    ``max_memory_allocated`` and the card."""
+    import functools
+    import shutil
+    import tempfile
+
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import RunCtx
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.schedule import warmup_cosine
+
+    t0 = time.monotonic()
+    cfg = get_config("olmo_1b")
+    model = Model(cfg, device="cuda")
+    opt_cfg, ctx = OptConfig(), RunCtx()
+    data_cfg = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_S,
+                          global_batch=TRAIN_B, seed=SEED)
+    ckdir = tempfile.mkdtemp(prefix="chip_smoke_train_")
+    loop = train.TrainLoopConfig(steps=TRAIN_STEPS, ckpt_every=10,
+                                 ckpt_dir=ckdir, log_every=10)
+    lr = functools.partial(warmup_cosine, peak_lr=1e-3, warmup_steps=2,
+                           total_steps=TRAIN_STEPS)
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    zero_training_counters()
+    state, hist = train.train_loop(model, opt_cfg, ctx, data_cfg, loop,
+                                   lr_fn=lr)
+    torch.cuda.synchronize()
+    launches = read_training_counters()
+    peak = torch.cuda.max_memory_allocated()
+    run_s = time.monotonic() - t0
+    losses = [h["loss"] for h in hist]
+    dts = sorted(h["dt"] for h in hist[2:])
+    step_s = float(np.median(dts))
+    check(losses[-1] < losses[0],
+          f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
+    check(launches["K1"] == launches["K1_bwd"] == cfg.n_layers * TRAIN_STEPS,
+          f"train: launches {launches}, expected {cfg.n_layers} a step")
+    del state
+    torch.cuda.empty_cache()
+    shutil.rmtree(os.path.join(ckdir, f"step_{TRAIN_STEPS}"))
+    t1 = time.monotonic()
+    state, hist2 = train.train_loop(model, opt_cfg, ctx, data_cfg, loop,
+                                    lr_fn=lr)
+    resume_s = time.monotonic() - t1
+    resumed = [h["loss"] for h in hist2]
+    diffs = [abs(a - b) / abs(b) for a, b in zip(resumed, losses[10:])]
+    check([h["step"] for h in hist2] == list(range(10, TRAIN_STEPS))
+          and max(diffs) <= 1e-2,
+          f"train: the resumed run's losses {resumed} vs {losses[10:]}")
+    shutil.rmtree(ckdir, ignore_errors=True)
+
+    # one more step of make_train_step, in parts, then under the profiler
+    batch = SyntheticLM(data_cfg, device="cuda").batch_at(TRAIN_STEPS)
+    events = {n: torch.cuda.Event(enable_timing=True)
+              for n in ("start", "loss", "grads", "update")}
+    step = train.make_train_step(model, opt_cfg, ctx, lr,
+                                 mark=lambda n: events[n].record())
+    state, _ = step(state, batch)
+    torch.cuda.synchronize()
+    parts = {"forward_ms": events["start"].elapsed_time(events["loss"]),
+             "backward_ms": events["loss"].elapsed_time(events["grads"]),
+             "optimizer_ms": events["grads"].elapsed_time(events["update"])}
+    step = train.make_train_step(model, opt_cfg, ctx, lr)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+    dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    total_us = sum(e.self_device_time_total for e in dev)
+    bwd_us = sum(e.self_device_time_total for e in dev
+                 if re.search(r"dkdv_kernel|dq_kernel|delta_kernel", e.key))
+    top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    del state
+    torch.cuda.empty_cache()
+    emit({"phase": "train", "arch": "olmo_1b", "layers": cfg.n_layers,
+          "dtype": cfg.dtype, "batch": [TRAIN_B, TRAIN_S],
+          "steps": TRAIN_STEPS, "optimizer": "adamw",
+          "lr": "warmup_cosine peak 1e-3, warmup 2",
+          "losses": losses, "loss_0": losses[0], "loss_19": losses[-1],
+          "step_ms_median_2_19": step_s * 1e3,
+          "tokens_per_s": TRAIN_B * TRAIN_S / step_s,
+          "split_ms": parts, "device_ms_profiled_step": total_us / 1e3,
+          "k1_bwd_share_of_device_time": bwd_us / total_us,
+          "top_device_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
+                                    for e in top},
+          "peak_memory_bytes": peak, "launches": launches,
+          "resumed_from": 10, "resumed_losses": resumed,
+          "resume_max_rel_diff": max(diffs),
+          "resume_bit_equal": resumed == losses[10:],
+          "resume_first_step_bit_equal": resumed[0] == losses[10],
+          "resume_tol": 1e-2, "run_s": run_s, "resume_s": resume_s,
+          "card": nvidia_smi()})
+    return launches
+
+
+def nvidia_smi():
+    """The card's name and power limit as nvidia-smi prints them."""
+    out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True,
+                         text=True, check=True).stdout.strip().splitlines()
+    return out[0]
+
+
 def k8_finalize_row(k8a):
     """The finalize kernel's summary row, from K8a's plate case: its time
     and the torch tree's on the same lanes (equal bit for bit there).
@@ -3222,6 +3624,10 @@ def main():
     launches.update(phase_vlm_dense(torch, np, args.profile))
     torch.cuda.empty_cache()
     launches.update(phase_tile_path(torch, np, args.profile))
+    torch.cuda.empty_cache()
+    k1_bwd = phase_parity_train(torch, np)
+    torch.cuda.empty_cache()
+    launches["K1_bwd"] = phase_train(torch, np)["K1_bwd"]
 
     kernels = []
     for row, key, name, src, tpu in (
@@ -3309,7 +3715,13 @@ def main():
             (k8_finalize_row(k8a), "K8_finalize",
              "vrp_finalize (K8's compensated tree over the 1024 lanes)",
              "src/repro_torch/csrc/vrp_dot.cu",
-             "src/repro/kernels/ops.py:278")):
+             "src/repro/kernels/ops.py:278"),
+            (k1_bwd, "K1_bwd",
+             "flash_attention_bwd (K1's backward: dQ, dK, dV at olmo_1b's "
+             "training shape; the JAX package differentiates K1's oracle, "
+             "no Pallas backward)",
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:109")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": tpu,
                         "launches": {**launches, **quant}[key],
@@ -3319,10 +3731,7 @@ def main():
                             "graph_ms", "simt_ms", "call_ms", "call_host_ms")
                            if k in row}})
     emit({"kernels": kernels})
-    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, check=True).stdout.strip().splitlines()
-    print(smi[0], flush=True)
+    print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",
                                  "kind": torch.cuda.get_device_name(0),
                                  "count": torch.cuda.device_count()}})

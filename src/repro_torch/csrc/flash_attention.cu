@@ -5,7 +5,12 @@
 // (B, Hkv, Skv, D) with GQA head map h -> h / (Hq / Hkv), key masks
 // kpos < Skv, optional causal (kpos <= qpos) and optional window
 // (kpos > qpos - window), f32 running (max, sum, acc), a row with no
-// visible key gives 0. Output (B, Hq, Sq, D) in q's type.
+// visible key gives 0. Output (B, Hq, Sq, D) in q's type. When asked
+// (a non-null lse pointer: the training forward), both bodies also write
+// each row's f32 log-sum-exp of its scaled scores, (B, Hq, Sq), -inf for
+// a row that sees no key; the backward pass (flash_attention_bwd.cu)
+// recomputes the probabilities from it. Serving passes null and writes
+// nothing more.
 //
 // What bounds it on the H100: 4 * D flops per visible (q, k) pair
 // against 2 bytes per element of q, k, v and the output, each read or
@@ -82,6 +87,7 @@ struct FaParams {
   const void* k;
   const void* v;
   void* o;
+  float* lse;                    // (B, Hq, Sq) or null
   int Hq, Sq, Skv, group, D;     // D: logical head dim (<= DP)
   long long q_sb, q_sh, q_ss;
   long long k_sb, k_sh, k_ss;
@@ -229,6 +235,9 @@ __global__ void __launch_bounds__(THREADS) fa_kernel(FaParams p) {
     const int qp = q_lo + rg * RPT + i;
     if (qp >= p.Sq) continue;
     const float inv = 1.f / (l[i] == 0.f ? 1.f : l[i]);
+    if (p.lse != nullptr && cl == 0)
+      p.lse[static_cast<long long>(blockIdx.y) * p.Sq + qp] =
+          l[i] == 0.f ? -CUDART_INF_F : m[i] + logf(l[i]);
 #pragma unroll
     for (int e = 0; e < DPT; ++e)
       if (cl + 16 * e < D)
@@ -289,6 +298,7 @@ struct Cfg {
 // scale folded in the kernel, ran measurably slower on the card.
 struct TcParams {
   __nv_bfloat16* o;
+  float* lse;                                     // (B, Hq, Sq) or null
   int Hq, Sq, Skv, group, D, causal, window;
   float scale_log2;                               // scale * log2(e)
 };
@@ -468,6 +478,11 @@ __global__ void __launch_bounds__(Cfg<DP>::THREADS, 1)
     const int qpos = r0 + 8 * i;
     if (qpos >= p.Sq) continue;
     const float inv = 1.f / (li == 0.f ? 1.f : li);
+    // m is in the log2 domain: ln(sum e^s) = (m + log2(l)) ln 2
+    if (p.lse != nullptr && lane % 4 == 0)
+      p.lse[static_cast<long long>(blockIdx.y) * p.Sq + qpos] =
+          li == 0.f ? -CUDART_INF_F
+                    : (m[i] + log2f(li)) * 0.6931471805599453f;
 #pragma unroll
     for (int n = 0; n < DP / 8; ++n) {
       const int col = 8 * n + 2 * (lane % 4);     // D % 8 == 0: both or none
@@ -508,6 +523,7 @@ cudaError_t launch(const FaParams& p, int B, int Hkv, cudaStream_t stream) {
   const dim3 grid((p.Sq + C::BQ - 1) / C::BQ, B * p.Hq);
   TcParams tp;
   tp.o = static_cast<__nv_bfloat16*>(p.o);
+  tp.lse = p.lse;
   tp.Hq = p.Hq;
   tp.Sq = p.Sq;
   tp.Skv = p.Skv;
@@ -545,13 +561,15 @@ cudaError_t dispatch(const FaParams& p, int B, int Hkv, cudaStream_t stream) {
 
 // C entry point (loaded with ctypes by repro_torch/kernels/
 // flash_attention.py). Strides are in elements; the head dim is
-// contiguous. body: 0 runs the SIMT body, 1 the wgmma body (bf16, D a
-// multiple of 8 up to 256, every stride a positive multiple of 8,
-// 16-byte aligned bases; anything else is refused with
-// cudaErrorInvalidValue, never rerouted). Returns the launch's
-// cudaGetLastError() code.
+// contiguous. lse: null, or an f32 (B, Hq, Sq) output for each row's
+// log-sum-exp (the training forward). body: 0 runs the SIMT body, 1 the
+// wgmma body (bf16, D a multiple of 8 up to 256, every stride a
+// positive multiple of 8, 16-byte aligned bases; anything else is
+// refused with cudaErrorInvalidValue, never rerouted). Returns the
+// launch's cudaGetLastError() code.
 extern "C" int repro_flash_attention(
-    const void* q, const void* k, const void* v, void* o, int dtype, int B,
+    const void* q, const void* k, const void* v, void* o, float* lse,
+    int dtype, int B,
     int Hq, int Hkv, int Sq, int Skv, int D, long long q_sb, long long q_sh,
     long long q_ss, long long k_sb, long long k_sh, long long k_ss,
     long long v_sb, long long v_sh, long long v_ss, int causal, int window,
@@ -561,6 +579,7 @@ extern "C" int repro_flash_attention(
   p.k = k;
   p.v = v;
   p.o = o;
+  p.lse = lse;
   p.Hq = Hq;
   p.Sq = Sq;
   p.Skv = Skv;

@@ -12,6 +12,18 @@ for bf16 inputs that TMA can describe, "simt" (the CUDA cores in f32)
 for everything else, f32 among it. A launch that fails raises; it is
 never rerun on the other body. ``flash_attention.launches`` counts every
 launch and ``flash_attention.launches_by_body`` each body's.
+
+Under autograd (inputs that require grad, grad mode on) the call goes
+through ``_Attention``, a ``torch.autograd.Function``: its forward is
+the same kernel asked to write each row's f32 log-sum-exp as well, its
+backward ``flash_attention_bwd``, the hand-written kernel of
+``csrc/flash_attention_bwd.cu`` (FlashAttention-2's backward from q, k,
+v, the output, its gradient and the lse), counted in
+``flash_attention_bwd.launches``. A kernel's output carries no
+``grad_fn``, so without the Function a loss on the card would reach
+nothing in front of attention. On the CPU the Function runs the plain
+versions, ``ref.flash_attention(..., return_lse=True)`` and
+``ref.flash_attention_bwd``.
 """
 
 from __future__ import annotations
@@ -27,9 +39,12 @@ MAX_HEAD_DIM = 256                  # widest template tile of the kernel
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # csrc/common.cuh DType
 BODIES = ("simt", "wgmma")          # the C entry's body codes 0 and 1
 
-_ARGTYPES = ([ctypes.c_void_p] * 4 + [ctypes.c_int] * 7
+_ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
+_BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
+                 + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
+                 + [ctypes.c_float, ctypes.c_void_p])
 
 
 def supports(head_dim: int) -> bool:
@@ -64,6 +79,64 @@ def body(q, k, v) -> str:
     return "wgmma"
 
 
+def _check(q, k, v, name="flash_attention"):
+    """Raise ValueError for inputs the CUDA kernels do not take."""
+    B, Hq, Sq, D = q.shape
+    Hkv = k.shape[1]
+    if q.device.type != "cuda" or k.device != q.device \
+            or v.device != q.device:
+        raise ValueError(f"{name}: tensors on {q.device}, "
+                         f"{k.device}, {v.device}; expected one CUDA device")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise ValueError(f"{name}: dtypes {q.dtype}, {k.dtype}, "
+                         f"{v.dtype}; expected all float32 or all bfloat16")
+    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
+            or Hq % Hkv != 0:
+        raise ValueError(f"{name}: shapes q {tuple(q.shape)}, "
+                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
+    if not supports(D):
+        raise ValueError(f"{name}: head dim {D} is not in "
+                         f"1..{MAX_HEAD_DIM}")
+    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
+        raise ValueError(f"{name}: head dim must be contiguous")
+
+
+def _scale(scale, D):
+    return float(scale) if scale is not None else 1.0 / math.sqrt(D)
+
+
+def _forward(q, k, v, causal, window, scale, with_lse):
+    """One forward on either device -> (out, lse or None); on CUDA one
+    counted kernel launch, which writes the lse when ``with_lse``."""
+    if q.device.type == "cpu":
+        if with_lse:
+            return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                       scale=scale, return_lse=True)
+        return ref.flash_attention(q, k, v, causal=causal, window=window,
+                                   scale=scale), None
+    _check(q, k, v)
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    lse = torch.empty((B, Hq, Sq), dtype=torch.float32,
+                      device=q.device) if with_lse else None
+    if out.numel() == 0:
+        return out, lse
+    which = body(q, k, v)
+    fn = _build.function("repro_flash_attention", _ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+             lse.data_ptr() if with_lse else None,
+             DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D,
+             *_strides(q), *_strides(k), *_strides(v),
+             int(causal), int(window or 0), _scale(scale, D),
+             BODIES.index(which),
+             torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(err, f"flash_attention ({which} body)")
+    flash_attention.launches += 1
+    flash_attention.launches_by_body[which] += 1
+    return out, lse
+
+
 def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     """q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D) -> (B, Hq, Sq, D).
 
@@ -71,45 +144,77 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     keys with kpos > qpos - window. The CUDA kernel takes any strides
     whose last (head-dim) stride is 1, so a (B, S, H, D) projection can
     be passed through ``.transpose(1, 2)`` without a copy. The output is
-    a new contiguous tensor in q's dtype.
+    a new contiguous tensor in q's dtype. When autograd needs its
+    gradient, the call runs through ``_Attention`` (see the module
+    docstring).
     """
+    if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
+        return _Attention.apply(q, k, v, causal, window, scale)
+    return _forward(q, k, v, causal, window, scale, False)[0]
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
+                        scale=None):
+    """Gradients (dq, dk, dv) of ``flash_attention`` at output ``o`` with
+    row log-sum-exps ``lse`` (B, Hq, Sq) f32, for the output gradient
+    ``do``. A CPU tensor runs ``ref.flash_attention_bwd``; a CUDA tensor
+    launches the kernels of ``csrc/flash_attention_bwd.cu`` on the
+    current stream (the delta pass, then dK / dV, then dQ: one counted
+    launch), or raises. Returns contiguous (B, Hq, Sq, D) and (B, Hkv,
+    Skv, D) tensors in the inputs' dtype."""
     if q.device.type == "cpu":
-        return ref.flash_attention(q, k, v, causal=causal, window=window,
-                                   scale=scale)
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       window=window, scale=scale)
+    _check(q, k, v, "flash_attention_bwd")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    if q.device.type != "cuda" or k.device != q.device \
-            or v.device != q.device:
-        raise ValueError(f"flash_attention: tensors on {q.device}, "
-                         f"{k.device}, {v.device}; expected one CUDA device")
-    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise ValueError(f"flash_attention: dtypes {q.dtype}, {k.dtype}, "
-                         f"{v.dtype}; expected all float32 or all bfloat16")
-    if k.shape != v.shape or k.shape[0] != B or k.shape[3] != D \
-            or Hq % Hkv != 0:
-        raise ValueError(f"flash_attention: shapes q {tuple(q.shape)}, "
-                         f"k {tuple(k.shape)}, v {tuple(v.shape)}")
-    if not supports(D):
-        raise ValueError(f"flash_attention: head dim {D} is not in "
-                         f"1..{MAX_HEAD_DIM}")
-    if q.stride(-1) != 1 or k.stride(-1) != 1 or v.stride(-1) != 1:
-        raise ValueError("flash_attention: head dim must be contiguous")
-    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    out = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
-    if out.numel() == 0:
-        return out
-    which = body(q, k, v)
-    fn = _build.function("repro_flash_attention", _ARGTYPES)
-    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-             DTYPES[q.dtype], B, Hq, Hkv, Sq, Skv, D,
+    if o.shape != q.shape or do.shape != q.shape \
+            or lse.shape != (B, Hq, Sq) or lse.dtype != torch.float32 \
+            or o.dtype != q.dtype or do.dtype != q.dtype \
+            or any(t.device != q.device for t in (o, do, lse)):
+        raise ValueError(
+            f"flash_attention_bwd: o {tuple(o.shape)} {o.dtype}, do "
+            f"{tuple(do.shape)} {do.dtype}, lse {tuple(lse.shape)} "
+            f"{lse.dtype}; expected q's shape and dtype, lse (B, Hq, Sq) "
+            "float32, on q's device")
+    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
+    dk = torch.empty((B, Hkv, Skv, D), dtype=k.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    if dq.numel() == 0 or dk.numel() == 0:
+        return dq.zero_(), dk.zero_(), dv.zero_()
+    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+    fn = _build.function("repro_flash_attention_bwd", _BWD_ARGTYPES)
+    err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
+             do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
+             dk.data_ptr(), dv.data_ptr(), DTYPES[q.dtype],
+             B, Hq, Hkv, Sq, Skv, D,
              *_strides(q), *_strides(k), *_strides(v),
-             int(causal), int(window or 0), scale, BODIES.index(which),
+             int(causal), int(window or 0), _scale(scale, D),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, f"flash_attention ({which} body)")
-    flash_attention.launches += 1
-    flash_attention.launches_by_body[which] += 1
-    return out
+    _build.check(err, "flash_attention_bwd")
+    flash_attention_bwd.launches += 1
+    return dq, dk, dv
+
+
+class _Attention(torch.autograd.Function):
+    """K1 under autograd: the forward keeps (q, k, v, out, lse), the
+    backward runs ``flash_attention_bwd`` on them."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal, window, scale):
+        out, lse = _forward(q, k, v, causal, window, scale, True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.args = dict(causal=causal, window=window, scale=scale)
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(q, k, v, out, lse, do, **ctx.args)
+        return dq, dk, dv, None, None, None
 
 
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
+flash_attention_bwd.launches = 0

@@ -6,7 +6,10 @@ The backend follows the tensors: CPU tensors run the plain versions in
 ``paged_verify_attention``, K4 their quantized-pool path, K5
 ``rglru_scan``, K6 ``stx_matmul``, K7 ``stencil2d`` / ``stencil3d``, K8
 ``vrp_dot`` / ``vrp_sum``). Each kernel masks its own ragged edge, so
-nothing is padded to block multiples here.
+nothing is padded to block multiples here. ``flash_attention`` and
+``rglru_scan`` are differentiable: inputs that require grad go through
+their ``autograd.Function``s (K1's backward kernel; K5 on the reversed
+sequence).
 """
 
 from __future__ import annotations

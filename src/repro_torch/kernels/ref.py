@@ -20,21 +20,13 @@ import torch
 import torch.nn.functional as F
 
 
-def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
-                    q_offset=0):
-    """Reference attention.
-
-    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D). GQA maps query head h to
-    kv head h // (Hq // Hkv). ``window`` (if set) restricts attention to
-    the last ``window`` positions (SWA). ``q_offset`` positions queries at
-    absolute position q_offset + i. Returns (B, Hq, Sq, D) in q.dtype.
-    """
+def _attention_logits(q, k, causal, window, scale, q_offset):
+    """Scaled f32 scores (B, Hq, Sq, Skv) with masked keys at -inf, the
+    (Sq, Skv) mask and k in f32 repeated over each GQA group."""
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
-    group = Hq // Hkv
     scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-    kx = k.repeat_interleave(group, dim=1).float()
-    vx = v.repeat_interleave(group, dim=1).float()
+    kx = k.repeat_interleave(Hq // Hkv, dim=1).float()
     logits = torch.einsum("bhqd,bhkd->bhqk", q.float(), kx) * scale
     qpos = q_offset + torch.arange(Sq, device=q.device)[:, None]
     kpos = torch.arange(Skv, device=q.device)[None, :]
@@ -43,11 +35,64 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
         mask = mask & (kpos <= qpos)
     if window is not None:
         mask = mask & (kpos > qpos - window)
-    logits = logits.masked_fill(~mask, float("-inf"))
+    return logits.masked_fill(~mask, float("-inf")), mask, kx
+
+
+def flash_attention(q, k, v, *, causal=True, window=None, scale=None,
+                    q_offset=0, return_lse=False):
+    """Reference attention.
+
+    q: (B, Hq, Sq, D); k, v: (B, Hkv, Skv, D). GQA maps query head h to
+    kv head h // (Hq // Hkv). ``window`` (if set) restricts attention to
+    the last ``window`` positions (SWA). ``q_offset`` positions queries at
+    absolute position q_offset + i. Returns (B, Hq, Sq, D) in q.dtype;
+    with ``return_lse`` also each row's f32 log-sum-exp of its scaled
+    scores (B, Hq, Sq), -inf for a row that sees no key (K1's lse output,
+    what the backward pass recomputes the probabilities from).
+    """
+    group = q.shape[1] // k.shape[1]
+    logits, mask, _ = _attention_logits(q, k, causal, window, scale,
+                                        q_offset)
+    vx = v.repeat_interleave(group, dim=1).float()
     probs = torch.softmax(logits, dim=-1)
     # Fully-masked rows (tiny windows) -> zeros, not NaN.
     probs = torch.where(mask.any(-1)[:, None], probs, 0.0)
-    return torch.einsum("bhqk,bhkd->bhqd", probs, vx).to(q.dtype)
+    out = torch.einsum("bhqk,bhkd->bhqd", probs, vx).to(q.dtype)
+    if return_lse:
+        return out, torch.logsumexp(logits, dim=-1)
+    return out
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
+                        scale=None):
+    """Gradients (dq, dk, dv) of ``flash_attention`` for the output
+    gradient ``do``, FlashAttention-2's formulas in f32: P = exp(S *
+    scale - lse) recomputed from the forward's ``lse`` (0 where a key is
+    masked or the row sees none), delta = rowsum(do * o), dV = P^T dO,
+    dS = P * (dO V^T - delta), dQ = dS K * scale, dK = dS^T Q * scale,
+    dK and dV summed over each GQA group. A row that sees no key gets
+    zero gradients (autograd of the forward above would give NaN there).
+    Returned in the inputs' dtypes and shapes: (B, Hq, Sq, D) and
+    (B, Hkv, Skv, D), contiguous."""
+    B, Hq, Sq, D = q.shape
+    Hkv, Skv = k.shape[1], k.shape[2]
+    group = Hq // Hkv
+    scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+    logits, mask, kx = _attention_logits(q, k, causal, window, scale, 0)
+    lse = lse.float()[..., None]
+    probs = torch.where(mask & torch.isfinite(lse),
+                        torch.exp(logits - lse), 0.0)
+    dof = do.float()
+    vx = v.repeat_interleave(group, dim=1).float()
+    delta = (dof * o.float()).sum(-1, keepdim=True)
+    dv = torch.einsum("bhqk,bhqd->bhkd", probs, dof)
+    dp = torch.einsum("bhqd,bhkd->bhqk", dof, vx)
+    ds = probs * (dp - delta)
+    dq = torch.einsum("bhqk,bhkd->bhqd", ds, kx) * scale
+    dk = torch.einsum("bhqk,bhqd->bhkd", ds, q.float()) * scale
+    dk = dk.reshape(B, Hkv, group, Skv, D).sum(2)
+    dv = dv.reshape(B, Hkv, group, Skv, D).sum(2)
+    return dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype)
 
 
 def _gather_dequant(pool, scale_pool, bt, B, S, Hkv, D):
@@ -232,6 +277,36 @@ def linear_scan(a, x, h0=None):
         h = af[:, t] * h + xf[:, t]
         out[:, t] = h
     return out
+
+
+def scan_grads(a, h, h0, dh):
+    """(da, dx, dh0) of ``linear_scan`` from the backward recurrence's
+    dh (B, T, D): dx = dh, da_t = dh_t h_{t-1} with h_{-1} = h0 (or 0)
+    in f32, cast to a's dtype, dh0 = a_0 dh_0 in f32."""
+    B, _, D = dh.shape
+    first = (torch.zeros((B, 1, D), dtype=h.dtype, device=h.device)
+             if h0 is None else h0[:, None].to(h.dtype))
+    h_prev = torch.cat([first, h[:, :-1]], dim=1)
+    da = (dh.float() * h_prev.float()).to(a.dtype)
+    return da, dh, a[:, 0].float() * dh[:, 0].float()
+
+
+def linear_scan_bwd(a, h, g, h0=None):
+    """Gradients of ``linear_scan`` for the output gradient ``g`` (B, T,
+    D), given its output ``h``: the recurrence run backwards,
+    dh_t = g_t + a_{t+1} * dh_{t+1} (a sequential loop, the carry in f32
+    and each dh_t stored in h's dtype, the product and the sum rounded
+    apart as in ``linear_scan``), then ``scan_grads``. Returns (da, dx,
+    dh0) in a's, h's and f32 dtypes."""
+    B, T, D = g.shape
+    af, gf = a.float(), g.float()
+    dh = torch.zeros((B, D), dtype=torch.float32, device=g.device)
+    dhs = torch.empty((B, T, D), dtype=h.dtype, device=g.device)
+    for t in range(T - 1, -1, -1):
+        a_next = af[:, t + 1] if t + 1 < T else torch.zeros_like(dh)
+        dh = a_next * dh + gf[:, t]
+        dhs[:, t] = dh
+    return scan_grads(a, h, h0, dhs)
 
 
 # ---------------------------------------------------------------------------

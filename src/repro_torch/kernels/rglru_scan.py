@@ -16,6 +16,16 @@ the stages from the shape). ``launches`` counts every launch,
 ``launches_by_body`` each body's and ``launches_by_shape`` each
 (B, T, D)'s, as {"BxTxD": {body: n}}. Both bodies equal the plain
 version bit for bit in f32.
+
+Under autograd (a, x or h0 requiring grad, grad mode on) the call goes
+through ``_Scan``, a ``torch.autograd.Function``, whose backward needs
+no kernel of its own: the gradient of h_t = a_t h_{t-1} + x_t is the
+same diagonal recurrence run backwards, dh_t = g_t + a_{t+1} dh_{t+1},
+so ``scan_bwd`` launches K5 itself on the time-reversed output gradient
+with the decays shifted one step (a_{t+1}, 0 past the end), then takes
+dx = dh, da_t = dh_t h_{t-1} and dh0 = a_0 dh_0 in plain torch. Its
+plain version is ``ref.linear_scan_bwd``, a backward loop with the same
+rounding, which the reversed K5 equals bit for bit in f32.
 """
 
 from __future__ import annotations
@@ -83,10 +93,9 @@ def launch(a, x, h0=None, *, which=None):
     return out, which
 
 
-def rglru_scan(a, x, h0=None):
-    """a, x: (B, T, D) float32 or bfloat16 (one dtype); h0: (B, D) or
-    None -> h (B, T, D) in x's dtype, h_t = a_t * h_{t-1} + x_t with the
-    carry in f32."""
+def _scan(a, x, h0=None):
+    """One forward on either device: the plain version on the CPU, a
+    counted K5 launch on CUDA."""
     if x.device.type == "cpu":
         return ref.linear_scan(a, x, h0)
     out, which = launch(a, x, h0)
@@ -97,6 +106,44 @@ def rglru_scan(a, x, h0=None):
             "x".join(map(str, x.shape)), {})
         by_body[which] = by_body.get(which, 0) + 1
     return out
+
+
+def rglru_scan(a, x, h0=None):
+    """a, x: (B, T, D) float32 or bfloat16 (one dtype); h0: (B, D) or
+    None -> h (B, T, D) in x's dtype, h_t = a_t * h_{t-1} + x_t with the
+    carry in f32. Differentiable (``_Scan``) when autograd asks."""
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in (a, x, h0)):
+        return _Scan.apply(a, x, h0)
+    return _scan(a, x, h0)
+
+
+def scan_bwd(a, h, g, h0=None):
+    """Gradients (da, dx, dh0) of ``rglru_scan`` at output ``h`` for the
+    output gradient ``g``: the reversed recurrence through ``_scan`` (K5
+    on the card, counted as a K5 launch), then ``ref.scan_grads``."""
+    B, T, D = g.shape
+    a_next = torch.cat([a[:, 1:], a.new_zeros((B, 1, D))], dim=1)
+    dh = _scan(a_next.flip(1).contiguous(),
+               g.flip(1).contiguous()).flip(1)
+    return ref.scan_grads(a, h, h0, dh)
+
+
+class _Scan(torch.autograd.Function):
+    """K5 under autograd: the forward keeps (a, h, h0), the backward is
+    ``scan_bwd``."""
+
+    @staticmethod
+    def forward(ctx, a, x, h0):
+        h = _scan(a, x, h0)
+        ctx.save_for_backward(a, h, h0)
+        return h
+
+    @staticmethod
+    def backward(ctx, g):
+        a, h, h0 = ctx.saved_tensors
+        da, dx, dh0 = scan_bwd(a, h, g, h0)
+        return da, dx, None if h0 is None else dh0.to(h0.dtype)
 
 
 rglru_scan.launches = 0

@@ -5,9 +5,11 @@ Counterpart of ``repro/models/attention.py`` for full, windowed and
 cross attention: prefill runs kernel K1 through
 ``kernels/ops.flash_attention`` (causal, with its window for
 sliding-window and local layers; bidirectional for whisper's exact-length
-encoder); paged decode appends the new K/V row to the block pool and
-runs kernel K2, the speculative verify (and suffix prefill) appends K1
-rows and runs kernel K3, both through ``kernels/ops.paged_attention``.
+encoder), and so does training, where ``attend``'s cache is dropped
+and K1 runs under autograd (its backward kernel on the card); paged
+decode appends the new K/V row to the block pool and runs kernel K2,
+the speculative verify (and suffix prefill) appends K1 rows and runs
+kernel K3, both through ``kernels/ops.paged_attention``.
 With a quantized ``kv_spec`` the rows are quantized where they enter the
 pool and dequantized inside the kernels (K4). The decode over per-slot
 caches (the linear caches of the draft model and of dense decode, the

@@ -83,6 +83,24 @@ class Model:
             return encdec.init_encdec(gen, self.cfg)
         return transformer.init_lm(gen, self.cfg)
 
+    # -- training -------------------------------------------------------
+
+    def forward(self, params, batch, ctx: RunCtx):
+        """Full-sequence logits (B, S, V) f32 and the aux scalar of
+        ``batch["tokens"]`` (a VLM also ``visual_embeds`` and
+        ``mrope_positions``): the training form, no cache."""
+        return transformer.forward(params, self.cfg, batch["tokens"], ctx,
+                                   batch.get("visual_embeds"),
+                                   batch.get("mrope_positions"))
+
+    def loss_fn(self, params, batch, ctx: RunCtx):
+        """(loss, {"ce", "aux", "loss"}) of ``batch`` (``tokens``,
+        ``targets``); differentiable with ``torch.autograd``. Configs
+        whose training form waits for a later slice raise
+        NotImplementedError naming it (``transformer.check_trainable``:
+        mLSTM / sLSTM blocks, the MoE, the encoder-decoder)."""
+        return transformer.loss_fn(params, self.cfg, batch, ctx)
+
     # -- serving --------------------------------------------------------
 
     def prefill(self, params, batch, ctx: RunCtx, max_len=None, length=None,

@@ -30,8 +30,8 @@ Per-expert counts come from an integer ``scatter_add_`` of fixed size E
 (``torch.bincount`` on CUDA reads its maximum back to the host, which a
 captured decode step cannot do). The Switch load-balancing statistics
 and the capacity-factor drop path are training's (ROADMAP queue 1,
-'Training'); the expert-parallel ``apply_moe_sharded`` is queue 1's
-'multi-device'.
+'Training of xLSTM, MoE and enc-dec'); the expert-parallel
+``apply_moe_sharded`` is queue 1's 'multi-device'.
 """
 
 from __future__ import annotations

@@ -10,8 +10,10 @@ and runs one cell a token. Both are plain torch, as JAX computes them in
 plain jnp (no Pallas kernel).
 
 The RG-LRU is a gated diagonal linear recurrence whose prefill scan runs
-through kernel K5 (``kernels/ops.rglru_scan``) and whose decode is one
-O(1)-state step in plain torch, as JAX computes it outside any Pallas
+through kernel K5 (``kernels/ops.rglru_scan``; in training,
+``apply_rglru_block``, K5 under autograd, its backward K5 run on the
+reversed sequence) and whose decode is one O(1)-state step in plain
+torch, as JAX computes it outside any Pallas
 kernel. The decay parameter ``lam`` and the carried states (RG-LRU
 ``h``; mLSTM ``C``, ``n``, ``m``; sLSTM ``h``, ``c``, ``n``, ``m``)
 stay f32 in a bf16 model; the conv tails are in the model dtype. Every

@@ -33,6 +33,11 @@ Phases sharing one param set:
              selected at the accept boundary (``select_verify_state``)
   dense decode — one token per slot over per-slot caches (the draft
              model's, the static backend's and the VLM's), plain torch
+  train    — full sequence, no cache (``forward_hidden``, ``forward``,
+             ``loss_fn``) for the ``attn`` / ``local`` / ``rglru`` kinds:
+             K1 and K5 under autograd (their ``autograd.Function``s: K1's
+             backward kernel, K5 run on the reversed sequence); nothing
+             is written in place, so autograd can differentiate it
 
 The VLM (qwen2-vl) runs the dense path only, as in JAX (no paged decode:
 ``ServingCaps.paged_decode``): its prefill splices ``visual_embeds`` over
@@ -48,6 +53,7 @@ import dataclasses
 import math
 
 import torch
+import torch.utils.checkpoint
 
 from ..kernels import ops as kops
 from . import attention as attn_lib
@@ -63,11 +69,18 @@ class RunCtx:
     Kernel dispatch needs no field here: the backend follows the tensors'
     device (``kernels/ops.py``). ``kv_spec`` is the paged pool's
     ``paged_kv.PoolSpec`` (None: a pool in the model dtype), threaded to
-    the pool's write frontiers and kernels. The sharding fields of JAX's
-    context arrive with their slice.
+    the pool's write frontiers and kernels. ``remat`` and ``ce_chunk``
+    shape the training forms (``loss_fn``) with JAX's defaults:
+    ``remat="full"`` recomputes each layer's activations in the backward
+    pass (``torch.utils.checkpoint``, where JAX uses ``jax.checkpoint``),
+    ``ce_chunk > 0`` takes the cross-entropy over sequence chunks of
+    that many positions. The sharding fields of JAX's context arrive
+    with their slice.
     """
 
     kv_spec: object = None
+    remat: str = "none"             # none | full
+    ce_chunk: int = 0               # >0: CE over seq chunks
 
 
 def check_supported(cfg) -> None:
@@ -688,3 +701,107 @@ def decode_step(params, cfg, cache, tokens, pos, ctx: RunCtx,
         x = apply_block_decode(lp, cfg, kind, x, lc, pos, mrope_positions)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
     return _logits(params, cfg, x)[:, 0], cache
+
+
+# ---------------------------------------------------------------------------
+# Training forms (no cache)
+# ---------------------------------------------------------------------------
+
+TRAIN_KINDS = ("attn", "local", "rglru")
+TRAIN_ITEM = "Training of xLSTM, MoE and enc-dec"
+
+
+def check_trainable(cfg) -> None:
+    """Raise NotImplementedError for a config whose training form is not
+    ported yet: an mLSTM / sLSTM layer, an MoE (capacity-factor drops and
+    the aux loss) or an encoder-decoder."""
+    check_supported(cfg)
+    other = [k for k in dict.fromkeys(cfg.block_pattern)
+             if k not in TRAIN_KINDS]
+    what = (["the encoder-decoder"] if cfg.enc_dec else []) \
+        + (["the MoE's capacity-factor routing and aux loss"]
+           if cfg.is_moe else []) \
+        + [f"{k} blocks" for k in other]
+    if what:
+        raise NotImplementedError(
+            f"{cfg.name}: training of {', '.join(what)} waits for queue-1 "
+            f"item {TRAIN_ITEM}")
+
+
+def apply_block_train(p, cfg, kind, x, positions, mrope_positions=None):
+    """Full-sequence block, no cache (JAX's ``apply_block`` with
+    ``with_cache=False``): attention through K1 (its window for SWA and
+    local layers), the RG-LRU through K5, then the MLP."""
+    xn = layers.apply_norm(cfg.norm, p["ln1"], x)
+    if kind in ("attn", "local"):
+        out, _ = attn_lib.attend(p["attn"], cfg, xn, positions,
+                                 window=_window_for(cfg, kind),
+                                 mrope_positions=mrope_positions)
+    elif kind == "rglru":
+        out = ssm.apply_rglru_block(p["rec"], cfg, xn)
+    else:
+        raise ValueError(kind)
+    return _ffn_part(p, cfg, x + out)
+
+
+def forward_hidden(params, cfg, tokens, ctx: RunCtx, visual_embeds=None,
+                   mrope_positions=None):
+    """tokens: (B, S) -> final-norm hidden (B, S, d), aux scalar (0: no
+    config this form takes has an aux loss). ``ctx.remat == "full"``
+    recomputes each layer in the backward pass."""
+    check_trainable(cfg)
+    B, S = tokens.shape
+    x = _embed(params, cfg, tokens, visual_embeds)
+    positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    for kind, (lp,) in _layers(cfg, params["groups"]):
+        if ctx.remat == "full":
+            x = torch.utils.checkpoint.checkpoint(
+                apply_block_train, lp, cfg, kind, x, positions,
+                mrope_positions, use_reentrant=False)
+        else:
+            x = apply_block_train(lp, cfg, kind, x, positions,
+                                  mrope_positions)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return layers.apply_norm(cfg.norm, params["final_norm"], x), aux
+
+
+def forward(params, cfg, tokens, ctx: RunCtx, visual_embeds=None,
+            mrope_positions=None):
+    """tokens: (B, S) -> logits (B, S, V) f32, aux scalar."""
+    x, aux = forward_hidden(params, cfg, tokens, ctx, visual_embeds,
+                            mrope_positions)
+    return _logits(params, cfg, x), aux
+
+
+def _ce_sum(x, head, tgt):
+    logits = (x @ head).float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, tgt.long()[..., None])[..., 0]
+    return logz - gold
+
+
+def _ce_from_hidden(params, cfg, x, tgt, ctx: RunCtx):
+    """Cross-entropy from hidden states; ``ctx.ce_chunk > 0`` (dividing
+    S, and less than S) sums it over sequence chunks, so the full
+    (B, S, V) logits never exist at once in the forward pass."""
+    head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
+    C = ctx.ce_chunk
+    B, S, _ = x.shape
+    if not C or S % C != 0 or S == C:
+        return torch.mean(_ce_sum(x, head, tgt))
+    total = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, C):
+        total = total + torch.sum(_ce_sum(x[:, c0:c0 + C], head,
+                                          tgt[:, c0:c0 + C]))
+    return total / (B * S)
+
+
+def loss_fn(params, cfg, batch, ctx: RunCtx):
+    """batch: {tokens (B, S), targets (B, S)} (a VLM also
+    ``visual_embeds``, ``mrope_positions``) -> (loss, metrics)."""
+    x, aux = forward_hidden(params, cfg, batch["tokens"], ctx,
+                            batch.get("visual_embeds"),
+                            batch.get("mrope_positions"))
+    ce = _ce_from_hidden(params, cfg, x, batch["targets"], ctx)
+    loss = ce + cfg.moe_aux_coef * aux
+    return loss, {"ce": ce, "aux": aux, "loss": loss}

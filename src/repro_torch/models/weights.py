@@ -7,6 +7,9 @@ the same paths, the stacked ``(count, ...)`` group leaves included, so
 the port runs on exactly the reference's weights: the decoder-only
 ``groups`` layout, or the encoder-decoder's ``enc`` / ``dec`` stacks.
 ``to_numpy`` is the inverse. Both are exact: values are copied, never recomputed.
+``state_from_jax_numpy`` carries a whole train state (params and
+optimizer state) the same way, so a port run can start from JAX's exact
+state.
 
 Some leaves stay f32 whatever the model dtype: the RG-LRU's decay
 parameter ``lam`` (JAX ``ssm.py:321``) and the MoE ``router`` (JAX
@@ -23,18 +26,12 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from ..tree import map_tree
 from .encdec import DEC_KEYS, ENC_KEYS
 from .transformer import layer_walk
 
 
 F32_LEAVES = ("lam", "router")   # leaf names kept f32 in any dtype
-
-
-def map_tree(fn, tree):
-    """Apply ``fn`` to every leaf of a nested dict, keeping the keys."""
-    if isinstance(tree, dict):
-        return {k: map_tree(fn, v) for k, v in tree.items()}
-    return fn(tree)
 
 
 def _from_numpy(a) -> torch.Tensor:
@@ -96,6 +93,17 @@ def from_jax_numpy(tree, cfg, device, dtype=None):
     params = map_tree(_from_numpy, tree)
     check_layout(params, cfg)
     return to_device(params, device, dtype)
+
+
+def state_from_jax_numpy(state, cfg, device):
+    """A JAX train state ``{"params", "opt": {"step", "m", "v" | "fac",
+    "comp"}}`` of numpy arrays -> the same tree of tensors on ``device``,
+    leaf for leaf and dtype for dtype (bf16 leaves bit for bit); raises
+    ValueError when the params do not have ``cfg``'s layout. The inverse
+    is ``to_numpy``."""
+    out = map_tree(_from_numpy, state)
+    check_layout(out["params"], cfg)
+    return map_tree(lambda t: t.to(device), out)
 
 
 def to_numpy(params):

@@ -1688,3 +1688,171 @@ def test_encdec_arena_keeps_its_storage_across_admissions(cuda_device):
             eng.backend.pools)] == ptrs
     assert eng.backend.pools is pools and len(seen) >= 2
     assert eng.stats()["cross_arena"]["rows_used"] == 0
+
+
+# ---------------------------------------------------------------------------
+# Training: K1's lse and backward, K5 under autograd, gradients reaching
+# the projections
+# ---------------------------------------------------------------------------
+
+BWD_CASES = [  # B, hq, hkv, Sq, Skv, D, causal, window
+    (2, 4, 4, 80, 80, 32, True, None),
+    (2, 8, 2, 300, 300, 64, True, None),     # GQA 4, ragged
+    (1, 8, 2, 333, 333, 120, True, 100),     # danube's D 120, a window
+    (1, 10, 1, 200, 200, 256, True, 64),     # MQA 10, D 256, a window
+    (2, 4, 2, 130, 130, 48, False, None),    # bidirectional, D 48
+    (1, 4, 1, 77, 300, 16, False, None),     # Sq < Skv
+    (1, 2, 2, 300, 100, 64, False, 50),      # rows >= 149 see no key
+]
+# the training shapes (chip_smoke.py's parity_train rows), each in bf16
+# and in f32
+TRAIN_SHAPES = [(dt, c) for c in (
+    (4, 16, 16, 2048, 2048, 128, True, None),    # olmo_1b
+    (2, 10, 1, 2048, 2048, 256, True, 2048),     # recurrentgemma local
+    (2, 32, 8, 2048, 2048, 120, True, 4096),     # h2o_danube
+) for dt in (torch.bfloat16, torch.float32)]
+# K1_bwd per element: |got - plain| <= TOL + BWD_RTOL |plain|, BWD_RTOL
+# one bf16 ulp of the plain value (both round an f32 sum to bf16, and
+# sums a few f32 ulps apart can round to neighbours), 0 in f32
+BWD_RTOL = {torch.float32: 0.0, torch.bfloat16: 2.0 ** -7}
+
+
+def _attn_inputs(dtype, device, B, hq, hkv, Sq, Skv, D, seq_major=True):
+    """q, k, v as the models pass them ((B, S, H, D) seen through
+    ``.transpose(1, 2)``) and an output gradient."""
+    gen = torch.Generator().manual_seed(Sq * 7 + D)
+    shape = (lambda h, n: (B, n, h, D)) if seq_major else \
+        (lambda h, n: (B, h, n, D))
+    q, k, v = (_randn(gen, shape(h, n), dtype, device)
+               for h, n in ((hq, Sq), (hkv, Skv), (hkv, Skv)))
+    if seq_major:
+        q, k, v = (t.transpose(1, 2) for t in (q, k, v))
+    return q, k, v, _randn(gen, (B, hq, Sq, D), dtype, device)
+
+
+@pytest.mark.parametrize("dtype,case", [
+    (dt, c) for c in BWD_CASES for dt in (torch.float32, torch.bfloat16)]
+    + TRAIN_SHAPES, ids=str)
+def test_flash_attention_lse_matches_plain(cuda_device, dtype, case):
+    """K1 asked for its row log-sum-exps (both bodies: bf16 with D % 8 ==
+    0 on wgmma, the rest on simt) gives the plain version's output and
+    lse, -inf on rows that see no key; within TOL in f32 and 3e-3 in
+    bf16 (the lse is f32 of a few units: bf16 only changes the
+    products' order)."""
+    B, hq, hkv, Sq, Skv, D, causal, window = case
+    q, k, v, _ = _attn_inputs(dtype, cuda_device, B, hq, hkv, Sq, Skv, D)
+    before = dict(fa_mod.flash_attention.launches_by_body)
+    out, lse = fa_mod._forward(q, k, v, causal, window, None, True)
+    assert _ran_body(fa_mod.flash_attention, before) == (
+        "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 else "simt")
+    want, want_lse = ref.flash_attention(q, k, v, causal=causal,
+                                         window=window, return_lse=True)
+    _close(out, want, dtype)
+    empty = torch.isinf(want_lse)
+    assert torch.equal(torch.isinf(lse), empty)
+    err = (lse[~empty] - want_lse[~empty]).abs().max().item()
+    assert err <= (1e-4 if dtype == torch.float32 else 3e-3), err
+
+
+@pytest.mark.parametrize("dtype,case", [
+    (dt, c) for c in BWD_CASES for dt in (torch.float32, torch.bfloat16)]
+    + TRAIN_SHAPES, ids=str)
+def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, case):
+    """K1's backward kernel vs ``ref.flash_attention_bwd`` on the same q,
+    k, v, output, lse and output gradient (the training path's layout:
+    transposed (B, S, H, D) projections), each element within TOL +
+    BWD_RTOL * |plain|: dK and dV sum a group's heads and thousands of
+    rows in another order. Empty rows give zero gradients."""
+    B, hq, hkv, Sq, Skv, D, causal, window = case
+    q, k, v, do = _attn_inputs(dtype, cuda_device, B, hq, hkv, Sq, Skv, D)
+    out, lse = fa_mod._forward(q, k, v, causal, window, None, True)
+    before = fa_mod.flash_attention_bwd.launches
+    got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                     window=window)
+    assert fa_mod.flash_attention_bwd.launches == before + 1
+    want = ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                   window=window)
+    torch.cuda.synchronize()
+    for name, g, w in zip("qkv", got, want):
+        assert g.dtype == dtype and g.shape == w.shape, name
+        diff = (g.float() - w.float()).abs()
+        limit = TOL[dtype] + BWD_RTOL[dtype] * w.float().abs()
+        assert (diff <= limit).all(), (name, diff.max().item(),
+                                       (diff / limit).max().item())
+
+
+def test_flash_attention_autograd_on_cuda(cuda_device):
+    """Under autograd a CUDA call goes through K1 and its backward
+    kernel (one launch each), and the gradients equal the plain
+    backward's on the same inputs within TOL."""
+    q, k, v, do = _attn_inputs(torch.float32, cuda_device, 2, 4, 2, 90, 90,
+                               64)
+    leaves = [t.detach().clone().requires_grad_() for t in (q, k, v)]
+    f0, b0 = fa_mod.flash_attention.launches, \
+        fa_mod.flash_attention_bwd.launches
+    out = fa_mod.flash_attention(*leaves, window=30)
+    grads = torch.autograd.grad(out, leaves, do)
+    assert fa_mod.flash_attention.launches == f0 + 1
+    assert fa_mod.flash_attention_bwd.launches == b0 + 1
+    _, lse = ref.flash_attention(q, k, v, window=30, return_lse=True)
+    want = ref.flash_attention_bwd(q, k, v, out.detach(), lse, do, window=30)
+    for g, w in zip(grads, want):
+        _close(g, w, torch.float32)
+
+
+@pytest.mark.parametrize("B,T,D,with_h0", [(2, 300, 256, False),
+                                           (3, 77, 40, True)])
+def test_rglru_scan_backward_is_the_reversed_scan(cuda_device, B, T, D,
+                                                  with_h0):
+    """K5 under autograd: the backward launches K5 on the reversed,
+    shifted sequence (one more launch) and equals the plain backward
+    loop ``ref.linear_scan_bwd`` bit for bit in f32."""
+    gen = torch.Generator().manual_seed(T)
+    a = (0.8 + 0.2 * torch.rand((B, T, D), generator=gen)).to(cuda_device)
+    x, g = (torch.randn((B, T, D), generator=gen).to(cuda_device)
+            for _ in range(2))
+    h0 = torch.randn((B, D), generator=gen).to(cuda_device) \
+        if with_h0 else None
+    leaves = [a.clone().requires_grad_(), x.clone().requires_grad_()] \
+        + ([h0.clone().requires_grad_()] if with_h0 else [])
+    n0 = k5_mod.rglru_scan.launches
+    h = k5_mod.rglru_scan(leaves[0], leaves[1],
+                          leaves[2] if with_h0 else None)
+    grads = torch.autograd.grad(h, leaves, g)
+    assert k5_mod.rglru_scan.launches == n0 + 2
+    want = ref.linear_scan_bwd(a, h.detach(), g, h0)
+    torch.cuda.synchronize()
+    for got, w in zip(grads, want):
+        assert torch.equal(got, w.to(got.dtype))
+
+
+def test_cuda_loss_reaches_attention_and_rglru_params(cuda_device):
+    """A loss on the card reaches q / k / v's projections through K1's
+    backward and the RG-LRU's gates and decay through K5's: every grad
+    leaf of recurrentgemma smoke (rglru, rglru, local) is finite and
+    those of ``wq`` / ``wk`` / ``wv`` and ``w_a`` / ``w_i`` / ``lam`` are
+    not all zero."""
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_config
+    from repro_torch.launch.train import value_and_grad
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import RunCtx
+
+    cfg = get_config("recurrentgemma_2b").smoke()
+    model = Model(cfg, device=cuda_device)
+    params = model.init(seed=0)
+    gen = torch.Generator().manual_seed(1)
+    tok = torch.randint(0, cfg.vocab_size, (2, 40), generator=gen)
+    batch = {"tokens": tok.to(cuda_device),
+             "targets": tok.roll(-1, 1).to(cuda_device)}
+    b0, k0 = fa_mod.flash_attention_bwd.launches, k5_mod.rglru_scan.launches
+    _, _, grads = value_and_grad(model, RunCtx(), params, batch)
+    assert fa_mod.flash_attention_bwd.launches > b0
+    assert k5_mod.rglru_scan.launches >= k0 + 2
+    seen = set()
+    for (path, _), g in zip(tr.flatten(params), grads):
+        assert torch.isfinite(g).all(), path
+        if path[-1] in ("wq", "wk", "wv", "w_a", "w_i", "lam"):
+            assert g.abs().max().item() > 0, path
+            seen.add(path[-1])
+    assert seen == {"wq", "wk", "wv", "w_a", "w_i", "lam"}

@@ -1,10 +1,11 @@
 """The port stands on its own: no module of src/repro_torch/ nor
 chip_smoke.py imports JAX or the JAX package; its configs, the tile
 layer's ``TilePolicy`` op classes and the ``PrecisionEnv`` presets
-mirror ``repro``'s field for field; entry points refuse to fall back to
-the CPU when a GPU is asked for and none is present; options not
-ported yet raise NotImplementedError, as does a config the JAX engine
-does not serve either (qwen2-vl)."""
+mirror ``repro``'s field for field, as do the training configs
+(``OptConfig``, ``DataConfig``, ``TrainLoopConfig``); entry points
+refuse to fall back to the CPU when a GPU is asked for and none is
+present; options not ported yet raise NotImplementedError, as does a
+config the JAX engine does not serve either (qwen2-vl)."""
 
 import ast
 import dataclasses
@@ -17,10 +18,16 @@ import torch
 from repro import configs as jax_configs
 from repro.core import precision as jax_precision
 from repro.core import tiles as jax_tiles
+from repro.data import pipeline as jax_data
+from repro.launch import train as jax_train
+from repro.optim import optimizer as jax_opt
 from repro_torch import configs
 from repro_torch.core import precision, tiles
+from repro_torch.data import pipeline as data
+from repro_torch.launch import train
 from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
 from repro_torch.models.model import Model
+from repro_torch.optim import optimizer as opt
 
 torch.set_num_threads(1)
 
@@ -136,3 +143,36 @@ def test_xlstm_and_moe_configs_serve_at_engine(arch):
     eng = Engine(model, model.init(seed=0), EngineConfig(), device="cpu")
     out = eng.generate([[1, 2, 3]], SamplingParams(max_tokens=3))
     assert len(out[0]) == 3 and eng.stats()["blocks_used"] == 0
+
+
+@pytest.mark.parametrize("mine,ref", [
+    (opt.OptConfig, jax_opt.OptConfig),
+    (data.DataConfig, jax_data.DataConfig),
+    (train.TrainLoopConfig, jax_train.TrainLoopConfig),
+], ids=["OptConfig", "DataConfig", "TrainLoopConfig"])
+def test_training_configs_mirror_jax_field_for_field(mine, ref):
+    """Same fields in the same order with the same defaults, but
+    ``TrainLoopConfig.ckpt_dir``: JAX's is ``/tmp/repro_ckpt``, the
+    port's ``repro_ckpt`` under the process's temp directory."""
+    assert [f.name for f in dataclasses.fields(mine)] == \
+        [f.name for f in dataclasses.fields(ref)]
+    for f, g in zip(dataclasses.fields(mine), dataclasses.fields(ref)):
+        if f.name == "ckpt_dir":
+            assert pathlib.Path(f.default).name == \
+                pathlib.Path(g.default).name
+        else:
+            assert f.default == g.default, f.name
+
+
+def test_train_main_raises_without_cuda_and_for_tp():
+    """``python -m repro_torch.launch.train`` runs on the card unless
+    asked for the CPU: without a GPU ``--device cuda`` (the default)
+    raises; ``--tp`` other than 1 names the Multi-device item."""
+    if torch.cuda.is_available():
+        pytest.skip("a GPU is present: the default device is valid")
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--device", "cuda", "--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="cuda"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(NotImplementedError, match="Multi-device"):
+        train.main(["--smoke", "--device", "cpu", "--tp", "2"])
