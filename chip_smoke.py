@@ -3137,9 +3137,13 @@ def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
     ``ref.flash_attention(..., return_lse=True)`` within TOL and its lse
     within LSE_TOL, on the body the wrapper picks (bf16: wgmma, f32:
     simt), so that a wrong lse cannot cancel out of the backward's check
-    below. The backward is held against ``ref.flash_attention_bwd`` on
+    below. The backward runs the body ``bwd_body`` picks (bf16: wgmma,
+    f32: simt) and is held against ``ref.flash_attention_bwd`` on
     the same q, k, v, output, lse and output gradient, element by
-    element: |got - plain| <= TOL + BWD_RTOL * |plain|. Bounds: the
+    element: |got - plain| <= TOL + BWD_RTOL * |plain|; a second call
+    must give the same bits (``deterministic``). On a bf16 row the simt
+    body forced on the same inputs is held to the same limit and timed
+    beside it (``simt_ms``). Bounds: the
     forward's 4 D flops a visible pair and q, k, v, O, lse moved once;
     the backward's 2.5x the forward's products (five matmuls against
     two) and q, k, v, O, dO, lse, dQ, dK, dV moved once. The library
@@ -3165,18 +3169,32 @@ def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
     call = lambda: fa.flash_attention_bwd(  # noqa: E731
         q, k, v, out, lse, do, window=window)
     before = fa.flash_attention_bwd.launches
+    by_body = dict(fa.flash_attention_bwd.launches_by_body)
     got = call()
     check(fa.flash_attention_bwd.launches == before + 1,
           f"K1_bwd {name}: not one counted launch")
+    body = ran_body(fa.flash_attention_bwd, by_body)
+    again = call()
+    deterministic = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
+    del again
     want = ref.flash_attention_bwd(q, k, v, out, lse, do, window=window)
     torch.cuda.synchronize()
-    errs, excess = {}, {}
-    for n, g, w in zip(("dq", "dk", "dv"), got, want):
-        diff = (g.float() - w.float()).abs()
-        errs[n] = diff.max().item()
-        # the largest ratio of an element's error to its own limit
-        excess[n] = (diff / (TOL[dtype] + BWD_RTOL[dtype] * w.float().abs())
-                     ).max().item()
+
+    def over_limit(grads):
+        """Each gradient's max abs error and the largest ratio of an
+        element's error to its own limit."""
+        errs, excess = {}, {}
+        for n, g, w in zip(("dq", "dk", "dv"), grads, want):
+            diff = (g.float() - w.float()).abs()
+            errs[n] = diff.max().item()
+            excess[n] = (diff / (TOL[dtype] + BWD_RTOL[dtype]
+                                 * w.float().abs())).max().item()
+        return errs, excess
+
+    errs, excess = over_limit(got)
+    simt = lambda: fa.launch_bwd(  # noqa: E731
+        q, k, v, out, lse, do, window=window, which="simt")
+    simt_excess = over_limit(simt()[:3])[1] if body != "simt" else None
     del got, want
     w = min(window or S, S)
     pairs = B * hq * (w * (w + 1) // 2 + (S - w) * w)
@@ -3202,8 +3220,9 @@ def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
         sdpa(), (qs, ks, vs), do))
     row = {"phase": "kernels", "kernel": "K1_bwd", "case": name,
            "shape": [B, hq, hkv, S, D], "dtype": dtype, "window": window,
-           "causal": True, "body": "simt", "max_abs_err": max(errs.values()),
+           "causal": True, "body": body, "max_abs_err": max(errs.values()),
            "err_by_grad": errs, "err_over_limit_by_grad": excess,
+           "deterministic": deterministic,
            "tol": TOL[dtype], "rtol": BWD_RTOL[dtype],
            "ms": cuda_ms(torch, call),
            "plain_ms": cuda_ms(torch, lambda: ref.flash_attention_bwd(
@@ -3222,6 +3241,9 @@ def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
                q, k, v, window=window, return_lse=True), reps=3),
            "fwd_bound_ms": fwd_bound_ms, "fwd_bound_by": fwd_bound_by,
            "library_fwd_ms": sdpa_fwd}
+    if simt_excess is not None:
+        row.update(simt_ms=cuda_ms(torch, simt),
+                   simt_err_over_limit_by_grad=simt_excess)
     emit(row)
     want_body = "wgmma" if dtype == "bfloat16" else "simt"
     check(fwd_body == want_body and math.isfinite(fwd_err)
@@ -3233,6 +3255,12 @@ def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
     check(all(math.isfinite(e) and e <= 1.0 for e in excess.values()),
           f"K1_bwd {name}: errors {errs}, over their per-element limits "
           f"{TOL[dtype]} + {BWD_RTOL[dtype]} |plain| by {excess}")
+    check(body == want_body and deterministic,
+          f"K1_bwd {name}: {body} body (expected {want_body}), "
+          f"deterministic {deterministic}")
+    check(simt_excess is None or all(math.isfinite(e) and e <= 1.0
+                                     for e in simt_excess.values()),
+          f"K1_bwd {name}: the simt body over its limits by {simt_excess}")
     return row
 
 
@@ -3361,6 +3389,10 @@ def phase_parity_train(torch, np):
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 20   # train: olmo_1b's batch
+# K1's backward kernels by name: the pre-pass (deltas, lse), and dK / dV
+# and dQ of each body (flash_attention_bwd.cu)
+K1_BWD_KERNELS = re.compile(
+    r"prep_kernel|dkdv_(kernel|wgmma)|dq_(kernel|wgmma)")
 
 
 def phase_train(torch, np):
@@ -3377,7 +3409,8 @@ def phase_train(torch, np):
     whether every loss was bit-equal are printed). Then one step more of
     ``make_train_step``, timed in parts (forward, backward, optimizer)
     by CUDA events its ``mark`` hook records, and one more profiled:
-    K1's backward kernels' share of device time. Prints the
+    K1's backward kernels' share of device time. Every K1_bwd launch of
+    the run must take the wgmma body. Prints the
     step's ms (median of steps 2..19), tokens/s, peak
     ``max_memory_allocated`` and the card."""
     import functools
@@ -3389,6 +3422,7 @@ def phase_train(torch, np):
 
     from repro_torch.configs import get_config
     from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
     from repro_torch.launch import train
     from repro_torch.models.model import Model
     from repro_torch.models.transformer import RunCtx
@@ -3409,10 +3443,12 @@ def phase_train(torch, np):
     torch.cuda.empty_cache()
     torch.cuda.reset_peak_memory_stats()
     zero_training_counters()
+    zero_bodies(fa.flash_attention_bwd)
     state, hist = train.train_loop(model, opt_cfg, ctx, data_cfg, loop,
                                    lr_fn=lr)
     torch.cuda.synchronize()
     launches = read_training_counters()
+    bwd_bodies = dict(fa.flash_attention_bwd.launches_by_body)
     peak = torch.cuda.max_memory_allocated()
     run_s = time.monotonic() - t0
     losses = [h["loss"] for h in hist]
@@ -3420,8 +3456,10 @@ def phase_train(torch, np):
     step_s = float(np.median(dts))
     check(losses[-1] < losses[0],
           f"train: loss did not fall ({losses[0]} -> {losses[-1]})")
-    check(launches["K1"] == launches["K1_bwd"] == cfg.n_layers * TRAIN_STEPS,
-          f"train: launches {launches}, expected {cfg.n_layers} a step")
+    check(launches["K1"] == launches["K1_bwd"] == cfg.n_layers * TRAIN_STEPS
+          and bwd_bodies["wgmma"] == launches["K1_bwd"],
+          f"train: launches {launches}, K1_bwd by body {bwd_bodies}; "
+          f"expected {cfg.n_layers} a step, all wgmma")
     del state
     torch.cuda.empty_cache()
     shutil.rmtree(os.path.join(ckdir, f"step_{TRAIN_STEPS}"))
@@ -3455,7 +3493,7 @@ def phase_train(torch, np):
     dev = [e for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
     total_us = sum(e.self_device_time_total for e in dev)
     bwd_us = sum(e.self_device_time_total for e in dev
-                 if re.search(r"dkdv_kernel|dq_kernel|delta_kernel", e.key))
+                 if K1_BWD_KERNELS.search(e.key))
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
     del state
     torch.cuda.empty_cache()
@@ -3471,6 +3509,7 @@ def phase_train(torch, np):
           "top_device_kernels_ms": {e.key[:60]: e.self_device_time_total / 1e3
                                     for e in top},
           "peak_memory_bytes": peak, "launches": launches,
+          "k1_bwd_launches_by_body": bwd_bodies,
           "resumed_from": 10, "resumed_losses": resumed,
           "resume_max_rel_diff": max(diffs),
           "resume_bit_equal": resumed == losses[10:],

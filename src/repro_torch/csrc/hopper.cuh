@@ -1,12 +1,14 @@
 // Hopper building blocks shared by the tensor-core bodies of K1
-// (flash_attention.cu), K3 (paged_verify_wgmma.cuh) and K6
+// (flash_attention.cu and its backward, flash_attention_bwd.cu), K3
+// (paged_verify_wgmma.cuh) and K6
 // (stx_matmul.cu), and by the TMA rings of K5 (rglru_scan.cu), K7b
 // (stx_stencil.cu) and K8 (vrp_dot.cu), as inline PTX for sm_90a:
 //   * mbarriers: init, arrive, arrive with an expected transaction count,
 //     a wait on a phase's parity, and the same wait with a deadline that
-//     traps (bar_wait) for the rings;
-//   * TMA tile loads (cp.async.bulk.tensor, 2-D, 3-D and 4-D) that
-//     complete on an mbarrier, from a CUtensorMap passed to the kernel by
+//     traps (bar_wait) for the rings; a named barrier (one warpgroup);
+//   * TMA tile loads (cp.async.bulk.tensor, 2-D, 3-D and 4-D) and plain
+//     bulk copies that complete on an mbarrier, the tiles from a
+//     CUtensorMap passed to the kernel by
 //     value as a __grid_constant__ parameter (never written to a device
 //     buffer, so a launch can be captured in a CUDA graph);
 //   * the host-side encoders of those maps (bf16 with the 128-byte
@@ -153,6 +155,17 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map,
       : "memory");
 }
 
+// A plain bulk copy of `bytes` contiguous bytes (a multiple of 16; both
+// addresses 16-byte aligned), completing on an mbarrier like the tiles.
+__device__ __forceinline__ void bulk_load(void* dst, const void* src,
+                                          uint32_t bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1], %2, [%3];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
 // ---------------------------------------------------------------------------
 // host: tensor maps (bf16 with the 128-byte swizzle; plain f32 / bf16 tiles)
 // ---------------------------------------------------------------------------
@@ -259,6 +272,12 @@ __device__ __forceinline__ void fence_proxy_async() {
   asm volatile("fence.proxy.async.shared::cta;" ::: "memory");
 }
 
+// A named barrier (ids 1..15; 0 is __syncthreads) over `count` threads,
+// a multiple of 32: e.g. the four warps of one warpgroup.
+__device__ __forceinline__ void named_sync(int id, int count) {
+  asm volatile("bar.sync %0, %1;" ::"r"(id), "r"(count) : "memory");
+}
+
 __device__ __forceinline__ void wgmma_fence() {
   asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
 }
@@ -270,6 +289,21 @@ __device__ __forceinline__ void wgmma_commit() {
 // Waits until every committed wgmma group of this warpgroup is done.
 __device__ __forceinline__ void wgmma_wait() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+
+// Waits until at most N committed wgmma groups are still running (groups
+// complete in the order they were committed).
+template <int N>
+__device__ __forceinline__ void wgmma_wait_upto() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+
+// Makes a value opaque to the compiler at this point, so that what is
+// computed from it is not hoisted out of the enclosing loop (wgmma
+// descriptors hoisted out of a loop hold registers for its whole length).
+__device__ __forceinline__ uint64_t opaque(uint64_t x) {
+  asm volatile("" : "+l"(x));
+  return x;
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers

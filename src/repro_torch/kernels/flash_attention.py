@@ -16,10 +16,13 @@ launch and ``flash_attention.launches_by_body`` each body's.
 Under autograd (inputs that require grad, grad mode on) the call goes
 through ``_Attention``, a ``torch.autograd.Function``: its forward is
 the same kernel asked to write each row's f32 log-sum-exp as well, its
-backward ``flash_attention_bwd``, the hand-written kernel of
+backward ``flash_attention_bwd``, the hand-written kernels of
 ``csrc/flash_attention_bwd.cu`` (FlashAttention-2's backward from q, k,
 v, the output, its gradient and the lse), counted in
-``flash_attention_bwd.launches``. A kernel's output carries no
+``flash_attention_bwd.launches`` and ``.launches_by_body``. The
+backward has the same two bodies under the same rule (``bwd_body``):
+"wgmma" for bf16 inputs a tensor map takes, "simt" for the rest. A
+kernel's output carries no
 ``grad_fn``, so without the Function a loss on the card would reach
 nothing in front of attention. On the CPU the Function runs the plain
 versions, ``ref.flash_attention(..., return_lse=True)`` and
@@ -44,7 +47,7 @@ _ARGTYPES = ([ctypes.c_void_p] * 5 + [ctypes.c_int] * 7
              + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 _BWD_ARGTYPES = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 7
                  + [ctypes.c_longlong] * 9 + [ctypes.c_int] * 2
-                 + [ctypes.c_float, ctypes.c_void_p])
+                 + [ctypes.c_float, ctypes.c_int, ctypes.c_void_p])
 
 
 def supports(head_dim: int) -> bool:
@@ -77,6 +80,15 @@ def body(q, k, v) -> str:
                 or any(st <= 0 or st % 8 for st in _strides(t)):
             return "simt"
     return "wgmma"
+
+
+def bwd_body(q, k, v) -> str:
+    """The body K1's backward runs for these inputs: ``body``'s rule on
+    q, k and v alone. The other tensors of the call always qualify: the
+    wrapper makes o and do contiguous on 16-byte aligned bases and
+    allocates dq, dk and dv, all (..., D) with D a multiple of 8 where
+    the rule picks "wgmma"."""
+    return body(q, k, v)
 
 
 def _check(q, k, v, name="flash_attention"):
@@ -153,18 +165,19 @@ def flash_attention(q, k, v, *, causal=True, window=None, scale=None):
     return _forward(q, k, v, causal, window, scale, False)[0]
 
 
-def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
-                        scale=None):
-    """Gradients (dq, dk, dv) of ``flash_attention`` at output ``o`` with
-    row log-sum-exps ``lse`` (B, Hq, Sq) f32, for the output gradient
-    ``do``. A CPU tensor runs ``ref.flash_attention_bwd``; a CUDA tensor
-    launches the kernels of ``csrc/flash_attention_bwd.cu`` on the
-    current stream (the delta pass, then dK / dV, then dQ: one counted
-    launch), or raises. Returns contiguous (B, Hq, Sq, D) and (B, Hkv,
-    Skv, D) tensors in the inputs' dtype."""
-    if q.device.type == "cpu":
-        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
-                                       window=window, scale=scale)
+def _dense(t):
+    """t contiguous on a 16-byte aligned base (a copy only when a view
+    starts off one)."""
+    t = t.contiguous()
+    return t.clone() if t.data_ptr() % 16 else t
+
+
+def launch_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
+               scale=None, which=None):
+    """One launch of K1's backward on CUDA tensors (the pre-pass, then
+    dK / dV, then dQ), counting nothing (``flash_attention_bwd``
+    counts). ``which`` forces a body (chip_smoke.py times both; a wgmma
+    request the inputs cannot take raises). Returns (dq, dk, dv, body)."""
     _check(q, k, v, "flash_attention_bwd")
     B, Hq, Sq, D = q.shape
     Hkv, Skv = k.shape[1], k.shape[2]
@@ -177,13 +190,18 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
             f"{tuple(do.shape)} {do.dtype}, lse {tuple(lse.shape)} "
             f"{lse.dtype}; expected q's shape and dtype, lse (B, Hq, Sq) "
             "float32, on q's device")
-    o, do, lse = o.contiguous(), do.contiguous(), lse.contiguous()
+    which = which or bwd_body(q, k, v)
+    o, do, lse = _dense(o), _dense(do), lse.contiguous()
     dq = torch.empty((B, Hq, Sq, D), dtype=q.dtype, device=q.device)
     dk = torch.empty((B, Hkv, Skv, D), dtype=k.dtype, device=q.device)
     dv = torch.empty_like(dk)
     if dq.numel() == 0 or dk.numel() == 0:
-        return dq.zero_(), dk.zero_(), dv.zero_()
-    delta = torch.empty((B, Hq, Sq), dtype=torch.float32, device=q.device)
+        return dq.zero_(), dk.zero_(), dv.zero_(), which
+    # f32 scratch: the rows' lse (log2) and deltas, each (b, h) padded to
+    # a multiple of 64 rows
+    sq_pad = -(-Sq // 64) * 64
+    delta = torch.empty(2 * B * Hq * sq_pad, dtype=torch.float32,
+                        device=q.device)
     fn = _build.function("repro_flash_attention_bwd", _BWD_ARGTYPES)
     err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(),
              do.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(),
@@ -191,9 +209,29 @@ def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
              B, Hq, Hkv, Sq, Skv, D,
              *_strides(q), *_strides(k), *_strides(v),
              int(causal), int(window or 0), _scale(scale, D),
+             BODIES.index(which),
              torch.cuda.current_stream(q.device).cuda_stream)
-    _build.check(err, "flash_attention_bwd")
-    flash_attention_bwd.launches += 1
+    _build.check(err, f"flash_attention_bwd ({which} body)")
+    return dq, dk, dv, which
+
+
+def flash_attention_bwd(q, k, v, o, lse, do, *, causal=True, window=None,
+                        scale=None):
+    """Gradients (dq, dk, dv) of ``flash_attention`` at output ``o`` with
+    row log-sum-exps ``lse`` (B, Hq, Sq) f32, for the output gradient
+    ``do``. A CPU tensor runs ``ref.flash_attention_bwd``; a CUDA tensor
+    launches the kernels of ``csrc/flash_attention_bwd.cu`` on the
+    current stream on the body ``bwd_body`` picks (``launch_bwd``: one
+    counted launch), or raises. Returns contiguous (B, Hq, Sq, D) and
+    (B, Hkv, Skv, D) tensors in the inputs' dtype."""
+    if q.device.type == "cpu":
+        return ref.flash_attention_bwd(q, k, v, o, lse, do, causal=causal,
+                                       window=window, scale=scale)
+    dq, dk, dv, which = launch_bwd(q, k, v, o, lse, do, causal=causal,
+                                   window=window, scale=scale)
+    if dq.numel() and dk.numel():
+        flash_attention_bwd.launches += 1
+        flash_attention_bwd.launches_by_body[which] += 1
     return dq, dk, dv
 
 
@@ -218,3 +256,4 @@ class _Attention(torch.autograd.Function):
 flash_attention.launches = 0
 flash_attention.launches_by_body = dict.fromkeys(BODIES, 0)
 flash_attention_bwd.launches = 0
+flash_attention_bwd.launches_by_body = dict.fromkeys(BODIES, 0)

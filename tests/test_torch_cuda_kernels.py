@@ -1762,14 +1762,18 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, case):
     k, v, output, lse and output gradient (the training path's layout:
     transposed (B, S, H, D) projections), each element within TOL +
     BWD_RTOL * |plain|: dK and dV sum a group's heads and thousands of
-    rows in another order. Empty rows give zero gradients."""
+    rows in another order, and the wgmma body (bf16 with D % 8 == 0)
+    takes P and dS as bf16 operands. Empty rows give zero gradients."""
     B, hq, hkv, Sq, Skv, D, causal, window = case
     q, k, v, do = _attn_inputs(dtype, cuda_device, B, hq, hkv, Sq, Skv, D)
     out, lse = fa_mod._forward(q, k, v, causal, window, None, True)
     before = fa_mod.flash_attention_bwd.launches
+    by_body = dict(fa_mod.flash_attention_bwd.launches_by_body)
     got = fa_mod.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                      window=window)
     assert fa_mod.flash_attention_bwd.launches == before + 1
+    assert _ran_body(fa_mod.flash_attention_bwd, by_body) == (
+        "wgmma" if dtype == torch.bfloat16 and D % 8 == 0 else "simt")
     want = ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
                                    window=window)
     torch.cuda.synchronize()
@@ -1779,6 +1783,58 @@ def test_flash_attention_bwd_kernel_matches_plain(cuda_device, dtype, case):
         limit = TOL[dtype] + BWD_RTOL[dtype] * w.float().abs()
         assert (diff <= limit).all(), (name, diff.max().item(),
                                        (diff / limit).max().item())
+
+
+@pytest.mark.parametrize("which", ["wgmma", "simt"])
+@pytest.mark.parametrize("case", [
+    (2, 10, 1, 300, 300, 256, True, 64),     # MQA 10, D 256, a window
+    (2, 8, 2, 333, 333, 120, True, None),    # GQA 4, D 120, ragged
+    (1, 16, 16, 512, 512, 128, True, None),  # olmo's heads
+], ids=str)
+def test_flash_attention_bwd_is_deterministic(cuda_device, which, case):
+    """Two backward calls on the same inputs give the same bits, on each
+    body: dK / dV sum a GQA group inside one CTA in a fixed order and dQ
+    has its own kernel, no atomics (a resumed training run repeats its
+    losses)."""
+    B, hq, hkv, Sq, Skv, D, causal, window = case
+    q, k, v, do = _attn_inputs(torch.bfloat16, cuda_device, B, hq, hkv, Sq,
+                               Skv, D)
+    out, lse = fa_mod._forward(q, k, v, causal, window, None, True)
+    runs = [fa_mod.launch_bwd(q, k, v, out, lse, do, causal=causal,
+                              window=window, which=which) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert runs[0][3] == runs[1][3] == which
+    for a, b in zip(runs[0][:3], runs[1][:3]):
+        assert torch.equal(a, b)
+
+
+def test_flash_attention_bwd_wgmma_refuses_untaken_layouts(cuda_device):
+    """The C entry asked for the wgmma body with inputs it does not take
+    (f32, a base off 16 bytes, a head dim off 8) returns an error and the
+    wrapper raises; nothing reruns on the simt body."""
+    q, k, v, do = _attn_inputs(torch.bfloat16, cuda_device, 1, 4, 4, 90, 90,
+                               64)
+    out, lse = fa_mod._forward(q, k, v, True, None, None, True)
+    buf = torch.empty(q.numel() + 1, dtype=q.dtype, device=cuda_device)
+    mis = buf[1:].view(q.shape).copy_(q)
+    f32 = [t.float() for t in (q, k, v, out, do)]
+    odd = _attn_inputs(torch.bfloat16, cuda_device, 1, 4, 4, 90, 90, 100)
+    o_odd, lse_odd = fa_mod._forward(*odd[:3], True, None, None, True)
+    n0 = dict(fa_mod.flash_attention_bwd.launches_by_body)
+    for args in ((mis, k, v, out, lse, do), (*f32[:4], lse, f32[4]),
+                 (*odd[:3], o_odd, lse_odd, odd[3])):
+        assert fa_mod.bwd_body(*args[:3]) == "simt"
+        with pytest.raises(RuntimeError, match="wgmma body"):
+            fa_mod.launch_bwd(*args, which="wgmma")
+    torch.cuda.synchronize()
+    assert fa_mod.flash_attention_bwd.launches_by_body == n0
+    got = fa_mod.launch_bwd(mis, k, v, out, lse, do, which="simt")
+    want = ref.flash_attention_bwd(mis, k, v, out, lse, do)
+    assert got[3] == "simt"
+    for g, w in zip(got[:3], want):
+        diff = (g.float() - w.float()).abs()
+        assert (diff <= TOL[torch.bfloat16]
+                + BWD_RTOL[torch.bfloat16] * w.float().abs()).all()
 
 
 def test_flash_attention_autograd_on_cuda(cuda_device):
