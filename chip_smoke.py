@@ -223,13 +223,18 @@ Phases, one JSON line each (any failed check exits non-zero):
               hilbert_like(1024, cond 1e8) for 200 iterations (ms per
               iteration).
 13. parity_train — the training path at smoke sizes in f32: olmo_1b,
-              h2o_danube_3_4b and recurrentgemma_2b ``loss_fn`` loss and
-              every grad leaf, cuda against cpu on the same params and
-              batch (loss 1e-5 relative, grads 1e-4 x max(1, max|g|)),
-              K1, its backward and (recurrentgemma) K5 launched on cuda;
-              three ``make_train_step`` steps of olmo_1b smoke for AdamW,
-              ``grad_accum=2`` and ``norm_tile="vrp"`` (K8b), cuda
-              against cpu by loss (1e-4 relative). Then, at the
+              h2o_danube_3_4b, recurrentgemma_2b, xlstm_1_3b,
+              qwen3_moe_30b_a3b, kimi_k2_1t_a32b and whisper_base
+              ``loss_fn`` loss and every grad leaf, cuda against cpu on
+              the same params and batch (loss 1e-5 relative, grads 1e-4
+              x max(1, max|g|)), K1, its backward (every config but
+              xlstm, which has no attention) and (recurrentgemma) K5
+              launched on cuda, the MoE's dropped assignments equal on
+              both and more than 0; three ``make_train_step`` steps of
+              olmo_1b smoke for AdamW, ``grad_accum=2`` and
+              ``norm_tile="vrp"`` (K8b), and of qwen3_moe and whisper
+              smoke for ``grad_accum=2``, cuda against cpu by loss (1e-4
+              relative). Then, at the
               training shapes, K1's forward with its row lse against
               ``ref.flash_attention(..., return_lse=True)`` (output
               within TOL, lse within 1e-4 f32 / 3e-3 bf16; bf16 on the
@@ -243,7 +248,11 @@ Phases, one JSON line each (any failed check exits non-zero):
               forward beside them): olmo_1b (4, 16/16, 2048, 128)
               causal, recurrentgemma's local (2, 10/1, 2048, 256)
               window 2048 and h2o_danube (2, 32/8, 2048, 120) window
-              4096, each in bf16 and in f32.
+              4096, each in bf16 and in f32; and in bf16 at
+              train_families' shapes: qwen3_moe (4, 32/4, 2048, 128)
+              causal, whisper's encoder (8, 8/8, 1500, 64) and
+              cross-attention (448 rows over 1500 keys) non-causal and
+              decoder (8, 8/8, 448, 64) causal.
 14. train   — ``launch.train.train_loop`` on olmo_1b at full width and
               depth in bf16: AdamW on ``SyntheticLM`` at batch 4 x 2048,
               20 steps, a checkpoint every 10; the loss must fall, K1
@@ -255,6 +264,16 @@ Phases, one JSON line each (any failed check exits non-zero):
               optimizer, K1's backward's share of a profiled step's
               device time, peak memory and the card. The summary line's
               ``K1_bwd`` row takes its launches from this phase.
+15. train_families — ``make_train_step`` at full width in bf16 (AdamW,
+              f32 moments) on xlstm_1_3b (48 layers, 4 x 1024, remat
+              "full"), whisper_base (6 + 6, 8 x 448 decoder tokens over
+              (8, 1500, 512) frames) and qwen3_moe_30b_a3b (depth cut to
+              3 of 48, 4 x 2048, ce_chunk 512), each on one seeded batch:
+              a falling loss, step ms, tokens/s, the forward / backward /
+              optimizer split, peak memory, K1 / K1_bwd launches by body
+              (all wgmma; none on xlstm). The summary line's
+              ``K1_bwd_moe`` and ``K1_bwd_whisper`` rows take their
+              launches from this phase.
 
 The kernels phase also holds K5 (the RG-LRU scan) at recurrent_serve's
 (8, 512, 2560) and (2, 2560, 2560) f32 shapes, bit-equal to its plain
@@ -3129,22 +3148,24 @@ def phase_tile_path(torch, np, profile):
 # ---------------------------------------------------------------------------
 
 
-def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
+def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None,
+                causal=True, Skv=None):
     """K1's forward with its row lse and K1's backward kernel at (B,
-    hq/hkv, S, D), causal, q / k / v laid out as the training path
-    passes them ((B, S, H, D) projections seen through
-    ``.transpose(1, 2)``). The forward's output is held against
-    ``ref.flash_attention(..., return_lse=True)`` within TOL and its lse
-    within LSE_TOL, on the body the wrapper picks (bf16: wgmma, f32:
-    simt), so that a wrong lse cannot cancel out of the backward's check
-    below. The backward runs the body ``bwd_body`` picks (bf16: wgmma,
+    hq/hkv, S, D), causal or not, over ``Skv`` keys (default S; a
+    cross-attention's S query rows over Skv encoder positions), q / k /
+    v laid out as the training path passes them ((B, S, H, D)
+    projections seen through ``.transpose(1, 2)``). The forward's output
+    is held against ``ref.flash_attention(..., return_lse=True)`` within
+    TOL and its lse within LSE_TOL, on the body the wrapper picks (bf16:
+    wgmma, f32: simt), so that a wrong lse cannot cancel out of the
+    backward's check below. The backward runs the body ``bwd_body`` picks (bf16: wgmma,
     f32: simt) and is held against ``ref.flash_attention_bwd`` on
     the same q, k, v, output, lse and output gradient, element by
     element: |got - plain| <= TOL + BWD_RTOL * |plain|; a second call
     must give the same bits (``deterministic``). On a bf16 row the simt
     body forced on the same inputs is held to the same limit and timed
-    beside it (``simt_ms``). Bounds: the
-    forward's 4 D flops a visible pair and q, k, v, O, lse moved once;
+    beside it (``simt_ms``). Bounds: the forward's 4 D flops a visible
+    (query, key) pair and q, k, v, O, lse moved once;
     the backward's 2.5x the forward's products (five matmuls against
     two) and q, k, v, O, dO, lse, dQ, dK, dV moved once. The library
     times are SDPA's forward and its backward (forward + backward under
@@ -3153,21 +3174,23 @@ def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
 
     from repro_torch.kernels import flash_attention as fa, ref
 
+    Skv = Skv or S
     dt = getattr(torch, dtype)
     gen = torch.Generator(device="cuda").manual_seed(SEED)
-    q, k, v = (torch.randn((B, S, h, D), generator=gen, device="cuda")
-               .to(dt).transpose(1, 2) for h in (hq, hkv, hkv))
+    q, k, v = (torch.randn((B, n, h, D), generator=gen, device="cuda")
+               .to(dt).transpose(1, 2)
+               for h, n in ((hq, S), (hkv, Skv), (hkv, Skv)))
     do = torch.randn((B, hq, S, D), generator=gen, device="cuda").to(dt)
     before = dict(fa.flash_attention.launches_by_body)
-    out, lse = fa._forward(q, k, v, True, window, None, True)
+    out, lse = fa._forward(q, k, v, causal, window, None, True)
     fwd_body = ran_body(fa.flash_attention, before)
-    want_out, want_lse = ref.flash_attention(q, k, v, window=window,
-                                             return_lse=True)
+    want_out, want_lse = ref.flash_attention(q, k, v, causal=causal,
+                                             window=window, return_lse=True)
     fwd_err = (out.float() - want_out.float()).abs().max().item()
     lse_err = (lse - want_lse).abs().max().item()
     del want_out, want_lse
     call = lambda: fa.flash_attention_bwd(  # noqa: E731
-        q, k, v, out, lse, do, window=window)
+        q, k, v, out, lse, do, causal=causal, window=window)
     before = fa.flash_attention_bwd.launches
     by_body = dict(fa.flash_attention_bwd.launches_by_body)
     got = call()
@@ -3177,7 +3200,8 @@ def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
     again = call()
     deterministic = all(bool(torch.equal(a, b)) for a, b in zip(got, again))
     del again
-    want = ref.flash_attention_bwd(q, k, v, out, lse, do, window=window)
+    want = ref.flash_attention_bwd(q, k, v, out, lse, do, causal=causal,
+                                   window=window)
     torch.cuda.synchronize()
 
     def over_limit(grads):
@@ -3193,21 +3217,26 @@ def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
 
     errs, excess = over_limit(got)
     simt = lambda: fa.launch_bwd(  # noqa: E731
-        q, k, v, out, lse, do, window=window, which="simt")
+        q, k, v, out, lse, do, causal=causal, window=window, which="simt")
     simt_excess = over_limit(simt()[:3])[1] if body != "simt" else None
     del got, want
-    w = min(window or S, S)
-    pairs = B * hq * (w * (w + 1) // 2 + (S - w) * w)
+    if causal:
+        w = min(window or S, S)
+        pairs = B * hq * (w * (w + 1) // 2 + (S - w) * w)
+    else:
+        pairs = B * hq * S * Skv
     elem = q.element_size()
     fwd_bound_ms, fwd_bound_by = bound(
-        4 * D * pairs, elem * (2 * B * hq * S * D + 2 * B * hkv * S * D)
+        4 * D * pairs, elem * (2 * B * hq * S * D + 2 * B * hkv * Skv * D)
         + 4 * B * hq * S, dtype)
-    nbytes = elem * (4 * B * hq * S * D + 4 * B * hkv * S * D) \
+    nbytes = elem * (4 * B * hq * S * D + 4 * B * hkv * Skv * D) \
         + 4 * B * hq * S
     bound_ms, bound_by = bound(2.5 * 4 * D * pairs, nbytes, dtype)
     qs, ks, vs = (t.detach().requires_grad_() for t in (q, k, v))
     kw = {"enable_gqa": hkv < hq}
-    if window is not None and window < S:
+    if not causal:
+        pass                                  # every key visible: no mask
+    elif window is not None and window < S:
         pos = torch.arange(S, device="cuda")
         kw["attn_mask"] = (pos[None, :] <= pos[:, None]) \
             & (pos[None, :] > pos[:, None] - window)
@@ -3219,26 +3248,29 @@ def k1_bwd_case(torch, name, B, hq, hkv, S, D, dtype, window=None):
     sdpa_fb = cuda_ms(torch, lambda: torch.autograd.grad(
         sdpa(), (qs, ks, vs), do))
     row = {"phase": "kernels", "kernel": "K1_bwd", "case": name,
-           "shape": [B, hq, hkv, S, D], "dtype": dtype, "window": window,
-           "causal": True, "body": body, "max_abs_err": max(errs.values()),
+           "shape": [B, hq, hkv, S, D], "keys": Skv, "dtype": dtype,
+           "window": window, "causal": causal, "body": body,
+           "max_abs_err": max(errs.values()),
            "err_by_grad": errs, "err_over_limit_by_grad": excess,
            "deterministic": deterministic,
            "tol": TOL[dtype], "rtol": BWD_RTOL[dtype],
            "ms": cuda_ms(torch, call),
            "plain_ms": cuda_ms(torch, lambda: ref.flash_attention_bwd(
-               q, k, v, out, lse, do, window=window), reps=3),
+               q, k, v, out, lse, do, causal=causal, window=window),
+               reps=3),
            "bound_ms": bound_ms, "bound_by": bound_by,
            "library_ms": sdpa_fb - sdpa_fwd,
            "library": "sdpa backward (forward + backward under autograd "
                       "less the forward), " + (
                           "boolean causal+window mask" if "attn_mask" in kw
-                          else "is_causal"),
+                          else "is_causal" if causal else "no mask"),
            "fwd_body": fwd_body, "fwd_max_abs_err": fwd_err,
            "fwd_lse_max_abs_err": lse_err, "lse_tol": LSE_TOL[dtype],
            "fwd_ms": cuda_ms(torch, lambda: fa._forward(
-               q, k, v, True, window, None, True)),
+               q, k, v, causal, window, None, True)),
            "fwd_plain_ms": cuda_ms(torch, lambda: ref.flash_attention(
-               q, k, v, window=window, return_lse=True), reps=3),
+               q, k, v, causal=causal, window=window, return_lse=True),
+               reps=3),
            "fwd_bound_ms": fwd_bound_ms, "fwd_bound_by": fwd_bound_by,
            "library_fwd_ms": sdpa_fwd}
     if simt_excess is not None:
@@ -3287,18 +3319,70 @@ def read_training_counters():
             in training_counters().items()}
 
 
+PARITY_TRAIN_ARCHS = ("olmo_1b", "h2o_danube_3_4b", "recurrentgemma_2b",
+                      "xlstm_1_3b", "qwen3_moe_30b_a3b", "kimi_k2_1t_a32b",
+                      "whisper_base")
+
+
+def smoke_train_batch(torch, cfg, src, step, device):
+    """``src.batch_at(step)`` on ``device``; an encoder-decoder's batch
+    also carries frames (B, encoder_len, d) drawn from a generator seeded
+    with SEED + step."""
+    batch = {k: v.to(device) for k, v in src.batch_at(step).items()}
+    if cfg.enc_dec:
+        gen = torch.Generator().manual_seed(SEED + step)
+        B = batch["tokens"].shape[0]
+        batch["frames"] = torch.randn((B, cfg.encoder_len, cfg.d_model),
+                                      generator=gen).to(device)
+    return batch
+
+
+class DropCounter:
+    """Counts the assignments the MoE drops while installed: wraps
+    ``moe.plan`` (each call syncs to read its mask; parity runs only)."""
+
+    def __init__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.real, self.dropped, self.calls = moe, moe.plan, 0, 0
+
+    def __enter__(self):
+        def plan(*args, **kw):
+            r = self.real(*args, **kw)
+            if r.get("kept") is not None:
+                self.dropped += int((~r["kept"]).sum())
+                self.calls += 1
+            return r
+
+        self.moe.plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.plan = self.real
+
+
 def phase_parity_train(torch, np):
     """The training path at smoke sizes in f32 (TF32 off), cuda against
-    cpu on the same params and batch: olmo_1b, h2o_danube_3_4b (SWA) and
-    recurrentgemma_2b (RG-LRU + local attention), loss within 1e-5
-    relative and every grad leaf within 1e-4 * max(1, max|g_cpu|) (the
-    CPU tests' tolerance against JAX); the cuda run must launch K1, its
-    backward and (recurrentgemma) K5. Then three steps of
-    ``make_train_step`` on olmo_1b smoke for each of AdamW, AdamW with
-    ``grad_accum=2`` and AdamW with ``norm_tile="vrp"`` (K8b on the
-    norm), cuda against cpu by loss within 1e-4 relative. Then K1's
-    forward (with lse) and backward against their plain versions at the
-    training shapes, in bf16 and in f32 (``k1_bwd_case``)."""
+    cpu on the same params and batch: olmo_1b, h2o_danube_3_4b (SWA),
+    recurrentgemma_2b (RG-LRU + local attention), xlstm_1_3b (mLSTM +
+    sLSTM), qwen3_moe_30b_a3b and kimi_k2_1t_a32b (the MoE routed with the
+    capacity factor, its aux loss) and whisper_base (the encoder-decoder,
+    on frames from a seeded generator): loss within 1e-5 relative and
+    every grad leaf within 1e-4 * max(1, max|g_cpu|) (the CPU tests'
+    tolerance against JAX); the cuda run must launch K1 and its backward
+    (none on xlstm, which has no attention) and (recurrentgemma) K5; the
+    MoE runs print the assignments their layers dropped (more than 0).
+    Then three steps of ``make_train_step`` for olmo_1b smoke with each
+    of AdamW, AdamW with ``grad_accum=2`` and AdamW with
+    ``norm_tile="vrp"`` (K8b on the norm), and for qwen3_moe and whisper
+    smoke with ``grad_accum=2``, cuda against cpu by loss within 1e-4
+    relative. Then K1's forward (with lse) and backward against their
+    plain versions at the training shapes (``k1_bwd_case``): olmo's,
+    recurrentgemma's and danube's in bf16 and in f32, and in bf16
+    qwen3_moe's (4, 32/4, 2048, 128) causal and whisper's encoder (8,
+    8/8, 1500, 64) non-causal, decoder (8, 8/8, 448, 64) causal and
+    cross-attention (8, 8/8, 448 rows over 1500 keys, 64) non-causal:
+    train_families' shapes."""
     import functools
 
     from repro_torch import tree as tr
@@ -3313,19 +3397,22 @@ def phase_parity_train(torch, np):
     t0 = time.monotonic()
     ctx = RunCtx()
     grads_rows = {}
-    for arch in ("olmo_1b", "h2o_danube_3_4b", "recurrentgemma_2b"):
+    for arch in PARITY_TRAIN_ARCHS:
         cfg = get_config(arch).smoke()
         cpu = Model(cfg, device="cpu")
         gpu = Model(cfg, device="cuda")
         params = cpu.init(seed=SEED)
         src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
                                      global_batch=4, seed=SEED))
-        batch = src.batch_at(0)
-        want_loss, _, want = train.value_and_grad(cpu, ctx, params, batch)
+        batch = smoke_train_batch(torch, cfg, src, 0, "cpu")
+        with DropCounter() as cpu_drops:
+            want_loss, _, want = train.value_and_grad(cpu, ctx, params,
+                                                      batch)
         zero_training_counters()
-        loss, _, got = train.value_and_grad(
-            gpu, ctx, tr.map_tree(lambda t: t.cuda(), params),
-            {k: v.cuda() for k, v in batch.items()})
+        with DropCounter() as drops:
+            loss, metrics, got = train.value_and_grad(
+                gpu, ctx, tr.map_tree(lambda t: t.cuda(), params),
+                {k: v.cuda() for k, v in batch.items()})
         torch.cuda.synchronize()
         counts = read_training_counters()
         rel = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
@@ -3335,20 +3422,35 @@ def phase_parity_train(torch, np):
         grads_rows[arch] = {"loss_cpu": want_loss.item(),
                             "loss_cuda": loss.item(), "loss_rel_err": rel,
                             "grad_err_over_scale": ratio,
+                            "aux_cuda": metrics["aux"].item(),
                             "launches": counts}
+        if cfg.is_moe:
+            grads_rows[arch].update(moe_dropped_cuda=drops.dropped,
+                                    moe_dropped_cpu=cpu_drops.dropped,
+                                    moe_layers=drops.calls)
         check(rel <= 1e-5 and ratio <= 1e-4,
               f"parity_train {arch}: loss rel err {rel}, grad err / scale "
               f"{ratio}")
-        check(counts["K1"] > 0 and counts["K1_bwd"] > 0
+        attention = arch != "xlstm_1_3b"
+        check((counts["K1"] > 0) == attention
+              and (counts["K1_bwd"] > 0) == attention
               and (counts["K5"] > 0) == (arch == "recurrentgemma_2b"),
               f"parity_train {arch}: launches {counts}")
+        check(not cfg.is_moe or drops.dropped == cpu_drops.dropped > 0,
+              f"parity_train {arch}: dropped assignments cuda "
+              f"{drops.dropped}, cpu {cpu_drops.dropped}")
     steps = {}
-    cfg = get_config("olmo_1b").smoke()
-    src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
-                                 global_batch=4, seed=SEED))
     lr = functools.partial(constant, peak_lr=1e-3)
-    for name, kw in (("adamw", {}), ("grad_accum_2", {"grad_accum": 2}),
-                     ("norm_vrp", {"norm_tile": "vrp"})):
+    for name, arch, kw in (("adamw", "olmo_1b", {}),
+                           ("grad_accum_2", "olmo_1b", {"grad_accum": 2}),
+                           ("norm_vrp", "olmo_1b", {"norm_tile": "vrp"}),
+                           ("moe_grad_accum_2", "qwen3_moe_30b_a3b",
+                            {"grad_accum": 2}),
+                           ("encdec_grad_accum_2", "whisper_base",
+                            {"grad_accum": 2})):
+        cfg = get_config(arch).smoke()
+        src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=64,
+                                     global_batch=4, seed=SEED))
         losses = {}
         for dev in ("cpu", "cuda"):
             model = Model(cfg, device=dev)
@@ -3359,13 +3461,13 @@ def phase_parity_train(torch, np):
             zero_training_counters()
             losses[dev] = []
             for i in range(3):
-                batch = {k: v.to(dev) for k, v in src.batch_at(i).items()}
-                state, metrics = step(state, batch)
+                state, metrics = step(state, smoke_train_batch(
+                    torch, cfg, src, i, dev))
                 losses[dev].append(float(metrics["loss"]))
             counts = read_training_counters()
         rel = max(abs(a - b) / abs(b)
                   for a, b in zip(losses["cuda"], losses["cpu"]))
-        steps[name] = {"losses_cuda": losses["cuda"],
+        steps[name] = {"arch": arch, "losses_cuda": losses["cuda"],
                        "losses_cpu": losses["cpu"], "max_rel_err": rel,
                        "launches": counts}
         check(rel <= 1e-4, f"parity_train steps {name}: loss rel err {rel}")
@@ -3380,12 +3482,21 @@ def phase_parity_train(torch, np):
                 window=2048)
     k1_bwd_case(torch, "danube_d120_gqa4", 2, 32, 8, 2048, 120, "bfloat16",
                 window=4096)
+    rows["moe"] = k1_bwd_case(torch, "qwen3_train_gqa8", FAM_MOE_B, 32, 4,
+                              FAM_MOE_S, 128, "bfloat16")
+    k1_bwd_case(torch, "whisper_enc", FAM_WH_B, 8, 8, ENC_FRAMES, 64,
+                "bfloat16", causal=False)
+    k1_bwd_case(torch, "whisper_dec", FAM_WH_B, 8, 8, FAM_WH_S, 64,
+                "bfloat16")
+    rows["whisper"] = k1_bwd_case(torch, "whisper_xattn", FAM_WH_B, 8, 8,
+                                  FAM_WH_S, 64, "bfloat16", causal=False,
+                                  Skv=ENC_FRAMES)
     k1_bwd_case(torch, "olmo_train_f32", 4, 16, 16, 2048, 128, "float32")
     k1_bwd_case(torch, "rg_local_d256_f32", 2, 10, 1, 2048, 256, "float32",
                 window=2048)
     k1_bwd_case(torch, "danube_d120_gqa4_f32", 2, 32, 8, 2048, 120,
                 "float32", window=4096)
-    return rows["olmo"]
+    return rows
 
 
 TRAIN_B, TRAIN_S, TRAIN_STEPS = 4, 2048, 20   # train: olmo_1b's batch
@@ -3517,6 +3628,139 @@ def phase_train(torch, np):
           "resume_tol": 1e-2, "run_s": run_s, "resume_s": resume_s,
           "card": nvidia_smi()})
     return launches
+
+
+# train_families: (arch, layers (None: full depth), batch, sequence,
+# ce_chunk, remat, steps). xlstm_1_3b's sequence is cut from olmo's 2048
+# to 1024 and it takes 3 steps: its sLSTM runs 6 layers x 1024 cells one
+# by one, forward and backward. It recomputes each layer in the backward
+# pass: without remat the 48 layers' saved activations (the chunkwise
+# mLSTM's f32 states and products, the sLSTM's cells) ran the card out
+# of its 80 GB in the forward pass. qwen3_moe's depth is cut to 3 of 48
+# layers: a layer holds 0.62 B parameters and the embedding and head
+# 0.62 B more, and the eager AdamW step holds the old and the new
+# params and f32 moments at once beside the bf16 grads (22 bytes a
+# parameter) and f32 temporaries of a (layers, 128, 2048, 768) expert
+# leaf: 4 layers (3.1 B parameters) ran out of the 80 GB in the
+# optimizer. whisper_base runs 448 decoder tokens (its longest) over
+# 1500 frames (a full 30 s window).
+FAM_MOE_B, FAM_MOE_S, FAM_MOE_LAYERS = 4, 2048, 3
+FAM_WH_B, FAM_WH_S = 8, 448
+TRAIN_FAMILIES = (("xlstm_1_3b", None, 4, 1024, 0, "full", 3),
+                  ("whisper_base", None, FAM_WH_B, FAM_WH_S, 0, "none", 4),
+                  ("qwen3_moe_30b_a3b", FAM_MOE_LAYERS, FAM_MOE_B,
+                   FAM_MOE_S, 512, "none", 4))
+
+
+def phase_train_families(torch, np):
+    """``make_train_step`` at full width in bf16 (AdamW, f32 moments,
+    constant lr 1e-3, seeded random weights) on each family that the
+    train phase does not cover: xlstm_1_3b at full depth (48 layers: 42
+    mLSTM, 6 sLSTM) on a ``SyntheticLM`` batch of 4 x 1024, each layer
+    recomputed in the backward pass (``remat="full"``); whisper_base
+    at full depth (6 + 6) on 8 x 448 decoder tokens over frames (8,
+    1500, 512) drawn from a generator seeded with SEED; qwen3_moe_30b_a3b
+    at full width, depth cut to FAM_MOE_LAYERS of 48, on 4 x 2048 with
+    the cross-entropy in chunks of 512 (the MoE routed with the capacity
+    factor). Every step of a config takes the same seeded batch, so its
+    losses compare like with like (from one batch to the next the loss
+    of a random model moves more than a few steps move it). For each:
+    the losses (the last must be below the first),
+    the step's ms (median of the steps after the first, host clock to a
+    synced loss) and tokens/s (decoder tokens), one step's forward /
+    backward / optimizer ms from ``make_train_step(mark=...)``'s CUDA
+    events, the peak ``max_memory_allocated``, and K1 / K1_bwd launches
+    by body, counted from 0 before the config's steps: whisper 18 of each
+    a step (6 encoder, 6 self, 6 cross), qwen3_moe one a layer a step,
+    all wgmma; xlstm none (no attention). Returns the launches by
+    config."""
+    import dataclasses
+    import functools
+
+    from repro_torch import tree as tr
+    from repro_torch.configs import get_config
+    from repro_torch.data.pipeline import DataConfig, SyntheticLM
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.launch import train
+    from repro_torch.models.model import Model
+    from repro_torch.models.transformer import RunCtx
+    from repro_torch.optim import OptConfig
+    from repro_torch.optim.schedule import constant
+
+    out = {}
+    for arch, layers, B, S, ce_chunk, remat, steps in TRAIN_FAMILIES:
+        t0 = time.monotonic()
+        cfg = get_config(arch)
+        full = cfg.n_layers
+        if layers:
+            cfg = dataclasses.replace(cfg, n_layers=layers)
+        model = Model(cfg, device="cuda")
+        opt_cfg, ctx = OptConfig(), RunCtx(ce_chunk=ce_chunk, remat=remat)
+        src = SyntheticLM(DataConfig(vocab_size=cfg.vocab_size, seq_len=S,
+                                     global_batch=B, seed=SEED),
+                          device="cuda")
+        batch = src.batch_at(0)
+        if cfg.enc_dec:
+            gen = torch.Generator(device="cuda").manual_seed(SEED)
+            batch["frames"] = torch.randn((B, ENC_FRAMES, cfg.d_model),
+                                          generator=gen, device="cuda")
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        state = train.init_state(model, opt_cfg, seed=SEED)
+        n_params = sum(t.numel() for t in tr.leaves(state["params"]))
+        events = {n: torch.cuda.Event(enable_timing=True)
+                  for n in ("start", "loss", "grads", "update")}
+        step = train.make_train_step(
+            model, opt_cfg, ctx, functools.partial(constant, peak_lr=1e-3),
+            mark=lambda n: events[n].record())
+        zero_training_counters()
+        zero_bodies(fa.flash_attention)
+        zero_bodies(fa.flash_attention_bwd)
+        losses, dts = [], []
+        for _ in range(steps):
+            t1 = time.monotonic()
+            state, metrics = step(state, batch)
+            losses.append(float(metrics["loss"]))
+            dts.append(time.monotonic() - t1)
+        torch.cuda.synchronize()
+        launches = read_training_counters()
+        bodies = {"K1": dict(fa.flash_attention.launches_by_body),
+                  "K1_bwd": dict(fa.flash_attention_bwd.launches_by_body)}
+        parts = {"forward_ms": events["start"].elapsed_time(events["loss"]),
+                 "backward_ms": events["loss"].elapsed_time(events["grads"]),
+                 "optimizer_ms": events["grads"].elapsed_time(
+                     events["update"])}
+        peak = torch.cuda.max_memory_allocated()
+        del state, batch
+        torch.cuda.empty_cache()
+        step_s = float(np.median(dts[1:]))
+        per_step = {"xlstm_1_3b": 0, "whisper_base": 3 * cfg.n_layers,
+                    "qwen3_moe_30b_a3b": cfg.n_layers}[arch]
+        row = {"phase": "train_families", "arch": arch,
+               "layers": cfg.n_layers if not layers
+               else f"{layers} of {full} (depth cut)",
+               "dtype": cfg.dtype, "batch": [B, S], "steps": steps,
+               "optimizer": "adamw", "lr": "constant 1e-3",
+               "ce_chunk": ce_chunk, "remat": remat, "params": n_params,
+               "losses": losses, "step_ms": [d * 1e3 for d in dts],
+               "step_ms_median_after_first": step_s * 1e3,
+               "tokens_per_s": B * S / step_s, "split_ms_last_step": parts,
+               "peak_memory_bytes": peak, "launches": launches,
+               "launches_by_body": bodies,
+               "seconds": time.monotonic() - t0, "card": nvidia_smi()}
+        if cfg.enc_dec:
+            row["frames"] = [B, ENC_FRAMES, cfg.d_model]
+        emit(row)
+        check(all(math.isfinite(x) for x in losses)
+              and losses[-1] < losses[0],
+              f"train_families {arch}: losses {losses}")
+        check(launches["K1"] == launches["K1_bwd"] == per_step * steps
+              and bodies["K1"]["wgmma"] == bodies["K1_bwd"]["wgmma"]
+              == per_step * steps,
+              f"train_families {arch}: launches {launches}, by body "
+              f"{bodies}; expected {per_step} a step, all wgmma")
+        out[arch] = launches
+    return out
 
 
 def nvidia_smi():
@@ -3667,6 +3911,10 @@ def main():
     k1_bwd = phase_parity_train(torch, np)
     torch.cuda.empty_cache()
     launches["K1_bwd"] = phase_train(torch, np)["K1_bwd"]
+    torch.cuda.empty_cache()
+    fam = phase_train_families(torch, np)
+    launches.update(K1_bwd_moe=fam["qwen3_moe_30b_a3b"]["K1_bwd"],
+                    K1_bwd_whisper=fam["whisper_base"]["K1_bwd"])
 
     kernels = []
     for row, key, name, src, tpu in (
@@ -3755,10 +4003,21 @@ def main():
              "vrp_finalize (K8's compensated tree over the 1024 lanes)",
              "src/repro_torch/csrc/vrp_dot.cu",
              "src/repro/kernels/ops.py:278"),
-            (k1_bwd, "K1_bwd",
+            (k1_bwd["olmo"], "K1_bwd",
              "flash_attention_bwd (K1's backward: dQ, dK, dV at olmo_1b's "
              "training shape; the JAX package differentiates K1's oracle, "
              "no Pallas backward)",
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:109"),
+            (k1_bwd["moe"], "K1_bwd_moe",
+             "flash_attention_bwd (qwen3_moe GQA 32/4 x 128 at "
+             "train_families' (4, 2048), causal)",
+             "src/repro_torch/csrc/flash_attention_bwd.cu",
+             "src/repro/kernels/flash_attention.py:109"),
+            (k1_bwd["whisper"], "K1_bwd_whisper",
+             "flash_attention_bwd (whisper_base in train_families: launches "
+             "of its encoder, decoder and cross-attention; timed at the "
+             "cross-attention, 448 query rows over 1500 keys, non-causal)",
              "src/repro_torch/csrc/flash_attention_bwd.cu",
              "src/repro/kernels/flash_attention.py:109")):
         kernels.append({"name": name, "route": "cuda", "source": src,

@@ -17,10 +17,17 @@ Counterpart of ``repro/launch/train.py`` on one device:
 The step runs eagerly (JAX jits it). The params are a nested dict of
 tensors, as the port's models take them; gradients are taken with
 respect to detached copies of their leaves, so a state holds no graph.
+Every config the port serves on one device trains: the decoder-only
+ones through all three, the encoder-decoder (whisper) through
+``make_train_step`` on batches that carry ``frames`` (B, F, d) beside
+``tokens`` and ``targets``; the data pipeline makes no frames, as JAX's
+makes none, so ``train_loop`` and ``main`` take decoder-only configs.
 Sharded steps (``--tp``, ``mesh``) wait for the Multi-device slice.
 
 Run on the card (full size):
     PYTHONPATH=src python -m repro_torch.launch.train --arch olmo_1b
+    (or another decoder-only config that fits one card: xlstm_1_3b
+    does; the MoE decoders' full depth does not)
 On the CPU:
     PYTHONPATH=src python -m repro_torch.launch.train --smoke --device cpu
 """
@@ -164,6 +171,11 @@ def train_loop(model: Model, opt_cfg: OptConfig, ctx: RunCtx,
     """
     if mesh is not None:
         raise NotImplementedError(MULTI_DEVICE)
+    if model.cfg.enc_dec:
+        raise ValueError(
+            f"{model.cfg.name}: the data pipeline makes token batches "
+            "only; train an encoder-decoder through make_train_step on "
+            "batches that carry frames")
     lr_fn = lr_fn or functools.partial(
         warmup_cosine, peak_lr=3e-4, warmup_steps=20,
         total_steps=loop_cfg.steps)

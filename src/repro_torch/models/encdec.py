@@ -9,7 +9,7 @@ stacks with every leaf led by the layer count, ``enc_norm``,
 ``final_norm``. Where JAX runs ``lax.scan`` over a stack, this module
 runs a Python loop over the layer index.
 
-Two paths share the params:
+Three paths share the params:
 
 * **dense** (``prefill`` / ``decode_step``): the exact-length encoder
   bidirectional through kernel K1, the decoder's causal self-attention
@@ -23,7 +23,10 @@ Two paths share the params:
   self-attention through K1 (causal attention hides pad keys) and its
   K/V packed into the block pool, the cross K/V written into the
   request's arena row; the decode step reads the pool through K2 and
-  gathers each slot's arena row, masked to its true frame count.
+  gathers each slot's arena row, masked to its true frame count;
+* **training** (``forward`` / ``loss_fn``): the dense path's exact-length
+  encoder and decoder without a cache, K1 and its backward kernel under
+  autograd, the cross-entropy over the full logits.
 
 Everything writes its pools and arena IN PLACE, so the captured decode
 step (``launch/engine/step_graph.py``) replays over fixed storage.
@@ -132,6 +135,36 @@ def _decoder_prefill(params, cfg, tokens, enc_out, cross_fn):
         self_kv.append(kv)
         cross.append(xkv)
     return x, self_kv, cross
+
+
+def forward(params, cfg, tokens, frames, ctx=None):
+    """The training forward (no cache): tokens (B, S) and frames (B, F,
+    d) -> (logits (B, S, V) f32, aux 0.0). The exact-length encoder runs
+    K1 bidirectional, each decoder layer K1 causal and its
+    cross-attention K1 non-causal (S query rows over F keys), all under
+    autograd. JAX's enc-dec trains with neither ``remat`` nor
+    ``ce_chunk``, and ``ctx`` is ignored here too."""
+    del ctx
+    enc_out = encode(params, cfg, frames)
+    x, _, _ = _decoder_prefill(
+        params, cfg, tokens, enc_out,
+        lambda p, xn, kv: attn_lib.attend_cross(p, cfg, xn, kv))
+    x = layers.apply_norm(cfg.norm, params["final_norm"], x)
+    return _logits(params, cfg, x), \
+        torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def loss_fn(params, cfg, batch, ctx=None):
+    """batch: {tokens (B, S), targets (B, S), frames (B, F, d)} ->
+    (loss, {"ce", "aux", "loss"}): the mean cross-entropy over the full
+    logits, aux 0 (JAX's ``encdec.loss_fn``)."""
+    logits, aux = forward(params, cfg, batch["tokens"], batch["frames"],
+                          ctx)
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1,
+                        batch["targets"].long()[..., None])[..., 0]
+    ce = torch.mean(logz - gold)
+    return ce, {"ce": ce, "aux": aux, "loss": ce}
 
 
 def _stack(kvs):

@@ -88,17 +88,22 @@ class Model:
     def forward(self, params, batch, ctx: RunCtx):
         """Full-sequence logits (B, S, V) f32 and the aux scalar of
         ``batch["tokens"]`` (a VLM also ``visual_embeds`` and
-        ``mrope_positions``): the training form, no cache."""
+        ``mrope_positions``; an enc-dec config ``frames`` (B, F, d)): the
+        training form, no cache."""
+        if self.cfg.enc_dec:
+            return encdec.forward(params, self.cfg, batch["tokens"],
+                                  batch["frames"], ctx)
         return transformer.forward(params, self.cfg, batch["tokens"], ctx,
                                    batch.get("visual_embeds"),
                                    batch.get("mrope_positions"))
 
     def loss_fn(self, params, batch, ctx: RunCtx):
         """(loss, {"ce", "aux", "loss"}) of ``batch`` (``tokens``,
-        ``targets``); differentiable with ``torch.autograd``. Configs
-        whose training form waits for a later slice raise
-        NotImplementedError naming it (``transformer.check_trainable``:
-        mLSTM / sLSTM blocks, the MoE, the encoder-decoder)."""
+        ``targets``; an enc-dec config also ``frames``); differentiable
+        with ``torch.autograd``. An MoE config's loss adds
+        ``moe_aux_coef`` x its Switch aux loss."""
+        if self.cfg.enc_dec:
+            return encdec.loss_fn(params, self.cfg, batch, ctx)
         return transformer.loss_fn(params, self.cfg, batch, ctx)
 
     # -- serving --------------------------------------------------------

@@ -1,21 +1,25 @@
-"""Mixture-of-Experts on one device, dropless, for every serving path.
+"""Mixture-of-Experts on one device: dropless for every serving path,
+capacity-routed with the Switch aux loss for training.
 
 Counterpart of ``repro/models/moe.py``'s single-device path
-(``apply_moe`` with ``dropless=True``, which JAX's prefill-with-cache,
-decode and verify all use):
+(``apply_moe``; JAX's prefill-with-cache, decode and verify run it with
+``dropless=True``, its training forward with ``dropless=False``):
 
   1. route: softmax over an f32 router, the top-k experts a token and
      their weights renormalized to sum to 1;
   2. sort the (token, expert) assignments by expert id (stable) and
      number each one within its expert;
-  3. gather the tokens into per-expert buffers of capacity C = T (no
-     assignment ever drops: a token's k ids are distinct, so an expert
-     holds at most T of them);
+  3. gather the tokens into per-expert buffers of capacity C: C = T when
+     dropless (no assignment ever drops: a token's k ids are distinct,
+     so an expert holds at most T of them), else ceil(T k / E x 1.25)
+     (``capacity``), and an assignment numbered C or later within its
+     expert is dropped: it is written to one overflow row past the
+     buffers, which nothing reads, and adds nothing to its token;
   4. the gated FFN of every expert as three batched matmuls;
   5. combine: each token sums its k weighted expert outputs.
 
-Each token's output thus depends on its own hidden state only, not on
-right padding, co-batched rows or batch width. Two choices keep the
+Dropless, each token's output depends on its own hidden state only, not
+on right padding, co-batched rows or batch width. Two choices keep the
 port deterministic on the card where JAX leaves the order to XLA:
 
 - ties in the top-k go to the lower expert index (JAX's ``lax.top_k``),
@@ -24,13 +28,16 @@ port deterministic on the card where JAX leaves the order to XLA:
 - the combine adds a token's k contributions one after another in
   ascending expert order, starting from zero, as XLA's scatter-add on
   the CPU walks the expert-sorted updates, instead of ``index_add_``,
-  whose atomics on CUDA add in no fixed order.
+  whose atomics on CUDA add in no fixed order. A dropped assignment
+  adds an exact zero in its place.
+
+Routing is a pure function of the layer's input, so a layer recomputed
+in the backward pass (``RunCtx(remat="full")``) drops exactly the
+assignments its first pass dropped.
 
 Per-expert counts come from an integer ``scatter_add_`` of fixed size E
 (``torch.bincount`` on CUDA reads its maximum back to the host, which a
-captured decode step cannot do). The Switch load-balancing statistics
-and the capacity-factor drop path are training's (ROADMAP queue 1,
-'Training of xLSTM, MoE and enc-dec'); the expert-parallel
+captured decode step cannot do). The expert-parallel
 ``apply_moe_sharded`` is queue 1's 'multi-device'.
 """
 
@@ -65,14 +72,36 @@ def init_moe(gen, cfg, dtype, lead=()):
     }
 
 
-def route(x2d, router_w, top_k: int):
+def route(x2d, router_w, top_k: int, stats: bool = False):
     """x2d: (T, d) -> (expert ids (T, k) int64, weights (T, k) f32
     summing to 1), the ids by descending probability, ties to the lower
-    index."""
+    index. ``stats`` also returns JAX's Switch statistics: ``load`` (E,),
+    the share of tokens whose first expert is e (no gradient), and
+    ``imp`` (E,), the mean router probability of e."""
     probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
     topw, topi = torch.sort(probs, dim=-1, descending=True, stable=True)
     topw, topi = topw[:, :top_k], topi[:, :top_k]
-    return topi, topw / topw.sum(-1, keepdim=True)
+    topw = topw / topw.sum(-1, keepdim=True)
+    if not stats:
+        return topi, topw
+    E = router_w.shape[-1]
+    load = F.one_hot(topi[:, 0], E).float().mean(0)
+    return topi, topw, load, probs.mean(0)
+
+
+def aux_loss(load, imp):
+    """The Switch load-balancing loss E * sum(load * imp)."""
+    return load.shape[-1] * torch.sum(load * imp)
+
+
+def capacity(cfg, T: int, dropless: bool) -> int:
+    """Assignments each expert takes from T tokens: T when ``dropless``
+    (nothing drops), else ceil(T k / E x capacity factor), at least 1
+    (JAX's ``_capacity``, in its order of operations)."""
+    if dropless:
+        return T
+    return max(1, int(math.ceil(T * cfg.moe_top_k / cfg.n_experts
+                                * cfg.moe_capacity_factor)))
 
 
 def dispatch_indices(topi, n_experts: int):
@@ -98,21 +127,48 @@ def expert_ffn(xg, w1, w3, w2, activation="silu"):
     return torch.bmm(h, w2)
 
 
-def apply_moe(params, cfg, x):
-    """Dropless MoE over x: (B, S, d) -> (B, S, d)."""
+def plan(x2d, router_w, cfg, dropless: bool):
+    """The routing of x2d (T, d) and what capacity makes of it, as a
+    dict: ``topi`` / ``topw`` (T, k), ``capacity`` C, and over the
+    expert-sorted assignments (T * k,) ``st`` (their tokens), ``order``
+    (``dispatch_indices``') and ``slot``, the buffer row expert * C +
+    position within the expert. Unless ``dropless``: also ``load`` /
+    ``imp`` (E,), ``kept`` (position < C), and a dropped assignment's
+    ``slot`` is E * C, the overflow row."""
+    E = cfg.n_experts
+    C = capacity(cfg, x2d.shape[0], dropless)
+    out = dict(zip(("topi", "topw", "load", "imp"),
+                   route(x2d, router_w, cfg.moe_top_k,
+                         stats=not dropless)))
+    se, st, order, pos = dispatch_indices(out["topi"], E)
+    out.update(capacity=C, st=st, order=order, slot=se * C + pos)
+    if not dropless:
+        out["kept"] = pos < C
+        out["slot"] = torch.where(out["kept"], out["slot"], E * C)
+    return out
+
+
+def _moe(params, cfg, x, dropless):
+    """(out (B, S, d), the plan) of the MoE over x (B, S, d)."""
     B, S, d = x.shape
     x2d = x.reshape(-1, d)
     T, E, k = B * S, cfg.n_experts, cfg.moe_top_k
-    C = T                                         # dropless capacity
-    topi, topw = route(x2d, params["router"], k)
-    se, st, order, pos = dispatch_indices(topi, E)
-    slot = se * C + pos
-    xg = x2d.new_zeros((E * C, d))
-    xg[slot] = x2d[st]
-    yg = expert_ffn(xg.view(E, C, d), params["w1"], params["w3"],
+    r = plan(x2d, params["router"], cfg, dropless)
+    C, slot, order = r["capacity"], r["slot"], r["order"]
+    rows = E * C if dropless else E * C + 1        # + the overflow row
+    xg = x2d.new_zeros((rows, d))
+    xg[slot] = x2d[r["st"]]
+    yg = expert_ffn(xg[:E * C].view(E, C, d), params["w1"], params["w3"],
                     params["w2"], cfg.activation).reshape(E * C, d)
-    sw = topw.reshape(-1)[order]
-    contrib = yg[slot] * sw[:, None].to(yg.dtype)
+    sw = r["topw"].reshape(-1)[order]
+    if dropless:
+        contrib = yg[slot] * sw[:, None].to(yg.dtype)
+    else:
+        # a dropped assignment reads a real row (clamped) and adds zero:
+        # neither that row nor its router weight gets a gradient from it
+        contrib = torch.where(
+            r["kept"][:, None],
+            yg[slot.clamp(max=E * C - 1)] * sw[:, None].to(yg.dtype), 0.0)
     # each token's k contributions in expert-sorted order: the sorted
     # positions of its assignments, ascending
     inv = torch.empty_like(order)
@@ -121,4 +177,19 @@ def apply_moe(params, cfg, x):
     out = torch.zeros((T, d), dtype=yg.dtype, device=x.device)
     for j in range(k):
         out = out + contrib[mine[:, j]]
-    return out.to(x.dtype).reshape(B, S, d)
+    return out.to(x.dtype).reshape(B, S, d), r
+
+
+def apply_moe_train(params, cfg, x):
+    """The training form, JAX's ``apply_moe(params, cfg, x,
+    dropless=False)``: x (B, S, d) -> (out (B, S, d), aux scalar f32).
+    Each expert takes ``capacity(cfg, B * S, False)`` assignments and
+    the rest drop; ``aux`` is ``aux_loss(load, imp)``."""
+    out, r = _moe(params, cfg, x, dropless=False)
+    return out, aux_loss(r["load"], r["imp"])
+
+
+def apply_moe(params, cfg, x):
+    """Dropless MoE over x: (B, S, d) -> (B, S, d), every serving path's
+    (JAX's ``dropless=True``; no statistics, no aux loss)."""
+    return _moe(params, cfg, x, dropless=True)[0]

@@ -190,6 +190,17 @@ def mlstm_output(params, cfg, h, z):
     return (h * F.silu(z)) @ params["w_down"]
 
 
+def apply_mlstm_block(params, cfg, xn):
+    """Full-sequence mLSTM mixing of pre-normed xn (B, S, d), no cache:
+    the training form (JAX's ``apply_mlstm_block`` at ``chunk =
+    cfg.mlstm_chunk``), differentiable by autograd. Returns the block's
+    delta."""
+    q, k, v, ig, fg, z, _ = mlstm_qkv_gates(params, cfg, xn)
+    h, _ = mlstm_chunkwise(q, k, v, ig, fg,
+                           chunk=min(cfg.mlstm_chunk, xn.shape[1]))
+    return mlstm_output(params, cfg, h, z)
+
+
 def init_mlstm_cache(cfg, batch, dtype, device, lead=()):
     """Zeroed per-slot state: ``C`` (B, H, hd, hd), ``n`` (B, H, hd),
     ``m`` (B, H) at -1e30, all f32, and the conv tail (B, 3, d) in
@@ -278,6 +289,41 @@ def slstm_output(params, cfg, hidden, dtype):
     """Group norm of the (B, S, d) cell outputs, then the gated GeGLU."""
     h = layers.group_norm(hidden.to(dtype), params["gn_scale"], cfg.n_heads)
     return layers.apply_mlp(params["ff"], h, "gelu")
+
+
+def slstm_sequence(params, cfg, xn, length=None):
+    """The sLSTM over pre-normed xn (B, S, d), one cell a token: one
+    input projection ``xn @ w_zifo``, the cells, then ``slstm_output``.
+    Returns (out (B, S, d), the final state {"h", "c", "n", "m"}). With
+    ``length`` ((B,) int, right-padded prefill) a pad step keeps the
+    carry it was given, so the state is frozen bit for bit at each true
+    length."""
+    B, S, d = xn.shape
+    x_parts = xn @ params["w_zifo"]
+    r, b = params["r_zifo"].float(), params["b_zifo"].float()
+    init = init_slstm_cache(cfg, B, xn.dtype, xn.device)
+    state = tuple(init[n] for n in ("h", "c", "n", "m"))
+    keep = None if length is None else \
+        torch.arange(S, device=xn.device)[None, :] < length.long()[:, None]
+    hs = []
+    for t in range(S):
+        hidden, new = slstm_cell(cfg, x_parts[:, t], state, r, b)
+        if keep is None:
+            state = new
+        else:
+            kt = keep[:, t, None, None]
+            state = tuple(torch.where(kt, a, o) for a, o in zip(new, state))
+        hs.append(hidden)
+    out = slstm_output(params, cfg,
+                       torch.stack(hs, dim=1).reshape(B, S, d), xn.dtype)
+    return out, dict(zip(("h", "c", "n", "m"), state))
+
+
+def apply_slstm_block(params, cfg, xn):
+    """Full-sequence sLSTM mixing, no cache: the training form (JAX's
+    ``apply_slstm_block``), the cell stepped token by token under
+    autograd. Returns the block's delta."""
+    return slstm_sequence(params, cfg, xn)[0]
 
 
 def init_slstm_cache(cfg, batch, dtype, device, lead=()):

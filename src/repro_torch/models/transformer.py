@@ -34,10 +34,13 @@ Phases sharing one param set:
   dense decode — one token per slot over per-slot caches (the draft
              model's, the static backend's and the VLM's), plain torch
   train    — full sequence, no cache (``forward_hidden``, ``forward``,
-             ``loss_fn``) for the ``attn`` / ``local`` / ``rglru`` kinds:
-             K1 and K5 under autograd (their ``autograd.Function``s: K1's
-             backward kernel, K5 run on the reversed sequence); nothing
-             is written in place, so autograd can differentiate it
+             ``loss_fn``) for every kind: K1 and K5 under autograd
+             (their ``autograd.Function``s: K1's backward kernel, K5 run
+             on the reversed sequence), the mLSTM chunkwise and the sLSTM
+             cell by cell in plain torch, the MoE routed with the
+             capacity factor and its aux loss summed over the layers;
+             nothing autograd saves is written in place (the MoE fills a
+             fresh dispatch buffer), so autograd can differentiate it
 
 The VLM (qwen2-vl) runs the dense path only, as in JAX (no paged decode:
 ``ServingCaps.paged_decode``): its prefill splices ``visual_embeds`` over
@@ -230,17 +233,25 @@ def _is_pool_kind(cfg, kind) -> bool:
     return kind in ("attn", "local") and _window_for(cfg, kind) is None
 
 
-def _ffn_part(p, cfg, x):
+def _ffn_part(p, cfg, x, dropless: bool = True):
     """Pre-norm MoE or MLP + residual; an mLSTM / sLSTM block has
-    neither and passes ``x`` through. The MoE is dropless on every path
-    (all of them serve), as JAX's serving paths run it."""
+    neither and passes ``x`` through. Returns (x, aux). Every serving
+    path runs the MoE ``dropless``, as JAX's do, and its aux is 0.0 (no
+    statistics are computed for it); the training form passes
+    ``dropless=False``: the MoE routes with the capacity factor and aux
+    is its Switch loss, an f32 scalar."""
+    aux = 0.0
     if "moe" in p:
         xn = layers.apply_norm(cfg.norm, p["ln2"], x)
-        x = x + moe.apply_moe(p["moe"], cfg, xn)
+        if dropless:
+            x = x + moe.apply_moe(p["moe"], cfg, xn)
+        else:
+            delta, aux = moe.apply_moe_train(p["moe"], cfg, xn)
+            x = x + delta
     elif "mlp" in p:
         xn = layers.apply_norm(cfg.norm, p["ln2"], x)
         x = x + layers.apply_mlp(p["mlp"], xn, cfg.activation)
-    return x
+    return x, aux
 
 
 def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None,
@@ -271,7 +282,7 @@ def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None,
         out, cache = _slstm_with_cache(p["mix"], cfg, xn, length)
     else:
         raise ValueError(kind)
-    return _ffn_part(p, cfg, x + out), cache
+    return _ffn_part(p, cfg, x + out)[0], cache
 
 
 def _attend_with_cache(params, cfg, xn, positions, window, cache_len,
@@ -334,27 +345,9 @@ def _mlstm_with_cache(params, cfg, xn, length=None):
 
 def _slstm_with_cache(params, cfg, xn, length=None):
     """The sLSTM over the sequence, one cell a token, plus the final
-    (h, c, n, m). On right-padded rows a pad step keeps the carry it was
-    given, so the state is frozen bit for bit at each true length."""
-    B, S, d = xn.shape
-    x_parts = xn @ params["w_zifo"]
-    r, b = params["r_zifo"].float(), params["b_zifo"].float()
-    init = ssm.init_slstm_cache(cfg, B, xn.dtype, xn.device)
-    state = tuple(init[n] for n in ("h", "c", "n", "m"))
-    keep = None if length is None else \
-        torch.arange(S, device=xn.device)[None, :] < length.long()[:, None]
-    hs = []
-    for t in range(S):
-        hidden, new = ssm.slstm_cell(cfg, x_parts[:, t], state, r, b)
-        if keep is None:
-            state = new
-        else:
-            kt = keep[:, t, None, None]
-            state = tuple(torch.where(kt, a, o) for a, o in zip(new, state))
-        hs.append(hidden)
-    out = ssm.slstm_output(params, cfg,
-                           torch.stack(hs, dim=1).reshape(B, S, d), xn.dtype)
-    return out, dict(zip(("h", "c", "n", "m"), state))
+    (h, c, n, m); on right-padded rows frozen at each true length
+    (``ssm.slstm_sequence``)."""
+    return ssm.slstm_sequence(params, cfg, xn, length)
 
 
 def _recurrent_decode(p, cfg, kind, xn, cache):
@@ -387,7 +380,7 @@ def apply_block_decode_paged(p, cfg, kind, x, cache, block_table, lengths,
                 p["attn"], cfg, xn, cache, lengths, window=window)
     else:
         out = _recurrent_decode(p, cfg, kind, xn, cache)
-    return _ffn_part(p, cfg, x + out)
+    return _ffn_part(p, cfg, x + out)[0]
 
 
 def _decode_window_scan(p, cfg, kind, x, cache, block_table, lengths,
@@ -431,7 +424,7 @@ def apply_block_verify_paged(p, cfg, kind, x, cache, block_table, lengths,
     out, _ = attn_lib.verify_attend_paged(p["attn"], cfg, xn, cache,
                                           block_table, lengths,
                                           kv_spec=kv_spec)
-    return _ffn_part(p, cfg, x + out), cache
+    return _ffn_part(p, cfg, x + out)[0], cache
 
 
 def apply_block_decode(p, cfg, kind, x, cache, pos, mrope_positions=None):
@@ -445,7 +438,7 @@ def apply_block_decode(p, cfg, kind, x, cache, pos, mrope_positions=None):
             mrope_positions=mrope_positions)
     else:
         out = _recurrent_decode(p, cfg, kind, xn, cache)
-    return _ffn_part(p, cfg, x + out)
+    return _ffn_part(p, cfg, x + out)[0]
 
 
 def init_block_cache(cfg, kind, batch: int, max_len: int, dtype, device,
@@ -707,31 +700,12 @@ def decode_step(params, cfg, cache, tokens, pos, ctx: RunCtx,
 # Training forms (no cache)
 # ---------------------------------------------------------------------------
 
-TRAIN_KINDS = ("attn", "local", "rglru")
-TRAIN_ITEM = "Training of xLSTM, MoE and enc-dec"
-
-
-def check_trainable(cfg) -> None:
-    """Raise NotImplementedError for a config whose training form is not
-    ported yet: an mLSTM / sLSTM layer, an MoE (capacity-factor drops and
-    the aux loss) or an encoder-decoder."""
-    check_supported(cfg)
-    other = [k for k in dict.fromkeys(cfg.block_pattern)
-             if k not in TRAIN_KINDS]
-    what = (["the encoder-decoder"] if cfg.enc_dec else []) \
-        + (["the MoE's capacity-factor routing and aux loss"]
-           if cfg.is_moe else []) \
-        + [f"{k} blocks" for k in other]
-    if what:
-        raise NotImplementedError(
-            f"{cfg.name}: training of {', '.join(what)} waits for queue-1 "
-            f"item {TRAIN_ITEM}")
-
-
 def apply_block_train(p, cfg, kind, x, positions, mrope_positions=None):
     """Full-sequence block, no cache (JAX's ``apply_block`` with
     ``with_cache=False``): attention through K1 (its window for SWA and
-    local layers), the RG-LRU through K5, then the MLP."""
+    local layers), the RG-LRU through K5, then the MLP or the MoE routed
+    with the capacity factor; an mLSTM / sLSTM block is ``x + out``.
+    Returns (x, aux): the MoE's Switch aux loss, else 0.0."""
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
     if kind in ("attn", "local"):
         out, _ = attn_lib.attend(p["attn"], cfg, xn, positions,
@@ -739,29 +713,37 @@ def apply_block_train(p, cfg, kind, x, positions, mrope_positions=None):
                                  mrope_positions=mrope_positions)
     elif kind == "rglru":
         out = ssm.apply_rglru_block(p["rec"], cfg, xn)
+    elif kind == "mlstm":
+        out = ssm.apply_mlstm_block(p["mix"], cfg, xn)
+    elif kind == "slstm":
+        out = ssm.apply_slstm_block(p["mix"], cfg, xn)
     else:
         raise ValueError(kind)
-    return _ffn_part(p, cfg, x + out)
+    return _ffn_part(p, cfg, x + out, dropless=False)
 
 
 def forward_hidden(params, cfg, tokens, ctx: RunCtx, visual_embeds=None,
                    mrope_positions=None):
-    """tokens: (B, S) -> final-norm hidden (B, S, d), aux scalar (0: no
-    config this form takes has an aux loss). ``ctx.remat == "full"``
-    recomputes each layer in the backward pass."""
-    check_trainable(cfg)
+    """tokens: (B, S) -> final-norm hidden (B, S, d), aux scalar f32 (the
+    MoE layers' aux losses summed, JAX's ``_apply_groups`` total; 0 for
+    every other config). ``ctx.remat == "full"`` recomputes each layer
+    in the backward pass; the MoE's routing is a pure function of the
+    layer's input, so the recomputed layer drops what the first pass
+    dropped."""
+    check_supported(cfg)
     B, S = tokens.shape
     x = _embed(params, cfg, tokens, visual_embeds)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
     for kind, (lp,) in _layers(cfg, params["groups"]):
         if ctx.remat == "full":
-            x = torch.utils.checkpoint.checkpoint(
+            x, a = torch.utils.checkpoint.checkpoint(
                 apply_block_train, lp, cfg, kind, x, positions,
                 mrope_positions, use_reentrant=False)
         else:
-            x = apply_block_train(lp, cfg, kind, x, positions,
-                                  mrope_positions)
-    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+            x, a = apply_block_train(lp, cfg, kind, x, positions,
+                                     mrope_positions)
+        aux = aux + a
     return layers.apply_norm(cfg.norm, params["final_norm"], x), aux
 
 
