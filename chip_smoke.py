@@ -122,6 +122,28 @@ Phases, one JSON line each (any failed check exits non-zero):
               phase's bf16 outputs (reported, not gated); then fp8 with
               speculation on spec_serve's traffic, where every verify
               runs through K4.
+   parity_replica — the replica layer on smoke configs in f32, cuda
+              against cpu: ``ReplicaSet(dp=2)`` paged, static and with a
+              speculative replica; ``DisaggregatedEngine`` on olmo_1b
+              with a forced steal (overlap off and on), a full-prefix-hit
+              rewind, int8 and fp8 pools, speculative decode replicas,
+              and on recurrentgemma_2b and whisper_base. Tokens equal on
+              both devices and equal a single Engine's, no replica leaks,
+              K1 / K2 / K3 / K4 / K5 launched where the case runs them;
+              an int8 and an fp8 packet land bit for bit.
+   replica_serve — serve's model, requests and geometry (8 slots a
+              replica) on ``ReplicaSet(dp=2)`` and on prefill / decode /
+              decode: tokens equal serve's; tok/s, TTFT / TPOT p50; per
+              replica busy / device seconds, dispatches, K1 / K2 /
+              combine launches, and on every decode replica graph
+              replays = steps with no eager step and K2 = combine = 16 x
+              steps; exported / imported / stolen, bytes moved, the
+              migrations' in-loop ms a packet (CUDA events around
+              ``extract_slot`` and ``insert_packet``) and one packet's
+              device ms alone (eager and replayed, beside its bound) and
+              payload GB/s. The summary line's ``K1_replica``,
+              ``K2_replica`` and ``K2_combine_replica`` rows take their
+              launches from this phase.
 8. parity_recurrent — recurrentgemma_2b (RG-LRU + local attention) and
               h2o_danube_3_4b (sliding-window attention) smoke in f32, cuda
               against cpu on a pool tight enough to preempt, with rings
@@ -1584,6 +1606,453 @@ def phase_quant_serve(torch, np, prompts, news, warm, base_outs, model,
     check(st["blocks_used"] == 0,
           f"quant_serve spec: {st['blocks_used']} blocks leaked")
     return launches
+
+
+# ---------------------------------------------------------------------------
+# replicas on one card: ReplicaSet, DisaggregatedEngine, KV migration
+# ---------------------------------------------------------------------------
+
+
+def first_candidate(rset, cands):
+    """Dispatch policy that piles every placement onto the first
+    candidate: one decode replica takes every import, the other steals."""
+    return cands[0]
+
+
+def no_leaks(engine, where):
+    """Every replica's pool (and arena) back to all-free (a static
+    replica has no pool: its batch must be empty)."""
+    for r, eng in enumerate(engine.replicas):
+        be = eng.backend
+        if not hasattr(be, "alloc"):
+            check(not be.has_work, f"{where}: replica {r} still busy")
+            continue
+        check(be.alloc.free_count == be.layout.usable_blocks,
+              f"{where}: replica {r} leaked "
+              f"{be.layout.usable_blocks - be.alloc.free_count} blocks")
+        be.alloc.check_invariant()
+        check(be.arena is None or be.arena.used_count == 0,
+              f"{where}: replica {r} leaked an arena row")
+
+
+def bytes_equal(torch, a, b):
+    """Two trees of tensors hold the same bytes, leaf by leaf."""
+    from repro_torch import tree
+
+    return all(x.dtype == y.dtype and x.shape == y.shape and torch.equal(
+        x.contiguous().view(torch.uint8), y.contiguous().view(torch.uint8))
+        for x, y in zip(tree.leaves(a), tree.leaves(b)))
+
+
+def migration_roundtrip(torch, np, model, params, kv_dtype, prompt):
+    """On the card: admit one request into an engine over a ``kv_dtype``
+    pool, export it, land it in a second engine and gather it back out:
+    the payload and scale bytes must equal the packet's, and the request
+    must finish on the second engine with nothing leaked."""
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.launch.engine import transport
+    from repro_torch.models import paged_kv
+
+    geo = dict(num_slots=3, block_size=4, num_blocks=33, max_len=48,
+               kv_dtype=kv_dtype)
+    src, dst = (Engine(model, params, EngineConfig(**geo),
+                       device=model.device) for _ in range(2))
+    src.add_request(prompt, SamplingParams(max_tokens=6))
+    src.step()                              # admit + one decode
+    i = next(j for j, s in enumerate(src.backend.slots) if s.req is not None)
+    pkt = transport.extract_slot(src.backend, i)
+    j = transport.insert_packet(dst.backend, pkt)
+    back = paged_kv.extract_blocks(
+        dst.backend.pools, transport._pool_mask(dst.backend),
+        torch.tensor(dst.backend.slots[j].blocks, device=model.device), j)
+    equal = bytes_equal(torch, back, pkt.state)
+    dst.drain()
+    for eng in (src, dst):
+        check(eng.stats()["blocks_used"] == 0,
+              f"parity_replica: {kv_dtype} round trip leaked blocks")
+    return equal
+
+
+def phase_parity_replica(torch, np):
+    """The replica layer on smoke configs in f32, cuda against cpu, the
+    same weights: ``ReplicaSet(dp=2)`` paged and static on olmo_1b;
+    ``DisaggregatedEngine`` on olmo_1b with a forced steal (also with
+    ``overlap=True``), with a full-prefix-hit rewind, over int8 and fp8
+    pools, on recurrentgemma_2b (slot leaves, K5) and whisper_base (cross
+    rows); a speculative replica (``spec_tokens`` 3 on one of the
+    ReplicaSet's, on the decode role of the disaggregated one) over
+    prompts behind a shared two-block prefix. Tokens equal on both
+    devices and equal a single Engine's on cuda; no replica leaks; K1
+    and the decode kernels (K2, K4 over the quantized pools, K5 on
+    recurrentgemma, K3 on the speculative cases) launched on cuda; an
+    int8 and an fp8 packet land bit for bit."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rglru_scan as k5
+    from repro_torch.launch.engine import (DisaggregatedEngine, Engine,
+                                           EngineConfig, ReplicaSet,
+                                           SamplingParams)
+
+    t0 = time.monotonic()
+    rng = np.random.default_rng(SEED + 9)
+    geo = dict(num_slots=3, block_size=4, num_blocks=33, max_len=48)
+    pd, pdd = ("prefill", "decode"), ("prefill", "decode", "decode")
+    cases = {   # name: (arch, engine options, set kind, set options)
+        "rset_paged": ("olmo_1b", {}, "rset", {}),
+        "rset_static": ("olmo_1b", {"backend": "static"}, "rset", {}),
+        "disagg_steal": ("olmo_1b", {}, "disagg",
+                         {"roles": pdd, "policy": first_candidate}),
+        "disagg_steal_overlap": ("olmo_1b", {"overlap": True}, "disagg",
+                                 {"roles": pdd, "policy": first_candidate}),
+        "rset_spec": ("olmo_1b", {}, "rset",
+                      {"overrides": [{"spec_tokens": 3}, {}]}),
+        "disagg_spec": ("olmo_1b", {}, "disagg", {
+            "roles": pdd, "role_overrides": {"decode": {"spec_tokens": 3}}}),
+        "disagg_rewind": ("olmo_1b", {}, "disagg", {"roles": pd}),
+        "disagg_int8": ("olmo_1b", {"kv_dtype": "int8"}, "disagg",
+                        {"roles": pd}),
+        "disagg_fp8": ("olmo_1b", {"kv_dtype": "fp8"}, "disagg",
+                       {"roles": pd}),
+        "disagg_recurrentgemma": ("recurrentgemma_2b", {}, "disagg",
+                                  {"roles": pdd,
+                                   "policy": first_candidate}),
+        "disagg_whisper": ("whisper_base", {}, "disagg", {"roles": pdd}),
+    }
+    pairs = {a: smoke_pair(torch, a) for a in
+             dict.fromkeys(c[0] for c in cases.values())}
+    out, stats, single = {}, {}, {}
+    for name, (arch, kw, kind, skw) in cases.items():
+        cfg, models, params = pairs[arch]
+        prompts = [list(map(int, rng.integers(0, cfg.vocab_size, n)))
+                   for n in (5, 9, 14, 7, 12, 6)]
+        sps = [SamplingParams(max_tokens=8) if i % 2 else
+               SamplingParams(max_tokens=8, temperature=0.9, top_k=30,
+                              seed=i) for i in range(len(prompts))]
+        feats = None
+        if cfg.enc_dec:
+            feats = [rng.standard_normal((f, cfg.d_model), dtype=np.float32)
+                     for f in (5, 16, 9, 12, 7, 16)]
+            feats[2] = feats[1]              # one arena row, shared
+        if name == "disagg_rewind":
+            prompts, sps = [prompts[1]] * 2, [sps[0]] * 2
+        if "spec" in name:        # a shared two-block prefix: partial hits
+            prompts = [prompts[0][:4] * 2 + p for p in prompts]
+        ecfg = EngineConfig(**geo, **kw)
+        single[name] = Engine(models["cuda"], params["cuda"], ecfg,
+                              device="cuda").generate(
+                                  prompts, sps, encoder_features=feats)
+        for d, m in models.items():
+            n0 = (fa.flash_attention.launches,
+                  pa.paged_decode_attention.launches,
+                  pa.paged_decode_attention.k4_launches,
+                  k5.rglru_scan.launches)
+            n3 = pa.paged_verify_attention.launches
+            if kind == "rset":
+                eng = ReplicaSet(m, params[d], ecfg, dp=2, device=d, **skw)
+            else:
+                eng = DisaggregatedEngine(m, params[d], ecfg, dp=len(
+                    skw["roles"]), device=d, **skw)
+            if name == "disagg_rewind":     # the second is a full hit
+                hs = [eng.add_request(prompts[0], sps[0])]
+                while not hs[0].finished:
+                    eng.step()
+                hs.append(eng.add_request(prompts[1], sps[1]))
+                eng.drain()
+                out[(name, d)] = [h.token_ids for h in hs]
+            else:
+                out[(name, d)] = eng.generate(prompts, sps,
+                                              encoder_features=feats)
+            no_leaks(eng, f"parity_replica {name} {d}")
+            st = eng.stats()
+            row = {"dispatched": st["dispatched"],
+                   "K1": fa.flash_attention.launches - n0[0],
+                   "K2": pa.paged_decode_attention.launches - n0[1],
+                   "K4": pa.paged_decode_attention.k4_launches - n0[2],
+                   "K5": k5.rglru_scan.launches - n0[3],
+                   "K3": pa.paged_verify_attention.launches - n3}
+            if kind == "disagg":
+                row.update({k: st["disagg"][k] for k in (
+                    "exported", "imported", "stolen", "bytes_moved")})
+                row["prefill_hits"] = eng.replicas[0].stats()[
+                    "prefix_cache"]["hits"]
+                row["graph_replays"] = [eng.replicas[r].stats()[
+                    "graph_replays"] for r in eng.decode_ids]
+            stats[(name, d)] = row
+    roundtrip = {q: migration_roundtrip(
+        torch, np, pairs["olmo_1b"][1]["cuda"], pairs["olmo_1b"][2]["cuda"],
+        q, list(range(1, 12))) for q in ("int8", "fp8")}
+    equal = {n: out[(n, "cpu")] == out[(n, "cuda")] for n in cases}
+    equal_single = {n: out[(n, "cuda")] == single[n] for n in cases}
+    emit({"phase": "parity_replica", "dtype": "float32",
+          "seconds": time.monotonic() - t0, "tokens_equal": equal,
+          "tokens_equal_single_engine": equal_single,
+          "roundtrip_bytes_equal": roundtrip,
+          "stats": {"/".join(k): v for k, v in stats.items()}})
+    check(all(equal.values()), f"parity_replica: cuda tokens != cpu tokens "
+          f"{equal}")
+    check(all(equal_single.values()), f"parity_replica: the sets' tokens "
+          f"!= a single Engine's {equal_single}")
+    check(all(roundtrip.values()), f"parity_replica: a migrated packet "
+          f"changed its bytes {roundtrip}")
+    for (name, d), row in stats.items():
+        arch, kw, kind, skw = cases[name]
+        if kind == "disagg":
+            check(row["exported"] > 0 and row["imported"]
+                  == row["exported"] + row["stolen"],
+                  f"parity_replica: {name} {d} migration counts {row}")
+            check(skw.get("policy") is not first_candidate
+                  or row["stolen"] >= 1,
+                  f"parity_replica: {name} {d} never stole {row}")
+        if d == "cpu":
+            continue
+        check(row["K1"] > 0, f"parity_replica: {name} launched no K1 {row}")
+        # recurrentgemma's attention is windowed (rings, no block pool);
+        # a speculative decode replica verifies through K3, not K2
+        decode = "K4" if "kv_dtype" in kw else "K2"
+        check(kw.get("backend") == "static" or arch == "recurrentgemma_2b"
+              or name == "disagg_spec" or row[decode] > 0,
+              f"parity_replica: {name} never launched {decode} {row}")
+        check(arch != "recurrentgemma_2b" or row["K5"] > 0,
+              f"parity_replica: {name} launched no K5 {row}")
+        check("spec" not in name or row["K3"] > 0,
+              f"parity_replica: {name} launched no K3 {row}")
+        check(name != "disagg_rewind" or row["prefill_hits"] >= 1,
+              f"parity_replica: the rewind case missed its full hit {row}")
+        check(kind != "disagg" or "spec" in name
+              or all(n > 0 for n in row["graph_replays"]),
+              f"parity_replica: {name} decoded off the graph {row}")
+
+
+class MigrationTimer:
+    """CUDA events around every ``transport.extract_slot`` and
+    ``insert_packet`` call while active (the disaggregated engine calls
+    both through the module): per packet, the device time of its gather
+    and of its scatter, and its payload bytes."""
+
+    def __init__(self, torch, transport):
+        self.torch, self.transport = torch, transport
+        self.rows = []
+
+    def _timed(self, fn, *args, **kw):
+        ev = self.torch.cuda.Event
+        start, end = ev(enable_timing=True), ev(enable_timing=True)
+        start.record()
+        res = fn(*args, **kw)
+        end.record()
+        return res, (start, end)
+
+    def __enter__(self):
+        tr = self.transport
+        self.orig = extract, insert = tr.extract_slot, tr.insert_packet
+
+        def timed_extract(backend, i, *, src=0):
+            pkt, ev = self._timed(extract, backend, i, src=src)
+            pkt.timing = {"bytes": pkt.payload_bytes,
+                          "blocks": pkt.n_blocks, "extract": ev}
+            self.rows.append(pkt.timing)
+            return pkt
+
+        def timed_insert(backend, pkt):
+            j, pkt.timing["insert"] = self._timed(insert, backend, pkt)
+            return j
+
+        tr.extract_slot, tr.insert_packet = timed_extract, timed_insert
+        return self
+
+    def __exit__(self, *exc):
+        self.transport.extract_slot, self.transport.insert_packet = self.orig
+
+    def summary(self):
+        """Per-packet ms (gather + scatter, with whatever host work the
+        device waited on between the events), their sum, the mean chain
+        and the payload rate, over the packets that landed."""
+        self.torch.cuda.synchronize()
+        done = [r for r in self.rows if "insert" in r]
+        ms = [r["extract"][0].elapsed_time(r["extract"][1])
+              + r["insert"][0].elapsed_time(r["insert"][1]) for r in done]
+        nbytes = sum(r["bytes"] for r in done)
+        total = sum(ms)
+        return {"packets": len(done), "bytes": nbytes,
+                "blocks_mean": (sum(r["blocks"] for r in done)
+                                / max(len(done), 1)),
+                "ms_mean": total / max(len(ms), 1),
+                "ms_p50": sorted(ms)[len(ms) // 2] if ms else 0.0,
+                "ms_max": max(ms, default=0.0), "ms_total": total,
+                "gb_s": nbytes / (total * 1e6) if total else 0.0}
+
+
+def migration_device_ms(torch, engine, n_blocks):
+    """The device time of one packet's migration alone: the gather of an
+    ``n_blocks`` chain and one slot's state out of the first replica's
+    pools and its scatter into the second's, on blocks free after the
+    run. CUDA events around the eager pair (``ms``) and around a replay
+    of it captured in a graph (``graph_ms``: the host's enqueue out of
+    the timing), L2 flushed; ``bound_ms`` moves each payload byte read
+    and written twice (gather, then scatter) at 3.35 TB/s."""
+    from repro_torch.launch.engine import transport
+    from repro_torch.models import paged_kv
+
+    src, dst = (engine.replicas[r].backend for r in (0, 1))
+    mask = transport._pool_mask(src)
+    ids = torch.arange(1, n_blocks + 1, device=src.device)
+    box = {}
+
+    def move():
+        box["state"] = paged_kv.extract_blocks(src.pools, mask, ids, 0)
+        paged_kv.insert_blocks(dst.pools, mask, box["state"], ids, 0)
+
+    move()
+    nbytes = transport._nbytes(box["state"])
+    return {"blocks": n_blocks, "payload_bytes": nbytes,
+            "ms": cuda_ms(torch, move), "graph_ms": graph_ms(torch, move),
+            "bound_ms": bound(0, 4 * nbytes, "bfloat16")[0]}
+
+
+def count_replica_launches(engine):
+    """Wrap each replica's ``step`` so that K1, K2 and combine launches
+    are tallied per replica from here on (the set steps its replicas one
+    after another, and every launch of a step is its replica's)."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    def now():
+        return (fa.flash_attention.launches,
+                pa.paged_decode_attention.launches,
+                pa.paged_decode_combine.launches)
+
+    per = [{"K1": 0, "K2": 0, "K2_combine": 0} for _ in engine.replicas]
+    for r, eng in enumerate(engine.replicas):
+        def step(eng_step=eng.step, row=per[r]):
+            before = now()
+            outs = eng_step()
+            for k, a, b in zip(row, now(), before):
+                row[k] += a - b
+            return outs
+        eng.step = step
+    return per
+
+
+def phase_replica_serve(torch, np, prompts, news, warm, base_outs, model,
+                        params):
+    """serve's olmo_1b, requests and geometry (8 slots a replica, block
+    16, 1024 blocks, max_len 640) on ``ReplicaSet(dp=2)`` and on
+    ``DisaggregatedEngine(roles=("prefill", "decode", "decode"))``: each
+    engine's tokens must equal serve's (``base_outs``). Per replica:
+    busy and device seconds, dispatches, K1 / K2 / combine launches, and
+    on every decode replica ``graph_replays`` = its steps > 0 with no
+    eager step (an import must not break the captured graph) and K2 =
+    combine = layers x steps; the migrations' device time per packet and
+    payload rate from CUDA events around the gather and the scatter."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.engine import (DisaggregatedEngine,
+                                           EngineConfig, ReplicaSet,
+                                           SamplingParams, transport)
+
+    cfg = model.cfg
+    ecfg = EngineConfig(num_slots=8, block_size=16, num_blocks=1024,
+                        max_len=640)
+    builds = {
+        "replicaset": lambda: ReplicaSet(model, params, ecfg, dp=2,
+                                         device="cuda"),
+        "disagg": lambda: DisaggregatedEngine(
+            model, params, ecfg, dp=3, device="cuda",
+            roles=("prefill", "decode", "decode"))}
+    total = {"K1": 0, "K2": 0, "K2_combine": 0}
+    for name, build in builds.items():
+        engine = build()
+        engine.generate([warm], SamplingParams(max_tokens=2))
+        engine.reset_telemetry()              # warm-up excluded
+        torch.cuda.synchronize()
+        fa.flash_attention.launches = 0
+        zero_bodies(fa.flash_attention)
+        pa.paged_decode_attention.launches = 0
+        pa.paged_decode_combine.launches = 0
+        per = count_replica_launches(engine)
+        with MigrationTimer(torch, transport) as timer:
+            t0 = time.monotonic()
+            outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
+                                             for n in news])
+            torch.cuda.synchronize()
+            secs = time.monotonic() - t0
+        mig = timer.summary()
+        st = engine.stats()
+        decode_ids = getattr(engine, "decode_ids", range(engine.dp))
+        reps = []
+        for r, eng in enumerate(engine.replicas):
+            rs = st["per_replica"][r]
+            reps.append({"role": (engine.roles[r] if name == "disagg"
+                                  else "both"),
+                         "dispatched": st["dispatched"][r],
+                         "busy_s": st["busy_s"][r],
+                         "device_s": st["device_s"][r],
+                         "tokens_out": st["tokens_out"][r],
+                         "steps": rs["steps"],
+                         "graph_replays": rs["graph_replays"],
+                         "eager_decode_steps": rs["eager_decode_steps"],
+                         "prefill_calls": rs["prefill_calls"],
+                         "preemptions": rs["preemptions"],
+                         "launches": per[r]})
+        ntok = sum(len(o) for o in outs)
+        equal = outs == base_outs
+        line = {"phase": "replica_serve", "config": cfg.name,
+                "dtype": cfg.dtype, "engine": name, "dp": engine.dp,
+                "requests": len(outs), "tokens": ntok, "seconds": secs,
+                "tok_s": ntok / secs,
+                "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+                "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+                "tokens_equal_serve": equal,
+                "requests_equal_serve": sum(
+                    a == b for a, b in zip(outs, base_outs)),
+                "k1_launches_by_body": dict(
+                    fa.flash_attention.launches_by_body),
+                "replicas": reps, "blocks_used": st["blocks_used"],
+                "first_tokens": outs[0][:8]}
+        if name == "disagg":
+            line["disagg"] = st["disagg"]
+            dev = migration_device_ms(torch, engine,
+                                      round(mig["blocks_mean"]))
+            dev["payload_gb_s"] = dev["payload_bytes"] / (
+                dev["graph_ms"] * 1e6)
+            line["migration"] = {"in_loop": mig, "device": dev}
+        emit(line)
+        for k in total:
+            total[k] += sum(rep["launches"][k] for rep in reps)
+        check(all(len(o) == n for o, n in zip(outs, news)),
+              f"replica_serve {name}: a request did not emit max_tokens")
+        no_leaks(engine, f"replica_serve {name}")
+        for r in decode_ids:
+            rep = reps[r]
+            check(rep["graph_replays"] == rep["steps"] > 0
+                  and rep["eager_decode_steps"] == 0,
+                  f"replica_serve {name}: replica {r} decoded "
+                  f"{rep['graph_replays']} steps by replay, "
+                  f"{rep['eager_decode_steps']} eagerly of {rep['steps']}")
+            want = cfg.n_layers * rep["steps"]
+            check(rep["launches"]["K2"] == rep["launches"]["K2_combine"]
+                  == want, f"replica_serve {name}: replica {r} K2 / "
+                  f"combine {rep['launches']}, expected {want}")
+        check(fa.flash_attention.launches_by_body["wgmma"] > 0,
+              f"replica_serve {name}: no prefill ran K1's tensor-core body")
+        if name == "disagg":
+            dg = st["disagg"]
+            pre = reps[engine.prefill_ids[0]]
+            check(pre["launches"]["K1"] > 0 and pre["launches"]["K2"] == 0
+                  and pre["steps"] == 0,
+                  f"replica_serve disagg: the prefill replica {pre}")
+            check(dg["exported"] == len(prompts) and dg["imported"]
+                  == dg["exported"] + dg["stolen"] == mig["packets"]
+                  and dg["packets_inflight"] == 0,
+                  f"replica_serve disagg: migrations {dg} {mig}")
+        else:
+            check(all(rep["dispatched"] > 0 and rep["launches"]["K1"] > 0
+                      for rep in reps),
+                  f"replica_serve replicaset: a replica idled {reps}")
+        check(equal, f"replica_serve {name}: tokens differ from serve's "
+              f"on {len(outs) - line['requests_equal_serve']} requests")
+        del engine
+        torch.cuda.empty_cache()
+    return {f"{k}_replica": n for k, n in total.items()}
 
 
 def phase_parity_recurrent(torch, np):
@@ -3893,6 +4362,9 @@ def main():
     launches.update(K3=spec["K3_verify"], K3_suffix=spec["K3_suffix"])
     quant = phase_quant_serve(torch, np, prompts, news, warm, base_outs,
                               model, params)
+    phase_parity_replica(torch, np)
+    launches.update(phase_replica_serve(torch, np, prompts, news, warm,
+                                        base_outs, model, params))
     del model, params
     rec = phase_recurrent_serve(torch, np, prompts, news, warm, args.profile)
     launches.update(K5=rec["K5"], K5_long=rec["K5_long"])
@@ -3925,6 +4397,21 @@ def main():
              "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:158"),
             (k2c, "K2_combine", "paged_decode_combine (K2's split merge)",
+             "src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:158"),
+            (k1, "K1_replica",
+             "flash_attention (replica_serve: the prefill of ReplicaSet(dp=2) "
+             "and of DisaggregatedEngine's prefill replica; timed at serve's "
+             "shape)",
+             "src/repro_torch/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention.py:109"),
+            (k2, "K2_replica",
+             "paged_decode_attention (replica_serve: every decode replica's "
+             "graph replays)",
+             "src/repro_torch/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention.py:158"),
+            (k2c, "K2_combine_replica",
+             "paged_decode_combine (replica_serve's decode replicas)",
              "src/repro_torch/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention.py:158"),
             (k1_moe, "K1_moe",

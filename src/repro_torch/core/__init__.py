@@ -2,9 +2,9 @@
 
 Counterpart of ``repro/core``: precision environments, VRP expansion
 arithmetic, VBLAS, Krylov solvers, the VEC strip-mining discipline, the
-STX cluster and the tile policy. ``noc`` (its fabric defaults are TPU
-figures) waits for the multi-device slice, and ``compat`` (JAX version
-shims) has nothing to port.
+STX cluster, the tile policy and ``noc``, the uncore's transfer-time
+model (its ``FabricSpec`` has no default figures: the caller names the
+fabric). ``compat`` (JAX version shims) has nothing to port.
 """
 
 from .precision import F64, VP128, VP256, VP512, PrecisionEnv, get_env

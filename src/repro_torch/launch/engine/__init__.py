@@ -14,19 +14,27 @@ its decode step is one fused call (one CUDA graph replay on the card),
 and ``overlap=True`` dispatches the next step before fetching this
 one's tokens. ``SpecDecodeBackend`` adds speculative decoding
 (``spec_tokens > 0``, ngram or draft-model drafter); ``StaticBackend``
-is the lockstep baseline (``backend="static"``). Multi-device serving
-arrives with a later slice (see ``EngineConfig``).
+is the lockstep baseline (``backend="static"``). ``ReplicaSet`` runs
+R engine replicas on one device behind one FCFS queue, and
+``DisaggregatedEngine`` splits them into prefill and decode roles that
+hand each request's KV blocks across as a ``MigrationPacket``
+(``transport.py``). Serving over a device mesh arrives with a later
+slice (see ``EngineConfig``).
 """
 
 from .api import (Engine, EngineConfig, Request, RequestHandle,
                   RequestOutput, SamplingParams)
+from .disagg import DisaggregatedEngine
+from .replica import ReplicaSet
 from .sampling import sample_tokens
 from .scheduler import PagedBackend
 from .speculative import NgramDrafter, SpecDecodeBackend
 from .static import StaticBackend
+from .transport import MigrationPacket
 
 __all__ = [
-    "Engine", "EngineConfig", "NgramDrafter", "PagedBackend", "Request",
+    "DisaggregatedEngine", "Engine", "EngineConfig", "MigrationPacket",
+    "NgramDrafter", "PagedBackend", "ReplicaSet", "Request",
     "RequestHandle", "RequestOutput", "SamplingParams", "SpecDecodeBackend",
     "StaticBackend", "sample_tokens",
 ]

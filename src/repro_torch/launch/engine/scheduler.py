@@ -51,6 +51,10 @@ without mesh (speculation subclasses it in ``speculative.py``):
   host scheduling hides under device work. Admission tickets discard
   the draws of rows retired in between; outputs are bit-identical with
   it on or off.
+* **Migration** (``disagg.py`` / ``transport.py``) — ``export_slot``,
+  ``detach_slot`` and ``import_slot`` move a live request between
+  replicas' backends at any stream position; a ``prefill_only`` backend
+  admits and prefills and never decodes.
 
 The pools live on the engine's device and are updated in place (the
 captured step replays over their storage: every writer keeps each leaf
@@ -104,6 +108,11 @@ class PagedBackend:
     # False for a subclass that never decodes through ``_dispatch_decode``
     # (the speculative backend's verify step): it captures no graph
     fused_decode = True
+
+    # Role specialization (disagg.py): a prefill-only backend runs
+    # admission and prefill and returns before the decode phase; its
+    # slots never grow, preempt or COW, the front-end exports them
+    prefill_only = False
 
     def __init__(self, model: Model, params, cfg: EngineConfig,
                  ctx: RunCtx):
@@ -208,6 +217,9 @@ class PagedBackend:
             outs.extend(self._flushed)
             self._flushed = []
             self.made_progress = True
+        if self.prefill_only:          # it never dispatches a decode
+            self._admit(outs)
+            return outs
         if self.cfg.overlap:
             return self._step_overlap(outs)
         self._admit(outs)
@@ -888,6 +900,70 @@ class PagedBackend:
             self.enc_lengths[i] = 0
         self.sampler.clear(i)
         self._post_clear(i)
+
+    # -- migration (prefill/decode disaggregation) ----------------------
+
+    def export_slot(self, i: int):
+        """Host-side migration snapshot of occupied slot ``i``: the
+        handle, its physical block chain, the cached length and the next
+        token to feed. An in-flight overlapped decode is harvested first:
+        ``lengths`` already counts its fed token, but ``last_token`` is
+        current only once the sampled value lands. The harvest may retire
+        slots, so callers check occupancy after any flush. The device
+        content is gathered by ``transport.extract_slot`` before
+        ``detach_slot`` frees the chain (the pools are written in place,
+        so the gather copies)."""
+        self.flush_overlap()
+        slot = self.slots[i]
+        assert slot.req is not None, "exporting an empty slot"
+        return slot.req, list(slot.blocks), int(self.lengths[i]), \
+            slot.last_token
+
+    def detach_slot(self, i: int):
+        """Drop slot ``i`` WITHOUT retiring or re-queueing it: its
+        request now lives in a MigrationPacket, which holds gathered
+        content, not block ids into this pool. The chain is freed here
+        (shared references just decrement), so a packet dropped
+        mid-migration leaks nothing on either side."""
+        self.flush_overlap()           # no-op after export_slot's flush
+        self.alloc.free(self.slots[i].blocks)
+        self._clear_slot(i)
+
+    def import_slot(self, req: RequestHandle, block_ids: list[int],
+                    length: int, last_token: int) -> int:
+        """Install a migrated request into a free slot over freshly
+        alloc()'d ``block_ids`` (the transport scatters the packet into
+        them; this installs the host-side view) and return the slot.
+        Position-agnostic: ``length`` may be anywhere from the full-hit
+        rewind (S - 1, nothing sampled yet) to deep mid-decode. The
+        sampler resumes at the request's stream position, full prompt
+        and output chunks are registered in the prefix index so later
+        admissions here can share them, an encoder-decoder slot is bound
+        to an arena row, and ``_post_admit`` lets the speculative backend
+        install its drafter state."""
+        free = [i for i, s in enumerate(self.slots) if s.req is None]
+        assert free, "import into a full backend (caller gates on this)"
+        i = free[0]
+        slot = self.slots[i]
+        slot.req = req
+        slot.blocks = list(block_ids)
+        slot.shared = 0                  # fresh private copies, COW-free
+        slot.last_token = last_token
+        slot.ticket = self._ticket
+        self._ticket += 1
+        self.table[i, :] = paged_kv.NULL_BLOCK
+        self.table[i, :len(block_ids)] = block_ids
+        if self.arena is not None:
+            self._install_arena(i, req)
+        self.lengths[i] = length
+        self.sampler.install(i, req.sampling, req._n_sampled)
+        cached = (list(req.prompt) + req.token_ids)[:length]
+        if self.prefix is not None:
+            for b in self.prefix.insert(cached, slot.blocks):
+                self.alloc.register(b)
+        self._post_admit([(i, req, cached, length, list(block_ids))])
+        self.made_progress = True
+        return i
 
     def _post_admit(self, rows):
         """Subclass hook: ``(slot, req, cached, S, block_ids)`` rows just

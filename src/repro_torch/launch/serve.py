@@ -1,10 +1,13 @@
-"""Serving CLI of the port: random-weight requests through ``Engine``.
+"""Serving CLI of the port: random-weight requests through ``Engine``,
+a ``ReplicaSet`` or a ``DisaggregatedEngine``.
 
 Run on the card:  PYTHONPATH=src python -m repro_torch.launch.serve --arch olmo_1b
 On the CPU:       PYTHONPATH=src python -m repro_torch.launch.serve --smoke --device cpu
 Speculative:      add --spec-tokens 3 (ngram drafter)
 Quantized pool:   add --kv-dtype int8 (or fp8)
 Lockstep static:  add --backend static
+Replicas:         add --dp 2 (one device, one shared FCFS queue)
+Disaggregated:    add --dp 2 --roles prefill,decode (or --roles auto)
 """
 
 from __future__ import annotations
@@ -16,11 +19,13 @@ import numpy as np
 import torch
 
 from repro_torch.configs import get_config
-from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+from repro_torch.launch.engine import (DisaggregatedEngine, Engine,
+                                       EngineConfig, ReplicaSet,
+                                       SamplingParams)
 from repro_torch.models.model import Model
 
 
-def main():
+def main(argv=None):
     ap = argparse.ArgumentParser()
     ap.add_argument("--arch", default="olmo_1b")
     ap.add_argument("--smoke", action="store_true")
@@ -39,19 +44,43 @@ def main():
                     help="paged KV pool storage precision: int8/fp8 "
                          "store quantized blocks + per-(token, head) "
                          "scales with dequant fused into the kernels")
-    args = ap.parse_args()
+    ap.add_argument("--dp", type=int, default=1,
+                    help="engine replicas on the device behind one shared "
+                         "admission queue (ReplicaSet), each with its own "
+                         "KV pool")
+    ap.add_argument("--roles", default=None,
+                    help="prefill/decode disaggregation over the dp "
+                         "replicas: comma-separated roles (e.g. "
+                         "'prefill,decode') or 'auto'; needs dp >= 2 and "
+                         "the paged backend (KV blocks migrate between "
+                         "pools, outputs unchanged)")
+    ap.add_argument("--tp", type=int, default=1,
+                    help="tensor parallelism over a device mesh: not "
+                         "ported yet")
+    args = ap.parse_args(argv)
+    if args.tp != 1:
+        raise NotImplementedError(
+            "--tp (a device mesh) is not ported yet (ROADMAP queue 1: "
+            "'multi-device')")
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
     model = Model(cfg, device=args.device)
     params = model.init(seed=0)
     rng = np.random.default_rng(0)
-    engine = Engine(model, params,
-                    EngineConfig(backend=args.backend,
-                                 num_slots=args.slots, max_len=128,
-                                 spec_tokens=args.spec_tokens,
-                                 kv_dtype=args.kv_dtype),
-                    device=args.device)
+    ecfg = EngineConfig(backend=args.backend, num_slots=args.slots,
+                        max_len=128, spec_tokens=args.spec_tokens,
+                        kv_dtype=args.kv_dtype)
+    if args.roles is not None:
+        roles = args.roles if args.roles == "auto" \
+            else tuple(args.roles.split(","))
+        engine = DisaggregatedEngine(model, params, ecfg, dp=args.dp,
+                                     roles=roles, device=args.device)
+    elif args.dp > 1:
+        engine = ReplicaSet(model, params, ecfg, dp=args.dp,
+                            device=args.device)
+    else:
+        engine = Engine(model, params, ecfg, device=args.device)
     prompts = [list(rng.integers(0, cfg.vocab_size,
                                  int(rng.integers(4, 16))))
                for _ in range(args.requests)]
@@ -64,8 +93,8 @@ def main():
         torch.cuda.synchronize()
     dt = time.time() - t0
     total = sum(len(o) for o in outs)
-    print(f"[{args.backend} {model.device} spec={args.spec_tokens} "
-          f"kv={args.kv_dtype}] {total} tokens "
+    print(f"[{args.backend} {model.device} dp={args.dp} roles={args.roles} "
+          f"spec={args.spec_tokens} kv={args.kv_dtype}] {total} tokens "
           f"over {len(outs)} reqs in {dt:.2f}s ({total / dt:.1f} tok/s)  "
           f"stats={engine.stats()}")
     for i, o in enumerate(outs[:2]):

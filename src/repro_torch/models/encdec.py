@@ -247,6 +247,14 @@ def init_paged_cache(cfg, layout, device):
             "cross": paged_kv.init_cross_arena(cfg, layout, dtype, device)}
 
 
+def paged_pool_mask(cfg, layout):
+    """Kind strings over ``init_paged_cache``: the decoder self-KV is
+    ``"pool"`` (block axis at axis 1), the cross arena ``"cross"``
+    (arena-row axis at axis 1). Drives KV migration."""
+    return {"self": {"k": "pool", "v": "pool"},
+            "cross": {"k": "cross", "v": "cross"}}
+
+
 def prefill_paged(params, cfg, pools, tokens, frames, enc_lengths, lengths,
                   block_ids, arena_ids, ctx=None):
     """A batched encoder-decoder admission, IN PLACE.

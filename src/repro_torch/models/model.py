@@ -181,6 +181,16 @@ class Model:
         return transformer.init_paged_cache(self.cfg, layout, self.device,
                                             spec)
 
+    def paged_pool_mask(self, layout, spec=None):
+        """Same-structure tree of kind strings over ``init_paged_cache``:
+        ``"pool"`` on block-pool leaves (scales included), ``"slot"`` on
+        per-slot state, ``"cross"`` on cross-arena leaves, classified by
+        layer kind (``transformer.paged_pool_mask``). Drives the KV
+        migration gather and scatter of ``launch/engine/transport.py``."""
+        if self.cfg.enc_dec:
+            return encdec.paged_pool_mask(self.cfg, layout)
+        return transformer.paged_pool_mask(self.cfg, layout, spec)
+
     def pack_prefill_into_paged(self, layout, pools, dense_caches,
                                 row_of_slot, valid, block_ids, spec=None):
         """Batched install (in place): block_ids (N, nbp) per prefill

@@ -714,3 +714,53 @@ def pack_prefill_state(state, dense_state, row_of_slot, valid):
         return state
     return _select_slots(state, dense_state, row_of_slot, valid,
                          batch_axis=1)
+
+
+def extract_blocks(pools, kinds, block_ids, slot: int,
+                   arena: int = NULL_ARENA):
+    """Gather ONE slot's migratable cache out of a paged tree into fresh
+    storage.
+
+    ``kinds`` is a same-structure tree of kind strings
+    (``Model.paged_pool_mask``, classified by layer kind): ``"pool"``
+    leaves ``(L, NB, BS, Hkv, D)`` (and their scale leaves) gather the
+    ``block_ids`` rows along the block axis (axis 1, after the stacked
+    layer-count axis); ``"slot"`` leaves (rings, recurrent carries, conv
+    tails; slot axis also at axis 1) take the slot's own row; ``"cross"``
+    leaves (the cross-KV arena) take row ``arena``, the slot's arena row.
+    Single rows keep size 1 along axis 1, so every leaf keeps its rank.
+    ``block_ids`` is a 1-D integer tensor of the real chain only.
+
+    Unlike JAX's functional gather, the pools here are written in place:
+    every gathered leaf is a copy (``index_select`` / ``clone``), so the
+    source chain may be freed and its blocks rewritten by a later
+    admission without reaching into the result. The copies are enqueued
+    on the current stream, after whatever wrote the slot last."""
+    if isinstance(pools, dict):
+        return {k: extract_blocks(v, kinds[k], block_ids, slot, arena)
+                for k, v in pools.items()}
+    if kinds == "pool":
+        return torch.index_select(_raw(pools), 1, block_ids.long()
+                                  ).view(pools.dtype)
+    row = arena if kinds == "cross" else slot
+    return pools[:, row:row + 1].clone()
+
+
+def insert_blocks(pools, kinds, packet, block_ids, slot: int,
+                  arena: int = NULL_ARENA):
+    """Scatter an ``extract_blocks`` result into a destination tree, IN
+    PLACE: pool leaves write the packet's block rows into ``block_ids``
+    (freshly allocated, as many as the packet holds), ``"slot"`` leaves
+    overwrite the destination slot's row and ``"cross"`` leaves row
+    ``arena``. No leaf is rebound, so a captured decode step keeps
+    reading the same storage."""
+    if isinstance(pools, dict):
+        for k, v in pools.items():
+            insert_blocks(v, kinds[k], packet[k], block_ids, slot, arena)
+        return pools
+    if kinds == "pool":
+        _raw(pools).index_copy_(1, block_ids.long(), _raw(packet))
+    else:
+        row = arena if kinds == "cross" else slot
+        pools[:, row:row + 1].copy_(packet)
+    return pools

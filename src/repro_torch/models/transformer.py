@@ -577,6 +577,27 @@ def init_paged_cache(cfg, layout, device, spec=None):
     return map_layer_tree(cfg, one)
 
 
+def paged_pool_mask(cfg, layout, spec=None):
+    """Same-structure tree of kind strings over ``init_paged_cache``:
+    ``"pool"`` on full-attention block-pool leaves (block axis at axis
+    1, after the stacked layer-count axis; a quantized pool's scale
+    leaves too) and ``"slot"`` on per-slot state (windowed rings,
+    recurrent carries, conv tails; slot axis also at axis 1). Classified
+    by layer KIND, never by shape, so a ring whose slot count equals the
+    pool's block count cannot be taken for a pool. The tree's structure
+    comes from a pool built on the meta device (no memory). Drives KV
+    migration (``paged_kv.extract_blocks`` / ``insert_blocks``)."""
+    shapes = init_paged_cache(cfg, layout, torch.device("meta"), spec)
+
+    def tag(tree, kind):
+        if isinstance(tree, dict):
+            return {k: tag(v, kind) for k, v in tree.items()}
+        return kind
+
+    return map_layer_tree(cfg, lambda gk, pk, kind, count: tag(
+        shapes[gk][pk], "pool" if _is_pool_kind(cfg, kind) else "slot"))
+
+
 def pack_prefill_into_paged(cfg, layout, pools, dense_caches, row_of_slot,
                             valid, block_ids, spec=None):
     """Install a batch of prefilled dense caches (``prefill`` with
