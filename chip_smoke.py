@@ -11,6 +11,12 @@ check it end to end.
                                      # and tile_path (each window lists
                                      # the port's own kernels and their
                                      # share of device time)
+    python3 chip_smoke.py --tp-cards # 4 cards: the build and the
+                                     # tensor-parallel phases alone, over
+                                     # NCCL (parity_tp at 2 ranks;
+                                     # tp_serve for olmo_1b at 2 and 4
+                                     # ranks and yi_6b at 4, each against
+                                     # its own single-device run)
 
 Every paged engine decodes through the captured step
 (``launch/engine/step_graph.py``): feed select, the decode and sampling
@@ -144,6 +150,31 @@ Phases, one JSON line each (any failed check exits non-zero):
               payload GB/s. The summary line's ``K1_replica``,
               ``K2_replica`` and ``K2_combine_replica`` rows take their
               launches from this phase.
+   parity_tp — tensor parallelism over 2 ranks spawned on the one card
+              (gloo, so each rank's decode step runs eagerly): olmo_1b,
+              yi_6b and gemma_7b smoke in f32, greedy on a pool that
+              preempts, seeded, speculative (ngram, K 3), int8 (which
+              preempts) and fp8 pools, prefix hits with a COW copy; both
+              ranks' tokens and counters equal the single-device cpu
+              engine's, no leak, each rank's pool half the cpu one, 2 L
+              + 2 collectives a step, K1 / K2 / K3 / K4 launched on every
+              rank.
+   tp_serve — olmo_1b at full width in bf16 over 2 ranks on the card,
+              serve's geometry: serve's 16 requests (greedy; tokens
+              against serve's: the share of equal requests and the first
+              differing token, reported), 8 of spec_serve's requests with
+              spec_tokens 4 (every verify launch on the body
+              ``verify_body`` picks, every suffix prefill "wgmma") and
+              serve's first 8 over an fp8 pool (K4); per turn tok/s and
+              each rank's launches by body, none "simt"; each rank's pool
+              exactly half of serve's, no leaked block, 34 collectives a
+              step; the first prefill and decode logits within 3e-2 of
+              the single-device model's (relative to the largest logit);
+              the collectives' share of an eager step's CUDA-event time.
+              The summary line's ``*_tp`` rows (K1, K2, its combine, K3's
+              verify and suffix bodies, K4) are timed at a rank's shapes
+              (8 of olmo_1b's 16 heads, (8, 8/8, ., 128)) and take their
+              launches, summed over the ranks, from this phase.
 8. parity_recurrent — recurrentgemma_2b (RG-LRU + local attention) and
               h2o_danube_3_4b (sliding-window attention) smoke in f32, cuda
               against cpu on a pool tight enough to preempt, with rings
@@ -1233,8 +1264,9 @@ def decode_launches(st, runs, cfg, k2="K2"):
 
 def serve_turn(torch, engine, prompts, news, warm):
     """One timed turn of ``engine`` over the requests, after a warm-up
-    request and with the K1 / K2 / combine counters set to 0 just
-    before: (outputs, seconds, launches, K1 launches by body, stats)."""
+    request and with the K1 / K2 / combine / K3 / K4 counters set to 0
+    just before: (outputs, seconds, launches (K3's by body under
+    ``K3_bodies``), K1 launches by body, stats)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
     from repro_torch.launch.engine import SamplingParams
@@ -1247,7 +1279,9 @@ def serve_turn(torch, engine, prompts, news, warm):
     pa.paged_decode_attention.launches = 0
     pa.paged_decode_attention.k4_launches = 0
     pa.paged_decode_combine.launches = 0
+    pa.paged_verify_attention.launches = 0
     pa.paged_verify_attention.k4_launches = 0
+    zero_bodies(pa.paged_verify_attention)
     t0 = time.monotonic()
     outs = engine.generate(prompts, [SamplingParams(max_tokens=n)
                                      for n in news])
@@ -1256,8 +1290,10 @@ def serve_turn(torch, engine, prompts, news, warm):
     launches = {"K1": fa.flash_attention.launches,
                 "K2": pa.paged_decode_attention.launches,
                 "K2_combine": pa.paged_decode_combine.launches,
+                "K3": pa.paged_verify_attention.launches,
                 "K4_decode": pa.paged_decode_attention.k4_launches,
-                "K4_verify": pa.paged_verify_attention.k4_launches}
+                "K4_verify": pa.paged_verify_attention.k4_launches,
+                "K3_bodies": dict(pa.paged_verify_attention.launches_by_body)}
     return (outs, secs, launches, dict(fa.flash_attention.launches_by_body),
             engine.stats())
 
@@ -4232,6 +4268,612 @@ def phase_train_families(torch, np):
     return out
 
 
+# ---------------------------------------------------------------------------
+# tensor parallelism: parity_tp, tp_serve (and --tp-cards)
+# ---------------------------------------------------------------------------
+
+TP = 2                              # ranks on the one card (gloo)
+TP_ARCHS = ("olmo_1b", "yi_6b", "gemma_7b")
+TP_MODES = ("greedy_preempt", "seeded", "spec3", "int8", "fp8", "prefix")
+TP_TIMEOUT_S = 900                  # a rank group's whole run
+TP_CARDS_TIMEOUT_S = 240            # --tp-cards: a rank group's run
+SERVE_GEO = dict(num_slots=8, block_size=16, num_blocks=1024, max_len=640)
+TP_TIMED_STEPS = 10                 # decode steps timed for the collectives
+
+
+def tp_parity_case(arch, mode, vocab):
+    """(engine kwargs, prompts, sampling kwargs) of one parity_tp case:
+    smoke geometry, ragged prompts in one prefill bucket, seeded rows
+    beside greedy ones; a tight pool preempts (greedy_preempt, int8), a
+    shared block-aligned prefix and a repeated 8-token prompt give
+    partial and full prefix hits with a COW copy."""
+    import numpy as np
+
+    rng = np.random.default_rng(SEED + TP_ARCHS.index(arch) * 10
+                                + TP_MODES.index(mode))
+    lens = (5, 7, 8, 6, 8, 7)
+    prompts = [list(map(int, rng.integers(0, vocab, n))) for n in lens]
+    tight = dict(num_slots=3, block_size=4, num_blocks=9, max_len=48)
+    roomy = dict(num_slots=3, block_size=4, num_blocks=33, max_len=48)
+    seeded = [dict(), dict(temperature=0.9, top_k=12, seed=3),
+              dict(temperature=1.0, top_p=0.85, seed=5), dict(),
+              dict(temperature=0.7, seed=11), dict()]
+    greedy = [dict()] * len(prompts)
+    samp = [dict(s, max_tokens=8) for s in
+            (greedy if mode in ("greedy_preempt", "prefix") else seeded)]
+    if mode == "greedy_preempt":
+        return tight, prompts, samp
+    if mode == "seeded":
+        return roomy, prompts, samp
+    if mode == "spec3":
+        phrase = list(map(int, rng.integers(0, vocab, 3)))
+        return dict(roomy, spec_tokens=3), [p[:2] + phrase * 2
+                                            for p in prompts], samp
+    if mode in ("int8", "fp8"):
+        return dict(tight if mode == "int8" else roomy,
+                    kv_dtype=mode), prompts, samp
+    head = list(map(int, rng.integers(0, vocab, 4)))       # "prefix"
+    prompts = [head + p[:n - 4] for p, n in zip(prompts, lens)]
+    prompts[3] = list(prompts[2])
+    return roomy, prompts, samp
+
+
+def tp_stats_view(st):
+    """The scheduling counters a TP engine must share with a
+    single-device one."""
+    out = {k: st[k] for k in ("steps", "preemptions", "prefill_calls",
+                              "prefill_tokens") if k in st}
+    out["prefix_cache"] = {k: st["prefix_cache"][k] for k in (
+        "lookups", "hits", "hit_tokens", "cow_copies")}
+    if "spec" in st:
+        out["spec"] = {k: st["spec"][k] for k in (
+            "steps", "proposed", "accepted", "emitted")}
+    return out
+
+
+def rank_setup():
+    """A spawned rank: the port on the path, TF32 off (the parent's
+    settings do not travel to a spawned process)."""
+    sys.path.insert(0, os.path.join(ROOT, "src"))
+    import torch
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch
+
+
+def kernel_counts():
+    """Every K1 / K2 / K3 / K4 counter, K1's and K3's by body."""
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+
+    return {"K1": dict(fa.flash_attention.launches_by_body),
+            "K2": pa.paged_decode_attention.launches,
+            "K2_combine": pa.paged_decode_combine.launches,
+            "K3": dict(pa.paged_verify_attention.launches_by_body),
+            "K4_decode": pa.paged_decode_attention.k4_launches,
+            "K4_verify": pa.paged_verify_attention.k4_launches}
+
+
+def parity_tp_rank(mesh, cases):
+    """One rank of parity_tp: every case through the Engine over the
+    mesh, on the smoke params drawn on the CPU from the seed (the
+    reference engine's)."""
+    torch = rank_setup()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    out = {}
+    for arch, mode in cases:
+        print(f"[tp rank {mesh.rank}] parity_tp {arch} {mode}",
+              file=sys.stderr, flush=True)
+        cfg = get_config(arch).smoke()
+        model = Model(cfg, device=mesh.device)
+        params = weights.to_device(Model(cfg, device="cpu").init(seed=SEED),
+                                   mesh.device)
+        kw, prompts, samp = tp_parity_case(arch, mode, cfg.vocab_size)
+        eng = Engine(model, params, EngineConfig(**kw, mesh=mesh),
+                     device=mesh.device)
+        toks = eng.generate(prompts, [SamplingParams(**s) for s in samp])
+        torch.cuda.synchronize()
+        st = eng.stats()
+        out[(arch, mode)] = (toks, tp_stats_view(st), st["blocks_used"],
+                             st["pool_bytes"], st["tp"])
+    out["launches"] = kernel_counts()
+    return out
+
+
+def run_in_thread(fn):
+    """Start ``fn()`` in a thread; returns a getter that joins it and
+    returns its result or raises its exception."""
+    import threading
+
+    box = {}
+
+    def run():
+        try:
+            box["out"] = fn()
+        except BaseException as e:          # re-raised by the getter
+            box["err"] = e
+
+    th = threading.Thread(target=run, daemon=True)
+    th.start()
+
+    def get():
+        th.join()
+        if "err" in box:
+            raise box["err"]
+        return box["out"]
+
+    return get
+
+
+def phase_parity_tp(torch, np, tp=TP, timeout_s=TP_TIMEOUT_S):
+    """Smoke configs in f32 over ``tp`` ranks (gloo on the one card, NCCL
+    on cards of their own): olmo_1b, yi_6b and gemma_7b in every
+    TP_MODES case; both ranks' tokens and scheduling counters equal the
+    single-device engine's on the CPU, no rank leaks, each rank's pool
+    is 1 / tp of the single-device one, 2 L + 2 collectives a step."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    cases = [(a, m) for a in TP_ARCHS for m in TP_MODES]
+    ranks = run_in_thread(lambda: meshlib.launch(
+        parity_tp_rank, tp, "cuda", args=(cases,), timeout_s=timeout_s))
+    want = {}
+    for arch, mode in cases:
+        cfg = get_config(arch).smoke()
+        model = Model(cfg, device="cpu")
+        kw, prompts, samp = tp_parity_case(arch, mode, cfg.vocab_size)
+        eng = Engine(model, model.init(seed=SEED), EngineConfig(**kw),
+                     device="cpu")
+        toks = eng.generate(prompts, [SamplingParams(**s) for s in samp])
+        st = eng.stats()
+        want[(arch, mode)] = (toks, tp_stats_view(st), st["pool_bytes"])
+    got = ranks()
+    for arch in TP_ARCHS:
+        cfg = get_config(arch).smoke()
+        row = {"phase": "parity_tp", "config": cfg.name, "dtype": cfg.dtype,
+               "tp": tp, "backend": got[0][(arch, TP_MODES[0])][4]["backend"],
+               "captured_step": got[0][(arch, TP_MODES[0])][4][
+                   "captured_step"],
+               "tokens_equal": {}, "stats_equal": {}, "preemptions": {},
+               "prefix_hits": got[0][(arch, "prefix")][1]["prefix_cache"],
+               "collectives_per_step": {}}
+        for mode in TP_MODES:
+            toks, st, pool = want[(arch, mode)]
+            rs = [g[(arch, mode)] for g in got]
+            row["tokens_equal"][mode] = all(r[0] == toks for r in rs)
+            row["stats_equal"][mode] = all(r[1] == st for r in rs)
+            row["preemptions"][mode] = st.get("preemptions")
+            row["collectives_per_step"][mode] = rs[0][4][
+                "collectives_per_step"]
+            check(row["tokens_equal"][mode] and row["stats_equal"][mode],
+                  f"parity_tp {arch} {mode}: a rank's tokens or stats "
+                  f"differ from the cpu engine's ({[r[1] for r in rs]} vs "
+                  f"{st})")
+            check(all(r[2] == 0 for r in rs),
+                  f"parity_tp {arch} {mode}: a rank leaked blocks")
+            check(all(r[3] * tp == pool for r in rs),
+                  f"parity_tp {arch} {mode}: rank pool bytes "
+                  f"{[r[3] for r in rs]} are not 1/{tp} of {pool}")
+            check(rs[0][4]["collectives_per_step"] == 2 * cfg.n_layers + 2,
+                  f"parity_tp {arch} {mode}: "
+                  f"{rs[0][4]['collectives_per_step']} collectives a step")
+        check(row["preemptions"]["greedy_preempt"] > 0,
+              f"parity_tp {arch}: the tight pool never preempted")
+        check(row["prefix_hits"]["cow_copies"] > 0,
+              f"parity_tp {arch}: no full prefix hit copied its tail")
+        emit(row)
+    runs = [g["launches"] for g in got]
+    emit({"phase": "parity_tp", "launches_by_rank": runs,
+          "seconds": time.monotonic() - t0})
+    for r, n in enumerate(runs):
+        check(sum(n["K1"].values()) > 0 and n["K2"] > 0
+              and sum(n["K3"].values()) > 0 and n["K4_decode"] > 0
+              and n["K4_verify"] > 0,
+              f"parity_tp: rank {r} did not launch every kernel {n}")
+
+
+def first_decode_logits(torch, model, params, ctx, prompts, bs=16):
+    """Logits of a right-padded prefill of ``prompts`` (one row each at
+    its last position) and of the first paged decode step after it, over
+    a pool built for them (this rank's head shard under ``ctx.shard``);
+    the decode step feeds each prompt's first token. Returns (prefill,
+    decode) f32 logits on the host, and the pools, table, lengths and
+    tokens for ``collective_share``."""
+    from repro_torch.models import paged_kv
+
+    B = len(prompts)
+    S = max(len(p) for p in prompts)
+    nbc = -(-S // bs)
+    width = nbc * bs
+    dev = model.device
+    toks = torch.zeros((B, width), dtype=torch.int32)
+    lens = torch.tensor([len(p) for p in prompts], dtype=torch.int32)
+    for r, p in enumerate(prompts):
+        toks[r, :len(p)] = torch.tensor(p, dtype=torch.int32)
+    ids = (1 + torch.arange(B * nbc, dtype=torch.int32)).reshape(B, nbc)
+    nbmax = nbc + 1
+    table = torch.zeros((B, nbmax), dtype=torch.int32)
+    table[:, :nbc] = ids
+    table[:, nbc] = B * nbc + 1 + torch.arange(B, dtype=torch.int32)
+    layout = paged_kv.PagedLayout(num_slots=B, num_blocks=B * nbmax + 1,
+                                  block_size=bs, max_len=nbmax * bs)
+    length = lens.to(dev)
+    pl, dense = model.prefill(params, {"tokens": toks.to(dev)}, ctx,
+                              max_len=width, length=length,
+                              rows=length - 1)
+    pools = model.pack_prefill_into_paged(
+        layout, model.init_paged_cache(layout, shard=ctx.shard), dense,
+        torch.arange(B, dtype=torch.int32, device=dev),
+        torch.ones(B, dtype=torch.bool, device=dev), ids.to(dev))
+    feed = toks[:, :1].to(dev)
+    step = (pools, table.to(dev), length, feed)
+    dl, _ = model.decode_step_paged(params, *step[:3], feed, ctx)
+    torch.cuda.synchronize()
+    return pl.float().cpu().numpy(), dl.float().cpu().numpy(), step
+
+
+def collective_share(torch, model, params, ctx, step, n=TP_TIMED_STEPS):
+    """CUDA-event time of ``n`` eager paged decode steps (one a call, the
+    same inputs) and of the collectives inside them (``TPStats.timing``):
+    (step ms, collective ms a step, collectives a step)."""
+    pools, table, lengths, feed = step
+    stats = ctx.shard.stats
+    model.decode_step_paged(params, pools, table, lengths, feed, ctx)
+    torch.cuda.synchronize()
+    stats.timing, calls0 = [], stats.collectives
+    marks = []
+    for _ in range(n):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        model.decode_step_paged(params, pools, table, lengths, feed, ctx)
+        b.record()
+        marks.append((a, b))
+    torch.cuda.synchronize()
+    timing, stats.timing = stats.timing, None
+    step_ms = sum(a.elapsed_time(b) for a, b in marks) / n
+    coll_ms = sum(a.elapsed_time(b) for a, b in timing) / n
+    return step_ms, coll_ms, (stats.collectives - calls0) / n
+
+
+def tp_serve_rank(mesh, arch, turns, logit_prompts):
+    """One rank of tp_serve: ``turns`` ((name, engine kwargs, prompts,
+    news, warm) each) through an Engine over the mesh at serve's
+    geometry, the model at full width from the seed; then the first
+    decode step's logits and the collectives' share of an eager step.
+    Returns what the parent checks."""
+    torch = rank_setup()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Engine, EngineConfig
+    from repro_torch.models.model import Model
+
+    cfg = get_config(arch)
+    model = Model(cfg, device=mesh.device)
+    params = model.init(seed=SEED)
+    out = {"turns": {}, "device": torch.cuda.get_device_name(mesh.device)}
+    keep = None
+    for name, kw, prompts, news, warm in turns:
+        print(f"[tp rank {mesh.rank}] tp_serve {arch} {name}",
+              file=sys.stderr, flush=True)
+        eng = Engine(model, params, EngineConfig(**SERVE_GEO, **kw,
+                                                 mesh=mesh),
+                     device=mesh.device)
+        outs, secs, runs, k1_bodies, st = serve_turn(torch, eng, prompts,
+                                                     news, warm)
+        out["turns"][name] = {
+            "outs": outs, "seconds": secs, "launches": runs,
+            "k1_bodies": k1_bodies,
+            "stats": {k: st[k] for k in (
+                "steps", "graph_replays", "eager_decode_steps",
+                "pool_bytes", "blocks_used", "preemptions", "tp",
+                "device_s")},
+            "spec_steps": st["spec"]["steps"] if "spec" in st else 0,
+            "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+            "tpot_p50_s": st["latency"]["tpot"]["p50_s"]}
+        if keep is None:
+            keep = eng.backend
+        else:
+            del eng
+    del params                              # the engine keeps its slices
+    pl, dl, step = first_decode_logits(torch, model, keep.params, keep.ctx,
+                                       logit_prompts)
+    out["logits"] = (pl, dl)
+    out["timing"] = collective_share(torch, model, keep.params, keep.ctx,
+                                     step)
+    out["peak_mem_gb"] = torch.cuda.max_memory_allocated(mesh.device) / 1e9
+    return out
+
+
+def agreement(outs, base):
+    """Requests whose tokens equal the T = 1 run's, and the first token
+    index (a decode step) at which any request differs (None if none)."""
+    same = sum(o == b for o, b in zip(outs, base))
+    first = [next((i for i, (x, y) in enumerate(zip(o, b)) if x != y),
+                  None if len(o) == len(b) else min(len(o), len(b)))
+             for o, b in zip(outs, base)]
+    firsts = [f for f in first if f is not None]
+    return same / len(base), (min(firsts) if firsts else None)
+
+
+def tp_turns(np, prompts, news, warm):
+    """tp_serve's turns: serve's 16 requests (greedy, bf16 pool), 8 of
+    spec_serve's shared-prefix requests with spec_tokens 4 (suffix
+    prefills on K3's wgmma body, verify steps on its split body) and
+    serve's first 8 requests over an fp8 pool (K4)."""
+    sp, sn, sw = spec_workload(np)
+    return [("greedy", {}, prompts, news, warm),
+            ("spec", dict(spec_tokens=4, drafter="ngram"), sp[:HALF],
+             sn[:HALF], sw),
+            ("fp8", dict(kv_dtype="fp8"), prompts[:HALF], news[:HALF],
+             warm)]
+
+
+def phase_tp_serve(torch, np, arch, tp, turns, base_outs, base_logits,
+                   base_pool_bytes, logit_prompts, timeout_s=TP_TIMEOUT_S):
+    """``arch`` at full width in bf16 over ``tp`` ranks at serve's
+    geometry: per turn tok/s and each rank's launches by body; the
+    greedy turn's tokens against the single-device run's (``base_outs``:
+    agreement and the first differing step, reported: the reduction
+    order moves bf16 roundings), the first prefill and decode logits
+    within the bf16 tolerance of the single-device model's (relative to
+    the largest logit), each rank's pool exactly 1 / tp of the
+    single-device pool, no leaked block, 2 L + 2 collectives a step and
+    their share of an eager step's CUDA-event time. Returns the launches
+    summed over ranks by kernel row."""
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch import mesh as meshlib
+
+    cfg = get_config(arch)
+    t0 = time.monotonic()
+    got = meshlib.launch(tp_serve_rank, tp, "cuda",
+                         args=(arch, turns, logit_prompts),
+                         timeout_s=timeout_s)
+    wall = time.monotonic() - t0
+    totals = {"K1": 0, "K2": 0, "K2_combine": 0, "K3": 0, "K3_suffix": 0,
+              "K4_decode": 0}
+    L = cfg.n_layers
+    for name, *_ in turns:
+        rs = [g["turns"][name] for g in got]
+        r0 = rs[0]
+        ntok = sum(len(o) for o in r0["outs"])
+        sts = [r["stats"] for r in rs]
+        row = {"phase": "tp_serve", "config": cfg.name, "dtype": cfg.dtype,
+               "tp": tp, "turn": name, "backend": sts[0]["tp"]["backend"],
+               "captured_step": sts[0]["tp"]["captured_step"],
+               "requests": len(r0["outs"]), "tokens": ntok,
+               "seconds": r0["seconds"], "tok_s": ntok / r0["seconds"],
+               "ttft_p50_s": r0["ttft_p50_s"], "tpot_p50_s": r0["tpot_p50_s"],
+               "steps": sts[0]["steps"],
+               "graph_replays": [s["graph_replays"] for s in sts],
+               "eager_decode_steps": [s["eager_decode_steps"] for s in sts],
+               "collectives_per_step": sts[0]["tp"]["collectives_per_step"],
+               "collective_bytes_per_rank": sts[0]["tp"]["collective_bytes"],
+               "pool_bytes_per_rank": [s["pool_bytes"] for s in sts],
+               "blocks_used": [s["blocks_used"] for s in sts],
+               "launches_by_rank": [{k: v for k, v in r["launches"].items()}
+                                    for r in rs],
+               "k1_launches_by_body": [r["k1_bodies"] for r in rs],
+               "ranks_tokens_equal": all(r["outs"] == r0["outs"]
+                                         for r in rs)}
+        check(row["ranks_tokens_equal"],
+              f"tp_serve {arch} tp={tp} {name}: the ranks' tokens differ")
+        check(all(n == 0 for n in row["blocks_used"]),
+              f"tp_serve {arch} {name}: blocks leaked {row['blocks_used']}")
+        check(row["collectives_per_step"] == 2 * L + 2,
+              f"tp_serve {arch} {name}: {row['collectives_per_step']} "
+              f"collectives a step, expected {2 * L + 2}")
+        if name != "spec":                  # a verify step is never fused
+            key = "graph_replays" if row["backend"] == "nccl" \
+                else "eager_decode_steps"
+            check(all(s[key] == s["steps"] > 0 for s in sts),
+                  f"tp_serve {arch} {name}: {sts[0]['steps']} steps, "
+                  f"{row['graph_replays']} replays, "
+                  f"{row['eager_decode_steps']} eager")
+        for r in rs:
+            runs, bodies = r["launches"], r["k1_bodies"]
+            check(bodies["simt"] == 0 and runs["K3_bodies"]["simt"] == 0,
+                  f"tp_serve {arch} {name}: a bf16 kernel ran simt "
+                  f"{bodies} {runs['K3_bodies']}")
+            # the spec turn's admissions all hit the warm-up's prefix:
+            # suffix prefills (K3), no full prefill
+            check(name == "spec" or bodies["wgmma"] == runs["K1"] > 0,
+                  f"tp_serve {arch} {name}: no K1 launch {bodies}")
+        if name == "greedy":
+            check(all(p == base_pool_bytes // tp and p * tp ==
+                      base_pool_bytes for p in row["pool_bytes_per_rank"]),
+                  f"tp_serve {arch}: rank pools {row['pool_bytes_per_rank']}"
+                  f" are not 1/{tp} of serve's {base_pool_bytes}")
+            rate, first = agreement(r0["outs"], base_outs)
+            row.update(requests_equal_t1=rate, first_differing_step=first,
+                       pool_bytes_t1=base_pool_bytes)
+            for r in rs:
+                check(r["launches"]["K2"] == r["launches"]["K2_combine"]
+                      == L * r["stats"]["steps"] > 0,
+                      f"tp_serve {arch}: K2 / combine "
+                      f"{r['launches']['K2']} / "
+                      f"{r['launches']['K2_combine']} in "
+                      f"{r['stats']['steps']} steps")
+        if name == "spec":
+            # the verify window (5 rows) runs the body verify_body picks
+            # at the rank's group (split below SPLIT_PAIRS pairs a kv
+            # head: olmo's group 1; yi's group 8 takes the tensor cores),
+            # every suffix prefill "wgmma"
+            vbody = "split" if 5 * (cfg.n_heads // cfg.n_kv_heads) \
+                < pa.SPLIT_PAIRS else "wgmma"
+            for r in rs:
+                by = r["launches"]["K3_bodies"]
+                verify = r["spec_steps"] * L
+                suffix = by["wgmma"] - (verify if vbody == "wgmma" else 0)
+                check(by[vbody] >= verify and by["simt"] == 0
+                      and by["split"] == (verify if vbody == "split" else 0)
+                      and suffix > 0 and suffix % L == 0,
+                      f"tp_serve {arch} spec: K3 bodies {by}, {verify} "
+                      f"verify launches expected on {vbody}")
+                r["k3_split"] = (verify, suffix)
+            row["k3_launches_by_body"] = [r["launches"]["K3_bodies"]
+                                          for r in rs]
+            row["verify_body"] = vbody
+        if name == "fp8":
+            check(all(r["launches"]["K4_decode"] > 0
+                      and r["launches"]["K2"] == 0 for r in rs),
+                  f"tp_serve {arch} fp8: decode did not run K4")
+        for r in rs:
+            totals["K1"] += r["launches"]["K1"]
+            totals["K2"] += r["launches"]["K2"]
+            totals["K2_combine"] += r["launches"]["K2_combine"]
+            verify, suffix = r.get("k3_split", (0, 0))
+            totals["K3"] += verify
+            totals["K3_suffix"] += suffix
+            totals["K4_decode"] += r["launches"]["K4_decode"]
+        emit(row)
+    pl0, dl0 = base_logits
+    errs = []
+    for g in got:
+        pl, dl = g["logits"]
+        errs.append([float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                     for a, b in ((pl, pl0), (dl, dl0))])
+    step_ms, coll_ms, calls = got[0]["timing"]
+    emit({"phase": "tp_serve", "config": cfg.name, "tp": tp,
+          "summary": True, "seconds": wall, "device": got[0]["device"],
+          "logits_rel_err_by_rank": errs, "tol": TOL["bfloat16"],
+          "eager_step_ms": step_ms, "collective_ms_per_step": coll_ms,
+          "collective_share": coll_ms / step_ms,
+          "collectives_timed_per_step": calls,
+          "timing_by_rank": [g["timing"] for g in got],
+          "peak_mem_gb_by_rank": [g["peak_mem_gb"] for g in got]})
+    check(all(e <= TOL["bfloat16"] for es in errs for e in es),
+          f"tp_serve {arch}: logits differ from the single-device model's "
+          f"by {errs} (relative to the largest)")
+    check(calls == 2 * L + 2, f"tp_serve {arch}: {calls} collectives in a "
+          "timed step")
+    return totals
+
+
+def tp_base(torch, model, params, logit_prompts, geo=SERVE_GEO):
+    """The single-device references of tp_serve: the first prefill and
+    decode logits (``first_decode_logits``) and the pool bytes of serve's
+    geometry."""
+    from repro_torch.models import paged_kv, transformer
+
+    pl, dl, _ = first_decode_logits(torch, model, params,
+                                    transformer.RunCtx(), logit_prompts)
+    layout = paged_kv.PagedLayout(**geo)
+    pool = paged_kv.pool_bytes(transformer.init_paged_cache(
+        model.cfg, layout, torch.device("meta")))
+    return (pl, dl), pool
+
+
+def phase_tp_kernels(torch, np, prompts):
+    """K1, K2 with its combine, K3 (verify: split; suffix: wgmma) and K4
+    at a rank's shapes in tp_serve (olmo_1b over 2 ranks: 8 of the 16
+    heads, 8 of the 16 kv heads), on the same inputs as the kernels
+    phase's rows at the model's shapes."""
+    hq = hkv = 16 // TP
+    first = [len(p) + 1 for p in prompts[:HALF]]
+    cached = [n - 1 for n in first]
+    sfx = [SHARED] * HALF
+    k1 = k1_case(torch, "tp2_rank", HALF, hq, hkv, 512, 128, "bfloat16",
+                 True)
+    k2 = k2_case(torch, np, "tp2_rank", first, hq, hkv, 128, "bfloat16")
+    k2c = combine_case(torch, "tp2_rank", HALF, hq, k2["splits"], 128,
+                       "bfloat16")
+    k3 = k3_case(torch, np, "tp2_verify", cached, 5, hq, hkv, 128,
+                 "bfloat16", "split")
+    k3s = k3_case(torch, np, "tp2_suffix_w64", sfx, 64, hq, hkv, 128,
+                  "bfloat16", "wgmma")
+    k4 = k2_case(torch, np, "tp2_decode_fp8", first, hq, hkv, 128,
+                 "bfloat16", "fp8")
+    return {"K1_tp": k1, "K2_tp": k2, "K2_combine_tp": k2c, "K3_tp": k3,
+            "K3_suffix_tp": k3s, "K4_decode_tp": k4}
+
+
+TP_ROWS = (
+    ("K1_tp", "K1", "flash_attention (tp_serve: a rank's prefill, 8 of "
+     "olmo_1b's 16 heads; timed at (8, 8/8, 512, 128))",
+     "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:109"),
+    ("K2_tp", "K2", "paged_decode_attention (tp_serve: a rank's decode "
+     "over its kv-head shard, paged_decode_attention_headshard)",
+     "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:361"),
+    ("K2_combine_tp", "K2_combine", "paged_decode_combine (tp_serve's "
+     "ranks)", "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:361"),
+    ("K3_tp", "K3", "paged_verify_attention (tp_serve's spec turn: a "
+     "rank's verify, split body, paged_verify_attention_headshard)",
+     "src/repro_torch/csrc/paged_verify_split.cuh",
+     "src/repro/kernels/paged_attention.py:313"),
+    ("K3_suffix_tp", "K3_suffix", "paged_verify_attention (tp_serve's spec "
+     "turn: a rank's suffix prefill, wgmma body; timed at the 64-row "
+     "bucket)", "src/repro_torch/csrc/paged_verify_wgmma.cuh",
+     "src/repro/kernels/paged_attention.py:313"),
+    ("K4_decode_tp", "K4_decode", "K4 paged_decode_attention (tp_serve's "
+     "fp8 turn: a rank's kv-head shard of an fp8 pool)",
+     "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:43"),
+)
+
+
+def tp_rows(rows, totals):
+    """The kernels line's rows of the per-rank kernels, their launches
+    summed over tp_serve's ranks."""
+    out = []
+    for key, count, name, src, tpu in TP_ROWS:
+        row = rows[key]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": tpu, "launches": totals[count],
+                    **{k: row[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "body", "splits",
+                        "graph_ms") if k in row}})
+    return out
+
+
+def tp_cards_main(torch, np):
+    """``--tp-cards``: the build and the TP phases alone, on a machine
+    with a card a rank (NCCL, the decode step captured): tp_serve for
+    olmo_1b at T = 2 and 4 and yi_6b at T = 4, each against its own
+    single-device run on the first card, then parity_tp at T = 2 (the
+    kernels rows at a rank's shapes are the one-card run's)."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Engine, EngineConfig
+    from repro_torch.models.model import Model
+
+    check(torch.cuda.device_count() >= 4,
+          f"--tp-cards needs 4 cards, found {torch.cuda.device_count()}")
+    prompts, news, warm = workload(np)
+    phase_build()
+    turns = tp_turns(np, prompts, news, warm)
+    logit_prompts = [p[:64] for p in prompts[:HALF]]
+    for arch, tps in (("olmo_1b", (2, 4)), ("yi_6b", (4,))):
+        model = Model(get_config(arch), device="cuda")
+        params = model.init(seed=SEED)
+        base_logits, pool = tp_base(torch, model, params, logit_prompts)
+        eng = Engine(model, params, EngineConfig(**SERVE_GEO),
+                     device="cuda")
+        base_outs, secs, *_ = serve_turn(torch, eng, prompts, news, warm)
+        ntok = sum(len(o) for o in base_outs)
+        emit({"phase": "tp_serve", "config": model.cfg.name, "tp": 1,
+              "turn": "greedy", "tokens": ntok, "seconds": secs,
+              "tok_s": ntok / secs})
+        del eng, params, model
+        torch.cuda.empty_cache()
+        for tp in tps:
+            phase_tp_serve(torch, np, arch, tp, turns, base_outs,
+                           base_logits, pool, logit_prompts,
+                           timeout_s=TP_CARDS_TIMEOUT_S)
+    phase_parity_tp(torch, np, tp=2, timeout_s=TP_CARDS_TIMEOUT_S)
+
+
 def nvidia_smi():
     """The card's name and power limit as nvidia-smi prints them."""
     out = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
@@ -4331,6 +4973,9 @@ def main():
     ap = argparse.ArgumentParser()
     ap.add_argument("--profile", action="store_true",
                     help="also print device time by kernel (torch.profiler)")
+    ap.add_argument("--tp-cards", action="store_true",
+                    help="only the build and the tensor-parallel phases, "
+                         "over NCCL on a machine with 4 cards")
     args = ap.parse_args()
     import numpy as np
     import torch
@@ -4343,12 +4988,20 @@ def main():
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    if args.tp_cards:
+        tp_cards_main(torch, np)
+        print(nvidia_smi(), flush=True)
+        emit({"ok": True, "device": {"platform": "gpu",
+                                     "kind": torch.cuda.get_device_name(0),
+                                     "count": torch.cuda.device_count()}})
+        return
     prompts, news, warm = workload(np)
     phase_build()
     (k1, k2, k2c, k3, k3s, k4d, k4v, k4s, k5, k5_long, k1_moe,
      k2_moe, k1_wenc, k1_wx, k2_wh, k1_vl) = phase_kernels(
          torch, np, prompts, args.profile)
     k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np, args.profile)
+    tp_kernels = phase_tp_kernels(torch, np, prompts)
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
     phase_parity_recurrent(torch, np)
@@ -4365,7 +5018,14 @@ def main():
     phase_parity_replica(torch, np)
     launches.update(phase_replica_serve(torch, np, prompts, news, warm,
                                         base_outs, model, params))
+    phase_parity_tp(torch, np)
+    logit_prompts = [p[:64] for p in prompts[:HALF]]
+    base_logits, base_pool = tp_base(torch, model, params, logit_prompts)
     del model, params
+    torch.cuda.empty_cache()
+    tp_launches = phase_tp_serve(
+        torch, np, "olmo_1b", TP, tp_turns(np, prompts, news, warm),
+        base_outs, base_logits, base_pool, logit_prompts)
     rec = phase_recurrent_serve(torch, np, prompts, news, warm, args.profile)
     launches.update(K5=rec["K5"], K5_long=rec["K5_long"])
     torch.cuda.empty_cache()
@@ -4515,6 +5175,7 @@ def main():
                             "bound_by", "library_ms", "body", "splits",
                             "graph_ms", "simt_ms", "call_ms", "call_host_ms")
                            if k in row}})
+    kernels += tp_rows(tp_kernels, tp_launches)
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

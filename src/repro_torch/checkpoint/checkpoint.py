@@ -130,7 +130,8 @@ class CheckpointManager:
         if shardings is not None:
             raise NotImplementedError(
                 "restore onto shardings places leaves across devices: it "
-                "waits for queue-1 item Multi-device")
+                "waits for queue-1 item Multi-device, sub-item 'sharded "
+                "training'")
         step = step if step is not None else self.latest_step()
         if step is None:
             raise FileNotFoundError(f"no checkpoints in {self.dir}")

@@ -20,8 +20,7 @@ from . import ref as _ref
 from . import stx_matmul as _k6
 from . import vrp_dot as _k8
 from .flash_attention import flash_attention
-from .paged_attention import paged_decode_attention as _paged_decode
-from .paged_attention import paged_verify_attention as _paged_verify
+from . import paged_attention as _pa
 from .rglru_scan import rglru_scan
 from .stx_stencil import stencil2d, stencil3d
 
@@ -30,7 +29,7 @@ __all__ = ["flash_attention", "paged_attention", "rglru_scan", "stx_matmul",
 
 
 def paged_attention(q, pool, block_table, lengths, *, mode="decode",
-                    window=None, scale=None, kv_format=None):
+                    window=None, scale=None, kv_format=None, sharding=None):
     """Paged attention over a per-layer pool dict (JAX ops.py
     ``paged_attention``).
 
@@ -48,6 +47,9 @@ def paged_attention(q, pool, block_table, lengths, *, mode="decode",
     the softmax scale always derives from q's logical head dim.
     ``kv_format``, the pool's ``paged_kv.PoolSpec`` or None, is checked
     against the pool: its head dims and quantization must match.
+    ``sharding`` (a ``launch.sharding.ShardCtx``) marks q and the pool as
+    this rank's heads of a head-sharded pool: the ``*_headshard``
+    wrappers run (the same kernels on the rank's heads).
     """
     if mode not in ("decode", "verify"):
         raise ValueError(f"mode must be 'decode' or 'verify', got {mode!r}")
@@ -65,9 +67,15 @@ def paged_attention(q, pool, block_table, lengths, *, mode="decode",
             f"{D}) do not match kv_format {kv_format}")
     if scale is None:
         scale = 1.0 / math.sqrt(D)       # logical head dim
-    fn = _paged_decode if mode == "decode" else _paged_verify
-    return fn(q, pool["k"], pool["v"], block_table, lengths, window=window,
-              scale=scale, k_scale=k_scale, v_scale=v_scale)
+    kw = dict(window=window, scale=scale, k_scale=k_scale, v_scale=v_scale)
+    if sharding is not None:
+        fn = _pa.paged_decode_attention_headshard if mode == "decode" \
+            else _pa.paged_verify_attention_headshard
+        kw["shard"] = sharding
+    else:
+        fn = _pa.paged_decode_attention if mode == "decode" \
+            else _pa.paged_verify_attention
+    return fn(q, pool["k"], pool["v"], block_table, lengths, **kw)
 
 
 def stx_matmul(x, w, *, out_dtype=None):

@@ -359,3 +359,50 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
 paged_verify_attention.launches = 0      # K3
 paged_verify_attention.k4_launches = 0   # K4 (quantized pool)
 paged_verify_attention.launches_by_body = dict.fromkeys(VERIFY_BODIES, 0)
+
+
+def _check_head_shard(name, q_heads, k_pool, shard):
+    """The rank's q heads must be whole query groups of its pool's kv
+    heads (``paged_kv.head_shard_ok`` of the model makes them so)."""
+    hkv = k_pool.shape[2]
+    if shard.tp_size < 2 or hkv < 1 or q_heads % hkv:
+        raise ValueError(
+            f"{name}: {q_heads} query heads over {hkv} pool kv heads on a "
+            f"{shard.tp_size}-rank model axis are not a head shard")
+
+
+def paged_decode_attention_headshard(q, k_pool, v_pool, block_table,
+                                     lengths, *, shard, window=None,
+                                     scale=None, k_scale=None, v_scale=None):
+    """K2 (K4 over a quantized pool) on one rank of a head-sharded pool.
+
+    The counterpart of JAX's ``shard_map`` wrapper of the same name: the
+    pool is split by kv heads over the model axis (every rank owns its
+    kv-head shard of every physical block; tables and lengths are the
+    same host integers on every rank), so kv-head groups attend
+    independently and the output needs no collective. In the port each
+    rank is a process that holds only its shard: q (B, Hq / T, D) are
+    this rank's query heads, the pools (NB, BS, Hkv / T, D) and scales
+    (NB, BS, Hkv / T) its kv heads, and the call is the single-device
+    ``paged_decode_attention`` on them (no new kernel; its launches count
+    there). Returns this rank's (B, Hq / T, D)."""
+    _check_head_shard("paged_decode_attention_headshard", q.shape[-2],
+                      k_pool, shard)
+    return paged_decode_attention(q, k_pool, v_pool, block_table, lengths,
+                                  window=window, scale=scale,
+                                  k_scale=k_scale, v_scale=v_scale)
+
+
+def paged_verify_attention_headshard(q, k_pool, v_pool, block_table,
+                                     lengths, *, shard, window=None,
+                                     scale=None, k_scale=None, v_scale=None):
+    """K3 (K4 over a quantized pool) on one rank of a head-sharded pool:
+    the ``paged_decode_attention_headshard`` layout with a K1-row query
+    block a sequence, q (B, K1, Hq / T, D). ``verify_body`` picks the body
+    from this rank's shapes (the split plan runs over Hkv / T heads).
+    Returns this rank's (B, K1, Hq / T, D)."""
+    _check_head_shard("paged_verify_attention_headshard", q.shape[-2],
+                      k_pool, shard)
+    return paged_verify_attention(q, k_pool, v_pool, block_table, lengths,
+                                  window=window, scale=scale,
+                                  k_scale=k_scale, v_scale=v_scale)

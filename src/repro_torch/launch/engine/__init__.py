@@ -18,8 +18,10 @@ is the lockstep baseline (``backend="static"``). ``ReplicaSet`` runs
 R engine replicas on one device behind one FCFS queue, and
 ``DisaggregatedEngine`` splits them into prefill and decode roles that
 hand each request's KV blocks across as a ``MigrationPacket``
-(``transport.py``). Serving over a device mesh arrives with a later
-slice (see ``EngineConfig``).
+(``transport.py``). ``EngineConfig(mesh=...)`` serves one engine over
+the T ranks of a tensor-parallel mesh (``launch/mesh.py``,
+``launch/sharding.py``): each rank a process with its slices of the
+params and its kv-head shard of the pool.
 """
 
 from .api import (Engine, EngineConfig, Request, RequestHandle,

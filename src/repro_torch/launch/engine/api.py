@@ -1,7 +1,11 @@
 """Engine front-end: SamplingParams, request handles, streaming outputs.
 
 Counterpart of ``repro/launch/engine/api.py``. The Engine owns request
-admission and the step loop; the backend (``PagedBackend``,
+admission and the step loop, on one device or, with
+``EngineConfig.mesh``, on every rank of a tensor-parallel mesh (SPMD:
+each rank runs the same scheduler on the same requests over its slices
+of the params and its head shard of the pool, and samples the same
+tokens from the all-gathered logits); the backend (``PagedBackend``,
 ``SpecDecodeBackend`` when ``spec_tokens > 0``, or the lockstep
 ``StaticBackend``) owns the device state and implements
 ``enqueue(handle)``, ``step()`` and ``stats()``. Every token
@@ -16,8 +20,9 @@ import time
 from typing import Any, Optional, Sequence
 
 from ...models.model import Model, resolve_device
-from ...models.paged_kv import KV_DTYPES
+from ...models.paged_kv import KV_DTYPES, head_shard_ok
 from ...models.transformer import RunCtx, check_supported
+from ..mesh import TP_FAMILIES, not_ported
 
 
 def prefill_bucket(n: int, floor: int, cap: int) -> int:
@@ -296,8 +301,18 @@ class EngineConfig:
         allocator reports exhaustion. Active when the model's whole
         state lives in the pool (``ServingCaps.prefix_cache``); outputs
         are token-identical with it on or off.
-    mesh, tp_axis
-        Multi-device serving; not ported yet (``mesh`` must be None).
+    mesh : launch.mesh.Mesh or None
+        Tensor-parallel serving: this process's rank of a ``(data=1,
+        model=T)`` mesh (``launch.mesh.init_mesh`` / ``launch``). Every
+        rank builds an Engine over the same full params (it keeps its
+        slices, ``sharding.shard_params``) and serves the same requests;
+        the pool is head-sharded (``paged_kv.head_shard_ok`` must hold).
+        Tokens are mesh-independent. Decoder-only stacks of full
+        attention only (olmo_1b, yi_6b, gemma_7b); the other families,
+        ``overlap=True`` and a data axis above 1 raise
+        NotImplementedError naming their ROADMAP sub-item.
+    tp_axis : str
+        The tensor-parallel axis name of ``mesh``.
     spec_tokens : int
         Speculative decoding: draft tokens proposed per request per step
         (K); the verify pass scores K+1 positions at once through kernel
@@ -348,16 +363,15 @@ class EngineConfig:
 
     def check_ported(self):
         """Raise NotImplementedError for options not ported yet."""
-        if self.mesh is not None:
-            raise NotImplementedError(
-                "EngineConfig mesh is not ported yet (ROADMAP queue 1: "
-                "'multi-device')")
+        if self.mesh is not None and self.overlap:
+            raise not_ported("overlap=True under a mesh", TP_FAMILIES)
         if self.backend not in ("paged", "static"):
             raise ValueError(f"unknown backend {self.backend!r}")
 
 
 class Engine:
-    """Serving front-end over the paged or static backend on one device.
+    """Serving front-end over the paged or static backend on one device,
+    or on one rank of a tensor-parallel mesh (``EngineConfig.mesh``).
 
     Parameters
     ----------
@@ -374,7 +388,8 @@ class Engine:
         Per-call model context.
     device : str or torch.device
         Where the engine runs, ``"cuda"`` by default; raises when no GPU
-        is present. Must be the model's device.
+        is present. Must be the model's device (and, under a mesh, the
+        rank's ``mesh.device``).
 
     Attributes
     ----------
@@ -441,6 +456,9 @@ class Engine:
         self.model = model
         self.caps = model.serving_caps()
         mc = model.cfg
+        ctx = ctx or RunCtx()
+        if self.cfg.mesh is not None:
+            ctx = self._mesh_ctx(ctx)
         if not self.caps.paged_decode:
             raise NotImplementedError(
                 f"no paged decode path for config {mc.family}/{mc.name}: "
@@ -471,8 +489,24 @@ class Engine:
             backend = SpecDecodeBackend
         else:
             backend = PagedBackend
-        self.backend = backend(model, params, self.cfg, ctx or RunCtx())
+        self.backend = backend(model, params, self.cfg, ctx)
         self._uid = 0
+
+    def _mesh_ctx(self, ctx: RunCtx) -> RunCtx:
+        """The ``RunCtx`` of this rank: the mesh's ``ShardCtx`` (a fresh
+        ``TPStats`` an engine) and ``decode_head_shard`` from
+        ``head_shard_ok``; raises for what this slice does not serve."""
+        from ..sharding import check_tp_supported, make_shard_ctx
+
+        mesh, mc = self.cfg.mesh, self.model.cfg
+        if self.device != mesh.device:
+            raise ValueError(f"engine device {self.device} != the mesh "
+                             f"rank's device {mesh.device}")
+        shard = make_shard_ctx(mesh, tp_axis=self.cfg.tp_axis)
+        check_tp_supported(mc, shard)
+        return dataclasses.replace(
+            ctx, shard=shard,
+            decode_head_shard=head_shard_ok(mc, shard.tp_size))
 
     # -- request lifecycle ----------------------------------------------
 

@@ -48,8 +48,8 @@ from .api import (Engine, EngineConfig, RequestHandle, RequestOutput,
                   SamplingParams)
 
 _MULTI_DEVICE = ("replicas on a device mesh are not ported yet (ROADMAP "
-                 "queue 1: 'multi-device'); pass dp= for replicas on one "
-                 "device")
+                 "queue 1, item 7 'multi-device', sub-item 'replicas on "
+                 "submeshes'); pass dp= for replicas on one device")
 
 
 def least_loaded(rset: "ReplicaSet", candidates: list[int]) -> int:

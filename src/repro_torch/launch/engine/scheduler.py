@@ -1,7 +1,7 @@
 """PagedBackend: continuous batching over the block-paged KV cache.
 
 Counterpart of ``repro/launch/engine/scheduler.py::PagedBackend``
-without mesh (speculation subclasses it in ``speculative.py``):
+(speculation subclasses it in ``speculative.py``):
 
 * **Optimistic admission** — a request is admitted when the pool covers
   its *current* footprint (plus an optional free-block watermark), not
@@ -51,6 +51,18 @@ without mesh (speculation subclasses it in ``speculative.py``):
   host scheduling hides under device work. Admission tickets discard
   the draws of rows retired in between; outputs are bit-identical with
   it on or off.
+* **Tensor parallelism** (``RunCtx.shard``, set by the Engine from
+  ``EngineConfig.mesh``) — every rank runs this scheduler on the same
+  requests (SPMD): params are this rank's slices
+  (``sharding.shard_params``), the pools its kv-head shard of every
+  block, so block tables, lengths, the allocator and the prefix index
+  are the same host state on every rank and a COW copy runs on each
+  rank's shard. Logits are all-gathered, so every rank samples the
+  same token. No scheduling decision reads a clock. The captured decode
+  step stays on under NCCL (its collectives capture); under gloo (the
+  CPU, ranks sharing a card) the step runs eagerly and
+  ``eager_decode_steps`` counts it: a choice made from the backend and
+  reported in ``stats()["tp"]``, never taken on a failure.
 * **Migration** (``disagg.py`` / ``transport.py``) — ``export_slot``,
   ``detach_slot`` and ``import_slot`` move a live request between
   replicas' backends at any stream position; a ``prefill_only`` backend
@@ -123,12 +135,18 @@ class PagedBackend:
         self.layout = paged_kv.PagedLayout(
             num_slots=cfg.num_slots, num_blocks=cfg.num_blocks,
             block_size=cfg.block_size, max_len=cfg.max_len)
+        # tensor parallelism: this rank keeps its slices of the params
+        self.shard = ctx.shard
+        if self.shard is not None:
+            from ..sharding import shard_params
+            self.params = params = shard_params(params, self.shard)
         # quantized paged KV: the PoolSpec rides in the RunCtx to the
         # write frontiers and the kernels; None keeps the model dtype
         self.kv_spec = None
         if cfg.kv_dtype != "bf16":
             self.kv_spec = paged_kv.make_pool_spec(
-                model.cfg, self.layout, kv_dtype=cfg.kv_dtype)
+                model.cfg, self.layout, kv_dtype=cfg.kv_dtype,
+                head_sharded=self.shard is not None)
             ctx = dataclasses.replace(ctx, kv_spec=self.kv_spec)
         self.ctx = ctx
         caps = model.serving_caps()
@@ -144,7 +162,8 @@ class PagedBackend:
         self.alloc = paged_kv.BlockAllocator(
             self.layout, watermark=cfg.watermark_blocks,
             on_evict=self._on_evict if self.prefix is not None else None)
-        self.pools = model.init_paged_cache(self.layout, spec=self.kv_spec)
+        self.pools = model.init_paged_cache(self.layout, spec=self.kv_spec,
+                                            shard=self.shard)
         self.table = np.full(
             (cfg.num_slots, self.layout.max_blocks_per_seq),
             paged_kv.NULL_BLOCK, np.int32)
@@ -165,11 +184,14 @@ class PagedBackend:
         self._no_prev = np.zeros((cfg.num_slots,), bool)
         self._t_fetch_done = 0.0
         self.reset_telemetry()
-        # captured on the card now, while no slot is live (step_graph)
+        # captured on the card now, while no slot is live (step_graph),
+        # unless the ranks' collectives run over gloo, which no graph takes
+        capture = self.shard is None or self.shard.backend == "nccl"
         self.decode = DecodeStep(model, params, self.pools, self.ctx,
                                  cfg.num_slots,
                                  self.layout.max_blocks_per_seq,
-                                 cross=self.arena is not None) \
+                                 cross=self.arena is not None,
+                                 capture=capture) \
             if self.fused_decode else None
 
     def _dev(self, a: np.ndarray) -> torch.Tensor:
@@ -350,9 +372,11 @@ class PagedBackend:
         cross = None if self.arena is None else (self.arena_ids,
                                                   self.enc_lengths)
         t0 = time.monotonic()
+        n0 = self._collectives()
         toks = self.decode.dispatch(self.pools, self.table, self.lengths,
                                     host_tokens, use_prev, prev_toks,
                                     steps, samp, cross)
+        self.step_collectives += self._collectives() - n0
         self.steps += 1
         if self.decode.graphed:
             self.graph_replays += 1
@@ -974,10 +998,17 @@ class PagedBackend:
 
     # -- reporting ------------------------------------------------------
 
+    def _collectives(self) -> int:
+        """This engine's collectives so far (0 without a mesh)."""
+        return 0 if self.shard is None else self.shard.stats.collectives
+
     def reset_telemetry(self):
         """Zero the counters behind ``stats()`` (e.g. after a warmup);
         does not touch scheduling state."""
         self.finished.clear()
+        if self.shard is not None:
+            self.shard.stats.reset()
+        self.step_collectives = 0
         self.steps = self.slot_steps = 0
         self.graph_replays = self.eager_decode_steps = 0
         self.block_token_steps = self.live_token_steps = 0
@@ -999,9 +1030,12 @@ class PagedBackend:
         a quantized pool's scales included (and the cross arena's
         leaves); ``prefill_shapes`` counts the distinct admission shapes
         (JAX's ``prefill_compiles``), ``cross_arena`` the arena's rows
-        and shared admissions."""
+        and shared admissions. Under a mesh ``pool_bytes`` is this
+        rank's (its head shard) and a ``tp`` section reports the mesh
+        (``sharding.tp_report``), whether the decode pool is head-sharded
+        and whether the decode step is a captured graph."""
         cap = self.block_token_steps or 1
-        return {
+        st = {
             "steps": self.steps,
             "mean_active_slots": self.slot_steps / max(self.steps, 1),
             "cache_utilization": self.live_token_steps / cap,
@@ -1037,3 +1071,12 @@ class PagedBackend:
                 "shared_hits": self.arena_hits,
             },
         }
+        if self.shard is not None:
+            from ..sharding import tp_report
+            st["tp"] = dict(
+                tp_report(self.shard, self.device, self.step_collectives,
+                          self.steps),
+                head_sharded=bool(self.ctx.decode_head_shard),
+                captured_step=bool(self.decode is not None
+                                   and self.decode.graphed))
+        return st

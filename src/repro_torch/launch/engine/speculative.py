@@ -24,11 +24,14 @@ Two drafters:
 * ``DraftModelDrafter`` — a small draft ``Model`` sharing the target's
   vocabulary, decoded greedily slot-parallel over dense per-slot caches
   (plain torch) after a prefill through kernel K1; its cache rolls back
-  by the same position-pointer rewind.
+  by the same position-pointer rewind. Under a mesh the draft model
+  runs whole on every rank (replicated), the target's verify and suffix
+  prefill on each rank's heads (K3 through its ``*_headshard`` wrapper).
 """
 
 from __future__ import annotations
 
+import dataclasses
 import time
 
 import numpy as np
@@ -284,8 +287,12 @@ class SpecDecodeBackend(PagedBackend):
                     and cfg.draft_model.cfg.vocab_size != model.cfg.vocab_size:
                 raise ValueError("draft and target models must share a "
                                  "vocabulary")
-            self.drafter = DraftModelDrafter(cfg.draft_model,
-                                             cfg.draft_params, cfg, ctx)
+            # the draft model runs whole on every rank (its params are
+            # not sliced): the same proposals everywhere
+            self.drafter = DraftModelDrafter(
+                cfg.draft_model, cfg.draft_params, cfg,
+                dataclasses.replace(ctx, shard=None,
+                                    decode_head_shard=False))
         else:
             raise ValueError(f"unknown drafter {cfg.drafter!r} "
                              f"(have {_DRAFTERS})")
@@ -423,12 +430,14 @@ class SpecDecodeBackend(PagedBackend):
             def commit_fn(logits):
                 return verify_accept(logits, tok_t, nd_t, *samp)
         t0 = time.monotonic()
+        n0 = self._collectives()
         out_toks, commit, self.pools = self.model.decode_verify(
             self.params, self.pools, self._dev(self.table),
             self._dev(self.lengths), tok_t, commit_fn, self.ctx)
         out_toks = out_toks.cpu().numpy()     # waits for the device
         commit = commit.cpu().numpy()
         self.device_s += time.monotonic() - t0
+        self.step_collectives += self._collectives() - n0
         self.steps += 1
         self.spec_steps += 1
         self.slot_steps += len(active)

@@ -17,6 +17,11 @@ with the paged backend). Models whose prefill state cannot be taken at
 a padded length batch FCFS runs of equal prompt length instead. Eager
 on both devices: the prefill runs K1 (and K5 for RG-LRU layers) on the
 card, the dense decode is plain torch, as JAX computes it in jnp.
+
+Under a mesh (``RunCtx.shard``) each rank keeps its param slices and its
+kv-head slice of the (L, B, S, Hkv, hd) cache (``sharding.batch_specs``'
+cache rules, applied by ``Model.prefill``); the decode is eager, its
+collectives counted in ``stats()["tp"]``.
 """
 
 from __future__ import annotations
@@ -27,6 +32,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from ...models import paged_kv
 from .api import (EngineConfig, RequestHandle, RequestOutput, prefill_bucket,
                   register_sample)
 from .sampling import SlotSampler
@@ -41,6 +47,10 @@ class StaticBackend:
 
     def __init__(self, model, params, cfg: EngineConfig, ctx):
         self.model = model
+        self.shard = ctx.shard
+        if self.shard is not None:
+            from ..sharding import shard_params
+            params = shard_params(params, self.shard)
         self.params = params
         self.cfg = cfg
         self.ctx = ctx
@@ -92,9 +102,11 @@ class StaticBackend:
                 self._admit_batch(outs)
             return outs
         rows = np.flatnonzero(self.live)
+        n0 = self._collectives()
         logits, self.cache = self.model.decode_step(
             self.params, self.cache, self._dev(self.last[:, None]),
             self._dev(self.lengths), self.ctx)
+        self.step_collectives += self._collectives() - n0
         toks = self.sampler.sample(logits)
         self.steps += 1
         self.slot_steps += len(rows)
@@ -141,6 +153,7 @@ class StaticBackend:
             max_len=self.cfg.max_len,
             length=length if self.ragged else None, rows=length - 1)
         self.batches += 1
+        self.cache_bytes = paged_kv.pool_bytes(self.cache)
         self.lengths[:] = lens
         self.last[:] = 0
         for i, r in enumerate(reqs):
@@ -184,10 +197,16 @@ class StaticBackend:
 
     # -- reporting ------------------------------------------------------
 
+    def _collectives(self) -> int:
+        return 0 if self.shard is None else self.shard.stats.collectives
+
     def reset_telemetry(self):
         """Zero the counters behind ``stats()`` (e.g. after a warm-up);
         does not touch scheduling state."""
         self.finished.clear()
+        if self.shard is not None:
+            self.shard.stats.reset()
+        self.step_collectives = self.cache_bytes = 0
         self.steps = self.batches = 0
         self.slot_steps = self.live_token_steps = 0
 
@@ -196,10 +215,16 @@ class StaticBackend:
         every lane pays max_len whether live or not);
         ``prefill_compiles`` counts the prefill shapes seen."""
         cap = self.steps * self.cfg.num_slots * self.cfg.max_len or 1
-        return {
+        st = {
             "steps": self.steps,
             "batches": self.batches,
             "mean_active_slots": self.slot_steps / max(self.steps, 1),
             "cache_utilization": self.live_token_steps / cap,
             "prefill_compiles": len(self._prefill_shapes),
         }
+        if self.shard is not None:
+            from ..sharding import tp_report
+            st["tp"] = dict(tp_report(self.shard, self.device,
+                                      self.step_collectives, self.steps),
+                            cache_bytes=self.cache_bytes)
+        return st

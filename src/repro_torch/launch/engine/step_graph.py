@@ -37,7 +37,10 @@ feed is dead (the eager step passes zeros there, as JAX does).
 
 Kernel launch counters (``kernels/counters.py``) count replays: the
 capture's launches are recorded, taken back out, and added once per
-replay.
+replay. A tensor-parallel rank's collectives (``RunCtx.shard``'s
+``TPStats``) are counted the same way. The backend decides whether to
+capture (``capture=False``: the step runs eagerly on the card too, as a
+gloo mesh needs, whose collectives no graph takes).
 """
 
 from __future__ import annotations
@@ -75,15 +78,17 @@ def _leaves(tree):
 
 class Tokens:
     """One dispatched step's sampled tokens: ``device`` feeds the next
-    step; ``fetch()`` waits for them and returns a numpy (B,) int32."""
+    step; ``fetch()`` waits for them and returns a numpy (B,) int32 (a
+    replay's through its pinned copy and event, an eager step's by a
+    blocking copy)."""
 
     def __init__(self, device_toks, host=None, event=None):
         self.device = device_toks
         self._host, self._event = host, event
 
     def fetch(self) -> np.ndarray:
-        if self._event is None:                  # CPU: computed eagerly
-            return self.device.numpy().copy()
+        if self._event is None:       # eager: a blocking copy on the card
+            return self.device.cpu().numpy().copy()
         self._event.synchronize()                # not the whole device
         return self._host.numpy().copy()
 
@@ -105,13 +110,15 @@ class DecodeStep:
     _CROSS = ("arena", "enc_len")
 
     def __init__(self, model, params, pools, ctx, num_slots: int,
-                 max_blocks: int, cross: bool = False):
+                 max_blocks: int, cross: bool = False, capture: bool = True):
         self.model, self.params, self.ctx = model, params, ctx
         self.device = model.device
         self.N, self.MB = num_slots, max_blocks
         self.fields = self._FIELDS + (self._CROSS if cross else ())
         self._graphs = None
-        if self.device.type == "cuda":
+        self._tp = ctx.shard.stats if ctx.shard is not None else None
+        self._mode = "global" if self._tp is None else "thread_local"
+        if capture and self.device.type == "cuda":
             self._capture(pools)
 
     @property
@@ -158,6 +165,7 @@ class DecodeStep:
         self._ptrs = [t.data_ptr() for t in _leaves(pools)
                       + _leaves(self.params)]
         before = counters.snapshot()
+        tp_before = self._tp.snapshot() if self._tp else None
         side = torch.cuda.Stream(dev)
         side.wait_stream(torch.cuda.current_stream(dev))
         with torch.cuda.stream(side):            # warm-up: builds kernels,
@@ -177,16 +185,26 @@ class DecodeStep:
             for greedy in (True, False):
                 graph = torch.cuda.CUDAGraph()
                 at = counters.snapshot()
-                with torch.cuda.graph(graph, pool=mempool):
+                tp_at = self._tp.snapshot() if self._tp else None
+                # a mesh's collectives: the process group's watchdog
+                # thread queries CUDA events while this thread captures,
+                # which only a thread-local capture allows
+                with torch.cuda.graph(graph, pool=mempool,
+                                      capture_error_mode=self._mode):
                     self._body(pools, greedy)
                 mempool = graph.pool()
+                tp_delta = None if self._tp is None else counters.delta(
+                    tp_at, self._tp.snapshot())
                 graphs[greedy] = (graph,
-                                  counters.delta(at, counters.snapshot()))
+                                  counters.delta(at, counters.snapshot()),
+                                  tp_delta)
         finally:
             if gc_was_on:
                 gc.enable()
         self._graphs = graphs
         counters.restore(before)
+        if self._tp is not None:
+            self._tp.collectives, self._tp.bytes = tp_before
 
     def _replay(self, pools, table, lengths, host_tokens, use_prev, steps,
                 samp, cross) -> Tokens:
@@ -210,12 +228,14 @@ class DecodeStep:
         if cross is not None:
             h["arena"][:], h["enc_len"][:] = cross
         self._words.copy_(st["in"], non_blocking=True)
-        graph, delta = self._graphs[samp is None]
+        graph, delta, tp_delta = self._graphs[samp is None]
         graph.replay()
         st["out"].copy_(self._out, non_blocking=True)
         st["done"] = torch.cuda.Event()
         st["done"].record()
         counters.add(delta)
+        if tp_delta is not None:
+            self._tp.add(tp_delta)
         return Tokens(self._out, st["out"], st["done"])
 
     # -- both devices ----------------------------------------------------

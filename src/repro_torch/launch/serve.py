@@ -8,6 +8,14 @@ Quantized pool:   add --kv-dtype int8 (or fp8)
 Lockstep static:  add --backend static
 Replicas:         add --dp 2 (one device, one shared FCFS queue)
 Disaggregated:    add --dp 2 --roles prefill,decode (or --roles auto)
+Tensor parallel:  add --tp 2 (T ranks: spawned here, or one a process
+                  under torchrun --nproc-per-node T; rank 0 prints)
+
+``--tp T`` serves one engine over T ranks (``launch/mesh.py``): on the
+CPU and on ranks sharing one card over gloo, on T cards of their own over
+NCCL. Every rank builds the same seeded params and keeps its slices; the
+stats carry a ``tp`` section (mesh, rank, backend, whether the decode
+step is a captured graph, collectives per step, bytes).
 """
 
 from __future__ import annotations
@@ -22,7 +30,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch.engine import (DisaggregatedEngine, Engine,
                                        EngineConfig, ReplicaSet,
                                        SamplingParams)
-from repro_torch.models.model import Model
+from repro_torch.launch.mesh import SUBMESHES, launch, not_ported
+from repro_torch.models.model import Model, resolve_device
 
 
 def main(argv=None):
@@ -55,22 +64,35 @@ def main(argv=None):
                          "the paged backend (KV blocks migrate between "
                          "pools, outputs unchanged)")
     ap.add_argument("--tp", type=int, default=1,
-                    help="tensor parallelism over a device mesh: not "
-                         "ported yet")
+                    help="tensor parallelism: one engine over T ranks, "
+                         "each with 1/T of the heads, the MLP and the "
+                         "vocabulary and its kv-head shard of the pool")
     args = ap.parse_args(argv)
-    if args.tp != 1:
-        raise NotImplementedError(
-            "--tp (a device mesh) is not ported yet (ROADMAP queue 1: "
-            "'multi-device')")
+    if args.tp < 1:
+        raise ValueError(f"--tp {args.tp} must be >= 1")
+    if args.tp > 1:
+        if args.dp > 1 or args.roles is not None:
+            raise not_ported(f"--dp {args.dp} / --roles with --tp "
+                             f"{args.tp}", SUBMESHES)
+        resolve_device(args.device)      # no GPU: raise before spawning
+        launch(_serve, args.tp, args.device, args=(args,))
+        return
+    _serve(None, args)
+
+
+def _serve(mesh, args):
+    """Build the model, the engine and the requests, and serve; under a
+    mesh this is one rank, and rank 0 prints."""
     cfg = get_config(args.arch)
     if args.smoke:
         cfg = cfg.smoke()
-    model = Model(cfg, device=args.device)
+    device = args.device if mesh is None else mesh.device
+    model = Model(cfg, device=device)
     params = model.init(seed=0)
     rng = np.random.default_rng(0)
     ecfg = EngineConfig(backend=args.backend, num_slots=args.slots,
                         max_len=128, spec_tokens=args.spec_tokens,
-                        kv_dtype=args.kv_dtype)
+                        kv_dtype=args.kv_dtype, mesh=mesh)
     if args.roles is not None:
         roles = args.roles if args.roles == "auto" \
             else tuple(args.roles.split(","))
@@ -80,7 +102,8 @@ def main(argv=None):
         engine = ReplicaSet(model, params, ecfg, dp=args.dp,
                             device=args.device)
     else:
-        engine = Engine(model, params, ecfg, device=args.device)
+        engine = Engine(model, params, ecfg, device=device)
+        del params                   # under a mesh the engine keeps slices
     prompts = [list(rng.integers(0, cfg.vocab_size,
                                  int(rng.integers(4, 16))))
                for _ in range(args.requests)]
@@ -93,7 +116,10 @@ def main(argv=None):
         torch.cuda.synchronize()
     dt = time.time() - t0
     total = sum(len(o) for o in outs)
-    print(f"[{args.backend} {model.device} dp={args.dp} roles={args.roles} "
+    if mesh is not None and mesh.rank != 0:
+        return
+    print(f"[{args.backend} {model.device} tp={args.tp} dp={args.dp} "
+          f"roles={args.roles} "
           f"spec={args.spec_tokens} kv={args.kv_dtype}] {total} tokens "
           f"over {len(outs)} reqs in {dt:.2f}s ({total / dt:.1f} tok/s)  "
           f"stats={engine.stats()}")

@@ -56,7 +56,7 @@ from ..optim import OptConfig, apply_updates, init_opt_state
 from ..optim.schedule import warmup_cosine
 
 MULTI_DEVICE = ("sharded training (tp > 1, a mesh) waits for queue-1 item "
-                "Multi-device")
+                "Multi-device, sub-item 'sharded training'")
 
 
 def _no_mark(name):

@@ -17,6 +17,14 @@ ring buffers of windowed layers) is plain torch, as JAX computes it in
 plain jnp. Projections are bias-optional (qwen2-vl) with optional
 per-head QK-norm (qwen3); qwen2-vl rotates by M-RoPE.
 
+Tensor parallelism (``shard``, a ``launch.sharding.ShardCtx``): a rank
+holds the column slices of wq / wk / wv (whole heads: its Hq / T query
+and Hkv / T kv heads) and the row slice of wo, so the functions read the
+head counts from the weights, attend over the rank's heads alone (K1,
+and K2 / K3 through the ``*_headshard`` wrappers over the rank's
+head-sharded pool), and all-reduce the output projection's partial sums
+(``layers.tp_reduce``).
+
 Cross-attention (whisper's decoder over the encoder's K/V):
 ``attend_cross``, the dense path's, runs K1 non-causal (Sq query rows
 over all F encoder positions); JAX pins this call to its plain
@@ -73,8 +81,15 @@ def _proj(params, x, name, heads, hd):
     return y.reshape(x.shape[0], x.shape[1], heads, hd)
 
 
+def _heads(params, name, hd) -> int:
+    """Heads of projection ``w<name>``: the config's, or this rank's share
+    of them under tensor parallelism."""
+    return params["w" + name].shape[-1] // hd
+
+
 def _project_qkv(params, cfg, xq, xkv):
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
+    hq, hkv = _heads(params, "q", hd), _heads(params, "k", hd)
     q = _proj(params, xq, "q", hq, hd)
     k = _proj(params, xkv, "k", hkv, hd)
     v = _proj(params, xkv, "v", hkv, hd)
@@ -99,7 +114,7 @@ def _rotate_qk(cfg, q, k, positions, mrope_positions):
 
 
 def attend(params, cfg, x, positions, window=None, causal=True,
-           mrope_positions=None):
+           mrope_positions=None, shard=None):
     """Full-sequence (prefill) self-attention through kernel K1: causal,
     over the last ``window`` positions when set (SWA, local layers), or
     bidirectional (``causal=False``: whisper's exact-length encoder).
@@ -114,8 +129,8 @@ def attend(params, cfg, x, positions, window=None, causal=True,
                                v.transpose(1, 2), causal=causal,
                                window=window)
     B, S, _ = x.shape
-    out = out.transpose(1, 2).reshape(B, S, cfg.n_heads * cfg.head_dim)
-    return out @ params["wo"], {"k": k, "v": v}
+    out = out.transpose(1, 2).reshape(B, S, -1)
+    return layers.tp_reduce(out @ params["wo"], shard), {"k": k, "v": v}
 
 
 def attend_cross(params, cfg, x, kv):
@@ -177,7 +192,7 @@ def encode_cross_kv(params, cfg, enc_out):
 
 
 def decode_attend_paged(params, cfg, x, pool, block_table, lengths, *,
-                        kv_spec=None):
+                        kv_spec=None, shard=None):
     """Single-token decode against a block-paged KV pool.
 
     x: (B, 1, d); pool: {"k", "v"} of (NB, BS, Hkv, D) for this layer
@@ -189,11 +204,13 @@ def decode_attend_paged(params, cfg, x, pool, block_table, lengths, *,
     block ``block_table[b, lengths[b] // BS]``, which the scheduler must
     have allocated (retired slots point at the null block 0, whose
     contents are only ever read masked). The pool is updated IN PLACE
-    (JAX's version returns a new pool); it is also returned.
+    (JAX's version returns a new pool); it is also returned. With
+    ``shard`` the pool is this rank's head shard (K2 through
+    ``paged_decode_attention_headshard``) and the output all-reduced.
     Returns (out (B, 1, d), pool).
     """
     B = x.shape[0]
-    hq, hd = cfg.n_heads, cfg.head_dim
+    hd = cfg.head_dim
     bs = pool["k"].shape[1]
     q, k, v = _project_qkv(params, cfg, x, x)
     if cfg.rope_style == "rope":
@@ -204,14 +221,15 @@ def decode_attend_paged(params, cfg, x, pool, block_table, lengths, *,
     logical = (lengths // bs).clamp(0, block_table.shape[1] - 1)
     phys = block_table[bidx, logical.long()]
     write_kv_rows(pool, phys, lengths % bs, k[:, 0], v[:, 0], kv_spec)
-    out = kops.paged_attention(q.reshape(B, hq, hd), pool, block_table,
-                               lengths + 1, mode="decode", kv_format=kv_spec)
-    out = out.reshape(B, 1, hq * hd).to(x.dtype)
-    return out @ params["wo"], pool
+    out = kops.paged_attention(q.reshape(B, -1, hd), pool, block_table,
+                               lengths + 1, mode="decode", kv_format=kv_spec,
+                               sharding=shard)
+    out = out.reshape(B, 1, -1).to(x.dtype)
+    return layers.tp_reduce(out @ params["wo"], shard), pool
 
 
 def verify_attend_paged(params, cfg, x, pool, block_table, lengths, *,
-                        kv_spec=None):
+                        kv_spec=None, shard=None):
     """Multi-token decode (speculative verify, suffix prefill) against a
     paged KV pool, through kernel K3.
 
@@ -222,11 +240,11 @@ def verify_attend_paged(params, cfg, x, pool, block_table, lengths, *,
     A write whose logical block lies past the table (a pad row of a slot
     near max_len) goes to the null block 0, never clipped into the
     slot's own last block, which holds live K/V. With a quantized
-    ``kv_spec`` all K1 rows quantize at the write frontier. Returns
-    (out (B, K1, d), pool).
+    ``kv_spec`` all K1 rows quantize at the write frontier. With
+    ``shard``: K3 over this rank's head shard, the output all-reduced.
+    Returns (out (B, K1, d), pool).
     """
     B, K1, _ = x.shape
-    hq, hd = cfg.n_heads, cfg.head_dim
     bs = pool["k"].shape[1]
     q, k, v = _project_qkv(params, cfg, x, x)
     pos = lengths.long()[:, None] \
@@ -242,9 +260,10 @@ def verify_attend_paged(params, cfg, x, pool, block_table, lengths, *,
         0)
     write_kv_rows(pool, phys, pos % bs, k, v, kv_spec)
     out = kops.paged_attention(q.contiguous(), pool, block_table, lengths,
-                               mode="verify", kv_format=kv_spec)
-    out = out.reshape(B, K1, hq * hd).to(x.dtype)
-    return out @ params["wo"], pool
+                               mode="verify", kv_format=kv_spec,
+                               sharding=shard)
+    out = out.reshape(B, K1, -1).to(x.dtype)
+    return layers.tp_reduce(out @ params["wo"], shard), pool
 
 
 def init_kv_cache(cfg, batch: int, max_len: int, dtype, device, lead=(),
@@ -259,7 +278,7 @@ def init_kv_cache(cfg, batch: int, max_len: int, dtype, device, lead=(),
 
 
 def decode_attend_batched(params, cfg, x, cache, pos, window=None,
-                          mrope_positions=None):
+                          mrope_positions=None, shard=None):
     """Single-token decode over a per-slot cache with PER-SLOT positions.
 
     x: (B, 1, d); cache: {"k", "v"} of (B, size, Hkv, D), written IN
@@ -270,11 +289,14 @@ def decode_attend_batched(params, cfg, x, cache, pos, window=None,
     set) takes it at ``pos % size`` and, once the ring has wrapped, every
     slot holds an in-window position: RoPE is applied at write time, so
     ring order does not matter. Plain torch, the jnp math of JAX's
-    version. Returns (out (B, 1, d), cache).
+    version. With ``shard`` the cache holds this rank's kv heads (the
+    static backend's over a mesh) and the output is all-reduced. Returns
+    (out (B, 1, d), cache).
     """
     B = x.shape[0]
-    hq, hkv, hd = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    hd = cfg.head_dim
     q, k, v = _project_qkv(params, cfg, x, x)
+    hq, hkv = q.shape[2], k.shape[2]
     q, k = _rotate_qk(cfg, q, k, pos[:, None], mrope_positions)
     size = cache["k"].shape[1]
     p = pos.long()
@@ -293,7 +315,7 @@ def decode_attend_batched(params, cfg, x, cache, pos, window=None,
     probs = torch.softmax(logits, dim=-1)
     out = torch.einsum("bhgs,bhsd->bhgd", probs, vf)
     out = out.reshape(B, 1, hq * hd).to(x.dtype)
-    return out @ params["wo"], cache
+    return layers.tp_reduce(out @ params["wo"], shard), cache
 
 
 def ring_from_prefill(kv, size, length):

@@ -5,8 +5,11 @@ path: norms rmsnorm (``(1 + scale)`` convention), layernorm and
 nonparametric (OLMo: LayerNorm without affine), the per-head group norm
 of the xLSTM cells, gated and plain MLPs, half-split RoPE with f32
 angles, Qwen2-VL's three-stream M-RoPE, whisper's sinusoidal position
-table, and the causal depthwise temporal conv in front of the RG-LRU
-and the mLSTM. Params are plain dicts of tensors.
+table, the causal depthwise temporal conv in front of the RG-LRU
+and the mLSTM, and the collectives of tensor parallelism (``tp_reduce``
+after a row-parallel product, ``vocab_parallel_lookup`` and
+``tp_gather_vocab`` over a vocab-sharded table and head). Params are
+plain dicts of tensors.
 Initializers take a ``lead`` shape so a scan group's stacked
 ``(count, ...)`` leaves are drawn in one call.
 """
@@ -102,14 +105,83 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, gated: bool = True,
     return p
 
 
-def apply_mlp(params, x, activation: str = "silu"):
+def apply_mlp(params, x, activation: str = "silu", shard=None):
+    """Gated (or plain) MLP. Under ``shard`` the weights are this rank's
+    slices (w_up / w_gate column-parallel, w_down row-parallel) and the
+    partial output is all-reduced over the model axis."""
     act = _ACT[activation]
     up = x @ params["w_up"]
     if "w_gate" in params:
         up = act(x @ params["w_gate"]) * up
     else:
         up = act(up)
-    return up @ params["w_down"]
+    return tp_reduce(up @ params["w_down"], shard)
+
+
+# ---------------------------------------------------------------------------
+# Tensor-parallel collectives (``shard``: a launch.sharding.ShardCtx)
+# ---------------------------------------------------------------------------
+
+
+def _timed(shard, collective):
+    """Run ``collective()``, counted in the engine's ``TPStats`` and,
+    while its ``timing`` is a list, between two recorded CUDA events."""
+    timing = shard.stats.timing
+    if timing is None:
+        return collective()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = collective()
+    end.record()
+    timing.append((start, end))
+    return out
+
+
+def tp_reduce(x, shard):
+    """Sum a row-parallel product's partial outputs over the model axis
+    (``all_reduce``, in x's dtype); identity without a mesh."""
+    if shard is None or shard.tp_size == 1:
+        return x
+    x = x.contiguous()
+    shard.stats.record(x.numel() * x.element_size())
+    _timed(shard, lambda: torch.distributed.all_reduce(x, group=shard.group))
+    return x
+
+
+def tp_gather_vocab(x, shard):
+    """Concatenate each rank's vocab slice of the last axis (rank order is
+    vocab order), so every rank holds the whole row; identity without a
+    mesh. NCCL gathers into one tensor (a captured step can replay it);
+    gloo takes the list form."""
+    if shard is None or shard.tp_size == 1:
+        return x
+    x = x.contiguous()
+    T = shard.tp_size
+    shard.stats.record(x.numel() * x.element_size())
+    if shard.backend == "nccl":
+        out = x.new_empty((T,) + tuple(x.shape))
+        _timed(shard, lambda: torch.distributed.all_gather_into_tensor(
+            out, x, group=shard.group))
+        return out.movedim(0, -2).reshape(*x.shape[:-1], T * x.shape[-1])
+    parts = [torch.empty_like(x) for _ in range(T)]
+    _timed(shard, lambda: torch.distributed.all_gather(parts, x,
+                                                       group=shard.group))
+    return torch.cat(parts, dim=-1)
+
+
+def vocab_parallel_lookup(table, tokens, shard):
+    """Rows of a vocab-sharded embedding table (Megatron-style): each
+    rank gathers the ids in its vocab range [rank * V/T, (rank + 1) *
+    V/T), zeros the rest, and an all-reduce assembles the embeddings (a
+    sum with one nonzero term: exact). Without a mesh, a plain gather."""
+    if shard is None or shard.tp_size == 1:
+        return table[tokens.long()]
+    v_loc = table.shape[0]
+    loc = tokens.long() - shard.tp_rank * v_loc
+    valid = (loc >= 0) & (loc < v_loc)
+    g = table[loc.clamp(0, v_loc - 1)].masked_fill(~valid[..., None], 0)
+    return tp_reduce(g, shard)
 
 
 # ---------------------------------------------------------------------------

@@ -150,13 +150,15 @@ class Model:
             quantized_kv=paged and not cfg.enc_dec,
         )
 
-    def init_cache(self, batch: int, max_len: int):
+    def init_cache(self, batch: int, max_len: int, shard=None):
         """Per-slot decode caches (the draft model's, dense decode's):
         linear or ring K/V, recurrent state; an enc-dec config's self-KV
-        and cross K/V."""
+        and cross K/V. ``shard`` (a ``launch.sharding.ShardCtx``): this
+        rank's kv-head slice of a decoder-only stack's caches."""
         if self.cfg.enc_dec:
             return encdec.init_cache(self.cfg, batch, max_len, self.device)
-        return transformer.init_cache(self.cfg, batch, max_len, self.device)
+        return transformer.init_cache(self.cfg, batch, max_len, self.device,
+                                      shard)
 
     def decode_step(self, params, cache, tokens, pos, ctx: RunCtx,
                     mrope_positions=None):
@@ -168,18 +170,24 @@ class Model:
         return transformer.decode_step(params, self.cfg, cache, tokens, pos,
                                        ctx, mrope_positions=mrope_positions)
 
-    def init_paged_cache(self, layout, spec=None):
+    def init_paged_cache(self, layout, spec=None, shard=None):
         """Block pools on this model's device; ``spec`` (a
         ``paged_kv.PoolSpec``) selects an int8/fp8 block format. An
         enc-dec config's tree is its self-KV pool and the cross arena,
-        always in the model dtype."""
+        always in the model dtype. ``shard`` (a decoder-only stack's):
+        this rank's head shard of every pool (``paged_cache_specs``)."""
         if self.cfg.enc_dec:
             if spec is not None and spec.quantized:
                 raise ValueError("quantized KV is decoder-only "
                                  "(ServingCaps.quantized_kv)")
             return encdec.init_paged_cache(self.cfg, layout, self.device)
         return transformer.init_paged_cache(self.cfg, layout, self.device,
-                                            spec)
+                                            spec, shard)
+
+    def paged_cache_specs(self, layout, shard, spec=None):
+        """Specs of the ``init_paged_cache`` tree over ``shard``'s mesh
+        (``transformer.paged_cache_specs``); decoder-only stacks."""
+        return transformer.paged_cache_specs(self.cfg, layout, shard, spec)
 
     def paged_pool_mask(self, layout, spec=None):
         """Same-structure tree of kind strings over ``init_paged_cache``:

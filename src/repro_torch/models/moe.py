@@ -38,7 +38,8 @@ assignments its first pass dropped.
 Per-expert counts come from an integer ``scatter_add_`` of fixed size E
 (``torch.bincount`` on CUDA reads its maximum back to the host, which a
 captured decode step cannot do). The expert-parallel
-``apply_moe_sharded`` is queue 1's 'multi-device'.
+``apply_moe_sharded`` is queue 1's 'multi-device', sub-item 'the other
+families under TP' (an MoE config under a mesh raises naming it).
 """
 
 from __future__ import annotations

@@ -429,6 +429,17 @@ class CrossArena:
             raise AssertionError("arena key maps disagree")
 
 
+def head_shard_ok(cfg, tp_size: int) -> bool:
+    """True when the head-sharded pool layout is exact for this model:
+    each rank of the model axis owns a whole kv-head shard of every
+    block (and the matching query-head groups), so its paged attention
+    needs no collective. GQA group alignment follows from both
+    divisibilities: rank i's query heads [i*Hq/t, (i+1)*Hq/t) map onto
+    exactly its kv heads [i*Hkv/t, (i+1)*Hkv/t)."""
+    return (tp_size > 1 and cfg.n_heads % tp_size == 0
+            and cfg.n_kv_heads % tp_size == 0)
+
+
 # ---------------------------------------------------------------------------
 # Pool format: PoolSpec + KV quantization
 # ---------------------------------------------------------------------------
@@ -445,8 +456,11 @@ class PoolSpec:
     geometry, and the physical head dim (``padded_head_dim`` pads
     blocks wider than the model's head dim; 0 means unpadded). Frozen
     and hashable, like JAX's. ``kv_dtype="bf16"`` with no padding yields
-    exactly the pool tree of an engine without a spec. Head-sharded
-    pools are not ported (``head_sharded=True`` raises).
+    exactly the pool tree of an engine without a spec. ``head_sharded``
+    marks a pool split by kv heads over the model axis of a mesh: its
+    ``n_kv_heads`` stays the model's, each rank's pool holds
+    ``n_kv_heads / T`` of them (``transformer.init_paged_cache``), its
+    scale leaves split with the payload.
     """
 
     kv_dtype: str = "bf16"                # "bf16" | "int8" | "fp8"
@@ -462,10 +476,6 @@ class PoolSpec:
                              f"got {self.kv_dtype!r}")
         if self.padded_head_dim and self.padded_head_dim < self.head_dim:
             raise ValueError("padded_head_dim < head_dim")
-        if self.head_sharded:
-            raise NotImplementedError(
-                "head-sharded paged pools are not ported yet (ROADMAP "
-                "queue 1: 'multi-device')")
 
     @property
     def quantized(self) -> bool:
@@ -491,12 +501,13 @@ class PoolSpec:
         return self.padded_head_dim or self.head_dim
 
 
-def make_pool_spec(cfg, layout: PagedLayout, *,
-                   kv_dtype: str = "bf16") -> PoolSpec:
+def make_pool_spec(cfg, layout: PagedLayout, *, kv_dtype: str = "bf16",
+                   head_sharded: bool = False) -> PoolSpec:
     """Build the (unpadded) ``PoolSpec`` for a model config + paged
     layout."""
     return PoolSpec(kv_dtype=kv_dtype, block_size=layout.block_size,
-                    n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim)
+                    n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+                    head_sharded=head_sharded)
 
 
 def quantize_kv(x, spec: PoolSpec):

@@ -42,6 +42,15 @@ Phases sharing one param set:
              nothing autograd saves is written in place (the MoE fills a
              fresh dispatch buffer), so autograd can differentiate it
 
+Tensor parallelism (``RunCtx.shard``, a ``launch.sharding.ShardCtx``):
+every rank runs these functions on its slices of the params
+(``sharding.shard_params``) and its head shard of the pools and caches
+(``init_paged_cache`` / ``init_cache`` with ``shard``): the embedding is
+a vocab-parallel lookup, attention runs over the rank's heads, the
+output projection and the MLP's down projection all-reduce, and the
+head's vocab slices are all-gathered, so every rank holds the whole
+logits: 2 L + 2 collectives a decode step. Training stays single-device.
+
 The VLM (qwen2-vl) runs the dense path only, as in JAX (no paged decode:
 ``ServingCaps.paged_decode``): its prefill splices ``visual_embeds`` over
 the first ``visual_prefix`` token embeddings and rotates q / k by M-RoPE
@@ -77,13 +86,18 @@ class RunCtx:
     ``remat="full"`` recomputes each layer's activations in the backward
     pass (``torch.utils.checkpoint``, where JAX uses ``jax.checkpoint``),
     ``ce_chunk > 0`` takes the cross-entropy over sequence chunks of
-    that many positions. The sharding fields of JAX's context arrive
-    with their slice.
+    that many positions. ``shard`` (a ``launch.sharding.ShardCtx``) runs
+    the serving functions tensor-parallel over its mesh; the Engine sets
+    ``decode_head_shard`` where ``paged_kv.head_shard_ok`` holds, and the
+    paged decode and verify refuse a mesh without it (the
+    replicated-pool fallback is not ported).
     """
 
     kv_spec: object = None
     remat: str = "none"             # none | full
     ce_chunk: int = 0               # >0: CE over seq chunks
+    shard: object = None            # launch.sharding.ShardCtx or None
+    decode_head_shard: bool = False
 
 
 def check_supported(cfg) -> None:
@@ -233,13 +247,14 @@ def _is_pool_kind(cfg, kind) -> bool:
     return kind in ("attn", "local") and _window_for(cfg, kind) is None
 
 
-def _ffn_part(p, cfg, x, dropless: bool = True):
+def _ffn_part(p, cfg, x, dropless: bool = True, shard=None):
     """Pre-norm MoE or MLP + residual; an mLSTM / sLSTM block has
     neither and passes ``x`` through. Returns (x, aux). Every serving
     path runs the MoE ``dropless``, as JAX's do, and its aux is 0.0 (no
     statistics are computed for it); the training form passes
     ``dropless=False``: the MoE routes with the capacity factor and aux
-    is its Switch loss, an f32 scalar."""
+    is its Switch loss, an f32 scalar. ``shard``: the MLP's row-parallel
+    reduce."""
     aux = 0.0
     if "moe" in p:
         xn = layers.apply_norm(cfg.norm, p["ln2"], x)
@@ -250,12 +265,12 @@ def _ffn_part(p, cfg, x, dropless: bool = True):
             x = x + delta
     elif "mlp" in p:
         xn = layers.apply_norm(cfg.norm, p["ln2"], x)
-        x = x + layers.apply_mlp(p["mlp"], xn, cfg.activation)
+        x = x + layers.apply_mlp(p["mlp"], xn, cfg.activation, shard)
     return x, aux
 
 
 def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None,
-                mrope_positions=None):
+                mrope_positions=None, shard=None):
     """Full-sequence block that also emits the layer's decode cache.
     Returns (x, cache). ``mrope_positions`` (3, B, S): the M-RoPE ids of
     an mrope config's attention layers.
@@ -273,7 +288,7 @@ def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None,
     if kind in ("attn", "local"):
         out, cache = _attend_with_cache(p["attn"], cfg, xn, positions,
                                         _window_for(cfg, kind), cache_len,
-                                        length, mrope_positions)
+                                        length, mrope_positions, shard)
     elif kind == "rglru":
         out, cache = _rglru_with_cache(p["rec"], cfg, xn, length)
     elif kind == "mlstm":
@@ -282,16 +297,16 @@ def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None,
         out, cache = _slstm_with_cache(p["mix"], cfg, xn, length)
     else:
         raise ValueError(kind)
-    return _ffn_part(p, cfg, x + out)[0], cache
+    return _ffn_part(p, cfg, x + out, shard=shard)[0], cache
 
 
 def _attend_with_cache(params, cfg, xn, positions, window, cache_len,
-                       length=None, mrope_positions=None):
+                       length=None, mrope_positions=None, shard=None):
     """Attention through K1 plus the layer's cache: the rotated (B, S,
     Hkv, D) K/V for a linear cache, else a ring of ``min(window,
     cache_len)`` rows in ring order (slot = pos % size)."""
     out, kv = attn_lib.attend(params, cfg, xn, positions, window=window,
-                              mrope_positions=mrope_positions)
+                              mrope_positions=mrope_positions, shard=shard)
     S = xn.shape[1]
     if not window:
         return out, kv
@@ -363,7 +378,7 @@ def _recurrent_decode(p, cfg, kind, xn, cache):
 
 
 def apply_block_decode_paged(p, cfg, kind, x, cache, block_table, lengths,
-                             kv_spec=None):
+                             kv_spec=None, shard=None):
     """One-token block step with PER-SLOT positions ``lengths``: full
     attention over the paged pool, a windowed layer over its per-slot
     ring, a recurrent layer on its per-slot state; the cache is written
@@ -374,17 +389,18 @@ def apply_block_decode_paged(p, cfg, kind, x, cache, block_table, lengths,
         if window is None:
             out, _ = attn_lib.decode_attend_paged(
                 p["attn"], cfg, xn, cache, block_table, lengths,
-                kv_spec=kv_spec)
+                kv_spec=kv_spec, shard=shard)
         else:
             out, _ = attn_lib.decode_attend_batched(
-                p["attn"], cfg, xn, cache, lengths, window=window)
+                p["attn"], cfg, xn, cache, lengths, window=window,
+                shard=shard)
     else:
         out = _recurrent_decode(p, cfg, kind, xn, cache)
-    return _ffn_part(p, cfg, x + out)[0]
+    return _ffn_part(p, cfg, x + out, shard=shard)[0]
 
 
 def _decode_window_scan(p, cfg, kind, x, cache, block_table, lengths,
-                        kv_spec=None):
+                        kv_spec=None, shard=None):
     """Run the single-token decode cell over a K1-token verify window,
     keeping the per-position state as candidates.
 
@@ -402,7 +418,8 @@ def _decode_window_scan(p, cfg, kind, x, cache, block_table, lengths,
     outs = []
     for j in range(K1):
         xo = apply_block_decode_paged(p, cfg, kind, x[:, j:j + 1], work,
-                                      block_table, lengths + j, kv_spec)
+                                      block_table, lengths + j, kv_spec,
+                                      shard)
         outs.append(xo)
         for n, t in work.items():
             cands[n][:, j] = t
@@ -410,7 +427,7 @@ def _decode_window_scan(p, cfg, kind, x, cache, block_table, lengths,
 
 
 def apply_block_verify_paged(p, cfg, kind, x, cache, block_table, lengths,
-                             kv_spec=None):
+                             kv_spec=None, shard=None):
     """K1-token block step for the verify window. A full-attention layer
     runs ONE multi-query pass over the paged pool (written in place; the
     pool commits by construction: the host rewinds the length pointer
@@ -419,15 +436,16 @@ def apply_block_verify_paged(p, cfg, kind, x, cache, block_table, lengths,
     per-position candidate states (``_decode_window_scan``)."""
     if not _is_pool_kind(cfg, kind):
         return _decode_window_scan(p, cfg, kind, x, cache, block_table,
-                                   lengths, kv_spec)
+                                   lengths, kv_spec, shard)
     xn = layers.apply_norm(cfg.norm, p["ln1"], x)
     out, _ = attn_lib.verify_attend_paged(p["attn"], cfg, xn, cache,
                                           block_table, lengths,
-                                          kv_spec=kv_spec)
-    return _ffn_part(p, cfg, x + out)[0], cache
+                                          kv_spec=kv_spec, shard=shard)
+    return _ffn_part(p, cfg, x + out, shard=shard)[0], cache
 
 
-def apply_block_decode(p, cfg, kind, x, cache, pos, mrope_positions=None):
+def apply_block_decode(p, cfg, kind, x, cache, pos, mrope_positions=None,
+                       shard=None):
     """One-token block over a per-slot cache (linear or ring; recurrent
     state), written in place; ``pos`` (B,) per-slot positions,
     ``mrope_positions`` (3, B, 1) an mrope config's ids."""
@@ -435,10 +453,10 @@ def apply_block_decode(p, cfg, kind, x, cache, pos, mrope_positions=None):
     if kind in ("attn", "local"):
         out, _ = attn_lib.decode_attend_batched(
             p["attn"], cfg, xn, cache, pos, window=_window_for(cfg, kind),
-            mrope_positions=mrope_positions)
+            mrope_positions=mrope_positions, shard=shard)
     else:
         out = _recurrent_decode(p, cfg, kind, xn, cache)
-    return _ffn_part(p, cfg, x + out)[0]
+    return _ffn_part(p, cfg, x + out, shard=shard)[0]
 
 
 def init_block_cache(cfg, kind, batch: int, max_len: int, dtype, device,
@@ -458,12 +476,14 @@ def init_block_cache(cfg, kind, batch: int, max_len: int, dtype, device,
 # ---------------------------------------------------------------------------
 
 
-def _embed(params, cfg, tokens, visual_embeds=None, pos_offset=None):
+def _embed(params, cfg, tokens, visual_embeds=None, pos_offset=None,
+           shard=None):
     """Token embeddings (scaled for gemma); a VLM's first
     ``visual_prefix`` positions replaced by ``visual_embeds`` cast to the
     model dtype; a sinusoidal config's table added at ``pos_offset``
-    ((B,) int, default 0) + the position in the sequence."""
-    x = params["embed"][tokens.long()]
+    ((B,) int, default 0) + the position in the sequence. ``shard``: the
+    table is this rank's vocab slice (``layers.vocab_parallel_lookup``)."""
+    x = layers.vocab_parallel_lookup(params["embed"], tokens, shard)
     if cfg.embed_scale:
         # the scale rounded to the model dtype, by a device-side fill
         # (torch.tensor would copy from the host: no capture, a sync)
@@ -480,10 +500,13 @@ def _embed(params, cfg, tokens, visual_embeds=None, pos_offset=None):
     return x
 
 
-def _logits(params, cfg, x):
-    """``x @ head`` in the model dtype, then upcast to f32 (JAX's order)."""
+def _logits(params, cfg, x, shard=None):
+    """``x @ head`` in the model dtype, then upcast to f32 (JAX's order).
+    ``shard``: the head is this rank's vocab slice, and the slices are
+    all-gathered (before the exact upcast), so every rank holds the whole
+    logits and samples the same token."""
     head = params["embed"].T if cfg.tie_embeddings else params["lm_head"]
-    return (x @ head).float()
+    return layers.tp_gather_vocab(x @ head, shard).float()
 
 
 def prefill_supports_ragged(cfg) -> bool:
@@ -524,7 +547,7 @@ def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
     mrope, ``mrope_positions`` (3, B, S); it has no right-padded form
     (``length`` raises, as in JAX).
     """
-    del ctx
+    shard = ctx.shard
     check_supported(cfg)
     if length is not None and not prefill_supports_ragged(cfg):
         raise NotImplementedError(
@@ -532,39 +555,53 @@ def prefill(params, cfg, tokens, ctx: RunCtx, max_len=None, length=None,
             "with relative/absent positions")
     B, S = tokens.shape
     cache_len = max_len or S
-    x = _embed(params, cfg, tokens, visual_embeds)
+    x = _embed(params, cfg, tokens, visual_embeds, shard=shard)
     positions = torch.arange(S, dtype=torch.int32, device=tokens.device)
-    caches = init_cache(cfg, B, cache_len, x.device)
+    caches = init_cache(cfg, B, cache_len, x.device, shard)
     for kind, (lp, lc) in _layers(cfg, params["groups"], caches):
         x, cache = apply_block(lp, cfg, kind, x, positions, cache_len,
-                               length, mrope_positions)
+                               length, mrope_positions, shard)
         _store(lc, cache)
     if rows is not None:
         x = x[torch.arange(B, device=x.device), rows.long()][:, None]
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
-    logits = _logits(params, cfg, x)
+    logits = _logits(params, cfg, x, shard)
     return (logits[:, 0] if rows is not None else logits), caches
 
 
-def init_cache(cfg, batch: int, max_len: int, device):
+def init_cache(cfg, batch: int, max_len: int, device, shard=None):
     """Stacked per-slot decode caches mirroring the group structure
     (zero-filled): linear or ring K/V per attention layer, the carries
-    (and conv tail) per recurrent layer."""
+    (and conv tail) per recurrent layer. ``shard``: this rank's slice of
+    each leaf by the cache rules (``sharding.batch_specs``: K/V split
+    over kv heads), allocated at its local shape."""
     check_supported(cfg)
+    if shard is not None:
+        from ..launch import sharding
+        meta = init_cache(cfg, batch, max_len, torch.device("meta"))
+        return sharding.local_zeros(meta, sharding.batch_specs(meta, shard),
+                                    shard, device)
     dtype = model_dtype(cfg)
     return map_layer_tree(cfg, lambda gk, pk, kind, count: init_block_cache(
         cfg, kind, batch, max_len, dtype, device, lead=(count,)))
 
 
-def init_paged_cache(cfg, layout, device, spec=None):
+def init_paged_cache(cfg, layout, device, spec=None, shard=None):
     """Stacked per-layer caches for the paged serving engine
     (zero-filled; block tables and lengths live with the scheduler).
     Full-attention layers share a block pool, whose format ``spec`` (a
     ``paged_kv.PoolSpec``) selects: a quantized spec stores int8/fp8
     payloads plus scale leaves. Windowed and recurrent layers keep
     per-slot state in the model dtype (the carries in f32), as in
-    ``init_cache``."""
+    ``init_cache``. ``shard``: this rank's slice of every leaf
+    (``paged_cache_specs``: each pool's kv-head shard, scales with it),
+    allocated at its local shape, never whole."""
     check_supported(cfg)
+    if shard is not None:
+        from ..launch import sharding
+        meta = init_paged_cache(cfg, layout, torch.device("meta"), spec)
+        return sharding.local_zeros(
+            meta, paged_cache_specs(cfg, layout, shard, spec), shard, device)
     dtype = model_dtype(cfg)
 
     def one(gk, pk, kind, count):
@@ -596,6 +633,35 @@ def paged_pool_mask(cfg, layout, spec=None):
 
     return map_layer_tree(cfg, lambda gk, pk, kind, count: tag(
         shapes[gk][pk], "pool" if _is_pool_kind(cfg, kind) else "slot"))
+
+
+def paged_cache_specs(cfg, layout, shard, spec=None):
+    """Specs of the ``init_paged_cache`` tree under a mesh (JAX's): block
+    pools head-sharded over the model axis (``sharding.paged_pool_spec``;
+    a quantized pool's scale leaves on the same head axis), rings and
+    recurrent state on the per-slot cache rules. Pool leaves are found by
+    layer KIND, never by shape."""
+    from ..launch import sharding
+
+    shapes = init_paged_cache(cfg, layout, torch.device("meta"), spec)
+
+    def one(gk, pk, kind, count):
+        sub = shapes[gk][pk]
+        if _is_pool_kind(cfg, kind):
+            return {n: sharding.paged_pool_spec(t.shape, shard)
+                    for n, t in sub.items()}
+        return sharding.batch_specs(sub, shard)
+
+    return map_layer_tree(cfg, one)
+
+
+def _check_head_shard(ctx: RunCtx):
+    """A paged step over a mesh needs the head-sharded pool."""
+    if ctx.shard is not None and ctx.shard.tp_size > 1 \
+            and not ctx.decode_head_shard:
+        from ..launch.mesh import TP_FAMILIES, not_ported
+        raise not_ported("paged attention over a replicated pool",
+                         TP_FAMILIES)
 
 
 def pack_prefill_into_paged(cfg, layout, pools, dense_caches, row_of_slot,
@@ -636,12 +702,14 @@ def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
     rows, ring rows and recurrent states are written into ``pools`` IN
     PLACE. Returns (logits (B, V) f32, pools).
     """
-    x = _embed(params, cfg, tokens)
+    _check_head_shard(ctx)
+    shard = ctx.shard
+    x = _embed(params, cfg, tokens, shard=shard)
     for kind, (lp, pool) in _layers(cfg, params["groups"], pools):
         x = apply_block_decode_paged(lp, cfg, kind, x, pool, block_table,
-                                     lengths, ctx.kv_spec)
+                                     lengths, ctx.kv_spec, shard)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
-    return _logits(params, cfg, x)[:, 0], pools
+    return _logits(params, cfg, x, shard)[:, 0], pools
 
 
 def select_verify_state(cfg, cands, commit):
@@ -679,7 +747,9 @@ def decode_verify_paged(params, cfg, pools, block_table, lengths, tokens,
     written in place; per-slot state is selected at the accept boundary
     (``select_verify_state``). Returns (out_tokens, commit, pools).
     """
-    x = _embed(params, cfg, tokens)
+    _check_head_shard(ctx)
+    shard = ctx.shard
+    x = _embed(params, cfg, tokens, shard=shard)
     per_layer = map_layer_tree(cfg, lambda gk, pk, kind, count: [])
     for gk, pattern, count in layer_walk(cfg):
         for i in range(count):
@@ -688,7 +758,7 @@ def decode_verify_paged(params, cfg, pools, block_table, lengths, tokens,
                 x, c = apply_block_verify_paged(
                     layer_slice(params["groups"][gk][pk], i), cfg, kind, x,
                     layer_slice(pools[gk][pk], i), block_table, lengths,
-                    ctx.kv_spec)
+                    ctx.kv_spec, shard)
                 per_layer[gk][pk].append(c)
 
     def stacked(gk, pk, kind, count):
@@ -699,7 +769,7 @@ def decode_verify_paged(params, cfg, pools, block_table, lengths, tokens,
 
     cands = map_layer_tree(cfg, stacked)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
-    out_tokens, commit = commit_fn(_logits(params, cfg, x))
+    out_tokens, commit = commit_fn(_logits(params, cfg, x, shard))
     return out_tokens, commit, select_verify_state(cfg, cands, commit)
 
 
@@ -708,13 +778,15 @@ def decode_step(params, cfg, cache, tokens, pos, ctx: RunCtx,
     """Dense decode step: tokens (B, 1) at per-slot positions ``pos``
     (B,) over ``init_cache`` caches (written IN PLACE) -> (logits (B, V)
     f32, cache). An mrope config takes the tokens' ``mrope_positions``
-    (3, B, 1)."""
-    del ctx
-    x = _embed(params, cfg, tokens, pos_offset=pos)
+    (3, B, 1). ``ctx.shard``: the cache is this rank's kv-head shard (the
+    static backend over a mesh)."""
+    shard = ctx.shard
+    x = _embed(params, cfg, tokens, pos_offset=pos, shard=shard)
     for kind, (lp, lc) in _layers(cfg, params["groups"], cache):
-        x = apply_block_decode(lp, cfg, kind, x, lc, pos, mrope_positions)
+        x = apply_block_decode(lp, cfg, kind, x, lc, pos, mrope_positions,
+                               shard)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
-    return _logits(params, cfg, x)[:, 0], cache
+    return _logits(params, cfg, x, shard)[:, 0], cache
 
 
 # ---------------------------------------------------------------------------

@@ -38,4 +38,4 @@ def compressed_psum(g, residual, axis_name):
     several devices: not ported yet."""
     raise NotImplementedError(
         "compressed_psum is an all-reduce across devices: it waits for "
-        "queue-1 item Multi-device")
+        "queue-1 item Multi-device, sub-item 'sharded training'")

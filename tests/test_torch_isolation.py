@@ -25,6 +25,7 @@ from repro_torch import configs
 from repro_torch.core import precision, tiles
 from repro_torch.data import pipeline as data
 from repro_torch.launch import train
+from repro_torch.launch.mesh import Mesh
 from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
 from repro_torch.models.model import Model
 from repro_torch.optim import optimizer as opt
@@ -103,7 +104,8 @@ def test_default_device_raises_without_cuda():
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("mesh", object(), "multi-device"),
+    # a data axis above 1 inside one engine: replicas on submeshes
+    ("mesh", Mesh({"data": 2, "model": 2}), "multi-device"),
 ])
 def test_unported_engine_options_raise(field, value, item):
     model = Model(configs.get_config("olmo_1b").smoke(), device="cpu")

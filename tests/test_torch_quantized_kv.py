@@ -139,8 +139,9 @@ def test_pool_spec_validates_and_hashes():
         paged_kv.PoolSpec(kv_dtype="int4")
     with pytest.raises(ValueError, match="padded_head_dim"):
         paged_kv.PoolSpec(kv_dtype="int8", head_dim=64, padded_head_dim=32)
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        paged_kv.PoolSpec(kv_dtype="int8", head_sharded=True)
+    sharded = paged_kv.PoolSpec(kv_dtype="int8", head_sharded=True)
+    assert sharded.head_sharded and sharded != paged_kv.PoolSpec(
+        kv_dtype="int8")
     a = _spec("int8")
     assert hash(a) == hash(_spec("int8")) and a == _spec("int8")
     assert a.quantized and not _spec("bf16").quantized

@@ -20,7 +20,7 @@
      test_torch_xlstm.py);
   5. a mid-migration cancel, decode-side preemption and the full-hit
      rewind leak nothing; the refusals: a ``kv_format`` mismatch, role
-     validation, ``mesh=`` and the CLI's ``--tp``.
+     validation, ``mesh=`` and the CLI's ``--tp`` with ``--dp``.
 
 Weights are JAX's init carried over with the weight bridge; prompts come
 from numpy with a seed. Tokens and counters are compared exactly.
@@ -632,4 +632,4 @@ def test_refusals(pairs):
             ReplicaSet(tm, tparams, **{"cfg": EngineConfig(**GEO), **kw},
                        dp=2, device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
-        serve.main(["--smoke", "--device", "cpu", "--tp", "2"])
+        serve.main(["--smoke", "--device", "cpu", "--tp", "2", "--dp", "2"])
