@@ -734,13 +734,26 @@ def pool_case(torch, np, gen, B, hkv, D, dtype, kv_dtype, bs, nb, nbmax):
     return kp, vp, kw, bt, row_bytes
 
 
+def kv_view(kp, vp, kw, kv_heads):
+    """The plain version's inputs for a ``kv_heads`` (first, count) range
+    of a pool: head views of the payloads and the scales."""
+    if kv_heads is None:
+        return kp, vp, kw
+    lo, n = kv_heads
+    return (kp[:, :, lo:lo + n], vp[:, :, lo:lo + n],
+            {k: t[:, :, lo:lo + n] for k, t in kw.items()})
+
+
 def k2_case(torch, np, name, lengths, hq, hkv, D, dtype, kv_dtype=None,
-            bs=16, nb=1024, nbmax=40, profile=False):
+            bs=16, nb=1024, nbmax=40, profile=False, kv_heads=None):
     """K2 (float pool) or K4 (``kv_dtype`` int8 / fp8) decode case, with
     the split plan it ran with (``splits``, ``blocks_per_split``), its
     graph-replay time (``graph_ms``) and, with ``profile``, the
     profiler's durations of its split and combine kernels
-    (``kernel_ms``)."""
+    (``kernel_ms``). ``kv_heads`` (first, count): the q heads read that
+    range of an ``hkv``-head pool in place (the replicated-KV layout);
+    the plain version reads a head view, the bound counts the range's
+    bytes."""
     from repro_torch.kernels import paged_attention as pa, ref
 
     dt = getattr(torch, dtype)
@@ -749,9 +762,14 @@ def k2_case(torch, np, name, lengths, hq, hkv, D, dtype, kv_dtype=None,
     q = torch.randn((B, hq, D), generator=gen, device="cuda").to(dt)
     kp, vp, kw, bt, row_bytes = pool_case(torch, np, gen, B, hkv, D, dtype,
                                           kv_dtype, bs, nb, nbmax)
+    rng_kw = {} if kv_heads is None else {"kv_heads": kv_heads}
+    pk, pv, pkw = kv_view(kp, vp, kw, kv_heads)
+    if kv_heads is not None:
+        row_bytes = row_bytes * kv_heads[1] // hkv
+        hkv = kv_heads[1]
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
-    got = pa.paged_decode_attention(q, kp, vp, bt, ln, **kw)
-    want = ref.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+    got = pa.paged_decode_attention(q, kp, vp, bt, ln, **kw, **rng_kw)
+    want = ref.paged_decode_attention(q, pk, pv, bt, ln, **pkw)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     toks = int(sum(lengths))
@@ -762,15 +780,16 @@ def k2_case(torch, np, name, lengths, hq, hkv, D, dtype, kv_dtype=None,
     bps, nsplit = pa.split_plan(B, hkv, nbmax, bs, pa.sm_count(q.device))
 
     def call():
-        return pa.paged_decode_attention(q, kp, vp, bt, ln, **kw)
+        return pa.paged_decode_attention(q, kp, vp, bt, ln, **kw, **rng_kw)
 
     row = {"phase": "kernels", "kernel": "K4" if kw else "K2", "case": name,
            "shape": [B, hq, hkv, D, bs, nbmax], "lengths": list(lengths),
+           "kv_heads": kv_heads,
            "dtype": dtype, "kv_dtype": kv_dtype, "splits": nsplit,
            "blocks_per_split": bps, "max_abs_err": err, "tol": TOL[dtype],
            "ms": cuda_ms(torch, call), "graph_ms": graph_ms(torch, call),
            "plain_ms": cuda_ms(torch, lambda: ref.paged_decode_attention(
-               q, kp, vp, bt, ln, **kw)),
+               q, pk, pv, bt, ln, **pkw)),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     if profile:
         row["kernel_ms"] = kernel_ms(torch, call, SPLIT_KERNELS)
@@ -819,12 +838,14 @@ def combine_case(torch, name, B, hq, nsplit, D, dtype):
 
 
 def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, want_body,
-            kv_dtype=None, bs=16, nb=1024, nbmax=40, profile=False):
+            kv_dtype=None, bs=16, nb=1024, nbmax=40, profile=False,
+            kv_heads=None):
     """K3 (float pool) or K4 (``kv_dtype`` int8 / fp8) verify or suffix
     case, with the body its checked call ran (``body``, which must be
     ``want_body``), its split plan (``splits``; 1 outside the split
     body), its graph-replay time (``graph_ms``) and, with ``profile``,
-    the profiler's durations of its kernels (``kernel_ms``)."""
+    the profiler's durations of its kernels (``kernel_ms``);
+    ``kv_heads`` as in ``k2_case``."""
     from repro_torch.kernels import paged_attention as pa, ref
 
     dt = getattr(torch, dtype)
@@ -833,12 +854,17 @@ def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, want_body,
     q = torch.randn((B, K1, hq, D), generator=gen, device="cuda").to(dt)
     kp, vp, kw, bt, row_bytes = pool_case(torch, np, gen, B, hkv, D, dtype,
                                           kv_dtype, bs, nb, nbmax)
+    rng_kw = {} if kv_heads is None else {"kv_heads": kv_heads}
+    pk, pv, pkw = kv_view(kp, vp, kw, kv_heads)
+    if kv_heads is not None:
+        row_bytes = row_bytes * kv_heads[1] // hkv
+        hkv = kv_heads[1]
     ln = torch.tensor(lengths, dtype=torch.int32, device="cuda")
     fn = pa.paged_verify_attention
     before = dict(fn.launches_by_body)
-    got = fn(q, kp, vp, bt, ln, **kw)
+    got = fn(q, kp, vp, bt, ln, **kw, **rng_kw)
     body = ran_body(fn, before)
-    want = ref.paged_verify_attention(q, kp, vp, bt, ln, **kw)
+    want = ref.paged_verify_attention(q, pk, pv, bt, ln, **pkw)
     torch.cuda.synchronize()
     err = (got.float() - want.float()).abs().max().item()
     # visible keys: row j of sequence b sees min(len + 1 + j, table) keys;
@@ -854,15 +880,16 @@ def k3_case(torch, np, name, lengths, K1, hq, hkv, D, dtype, want_body,
         if body == "split" else 1
 
     def call():
-        return fn(q, kp, vp, bt, ln, **kw)
+        return fn(q, kp, vp, bt, ln, **kw, **rng_kw)
 
     row = {"phase": "kernels", "kernel": "K4" if kw else "K3", "case": name,
            "shape": [B, K1, hq, hkv, D, bs, nbmax], "lengths": list(lengths),
+           "kv_heads": kv_heads,
            "dtype": dtype, "kv_dtype": kv_dtype, "body": body,
            "splits": nsplit, "max_abs_err": err, "tol": TOL[dtype],
            "ms": cuda_ms(torch, call), "graph_ms": graph_ms(torch, call),
            "plain_ms": cuda_ms(torch, lambda: ref.paged_verify_attention(
-               q, kp, vp, bt, ln, **kw)),
+               q, pk, pv, bt, ln, **pkw)),
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     if profile:
         row["kernel_ms"] = kernel_ms(torch, call, VERIFY_KERNELS)
@@ -1269,6 +1296,7 @@ def serve_turn(torch, engine, prompts, news, warm):
     ``K3_bodies``), K1 launches by body, stats)."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rglru_scan as k5
     from repro_torch.launch.engine import SamplingParams
 
     engine.generate([warm], SamplingParams(max_tokens=2))
@@ -1276,6 +1304,9 @@ def serve_turn(torch, engine, prompts, news, warm):
     torch.cuda.synchronize()
     fa.flash_attention.launches = 0
     zero_bodies(fa.flash_attention)
+    k5.rglru_scan.launches = 0
+    zero_bodies(k5.rglru_scan)
+    k5.rglru_scan.launches_by_shape = {}
     pa.paged_decode_attention.launches = 0
     pa.paged_decode_attention.k4_launches = 0
     pa.paged_decode_combine.launches = 0
@@ -1293,7 +1324,11 @@ def serve_turn(torch, engine, prompts, news, warm):
                 "K3": pa.paged_verify_attention.launches,
                 "K4_decode": pa.paged_decode_attention.k4_launches,
                 "K4_verify": pa.paged_verify_attention.k4_launches,
-                "K3_bodies": dict(pa.paged_verify_attention.launches_by_body)}
+                "K3_bodies": dict(pa.paged_verify_attention.launches_by_body),
+                "K5": k5.rglru_scan.launches,
+                "K5_bodies": dict(k5.rglru_scan.launches_by_body),
+                "K5_shapes": {s: dict(b) for s, b in
+                              k5.rglru_scan.launches_by_shape.items()}}
     return (outs, secs, launches, dict(fa.flash_attention.launches_by_body),
             engine.stats())
 
@@ -4281,16 +4316,18 @@ SERVE_GEO = dict(num_slots=8, block_size=16, num_blocks=1024, max_len=640)
 TP_TIMED_STEPS = 10                 # decode steps timed for the collectives
 
 
-def tp_parity_case(arch, mode, vocab):
-    """(engine kwargs, prompts, sampling kwargs) of one parity_tp case:
-    smoke geometry, ragged prompts in one prefill bucket, seeded rows
-    beside greedy ones; a tight pool preempts (greedy_preempt, int8), a
-    shared block-aligned prefix and a repeated 8-token prompt give
-    partial and full prefix hits with a COW copy."""
+def tp_parity_case(arch, mode, vocab, seed=None):
+    """(engine kwargs, prompts, sampling kwargs) of one parity_tp case
+    (or of another phase's, drawn from ``seed``): smoke geometry, ragged
+    prompts in one prefill bucket, seeded rows beside greedy ones; a
+    tight pool preempts (greedy_preempt, int8), a shared block-aligned
+    prefix and a repeated 8-token prompt give partial and full prefix
+    hits with a COW copy; "static" is the lockstep backend."""
     import numpy as np
 
-    rng = np.random.default_rng(SEED + TP_ARCHS.index(arch) * 10
-                                + TP_MODES.index(mode))
+    if seed is None:
+        seed = SEED + TP_ARCHS.index(arch) * 10 + TP_MODES.index(mode)
+    rng = np.random.default_rng(seed)
     lens = (5, 7, 8, 6, 8, 7)
     prompts = [list(map(int, rng.integers(0, vocab, n))) for n in lens]
     tight = dict(num_slots=3, block_size=4, num_blocks=9, max_len=48)
@@ -4312,6 +4349,9 @@ def tp_parity_case(arch, mode, vocab):
     if mode in ("int8", "fp8"):
         return dict(tight if mode == "int8" else roomy,
                     kv_dtype=mode), prompts, samp
+    if mode == "static":
+        return dict(backend="static", num_slots=3, max_len=48), prompts, \
+            samp
     head = list(map(int, rng.integers(0, vocab, 4)))       # "prefix"
     prompts = [head + p[:n - 4] for p, n in zip(prompts, lens)]
     prompts[3] = list(prompts[2])
@@ -4320,11 +4360,12 @@ def tp_parity_case(arch, mode, vocab):
 
 def tp_stats_view(st):
     """The scheduling counters a TP engine must share with a
-    single-device one."""
-    out = {k: st[k] for k in ("steps", "preemptions", "prefill_calls",
-                              "prefill_tokens") if k in st}
-    out["prefix_cache"] = {k: st["prefix_cache"][k] for k in (
-        "lookups", "hits", "hit_tokens", "cow_copies")}
+    single-device one (the paged and the static backend's)."""
+    out = {k: st[k] for k in ("steps", "preemptions", "batches",
+                              "prefill_calls", "prefill_tokens") if k in st}
+    if "prefix_cache" in st:
+        out["prefix_cache"] = {k: st["prefix_cache"][k] for k in (
+            "lookups", "hits", "hit_tokens", "cow_copies")}
     if "spec" in st:
         out["spec"] = {k: st["spec"][k] for k in (
             "steps", "proposed", "accepted", "emitted")}
@@ -4343,16 +4384,19 @@ def rank_setup():
 
 
 def kernel_counts():
-    """Every K1 / K2 / K3 / K4 counter, K1's and K3's by body."""
+    """Every K1 / K2 / K3 / K4 / K5 counter, K1's, K3's and K5's by
+    body."""
     from repro_torch.kernels import flash_attention as fa
     from repro_torch.kernels import paged_attention as pa
+    from repro_torch.kernels import rglru_scan as k5
 
     return {"K1": dict(fa.flash_attention.launches_by_body),
             "K2": pa.paged_decode_attention.launches,
             "K2_combine": pa.paged_decode_combine.launches,
             "K3": dict(pa.paged_verify_attention.launches_by_body),
             "K4_decode": pa.paged_decode_attention.k4_launches,
-            "K4_verify": pa.paged_verify_attention.k4_launches}
+            "K4_verify": pa.paged_verify_attention.k4_launches,
+            "K5": dict(k5.rglru_scan.launches_by_body)}
 
 
 def parity_tp_rank(mesh, cases):
@@ -4840,7 +4884,11 @@ def tp_rows(rows, totals):
 
 def tp_cards_main(torch, np):
     """``--tp-cards``: the build and the TP phases alone, on a machine
-    with a card a rank (NCCL, the decode step captured): tp_serve for
+    with a card a rank (NCCL, the decode step captured): first the
+    families, tp_families_serve for recurrentgemma_2b at T = 2 and
+    qwen3_moe (MOE_LAYERS) at T = 4, each against its single-card run,
+    and qwen3_moe at all 48 layers over 4 ranks (32 experts a rank; no
+    card holds the whole tree, so no single-card run); then tp_serve for
     olmo_1b at T = 2 and 4 and yi_6b at T = 4, each against its own
     single-device run on the first card, then parity_tp at T = 2 (the
     kernels rows at a rank's shapes are the one-card run's)."""
@@ -4852,6 +4900,14 @@ def tp_cards_main(torch, np):
           f"--tp-cards needs 4 cards, found {torch.cuda.device_count()}")
     prompts, news, warm = workload(np)
     phase_build()
+    for fams, tp, compare in (((("recurrentgemma_2b", None),), 2, True),
+                              ((("qwen3_moe_30b_a3b", MOE_LAYERS),), 4,
+                               True),
+                              ((QWEN3_FULL,), 4, False)):
+        phase_tp_families_serve(torch, np, prompts, warm, fams, tp,
+                                timeout_s=TP_CARDS_TIMEOUT_S,
+                                compare=compare)
+        torch.cuda.empty_cache()
     turns = tp_turns(np, prompts, news, warm)
     logit_prompts = [p[:64] for p in prompts[:HALF]]
     for arch, tps in (("olmo_1b", (2, 4)), ("yi_6b", (4,))):
@@ -4872,6 +4928,748 @@ def tp_cards_main(torch, np):
                            base_logits, pool, logit_prompts,
                            timeout_s=TP_CARDS_TIMEOUT_S)
     phase_parity_tp(torch, np, tp=2, timeout_s=TP_CARDS_TIMEOUT_S)
+
+
+# ---------------------------------------------------------------------------
+# tensor parallelism of the other decoder families: parity_tp_families,
+# tp_families_serve (and --tp-cards)
+# ---------------------------------------------------------------------------
+
+# (T, arch, mode): the recurrent, windowed, xLSTM and MoE decoders at
+# T = 2, the replicated-KV fallback at T = 4 (yi's 2 smoke kv heads over
+# 4 ranks: K2 / K3 / K4 at a kv-head offset; recurrentgemma's one kv head)
+TPF_CASES = (
+    (2, "recurrentgemma_2b", "greedy_preempt"),
+    (2, "recurrentgemma_2b", "spec3"),
+    (2, "recurrentgemma_2b", "static"),
+    (2, "h2o_danube_3_4b", "seeded"),
+    (2, "xlstm_1_3b", "greedy_preempt"),
+    (2, "qwen3_moe_30b_a3b", "greedy_preempt"),
+    (2, "qwen3_moe_30b_a3b", "spec3"),
+    (2, "qwen3_moe_30b_a3b", "int8"),
+    (2, "kimi_k2_1t_a32b", "seeded"),
+    (4, "yi_6b", "greedy_preempt"),
+    (4, "yi_6b", "spec3"),
+    (4, "yi_6b", "int8"),
+    (4, "recurrentgemma_2b", "seeded"),
+)
+TPF_MODES = ("greedy_preempt", "seeded", "spec3", "int8", "static")
+TPF_ARCHS = tuple(dict.fromkeys(a for _, a, _ in TPF_CASES))
+# tp_families_serve: (arch, layers: None for all[, dtype]) and its new
+# tokens. The last is the MoE's f32 witness: qwen3_moe at full width and
+# top-8 in f32, cut to 4 layers, held to its single-device run at the f32
+# tolerance (in bf16 the MoE's logits are only reported)
+TPF_SERVE = (("recurrentgemma_2b", None), ("qwen3_moe_30b_a3b", MOE_LAYERS),
+             ("h2o_danube_3_4b", 8), ("xlstm_1_3b", 8),
+             ("qwen3_moe_30b_a3b", 4, "float32"))
+TPF_NEW = 32
+# a bf16 MoE family's turns after its greedy one, on the same rank params:
+# K3 (5 verify rows, the wgmma body at 8 q heads a kv head) and K4 (an
+# int8 pool) at the rank's heads, the shapes their kernels rows time
+TPF_MOE_TURNS = (("spec", dict(spec_tokens=4, drafter="ngram")),
+                 ("int8", dict(kv_dtype="int8")))
+RECURRENT_GEO = dict(num_slots=8, block_size=16, num_blocks=1024,
+                     max_len=2560)
+QWEN3_FULL = ("qwen3_moe_30b_a3b", 48)   # --tp-cards: all 48 layers, T = 4
+
+
+def tpf_case(arch, mode, vocab):
+    """(engine kwargs, prompts, sampling kwargs) of a parity_tp_families
+    case: ``tp_parity_case``'s, drawn from the case's own seed."""
+    return tp_parity_case(arch, mode, vocab, seed=SEED + 200
+                          + TPF_ARCHS.index(arch) * 10
+                          + TPF_MODES.index(mode))
+
+
+def flat_leaves(tree, path=()):
+    """(path, leaf) over a nested dict of tensors."""
+    if isinstance(tree, dict):
+        for k, v in tree.items():
+            yield from flat_leaves(v, path + (k,))
+    else:
+        yield path, tree
+
+
+def counts_delta(before, after):
+    """``kernel_counts()`` after minus before, by key (and body)."""
+    return {k: ({b: n - before[k][b] for b, n in v.items()}
+                if isinstance(v, dict) else v - before[k])
+            for k, v in after.items()}
+
+
+def launched(n) -> int:
+    """A counter's launches, all bodies summed."""
+    return sum(n.values()) if isinstance(n, dict) else n
+
+
+def parity_tpf_rank(mesh, cases):
+    """One rank of parity_tp_families: the cases of this mesh's T through
+    the Engine over the mesh, on the smoke params drawn on the CPU from
+    the seed (the reference engine's), each case's launches apart."""
+    torch = rank_setup()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    out = {}
+    for tp, arch, mode in cases:
+        if tp != mesh.shape["model"]:
+            continue
+        print(f"[tp rank {mesh.rank}] parity_tp_families T={tp} {arch} "
+              f"{mode}", file=sys.stderr, flush=True)
+        cfg = get_config(arch).smoke()
+        model = Model(cfg, device=mesh.device)
+        params = weights.to_device(Model(cfg, device="cpu").init(seed=SEED),
+                                   mesh.device)
+        kw, prompts, samp = tpf_case(arch, mode, cfg.vocab_size)
+        before = kernel_counts()
+        eng = Engine(model, params, EngineConfig(**kw, mesh=mesh),
+                     device=mesh.device)
+        toks = eng.generate(prompts, [SamplingParams(**s) for s in samp])
+        torch.cuda.synchronize()
+        st = eng.stats()
+        out[(tp, arch, mode)] = (
+            toks, tp_stats_view(st), st.get("blocks_used", 0),
+            st["tp"].get("cache_bytes", st.get("pool_bytes")), st["tp"],
+            counts_delta(before, kernel_counts()))
+    return out
+
+
+def rank_state_bytes(cfg, kw, tp):
+    """(bytes of a rank's slice of the pool or static cache by the
+    config's specs over T ranks, the single-device bytes, the bytes of
+    the leaves the plan splits)."""
+    import torch
+
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.models import paged_kv, transformer
+
+    shard = sharding.layout_ctx(meshlib.Mesh({"data": 1, "model": tp}))
+    meta = torch.device("meta")
+    if kw.get("backend") == "static":
+        tree = transformer.init_cache(cfg, kw["num_slots"], kw["max_len"],
+                                      meta)
+        specs = sharding.batch_specs(tree, shard)
+    else:
+        layout = paged_kv.PagedLayout(**{k: kw[k] for k in (
+            "num_slots", "num_blocks", "block_size", "max_len")})
+        spec = None if kw.get("kv_dtype", "bf16") == "bf16" else \
+            paged_kv.make_pool_spec(cfg, layout, kv_dtype=kw["kv_dtype"])
+        tree = transformer.init_paged_cache(cfg, layout, meta, spec)
+        specs = transformer.paged_cache_specs(cfg, layout, shard, spec)
+    rank = full = split = 0
+    flat_specs = dict(flat_leaves(specs))
+    for path, t in flat_leaves(tree):
+        local = sharding.local_shape(t.shape, flat_specs[path], shard)
+        n = t.numel() * t.element_size()
+        full += n
+        rank += n // t.numel() * math.prod(local)
+        split += n if tuple(local) != tuple(t.shape) else 0
+    return rank, full, split
+
+
+def phase_parity_tp_families(torch, np, timeout_s=TP_TIMEOUT_S):
+    """Smoke configs in f32 over ranks on the one card (gloo):
+    recurrentgemma_2b, h2o_danube_3_4b, xlstm_1_3b, qwen3_moe_30b_a3b and
+    kimi_k2_1t_a32b at T = 2, yi_6b and recurrentgemma_2b at T = 4 (the
+    replicated-KV fallback), in TPF_CASES' modes. Every rank's tokens and
+    scheduling counters equal the single-device engine's on the CPU, no
+    rank leaks, each rank holds exactly its spec slice of the pool and
+    state, and a step runs the plan's collectives. Returns the launches
+    summed over ranks for the kernels line's rows: yi's K2, K4 and K3
+    over a kv-head range of the replicated pool, at the shape those rows
+    time."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    groups = {tp: run_in_thread(lambda tp=tp: meshlib.launch(
+        parity_tpf_rank, tp, "cuda", args=(TPF_CASES,),
+        timeout_s=timeout_s)) for tp in (2, 4)}
+    want = {}
+    for tp, arch, mode in TPF_CASES:
+        cfg = get_config(arch).smoke()
+        model = Model(cfg, device="cpu")
+        kw, prompts, samp = tpf_case(arch, mode, cfg.vocab_size)
+        eng = Engine(model, model.init(seed=SEED), EngineConfig(**kw),
+                     device="cpu")
+        toks = eng.generate(prompts, [SamplingParams(**s) for s in samp])
+        want[(tp, arch, mode)] = (toks, tp_stats_view(eng.stats()), kw)
+    got = {tp: g() for tp, g in groups.items()}
+    totals = {"K2_kvrange": 0, "K4_kvrange": 0, "K3_kvrange": 0}
+    for (tp, arch) in dict.fromkeys((t, a) for t, a, _ in TPF_CASES):
+        cfg = get_config(arch).smoke()
+        plan = sharding.make_shard_ctx(
+            meshlib.Mesh({"data": 1, "model": tp}), cfg).plan
+        row = {"phase": "parity_tp_families", "config": cfg.name,
+               "dtype": cfg.dtype, "tp": tp, "attn": plan.attn,
+               "plan": plan.report()["plan"], "tokens_equal": {},
+               "stats_equal": {}, "preemptions": {}, "rank_bytes": {},
+               "collectives_per_step": {}, "launches_by_rank": {}}
+        for t, a, mode in TPF_CASES:
+            if (t, a) != (tp, arch):
+                continue
+            toks, st, kw = want[(tp, arch, mode)]
+            rs = [g[(tp, arch, mode)] for g in got[tp]]
+            rank_bytes, full, split = rank_state_bytes(cfg, kw, tp)
+            rows = kw.get("spec_tokens", 0) + 1
+            row["tokens_equal"][mode] = all(r[0] == toks for r in rs)
+            row["stats_equal"][mode] = all(r[1] == st for r in rs)
+            row["preemptions"][mode] = st.get("preemptions")
+            row["rank_bytes"][mode] = [rank_bytes, full, split]
+            row["collectives_per_step"][mode] = rs[0][4][
+                "collectives_per_step"]
+            row["launches_by_rank"][mode] = [r[5] for r in rs]
+            check(row["tokens_equal"][mode] and row["stats_equal"][mode],
+                  f"parity_tp_families T={tp} {arch} {mode}: a rank's "
+                  f"tokens or stats differ from the cpu engine's "
+                  f"({[r[1] for r in rs]} vs {st})")
+            check(all(r[2] == 0 for r in rs),
+                  f"parity_tp_families T={tp} {arch} {mode}: blocks leaked")
+            check(all(r[3] == rank_bytes for r in rs),
+                  f"parity_tp_families T={tp} {arch} {mode}: rank state "
+                  f"bytes {[r[3] for r in rs]}, its spec slice is "
+                  f"{rank_bytes} of {full}")
+            check(rs[0][4]["collectives_per_step"]
+                  == plan.step_collectives(rows),
+                  f"parity_tp_families T={tp} {arch} {mode}: "
+                  f"{rs[0][4]['collectives_per_step']} collectives a step, "
+                  f"the plan's {plan.step_collectives(rows)}")
+            if mode in ("greedy_preempt", "int8"):
+                check(st["preemptions"] > 0, f"parity_tp_families {arch} "
+                      f"{mode}: the tight pool never preempted")
+            attn = bool({"attn", "local"} & set(cfg.block_pattern))
+            for r in rs:
+                n = r[5]
+                check(launched(n["K1"]) > 0 or not attn,
+                      f"parity_tp_families T={tp} {arch} {mode}: a rank "
+                      f"launched no K1 {n}")
+                check(launched(n["K5"]) > 0
+                      or "rglru" not in cfg.block_pattern,
+                      f"parity_tp_families T={tp} {arch} {mode}: a rank "
+                      f"launched no K5 {n}")
+                if arch == "yi_6b":
+                    totals["K2_kvrange"] += n["K2"]
+                    totals["K4_kvrange"] += n["K4_decode"]
+                    totals["K3_kvrange"] += launched(n["K3"])
+        emit(row)
+    emit({"phase": "parity_tp_families", "summary": True,
+          "launches": totals, "seconds": time.monotonic() - t0})
+    check(all(v > 0 for v in totals.values()),
+          f"parity_tp_families: a kernel row was never launched {totals}")
+    return totals
+
+
+def tpf_label(cfg):
+    """A tp_families_serve family's key: the config's name, and its dtype
+    where that is not bf16."""
+    return cfg.name if cfg.dtype == "bfloat16" else f"{cfg.name} {cfg.dtype}"
+
+
+def tpf_serve_spec(np, arch, layers, prompts, warm, dtype=None):
+    """(config, engine geometry, requests, budgets, warm-up prompt, logit
+    prompts, later turns) of one tp_families_serve family:
+    recurrentgemma_2b at recurrent_serve's geometry with its two long
+    prompts and serve's first 6; the others at serve's geometry with
+    serve's first HALF; TPF_NEW new tokens each; token ids taken modulo
+    the vocabulary; a bf16 MoE's later turns TPF_MOE_TURNS."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = get_config(arch)
+    if layers:
+        cfg = dataclasses.replace(cfg, n_layers=layers)
+    if dtype:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    if arch == "recurrentgemma_2b":
+        reqs, geo = long_prompts(np) + prompts[:HALF - 2], RECURRENT_GEO
+    else:
+        reqs, geo = prompts[:HALF], SERVE_GEO
+    V = cfg.vocab_size
+    reqs = [[t % V for t in p] for p in reqs]
+    turns = TPF_MOE_TURNS if cfg.is_moe and cfg.dtype == "bfloat16" else ()
+    return (cfg, geo, reqs, [TPF_NEW] * len(reqs), [t % V for t in warm],
+            [p[:64] for p in reqs], turns)
+
+
+class RoutingRecorder:
+    """While entered, keep each MoE layer's routing (every token's expert
+    set, sorted) in ``self.sets``, in call order: the diagnostic of
+    tp_families_serve's MoE logits."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+
+        self.moe, self.orig, self.sets = moe, moe.plan, []
+
+        def plan(x2d, router_w, cfg, dropless):
+            out = self.orig(x2d, router_w, cfg, dropless)
+            self.sets.append(out["topi"].sort(-1).values.cpu().numpy())
+            return out
+
+        moe.plan = plan
+        return self
+
+    def __exit__(self, *exc):
+        self.moe.plan = self.orig
+
+
+def routing_flips(a, b, layers):
+    """Tokens whose expert set differs between two runs' recorded
+    routings, by layer, over the first ``layers`` calls (a prefill)."""
+    return [int((x != y).any(-1).sum()) for x, y in zip(a[:layers],
+                                                       b[:layers])]
+
+
+def tpf_base(torch, spec):
+    """The single-device run of one tp_families_serve family on the card:
+    its params drawn a layer at a time (``init_rank_params``, as the
+    ranks draw theirs, keeping their slices), the requests through the
+    Engine (the step captured), the first prefill and decode logits."""
+    from repro_torch.launch import sharding
+    from repro_torch.launch.engine import Engine, EngineConfig
+    from repro_torch.models import transformer
+    from repro_torch.models.model import Model
+
+    cfg, geo, reqs, news, warm, logit_prompts, _ = spec
+    model = Model(cfg, device="cuda")
+    params = sharding.init_rank_params(model, SEED)
+    eng = Engine(model, params, EngineConfig(**geo), device="cuda")
+    outs, secs, runs, k1_bodies, st = serve_turn(torch, eng, reqs, news,
+                                                 warm)
+    with RoutingRecorder() as rec:
+        pl, dl, _ = first_decode_logits(torch, model, params,
+                                        transformer.RunCtx(), logit_prompts)
+    ntok = sum(len(o) for o in outs)
+    out = {"outs": outs, "tok_s": ntok / secs, "logits": (pl, dl),
+           "pool_bytes": st["pool_bytes"], "steps": st["steps"],
+           "routing": rec.sets}
+    emit({"phase": "tp_families_serve", "config": cfg.name,
+          "dtype": cfg.dtype, "tp": 1,
+          "layers": cfg.n_layers, "tokens": ntok, "seconds": secs,
+          "tok_s": ntok / secs, "graph_replays": st["graph_replays"],
+          "pool_bytes": st["pool_bytes"]})
+    del eng, params, model
+    torch.cuda.empty_cache()
+    return out
+
+
+def tpf_serve_rank(mesh, specs):
+    """One rank of tp_families_serve: each family of ``specs`` drawn on
+    the rank's card a layer at a time, keeping the rank's slices
+    (``init_rank_params``: no process ever holds a whole tree), served
+    through the Engine over the mesh; then the first logits, the
+    collectives' share of an eager decode step, and the family's later
+    turns, each on an Engine of its own over the same slices. Returns
+    what the parent checks, by ``tpf_label``."""
+    torch = rank_setup()
+    from repro_torch.launch import sharding
+    from repro_torch.launch.engine import Engine, EngineConfig
+    from repro_torch.models.model import Model
+
+    out = {"device": torch.cuda.get_device_name(mesh.device)}
+    for cfg, geo, reqs, news, warm, logit_prompts, turns in specs:
+        print(f"[tp rank {mesh.rank}] tp_families_serve {tpf_label(cfg)} "
+              f"({cfg.n_layers} layers)", file=sys.stderr, flush=True)
+        torch.cuda.reset_peak_memory_stats(mesh.device)
+        model = Model(cfg, device=mesh.device)
+        shard = sharding.make_shard_ctx(mesh, cfg)
+        params = sharding.init_rank_params(model, SEED, shard)
+        param_gb = sum(t.numel() * t.element_size() for _, t in
+                       flat_leaves(params)) / 1e9
+        eng = Engine(model, params, EngineConfig(**geo, mesh=mesh),
+                     device=mesh.device)
+        del params                          # the engine holds the slices
+        outs, secs, runs, k1_bodies, st = serve_turn(torch, eng, reqs,
+                                                     news, warm)
+        be = eng.backend
+        with RoutingRecorder() as rec:
+            pl, dl, step = first_decode_logits(torch, model, be.params,
+                                               be.ctx, logit_prompts)
+        timing = collective_share(torch, model, be.params, be.ctx, step)
+        out[tpf_label(cfg)] = {
+            "outs": outs, "seconds": secs, "launches": runs,
+            "k1_bodies": k1_bodies, "logits": (pl, dl), "timing": timing,
+            "routing": rec.sets,
+            "param_gb": param_gb,
+            "stats": {k: st[k] for k in (
+                "steps", "graph_replays", "eager_decode_steps",
+                "pool_bytes", "blocks_used", "preemptions", "tp",
+                "device_s")},
+            "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+            "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+            "peak_mem_gb": torch.cuda.max_memory_allocated(mesh.device)
+            / 1e9, "turns": {}}
+        params = be.params
+        del eng, be, step
+        torch.cuda.empty_cache()
+        for name, kw in turns:
+            eng = Engine(model, params, EngineConfig(**geo, **kw, mesh=mesh),
+                         device=mesh.device)
+            outs, secs, runs, k1_bodies, st = serve_turn(torch, eng, reqs,
+                                                         news, warm)
+            out[tpf_label(cfg)]["turns"][name] = {
+                "outs": outs, "seconds": secs, "launches": runs,
+                "k1_bodies": k1_bodies, "blocks_used": st["blocks_used"],
+                "spec_steps": st["spec"]["steps"] if "spec" in st else 0}
+            del eng
+            torch.cuda.empty_cache()
+        del params
+    return out
+
+
+def phase_tp_families_serve(torch, np, prompts, warm, families, tp,
+                            timeout_s=TP_TIMEOUT_S, compare=True):
+    """``families`` ((arch, layers[, dtype]) each) at full width, in bf16
+    unless a dtype is given, over ``tp`` ranks (gloo on the one card, the
+    step eager; NCCL and the step captured on cards of their own), 8
+    requests of TPF_NEW tokens each: per family tok/s, each rank's K1 /
+    K2 / K3 / K5 launches by body (no simt at bf16; K5 on "ring" at the
+    rank's 1280 channels), state and pool bytes a rank (exactly its spec
+    slice: 1 / T of the leaves the plan splits), no leaked block, the
+    plan's collectives a step and their CUDA-event share of an eager
+    step; a bf16 MoE's later turns (TPF_MOE_TURNS: K3 and K4 at the
+    rank's heads). With ``compare``, each family's single-device run
+    comes first on the card (``tpf_base``, freed before the ranks
+    spawn): tokens against it (agreement and the first differing step,
+    reported: all-reduced partial sums round apart) and the first
+    prefill and decode logits, within the dtype's tolerance of the
+    largest, except a bf16 MoE's, which are reported beside the tokens
+    whose expert sets differ by layer; the f32 MoE witness is held to
+    the f32 tolerance. Returns the launches of the bf16 families summed
+    over ranks for the kernels line's rows."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+
+    t0 = time.monotonic()
+    specs = [tpf_serve_spec(np, f[0], f[1], prompts, warm, *f[2:])
+             for f in families]
+    bases = {tpf_label(s[0]): tpf_base(torch, s) for s in specs} \
+        if compare else {}
+    torch.cuda.empty_cache()
+    got = meshlib.launch(tpf_serve_rank, tp, "cuda", args=(specs,),
+                         timeout_s=timeout_s)
+    totals = {"K1": {}, "K2": 0, "K2_combine": 0, "K5": 0, "K5_long": 0,
+              "K3_moe": 0, "K4_moe": 0}
+    far = []                       # logits past the tolerance, by family
+    for cfg, geo, reqs, news, warm_p, _, turns in specs:
+        label = tpf_label(cfg)
+        rs = [g[label] for g in got]
+        bf16 = cfg.dtype == "bfloat16"
+        r0, sts = rs[0], [r["stats"] for r in rs]
+        info = sts[0]["tp"]
+        plan = sharding.make_shard_ctx(
+            meshlib.Mesh({"data": 1, "model": tp}), cfg).plan
+        rank_bytes, full, split = rank_state_bytes(cfg, geo, tp)
+        ntok = sum(len(o) for o in r0["outs"])
+        steps_key = "graph_replays" if info["backend"] == "nccl" \
+            else "eager_decode_steps"
+        step_ms, coll_ms, calls = r0["timing"]
+        row = {"phase": "tp_families_serve", "config": cfg.name,
+               "dtype": cfg.dtype, "tp": tp, "layers": cfg.n_layers,
+               "backend": info["backend"],
+               "captured_step": info["captured_step"],
+               "plan": info["plan"], "kept_whole": info["kept_whole"],
+               "head_aligned": len(info["head_aligned"]),
+               "kv_replicated": info["kv_replicated"],
+               "experts_local": info["experts_local"],
+               "requests": len(r0["outs"]), "tokens": ntok,
+               "seconds": r0["seconds"], "tok_s": ntok / r0["seconds"],
+               "ttft_p50_s": r0["ttft_p50_s"], "tpot_p50_s": r0["tpot_p50_s"],
+               "steps": sts[0]["steps"],
+               "decode_steps_by_rank": [s[steps_key] for s in sts],
+               "collectives_per_step": info["collectives_per_step"],
+               "plan_collectives_per_step": plan.step_collectives(),
+               "collective_bytes_per_rank": info["collective_bytes"],
+               "eager_step_ms": step_ms, "collective_ms_per_step": coll_ms,
+               "collective_share": coll_ms / step_ms,
+               "collectives_timed_per_step": calls,
+               "pool_bytes_per_rank": [s["pool_bytes"] for s in sts],
+               "pool_bytes_t1": full, "pool_bytes_split_leaves": split,
+               "blocks_used": [s["blocks_used"] for s in sts],
+               "k1_launches_by_body": [r["k1_bodies"] for r in rs],
+               "k5_launches_by_shape": [r["launches"]["K5_shapes"]
+                                        for r in rs],
+               "k2_launches": [r["launches"]["K2"] for r in rs],
+               "k3_launches_by_body": [r["launches"]["K3_bodies"]
+                                       for r in rs],
+               "param_gb_by_rank": [r["param_gb"] for r in rs],
+               "peak_mem_gb_by_rank": [r["peak_mem_gb"] for r in rs],
+               "device": got[0]["device"],
+               "ranks_tokens_equal": all(r["outs"] == r0["outs"]
+                                         for r in rs)}
+        name = f"tp_families_serve {label} T={tp}"
+        check(row["ranks_tokens_equal"], f"{name}: the ranks' tokens differ")
+        check(all(len(o) == n for o, n in zip(r0["outs"], news))
+              and all(0 <= t < cfg.vocab_size for o in r0["outs"]
+                      for t in o), f"{name}: bad outputs")
+        check(all(n == 0 for n in row["blocks_used"]),
+              f"{name}: blocks leaked {row['blocks_used']}")
+        check(all(p == rank_bytes for p in row["pool_bytes_per_rank"]),
+              f"{name}: rank state {row['pool_bytes_per_rank']}, its spec "
+              f"slice is {rank_bytes} of {full}")
+        check(rank_bytes == full - split + split // tp,
+              f"{name}: the split leaves are not 1/{tp} a rank")
+        check(row["collectives_per_step"] == plan.step_collectives()
+              == calls, f"{name}: {row['collectives_per_step']} / {calls} "
+              f"collectives a step, the plan's {plan.step_collectives()}")
+        check(all(n == row["steps"] > 0
+                  for n in row["decode_steps_by_rank"]),
+              f"{name}: {row['steps']} steps, {steps_key} "
+              f"{row['decode_steps_by_rank']}")
+        check(cfg.is_moe == (info["experts_local"] > 0)
+              and info["experts_local"] * tp == cfg.n_experts,
+              f"{name}: {info['experts_local']} experts a rank")
+        attn = bool({"attn", "local"} & set(cfg.block_pattern))
+        k1_body = "wgmma" if bf16 else "simt"
+        for r in rs:
+            runs, bodies = r["launches"], r["k1_bodies"]
+            check(bodies[k1_body] == runs["K1"]
+                  and (runs["K3_bodies"]["simt"] == 0 or not bf16)
+                  and (runs["K1"] > 0 or not attn),
+                  f"{name}: K1 not all on {k1_body} {bodies}")
+            pool_layers = sum(k == "attn" and not cfg.sliding_window
+                              for k in cfg.layer_kinds)
+            check(runs["K2"] + runs["K4_decode"]
+                  == pool_layers * r["stats"]["steps"],
+                  f"{name}: K2 {runs['K2']} in {r['stats']['steps']} steps "
+                  f"over {pool_layers} pool layers")
+            if "rglru" in cfg.block_pattern:
+                ring = all({k for k, v in b.items() if v} <= {"ring"}
+                           for b in runs["K5_shapes"].values())
+                check(runs["K5"] > 0 and ring and all(
+                    s.endswith(f"x{cfg.rnn_width // tp}")
+                    for s in runs["K5_shapes"]),
+                      f"{name}: K5 off the ring or not at the rank's "
+                      f"channels {runs['K5_shapes']}")
+            if not bf16:                   # the f32 witness: no kernel row
+                continue
+            totals["K1"][cfg.name] = totals["K1"].get(cfg.name, 0) \
+                + runs["K1"]
+            totals["K2"] += runs["K2"]
+            totals["K2_combine"] += runs["K2_combine"]
+            long_key = f"2x2560x{cfg.rnn_width // tp}" \
+                if cfg.rnn_width else ""
+            n_long = sum(runs["K5_shapes"].get(long_key, {}).values())
+            totals["K5_long"] += n_long
+            totals["K5"] += runs["K5"] - n_long
+        for turn, _ in turns:
+            ts = [r["turns"][turn] for r in rs]
+            tname = f"{name} {turn}"
+            trow = {"phase": "tp_families_serve", "config": cfg.name,
+                    "dtype": cfg.dtype, "tp": tp, "turn": turn,
+                    "layers": cfg.n_layers, "seconds": ts[0]["seconds"],
+                    "tok_s": sum(len(o) for o in ts[0]["outs"])
+                    / ts[0]["seconds"],
+                    "spec_steps": ts[0]["spec_steps"],
+                    "blocks_used": [t["blocks_used"] for t in ts],
+                    "k1_launches_by_body": [t["k1_bodies"] for t in ts],
+                    "k3_launches_by_body": [t["launches"]["K3_bodies"]
+                                            for t in ts],
+                    "k4_launches": [[t["launches"]["K4_decode"],
+                                     t["launches"]["K4_verify"]]
+                                    for t in ts],
+                    "ranks_tokens_equal": all(t["outs"] == ts[0]["outs"]
+                                              for t in ts)}
+            emit(trow)
+            check(trow["ranks_tokens_equal"] and all(
+                len(o) == n for o, n in zip(ts[0]["outs"], news)),
+                  f"{tname}: the ranks' tokens differ, or bad outputs")
+            check(all(n == 0 for n in trow["blocks_used"]),
+                  f"{tname}: blocks leaked {trow['blocks_used']}")
+            for t in ts:
+                runs = t["launches"]
+                check(t["k1_bodies"]["simt"] == 0
+                      and runs["K3_bodies"]["simt"] == 0,
+                      f"{tname}: a K1 / K3 launch on simt")
+                if turn == "spec":
+                    check(t["spec_steps"] > 0
+                          and runs["K3_bodies"]["wgmma"] > 0,
+                          f"{tname}: no verify on K3's wgmma body "
+                          f"{runs['K3_bodies']}")
+                    totals["K3_moe"] += runs["K3_bodies"]["wgmma"]
+                else:
+                    check(runs["K4_decode"] > 0,
+                          f"{tname}: no K4 decode launch {runs}")
+                    totals["K4_moe"] += runs["K4_decode"]
+        if compare:
+            base = bases[label]
+            rate, first = agreement(r0["outs"], base["outs"])
+            pl0, dl0 = base["logits"]
+            errs = [[float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                     for a, b in ((pl, pl0), (dl, dl0))]
+                    for pl, dl in (r["logits"] for r in rs)]
+            row.update(requests_equal_t1=rate, first_differing_step=first,
+                       tok_s_t1=base["tok_s"], logits_rel_err_by_rank=errs,
+                       tol=TOL[cfg.dtype])
+            if cfg.is_moe:
+                row["prefill_routing_flips_by_layer"] = routing_flips(
+                    base["routing"], r0["routing"], cfg.n_layers)
+                row["prefill_routed_tokens"] = len(base["routing"][0])
+            row["logits_within_tol"] = all(e <= TOL[cfg.dtype]
+                                           for es in errs for e in es)
+            check(base["pool_bytes"] == full,
+                  f"{name}: T = 1 state {base['pool_bytes']} != {full}")
+            if not (row["logits_within_tol"] or (cfg.is_moe and bf16)):
+                far.append(f"{name}: logits differ from the single-device "
+                           f"model's by {errs} (relative to the largest)")
+        emit(row)
+    emit({"phase": "tp_families_serve", "tp": tp, "summary": True,
+          "launches": totals, "seconds": time.monotonic() - t0})
+    check(not far, "; ".join(far))
+    return totals
+
+
+def kvrange_geometry(mode):
+    """(first decode lengths, cached lengths, block size, table width)
+    of parity_tp_families' yi_6b smoke case ``mode`` at T = 4: its first
+    3 prompts in the engine's 3 slots, its geometry."""
+    from repro_torch.configs import get_config
+
+    kw, prompts, _ = tpf_case("yi_6b", mode,
+                              get_config("yi_6b").smoke().vocab_size)
+    lens = [len(p) for p in prompts[:kw["num_slots"]]]
+    return ([n + 1 for n in lens], lens, kw["block_size"],
+            kw["max_len"] // kw["block_size"])
+
+
+def phase_tpf_kernels(torch, np, prompts):
+    """The kernels at a rank's shapes in the families' TP paths: K1
+    windowed on recurrentgemma's rank (5 of 10 query heads over the one
+    kv head, D 256, window 2048) and danube's (16 / 4 of 32 / 8, D 120,
+    window 4096), K1 at qwen3's rank (16 / 2 of 32 / 4), K5 on a rank's
+    1280 of the 2560 RG-LRU channels at both admissions, K2 with its
+    combine, K3 (verify, 5 rows) and K4 (int8 decode) at qwen3's rank
+    heads; K2, K4 and K3 over a kv-head range where the main path runs
+    them: yi_6b smoke at T = 4 in f32 (parity_tp_families), a rank's one
+    query head over one of the replicated pool's 2 kv heads, timed at
+    rank 3's, kv head 1, with the case's first 3 prompts."""
+    from repro_torch.configs import get_config
+
+    first = [len(p) + 1 for p in prompts[:HALF]]
+    cached = [n - 1 for n in first]
+    yi = get_config("yi_6b").smoke()
+    hq, hkv, d = yi.n_heads // 4, yi.n_kv_heads, yi.head_dim
+    dec, _, bs, nbmax = kvrange_geometry("greedy_preempt")
+    dec8, _, bs8, nbmax8 = kvrange_geometry("int8")
+    _, ver, bs3, nbmax3 = kvrange_geometry("spec3")
+    kv = (1, 1)
+    rows = {
+        "K1_rg_tp": k1_case(torch, "rg_tp2_rank", HALF, 5, 1, 512, 256,
+                            "bfloat16", True, window=2048),
+        "K1_danube_tp": k1_case(torch, "danube_tp2_rank", HALF, 16, 4, 512,
+                                120, "bfloat16", True, window=4096),
+        "K1_qwen3_tp": k1_case(torch, "qwen3_tp2_rank", HALF, 16, 2, 512,
+                               128, "bfloat16", True),
+        "K5_tp": k5_case(torch, "tp2_rank", HALF, 512, 1280),
+        "K5_long_tp": k5_case(torch, "tp2_rank_long", 2, 2560, 1280),
+        "K2_qwen3_tp": k2_case(torch, np, "qwen3_tp2_rank", first, 16, 2,
+                               128, "bfloat16"),
+        "K3_qwen3_tp": k3_case(torch, np, "qwen3_tp2_verify", cached, 5, 16,
+                               2, 128, "bfloat16", "wgmma"),
+        "K4_qwen3_tp": k2_case(torch, np, "qwen3_tp2_decode_int8", first,
+                               16, 2, 128, "bfloat16", "int8"),
+        "K2_kvrange": k2_case(torch, np, "yi_smoke_tp4_rank3", dec, hq,
+                              hkv, d, yi.dtype, bs=bs, nbmax=nbmax,
+                              nb=len(dec) * nbmax + 1, kv_heads=kv),
+        "K4_kvrange": k2_case(torch, np, "yi_smoke_tp4_rank3_int8", dec8,
+                              hq, hkv, d, yi.dtype, "int8", bs=bs8,
+                              nbmax=nbmax8, nb=len(dec8) * nbmax8 + 1,
+                              kv_heads=kv),
+        "K3_kvrange": k3_case(torch, np, "yi_smoke_tp4_rank3_verify", ver,
+                              4, hq, hkv, d, yi.dtype, "split", bs=bs3,
+                              nbmax=nbmax3, nb=len(ver) * nbmax3 + 1,
+                              kv_heads=kv),
+    }
+    rows["K2_combine_qwen3_tp"] = combine_case(
+        torch, "qwen3_tp2_rank", HALF, 16, rows["K2_qwen3_tp"]["splits"],
+        128, "bfloat16")
+    return rows
+
+
+TPF_ROWS = (
+    ("K1_rg_tp", ("K1", "recurrentgemma-2b"),
+     "flash_attention (tp_families_serve: a rank's windowed prefill, 5 of "
+     "recurrentgemma_2b's 10 heads over its one kv head, window 2048)",
+     "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:109"),
+    ("K1_danube_tp", ("K1", "h2o-danube-3-4b"),
+     "flash_attention (tp_families_serve: a rank's sliding-window prefill, "
+     "16 / 4 of h2o_danube's 32 / 8 heads x 120, window 4096)",
+     "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:109"),
+    ("K1_qwen3_tp", ("K1", "qwen3-moe-30b-a3b"),
+     "flash_attention (tp_families_serve: a rank's prefill, 16 / 2 of "
+     "qwen3_moe's 32 / 4 heads)",
+     "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:109"),
+    ("K5_tp", ("K5",), "rglru_scan (tp_families_serve: a rank's 1280 of "
+     "the 2560 RG-LRU channels; timed at (8, 512, 1280))",
+     "src/repro_torch/csrc/rglru_scan.cu",
+     "src/repro/kernels/rglru_scan.py:52"),
+    ("K5_long_tp", ("K5_long",), "rglru_scan (tp_families_serve: a rank's "
+     "channels of the long admission, (2, 2560, 1280))",
+     "src/repro_torch/csrc/rglru_scan.cu",
+     "src/repro/kernels/rglru_scan.py:52"),
+    ("K2_qwen3_tp", ("K2",), "paged_decode_attention (tp_families_serve: "
+     "a rank's decode, qwen3_moe's 16 / 2 heads)",
+     "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:361"),
+    ("K2_combine_qwen3_tp", ("K2_combine",), "paged_decode_combine "
+     "(tp_families_serve's qwen3_moe ranks)",
+     "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:361"),
+    ("K3_qwen3_tp", ("K3_moe",), "paged_verify_attention (tp_families_serve:"
+     " qwen3_moe's spec turn, a rank's 16 / 2 heads, 5 rows: 40 pairs a kv "
+     "head, the wgmma body)",
+     "src/repro_torch/csrc/paged_verify_wgmma.cuh",
+     "src/repro/kernels/paged_attention.py:313"),
+    ("K4_qwen3_tp", ("K4_moe",), "K4 paged_decode_attention "
+     "(tp_families_serve: qwen3_moe's int8 turn, a rank's 16 / 2 heads)",
+     "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:43"),
+    ("K2_kvrange", ("K2_kvrange",), "paged_decode_attention over a kv-head "
+     "range (parity_tp_families: yi_6b smoke at T = 4 in f32, the "
+     "replicated pool, a rank's 1 q head over 1 of the 2 kv heads; timed "
+     "at rank 3's, kv head 1)",
+     "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:361"),
+    ("K4_kvrange", ("K4_kvrange",), "K4 paged_decode_attention over a "
+     "kv-head range (parity_tp_families: yi_6b smoke's int8 pool at T = 4, "
+     "a rank's 1 q head over 1 of the 2 kv heads; timed at rank 3's)",
+     "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:43"),
+    ("K3_kvrange", ("K3_kvrange",), "paged_verify_attention over a kv-head "
+     "range (parity_tp_families: yi_6b smoke's verify at T = 4 in f32, 4 "
+     "rows, a rank's 1 q head over 1 of the 2 kv heads, the split body; "
+     "timed at rank 3's)",
+     "src/repro_torch/csrc/paged_verify_split.cuh",
+     "src/repro/kernels/paged_attention.py:313"),
+)
+
+
+def tpf_rows(rows, totals):
+    """The kernels line's rows of the families' per-rank kernels, their
+    launches summed over the ranks of parity_tp_families and
+    tp_families_serve."""
+    out = []
+    for key, where, name, src, tpu in TPF_ROWS:
+        n = totals[where[0]]
+        n = n[where[1]] if len(where) > 1 else n
+        row = rows[key]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": tpu, "launches": n,
+                    **{k: row[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "body", "splits",
+                        "graph_ms", "simt_ms") if k in row}})
+    return out
 
 
 def nvidia_smi():
@@ -5002,6 +5800,7 @@ def main():
          torch, np, prompts, args.profile)
     k6, k7a, k7b, k8a, k8b = phase_tile_kernels(torch, np, args.profile)
     tp_kernels = phase_tp_kernels(torch, np, prompts)
+    tpf_kernels = phase_tpf_kernels(torch, np, prompts)
     phase_parity(torch, np)
     phase_parity_quant(torch, np)
     phase_parity_recurrent(torch, np)
@@ -5026,6 +5825,11 @@ def main():
     tp_launches = phase_tp_serve(
         torch, np, "olmo_1b", TP, tp_turns(np, prompts, news, warm),
         base_outs, base_logits, base_pool, logit_prompts)
+    torch.cuda.empty_cache()
+    tpf_launches = phase_parity_tp_families(torch, np)
+    tpf_launches.update(phase_tp_families_serve(torch, np, prompts, warm,
+                                                TPF_SERVE, TP))
+    torch.cuda.empty_cache()
     rec = phase_recurrent_serve(torch, np, prompts, news, warm, args.profile)
     launches.update(K5=rec["K5"], K5_long=rec["K5_long"])
     torch.cuda.empty_cache()
@@ -5176,6 +5980,7 @@ def main():
                             "graph_ms", "simt_ms", "call_ms", "call_host_ms")
                            if k in row}})
     kernels += tp_rows(tp_kernels, tp_launches)
+    kernels += tpf_rows(tpf_kernels, tpf_launches)
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)
     emit({"ok": True, "device": {"platform": "gpu",

@@ -146,4 +146,24 @@ __device__ __forceinline__ void cp_async_wait() {
   asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
 }
 
+// The kv-head range [kv_lo, kv_lo + Hkv) of a paged pool of Hkp kv heads
+// (K2 / K3 / K4 on the kv heads a tensor-parallel rank's query heads
+// read, in a pool every rank holds whole): moves the payload pointers
+// kv_lo heads of D elements of payload type ``pdtype`` on, and the
+// scales (quantized payloads) kv_lo on, so that a kernel walks Hkv heads
+// at the pool's row stride of Hkp heads. No byte of the pool is copied.
+// False for a range outside the pool.
+inline bool kv_range(const void*& k_pool, const void*& v_pool,
+                     const void*& k_scale, const void*& v_scale, int pdtype,
+                     int D, int kv_lo, int Hkv, int Hkp) {
+  if (kv_lo < 0 || Hkv < 1 || kv_lo + Hkv > Hkp) return false;
+  const long long bytes = static_cast<long long>(kv_lo) * D *
+                          (pdtype == kF32 ? 4 : pdtype == kBF16 ? 2 : 1);
+  k_pool = static_cast<const char*>(k_pool) + bytes;
+  v_pool = static_cast<const char*>(v_pool) + bytes;
+  if (k_scale != nullptr) k_scale = static_cast<const float*>(k_scale) + kv_lo;
+  if (v_scale != nullptr) v_scale = static_cast<const float*>(v_scale) + kv_lo;
+  return true;
+}
+
 }  // namespace repro

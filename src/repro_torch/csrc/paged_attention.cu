@@ -30,7 +30,7 @@
 //     blocks no key of the split can see are never read (they may hold
 //     anything);
 //   * 16-byte asynchronous copies: every visible token's K and V row for
-//     this kv head (D payload elements, strided by Hkv * D in the pool)
+//     this kv head (D payload elements, strided by the pool's Hkp * D)
 //     streams into a ring of S tiles of TT tokens in shared memory with
 //     cp.async.cg, one commit group per tile and all S tiles in flight
 //     (64 tokens at D 128 bf16: the whole 4-block split of the main
@@ -173,7 +173,9 @@ cudaError_t combine_d(const float* m, const float* l, const float* acc,
 // C entry points (loaded with ctypes by repro_torch/kernels/
 // paged_attention.py). All tensors contiguous, the pools 16-byte
 // aligned; block_table and lengths int32; k_scale / v_scale (NB, BS,
-// Hkv) f32 when pdtype is kI8 or kFP8 (else unused). The split plan:
+// Hkp) f32 when pdtype is kI8 or kFP8 (else unused). The pools hold Hkp
+// kv heads, of which the call reads [kv_lo, kv_lo + Hkv) (common.cuh
+// kv_range; the whole pool: kv_lo 0, Hkp = Hkv). The split plan:
 // bps blocks a split, nsplit splits covering the table (nsplit * bps >=
 // nbmax). o is (B, Hq, D) in dtype. With nsplit > 1, ``scratch`` holds
 // B * Hq * nsplit * (D + 2) f32: the splits' acc (B, Hq, nsplit, D), then
@@ -186,9 +188,12 @@ extern "C" int repro_paged_decode_attention(
     const void* k_scale, const void* v_scale, const void* block_table,
     const void* lengths, void* o, void* scratch, int dtype, int pdtype,
     int B, int Hq, int Hkv, int D, int BS, int nbmax, int window,
-    float scale, int bps, int nsplit, void* stream) {
+    float scale, int bps, int nsplit, int kv_lo, int Hkp, void* stream) {
   const bool quant = pdtype == repro::kI8 || pdtype == repro::kFP8;
   if (quant ? (k_scale == nullptr || v_scale == nullptr) : pdtype != dtype)
+    return static_cast<int>(cudaErrorInvalidValue);
+  if (!repro::kv_range(k_pool, v_pool, k_scale, v_scale, pdtype, D, kv_lo,
+                       Hkv, Hkp))
     return static_cast<int>(cudaErrorInvalidValue);
   if (bps < 1 || bps > kMaxSplitBlocks || nsplit < 1 || nsplit > 65535 ||
       static_cast<long long>(nsplit) * bps < nbmax || o == nullptr ||
@@ -210,6 +215,7 @@ extern "C" int repro_paged_decode_attention(
   p.l = nsplit > 1 ? acc + parts * (D + 1) : nullptr;
   p.Hq = Hq;
   p.Hkv = Hkv;
+  p.Hkp = Hkp;
   p.BS = BS;
   p.nbmax = nbmax;
   p.window = window;

@@ -21,7 +21,7 @@ struct PaParams {
   const void* q;
   const void* k_pool;
   const void* v_pool;
-  const float* k_scale;          // (NB, BS, Hkv), quantized pools only
+  const float* k_scale;          // (NB, BS, Hkp), quantized pools only
   const float* v_scale;
   const int* block_table;
   const int* lengths;
@@ -29,7 +29,9 @@ struct PaParams {
   float* m;                      // (B, Hq, nsplit) when nsplit > 1
   float* l;
   float* acc;                    // (B, Hq, nsplit, D)
-  int Hq, Hkv, BS, nbmax, window, bps, nsplit;
+  // Hkv: the kv heads the grid walks; Hkp: the pool's kv heads (its
+  // token row stride), the pointers already at the first head read
+  int Hq, Hkv, Hkp, BS, nbmax, window, bps, nsplit;
   float scale;
 };
 

@@ -136,7 +136,7 @@ __global__ void __launch_bounds__(THREADS) pa_split_kernel(PaParams p) {
 
     const unsigned char* kpool = static_cast<const unsigned char*>(p.k_pool);
     const unsigned char* vpool = static_cast<const unsigned char*>(p.v_pool);
-    const long long row_stride = static_cast<long long>(p.Hkv) * RB;
+    const long long row_stride = static_cast<long long>(p.Hkp) * RB;
 
     // Physical token row of visible key kpos (the table entry is in
     // sm_tab); BS need not be a power of two.
@@ -163,7 +163,7 @@ __global__ void __launch_bounds__(THREADS) pa_split_kernel(PaParams p) {
         float* sc = reinterpret_cast<float*>(st + 2 * TT * RB);
         for (int tt = threadIdx.x; tt < TT; tt += THREADS) {
           const bool ok = t0 + tt < khi;
-          const long long s = ok ? token_row(t0 + tt) * p.Hkv + hk : 0;
+          const long long s = ok ? token_row(t0 + tt) * p.Hkp + hk : 0;
           cp_async4(sc + tt, p.k_scale + s, ok ? 4 : 0);
           cp_async4(sc + TT + tt, p.v_scale + s, ok ? 4 : 0);
         }

@@ -107,12 +107,12 @@ struct PvParams {
   const void* q;
   const void* k_pool;
   const void* v_pool;
-  const float* k_scale;          // (NB, BS, Hkv), quantized pools only
+  const float* k_scale;          // (NB, BS, Hkp), quantized pools only
   const float* v_scale;
   const int* block_table;
   const int* lengths;
   void* o;
-  int K1, Hq, Hkv, BS, nbmax, window;
+  int K1, Hq, Hkv, Hkp, BS, nbmax, window;   // Hkp: the pool's kv heads
   float scale;
 };
 
@@ -124,7 +124,7 @@ __device__ __forceinline__ void load_tile(uint4 (&kr)[NLD], uint4 (&vr)[NLD],
                                           float (&ks)[NLD], float (&vs)[NLD],
                                           const P* kp, const P* vp,
                                           const float* ksp, const float* vsp,
-                                          const int* table, int BS, int Hkv,
+                                          const int* table, int BS, int Hkp,
                                           long long tok, int k0, int hi) {
   constexpr int VN = repro::kVec<P>;
   constexpr int CH = D / VN;
@@ -141,8 +141,8 @@ __device__ __forceinline__ void load_tile(uint4 (&kr)[NLD], uint4 (&vr)[NLD],
       kr[n] = *reinterpret_cast<const uint4*>(kp + row);
       vr[n] = *reinterpret_cast<const uint4*>(vp + row);
       if constexpr (IsQuant<P>::value) {
-        ks[n] = ksp[trow * Hkv];
-        vs[n] = vsp[trow * Hkv];
+        ks[n] = ksp[trow * Hkp];
+        vs[n] = vsp[trow * Hkp];
       }
     }
   }
@@ -212,7 +212,7 @@ __global__ void __launch_bounds__(THREADS) pv_kernel(PvParams p) {
   const int hi = min(len + 1 + (t0 + n_live - 1) / G, s_max);
   const int lo = p.window > 0 ? max(0, len + 1 + t0 / G - p.window) : 0;
   const int* table = p.block_table + static_cast<long long>(b) * p.nbmax;
-  const long long tok = static_cast<long long>(p.Hkv) * D;   // token stride
+  const long long tok = static_cast<long long>(p.Hkp) * D;   // token stride
   const P* kp = static_cast<const P*>(p.k_pool) + hk * D;
   const P* vp = static_cast<const P*>(p.v_pool) + hk * D;
   const float* ksp = p.k_scale + hk;          // unused for a float pool
@@ -226,7 +226,7 @@ __global__ void __launch_bounds__(THREADS) pv_kernel(PvParams p) {
   float ks[NLD], vs[NLD];
   if (lo < hi)
     load_tile<P, D, NLD>(kr, vr, ks, vs, kp, vp, ksp, vsp, table, p.BS,
-                         p.Hkv, tok, lo, hi);
+                         p.Hkp, tok, lo, hi);
   for (int k0 = lo; k0 < hi; k0 += BK) {
     __syncthreads();   // previous tile consumed (and Qs written)
 #pragma unroll
@@ -254,7 +254,7 @@ __global__ void __launch_bounds__(THREADS) pv_kernel(PvParams p) {
     __syncthreads();
     if (k0 + BK < hi)   // the next tile's loads fly during this one's math
       load_tile<P, D, NLD>(kr, vr, ks, vs, kp, vp, ksp, vsp, table, p.BS,
-                           p.Hkv, tok, k0 + BK, hi);
+                           p.Hkp, tok, k0 + BK, hi);
     if (live) {   // scores and the online softmax of this tile
       float s[RPT][KPT];
 #pragma unroll
@@ -399,7 +399,9 @@ cudaError_t split_dispatch(const repro::PvsParams& p, int pdtype, int B,
 // C entry point (loaded with ctypes by repro_torch/kernels/
 // paged_attention.py). All tensors contiguous, the pools 16-byte
 // aligned; block_table and lengths int32; k_scale / v_scale (NB, BS,
-// Hkv) f32 when pdtype is kI8 or kFP8 (else unused). body: 0 simt, 1
+// Hkp) f32 when pdtype is kI8 or kFP8 (else unused). The pools hold Hkp
+// kv heads, of which the call reads [kv_lo, kv_lo + Hkv) (common.cuh
+// kv_range; the whole pool: kv_lo 0, Hkp = Hkv). body: 0 simt, 1
 // wgmma, 2 split (the wrapper's verify_body). The split plan (body 2):
 // bps blocks a split, nsplit splits covering the table (nsplit * bps >=
 // nbmax); with nsplit > 1, ``scratch`` holds B * K1 * Hq * nsplit * (D +
@@ -412,11 +414,14 @@ extern "C" int repro_paged_verify_attention(
     const void* k_scale, const void* v_scale, const void* block_table,
     const void* lengths, void* o, void* scratch, int dtype, int pdtype,
     int B, int K1, int Hq, int Hkv, int D, int BS, int NB, int nbmax,
-    int window, float scale, int body, int bps, int nsplit, void* stream) {
+    int window, float scale, int body, int bps, int nsplit, int kv_lo,
+    int Hkp, void* stream) {
   const bool quant = pdtype == repro::kI8 || pdtype == repro::kFP8;
   if (quant ? (k_scale == nullptr || v_scale == nullptr) : pdtype != dtype)
     return static_cast<int>(cudaErrorInvalidValue);
-  if (Hkv < 1 || Hq % Hkv != 0)
+  if (Hkv < 1 || Hq % Hkv != 0 ||
+      !repro::kv_range(k_pool, v_pool, k_scale, v_scale, pdtype, D, kv_lo,
+                       Hkv, Hkp))
     return static_cast<int>(cudaErrorInvalidValue);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const bool bf16 = dtype == repro::kBF16;
@@ -433,6 +438,7 @@ extern "C" int repro_paged_verify_attention(
     p.K1 = K1;
     p.Hq = Hq;
     p.Hkv = Hkv;
+    p.Hkp = Hkp;
     p.BS = BS;
     p.nbmax = nbmax;
     p.window = window;
@@ -453,6 +459,7 @@ extern "C" int repro_paged_verify_attention(
   p.K1 = K1;
   p.Hq = Hq;
   p.Hkv = Hkv;
+  p.Hkp = Hkp;
   p.D = D;
   p.BS = BS;
   p.NB = NB;

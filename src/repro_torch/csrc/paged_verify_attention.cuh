@@ -25,7 +25,7 @@ struct PvsParams {
   const void* q;                 // (B, K1, Hq, D)
   const void* k_pool;            // (NB, BS, Hkv, D)
   const void* v_pool;
-  const float* k_scale;          // (NB, BS, Hkv), quantized pools only
+  const float* k_scale;          // (NB, BS, Hkp), quantized pools only
   const float* v_scale;
   const int* block_table;        // (B, nbmax)
   const int* lengths;            // (B,) tokens before the window
@@ -33,7 +33,9 @@ struct PvsParams {
   float* m;                      // (B, K1, Hq, nsplit) when nsplit > 1
   float* l;
   float* acc;                    // (B, K1, Hq, nsplit, D)
-  int K1, Hq, Hkv, D, BS, NB, nbmax, window, bps, nsplit;
+  // Hkv: the kv heads the grid walks; Hkp: the pool's kv heads (its
+  // token row stride), the pointers already at the first head read
+  int K1, Hq, Hkv, Hkp, D, BS, NB, nbmax, window, bps, nsplit;
   float scale;
 };
 

@@ -88,7 +88,7 @@ __device__ __forceinline__ void load_tile(unsigned char* st,
   constexpr int RB = Gm::RB, KRS = Gm::KRS, PIECES = RB / 16;
   const unsigned char* kpool = static_cast<const unsigned char*>(p.k_pool);
   const unsigned char* vpool = static_cast<const unsigned char*>(p.v_pool);
-  const long long row_stride = static_cast<long long>(p.Hkv) * RB;
+  const long long row_stride = static_cast<long long>(p.Hkp) * RB;
   auto token_row = [&](int kpos) {   // BS need not be a power of two
     const int i = kpos / p.BS;
     return static_cast<long long>(sm_tab[i - i_first]) * p.BS +
@@ -107,7 +107,7 @@ __device__ __forceinline__ void load_tile(unsigned char* st,
     float* sc = reinterpret_cast<float*>(st + TT * (KRS + RB));
     for (int tt = threadIdx.x; tt < TT; tt += THREADS) {
       const bool ok = t0 + tt < khi;
-      const long long s = ok ? token_row(t0 + tt) * p.Hkv + hk : 0;
+      const long long s = ok ? token_row(t0 + tt) * p.Hkp + hk : 0;
       cp_async4(sc + tt, p.k_scale + s, ok ? 4 : 0);
       cp_async4(sc + TT + tt, p.v_scale + s, ok ? 4 : 0);
     }

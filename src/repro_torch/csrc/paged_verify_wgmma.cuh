@@ -173,7 +173,7 @@ __global__ void __launch_bounds__(Cfg<P, DP>::THREADS, 1)
       if (ok) {
         const int blk = key / p.BS;
         off = ((static_cast<long long>(sm_tab[blk - blk0]) * p.BS +
-                (key - blk * p.BS)) * p.Hkv + hk) * p.D + pc * 16;
+                (key - blk * p.BS)) * p.Hkp + hk) * p.D + pc * 16;
       }
       repro::cp_async16(base + t * DP + pc * 16, kpool + off, ok ? 16 : 0);
       repro::cp_async16(base + (BKV + t) * DP + pc * 16, vpool + off,
@@ -187,7 +187,7 @@ __global__ void __launch_bounds__(Cfg<P, DP>::THREADS, 1)
       if (ok) {
         const int blk = key / p.BS;
         so = (static_cast<long long>(sm_tab[blk - blk0]) * p.BS +
-              (key - blk * p.BS)) * p.Hkv + hk;
+              (key - blk * p.BS)) * p.Hkp + hk;
       }
       repro::cp_async4(sc + t, p.k_scale + so, ok ? 4 : 0);
       repro::cp_async4(sc + BKV + t, p.v_scale + so, ok ? 4 : 0);
@@ -378,13 +378,14 @@ cudaError_t launch(const PvsParams& p, int B, cudaStream_t stream) {
                 "K3 wgmma tile exceeds the H100's shared memory");
   CUtensorMap kmap{}, vmap{};      // unused over a quantized pool
   if constexpr (!C::Q) {
-    // the pool (NB, BS, Hkv, D) as a 4-D map over (D, Hkv, BS, NB): a box
-    // is (64 lanes of D, one kv head, min(BS, 64) tokens, one block)
+    // the pool (NB, BS, Hkp, D) from its first head read as a 4-D map
+    // over (D, Hkv, BS, NB) with the pool's strides: a box is (64 lanes
+    // of D, one kv head, min(BS, 64) tokens, one block)
     const uint64_t D = p.D;
     const uint64_t dims[4] = {D, static_cast<uint64_t>(p.Hkv),
                               static_cast<uint64_t>(p.BS),
                               static_cast<uint64_t>(p.NB)};
-    const uint64_t st[3] = {2 * D, 2 * D * p.Hkv, 2 * D * p.Hkv * p.BS};
+    const uint64_t st[3] = {2 * D, 2 * D * p.Hkp, 2 * D * p.Hkp * p.BS};
     const uint32_t box[4] = {
         64, 1, static_cast<uint32_t>(p.BS < BKV ? p.BS : BKV), 1};
     if (!hw::make_bf16_map(&kmap, p.k_pool, 4, dims, st, box) ||

@@ -29,7 +29,8 @@ __all__ = ["flash_attention", "paged_attention", "rglru_scan", "stx_matmul",
 
 
 def paged_attention(q, pool, block_table, lengths, *, mode="decode",
-                    window=None, scale=None, kv_format=None, sharding=None):
+                    window=None, scale=None, kv_format=None, sharding=None,
+                    kv_heads=None):
     """Paged attention over a per-layer pool dict (JAX ops.py
     ``paged_attention``).
 
@@ -49,7 +50,9 @@ def paged_attention(q, pool, block_table, lengths, *, mode="decode",
     against the pool: its head dims and quantization must match.
     ``sharding`` (a ``launch.sharding.ShardCtx``) marks q and the pool as
     this rank's heads of a head-sharded pool: the ``*_headshard``
-    wrappers run (the same kernels on the rank's heads).
+    wrappers run (the same kernels on the rank's heads); with
+    ``kv_heads`` (first, count) the pool is whole (replicated KV) and the
+    rank's q heads read that range of its kv heads.
     """
     if mode not in ("decode", "verify"):
         raise ValueError(f"mode must be 'decode' or 'verify', got {mode!r}")
@@ -71,7 +74,7 @@ def paged_attention(q, pool, block_table, lengths, *, mode="decode",
     if sharding is not None:
         fn = _pa.paged_decode_attention_headshard if mode == "decode" \
             else _pa.paged_verify_attention_headshard
-        kw["shard"] = sharding
+        kw.update(shard=sharding, kv_heads=kv_heads)
     else:
         fn = _pa.paged_decode_attention if mode == "decode" \
             else _pa.paged_verify_attention

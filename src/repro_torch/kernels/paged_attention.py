@@ -26,6 +26,13 @@ combine alone). The plan reads shapes only, never ``lengths``: nothing
 syncs with the card, and a captured CUDA graph replays for any lengths
 and table.
 
+``kv_heads=(first, count)`` reads a range of the pool's kv heads, the
+rest untouched: a tensor-parallel rank whose query heads read one kv
+head of a pool every rank holds whole (the replicated-KV layout). The
+plain version reads a head view of the pool; the kernels take the
+range's first head and the pool's kv heads as their row stride (the C
+entries' ``kv_lo`` / ``Hkp``). No byte of the pool is copied.
+
 K3 has three bodies, and ``verify_body`` picks one from shapes, dtypes
 and q's alignment alone, never from ``lengths``: "split" for a window
 of fewer than ``SPLIT_PAIRS`` (row, group) pairs a kv head (the verify
@@ -58,11 +65,11 @@ SPLIT_TOKENS = (64, 128)   # K2: keys a split takes, least and most
 CTAS_PER_SM = 8            # K2: the plan's aim, 2 waves of 4 CTAs an SM
 
 _ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
-             + [ctypes.c_float] + [ctypes.c_int] * 2 + [ctypes.c_void_p])
+             + [ctypes.c_float] + [ctypes.c_int] * 4 + [ctypes.c_void_p])
 _COMBINE_ARGTYPES = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 4 \
     + [ctypes.c_void_p]
 _PV_ARGTYPES = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 11
-                + [ctypes.c_float] + [ctypes.c_int] * 3 + [ctypes.c_void_p])
+                + [ctypes.c_float] + [ctypes.c_int] * 5 + [ctypes.c_void_p])
 
 VERIFY_BODIES = ("simt", "wgmma", "split")   # the C entry's body codes
 SPLIT_PAIRS = 32        # K3 "split": fewer than 32 (row, group) pairs
@@ -88,15 +95,42 @@ def _pad_q(q, k_pool, scale):
     return q, D, scale
 
 
+def kv_range(k_pool, kv_heads) -> tuple:
+    """(first, count) of the pool's kv heads a call reads: ``kv_heads``
+    checked against the pool, or all of them."""
+    hkp = k_pool.shape[2]
+    lo, n = kv_heads if kv_heads is not None else (0, hkp)
+    if lo < 0 or n < 1 or lo + n > hkp:
+        raise ValueError(f"kv heads [{lo}, {lo + n}) outside a pool of "
+                         f"{hkp}")
+    return int(lo), int(n)
+
+
+def _head_view(t, lo, n):
+    """The kv heads [lo, lo + n) of a pool or scale leaf, a view."""
+    return t if t is None or (lo == 0 and n == t.shape[2]) \
+        else t[:, :, lo:lo + n]
+
+
+def _plain(fn, q, k_pool, v_pool, block_table, lengths, kv_heads, **kw):
+    """The plain version over the kv-head view ``kv_heads`` selects."""
+    lo, n = kv_range(k_pool, kv_heads)
+    kw["k_scale"] = _head_view(kw["k_scale"], lo, n)
+    kw["v_scale"] = _head_view(kw["v_scale"], lo, n)
+    return fn(q, _head_view(k_pool, lo, n), _head_view(v_pool, lo, n),
+              block_table, lengths, **kw)
+
+
 def _check_pool_args(name, q, k_pool, v_pool, block_table, lengths,
-                     k_scale, v_scale) -> int:
+                     k_scale, v_scale, hkv) -> int:
     """Raise ValueError unless the tensors are what the CUDA kernels take:
     one CUDA device; q f32 or bf16 and the pools of q's dtype, or int8 /
-    fp8 payloads with f32 scales of (NB, BS, Hkv); int32 table and
-    lengths; matching shapes, a supported head dim and group;
-    contiguous, pools 16-byte aligned. Returns the payload's type code."""
+    fp8 payloads with f32 scales of (NB, BS, Hkp); int32 table and
+    lengths; matching shapes, a supported head dim and group of q's heads
+    over the ``hkv`` kv heads read; contiguous, pools 16-byte aligned.
+    Returns the payload's type code."""
     B, Hq, D = q.shape[0], q.shape[-2], q.shape[-1]
-    Hkv = k_pool.shape[2]
+    Hkv = hkv
     tensors = [q, k_pool, v_pool, block_table, lengths]
     quant = k_scale is not None or v_scale is not None
     if quant:
@@ -177,29 +211,30 @@ def sm_count(device) -> int:
 
 def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
                            window=None, scale=None, k_scale=None,
-                           v_scale=None):
+                           v_scale=None, kv_heads=None):
     """q: (B, Hq, D); pools: (NB, BS, Hkv, D); block_table: (B, NBMAX)
     int32; lengths: (B,) int32 valid tokens including the current one;
     ``k_scale`` / ``v_scale`` (NB, BS, Hkv) f32 for an int8/fp8 pool
-    (K4) -> (B, Hq, D) in q's dtype.
+    (K4); ``kv_heads`` (first, count) the pool's kv heads q's heads read
+    (default all) -> (B, Hq, D) in q's dtype.
 
     The kernel reads only the table entries of blocks the length (and
     window) can see, so entries past a sequence's last block may hold
     anything; every entry it does read must be a block id < NB.
     """
     if q.device.type == "cpu":
-        return ref.paged_decode_attention(q, k_pool, v_pool, block_table,
-                                          lengths, window=window,
-                                          scale=scale, k_scale=k_scale,
-                                          v_scale=v_scale)
+        return _plain(ref.paged_decode_attention, q, k_pool, v_pool,
+                      block_table, lengths, kv_heads, window=window,
+                      scale=scale, k_scale=k_scale, v_scale=v_scale)
     if q.dim() != 3:
         raise ValueError(f"paged_decode_attention: q {tuple(q.shape)} is "
                          "not (B, Hq, D)")
+    kv_lo, Hkv = kv_range(k_pool, kv_heads)
     q, D0, scale = _pad_q(q, k_pool, scale)
     pdtype = _check_pool_args("paged_decode_attention", q, k_pool, v_pool,
-                              block_table, lengths, k_scale, v_scale)
+                              block_table, lengths, k_scale, v_scale, Hkv)
     B, Hq, D = q.shape
-    BS, Hkv = k_pool.shape[1:3]
+    BS, Hkp = k_pool.shape[1:3]
     nbmax = block_table.shape[1]
     if B * Hq * D == 0:
         return torch.empty((B, Hq, D0), dtype=q.dtype, device=q.device)
@@ -213,7 +248,7 @@ def paged_decode_attention(q, k_pool, v_pool, block_table, lengths, *,
              _ptr(k_scale), _ptr(v_scale), block_table.data_ptr(),
              lengths.data_ptr(), out.data_ptr(), _ptr(scratch),
              DTYPES[q.dtype], pdtype, B, Hq, Hkv, D, BS, nbmax,
-             int(window or 0), scale, bps, nsplit,
+             int(window or 0), scale, bps, nsplit, kv_lo, Hkp,
              torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, "paged_decode_attention")
     if nsplit > 1:           # the same call launched the combine kernel
@@ -271,8 +306,9 @@ paged_decode_combine.launches = 0
 
 def verify_body(q, k_pool, block_table) -> str:
     """The body K3 runs for a q (B, K1, Hq, D) over a pool (NB, BS, Hkv,
-    D) and a (B, NBMAX) table, from their shapes, dtypes and q's
-    alignment alone (never a length, so a captured graph replays for any):
+    D) (a head view of it for a ``kv_heads`` range) and a (B, NBMAX)
+    table, from their shapes, dtypes and q's alignment alone (never a
+    length, so a captured graph replays for any):
 
     * "split" when K1 * Hq / Hkv < ``SPLIT_PAIRS``: the verify step
       (spec_tokens + 1 rows), any dtype and payload. At 32 pairs and
@@ -301,35 +337,36 @@ def verify_body(q, k_pool, block_table) -> str:
 
 def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
                            window=None, scale=None, k_scale=None,
-                           v_scale=None):
+                           v_scale=None, kv_heads=None):
     """q: (B, K1, Hq, D); pools: (NB, BS, Hkv, D); block_table: (B, NBMAX)
     int32; lengths: (B,) int32 tokens cached BEFORE the window;
-    ``k_scale`` / ``v_scale`` (NB, BS, Hkv) f32 for an int8/fp8 pool (K4)
-    -> (B, K1, Hq, D) in q's dtype. Row j attends positions
-    < lengths[b] + 1 + j.
+    ``k_scale`` / ``v_scale`` (NB, BS, Hkv) f32 for an int8/fp8 pool
+    (K4); ``kv_heads`` (first, count) the pool's kv heads q's heads read
+    (default all) -> (B, K1, Hq, D) in q's dtype. Row j attends
+    positions < lengths[b] + 1 + j.
 
     The kernel reads only the table entries of positions some row of a
     query tile can see (clamped at NBMAX * BS), so entries past them may
     hold anything; every entry it does read must be a block id < NB.
     """
     if q.device.type == "cpu":
-        return ref.paged_verify_attention(q, k_pool, v_pool, block_table,
-                                          lengths, window=window,
-                                          scale=scale, k_scale=k_scale,
-                                          v_scale=v_scale)
+        return _plain(ref.paged_verify_attention, q, k_pool, v_pool,
+                      block_table, lengths, kv_heads, window=window,
+                      scale=scale, k_scale=k_scale, v_scale=v_scale)
     if q.dim() != 4:
         raise ValueError(f"paged_verify_attention: q {tuple(q.shape)} is "
                          "not (B, K1, Hq, D)")
+    kv_lo, Hkv = kv_range(k_pool, kv_heads)
     q, D0, scale = _pad_q(q, k_pool, scale)
     pdtype = _check_pool_args("paged_verify_attention", q, k_pool, v_pool,
-                              block_table, lengths, k_scale, v_scale)
+                              block_table, lengths, k_scale, v_scale, Hkv)
     B, K1, Hq, D = q.shape
-    NB, BS, Hkv = k_pool.shape[:3]
+    NB, BS, Hkp = k_pool.shape[:3]
     nbmax = block_table.shape[1]
     out = torch.empty((B, K1, Hq, D), dtype=q.dtype, device=q.device)
     if out.numel() == 0:
         return out[..., :D0]
-    which = verify_body(q, k_pool, block_table)
+    which = verify_body(q, _head_view(k_pool, kv_lo, Hkv), block_table)
     bps, nsplit, scratch = 0, 1, None
     if which == "split":
         bps, nsplit = split_plan(B, Hkv, nbmax, BS, sm_count(q.device))
@@ -344,7 +381,8 @@ def paged_verify_attention(q, k_pool, v_pool, block_table, lengths, *,
              lengths.data_ptr(), out.data_ptr(), _ptr(scratch),
              DTYPES[q.dtype], pdtype, B, K1, Hq, Hkv, D, BS, NB, nbmax,
              int(window or 0), scale, VERIFY_BODIES.index(which), bps,
-             nsplit, torch.cuda.current_stream(q.device).cuda_stream)
+             nsplit, kv_lo, Hkp,
+             torch.cuda.current_stream(q.device).cuda_stream)
     _build.check(err, f"paged_verify_attention ({which} body)")
     if nsplit > 1:           # the same call launched the combine kernel
         paged_decode_combine.launches += 1
@@ -361,19 +399,23 @@ paged_verify_attention.k4_launches = 0   # K4 (quantized pool)
 paged_verify_attention.launches_by_body = dict.fromkeys(VERIFY_BODIES, 0)
 
 
-def _check_head_shard(name, q_heads, k_pool, shard):
-    """The rank's q heads must be whole query groups of its pool's kv
-    heads (``paged_kv.head_shard_ok`` of the model makes them so)."""
-    hkv = k_pool.shape[2]
-    if shard.tp_size < 2 or hkv < 1 or q_heads % hkv:
+def _check_head_shard(name, q_heads, k_pool, shard, kv_heads):
+    """The rank's q heads must be whole query groups of the kv heads they
+    read: its pool's kv-head shard (``paged_kv.head_shard_ok`` of the
+    model makes them so), or the ``kv_heads`` range of a replicated
+    pool. Returns that range."""
+    lo, hkv = kv_range(k_pool, kv_heads)
+    if shard.tp_size < 2 or q_heads % hkv:
         raise ValueError(
-            f"{name}: {q_heads} query heads over {hkv} pool kv heads on a "
+            f"{name}: {q_heads} query heads over {hkv} kv heads on a "
             f"{shard.tp_size}-rank model axis are not a head shard")
+    return lo, hkv
 
 
 def paged_decode_attention_headshard(q, k_pool, v_pool, block_table,
                                      lengths, *, shard, window=None,
-                                     scale=None, k_scale=None, v_scale=None):
+                                     scale=None, k_scale=None, v_scale=None,
+                                     kv_heads=None):
     """K2 (K4 over a quantized pool) on one rank of a head-sharded pool.
 
     The counterpart of JAX's ``shard_map`` wrapper of the same name: the
@@ -385,24 +427,33 @@ def paged_decode_attention_headshard(q, k_pool, v_pool, block_table,
     this rank's query heads, the pools (NB, BS, Hkv / T, D) and scales
     (NB, BS, Hkv / T) its kv heads, and the call is the single-device
     ``paged_decode_attention`` on them (no new kernel; its launches count
-    there). Returns this rank's (B, Hq / T, D)."""
-    _check_head_shard("paged_decode_attention_headshard", q.shape[-2],
-                      k_pool, shard)
+    there). Returns this rank's (B, Hq / T, D).
+
+    Where the kv heads do not divide T, the pool is whole on every rank
+    (the replicated-KV layout) and ``kv_heads`` (first, count) names the
+    kv heads this rank's query heads read: the kernel walks that range of
+    the pool in place (``kv_range``), never a copy of it."""
+    kv = _check_head_shard("paged_decode_attention_headshard", q.shape[-2],
+                           k_pool, shard, kv_heads)
     return paged_decode_attention(q, k_pool, v_pool, block_table, lengths,
                                   window=window, scale=scale,
-                                  k_scale=k_scale, v_scale=v_scale)
+                                  k_scale=k_scale, v_scale=v_scale,
+                                  kv_heads=kv)
 
 
 def paged_verify_attention_headshard(q, k_pool, v_pool, block_table,
                                      lengths, *, shard, window=None,
-                                     scale=None, k_scale=None, v_scale=None):
+                                     scale=None, k_scale=None, v_scale=None,
+                                     kv_heads=None):
     """K3 (K4 over a quantized pool) on one rank of a head-sharded pool:
     the ``paged_decode_attention_headshard`` layout with a K1-row query
     block a sequence, q (B, K1, Hq / T, D). ``verify_body`` picks the body
-    from this rank's shapes (the split plan runs over Hkv / T heads).
-    Returns this rank's (B, K1, Hq / T, D)."""
-    _check_head_shard("paged_verify_attention_headshard", q.shape[-2],
-                      k_pool, shard)
+    from this rank's shapes (the split plan runs over Hkv / T heads, or
+    the ``kv_heads`` range of a replicated pool). Returns this rank's
+    (B, K1, Hq / T, D)."""
+    kv = _check_head_shard("paged_verify_attention_headshard", q.shape[-2],
+                           k_pool, shard, kv_heads)
     return paged_verify_attention(q, k_pool, v_pool, block_table, lengths,
                                   window=window, scale=scale,
-                                  k_scale=k_scale, v_scale=v_scale)
+                                  k_scale=k_scale, v_scale=v_scale,
+                                  kv_heads=kv)

@@ -21,7 +21,7 @@ hand each request's KV blocks across as a ``MigrationPacket``
 (``transport.py``). ``EngineConfig(mesh=...)`` serves one engine over
 the T ranks of a tensor-parallel mesh (``launch/mesh.py``,
 ``launch/sharding.py``): each rank a process with its slices of the
-params and its kv-head shard of the pool.
+params and of the pool and per-slot state, by a per-block plan.
 """
 
 from .api import (Engine, EngineConfig, Request, RequestHandle,

@@ -20,7 +20,7 @@ import time
 from typing import Any, Optional, Sequence
 
 from ...models.model import Model, resolve_device
-from ...models.paged_kv import KV_DTYPES, head_shard_ok
+from ...models.paged_kv import KV_DTYPES
 from ...models.transformer import RunCtx, check_supported
 from ..mesh import TP_FAMILIES, not_ported
 
@@ -306,9 +306,12 @@ class EngineConfig:
         model=T)`` mesh (``launch.mesh.init_mesh`` / ``launch``). Every
         rank builds an Engine over the same full params (it keeps its
         slices, ``sharding.shard_params``) and serves the same requests;
-        the pool is head-sharded (``paged_kv.head_shard_ok`` must hold).
-        Tokens are mesh-independent. Decoder-only stacks of full
-        attention only (olmo_1b, yi_6b, gemma_7b); the other families,
+        each block splits by the plan chosen from which of its dimensions
+        divide T (``launch.sharding.plan_tp``: attention by heads, or by
+        query heads over a replicated KV, or whole; the RG-LRU by
+        channels, the xLSTM cells by heads, the MoE by experts), reported
+        in ``stats()["tp"]``. Tokens are mesh-independent. Every
+        decoder-only family the port serves; the encoder-decoder,
         ``overlap=True`` and a data axis above 1 raise
         NotImplementedError naming their ROADMAP sub-item.
     tp_axis : str
@@ -494,19 +497,19 @@ class Engine:
 
     def _mesh_ctx(self, ctx: RunCtx) -> RunCtx:
         """The ``RunCtx`` of this rank: the mesh's ``ShardCtx`` (a fresh
-        ``TPStats`` an engine) and ``decode_head_shard`` from
-        ``head_shard_ok``; raises for what this slice does not serve."""
-        from ..sharding import check_tp_supported, make_shard_ctx
+        ``TPStats`` an engine) with the model's plan over it, chosen here
+        once (``sharding.plan_tp``, which raises for what no plan
+        serves), and ``decode_head_shard`` where the plan splits the
+        attention by heads."""
+        from ..sharding import make_shard_ctx
 
         mesh, mc = self.cfg.mesh, self.model.cfg
         if self.device != mesh.device:
             raise ValueError(f"engine device {self.device} != the mesh "
                              f"rank's device {mesh.device}")
-        shard = make_shard_ctx(mesh, tp_axis=self.cfg.tp_axis)
-        check_tp_supported(mc, shard)
+        shard = make_shard_ctx(mesh, mc, tp_axis=self.cfg.tp_axis)
         return dataclasses.replace(
-            ctx, shard=shard,
-            decode_head_shard=head_shard_ok(mc, shard.tp_size))
+            ctx, shard=shard, decode_head_shard=shard.plan.attn == "heads")
 
     # -- request lifecycle ----------------------------------------------
 

@@ -52,12 +52,14 @@ Counterpart of ``repro/launch/engine/scheduler.py::PagedBackend``
   the draws of rows retired in between; outputs are bit-identical with
   it on or off.
 * **Tensor parallelism** (``RunCtx.shard``, set by the Engine from
-  ``EngineConfig.mesh``) — every rank runs this scheduler on the same
-  requests (SPMD): params are this rank's slices
+  ``EngineConfig.mesh``, with its per-block plan) — every rank runs this
+  scheduler on the same requests (SPMD): params are this rank's slices
   (``sharding.shard_params``), the pools its kv-head shard of every
-  block, so block tables, lengths, the allocator and the prefix index
-  are the same host state on every rank and a COW copy runs on each
-  rank's shard. Logits are all-gathered, so every rank samples the
+  block (or the whole pool where the kv heads do not divide T), the
+  per-slot state (rings, recurrent carries, conv tails) its slice by
+  JAX's cache specs, so block tables, lengths, the allocator and the
+  prefix index are the same host state on every rank and a COW copy
+  runs on each rank's shard. Logits are all-gathered, so every rank samples the
   same token. No scheduling decision reads a clock. The captured decode
   step stays on under NCCL (its collectives capture); under gloo (the
   CPU, ranks sharing a card) the step runs eagerly and
@@ -138,7 +140,8 @@ class PagedBackend:
         # tensor parallelism: this rank keeps its slices of the params
         self.shard = ctx.shard
         if self.shard is not None:
-            from ..sharding import shard_params
+            from ..sharding import leaf_exceptions, shard_params
+            self.tp_leaves = leaf_exceptions(params, self.shard)
             self.params = params = shard_params(params, self.shard)
         # quantized paged KV: the PoolSpec rides in the RunCtx to the
         # write frontiers and the kernels; None keeps the model dtype
@@ -146,7 +149,7 @@ class PagedBackend:
         if cfg.kv_dtype != "bf16":
             self.kv_spec = paged_kv.make_pool_spec(
                 model.cfg, self.layout, kv_dtype=cfg.kv_dtype,
-                head_sharded=self.shard is not None)
+                head_sharded=bool(ctx.decode_head_shard))
             ctx = dataclasses.replace(ctx, kv_spec=self.kv_spec)
         self.ctx = ctx
         caps = model.serving_caps()
@@ -1031,8 +1034,8 @@ class PagedBackend:
         leaves); ``prefill_shapes`` counts the distinct admission shapes
         (JAX's ``prefill_compiles``), ``cross_arena`` the arena's rows
         and shared admissions. Under a mesh ``pool_bytes`` is this
-        rank's (its head shard) and a ``tp`` section reports the mesh
-        (``sharding.tp_report``), whether the decode pool is head-sharded
+        rank's (its slice) and a ``tp`` section reports the mesh and the
+        plan (``sharding.tp_report``), whether the decode pool is head-sharded
         and whether the decode step is a captured graph."""
         cap = self.block_token_steps or 1
         st = {
@@ -1076,6 +1079,7 @@ class PagedBackend:
             st["tp"] = dict(
                 tp_report(self.shard, self.device, self.step_collectives,
                           self.steps),
+                **self.tp_leaves,
                 head_sharded=bool(self.ctx.decode_head_shard),
                 captured_step=bool(self.decode is not None
                                    and self.decode.graphed))

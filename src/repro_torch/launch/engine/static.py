@@ -19,8 +19,9 @@ on both devices: the prefill runs K1 (and K5 for RG-LRU layers) on the
 card, the dense decode is plain torch, as JAX computes it in jnp.
 
 Under a mesh (``RunCtx.shard``) each rank keeps its param slices and its
-kv-head slice of the (L, B, S, Hkv, hd) cache (``sharding.batch_specs``'
-cache rules, applied by ``Model.prefill``); the decode is eager, its
+slice of the caches (``sharding.batch_specs``' cache rules, applied by
+``Model.prefill``: K/V by kv heads, recurrent state by channels or
+heads, whole where they do not divide); the decode is eager, its
 collectives counted in ``stats()["tp"]``.
 """
 
@@ -49,7 +50,8 @@ class StaticBackend:
         self.model = model
         self.shard = ctx.shard
         if self.shard is not None:
-            from ..sharding import shard_params
+            from ..sharding import leaf_exceptions, shard_params
+            self.tp_leaves = leaf_exceptions(params, self.shard)
             params = shard_params(params, self.shard)
         self.params = params
         self.cfg = cfg
@@ -226,5 +228,6 @@ class StaticBackend:
             from ..sharding import tp_report
             st["tp"] = dict(tp_report(self.shard, self.device,
                                       self.step_collectives, self.steps),
+                            **self.tp_leaves,
                             cache_bytes=self.cache_bytes)
         return st

@@ -15,7 +15,10 @@ Tensor parallel:  add --tp 2 (T ranks: spawned here, or one a process
 CPU and on ranks sharing one card over gloo, on T cards of their own over
 NCCL. Every rank builds the same seeded params and keeps its slices; the
 stats carry a ``tp`` section (mesh, rank, backend, whether the decode
-step is a captured graph, collectives per step, bytes).
+step is a captured graph, collectives per step, bytes, and the per-block
+plan: which blocks split and which leaves are kept whole). Every
+decoder-only family serves over a mesh (dense, windowed, recurrent,
+xLSTM, MoE by expert parallelism); the encoder-decoder raises.
 """
 
 from __future__ import annotations
@@ -65,8 +68,9 @@ def main(argv=None):
                          "pools, outputs unchanged)")
     ap.add_argument("--tp", type=int, default=1,
                     help="tensor parallelism: one engine over T ranks, "
-                         "each with 1/T of the heads, the MLP and the "
-                         "vocabulary and its kv-head shard of the pool")
+                         "each with 1/T of every block whose dimension "
+                         "divides T (heads, channels, experts, MLP, "
+                         "vocabulary) and its slice of the pool and state")
     args = ap.parse_args(argv)
     if args.tp < 1:
         raise ValueError(f"--tp {args.tp} must be >= 1")

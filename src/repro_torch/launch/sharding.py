@@ -23,6 +23,23 @@ seed, or from the JAX bridge) and keeps its slice (``shard_params``);
 the pools and caches are allocated at their local shapes directly
 (``local_zeros`` over a tree built on the meta device), never whole.
 
+Which blocks split over the ranks is a per-block plan (``TPPlan``,
+``plan_tp``), chosen once from which dimensions divide T: attention by
+heads (its pool or ring split by kv heads), by query heads over a
+replicated KV (kv heads that do not divide T; each rank reads the range
+of kv heads its query heads map to) or whole; the RG-LRU by channels,
+the mLSTM / sLSTM by heads, the MLP by ``d_ff``, the MoE by experts
+(expert parallelism), the embedding and head by vocabulary, each whole
+where its dimension does not divide. ``shard_params`` follows JAX's
+specs except for two kinds of leaves, which the plan names: leaves kept
+whole where JAX's spec splits them (an MQA layer's ``wk`` / ``wv``, every
+projection of a whole attention layer: GSPMD gathers those on use, so a
+rank holds more bytes than JAX's spec says) and head-aligned leaves,
+concatenations of per-head parts (mLSTM ``w_up`` = [c | z] and ``w_if`` =
+[i | f], sLSTM ``w_zifo`` = [z | i | f | o]) of which a rank takes its
+heads' columns of each part, where JAX's contiguous column split would
+hand one rank all of ``c`` and the other all of ``z``.
+
 The ``fsdp`` layout, ``opt_state_specs`` and a seq-sharded decode cache
 wait for the sub-items that need them (``make_shard_ctx`` raises).
 """
@@ -34,6 +51,7 @@ from typing import Any
 
 import torch
 
+from ..models import layers
 from .mesh import SHARDED_TRAINING, SUBMESHES, TP_FAMILIES, not_ported
 
 
@@ -74,6 +92,9 @@ class ShardCtx:
     layout: str = "2d"
     stats: TPStats = dataclasses.field(default_factory=TPStats,
                                        compare=False, repr=False)
+    # the TPPlan a model runs by (``make_shard_ctx``); None only for a
+    # ``layout_ctx``, which serves the layout rules alone
+    plan: Any = dataclasses.field(default=None, compare=False)
 
     @property
     def batch_axes(self) -> tuple:
@@ -100,20 +121,24 @@ class ShardCtx:
 def tp_report(shard: ShardCtx, device, step_collectives: int,
               steps: int) -> dict:
     """The common part of a backend's ``stats()["tp"]``: the mesh, this
-    rank, the collectives' backend, and the collectives (all, and those
-    of the decode / verify steps, per step) with their bytes on this
-    rank."""
-    return {"tp": shard.tp_size, "rank": shard.tp_rank,
-            "backend": shard.backend, "device": str(device),
-            "collectives": shard.stats.collectives,
-            "collective_bytes": shard.stats.bytes,
-            "step_collectives": step_collectives,
-            "collectives_per_step": step_collectives / max(steps, 1)}
+    rank, the collectives' backend, the collectives (all, and those of
+    the decode / verify steps, per step) with their bytes on this rank,
+    and the plan (``TPPlan.report``)."""
+    out = {"tp": shard.tp_size, "rank": shard.tp_rank,
+           "backend": shard.backend, "device": str(device),
+           "collectives": shard.stats.collectives,
+           "collective_bytes": shard.stats.bytes,
+           "step_collectives": step_collectives,
+           "collectives_per_step": step_collectives / max(steps, 1)}
+    if shard.plan is not None:
+        out.update(shard.plan.report())
+    return out
 
 
-def make_shard_ctx(mesh, layout: str = "2d",
-                   tp_axis: str = "model") -> ShardCtx:
-    """The ``ShardCtx`` of ``mesh``; raises for what is not ported: the
+def layout_ctx(mesh, layout: str = "2d", tp_axis: str = "model") -> ShardCtx:
+    """A ``ShardCtx`` of ``mesh`` with no plan: enough for the layout
+    rules (``param_specs``, ``paged_cache_specs``, ``batch_specs``) of
+    any config, not to run a model. Raises for what is not ported: the
     ``fsdp`` layout (sharded training) and a data axis above 1 (FSDP
     under one engine, or replicas on submeshes)."""
     if tp_axis not in mesh.axis_names:
@@ -126,6 +151,14 @@ def make_shard_ctx(mesh, layout: str = "2d",
             f"a data axis above 1 inside one engine (mesh {mesh.shape}: "
             "FSDP, or replicas on submeshes with --dp)", SUBMESHES)
     return ShardCtx(mesh=mesh, dp_axes=dp, tp_axis=tp_axis, layout=layout)
+
+
+def make_shard_ctx(mesh, cfg, tp_axis: str = "model") -> ShardCtx:
+    """The ``ShardCtx`` a model runs under on ``mesh``: ``layout_ctx``'s
+    with the plan of ``cfg`` over it (``plan_tp``, which raises for a
+    config the mesh does not serve)."""
+    shard = layout_ctx(mesh, tp_axis=tp_axis)
+    return dataclasses.replace(shard, plan=plan_tp(cfg, shard))
 
 
 def _axis_size(mesh, axis) -> int:
@@ -252,7 +285,8 @@ def paged_pool_spec(shape, shard: ShardCtx) -> tuple:
     its kv-head shard of every physical block, so block tables and
     lengths stay replicated host integers and no pool byte crosses
     ranks. ``_fit`` drops the head sharding when Hkv does not divide the
-    model axis (the replicated-pool fallback, refused by the engine)."""
+    model axis: the replicated pool every rank writes whole, whose kv
+    heads a rank's query heads read by range (``TPPlan.kv_heads``)."""
     return _fit((None, None, None, shard.tp_axis, None), tuple(shape),
                 shard.mesh)
 
@@ -286,13 +320,90 @@ def shard_tensor(t, spec, shard: ShardCtx):
     return t.contiguous().clone()
 
 
+class RankSlices(dict):
+    """A param tree already cut to one rank's slices (``shard_params``'
+    output, or ``init_rank_params``'): a backend takes it as it is."""
+
+
+# Head-aligned leaves: a concatenation of per-head parts along the last
+# dim (mLSTM w_up = [c | z], w_if = [i | f]; sLSTM w_zifo = [z|i|f|o]).
+HEAD_ALIGNED_PARTS = {"w_up": 2, "w_if": 2, "w_zifo": 4}
+ATTN_PROJ = ("wq", "wk", "wv", "wo")
+
+
+def leaf_layout(path, shard: ShardCtx) -> str:
+    """How this rank holds the leaf at ``path``: ``"spec"`` (JAX's spec),
+    ``"whole"`` (kept whole for the plan) or ``"head_aligned"``."""
+    plan = shard.plan
+    if plan is None or len(path) < 2:
+        return "spec"
+    parent, name = path[-2], path[-1]
+    if parent == "attn" and name in ATTN_PROJ and (
+            plan.attn == "whole"
+            or (plan.attn == "kv_replicated" and name in ("wk", "wv"))):
+        return "whole"
+    if parent == "mix" and name in HEAD_ALIGNED_PARTS and plan.xlstm:
+        return "head_aligned"
+    return "spec"
+
+
 def shard_params(full, shard: ShardCtx):
     """Each rank's slices of a full param tree (the counterpart of JAX's
     ``place_params``): every rank holds the same full tree and keeps its
-    slice of each leaf, by ``param_specs``."""
+    slice of each leaf, by ``param_specs``, except where ``shard.plan``
+    keeps a leaf whole or takes its heads' columns of each part
+    (``leaf_layout``). A ``RankSlices`` tree is returned as it is."""
+    if isinstance(full, RankSlices):
+        return full
     specs = param_specs(full, shard)
-    return _tree_map_with_path(
-        lambda path, t: shard_tensor(t, _at(specs, path), shard), full)
+
+    def one(path, t):
+        how = leaf_layout(path, shard)
+        if how == "whole":
+            return t.contiguous().clone()
+        if how == "head_aligned":
+            return layers.rank_parts(
+                t, HEAD_ALIGNED_PARTS[path[-1]], shard).contiguous().clone()
+        return shard_tensor(t, _at(specs, path), shard)
+
+    return RankSlices(_tree_map_with_path(one, full))
+
+
+def leaf_exceptions(params, shard: ShardCtx) -> dict:
+    """The paths (``/``-joined) of the leaves of a full tree (or its
+    meta shapes) that ``shard_params`` keeps whole although JAX's spec
+    splits them, and of the head-aligned ones."""
+    specs = param_specs(params, shard)
+    out = {"kept_whole": [], "head_aligned": []}
+
+    def one(path, t):
+        how = leaf_layout(path, shard)
+        if how == "whole" and shard.tp_axis in _at(specs, path):
+            out["kept_whole"].append("/".join(path))
+        elif how == "head_aligned":
+            out["head_aligned"].append("/".join(path))
+
+    _tree_map_with_path(one, params)
+    return out
+
+
+def init_rank_params(model, seed: int, shard: ShardCtx = None):
+    """``model``'s params from ``seed`` drawn on its device a layer at a
+    time (``transformer.init_lm(per_layer=True)``: one layer's f32 draw
+    at a time, for a model whose stacked blocks do not fit the card; not
+    ``model.init``'s values), keeping this rank's slices of each layer
+    and top-level leaf as it goes (``shard_params`` of each part), so
+    the whole tree never exists at once. ``shard`` None: the whole tree,
+    the single-device run to hold the ranks to. Returns a ``RankSlices``
+    tree under ``shard``."""
+    from ..models import transformer
+
+    gen = torch.Generator(device=model.device).manual_seed(seed)
+    if shard is None:
+        return transformer.init_lm(gen, model.cfg, per_layer=True)
+    return RankSlices(transformer.init_lm(
+        gen, model.cfg, per_layer=True,
+        keep=lambda tree: dict(shard_params(tree, shard))))
 
 
 def _at(tree, path):
@@ -311,37 +422,129 @@ def local_zeros(meta_tree, specs, shard: ShardCtx, device):
         meta_tree)
 
 
-def check_tp_supported(cfg, shard: ShardCtx):
-    """Raise NotImplementedError for a config this slice does not serve
-    over a mesh: only decoder-only stacks whose every layer is full
-    attention with no window (olmo_1b, yi_6b, gemma_7b), with heads and
-    vocabulary that divide the model axis, shard their pool by heads;
-    everything else names its sub-item."""
-    from ..models.paged_kv import head_shard_ok
+@dataclasses.dataclass(frozen=True)
+class TPPlan:
+    """What each block of one config computes on one rank of a T-rank
+    model axis (``plan_tp``), and the collectives that costs.
 
-    tp = shard.tp_size
+    ``attn`` is ``"heads"`` (Hq and Hkv divide T: the rank's query and kv
+    heads, its pool or ring split by kv heads), ``"kv_replicated"`` (Hq
+    divides T, Hkv does not: the rank's query heads against the kv heads
+    they read, ``kv_heads``, of a pool or ring every rank writes whole),
+    ``"whole"`` (the whole layer on every rank, no collective) or
+    ``"none"`` (no attention layer). ``q_heads``, ``kv_heads`` and
+    ``experts`` are (first, count) ranges; ``mlp``, ``rglru``, ``xlstm``,
+    ``slstm_ff``, ``moe`` and ``vocab`` say whether the block splits
+    (``d_ff``, ``rnn_width``, the xLSTM heads, the sLSTM's FFN width, the
+    experts, the vocabulary divide T). ``layers`` holds (kind, pool
+    layer) for every layer in order."""
+
+    tp: int
+    rank: int
+    attn: str
+    q_heads: tuple
+    kv_heads: tuple
+    mlp: bool
+    rglru: bool
+    xlstm: bool
+    slstm_ff: bool
+    moe: bool
+    experts: tuple
+    vocab: bool
+    layers: tuple
+
+    def block_collectives(self, kind: str) -> int:
+        """Collectives of one layer of ``kind`` for one token row window
+        (its mixer and the FFN after it)."""
+        attn = {"heads": 1, "kv_replicated": 1}.get(self.attn, 0)
+        mixer = {"attn": attn, "local": attn, "rglru": 2 * self.rglru,
+                 "mlstm": 2 * self.xlstm,
+                 "slstm": self.xlstm + self.slstm_ff}[kind]
+        ffn = 0                         # an xLSTM block has no FFN after it
+        if kind in ("attn", "local"):
+            ffn = int(self.moe if self.experts[1] else self.mlp)
+        elif kind == "rglru":
+            ffn = int(self.mlp)
+        return mixer + ffn
+
+    def step_collectives(self, rows: int = 1) -> int:
+        """Collectives of one decode step (``rows`` 1) or one verify step
+        over a ``rows``-token window: the embedding and the head once,
+        a pool layer once, a ring or recurrent layer once a row (the
+        verify scans the decode cell)."""
+        n = 2 * self.vocab
+        for kind, pool in self.layers:
+            n += self.block_collectives(kind) * (1 if pool else rows)
+        return n
+
+    def report(self) -> dict:
+        """The plan as ``stats()["tp"]`` reports it."""
+        kinds = dict.fromkeys(k for k, _ in self.layers)
+        return {"plan": {"attn": self.attn, "mlp": self.mlp,
+                         "rglru": self.rglru, "xlstm": self.xlstm,
+                         "moe": self.moe, "vocab": self.vocab,
+                         "collectives_by_kind": {
+                             k: self.block_collectives(k) for k in kinds}},
+                "q_heads": list(self.q_heads),
+                "kv_heads": list(self.kv_heads),
+                "kv_replicated": self.attn == "kv_replicated",
+                "experts_local": self.experts[1],
+                "experts_range": list(self.experts),
+                "plan_collectives_per_step": self.step_collectives()}
+
+
+def _attn_mode(cfg, tp: int) -> str:
+    """Head-parallel where Hq and Hkv divide T; query heads over a
+    replicated KV where Hq divides T and each rank's query heads read one
+    kv head; else the whole layer on every rank."""
+    hq, hkv = cfg.n_heads, cfg.n_kv_heads
+    if hq % tp:
+        return "whole"
+    if hkv % tp == 0:
+        return "heads"
+    return "kv_replicated" if (hq // hkv) % (hq // tp) == 0 else "whole"
+
+
+def plan_tp(cfg, shard: ShardCtx) -> TPPlan:
+    """The per-block plan of ``cfg`` on this rank (``TPPlan``), chosen
+    from which dimensions divide T. Raises NotImplementedError naming
+    the sub-item for what no plan serves: an encoder-decoder, a VLM or
+    absolute-position frontend, an xLSTM whose heads do not divide T."""
+    from ..models import transformer
+    from ..models.ssm import slstm_ffn_width
+
+    tp, rank = shard.tp_size, shard.tp_rank
     name = f"{cfg.family}/{cfg.name}"
     if cfg.enc_dec:
         raise not_ported(f"an encoder-decoder ({name}) under a mesh "
                          "(encdec.paged_cache_specs)", TP_FAMILIES)
-    if cfg.is_moe:
-        raise not_ported(f"the MoE's expert parallelism ({name}: "
-                         "apply_moe_sharded)", TP_FAMILIES)
-    if set(cfg.block_pattern) != {"attn"} or cfg.sliding_window:
-        raise not_ported(
-            f"recurrent, windowed or xLSTM layers over TP ({name}: "
-            f"{sorted(set(cfg.block_pattern))}, window "
-            f"{cfg.sliding_window})", TP_FAMILIES)
     if cfg.visual_prefix or cfg.rope_style == "mrope" \
             or cfg.pos_embed != "none" or cfg.attn_bias:
         raise not_ported(f"{name}'s frontend under a mesh", TP_FAMILIES)
-    if tp > 1 and not head_shard_ok(cfg, tp):
-        raise not_ported(
-            f"the replicated-pool fallback ({name}: {cfg.n_heads} / "
-            f"{cfg.n_kv_heads} heads do not divide --tp {tp})",
-            TP_FAMILIES)
-    if cfg.vocab_size % tp or cfg.d_ff % tp:
-        raise not_ported(
-            f"a vocabulary or MLP width that does not divide --tp {tp} "
-            f"({name}: vocab {cfg.vocab_size}, d_ff {cfg.d_ff})",
-            TP_FAMILIES)
+    kinds = set(cfg.block_pattern)
+    xlstm = bool(kinds & {"mlstm", "slstm"})
+    if xlstm and cfg.n_heads % tp:
+        raise not_ported(f"xLSTM heads that do not divide --tp {tp} "
+                         f"({name}: {cfg.n_heads} heads)", TP_FAMILIES)
+    attn = _attn_mode(cfg, tp) if kinds & {"attn", "local"} else "none"
+    g = cfg.n_heads // cfg.n_kv_heads
+    if attn in ("heads", "kv_replicated"):
+        hq = cfg.n_heads // tp
+        q = (rank * hq, hq)
+        kv = (q[0] // g, max(hq // g, 1))
+    else:
+        q, kv = (0, cfg.n_heads), (0, cfg.n_kv_heads)
+    E = cfg.n_experts
+    moe = bool(E) and E % tp == 0
+    experts = (rank * E // tp, E // tp) if moe else (0, E)
+    walk = tuple((kind, transformer._is_pool_kind(cfg, kind))
+                 for kind in cfg.layer_kinds)
+    return TPPlan(
+        tp=tp, rank=rank, attn=attn, q_heads=q, kv_heads=kv,
+        mlp=cfg.d_ff > 0 and cfg.d_ff % tp == 0,
+        rglru="rglru" in kinds and (cfg.rnn_width or cfg.d_model) % tp == 0,
+        xlstm=xlstm,
+        slstm_ff="slstm" in kinds
+        and slstm_ffn_width(cfg.d_model) % tp == 0,
+        moe=moe, experts=experts, vocab=cfg.vocab_size % tp == 0,
+        layers=walk)

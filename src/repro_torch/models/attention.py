@@ -17,13 +17,23 @@ ring buffers of windowed layers) is plain torch, as JAX computes it in
 plain jnp. Projections are bias-optional (qwen2-vl) with optional
 per-head QK-norm (qwen3); qwen2-vl rotates by M-RoPE.
 
-Tensor parallelism (``shard``, a ``launch.sharding.ShardCtx``): a rank
-holds the column slices of wq / wk / wv (whole heads: its Hq / T query
-and Hkv / T kv heads) and the row slice of wo, so the functions read the
-head counts from the weights, attend over the rank's heads alone (K1,
-and K2 / K3 through the ``*_headshard`` wrappers over the rank's
-head-sharded pool), and all-reduce the output projection's partial sums
-(``layers.tp_reduce``).
+Tensor parallelism (``shard``, a ``launch.sharding.ShardCtx``), by the
+plan's ``attn`` (``launch.sharding.TPPlan``):
+
+* ``"heads"``: a rank holds the column slices of wq / wk / wv (whole
+  heads: its Hq / T query and Hkv / T kv heads) and the row slice of wo,
+  so the functions read the head counts from the weights, attend over
+  the rank's heads alone (K1, and K2 / K3 through the ``*_headshard``
+  wrappers over the rank's head-sharded pool or ring), and all-reduce
+  the output projection's partial sums (``layers.tp_reduce``);
+* ``"kv_replicated"`` (kv heads that do not divide T): wk / wv whole,
+  so every rank computes and writes every kv head into a pool or ring
+  it holds whole, and its Hq / T query heads attend over the range of kv
+  heads they read (``TPPlan.kv_heads``: a head view for K1 and the
+  rings, the kernels' kv-head offset for K2 / K3); wo row-parallel and
+  all-reduced;
+* ``"whole"`` (query heads that do not divide T): the layer whole on
+  every rank, no collective.
 
 Cross-attention (whisper's decoder over the encoder's K/V):
 ``attend_cross``, the dense path's, runs K1 non-causal (Sq query rows
@@ -87,6 +97,24 @@ def _heads(params, name, hd) -> int:
     return params["w" + name].shape[-1] // hd
 
 
+def _tp(shard):
+    """(the ``shard`` the output projection all-reduces over, or None for
+    a layer every rank computes whole; the (first, count) range of kv
+    heads this rank's query heads read where every rank holds them all,
+    else None)."""
+    if shard is None or shard.tp_size == 1 or shard.plan.attn == "whole":
+        return None, None
+    if shard.plan.attn == "kv_replicated":
+        return shard, shard.plan.kv_heads
+    return shard, None
+
+
+def _kv_view(t, kv):
+    """The kv heads ``kv`` = (first, count) of a (B, S, Hkv, D) ``t``, a
+    view (all of them for None)."""
+    return t if kv is None else t.narrow(2, kv[0], kv[1])
+
+
 def _project_qkv(params, cfg, xq, xkv):
     hd = cfg.head_dim
     hq, hkv = _heads(params, "q", hd), _heads(params, "k", hd)
@@ -123,11 +151,13 @@ def attend(params, cfg, x, positions, window=None, causal=True,
     (B, S, Hkv, D) keys and values for the prefill cache. q/k/v enter K1
     as transposed views, without a copy.
     """
+    shard, kv = _tp(shard)
     q, k, v = _project_qkv(params, cfg, x, x)
     q, k = _rotate_qk(cfg, q, k, positions, mrope_positions)
-    out = kops.flash_attention(q.transpose(1, 2), k.transpose(1, 2),
-                               v.transpose(1, 2), causal=causal,
-                               window=window)
+    out = kops.flash_attention(q.transpose(1, 2),
+                               _kv_view(k, kv).transpose(1, 2),
+                               _kv_view(v, kv).transpose(1, 2),
+                               causal=causal, window=window)
     B, S, _ = x.shape
     out = out.transpose(1, 2).reshape(B, S, -1)
     return layers.tp_reduce(out @ params["wo"], shard), {"k": k, "v": v}
@@ -209,6 +239,7 @@ def decode_attend_paged(params, cfg, x, pool, block_table, lengths, *,
     ``paged_decode_attention_headshard``) and the output all-reduced.
     Returns (out (B, 1, d), pool).
     """
+    shard, kv = _tp(shard)
     B = x.shape[0]
     hd = cfg.head_dim
     bs = pool["k"].shape[1]
@@ -223,7 +254,7 @@ def decode_attend_paged(params, cfg, x, pool, block_table, lengths, *,
     write_kv_rows(pool, phys, lengths % bs, k[:, 0], v[:, 0], kv_spec)
     out = kops.paged_attention(q.reshape(B, -1, hd), pool, block_table,
                                lengths + 1, mode="decode", kv_format=kv_spec,
-                               sharding=shard)
+                               sharding=shard, kv_heads=kv)
     out = out.reshape(B, 1, -1).to(x.dtype)
     return layers.tp_reduce(out @ params["wo"], shard), pool
 
@@ -244,6 +275,7 @@ def verify_attend_paged(params, cfg, x, pool, block_table, lengths, *,
     ``shard``: K3 over this rank's head shard, the output all-reduced.
     Returns (out (B, K1, d), pool).
     """
+    shard, kv = _tp(shard)
     B, K1, _ = x.shape
     bs = pool["k"].shape[1]
     q, k, v = _project_qkv(params, cfg, x, x)
@@ -261,7 +293,7 @@ def verify_attend_paged(params, cfg, x, pool, block_table, lengths, *,
     write_kv_rows(pool, phys, pos % bs, k, v, kv_spec)
     out = kops.paged_attention(q.contiguous(), pool, block_table, lengths,
                                mode="verify", kv_format=kv_spec,
-                               sharding=shard)
+                               sharding=shard, kv_heads=kv)
     out = out.reshape(B, K1, -1).to(x.dtype)
     return layers.tp_reduce(out @ params["wo"], shard), pool
 
@@ -293,10 +325,11 @@ def decode_attend_batched(params, cfg, x, cache, pos, window=None,
     static backend's over a mesh) and the output is all-reduced. Returns
     (out (B, 1, d), cache).
     """
+    shard, kv = _tp(shard)
     B = x.shape[0]
     hd = cfg.head_dim
     q, k, v = _project_qkv(params, cfg, x, x)
-    hq, hkv = q.shape[2], k.shape[2]
+    hq, hkv = q.shape[2], (kv[1] if kv else k.shape[2])
     q, k = _rotate_qk(cfg, q, k, pos[:, None], mrope_positions)
     size = cache["k"].shape[1]
     p = pos.long()
@@ -308,8 +341,8 @@ def decode_attend_batched(params, cfg, x, cache, pos, window=None,
     if window:
         valid = valid | ((p[:, None] + 1) >= size)
     qg = q.float().reshape(B, hkv, hq // hkv, hd)
-    kf = cache["k"].float().transpose(1, 2)                  # (B, Hkv, S, D)
-    vf = cache["v"].float().transpose(1, 2)
+    kf = _kv_view(cache["k"], kv).float().transpose(1, 2)  # (B, Hkv, S, D)
+    vf = _kv_view(cache["v"], kv).float().transpose(1, 2)
     logits = torch.einsum("bhgd,bhsd->bhgs", qg, kf) / math.sqrt(hd)
     logits = logits.masked_fill(~valid[:, None, None, :], -1e30)
     probs = torch.softmax(logits, dim=-1)

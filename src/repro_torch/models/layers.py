@@ -7,9 +7,10 @@ of the xLSTM cells, gated and plain MLPs, half-split RoPE with f32
 angles, Qwen2-VL's three-stream M-RoPE, whisper's sinusoidal position
 table, the causal depthwise temporal conv in front of the RG-LRU
 and the mLSTM, and the collectives of tensor parallelism (``tp_reduce``
-after a row-parallel product, ``vocab_parallel_lookup`` and
-``tp_gather_vocab`` over a vocab-sharded table and head). Params are
-plain dicts of tensors.
+after a row-parallel product, ``tp_gather_last`` of a rank's channels,
+``vocab_parallel_lookup`` and ``tp_gather_vocab`` over a vocab-sharded
+table and head, whole where the plan keeps the vocabulary whole). Params
+are plain dicts of tensors.
 Initializers take a ``lead`` shape so a scan group's stacked
 ``(count, ...)`` leaves are drawn in one call.
 """
@@ -108,7 +109,8 @@ def init_mlp(gen, d_model: int, d_ff: int, dtype, gated: bool = True,
 def apply_mlp(params, x, activation: str = "silu", shard=None):
     """Gated (or plain) MLP. Under ``shard`` the weights are this rank's
     slices (w_up / w_gate column-parallel, w_down row-parallel) and the
-    partial output is all-reduced over the model axis."""
+    partial output is all-reduced over the model axis; pass ``shard``
+    None for an MLP the plan keeps whole."""
     act = _ACT[activation]
     up = x @ params["w_up"]
     if "w_gate" in params:
@@ -149,11 +151,35 @@ def tp_reduce(x, shard):
     return x
 
 
-def tp_gather_vocab(x, shard):
-    """Concatenate each rank's vocab slice of the last axis (rank order is
-    vocab order), so every rank holds the whole row; identity without a
-    mesh. NCCL gathers into one tensor (a captured step can replay it);
-    gloo takes the list form."""
+def split_over(shard, flag: str) -> bool:
+    """True when the plan of ``shard`` splits the block named by ``flag``
+    (a ``TPPlan`` field) over more than one rank."""
+    return shard is not None and shard.tp_size > 1 \
+        and bool(getattr(shard.plan, flag))
+
+
+def rank_slice(n: int, shard) -> slice:
+    """This rank's equal share of ``n`` (heads, channels), rank order."""
+    k = n // shard.tp_size
+    return slice(shard.tp_rank * k, (shard.tp_rank + 1) * k)
+
+
+def rank_parts(t, parts: int, shard):
+    """This rank's share of each of the ``parts`` equal parts of the last
+    dim of ``t`` (a concatenation of per-head parts: mLSTM [c | z] and
+    [i | f], sLSTM [z | i | f | o]), in part order: a head-aligned
+    slice."""
+    T, r = shard.tp_size, shard.tp_rank
+    w = t.shape[-1] // parts
+    return t.unflatten(-1, (parts, w)).narrow(
+        -1, r * (w // T), w // T).flatten(-2)
+
+
+def tp_gather_last(x, shard):
+    """Concatenate each rank's slice of the last axis (rank order), so
+    every rank holds the whole row: an all-gather, counted and timed like
+    ``tp_reduce``; identity without a mesh. NCCL gathers into one tensor
+    (a captured step can replay it); gloo takes the list form."""
     if shard is None or shard.tp_size == 1:
         return x
     x = x.contiguous()
@@ -170,12 +196,20 @@ def tp_gather_vocab(x, shard):
     return torch.cat(parts, dim=-1)
 
 
+def tp_gather_vocab(x, shard):
+    """Each rank's vocab slice of the head's output made whole on every
+    rank (``tp_gather_last``); identity where the plan keeps the
+    vocabulary whole (it does not divide T: JAX's ``_fit``)."""
+    return tp_gather_last(x, shard) if split_over(shard, "vocab") else x
+
+
 def vocab_parallel_lookup(table, tokens, shard):
     """Rows of a vocab-sharded embedding table (Megatron-style): each
     rank gathers the ids in its vocab range [rank * V/T, (rank + 1) *
     V/T), zeros the rest, and an all-reduce assembles the embeddings (a
-    sum with one nonzero term: exact). Without a mesh, a plain gather."""
-    if shard is None or shard.tp_size == 1:
+    sum with one nonzero term: exact). Without a mesh, or where the plan
+    keeps the table whole, a plain gather."""
+    if not split_over(shard, "vocab"):
         return table[tokens.long()]
     v_loc = table.shape[0]
     loc = tokens.long() - shard.tp_rank * v_loc

@@ -154,7 +154,8 @@ class Model:
         """Per-slot decode caches (the draft model's, dense decode's):
         linear or ring K/V, recurrent state; an enc-dec config's self-KV
         and cross K/V. ``shard`` (a ``launch.sharding.ShardCtx``): this
-        rank's kv-head slice of a decoder-only stack's caches."""
+        rank's slice of a decoder-only stack's caches (JAX's cache
+        specs)."""
         if self.cfg.enc_dec:
             return encdec.init_cache(self.cfg, batch, max_len, self.device)
         return transformer.init_cache(self.cfg, batch, max_len, self.device,

@@ -37,9 +37,21 @@ assignments its first pass dropped.
 
 Per-expert counts come from an integer ``scatter_add_`` of fixed size E
 (``torch.bincount`` on CUDA reads its maximum back to the host, which a
-captured decode step cannot do). The expert-parallel
-``apply_moe_sharded`` is queue 1's 'multi-device', sub-item 'the other
-families under TP' (an MoE config under a mesh raises naming it).
+captured decode step cannot do).
+
+Expert parallelism (``apply_moe_sharded``, JAX's ``apply_moe_sharded`` in
+mode ``"gather"`` with a data axis of 1): a rank holds E / T experts
+(``w1`` / ``w3`` / ``w2`` split over the model axis by JAX's specs) and
+the replicated router, routes every token as one device does, runs the
+dropless FFN of its experts for every assignment routed to them (the
+others go to an overflow row nothing reads) and adds its partial sums,
+which an all-reduce makes whole. Every serving path runs it (prefill,
+decode and verify alike: the port has no GSPMD to partition a prefill,
+and dropless routing makes the result the same). Each token's partial
+sum adds its contributions in expert order, as one device does, and an
+expert of another rank adds an exact zero; with top-2 routing the
+all-reduce of two ranks' partials is that one device's sum bit for bit.
+Training stays single-device.
 """
 
 from __future__ import annotations
@@ -142,33 +154,43 @@ def plan(x2d, router_w, cfg, dropless: bool):
                    route(x2d, router_w, cfg.moe_top_k,
                          stats=not dropless)))
     se, st, order, pos = dispatch_indices(out["topi"], E)
-    out.update(capacity=C, st=st, order=order, slot=se * C + pos)
+    out.update(capacity=C, st=st, order=order, se=se, slot=se * C + pos)
     if not dropless:
         out["kept"] = pos < C
         out["slot"] = torch.where(out["kept"], out["slot"], E * C)
     return out
 
 
-def _moe(params, cfg, x, dropless):
-    """(out (B, S, d), the plan) of the MoE over x (B, S, d)."""
+def _moe(params, cfg, x, dropless, experts=None):
+    """(out (B, S, d), the plan) of the MoE over x (B, S, d). ``experts``
+    (first, count): the dropless FFN of those experts alone (the
+    weights hold them), the rest of the assignments routed to an
+    overflow row and adding zero: this rank's partial output (JAX's
+    ``_moe_math(..., e_lo, e_local)``)."""
     B, S, d = x.shape
     x2d = x.reshape(-1, d)
     T, E, k = B * S, cfg.n_experts, cfg.moe_top_k
     r = plan(x2d, params["router"], cfg, dropless)
     C, slot, order = r["capacity"], r["slot"], r["order"]
-    rows = E * C if dropless else E * C + 1        # + the overflow row
+    keep = r.get("kept")                 # None: every assignment counts
+    if experts is not None:
+        e_lo, E = experts
+        keep = (r["se"] >= e_lo) & (r["se"] < e_lo + E)
+        slot = torch.where(keep, slot - e_lo * C, E * C)
+    rows = E * C if keep is None else E * C + 1
     xg = x2d.new_zeros((rows, d))
     xg[slot] = x2d[r["st"]]
     yg = expert_ffn(xg[:E * C].view(E, C, d), params["w1"], params["w3"],
                     params["w2"], cfg.activation).reshape(E * C, d)
     sw = r["topw"].reshape(-1)[order]
-    if dropless:
+    if keep is None:
         contrib = yg[slot] * sw[:, None].to(yg.dtype)
     else:
-        # a dropped assignment reads a real row (clamped) and adds zero:
-        # neither that row nor its router weight gets a gradient from it
+        # an assignment not kept (dropped by capacity, or another rank's
+        # expert) reads a real row (clamped) and adds zero: neither that
+        # row nor its router weight gets a gradient from it
         contrib = torch.where(
-            r["kept"][:, None],
+            keep[:, None],
             yg[slot.clamp(max=E * C - 1)] * sw[:, None].to(yg.dtype), 0.0)
     # each token's k contributions in expert-sorted order: the sorted
     # positions of its assignments, ascending
@@ -194,3 +216,14 @@ def apply_moe(params, cfg, x):
     """Dropless MoE over x: (B, S, d) -> (B, S, d), every serving path's
     (JAX's ``dropless=True``; no statistics, no aux loss)."""
     return _moe(params, cfg, x, dropless=True)[0]
+
+
+def apply_moe_sharded(params, cfg, x, shard):
+    """The expert-parallel dropless MoE on one rank (JAX's
+    ``apply_moe_sharded`` in mode ``"gather"`` with a data axis of 1):
+    x (B, S, d), the same on every rank; ``params`` this rank's E / T
+    experts and the whole router; its experts are ``shard.plan.experts``.
+    Returns the whole (B, S, d) on every rank (one all-reduce)."""
+    return layers.tp_reduce(
+        _moe(params, cfg, x, dropless=True, experts=shard.plan.experts)[0],
+        shard)

@@ -19,6 +19,28 @@ kernel. The decay parameter ``lam`` and the carried states (RG-LRU
 stay f32 in a bf16 model; the conv tails are in the model dtype. Every
 decode step writes its state into the cache leaves IN PLACE (JAX
 returns new ones), so a captured decode step keeps its addresses.
+
+Tensor parallelism (``shard``, a ``launch.sharding.ShardCtx`` whose plan
+splits the block; the serving forms only, training stays single-device).
+Replicated leaves (conv, ``lam``, ``b_a`` / ``b_i``, ``b_if``,
+``b_zifo``, ``r_zifo``, ``gn_scale``) stay whole and a rank indexes its
+channels or heads at use:
+
+* RG-LRU: ``w_gate`` / ``w_x`` columns give the rank its dr / T
+  channels of the gate and the conv input; the depthwise conv, the
+  gates' biases and ``lam`` act on those channels; ``y`` is
+  all-gathered for ``w_a`` / ``w_i`` (column slices: the rank's
+  channels of r and i), K5 scans the rank's (B, S, dr / T) channels,
+  and ``w_out`` (row-parallel) is all-reduced: 2 collectives;
+* mLSTM: the head-aligned ``w_up`` gives the rank its heads' channels
+  of c and z, the conv runs on them, ``[c, cc]`` is all-gathered for
+  ``wq`` / ``wk`` / ``wv`` / the head-aligned ``w_if`` (the rank's
+  heads), the cell, group norm and z gate run on its heads, and
+  ``w_down`` is all-reduced: 2 collectives;
+* sLSTM: the head-aligned ``w_zifo`` gives the rank its heads' columns
+  of z, i, f and o, the cell runs on its heads' state with their
+  blocks of ``r_zifo``, the hidden is all-gathered before the group
+  norm and the gated FFN (the tensor-parallel MLP): 2 collectives.
 """
 
 from __future__ import annotations
@@ -146,28 +168,57 @@ def mlstm_step(q, k, v, ig, fg, state):
     return h.to(q.dtype), (C, n, m_new)
 
 
-def mlstm_qkv_gates(params, cfg, xn, conv_state=None, length=None):
+def _xlstm_heads(cfg, shard):
+    """(this rank's heads as a slice of the H heads, its channels as a
+    slice of d) where the plan splits the xLSTM heads, else (None,
+    None)."""
+    if not layers.split_over(shard, "xlstm"):
+        return None, None
+    hs = layers.rank_slice(cfg.n_heads, shard)
+    hd = cfg.d_model // cfg.n_heads
+    return hs, slice(hs.start * hd, hs.stop * hd)
+
+
+def _conv_on(conv, ch):
+    """The depthwise conv's taps and bias on the channels ``ch`` (all
+    for None)."""
+    return conv if ch is None else {"w": conv["w"][..., ch],
+                                    "b": conv["b"][..., ch]}
+
+
+def mlstm_qkv_gates(params, cfg, xn, conv_state=None, length=None,
+                    shard=None):
     """Up-projection, causal conv, q / k / v heads and the raw gates.
 
     xn: (B, S, d) pre-normed. Returns (q, k, v (B, H, S, hd), ig, fg
     (B, H, S), z (B, S, d), conv tail). With ``length`` (right-padded
-    prefill) the conv tail holds the last width-1 REAL conv inputs."""
+    prefill) the conv tail holds the last width-1 REAL conv inputs.
+    Under a ``shard`` whose plan splits the heads: the rank's H / T heads
+    and d / T channels of z and the conv tail (one all-gather of
+    ``[c, cc]``)."""
     B, S, d = xn.shape
-    H = cfg.n_heads
-    hd = d // H
+    hs, ch = _xlstm_heads(cfg, shard)
+    H = cfg.n_heads if hs is None else hs.stop - hs.start
+    hd = d // cfg.n_heads
     c, z = (xn @ params["w_up"]).chunk(2, dim=-1)
-    cc, conv_state = layers.apply_conv1d(params["conv"], c, conv_state)
+    conv = _conv_on(params["conv"], ch)
+    cc, conv_state = layers.apply_conv1d(conv, c, conv_state)
     if length is not None:
-        conv_state = layers.conv_state_at(c, params["conv"]["w"].shape[0],
-                                          length)
+        conv_state = layers.conv_state_at(c, conv["w"].shape[0], length)
     cc = F.silu(cc)
+    b_if = params["b_if"]
+    if hs is not None:              # the whole c and cc, one collective
+        both = layers.tp_gather_last(torch.cat([c, cc], dim=-1), shard)
+        both = both.unflatten(-1, (shard.tp_size, 2, c.shape[-1]))
+        c, cc = both[..., 0, :].flatten(-2), both[..., 1, :].flatten(-2)
+        b_if = layers.rank_parts(b_if, 2, shard)
 
     def heads(t):
         return t.reshape(B, S, H, hd).transpose(1, 2)
 
     q, k, v = heads(cc @ params["wq"]), heads(cc @ params["wk"]), \
         heads(c @ params["wv"])
-    ig, fg = (c @ params["w_if"] + params["b_if"]).chunk(2, dim=-1)
+    ig, fg = (c @ params["w_if"] + b_if).chunk(2, dim=-1)
     return q, k, v, ig.transpose(1, 2), fg.transpose(1, 2), z, conv_state
 
 
@@ -181,13 +232,18 @@ def freeze_gates_past(ig, fg, length):
     return torch.where(pad, -1e30, ig), torch.where(pad, 1e30, fg)
 
 
-def mlstm_output(params, cfg, h, z):
+def mlstm_output(params, cfg, h, z, shard=None):
     """Group norm over the heads, the silu(z) gate, the down-projection.
-    h: (B, H, S, hd); z: (B, S, d)."""
-    B, _, S, _ = h.shape
-    h = h.transpose(1, 2).reshape(B, S, cfg.d_model)
-    h = layers.group_norm(h, params["gn_scale"], cfg.n_heads)
-    return (h * F.silu(z)) @ params["w_down"]
+    h: (B, H, S, hd); z: (B, S, d). Under a ``shard`` whose plan splits
+    the heads, the rank's heads and channels, and the row-parallel
+    ``w_down``'s partial sums all-reduced."""
+    B, H, S, hd = h.shape
+    _, ch = _xlstm_heads(cfg, shard)
+    gn = params["gn_scale"] if ch is None else params["gn_scale"][..., ch]
+    h = h.transpose(1, 2).reshape(B, S, H * hd)
+    h = layers.group_norm(h, gn, H)
+    return layers.tp_reduce((h * F.silu(z)) @ params["w_down"],
+                            shard if ch is not None else None)
 
 
 def apply_mlstm_block(params, cfg, xn):
@@ -215,14 +271,15 @@ def init_mlstm_cache(cfg, batch, dtype, device, lead=()):
             "conv": torch.zeros(lead + (3, d), dtype=dtype, device=device)}
 
 
-def apply_mlstm_decode(params, cfg, xn, cache):
-    """One-token mLSTM step; ``cache`` ({"C", "n", "m", "conv"}) is
-    updated IN PLACE and returned with the output."""
-    q, k, v, ig, fg, z, conv_state = mlstm_qkv_gates(params, cfg, xn,
-                                                     cache["conv"])
+def apply_mlstm_decode(params, cfg, xn, cache, shard=None):
+    """One-token mLSTM step; ``cache`` ({"C", "n", "m", "conv"}, the
+    rank's heads under ``shard``) is updated IN PLACE and returned with
+    the output."""
+    q, k, v, ig, fg, z, conv_state = mlstm_qkv_gates(
+        params, cfg, xn, cache["conv"], shard=shard)
     h, state = mlstm_step(q[:, :, 0], k[:, :, 0], v[:, :, 0], ig[:, :, 0],
                           fg[:, :, 0], (cache["C"], cache["n"], cache["m"]))
-    out = mlstm_output(params, cfg, h[:, :, None], z)
+    out = mlstm_output(params, cfg, h[:, :, None], z, shard)
     for name, t in zip(("C", "n", "m"), state):
         cache[name].copy_(t)
     cache["conv"].copy_(conv_state)
@@ -265,11 +322,11 @@ def init_slstm_block(gen, cfg, dtype, lead=()):
 def slstm_cell(cfg, x_part, state, r, b):
     """One sLSTM step. x_part: (B, 4d) input projection; state (h, c, n,
     m) each (B, H, hd) f32; ``r`` / ``b`` the recurrent matrix and bias
-    in f32. Returns (hidden, new state)."""
+    in f32. Returns (hidden, new state). The heads are the state's: a
+    tensor-parallel rank passes its heads' columns, blocks and state."""
     h, c, n, m = state
-    B = x_part.shape[0]
-    H, d = cfg.n_heads, cfg.d_model
-    hd = d // H
+    B, H, hd = h.shape
+    d = H * hd
     rec = torch.einsum("bhd,ghde->bghe", h, r).reshape(B, 4 * d)
     zt, it, ft, ot = (x_part.float() + rec + b).chunk(4, dim=-1)
     zt = torch.tanh(zt).reshape(B, H, hd)
@@ -285,24 +342,43 @@ def slstm_cell(cfg, x_part, state, r, b):
     return hidden, (hidden, c, n, m_new)
 
 
-def slstm_output(params, cfg, hidden, dtype):
-    """Group norm of the (B, S, d) cell outputs, then the gated GeGLU."""
+def slstm_output(params, cfg, hidden, dtype, shard=None):
+    """Group norm of the (B, S, d) cell outputs, then the gated GeGLU.
+    Under a ``shard`` whose plan splits the heads, ``hidden`` holds the
+    rank's heads (B, S, d / T), all-gathered first; the FFN is the
+    tensor-parallel MLP where the plan splits its width."""
+    if _xlstm_heads(cfg, shard)[0] is not None:
+        hidden = layers.tp_gather_last(hidden, shard)
     h = layers.group_norm(hidden.to(dtype), params["gn_scale"], cfg.n_heads)
-    return layers.apply_mlp(params["ff"], h, "gelu")
+    ff = shard if layers.split_over(shard, "slstm_ff") else None
+    return layers.apply_mlp(params["ff"], h, "gelu", ff)
 
 
-def slstm_sequence(params, cfg, xn, length=None):
+def _slstm_rank(params, cfg, shard):
+    """(``r_zifo`` and ``b_zifo`` in f32 on the rank's heads, its heads
+    as a slice, None where the plan keeps them whole)."""
+    hs, _ = _xlstm_heads(cfg, shard)
+    r, b = params["r_zifo"], params["b_zifo"]
+    if hs is not None:
+        r, b = r[:, hs], layers.rank_parts(b, 4, shard)
+    return r.float(), b.float(), hs
+
+
+def slstm_sequence(params, cfg, xn, length=None, shard=None):
     """The sLSTM over pre-normed xn (B, S, d), one cell a token: one
     input projection ``xn @ w_zifo``, the cells, then ``slstm_output``.
     Returns (out (B, S, d), the final state {"h", "c", "n", "m"}). With
     ``length`` ((B,) int, right-padded prefill) a pad step keeps the
     carry it was given, so the state is frozen bit for bit at each true
-    length."""
-    B, S, d = xn.shape
+    length. Under a ``shard`` whose plan splits the heads, the cells run
+    on the rank's heads (one launch a cell a rank) and the state is
+    theirs."""
+    B, S, _ = xn.shape
     x_parts = xn @ params["w_zifo"]
-    r, b = params["r_zifo"].float(), params["b_zifo"].float()
+    r, b, hs = _slstm_rank(params, cfg, shard)
     init = init_slstm_cache(cfg, B, xn.dtype, xn.device)
-    state = tuple(init[n] for n in ("h", "c", "n", "m"))
+    state = tuple(init[n] if hs is None else init[n][:, hs]
+                  for n in ("h", "c", "n", "m"))
     keep = None if length is None else \
         torch.arange(S, device=xn.device)[None, :] < length.long()[:, None]
     hs = []
@@ -314,8 +390,8 @@ def slstm_sequence(params, cfg, xn, length=None):
             kt = keep[:, t, None, None]
             state = tuple(torch.where(kt, a, o) for a, o in zip(new, state))
         hs.append(hidden)
-    out = slstm_output(params, cfg,
-                       torch.stack(hs, dim=1).reshape(B, S, d), xn.dtype)
+    out = slstm_output(params, cfg, torch.stack(hs, dim=1).flatten(2),
+                       xn.dtype, shard)
     return out, dict(zip(("h", "c", "n", "m"), state))
 
 
@@ -337,15 +413,17 @@ def init_slstm_cache(cfg, batch, dtype, device, lead=()):
             "m": torch.full(lead, -1e30, **f32)}
 
 
-def apply_slstm_decode(params, cfg, xn, cache):
-    """One-token sLSTM step; ``cache`` ({"h", "c", "n", "m"}) is updated
-    IN PLACE and returned with the output."""
-    B, _, d = xn.shape
+def apply_slstm_decode(params, cfg, xn, cache, shard=None):
+    """One-token sLSTM step; ``cache`` ({"h", "c", "n", "m"}, the rank's
+    heads under ``shard``) is updated IN PLACE and returned with the
+    output."""
+    B = xn.shape[0]
+    r, b, _ = _slstm_rank(params, cfg, shard)
     hidden, state = slstm_cell(
         cfg, (xn @ params["w_zifo"])[:, 0],
-        (cache["h"], cache["c"], cache["n"], cache["m"]),
-        params["r_zifo"].float(), params["b_zifo"].float())
-    out = slstm_output(params, cfg, hidden.reshape(B, 1, d), xn.dtype)
+        (cache["h"], cache["c"], cache["n"], cache["m"]), r, b)
+    out = slstm_output(params, cfg, hidden.reshape(B, 1, -1), xn.dtype,
+                       shard)
     for name, t in zip(("h", "c", "n", "m"), state):
         cache[name].copy_(t)
     return out, cache
@@ -388,12 +466,27 @@ def init_rglru_block(gen, cfg, dtype, lead=()):
     }
 
 
-def _rglru_coeffs(params, y):
-    """Gated decay a_t and driven input b_t from conv output y, in f32."""
+def rglru_channels(params, shard):
+    """This rank's RG-LRU channels as a slice of the recurrence width
+    where the plan splits it (``rnn_width`` divides T), else None."""
+    if not layers.split_over(shard, "rglru"):
+        return None
+    return layers.rank_slice(params["lam"].shape[-1], shard)
+
+
+def _rglru_coeffs(params, y, ch=None, shard=None):
+    """Gated decay a_t and driven input b_t from conv output y, in f32.
+    On a rank's channels ``ch``: y holds them, and is all-gathered for
+    the column slices of ``w_a`` / ``w_i``."""
     yf = y.float()
-    r = torch.sigmoid(yf @ params["w_a"].float() + params["b_a"].float())
-    i = torch.sigmoid(yf @ params["w_i"].float() + params["b_i"].float())
-    lam = params["lam"]
+    yw = yf if ch is None else layers.tp_gather_last(y, shard).float()
+
+    def on(t):
+        return t if ch is None else t[..., ch]
+
+    r = torch.sigmoid(yw @ params["w_a"].float() + on(params["b_a"]).float())
+    i = torch.sigmoid(yw @ params["w_i"].float() + on(params["b_i"]).float())
+    lam = on(params["lam"])
     log_a = -_RGLRU_C * torch.logaddexp(lam, torch.zeros_like(lam)) * r
     a = torch.exp(log_a)
     beta = torch.sqrt(-torch.expm1(2.0 * log_a))
@@ -405,13 +498,30 @@ def _gate_and_input(params, xn):
     return gate, xn @ params["w_x"]
 
 
+def rglru_mix(params, xn, shard=None, conv_state=None):
+    """The RG-LRU's gate, conv and coefficients of pre-normed xn (B, S,
+    d), on the rank's channels where the plan splits them: (gate, conv
+    input xb, conv output's new tail, a, b, the channel slice or None)."""
+    ch = rglru_channels(params, shard)
+    gate, xb = _gate_and_input(params, xn)
+    y, tail = layers.apply_conv1d(_conv_on(params["conv"], ch), xb,
+                                  conv_state)
+    a, b = _rglru_coeffs(params, y, ch, shard)
+    return gate, xb, tail, a, b, ch
+
+
+def rglru_out(params, gate, h, ch, shard):
+    """(gate * h) @ ``w_out``, all-reduced where the rank holds its
+    channels' rows of it."""
+    return layers.tp_reduce((gate * h) @ params["w_out"],
+                            shard if ch is not None else None)
+
+
 def apply_rglru_block(params, cfg, xn):
     """Full-sequence Griffin recurrent mixing through K5. Returns the
     block's delta (the prefill's cache-emitting form is
     ``transformer._rglru_with_cache``)."""
-    gate, xb = _gate_and_input(params, xn)
-    y, _ = layers.apply_conv1d(params["conv"], xb)
-    a, b = _rglru_coeffs(params, y)
+    gate, _, _, a, b, _ = rglru_mix(params, xn)
     h = kops.rglru_scan(a, b).to(xn.dtype)
     return (gate * h) @ params["w_out"]
 
@@ -426,14 +536,14 @@ def init_rglru_cache(cfg, batch, dtype, device, lead=()):
                                 device=device)}
 
 
-def apply_rglru_decode(params, cfg, xn, cache):
-    """One-token RG-LRU step; ``cache`` ({"h", "conv"}) is updated IN
-    PLACE (JAX returns a new one) and returned with the output."""
-    gate, xb = _gate_and_input(params, xn)
-    y, conv_state = layers.apply_conv1d(params["conv"], xb, cache["conv"])
-    a, b = _rglru_coeffs(params, y)
+def apply_rglru_decode(params, cfg, xn, cache, shard=None):
+    """One-token RG-LRU step; ``cache`` ({"h", "conv"}, the rank's
+    channels under ``shard``) is updated IN PLACE (JAX returns a new one)
+    and returned with the output."""
+    gate, _, conv_state, a, b, ch = rglru_mix(params, xn, shard,
+                                              cache["conv"])
     h = a[:, 0] * cache["h"] + b[:, 0]
-    out = (gate * h[:, None].to(xn.dtype)) @ params["w_out"]
+    out = rglru_out(params, gate, h[:, None].to(xn.dtype), ch, shard)
     cache["h"].copy_(h)
     cache["conv"].copy_(conv_state)
     return out, cache

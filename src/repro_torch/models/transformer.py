@@ -42,14 +42,19 @@ Phases sharing one param set:
              nothing autograd saves is written in place (the MoE fills a
              fresh dispatch buffer), so autograd can differentiate it
 
-Tensor parallelism (``RunCtx.shard``, a ``launch.sharding.ShardCtx``):
-every rank runs these functions on its slices of the params
-(``sharding.shard_params``) and its head shard of the pools and caches
-(``init_paged_cache`` / ``init_cache`` with ``shard``): the embedding is
-a vocab-parallel lookup, attention runs over the rank's heads, the
-output projection and the MLP's down projection all-reduce, and the
-head's vocab slices are all-gathered, so every rank holds the whole
-logits: 2 L + 2 collectives a decode step. Training stays single-device.
+Tensor parallelism (``RunCtx.shard``, a ``launch.sharding.ShardCtx``
+with its per-block ``TPPlan``): every rank runs these functions on its
+slices of the params (``sharding.shard_params``) and its slice of the
+pools and caches (``init_paged_cache`` / ``init_cache`` with ``shard``,
+JAX's cache specs): the embedding is a vocab-parallel lookup, attention
+runs over the rank's heads (its kv-head shard, or the kv heads they
+read of a replicated pool or ring), the RG-LRU over its channels
+(K5 on them), the mLSTM / sLSTM over its heads, the MoE over its
+experts; row-parallel products all-reduce, and the head's vocab slices
+are all-gathered, so every rank holds the whole logits
+(``TPPlan.step_collectives`` collectives a decode step: 2 L + 2 for a
+dense stack). A block whose dimension does not divide T runs whole.
+Training stays single-device.
 
 The VLM (qwen2-vl) runs the dense path only, as in JAX (no paged decode:
 ``ServingCaps.paged_decode``): its prefill splices ``visual_embeds`` over
@@ -87,10 +92,10 @@ class RunCtx:
     pass (``torch.utils.checkpoint``, where JAX uses ``jax.checkpoint``),
     ``ce_chunk > 0`` takes the cross-entropy over sequence chunks of
     that many positions. ``shard`` (a ``launch.sharding.ShardCtx``) runs
-    the serving functions tensor-parallel over its mesh; the Engine sets
-    ``decode_head_shard`` where ``paged_kv.head_shard_ok`` holds, and the
-    paged decode and verify refuse a mesh without it (the
-    replicated-pool fallback is not ported).
+    the serving functions tensor-parallel over its mesh, by its plan;
+    the Engine sets ``decode_head_shard`` where the plan splits the pool
+    by kv heads (``TPPlan.attn`` "heads"), and leaves it False for the
+    replicated-KV and whole-attention plans.
     """
 
     kv_spec: object = None
@@ -206,27 +211,64 @@ def init_block(gen, cfg, kind, dtype, count: int):
     return p
 
 
-def init_lm(gen, cfg):
+def init_lm(gen, cfg, keep=None, per_layer: bool = False):
     """Random params from the ``torch.Generator`` ``gen`` on its device,
     with JAX's distributions (truncated normal on [-2, 2], stddev
     1/sqrt(fan_in), embed stddev 1.0, the RG-LRU's ``lam`` and the MoE
     router in f32) and
     JAX's tree layout. The values differ from ``repro``'s ``PRNGKey``
     draws; to hold the port against JAX, carry the JAX params over with
-    ``models/weights.py``."""
+    ``models/weights.py``.
+
+    Each pattern position of a layer group is drawn stacked, all its
+    layers at once; ``per_layer`` draws each layer on its own (other
+    values) and copies it into the stacked leaves as it is drawn, so a
+    draw holds one layer's f32 values at a time. ``keep`` (default: the
+    identity) maps each drawn block (stacked, or one layer) and each
+    top-level leaf (as a one-key dict) to what is kept of it:
+    ``sharding.init_rank_params`` keeps a rank's slices, so a rank never
+    holds the whole tree; ``keep`` changes no value."""
     check_supported(cfg)
+    keep = keep or (lambda tree: tree)
     dtype = model_dtype(cfg)
-    params = {"embed": layers.truncated_normal_init(
-        gen, (cfg.vocab_size, cfg.d_model), dtype, stddev=1.0)}
+
+    def block(kind, count):
+        if not per_layer:
+            return keep(init_block(gen, cfg, kind, dtype, count))
+        return _stack_layers(
+            lambda: keep(init_block(gen, cfg, kind, dtype, 1)), count)
+
+    params = keep({"embed": layers.truncated_normal_init(
+        gen, (cfg.vocab_size, cfg.d_model), dtype, stddev=1.0)})
     params["groups"] = map_layer_tree(
-        cfg, lambda gk, pk, kind, count: init_block(gen, cfg, kind, dtype,
-                                                    count))
-    params["final_norm"] = layers.init_norm(cfg.norm, cfg.d_model, dtype,
-                                            gen.device)
+        cfg, lambda gk, pk, kind, count: block(kind, count))
+    params.update(keep({"final_norm": layers.init_norm(
+        cfg.norm, cfg.d_model, dtype, gen.device)}))
     if not cfg.tie_embeddings:
-        params["lm_head"] = layers.truncated_normal_init(
-            gen, (cfg.d_model, cfg.vocab_size), dtype)
+        params.update(keep({"lm_head": layers.truncated_normal_init(
+            gen, (cfg.d_model, cfg.vocab_size), dtype)}))
     return params
+
+
+def _stack_layers(draw, count: int):
+    """One tree of ``(count, ...)`` leaves from ``count`` calls of
+    ``draw`` (a tree of ``(1, ...)`` leaves each), each copied in as it
+    is drawn."""
+    out = None
+    for i in range(count):
+        part = draw()
+        if out is None:
+            out = _tree_map(lambda t: t.new_empty((count,) + t.shape[1:]),
+                            part)
+        _tree_map(lambda o, t: o[i].copy_(t[0]), out, part)
+    return out
+
+
+def _tree_map(fn, tree, *rest):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    return fn(tree, *rest)
 
 
 # ---------------------------------------------------------------------------
@@ -253,19 +295,23 @@ def _ffn_part(p, cfg, x, dropless: bool = True, shard=None):
     path runs the MoE ``dropless``, as JAX's do, and its aux is 0.0 (no
     statistics are computed for it); the training form passes
     ``dropless=False``: the MoE routes with the capacity factor and aux
-    is its Switch loss, an f32 scalar. ``shard``: the MLP's row-parallel
-    reduce."""
+    is its Switch loss, an f32 scalar. ``shard``: the MoE over the
+    rank's experts (``moe.apply_moe_sharded``), the MLP's row-parallel
+    reduce, where the plan splits them."""
     aux = 0.0
     if "moe" in p:
         xn = layers.apply_norm(cfg.norm, p["ln2"], x)
-        if dropless:
-            x = x + moe.apply_moe(p["moe"], cfg, xn)
-        else:
+        if not dropless:
             delta, aux = moe.apply_moe_train(p["moe"], cfg, xn)
-            x = x + delta
+        elif layers.split_over(shard, "moe"):
+            delta = moe.apply_moe_sharded(p["moe"], cfg, xn, shard)
+        else:
+            delta = moe.apply_moe(p["moe"], cfg, xn)
+        x = x + delta
     elif "mlp" in p:
         xn = layers.apply_norm(cfg.norm, p["ln2"], x)
-        x = x + layers.apply_mlp(p["mlp"], xn, cfg.activation, shard)
+        mlp_shard = shard if layers.split_over(shard, "mlp") else None
+        x = x + layers.apply_mlp(p["mlp"], xn, cfg.activation, mlp_shard)
     return x, aux
 
 
@@ -290,11 +336,11 @@ def apply_block(p, cfg, kind, x, positions, cache_len=None, length=None,
                                         _window_for(cfg, kind), cache_len,
                                         length, mrope_positions, shard)
     elif kind == "rglru":
-        out, cache = _rglru_with_cache(p["rec"], cfg, xn, length)
+        out, cache = _rglru_with_cache(p["rec"], cfg, xn, length, shard)
     elif kind == "mlstm":
-        out, cache = _mlstm_with_cache(p["mix"], cfg, xn, length)
+        out, cache = _mlstm_with_cache(p["mix"], cfg, xn, length, shard)
     elif kind == "slstm":
-        out, cache = _slstm_with_cache(p["mix"], cfg, xn, length)
+        out, cache = _slstm_with_cache(p["mix"], cfg, xn, length, shard)
     else:
         raise ValueError(kind)
     return _ffn_part(p, cfg, x + out, shard=shard)[0], cache
@@ -322,15 +368,15 @@ def _attend_with_cache(params, cfg, xn, positions, window, cache_len,
     return out, kv                       # zero tail filled by the caller
 
 
-def _rglru_with_cache(params, cfg, xn, length=None):
+def _rglru_with_cache(params, cfg, xn, length=None, shard=None):
     """RG-LRU mixing with its scan through K5, plus the decode state:
     the f32 carry after the last real token and the conv tail of the
-    last (width - 1) real inputs (zero-prefixed for short prompts)."""
-    gate, xb = ssm._gate_and_input(params, xn)
-    y, conv_state = layers.apply_conv1d(params["conv"], xb)
-    a, b = ssm._rglru_coeffs(params, y)
+    last (width - 1) real inputs (zero-prefixed for short prompts). Under
+    a ``shard`` whose plan splits the channels, K5 scans the rank's
+    contiguous (B, S, dr / T) a and b, and the state is its channels'."""
+    gate, xb, conv_state, a, b, ch = ssm.rglru_mix(params, xn, shard)
     h = kops.rglru_scan(a, b)
-    out = (gate * h.to(xn.dtype)) @ params["w_out"]
+    out = ssm.rglru_out(params, gate, h.to(xn.dtype), ch, shard)
     if length is None:
         return out, {"h": h[:, -1].float(), "conv": conv_state}
     B = xn.shape[0]
@@ -341,39 +387,42 @@ def _rglru_with_cache(params, cfg, xn, length=None):
     return out, {"h": h_true.float(), "conv": conv_true}
 
 
-def _mlstm_with_cache(params, cfg, xn, length=None):
+def _mlstm_with_cache(params, cfg, xn, length=None, shard=None):
     """Chunkwise mLSTM mixing plus the decode state (C, n, m) and conv
     tail. Right-padded rows freeze the scan past their true length
     (``ssm.freeze_gates_past``), so the carried state is the state at
     ``length``; pad-position outputs are never read. The chunk is
-    ``min(cfg.mlstm_chunk, S)`` of the padded width S, as in JAX."""
+    ``min(cfg.mlstm_chunk, S)`` of the padded width S, as in JAX. Under a
+    ``shard`` whose plan splits the heads: the rank's heads and their
+    channels of the conv tail."""
     S = xn.shape[1]
     q, k, v, ig, fg, z, conv_state = ssm.mlstm_qkv_gates(
-        params, cfg, xn, length=length)
+        params, cfg, xn, length=length, shard=shard)
     if length is not None:
         ig, fg = ssm.freeze_gates_past(ig, fg, length)
     h, (C, n, m) = ssm.mlstm_chunkwise(q, k, v, ig, fg,
                                        chunk=min(cfg.mlstm_chunk, S))
-    return ssm.mlstm_output(params, cfg, h, z), \
+    return ssm.mlstm_output(params, cfg, h, z, shard), \
         {"C": C, "n": n, "m": m, "conv": conv_state}
 
 
-def _slstm_with_cache(params, cfg, xn, length=None):
+def _slstm_with_cache(params, cfg, xn, length=None, shard=None):
     """The sLSTM over the sequence, one cell a token, plus the final
     (h, c, n, m); on right-padded rows frozen at each true length
-    (``ssm.slstm_sequence``)."""
-    return ssm.slstm_sequence(params, cfg, xn, length)
+    (``ssm.slstm_sequence``; the rank's heads under ``shard``)."""
+    return ssm.slstm_sequence(params, cfg, xn, length, shard)
 
 
-def _recurrent_decode(p, cfg, kind, xn, cache):
+def _recurrent_decode(p, cfg, kind, xn, cache, shard=None):
     """One-token step of an RG-LRU, mLSTM or sLSTM layer on its per-slot
-    state, written IN PLACE; returns the mixer's output."""
+    state (the rank's slice of it under ``shard``), written IN PLACE;
+    returns the mixer's output."""
     if kind == "rglru":
-        return ssm.apply_rglru_decode(p["rec"], cfg, xn, cache)[0]
+        return ssm.apply_rglru_decode(p["rec"], cfg, xn, cache, shard)[0]
     if kind == "mlstm":
-        return ssm.apply_mlstm_decode(p["mix"], cfg, xn, cache)[0]
+        return ssm.apply_mlstm_decode(p["mix"], cfg, xn, cache, shard)[0]
     if kind == "slstm":
-        return ssm.apply_slstm_decode(p["mix"], cfg, xn, cache)[0]
+        return ssm.apply_slstm_decode(p["mix"], cfg, xn, cache, shard)[0]
     raise ValueError(kind)
 
 
@@ -395,7 +444,7 @@ def apply_block_decode_paged(p, cfg, kind, x, cache, block_table, lengths,
                 p["attn"], cfg, xn, cache, lengths, window=window,
                 shard=shard)
     else:
-        out = _recurrent_decode(p, cfg, kind, xn, cache)
+        out = _recurrent_decode(p, cfg, kind, xn, cache, shard)
     return _ffn_part(p, cfg, x + out, shard=shard)[0]
 
 
@@ -455,7 +504,7 @@ def apply_block_decode(p, cfg, kind, x, cache, pos, mrope_positions=None,
             p["attn"], cfg, xn, cache, pos, window=_window_for(cfg, kind),
             mrope_positions=mrope_positions, shard=shard)
     else:
-        out = _recurrent_decode(p, cfg, kind, xn, cache)
+        out = _recurrent_decode(p, cfg, kind, xn, cache, shard)
     return _ffn_part(p, cfg, x + out, shard=shard)[0]
 
 
@@ -594,7 +643,9 @@ def init_paged_cache(cfg, layout, device, spec=None, shard=None):
     payloads plus scale leaves. Windowed and recurrent layers keep
     per-slot state in the model dtype (the carries in f32), as in
     ``init_cache``. ``shard``: this rank's slice of every leaf
-    (``paged_cache_specs``: each pool's kv-head shard, scales with it),
+    (``paged_cache_specs``: each pool's kv-head shard, scales with it;
+    rings by kv heads, RG-LRU state by channels, mLSTM / sLSTM state by
+    heads; whole where the dimension does not divide the model axis),
     allocated at its local shape, never whole."""
     check_supported(cfg)
     if shard is not None:
@@ -655,15 +706,6 @@ def paged_cache_specs(cfg, layout, shard, spec=None):
     return map_layer_tree(cfg, one)
 
 
-def _check_head_shard(ctx: RunCtx):
-    """A paged step over a mesh needs the head-sharded pool."""
-    if ctx.shard is not None and ctx.shard.tp_size > 1 \
-            and not ctx.decode_head_shard:
-        from ..launch.mesh import TP_FAMILIES, not_ported
-        raise not_ported("paged attention over a replicated pool",
-                         TP_FAMILIES)
-
-
 def pack_prefill_into_paged(cfg, layout, pools, dense_caches, row_of_slot,
                             valid, block_ids, spec=None):
     """Install a batch of prefilled dense caches (``prefill`` with
@@ -702,7 +744,6 @@ def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
     rows, ring rows and recurrent states are written into ``pools`` IN
     PLACE. Returns (logits (B, V) f32, pools).
     """
-    _check_head_shard(ctx)
     shard = ctx.shard
     x = _embed(params, cfg, tokens, shard=shard)
     for kind, (lp, pool) in _layers(cfg, params["groups"], pools):
@@ -747,7 +788,6 @@ def decode_verify_paged(params, cfg, pools, block_table, lengths, tokens,
     written in place; per-slot state is selected at the accept boundary
     (``select_verify_state``). Returns (out_tokens, commit, pools).
     """
-    _check_head_shard(ctx)
     shard = ctx.shard
     x = _embed(params, cfg, tokens, shard=shard)
     per_layer = map_layer_tree(cfg, lambda gk, pk, kind, count: [])
@@ -778,8 +818,8 @@ def decode_step(params, cfg, cache, tokens, pos, ctx: RunCtx,
     """Dense decode step: tokens (B, 1) at per-slot positions ``pos``
     (B,) over ``init_cache`` caches (written IN PLACE) -> (logits (B, V)
     f32, cache). An mrope config takes the tokens' ``mrope_positions``
-    (3, B, 1). ``ctx.shard``: the cache is this rank's kv-head shard (the
-    static backend over a mesh)."""
+    (3, B, 1). ``ctx.shard``: the cache is this rank's slice (the static
+    backend over a mesh)."""
     shard = ctx.shard
     x = _embed(params, cfg, tokens, pos_offset=pos, shard=shard)
     for kind, (lp, lc) in _layers(cfg, params["groups"], cache):

@@ -709,6 +709,73 @@ def test_paged_verify_k4_matches_plain(cuda_device, kv_dtype, dtype, K1, hq,
     _close(got, ref.paged_verify_attention(q, kq, vq, bt, ln, **kw), dtype)
 
 
+# (mode, K1, hq, first kv head, kv heads read, pool kv heads, D, body in
+# f32, in bf16): a tensor-parallel rank's q heads over a range of the
+# kv heads of a pool every rank holds whole (the replicated-KV layout);
+# the range starts past kv head 0
+KV_RANGE_CASES = [
+    ("decode", 1, 1, 1, 1, 2, 128, None, None),     # yi at T = 4, rank 3
+    ("decode", 1, 2, 3, 1, 4, 64, None, None),
+    ("decode", 1, 4, 2, 2, 4, 16, None, None),
+    ("verify", 5, 1, 1, 1, 2, 128, "split", "split"),
+    ("verify", 5, 4, 2, 2, 4, 64, "split", "split"),
+    ("verify", 64, 2, 3, 1, 4, 128, "simt", "wgmma"),
+    ("verify", 64, 8, 1, 1, 2, 64, "simt", "wgmma"),
+]
+
+
+@pytest.mark.parametrize("kv_dtype", [None, "int8", "fp8"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("mode,K1,hq,lo,n,hkp,D,f32_body,bf16_body",
+                         KV_RANGE_CASES)
+def test_paged_kernels_over_a_kv_head_range_match_plain(
+        cuda_device, kv_dtype, dtype, mode, K1, hq, lo, n, hkp, D,
+        f32_body, bf16_body):
+    """K2 and K3 (K4 over an int8 / fp8 pool) with ``kv_heads=(lo, n)``:
+    the kernels walk kv heads [lo, lo + n) of the whole pool in place
+    (the C entries' kv offset and the pool's kv heads as the row stride)
+    and equal the plain version on that head view, and the plain
+    version on all the heads at the q heads that read them."""
+    gen = torch.Generator().manual_seed(hq * 100 + lo * 10 + D + K1)
+    bs, nbmax = 16, 5
+    lengths = [3, 17, 80, 40]
+    q, kp, vp, bt, ln = _verify_case(gen, len(lengths), K1, hq, hkp, D, bs,
+                                     nbmax, lengths, dtype, cuda_device)
+    kw = {}
+    if kv_dtype is not None:
+        kp, vp, ks, vs = _quant_pool(kp.float(), vp.float(), kv_dtype)
+        kw = {"k_scale": ks, "v_scale": vs}
+    ptrs = (kp.data_ptr(), vp.data_ptr())
+    view = {"k_scale": kw["k_scale"][:, :, lo:lo + n],
+            "v_scale": kw["v_scale"][:, :, lo:lo + n]} if kw else {}
+    kv, vv = kp[:, :, lo:lo + n], vp[:, :, lo:lo + n]
+    if mode == "decode":
+        q = q[:, 0].contiguous()
+        fn, plain = pa_mod.paged_decode_attention, ref.paged_decode_attention
+        n0 = fn.k4_launches if kw else fn.launches
+        got = fn(q, kp, vp, bt, ln + 1, kv_heads=(lo, n), **kw)
+        assert (fn.k4_launches if kw else fn.launches) == n0 + 1
+        want = plain(q, kv, vv, bt, ln + 1, **view)
+    else:
+        body = bf16_body if dtype == torch.bfloat16 else f32_body
+        fn, plain = pa_mod.paged_verify_attention, ref.paged_verify_attention
+        before = dict(fn.launches_by_body)
+        got = fn(q, kp, vp, bt, ln, kv_heads=(lo, n), **kw)
+        assert _ran_body(fn, before) == body
+        want = plain(q, kv, vv, bt, ln, **view)
+    assert (kp.data_ptr(), vp.data_ptr()) == ptrs
+    assert got.dtype == dtype and got.shape == q.shape
+    _close(got, want, dtype)
+    # the same q heads as rank rows of the whole model's heads: each of
+    # the n kv heads read takes hq / n consecutive q heads
+    g = hq // n
+    qall = torch.zeros(q.shape[:-2] + (hkp * g,) + q.shape[-1:],
+                       dtype=dtype, device=cuda_device)
+    qall[..., lo * g:(lo + n) * g, :] = q
+    whole = plain(qall, kp, vp, bt, ln + (mode == "decode"), **kw)
+    _close(got, whole[..., lo * g:(lo + n) * g, :], dtype)
+
+
 @pytest.mark.parametrize("kv_dtype", ["int8", "fp8"])
 @pytest.mark.parametrize("mode", ["decode", "verify"])
 def test_k4_padded_head_dim_is_exact(cuda_device, kv_dtype, mode):
