@@ -206,8 +206,8 @@ Phases, one JSON line each (any failed check exits non-zero):
               speculative (ngram, K 3), fp8, ``overlap=True`` and
               ``backend="static"``; tokens equal, no leak, every cuda
               paged decode step a graph replay. Prints its seconds.
-10. xlstm_serve — xlstm_1_3b at full width and depth in bf16 (48 layers:
-              42 mLSTM, 6 sLSTM; d_model 2048, 4 heads x 512; seeded
+10. xlstm_serve — xlstm_1_3b at full width in bf16, depth cut to
+              XLSTM_LAYERS of 48 (14 mLSTM, 2 sLSTM); d_model 2048, 4 heads x 512; seeded
               random weights; 8 slots, max_len 640) serves the serve
               phase's 16 requests with overlap off, then on (equal
               tokens), then on ``backend="static"``: tok/s, TTFT / TPOT
@@ -318,7 +318,7 @@ Phases, one JSON line each (any failed check exits non-zero):
               device time, peak memory and the card. The summary line's
               ``K1_bwd`` row takes its launches from this phase.
 15. train_families — ``make_train_step`` at full width in bf16 (AdamW,
-              f32 moments) on xlstm_1_3b (48 layers, 4 x 1024, remat
+              f32 moments) on xlstm_1_3b (16 of 48 layers, 4 x 1024, remat
               "full"), whisper_base (6 + 6, 8 x 448 decoder tokens over
               (8, 1500, 512) frames) and qwen3_moe_30b_a3b (depth cut to
               3 of 48, 4 x 2048, ce_chunk 512), each on one seeded batch:
@@ -423,7 +423,14 @@ VLM_GRID, VLM_STEPS = 8, 32        # vlm_dense: 8 x 8 patches, decode steps
 VLM_PROBE = 8                      # vlm_dense: decode steps under the profiler
 
 
+T_START = time.monotonic()
+
+
 def emit(obj):
+    """Print ``obj`` as a JSON line; a phase's line gains ``t_s``, the
+    seconds since the script started (where the run's time goes)."""
+    if "phase" in obj:
+        obj = {**obj, "t_s": time.monotonic() - T_START}
     print(json.dumps(obj), flush=True)
 
 
@@ -2561,19 +2568,27 @@ def admission_s(torch, model, params, prompts):
     return secs
 
 
+# xlstm_serve and train_families: xlstm_1_3b's depth, cut from 48 to keep
+# the script inside its time (two of its 7 mLSTM + 1 sLSTM groups; the
+# sLSTM's cells run one by one, most of a training step)
+XLSTM_LAYERS = 16
+
+
 def phase_xlstm_serve(torch, np, prompts, news, warm, profile):
-    """xlstm_1_3b at full width and depth in bf16 (48 layers: 42 mLSTM,
-    6 sLSTM; d_model 2048, 4 heads x 512; seeded random weights) serves
-    the 16 requests with overlap off, then on (equal tokens), then on
-    ``backend="static"``. No port kernel runs on this path (mLSTM and
-    sLSTM are plain torch, as in JAX); every decode step is a replay of
-    the captured step."""
+    """xlstm_1_3b at full width in bf16, depth cut to XLSTM_LAYERS of 48
+    (14 mLSTM, 2 sLSTM; d_model 2048, 4 heads x 512; seeded random
+    weights) serves the 16 requests with overlap off, then on (equal
+    tokens), then on ``backend="static"``. No port kernel runs on this
+    path (mLSTM and sLSTM are plain torch, as in JAX); every decode step
+    is a replay of the captured step."""
+    import dataclasses
+
     from repro_torch.configs import get_config
     from repro_torch.launch.engine import Engine, EngineConfig, SamplingParams
     from repro_torch.models.model import Model
 
     t0 = time.monotonic()
-    cfg = get_config("xlstm_1_3b")
+    cfg = dataclasses.replace(get_config("xlstm_1_3b"), n_layers=XLSTM_LAYERS)
     model = Model(cfg, device="cuda")
     params = model.init(seed=SEED)
     geo = dict(num_slots=8, block_size=16, num_blocks=1024, max_len=640)
@@ -4172,11 +4187,11 @@ def phase_train(torch, np):
 
 # train_families: (arch, layers (None: full depth), batch, sequence,
 # ce_chunk, remat, steps). xlstm_1_3b's sequence is cut from olmo's 2048
-# to 1024 and it takes 3 steps: its sLSTM runs 6 layers x 1024 cells one
-# by one, forward and backward. It recomputes each layer in the backward
-# pass: without remat the 48 layers' saved activations (the chunkwise
-# mLSTM's f32 states and products, the sLSTM's cells) ran the card out
-# of its 80 GB in the forward pass. qwen3_moe's depth is cut to 3 of 48
+# to 1024, its depth to XLSTM_LAYERS, and it takes 3 steps: its sLSTM runs
+# 1024 cells one by one, forward and backward. It recomputes each layer in
+# the backward pass: without remat the 48 layers' saved activations (the
+# chunkwise mLSTM's f32 states and products, the sLSTM's cells) ran the
+# card out of its 80 GB in the forward pass. qwen3_moe's depth is cut to 3 of 48
 # layers: a layer holds 0.62 B parameters and the embedding and head
 # 0.62 B more, and the eager AdamW step holds the old and the new
 # params and f32 moments at once beside the bf16 grads (22 bytes a
@@ -4186,7 +4201,7 @@ def phase_train(torch, np):
 # 1500 frames (a full 30 s window).
 FAM_MOE_B, FAM_MOE_S, FAM_MOE_LAYERS = 4, 2048, 3
 FAM_WH_B, FAM_WH_S = 8, 448
-TRAIN_FAMILIES = (("xlstm_1_3b", None, 4, 1024, 0, "full", 3),
+TRAIN_FAMILIES = (("xlstm_1_3b", XLSTM_LAYERS, 4, 1024, 0, "full", 3),
                   ("whisper_base", None, FAM_WH_B, FAM_WH_S, 0, "none", 4),
                   ("qwen3_moe_30b_a3b", FAM_MOE_LAYERS, FAM_MOE_B,
                    FAM_MOE_S, 512, "none", 4))
@@ -4195,8 +4210,8 @@ TRAIN_FAMILIES = (("xlstm_1_3b", None, 4, 1024, 0, "full", 3),
 def phase_train_families(torch, np):
     """``make_train_step`` at full width in bf16 (AdamW, f32 moments,
     constant lr 1e-3, seeded random weights) on each family that the
-    train phase does not cover: xlstm_1_3b at full depth (48 layers: 42
-    mLSTM, 6 sLSTM) on a ``SyntheticLM`` batch of 4 x 1024, each layer
+    train phase does not cover: xlstm_1_3b at XLSTM_LAYERS of 48 (14
+    mLSTM, 2 sLSTM) on a ``SyntheticLM`` batch of 4 x 1024, each layer
     recomputed in the backward pass (``remat="full"``); whisper_base
     at full depth (6 + 6) on 8 x 448 decoder tokens over frames (8,
     1500, 512) drawn from a generator seeded with SEED; qwen3_moe_30b_a3b
@@ -4322,7 +4337,8 @@ def tp_parity_case(arch, mode, vocab, seed=None):
     prompts in one prefill bucket, seeded rows beside greedy ones; a
     tight pool preempts (greedy_preempt, int8), a shared block-aligned
     prefix and a repeated 8-token prompt give partial and full prefix
-    hits with a COW copy; "static" is the lockstep backend."""
+    hits with a COW copy; "static" is the lockstep backend; "overlap"
+    the tight pool with ``overlap=True``."""
     import numpy as np
 
     if seed is None:
@@ -4340,6 +4356,8 @@ def tp_parity_case(arch, mode, vocab, seed=None):
             (greedy if mode in ("greedy_preempt", "prefix") else seeded)]
     if mode == "greedy_preempt":
         return tight, prompts, samp
+    if mode == "overlap":
+        return dict(tight, overlap=True), prompts, samp
     if mode == "seeded":
         return roomy, prompts, samp
     if mode == "spec3":
@@ -4647,17 +4665,20 @@ def agreement(outs, base):
     return same / len(base), (min(firsts) if firsts else None)
 
 
-def tp_turns(np, prompts, news, warm):
+def tp_turns(np, prompts, news, warm, overlap=False):
     """tp_serve's turns: serve's 16 requests (greedy, bf16 pool), 8 of
     spec_serve's shared-prefix requests with spec_tokens 4 (suffix
     prefills on K3's wgmma body, verify steps on its split body) and
-    serve's first 8 requests over an fp8 pool (K4)."""
+    serve's first 8 requests over an fp8 pool (K4); with ``overlap``
+    serve's 16 again on ``overlap=True``."""
     sp, sn, sw = spec_workload(np)
     return [("greedy", {}, prompts, news, warm),
             ("spec", dict(spec_tokens=4, drafter="ngram"), sp[:HALF],
              sn[:HALF], sw),
             ("fp8", dict(kv_dtype="fp8"), prompts[:HALF], news[:HALF],
-             warm)]
+             warm)] \
+        + ([("overlap", dict(overlap=True), prompts, news, warm)]
+           if overlap else [])
 
 
 def phase_tp_serve(torch, np, arch, tp, turns, base_outs, base_logits,
@@ -4770,6 +4791,12 @@ def phase_tp_serve(torch, np, arch, tp, turns, base_outs, base_logits,
             check(all(r["launches"]["K4_decode"] > 0
                       and r["launches"]["K2"] == 0 for r in rs),
                   f"tp_serve {arch} fp8: decode did not run K4")
+        if name == "overlap":
+            row["tokens_equal_overlap_off"] = \
+                r0["outs"] == got[0]["turns"]["greedy"]["outs"]
+            check(row["tokens_equal_overlap_off"],
+                  f"tp_serve {arch} overlap: tokens differ from the "
+                  "greedy turn's")
         for r in rs:
             totals["K1"] += r["launches"]["K1"]
             totals["K2"] += r["launches"]["K2"]
@@ -4841,16 +4868,18 @@ def phase_tp_kernels(torch, np, prompts):
 
 
 TP_ROWS = (
-    ("K1_tp", "K1", "flash_attention (tp_serve: a rank's prefill, 8 of "
-     "olmo_1b's 16 heads; timed at (8, 8/8, 512, 128))",
+    ("K1_tp", "K1", "flash_attention (tp_serve and tp_replica_serve: a "
+     "rank's prefill, 8 of olmo_1b's 16 heads; timed at (8, 8/8, 512, "
+     "128))",
      "src/repro_torch/csrc/flash_attention.cu",
      "src/repro/kernels/flash_attention.py:109"),
-    ("K2_tp", "K2", "paged_decode_attention (tp_serve: a rank's decode "
-     "over its kv-head shard, paged_decode_attention_headshard)",
+    ("K2_tp", "K2", "paged_decode_attention (tp_serve and "
+     "tp_replica_serve: a rank's decode over its kv-head shard, "
+     "paged_decode_attention_headshard)",
      "src/repro_torch/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention.py:361"),
     ("K2_combine_tp", "K2_combine", "paged_decode_combine (tp_serve's "
-     "ranks)", "src/repro_torch/csrc/paged_attention.cu",
+     "and tp_replica_serve's ranks)", "src/repro_torch/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention.py:361"),
     ("K3_tp", "K3", "paged_verify_attention (tp_serve's spec turn: a "
      "rank's verify, split body, paged_verify_attention_headshard)",
@@ -4869,7 +4898,8 @@ TP_ROWS = (
 
 def tp_rows(rows, totals):
     """The kernels line's rows of the per-rank kernels, their launches
-    summed over tp_serve's ranks."""
+    summed over tp_serve's ranks (and tp_replica_serve's for K1 and
+    K2)."""
     out = []
     for key, count, name, src, tpu in TP_ROWS:
         row = rows[key]
@@ -4888,10 +4918,13 @@ def tp_cards_main(torch, np):
     families, tp_families_serve for recurrentgemma_2b at T = 2 and
     qwen3_moe (MOE_LAYERS) at T = 4, each against its single-card run,
     and qwen3_moe at all 48 layers over 4 ranks (32 experts a rank; no
-    card holds the whole tree, so no single-card run); then tp_serve for
-    olmo_1b at T = 2 and 4 and yi_6b at T = 4, each against its own
-    single-device run on the first card, then parity_tp at T = 2 (the
-    kernels rows at a rank's shapes are the one-card run's)."""
+    card holds the whole tree, so no single-card run), whisper_base at
+    T = 2 and 4 (overlap on too); then tp_serve for olmo_1b at T = 2 and
+    4 (with an overlap=True turn) and yi_6b at T = 4, each against its
+    own single-device run on the first card, tp_replica_serve (olmo_1b,
+    ReplicaSet on a (2, 2) mesh: NCCL within a replica), then parity_tp
+    at T = 2 (the kernels rows at a rank's shapes are the one-card
+    run's)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.engine import Engine, EngineConfig
     from repro_torch.models.model import Model
@@ -4908,7 +4941,10 @@ def tp_cards_main(torch, np):
                                 timeout_s=TP_CARDS_TIMEOUT_S,
                                 compare=compare)
         torch.cuda.empty_cache()
-    turns = tp_turns(np, prompts, news, warm)
+    phase_tp_encdec_serve(torch, np, tps=(2, 4),
+                          timeout_s=TP_CARDS_TIMEOUT_S)
+    torch.cuda.empty_cache()
+    turns = tp_turns(np, prompts, news, warm, overlap=True)
     logit_prompts = [p[:64] for p in prompts[:HALF]]
     for arch, tps in (("olmo_1b", (2, 4)), ("yi_6b", (4,))):
         model = Model(get_config(arch), device="cuda")
@@ -4927,6 +4963,9 @@ def tp_cards_main(torch, np):
             phase_tp_serve(torch, np, arch, tp, turns, base_outs,
                            base_logits, pool, logit_prompts,
                            timeout_s=TP_CARDS_TIMEOUT_S)
+        if arch == "olmo_1b":
+            phase_tp_replica_serve(torch, np, prompts, news, warm, base_outs,
+                                   timeout_s=TP_CARDS_TIMEOUT_S)
     phase_parity_tp(torch, np, tp=2, timeout_s=TP_CARDS_TIMEOUT_S)
 
 
@@ -4952,8 +4991,16 @@ TPF_CASES = (
     (4, "yi_6b", "spec3"),
     (4, "yi_6b", "int8"),
     (4, "recurrentgemma_2b", "seeded"),
+    # whisper by heads at T = 2, by query heads over a replicated KV and
+    # arena at T = 4; overlap=True under a mesh for every family
+    (2, "whisper_base", "greedy_preempt"),
+    (4, "whisper_base", "greedy_preempt"),
+    *((2, a, "overlap") for a in (
+        "olmo_1b", "recurrentgemma_2b", "h2o_danube_3_4b", "xlstm_1_3b",
+        "qwen3_moe_30b_a3b", "whisper_base")),
 )
-TPF_MODES = ("greedy_preempt", "seeded", "spec3", "int8", "static")
+TPF_MODES = ("greedy_preempt", "seeded", "spec3", "int8", "static",
+             "overlap")
 TPF_ARCHS = tuple(dict.fromkeys(a for _, a, _ in TPF_CASES))
 # tp_families_serve: (arch, layers: None for all[, dtype]) and its new
 # tokens. The last is the MoE's f32 witness: qwen3_moe at full width and
@@ -4973,12 +5020,24 @@ RECURRENT_GEO = dict(num_slots=8, block_size=16, num_blocks=1024,
 QWEN3_FULL = ("qwen3_moe_30b_a3b", 48)   # --tp-cards: all 48 layers, T = 4
 
 
-def tpf_case(arch, mode, vocab):
-    """(engine kwargs, prompts, sampling kwargs) of a parity_tp_families
-    case: ``tp_parity_case``'s, drawn from the case's own seed."""
-    return tp_parity_case(arch, mode, vocab, seed=SEED + 200
-                          + TPF_ARCHS.index(arch) * 10
-                          + TPF_MODES.index(mode))
+def tpf_case(arch, mode, cfg):
+    """(engine kwargs, prompts, sampling kwargs, encoder features or
+    None) of a parity_tp_families case: ``tp_parity_case``'s, drawn from
+    the case's own seed; an encoder-decoder's requests carry 9..16 seeded
+    frames each, the fourth the third's array (one arena row)."""
+    import numpy as np
+
+    seed = SEED + 200 + TPF_ARCHS.index(arch) * 10 + TPF_MODES.index(mode)
+    kw, prompts, samp = tp_parity_case(arch, mode, cfg.vocab_size,
+                                       seed=seed)
+    feats = None
+    if cfg.enc_dec:
+        rng = np.random.default_rng(seed + 1000)
+        feats = [rng.standard_normal((int(rng.integers(
+            9, cfg.encoder_len + 1)), cfg.d_model), dtype=np.float32)
+            for _ in prompts]
+        feats[3] = feats[2]
+    return kw, prompts, samp, feats
 
 
 def flat_leaves(tree, path=()):
@@ -5022,17 +5081,18 @@ def parity_tpf_rank(mesh, cases):
         model = Model(cfg, device=mesh.device)
         params = weights.to_device(Model(cfg, device="cpu").init(seed=SEED),
                                    mesh.device)
-        kw, prompts, samp = tpf_case(arch, mode, cfg.vocab_size)
+        kw, prompts, samp, feats = tpf_case(arch, mode, cfg)
         before = kernel_counts()
         eng = Engine(model, params, EngineConfig(**kw, mesh=mesh),
                      device=mesh.device)
-        toks = eng.generate(prompts, [SamplingParams(**s) for s in samp])
+        toks = eng.generate(prompts, [SamplingParams(**s) for s in samp],
+                            encoder_features=feats)
         torch.cuda.synchronize()
         st = eng.stats()
         out[(tp, arch, mode)] = (
             toks, tp_stats_view(st), st.get("blocks_used", 0),
             st["tp"].get("cache_bytes", st.get("pool_bytes")), st["tp"],
-            counts_delta(before, kernel_counts()))
+            counts_delta(before, kernel_counts()), st.get("overlap"))
     return out
 
 
@@ -5044,11 +5104,16 @@ def rank_state_bytes(cfg, kw, tp):
 
     from repro_torch.launch import mesh as meshlib
     from repro_torch.launch import sharding
-    from repro_torch.models import paged_kv, transformer
+    from repro_torch.models import encdec, paged_kv, transformer
 
     shard = sharding.layout_ctx(meshlib.Mesh({"data": 1, "model": tp}))
     meta = torch.device("meta")
-    if kw.get("backend") == "static":
+    if cfg.enc_dec:                      # the self pool and the arena
+        layout = paged_kv.PagedLayout(**{k: kw[k] for k in (
+            "num_slots", "num_blocks", "block_size", "max_len")})
+        tree = encdec.init_paged_cache(cfg, layout, meta)
+        specs = encdec.paged_cache_specs(cfg, layout, shard)
+    elif kw.get("backend") == "static":
         tree = transformer.init_cache(cfg, kw["num_slots"], kw["max_len"],
                                       meta)
         specs = sharding.batch_specs(tree, shard)
@@ -5074,7 +5139,8 @@ def phase_parity_tp_families(torch, np, timeout_s=TP_TIMEOUT_S):
     """Smoke configs in f32 over ranks on the one card (gloo):
     recurrentgemma_2b, h2o_danube_3_4b, xlstm_1_3b, qwen3_moe_30b_a3b and
     kimi_k2_1t_a32b at T = 2, yi_6b and recurrentgemma_2b at T = 4 (the
-    replicated-KV fallback), in TPF_CASES' modes. Every rank's tokens and
+    replicated-KV fallback), whisper_base at T = 2 and 4, and overlap=True
+    for every family at T = 2, in TPF_CASES' modes. Every rank's tokens and
     scheduling counters equal the single-device engine's on the CPU, no
     rank leaks, each rank holds exactly its spec slice of the pool and
     state, and a step runs the plan's collectives. Returns the launches
@@ -5095,10 +5161,11 @@ def phase_parity_tp_families(torch, np, timeout_s=TP_TIMEOUT_S):
     for tp, arch, mode in TPF_CASES:
         cfg = get_config(arch).smoke()
         model = Model(cfg, device="cpu")
-        kw, prompts, samp = tpf_case(arch, mode, cfg.vocab_size)
+        kw, prompts, samp, feats = tpf_case(arch, mode, cfg)
         eng = Engine(model, model.init(seed=SEED), EngineConfig(**kw),
                      device="cpu")
-        toks = eng.generate(prompts, [SamplingParams(**s) for s in samp])
+        toks = eng.generate(prompts, [SamplingParams(**s) for s in samp],
+                            encoder_features=feats)
         want[(tp, arch, mode)] = (toks, tp_stats_view(eng.stats()), kw)
     got = {tp: g() for tp, g in groups.items()}
     totals = {"K2_kvrange": 0, "K4_kvrange": 0, "K3_kvrange": 0}
@@ -5143,6 +5210,9 @@ def phase_parity_tp_families(torch, np, timeout_s=TP_TIMEOUT_S):
             if mode in ("greedy_preempt", "int8"):
                 check(st["preemptions"] > 0, f"parity_tp_families {arch} "
                       f"{mode}: the tight pool never preempted")
+            check(all(bool(r[6]) == (mode == "overlap") for r in rs),
+                  f"parity_tp_families T={tp} {arch} {mode}: a rank's "
+                  f"stats()['overlap'] is {[r[6] for r in rs]}")
             attn = bool({"attn", "local"} & set(cfg.block_pattern))
             for r in rs:
                 n = r[5]
@@ -5526,14 +5596,491 @@ def phase_tp_families_serve(torch, np, prompts, warm, families, tp,
     return totals
 
 
+# ---------------------------------------------------------------------------
+# whisper under TP (tp_families_serve's whisper rows), ReplicaSet on
+# (data, model) submeshes: parity_tp_replica, tp_replica_serve
+# ---------------------------------------------------------------------------
+
+TPE_NEW = 32                        # whisper over ranks: new tokens each
+
+
+def encdec_first_logits(torch, np, model, params, ctx, feats):
+    """Logits of one admission of HALF start-of-transcript prompts over
+    ``feats`` (full windows: the masked encoder, the arena write, the
+    decoder prefill, through ``prefill_paged_encdec``) and of the first
+    paged decode step after it (its greedy token fed), over a pool and
+    arena built for them (this rank's slices under ``ctx.shard``).
+    Returns (prefill, decode) f32 logits on the host."""
+    from repro_torch.models import paged_kv
+
+    n, bs = len(feats), 16
+    layout = paged_kv.PagedLayout(num_slots=n, num_blocks=n + 1,
+                                  block_size=bs, max_len=bs)
+    pools = model.init_paged_cache(layout, shard=ctx.shard)
+    toks = np.zeros((n, len(SOT)), np.int32)
+    toks[:] = SOT
+    ids = np.arange(1, n + 1, dtype=np.int32)
+    enc = np.asarray([f.shape[0] for f in feats], np.int32)
+    lens = np.full(n, len(SOT), np.int32)
+    dev = model.device
+    args = [torch.from_numpy(a).to(dev) for a in (
+        toks, np.stack(feats), enc, lens, ids[:, None], ids)]
+    pl, _ = model.prefill_paged_encdec(params, pools, *args, ctx)
+    feed = pl.argmax(-1).to(torch.int32)[:, None]
+    dl, _ = model.decode_step_paged(
+        params, pools, args[4], args[3], feed, ctx, arena_ids=args[5],
+        enc_lengths=args[2])
+    torch.cuda.synchronize()
+    return pl.float().cpu().numpy(), dl.float().cpu().numpy()
+
+
+def tpe_spec(np, dtype):
+    """(config, engine geometry, requests) of whisper over ranks:
+    whisper_base at full width and depth (6 + 6 layers) in ``dtype``,
+    encdec_serve's geometry (8 slots, max_len 448, 225 blocks) and its
+    first HALF requests (start-of-transcript prompts over full 1500-frame
+    windows, two seeded pairs sharing an array each), TPE_NEW tokens
+    each."""
+    import dataclasses
+
+    from repro_torch.configs import get_config
+
+    cfg = dataclasses.replace(get_config("whisper_base"), dtype=dtype)
+    prompts, feats, _, samp = encdec_workload(np, cfg.d_model)
+    geo = dict(num_slots=HALF, block_size=16, num_blocks=225, max_len=448)
+    return cfg, geo, (prompts[:HALF], feats[:HALF], [TPE_NEW] * HALF,
+                      samp[:HALF])
+
+
+def tpe_turns(torch, np, model, params, cfg, geo, reqs, mesh=None):
+    """whisper's turns on one engine a turn over the same params:
+    overlap off, then (bf16 over ranks) on: (outputs, seconds, launches,
+    K1 by body, a stats subset) by turn name, and the first logits (on
+    the overlap-off engine's params and context)."""
+    from repro_torch.launch.engine import Engine, EngineConfig
+
+    out = {}
+    keep = None
+    both = cfg.dtype == "bfloat16" and mesh is not None
+    for overlap in ((False, True) if both else (False,)):
+        eng = Engine(model, params, EngineConfig(**geo, overlap=overlap,
+                                                 mesh=mesh),
+                     device=model.device)
+        outs, secs, runs, k1_bodies, st = encdec_turn(torch, eng, reqs)
+        out["overlap" if overlap else "greedy"] = {
+            "outs": outs, "seconds": secs, "launches": runs,
+            "k1_bodies": k1_bodies,
+            "stats": {k: st[k] for k in (
+                "steps", "graph_replays", "eager_decode_steps", "overlap",
+                "pool_bytes", "blocks_used", "preemptions", "prefill_calls",
+                "cross_arena", "device_s") + (("tp",) if mesh else ())},
+            "ttft_p50_s": st["latency"]["ttft"]["p50_s"],
+            "tpot_p50_s": st["latency"]["tpot"]["p50_s"]}
+        if keep is None:
+            keep = eng.backend
+        del eng
+    logits = encdec_first_logits(torch, np, model, keep.params, keep.ctx,
+                                 reqs[1])
+    return out, logits
+
+
+def tpe_rank(mesh, dtypes):
+    """One rank of whisper over ranks: per dtype the params drawn on the
+    rank's card from the seed, its slices kept (``init_rank_params``),
+    the turns (``tpe_turns``) over the mesh. Requests are drawn here
+    from the seed (no frames cross processes)."""
+    torch = rank_setup()
+    import numpy as np
+
+    from repro_torch.launch import sharding
+    from repro_torch.models.model import Model
+
+    out = {}
+    for dtype in dtypes:
+        print(f"[tp rank {mesh.rank}] tp_families_serve whisper {dtype}",
+              file=sys.stderr, flush=True)
+        cfg, geo, reqs = tpe_spec(np, dtype)
+        model = Model(cfg, device=mesh.device)
+        params = sharding.init_rank_params(
+            model, SEED, sharding.make_shard_ctx(mesh, cfg))
+        out[dtype] = tpe_turns(torch, np, model, params, cfg, geo, reqs,
+                               mesh)
+        del params
+        torch.cuda.empty_cache()
+    return out
+
+
+def phase_tp_encdec_serve(torch, np, tps=(TP,), timeout_s=TP_TIMEOUT_S):
+    """whisper_base at full width in bf16 over each T of ``tps`` ranks
+    (gloo on the
+    one card, eager; NCCL on cards of their own, the step captured):
+    tpe_spec's 8 requests with overlap off, then on (equal tokens), per
+    rank K1 (the decoder prefill on the rank's 4 of 8 heads, wgmma) and
+    K2 (the decode over its head-sharded pool), the plan's 18
+    collectives a step (3 a decoder layer; the 51865-token vocabulary
+    stays whole), pool and arena bytes a rank (its spec slice), no leak,
+    shared arena rows; tokens and the first logits against the
+    single-device run on the card, first (bf16: reported; all-reduced
+    partial sums round apart). Then the f32 witness at full width: its
+    tokens equal to T = 1 and its first logits within the f32
+    tolerance of the largest. Returns the bf16 launches summed over ranks
+    for the kernels line's whisper rows."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    dtypes = ("bfloat16", "float32")
+    bases = {}
+    for dtype in dtypes:
+        cfg, geo, reqs = tpe_spec(np, dtype)
+        model = Model(cfg, device="cuda")
+        params = sharding.init_rank_params(model, SEED)
+        turns, logits = tpe_turns(torch, np, model, params, cfg, geo, reqs)
+        bases[dtype] = (turns["greedy"], logits)
+        r = turns["greedy"]
+        ntok = sum(len(o) for o in r["outs"])
+        emit({"phase": "tp_families_serve", "config": cfg.name,
+              "dtype": dtype, "tp": 1, "layers": cfg.n_layers,
+              "tokens": ntok, "seconds": r["seconds"],
+              "tok_s": ntok / r["seconds"],
+              "graph_replays": r["stats"]["graph_replays"],
+              "pool_bytes": r["stats"]["pool_bytes"]})
+        del model, params
+        torch.cuda.empty_cache()
+    totals = {"K1_whisper_tp": 0, "K2_whisper_tp": 0}
+    far = []
+    for tp in tps:
+        got = meshlib.launch(tpe_rank, tp, "cuda", args=(dtypes,),
+                             timeout_s=timeout_s)
+        tpe_check(np, got, tp, dtypes, bases, totals, far)
+    emit({"phase": "tp_families_serve", "config": "whisper-base",
+          "tp": list(tps), "summary": True, "launches": totals,
+          "seconds": time.monotonic() - t0})
+    check(not far, "; ".join(far))
+    return totals
+
+
+def tpe_check(np, got, tp, dtypes, bases, totals, far):
+    """phase_tp_encdec_serve's rows and checks of one group of ``tp``
+    ranks; adds the bf16 launches to ``totals`` and the logits past the
+    tolerance to ``far``."""
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch import sharding
+
+    for dtype in dtypes:
+        cfg, geo, reqs = tpe_spec(np, dtype)
+        plan = sharding.make_shard_ctx(
+            meshlib.Mesh({"data": 1, "model": tp}), cfg).plan
+        rank_bytes, full, split = rank_state_bytes(cfg, geo, tp)
+        base, (pl0, dl0) = bases[dtype]
+        name = f"tp_families_serve whisper-base {dtype} T={tp}"
+        for turn in got[0][dtype][0]:
+            rs = [g[dtype][0][turn] for g in got]
+            r0, sts = rs[0], [r["stats"] for r in rs]
+            info = sts[0]["tp"]
+            ntok = sum(len(o) for o in r0["outs"])
+            steps_key = "graph_replays" if info["backend"] == "nccl" \
+                else "eager_decode_steps"
+            rate, first = agreement(r0["outs"], base["outs"])
+            row = {"phase": "tp_families_serve", "config": cfg.name,
+                   "dtype": dtype, "tp": tp, "turn": turn,
+                   "layers": f"{cfg.n_encoder_layers} + {cfg.n_layers}",
+                   "frames": [HALF, ENC_FRAMES],
+                   "backend": info["backend"],
+                   "captured_step": info["captured_step"],
+                   "overlap": sts[0]["overlap"], "plan": info["plan"],
+                   "kv_replicated": info["kv_replicated"],
+                   "requests": len(r0["outs"]), "tokens": ntok,
+                   "seconds": r0["seconds"], "tok_s": ntok / r0["seconds"],
+                   "tok_s_t1": sum(len(o) for o in base["outs"])
+                   / base["seconds"],
+                   "ttft_p50_s": r0["ttft_p50_s"],
+                   "tpot_p50_s": r0["tpot_p50_s"],
+                   "tpot_p50_s_t1": base["tpot_p50_s"],
+                   "steps": sts[0]["steps"],
+                   "decode_steps_by_rank": [s[steps_key] for s in sts],
+                   "collectives_per_step": info["collectives_per_step"],
+                   "plan_collectives_per_step": plan.step_collectives(),
+                   "pool_bytes_per_rank": [s["pool_bytes"] for s in sts],
+                   "pool_bytes_t1": full,
+                   "cross_arena": sts[0]["cross_arena"],
+                   "k1_launches_by_body": [r["k1_bodies"] for r in rs],
+                   "k2_launches": [r["launches"]["K2"] for r in rs],
+                   "requests_equal_t1": rate, "first_differing_step": first,
+                   "ranks_tokens_equal": all(r["outs"] == r0["outs"]
+                                             for r in rs)}
+            if turn == "overlap":
+                greedy = got[0][dtype][0]["greedy"]["outs"]
+                row["tokens_equal_overlap_off"] = r0["outs"] == greedy
+                check(row["tokens_equal_overlap_off"] and row["overlap"],
+                      f"{name}: overlap=True tokens differ from overlap "
+                      "off, or overlap is off")
+            emit(row)
+            body = "wgmma" if dtype == "bfloat16" else "simt"
+            check(row["ranks_tokens_equal"]
+                  and all(len(o) == TPE_NEW for o in r0["outs"]),
+                  f"{name} {turn}: the ranks' tokens differ, or bad outputs")
+            check(all(s["blocks_used"] == 0
+                      and s["cross_arena"]["rows_used"] == 0 for s in sts)
+                  and row["cross_arena"]["shared_hits"] >= 2,
+                  f"{name} {turn}: blocks or arena rows leaked, or no "
+                  f"shared row {row['cross_arena']}")
+            check(all(p == rank_bytes for p in row["pool_bytes_per_rank"])
+                  and rank_bytes == full - split + split // tp,
+                  f"{name}: rank pool and arena {row['pool_bytes_per_rank']}"
+                  f", its spec slice is {rank_bytes} of {full}")
+            check(row["collectives_per_step"] == plan.step_collectives()
+                  == 3 * cfg.n_layers, f"{name}: "
+                  f"{row['collectives_per_step']} collectives a step")
+            for r, s in zip(rs, sts):
+                runs = r["launches"]
+                check(s[steps_key] == s["steps"] > 0
+                      and runs["K2"] == cfg.n_layers * s["steps"]
+                      and runs["K1"] == r["k1_bodies"][body]
+                      == cfg.n_layers * s["prefill_calls"] > 0,
+                      f"{name} {turn}: K1 {r['k1_bodies']} / K2 "
+                      f"{runs['K2']} in {s['steps']} steps, "
+                      f"{s['prefill_calls']} prefills")
+                if dtype == "bfloat16":
+                    totals["K1_whisper_tp"] += runs["K1"]
+                    totals["K2_whisper_tp"] += runs["K2"]
+        errs = [[float(np.abs(a - b).max() / max(1.0, np.abs(b).max()))
+                 for a, b in ((pl, pl0), (dl, dl0))]
+                for pl, dl in (g[dtype][1] for g in got)]
+        emit({"phase": "tp_families_serve", "config": cfg.name,
+              "dtype": dtype, "tp": tp, "summary": "first logits",
+              "logits_rel_err_by_rank": errs, "tol": TOL[dtype]})
+        if dtype == "float32":
+            check(got[0][dtype][0]["greedy"]["outs"] == base["outs"],
+                  f"{name}: the f32 witness's tokens differ from T = 1")
+        if not all(e <= TOL[dtype] for es in errs for e in es):
+            far.append(f"{name}: first logits {errs} of the largest")
+
+
+TPR_CASES = (("least_loaded", "greedy_preempt"), ("round_robin", "seeded"))
+
+
+def tpr_case(mode, vocab):
+    """(per-replica engine kwargs, prompts, sampling kwargs) of a
+    parity_tp_replica case: ``tp_parity_case``'s, plus two more requests
+    so the shared queue holds some back."""
+    kw, prompts, samp = tp_parity_case("olmo_1b", mode, vocab,
+                                       seed=SEED + 300
+                                       + TPF_MODES.index(mode))
+    return kw, prompts + prompts[:2], samp + samp[:2]
+
+
+def tpr_view(st):
+    """The counters a replica set shares with another serving the same
+    requests."""
+    return {"dispatched": st["dispatched"], "steps": st["steps"],
+            "preemptions": st["preemptions"],
+            "prefill_calls": st["prefill_calls"],
+            "blocks_used": st["blocks_used"],
+            "replica_steps": [p["steps"] for p in st["per_replica"]]}
+
+
+def parity_tpr_rank(mesh):
+    """One rank of parity_tp_replica: each case through
+    ``ReplicaSet(mesh=)`` on olmo_1b smoke (the CPU's params from the
+    seed), this rank's kernel launches apart."""
+    torch = rank_setup()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import (EngineConfig, ReplicaSet,
+                                           SamplingParams)
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    cfg = get_config("olmo_1b").smoke()
+    model = Model(cfg, device=mesh.device)
+    params = weights.to_device(Model(cfg, device="cpu").init(seed=SEED),
+                               mesh.device)
+    out = {}
+    for policy, mode in TPR_CASES:
+        kw, prompts, samp = tpr_case(mode, cfg.vocab_size)
+        before = kernel_counts()
+        rset = ReplicaSet(model, params, EngineConfig(**kw), mesh=mesh,
+                          policy=policy)
+        toks = rset.generate(prompts, [SamplingParams(**s) for s in samp])
+        torch.cuda.synchronize()
+        out[(policy, mode)] = (toks, rset.stats(),
+                               counts_delta(before, kernel_counts()))
+    return out
+
+
+def phase_parity_tp_replica(torch, np, timeout_s=TP_TIMEOUT_S):
+    """olmo_1b smoke in f32 on a (data=2, model=2) mesh of 4 ranks on the
+    one card (gloo: the replicas' subgroups and the router's world
+    group): ``ReplicaSet(mesh=)`` under least_loaded (a tight pool that
+    preempts) and round_robin (seeded rows); its tokens, ``dispatched``
+    and counters equal ``ReplicaSet(dp=2)``'s on the CPU, every rank
+    returns the same ``stats()``, and every rank launched K1 and K2."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.engine import (EngineConfig, ReplicaSet,
+                                           SamplingParams)
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    ranks = run_in_thread(lambda: meshlib.launch(
+        parity_tpr_rank, 2, "cuda", dp=2, timeout_s=timeout_s))
+    cfg = get_config("olmo_1b").smoke()
+    model = Model(cfg, device="cpu")
+    params = model.init(seed=SEED)
+    want = {}
+    for policy, mode in TPR_CASES:
+        kw, prompts, samp = tpr_case(mode, cfg.vocab_size)
+        rset = ReplicaSet(model, params, EngineConfig(**kw), dp=2,
+                          policy=policy, device="cpu")
+        toks = rset.generate(prompts, [SamplingParams(**s) for s in samp])
+        want[(policy, mode)] = (toks, tpr_view(rset.stats()))
+    got = ranks()
+    for policy, mode in TPR_CASES:
+        toks, view = want[(policy, mode)]
+        rs = [g[(policy, mode)] for g in got]
+        st = rs[0][1]
+        row = {"phase": "parity_tp_replica", "config": cfg.name,
+               "dtype": cfg.dtype, "mesh": {"data": 2, "model": 2},
+               "policy": policy, "mode": mode,
+               "tokens_equal": all(r[0] == toks for r in rs),
+               "stats_equal_cpu": all(tpr_view(r[1]) == view for r in rs),
+               "ranks_stats_equal": all(r[1] == st for r in rs),
+               "dispatched": st["dispatched"],
+               "preemptions": st["preemptions"], "router": st["router"],
+               "backends": [p["tp"]["backend"] for p in st["per_replica"]],
+               "launches_by_rank": [r[2] for r in rs]}
+        emit(row)
+        check(row["tokens_equal"] and row["stats_equal_cpu"]
+              and row["ranks_stats_equal"],
+              f"parity_tp_replica {policy} {mode}: tokens or counters "
+              f"differ from the cpu ReplicaSet(dp=2)'s, or the ranks' "
+              f"stats differ ({tpr_view(st)} vs {view})")
+        check(mode != "greedy_preempt" or st["preemptions"] > 0,
+              f"parity_tp_replica {policy} {mode}: no preemption")
+        check(all(launched(r[2]["K1"]) > 0 and r[2]["K2"] > 0 for r in rs),
+              f"parity_tp_replica {policy} {mode}: a rank launched no K1 "
+              f"or K2 {[r[2] for r in rs]}")
+    emit({"phase": "parity_tp_replica", "summary": True,
+          "seconds": time.monotonic() - t0})
+
+
+def tpr_serve_rank(mesh, prompts, news, warm):
+    """One rank of tp_replica_serve: olmo_1b at full width from the seed
+    (each rank keeps its slices), ``ReplicaSet(mesh=)`` at serve's
+    geometry a replica, a warm-up request, then serve's requests with
+    this rank's K1 / K2 / combine counters set to 0 just before."""
+    torch = rank_setup()
+    from repro_torch.configs import get_config
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.engine import (EngineConfig, ReplicaSet,
+                                           SamplingParams)
+    from repro_torch.models.model import Model
+
+    model = Model(get_config("olmo_1b"), device=mesh.device)
+    params = model.init(seed=SEED)
+    rset = ReplicaSet(model, params, EngineConfig(**SERVE_GEO), mesh=mesh)
+    del params                             # the engine keeps its slices
+    torch.cuda.empty_cache()
+    rset.generate([warm], SamplingParams(max_tokens=2))
+    rset.reset_telemetry()
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    zero_bodies(fa.flash_attention)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_combine.launches = 0
+    t0 = time.monotonic()
+    outs = rset.generate(prompts, [SamplingParams(max_tokens=n)
+                                   for n in news])
+    torch.cuda.synchronize()
+    secs = time.monotonic() - t0
+    return {"outs": outs, "seconds": secs, "stats": rset.stats(),
+            "launches": {"K1": fa.flash_attention.launches,
+                         "K2": pa.paged_decode_attention.launches,
+                         "K2_combine": pa.paged_decode_combine.launches},
+            "k1_bodies": dict(fa.flash_attention.launches_by_body),
+            "replica": rset.home,
+            "device": torch.cuda.get_device_name(mesh.device)}
+
+
+def phase_tp_replica_serve(torch, np, prompts, news, warm, base_outs,
+                           timeout_s=TP_TIMEOUT_S):
+    """olmo_1b at full width in bf16 as ``ReplicaSet(mesh=)`` on a
+    (data=2, model=2) mesh of 4 ranks (on the one card: every group
+    gloo, the step eager; on 4 cards: the replicas' subgroups NCCL and
+    their steps captured, the router's exchange gloo): serve's 16
+    requests, tokens equal to serve's (``base_outs``); per replica
+    ``dispatched``, steps, graph replays and eager steps, K1 / K2 /
+    combine launches by rank; the router's exchanges and their host ms
+    (each waits for the slowest replica's step too). Returns the
+    launches summed over ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+
+    t0 = time.monotonic()
+    got = meshlib.launch(tpr_serve_rank, 2, "cuda", dp=2,
+                         args=(prompts, news, warm), timeout_s=timeout_s)
+    r0 = got[0]
+    st = r0["stats"]
+    ntok = sum(len(o) for o in r0["outs"])
+    per = st["per_replica"]
+    rate, first = agreement(r0["outs"], base_outs)
+    row = {"phase": "tp_replica_serve", "config": "olmo-1b",
+           "dtype": "bfloat16", "mesh": {"data": 2, "model": 2},
+           "backends": [p["tp"]["backend"] for p in per],
+           "captured_step": [p["tp"]["captured_step"] for p in per],
+           "requests": len(r0["outs"]), "tokens": ntok,
+           "seconds": r0["seconds"], "tok_s": ntok / r0["seconds"],
+           "ttft_p50_s": st["ttft"]["p50_s"],
+           "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+           "dispatched": st["dispatched"], "busy_s": st["busy_s"],
+           "replica_steps": [p["steps"] for p in per],
+           "graph_replays": [p["graph_replays"] for p in per],
+           "eager_decode_steps": [p["eager_decode_steps"] for p in per],
+           "router": st["router"],
+           "exchange_ms_per_exchange": st["router"]["exchange_ms"]
+           / max(st["router"]["exchanges"], 1),
+           "launches_by_rank": [g["launches"] for g in got],
+           "k1_launches_by_body": [g["k1_bodies"] for g in got],
+           "requests_equal_serve": rate, "first_differing_step": first,
+           "ranks_stats_equal": all(g["stats"] == st for g in got),
+           "blocks_used": st["blocks_used"], "device": r0["device"],
+           "phase_seconds": time.monotonic() - t0}
+    emit(row)
+    check(all(g["outs"] == r0["outs"] for g in got)
+          and row["ranks_stats_equal"],
+          "tp_replica_serve: the ranks' tokens or stats differ")
+    check(rate == 1.0, f"tp_replica_serve: {rate} of the requests equal "
+          f"serve's (first difference at step {first})")
+    check(st["blocks_used"] == 0 and all(st["dispatched"])
+          and st["router"]["exchanges"] > 0,
+          f"tp_replica_serve: blocks {st['blocks_used']}, dispatched "
+          f"{st['dispatched']}, router {st['router']}")
+    L = get_config("olmo_1b").n_layers
+    for g in got:
+        p = per[g["replica"]]
+        key = "graph_replays" if p["tp"]["captured_step"] \
+            else "eager_decode_steps"
+        check(p[key] == p["steps"] > 0
+              and g["launches"]["K2"] == g["launches"]["K2_combine"]
+              == L * p["steps"]
+              and g["k1_bodies"]["wgmma"] == g["launches"]["K1"] > 0,
+              f"tp_replica_serve: replica {g['replica']} ran {p['steps']} "
+              f"steps, {p[key]} {key}, launches {g['launches']} "
+              f"{g['k1_bodies']}")
+    return {k: sum(g["launches"][k] for g in got)
+            for k in ("K1", "K2", "K2_combine")}
+
+
 def kvrange_geometry(mode):
     """(first decode lengths, cached lengths, block size, table width)
     of parity_tp_families' yi_6b smoke case ``mode`` at T = 4: its first
     3 prompts in the engine's 3 slots, its geometry."""
     from repro_torch.configs import get_config
 
-    kw, prompts, _ = tpf_case("yi_6b", mode,
-                              get_config("yi_6b").smoke().vocab_size)
+    kw, prompts, _, _ = tpf_case("yi_6b", mode,
+                                 get_config("yi_6b").smoke())
     lens = [len(p) for p in prompts[:kw["num_slots"]]]
     return ([n + 1 for n in lens], lens, kw["block_size"],
             kw["max_len"] // kw["block_size"])
@@ -5586,6 +6133,14 @@ def phase_tpf_kernels(torch, np, prompts):
                               4, hq, hkv, d, yi.dtype, "split", bs=bs3,
                               nbmax=nbmax3, nb=len(ver) * nbmax3 + 1,
                               kv_heads=kv),
+        # whisper over 2 ranks: the decoder prefill of the
+        # start-of-transcript prompts (bucket 16) and the decode over
+        # the first decode lengths, at 4 of the 8 heads
+        "K1_whisper_tp": k1_case(torch, "whisper_dec_tp2_rank", HALF, 4, 4,
+                                 16, 64, "bfloat16", True),
+        "K2_whisper_tp": k2_case(torch, np, "whisper_tp2_rank",
+                                 [len(SOT) + 1] * HALF, 4, 4, 64,
+                                 "bfloat16"),
     }
     rows["K2_combine_qwen3_tp"] = combine_case(
         torch, "qwen3_tp2_rank", HALF, 16, rows["K2_qwen3_tp"]["splits"],
@@ -5645,6 +6200,14 @@ TPF_ROWS = (
      "a rank's 1 q head over 1 of the 2 kv heads; timed at rank 3's)",
      "src/repro_torch/csrc/paged_attention.cu",
      "src/repro/kernels/paged_attention.py:43"),
+    ("K1_whisper_tp", ("K1_whisper_tp",), "flash_attention (tp_families_serve"
+     ": whisper's decoder prefill on a rank's 4 of 8 heads, (8, 4/4, 16, "
+     "64) causal)", "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:109"),
+    ("K2_whisper_tp", ("K2_whisper_tp",), "paged_decode_attention "
+     "(tp_families_serve: whisper's decode over a rank's head-sharded "
+     "pool, (8, 4/4, 64))", "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:158"),
     ("K3_kvrange", ("K3_kvrange",), "paged_verify_attention over a kv-head "
      "range (parity_tp_families: yi_6b smoke's verify at T = 4 in f32, 4 "
      "rows, a rank's 1 q head over 1 of the 2 kv heads, the split body; "
@@ -5826,9 +6389,16 @@ def main():
         torch, np, "olmo_1b", TP, tp_turns(np, prompts, news, warm),
         base_outs, base_logits, base_pool, logit_prompts)
     torch.cuda.empty_cache()
+    for k, n in phase_tp_replica_serve(torch, np, prompts, news, warm,
+                                       base_outs).items():
+        tp_launches[k] += n
+    torch.cuda.empty_cache()
     tpf_launches = phase_parity_tp_families(torch, np)
+    phase_parity_tp_replica(torch, np)
     tpf_launches.update(phase_tp_families_serve(torch, np, prompts, warm,
                                                 TPF_SERVE, TP))
+    torch.cuda.empty_cache()
+    tpf_launches.update(phase_tp_encdec_serve(torch, np))
     torch.cuda.empty_cache()
     rec = phase_recurrent_serve(torch, np, prompts, news, warm, args.profile)
     launches.update(K5=rec["K5"], K5_long=rec["K5_long"])

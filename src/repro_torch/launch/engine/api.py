@@ -22,7 +22,6 @@ from typing import Any, Optional, Sequence
 from ...models.model import Model, resolve_device
 from ...models.paged_kv import KV_DTYPES
 from ...models.transformer import RunCtx, check_supported
-from ..mesh import TP_FAMILIES, not_ported
 
 
 def prefill_bucket(n: int, floor: int, cap: int) -> int:
@@ -192,17 +191,22 @@ class RequestOutput:
     finish_reason: Optional[str] = None
 
 
+def stamp_sample(req: RequestHandle, now: float):
+    """Count one sample of ``req``, taken at host time ``now``
+    (``time.monotonic``), in its TTFT / TPOT stamps."""
+    req._n_sampled += 1
+    req.t_tokens.append(now)
+    if req._n_sampled == 1:
+        req.t_first_token = now
+
+
 def register_sample(req: RequestHandle, tok: int, eos_id: int,
                     on_finish) -> RequestOutput:
     """Token-acceptance state machine: advance the request's RNG stream,
     strip stop tokens, retire on stop or max_tokens, and emit the
     streaming increment. ``on_finish()`` runs backend cleanup after the
     handle's finished/finish_reason flags are set."""
-    now = time.monotonic()
-    req._n_sampled += 1
-    req.t_tokens.append(now)
-    if req._n_sampled == 1:
-        req.t_first_token = now
+    stamp_sample(req, time.monotonic())
     stop = (eos_id >= 0 and tok == eos_id) \
         or tok in req.sampling.stop_token_ids
     if not stop:
@@ -262,10 +266,9 @@ def latency_stats(handles) -> dict:
 class EngineConfig:
     """Engine/backend configuration (immutable).
 
-    The fields are the JAX engine's. Options whose machinery is not
-    ported yet raise NotImplementedError at ``Engine`` construction when
-    set away from their default, naming the ROADMAP queue 1 item that
-    brings them.
+    The fields are the JAX engine's. What a mesh cannot serve yet raises
+    NotImplementedError at ``Engine`` construction, naming the ROADMAP
+    queue 1 item that brings it (``mesh``).
 
     Parameters
     ----------
@@ -311,9 +314,12 @@ class EngineConfig:
         query heads over a replicated KV, or whole; the RG-LRU by
         channels, the xLSTM cells by heads, the MoE by experts), reported
         in ``stats()["tp"]``. Tokens are mesh-independent. Every
-        decoder-only family the port serves; the encoder-decoder,
-        ``overlap=True`` and a data axis above 1 raise
-        NotImplementedError naming their ROADMAP sub-item.
+        family the port serves on one device but the VLM, the
+        encoder-decoder included (one attention mode for its encoder,
+        decoder and cross-attention, its arena split by kv heads), with
+        ``overlap=True`` too; a data axis above 1 raises
+        NotImplementedError naming its ROADMAP sub-item (replicas on
+        submeshes are ``ReplicaSet(mesh=)``).
     tp_axis : str
         The tensor-parallel axis name of ``mesh``.
     spec_tokens : int
@@ -363,13 +369,6 @@ class EngineConfig:
     draft_params: Any = None
     kv_dtype: str = "bf16"
     overlap: bool = False
-
-    def check_ported(self):
-        """Raise NotImplementedError for options not ported yet."""
-        if self.mesh is not None and self.overlap:
-            raise not_ported("overlap=True under a mesh", TP_FAMILIES)
-        if self.backend not in ("paged", "static"):
-            raise ValueError(f"unknown backend {self.backend!r}")
 
 
 class Engine:
@@ -455,7 +454,8 @@ class Engine:
                 f"quantized KV (kv_dtype={self.cfg.kv_dtype!r}) requires "
                 "the paged backend — the static baseline keeps dense "
                 "full-precision caches; use backend='paged'")
-        self.cfg.check_ported()
+        if self.cfg.backend not in ("paged", "static"):
+            raise ValueError(f"unknown backend {self.cfg.backend!r}")
         self.model = model
         self.caps = model.serving_caps()
         mc = model.cfg

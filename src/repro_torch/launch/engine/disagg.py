@@ -28,7 +28,9 @@ packet; no block leaks in any pool (export frees the source chain
 eagerly, import allocates under the scheduler's admission accounting).
 
 The replicas share one device, so a migration is a gather and a scatter
-in device memory. ``fabric=None`` (the default) prices nothing:
+in device memory. Replicas on submeshes of a mesh (``mesh=``, or
+``cfg.mesh``) raise NotImplementedError: moving a packet between
+submeshes is ROADMAP's "migration across submeshes". ``fabric=None`` (the default) prices nothing:
 ``fabric_s`` stays 0.0 and ``stats()["disagg"]["fabric_priced"]`` is
 False. A ``core.noc.FabricSpec`` the caller passes prices each packet
 with ``noc.p2p_time`` over the replica-index distance, as JAX does.
@@ -42,6 +44,7 @@ from typing import Optional
 from ...core import noc
 from ...models import paged_kv
 from ...models.model import Model
+from ..mesh import MIGRATION, not_ported
 from . import transport
 from .api import EngineConfig
 from .replica import ReplicaSet
@@ -84,9 +87,12 @@ class DisaggregatedEngine(ReplicaSet):
         the decode side's slots).
     fabric : core.noc.FabricSpec, optional
         Prices each packet with ``noc.p2p_time``; None prices nothing.
-    dp, mesh, policy, ctx, step_workers, device
+    dp, policy, ctx, step_workers, device
         As for ``ReplicaSet``; the policy picks among one role's
         candidates (prefill for dispatch, decode for imports).
+    mesh
+        Not ported (see the module docstring): anything but None, or a
+        ``cfg.mesh``, raises NotImplementedError.
 
     Attributes
     ----------
@@ -106,6 +112,9 @@ class DisaggregatedEngine(ReplicaSet):
                  policy="least_loaded", ctx=None, step_workers=None,
                  device="cuda"):
         cfg = cfg or EngineConfig()
+        if mesh is not None or cfg.mesh is not None:
+            raise not_ported("DisaggregatedEngine on a mesh (KV packets "
+                             "between submeshes)", MIGRATION)
         if cfg.backend != "paged":
             raise ValueError("disaggregation requires the paged backend "
                              "(block migration has no static analogue)")

@@ -1,10 +1,12 @@
 """ReplicaSet: data-parallel engine replicas behind ONE admission queue.
 
-Counterpart of ``repro/launch/engine/replica.py`` on one device. EPAC
-scales throughput by replicating compute tiles behind one coherent hub;
-this is the serving analogue: R full ``Engine`` replicas, each with its
-OWN KV block pool and its own captured decode graphs, sharing one
-parameter tree on the device and fed from one shared admission queue.
+Counterpart of ``repro/launch/engine/replica.py``. EPAC scales
+throughput by replicating compute tiles behind one coherent hub; this is
+the serving analogue: R full ``Engine`` replicas, each with its OWN KV
+block pool and its own captured decode graphs, fed from one shared
+admission queue. On one device they share one parameter tree; on a
+``(data=R, model=T)`` mesh (``mesh=``) each replica is one engine over
+the T ranks of its ``(1, T)`` submesh.
 Requests are dispatched strictly FCFS (always the queue head, never
 skip-ahead) through a pluggable placement policy:
 
@@ -21,11 +23,29 @@ evicted request re-enters its own replica's queue, never the shared one.
 The set meters each replica's busy time (host wall inside its step
 calls, ``time.monotonic``) and tokens; the finer device-occupancy clock
 is the paged backend's own ``device_s``, the union of its dispatch-to-
-fetch windows. The multi-device form (each replica on a submesh of a
-``data`` axis) is not ported: ``mesh=`` and ``EngineConfig.mesh`` raise.
-``step_workers > 1`` opts into thread-parallel stepping; the step loop
-holds the GIL for its host bookkeeping, so it pays off only where a
-step's device work dominates. It stays off by default.
+fetch windows. ``step_workers > 1`` opts into thread-parallel stepping;
+the step loop holds the GIL for its host bookkeeping, so it pays off
+only where a step's device work dominates. It stays off by default.
+
+**On a mesh** (``mesh=``, every process one rank, SPMD): each process
+builds and steps only its own replica's ``Engine``, on its submesh
+(``launch.mesh.submeshes``). Every process holds the same shared queue
+(the program serving it submits the same requests on every rank) and
+makes the same dispatch decisions, so it has to see every replica's
+state: after each step an all-gather over the mesh's world group (the
+router's exchange, gloo: host data only) brings every replica's
+allocator blocks in use, active slots, waiting requests and their block
+footprint, has-work flag, that step's ``RequestOutput``s, when each was
+sampled and the step's busy time; dispatch then runs the policy on those
+mirrored numbers everywhere (the mirror of a replica that takes a
+request grows by its footprint at once), and every process applies the
+other replicas' outputs to its handles, stamped as their home replica
+took them, and emits the same merged stream, in replica order. A replica's
+T ranks must agree on all of it; a rank whose state differs from its
+replica's first rank raises. A callable policy must be deterministic, as
+``least_loaded`` and ``round_robin`` are. ``step_workers`` has nothing
+to do there (one engine a process), and ``stats()`` is a collective
+every rank calls.
 
 Token streams equal a single engine's serving the same requests: outputs
 are a pure function of (params, prompt, SamplingParams) by the engine's
@@ -41,15 +61,47 @@ import time
 from concurrent.futures import ThreadPoolExecutor
 from typing import Optional, Sequence
 
+import torch
+
 from ...models import paged_kv
 from ...models.model import Model
+from ..mesh import MIGRATION, SHARDED_TRAINING, not_ported, submeshes
 from . import api
 from .api import (Engine, EngineConfig, RequestHandle, RequestOutput,
                   SamplingParams)
 
-_MULTI_DEVICE = ("replicas on a device mesh are not ported yet (ROADMAP "
-                 "queue 1, item 7 'multi-device', sub-item 'replicas on "
-                 "submeshes'); pass dp= for replicas on one device")
+
+@dataclasses.dataclass
+class _Mirror:
+    """One replica's scheduling state as dispatch reads it: the
+    allocator's blocks in use (-1: a static backend), active slots,
+    waiting requests and their block footprint, and whether it has
+    work. On one device read from the engine (``_state``); under a mesh
+    refreshed by each exchange and grown at each dispatch to it."""
+    used: int = 0
+    active: int = 0
+    waiting: int = 0
+    queued_blocks: int = 0
+    has_work: bool = False
+
+
+def _footprint(h: RequestHandle, block_size: int) -> int:
+    """The cache blocks a waiting request will claim. Emitted tokens
+    count too: a preempted request waiting to resume re-prefills its
+    whole history."""
+    return paged_kv.blocks_for(len(h.prompt) + len(h.token_ids) + 1,
+                               block_size)
+
+
+def _state(eng: Engine) -> _Mirror:
+    """A local engine's ``_Mirror``, as dispatch reads it and the
+    exchange sends it."""
+    be = eng.backend
+    paged = hasattr(be, "alloc")
+    queued = sum(_footprint(h, eng.cfg.block_size)
+                 for h in be.waiting) if paged else 0
+    return _Mirror(be.alloc.used_count if paged else -1, be.num_active,
+                   len(be.waiting), queued, eng.has_work)
 
 
 def least_loaded(rset: "ReplicaSet", candidates: list[int]) -> int:
@@ -60,8 +112,7 @@ def least_loaded(rset: "ReplicaSet", candidates: list[int]) -> int:
 
 def round_robin(rset: "ReplicaSet", candidates: list[int]) -> int:
     """Rotate over accepting replicas."""
-    pick = min(candidates,
-               key=lambda r: (r - rset._rr) % len(rset.replicas))
+    pick = min(candidates, key=lambda r: (r - rset._rr) % rset.dp)
     rset._rr = pick + 1
     return pick
 
@@ -71,7 +122,7 @@ _POLICIES = {"least_loaded": least_loaded, "round_robin": round_robin}
 
 class ReplicaSet:
     """Engine-shaped front-end over R data-parallel engine replicas on
-    one device.
+    one device, or one a submesh of a ``(data, model)`` mesh.
 
     Parameters
     ----------
@@ -80,10 +131,11 @@ class ReplicaSet:
     cfg : EngineConfig, optional
         The PER-REPLICA configuration (slots, pool, spec_tokens, ...).
     dp : int, optional
-        Replica count (default 1).
-    mesh
-        Not ported: anything but None raises NotImplementedError, as
-        does ``cfg.mesh``.
+        Replica count (default 1; with ``mesh``, its data axis).
+    mesh : launch.mesh.Mesh, optional
+        This process's rank of a ``(data, model)`` mesh: the replicas
+        are its ``submeshes`` (see the module docstring). ``cfg.mesh``
+        raises ValueError, with or without it (JAX's message).
     policy : str or callable
         FCFS dispatch placement: ``"least_loaded"`` (default),
         ``"round_robin"``, or a callable ``(rset, candidates) -> int``.
@@ -92,19 +144,23 @@ class ReplicaSet:
         replica (None keeps ``cfg``). May not carry ``mesh`` or
         ``eos_id`` (stop semantics must match for outputs to stay
         request-pure). With overrides, requests validate against every
-        replica, since any of them may serve a request.
+        replica, since any of them may serve a request. Not ported with
+        ``mesh`` (a process validates against its own replica only).
     ctx : RunCtx, optional
         Per-call model context forwarded to every replica.
     step_workers : int, optional
         Thread-pool width for stepping busy replicas concurrently; off
         by default (see the module docstring).
     device : str or torch.device
-        The model's device, ``"cuda"`` by default.
+        The model's device, ``"cuda"`` by default (with ``mesh``, the
+        rank's device).
 
     Attributes
     ----------
     replicas : list of Engine
-        The R engines (own KV pool and captured decode graphs each).
+        The R engines (own KV pool and captured decode graphs each);
+        with ``mesh`` this process's replica's engine at its index and
+        None elsewhere (``mirrors`` holds every replica's state).
     queue : deque of RequestHandle
         The ONE shared admission queue; dispatch only pops its head.
     finished : list of RequestHandle
@@ -117,8 +173,27 @@ class ReplicaSet:
                  overrides: Optional[Sequence[Optional[dict]]] = None,
                  device="cuda"):
         cfg = cfg or EngineConfig()
-        if mesh is not None or cfg.mesh is not None:
-            raise NotImplementedError(_MULTI_DEVICE)
+        if cfg.mesh is not None:
+            raise ValueError("pass the mesh to ReplicaSet(mesh=...), "
+                             "not through EngineConfig")
+        if mesh is not None:
+            if overrides is not None:
+                raise not_ported("per-replica overrides with "
+                                 "ReplicaSet(mesh=)", MIGRATION)
+            rows = int(mesh.shape["data"])
+            meshes = submeshes(mesh, rows if dp is None else dp)
+            if len(meshes) != rows:
+                raise not_ported(
+                    f"a data axis above 1 inside one engine "
+                    f"(ReplicaSet(mesh=) with dp={dp} on a data axis of "
+                    f"{rows}; dp None gives a replica a row)",
+                    SHARDED_TRAINING)
+            if mesh.group is None:
+                raise ValueError("ReplicaSet(mesh=) takes this rank's "
+                                 "mesh (launch.mesh.launch / init_mesh), "
+                                 "not one that only describes a shape")
+            dp = rows
+        self.mesh = mesh
         self.dp = 1 if dp is None else dp
         if self.dp < 1:
             raise ValueError("dp must be >= 1")
@@ -134,11 +209,23 @@ class ReplicaSet:
                                  f"{sorted(bad)}")
             cfgs = [dataclasses.replace(cfg, **(ov or {}))
                     for ov in overrides]
-        self.replicas = [Engine(model, params, c, ctx=ctx, device=device)
-                         for c in cfgs]
+        self._cfgs = cfgs
+        self.mirrors = None
+        if mesh is None:
+            self.home = None
+            self.replicas = [Engine(model, params, c, ctx=ctx, device=device)
+                             for c in cfgs]
+        else:                            # this process's replica alone
+            self.home = mesh.coord("data")
+            sub = meshes[self.home]
+            self.replicas = [None] * self.dp
+            self.replicas[self.home] = Engine(
+                model, params, dataclasses.replace(cfg, mesh=sub), ctx=ctx,
+                device=sub.device)
+            self.mirrors = [_Mirror() for _ in range(self.dp)]
         self.cfg = cfg                   # baseline per-replica config
-        self._validators = self.replicas if overrides is not None \
-            else self.replicas[:1]
+        local = [e for e in self.replicas if e is not None]
+        self._validators = local if overrides is not None else local[:1]
         self.policy = _POLICIES.get(policy, policy)
         if not callable(self.policy):
             raise ValueError(f"unknown dispatch policy {policy!r}")
@@ -152,7 +239,8 @@ class ReplicaSet:
         self._enq: dict[int, tuple[int, float]] = {}  # uid -> (step, t)
         workers = 1 if step_workers is None else \
             min(step_workers, os.cpu_count() or 1)
-        self._pool = ThreadPoolExecutor(workers) if workers > 1 else None
+        self._pool = ThreadPoolExecutor(workers) \
+            if workers > 1 and mesh is None else None
         self._zero_telemetry()
 
     def _zero_telemetry(self):
@@ -162,11 +250,13 @@ class ReplicaSet:
         self.tokens_out = [0] * self.dp   # tokens emitted per replica
         self.wait_steps: list[int] = []   # shared-queue wait per request
         self.wait_wall: list[float] = []
+        self.exchanges = 0                # the router's, under a mesh
+        self.exchange_s = 0.0
 
     @property
     def total_slots(self) -> int:
         """Decode slots across the whole set."""
-        return sum(e.cfg.num_slots for e in self.replicas)
+        return sum(c.num_slots for c in self._cfgs)
 
     # -- request lifecycle ----------------------------------------------
 
@@ -196,9 +286,15 @@ class ReplicaSet:
 
     def step(self) -> list[RequestOutput]:
         """Dispatch from the shared queue, then step every busy replica
-        and merge their streams in replica order."""
+        and merge their streams in replica order (under a mesh: this
+        process's replica, then the router's exchange)."""
         self.steps += 1
         moved = self._dispatch()
+        if self.mesh is not None:
+            outs, progress = self._mesh_step()
+            self.made_progress = moved > 0 or progress
+            self._finish(outs)
+            return outs
         busy = [(r, eng) for r, eng in enumerate(self.replicas)
                 if eng.has_work]
         outs = self._timed_steps(busy)
@@ -206,6 +302,83 @@ class ReplicaSet:
             eng.made_progress for _, eng in busy)
         self._finish(outs)
         return outs
+
+    def _mesh_step(self):
+        """Step this process's replica if the mirrors say it is busy,
+        then exchange (``_exchange``). Returns (the merged outputs,
+        whether any replica made progress)."""
+        busy = [r for r, m in enumerate(self.mirrors) if m.has_work]
+        if not busy:
+            return [], False
+        eng = self.replicas[self.home]
+        part, progress, dt = [], False, 0.0
+        if self.home in busy:
+            t0 = time.monotonic()
+            part = eng.step()
+            dt = time.monotonic() - t0
+            progress = eng.made_progress
+        # (replica, model rank, what its ranks must agree on, host data)
+        got = self._exchange((self.home, self.mesh.coord("model"),
+                              (_state(eng), part, progress),
+                              (self._sample_offsets(part), dt)))
+        outs = []
+        for r in range(self.dp):
+            entries = [g for g in got if g[0] == r]
+            first = min(entries, key=lambda g: g[1])
+            for g in entries:
+                if g[2] != first[2]:
+                    raise RuntimeError(
+                        f"replica {r}: rank {g[1]} on the model axis "
+                        f"disagrees with rank {first[1]} ({g[2]} vs "
+                        f"{first[2]})")
+            (state, rpart, rprog), (offsets, rdt) = first[2:]
+            self.mirrors[r] = state
+            if r in busy:
+                self.busy_s[r] += rdt
+                self.tokens_out[r] += sum(len(o.new_tokens) for o in rpart)
+            if r != self.home:
+                for o, off in zip(rpart, offsets):
+                    self._apply(o, off)
+            progress = progress or rprog
+            outs.extend(rpart)
+        return outs, progress
+
+    def _sample_offsets(self, part: list[RequestOutput]) -> list[float]:
+        """When each output of this process's replica was sampled, as an
+        offset from its request's submission here: the home replica's
+        clock, which the other processes add to their own submissions
+        (one output a sample, its stamp the last of a step's)."""
+        left = collections.Counter(o.request_id for o in part)
+        out = []
+        for o in part:
+            h = self._by_uid[o.request_id]
+            out.append(h.t_tokens[-left[o.request_id]] - h.t_submit)
+            left[o.request_id] -= 1
+        return out
+
+    def _exchange(self, mine):
+        """The router's exchange: ``mine`` all-gathered over the mesh's
+        world group (every rank's, in rank order), counted and timed."""
+        t0 = time.monotonic()
+        got = [None] * self.mesh.size
+        torch.distributed.all_gather_object(got, mine,
+                                            group=self.mesh.group)
+        self.exchanges += 1
+        self.exchange_s += time.monotonic() - t0
+        return got
+
+    def _apply(self, out: RequestOutput, offset: float):
+        """Register another replica's output on this process's handle of
+        the request, as ``api.register_sample`` does on its own: one
+        sample an output (a stripped stop token carries no token),
+        stamped ``offset`` after the request's submission, as its home
+        replica took it."""
+        h = self._by_uid[out.request_id]
+        api.stamp_sample(h, h.t_submit + offset)
+        h.token_ids.extend(out.new_tokens)
+        if out.finished:
+            h.finished = True
+            h.finish_reason = out.finish_reason
 
     def _timed_steps(self, busy) -> list[RequestOutput]:
         """Step the given ``(index, engine)`` pairs (through the thread
@@ -233,20 +406,46 @@ class ReplicaSet:
     @property
     def has_work(self) -> bool:
         """True while anything is queued or active on any replica."""
-        return bool(self.queue) or any(e.has_work for e in self.replicas)
+        return bool(self.queue) or any(self._mirror(r).has_work
+                                       for r in range(self.dp))
 
     def stats(self) -> dict:
         """Set-level telemetry: per-replica stats, dispatch counts, busy
         and device clocks, queue waits, TTFT / TPOT over every handle,
-        and the aggregate occupancy and leak views."""
-        per = [e.stats() for e in self.replicas]
-        paged = [e.backend for e in self.replicas
-                 if hasattr(e.backend, "alloc")]
-        live = sum(b.live_token_steps for b in paged)
-        cap = sum(b.block_token_steps for b in paged)
+        and the aggregate occupancy and leak views. Under a mesh a
+        collective (every rank calls it): each replica's engine stats as
+        its first rank reports them, the latencies of world rank 0's
+        handles (each sample stamped as its home replica took it, less
+        the request's submission), so every rank returns the same dict,
+        with the router's ``exchanges`` and their host ``exchange_ms``."""
         lat = api.latency_stats(list(self.finished)
                                 + list(self._by_uid.values()))
-        return {
+        wait_s = sum(self.wait_wall) / max(len(self.wait_wall), 1)
+        exchange_s = self.exchange_s
+        if self.mesh is None:
+            per = [e.stats() for e in self.replicas]
+            occ = [(e.backend.live_token_steps, e.backend.block_token_steps)
+                   for e in self.replicas if hasattr(e.backend, "alloc")]
+        else:
+            eng = self.replicas[self.home]
+            be = eng.backend
+            mine = (eng.stats(), (be.live_token_steps, be.block_token_steps)
+                    if hasattr(be, "alloc") else None)
+            got = [None] * self.mesh.size
+            torch.distributed.all_gather_object(
+                got, (self.home, self.mesh.coord("model"), mine, lat,
+                      wait_s, exchange_s), group=self.mesh.group)
+            first = {}
+            for g in got:
+                if g[0] not in first or g[1] < first[g[0]][1]:
+                    first[g[0]] = g
+            per = [first[r][2][0] for r in range(self.dp)]
+            occ = [first[r][2][1] for r in range(self.dp)
+                   if first[r][2][1] is not None]
+            lat, wait_s, exchange_s = got[0][3:6]
+        live = sum(o[0] for o in occ)
+        cap = sum(o[1] for o in occ)
+        out = {
             "dp": self.dp,
             "steps": self.steps,
             "per_replica": per,
@@ -258,8 +457,7 @@ class ReplicaSet:
             "queue_wait_steps_mean": (sum(self.wait_steps)
                                       / max(len(self.wait_steps), 1)),
             "queue_wait_steps_max": max(self.wait_steps, default=0),
-            "queue_wait_s_mean": (sum(self.wait_wall)
-                                  / max(len(self.wait_wall), 1)),
+            "queue_wait_s_mean": wait_s,
             "ttft": lat["ttft"],
             "latency": lat,
             "mean_active_slots": sum(p["mean_active_slots"] for p in per),
@@ -269,38 +467,43 @@ class ReplicaSet:
             "prefill_calls": sum(p.get("prefill_calls", 0) for p in per),
             "prefill_reqs": sum(p.get("prefill_reqs", 0) for p in per),
         }
+        if self.mesh is not None:
+            out["router"] = {"exchanges": self.exchanges,
+                             "exchange_ms": exchange_s * 1e3}
+        return out
 
     def reset_telemetry(self):
         """Zero every replica's counters and the set-level telemetry (a
         warm-up boundary); scheduling state is untouched."""
         for eng in self.replicas:
-            eng.backend.reset_telemetry()
+            if eng is not None:
+                eng.backend.reset_telemetry()
         self.finished.clear()
         self._zero_telemetry()
 
     # -- dispatch -------------------------------------------------------
 
+    def _mirror(self, r: int) -> _Mirror:
+        """Replica ``r``'s scheduling state: under a mesh its mirror,
+        else read from its engine."""
+        if self.mirrors is not None:
+            return self.mirrors[r]
+        return _state(self.replicas[r])
+
     def load(self, r: int) -> int:
         """Committed-capacity estimate: cache blocks held + the block
         footprint queued at the replica (paged), or occupied + queued
         lanes (static)."""
-        be = self.replicas[r].backend
-        if hasattr(be, "alloc"):
-            # emitted tokens count too: a preempted request waiting to
-            # resume re-prefills its whole history
-            queued = sum(paged_kv.blocks_for(
-                len(h.prompt) + len(h.token_ids) + 1,
-                self.replicas[r].cfg.block_size) for h in be.waiting)
-            return be.alloc.used_count + queued
-        return be.num_active + len(be.waiting)
+        m = self._mirror(r)
+        return m.used + m.queued_blocks if m.used >= 0 \
+            else m.active + m.waiting
 
     def can_accept(self, r: int) -> bool:
         """A replica accepts while it has decode lanes not yet spoken
         for; beyond that, requests wait in the shared queue where the
         policy can still steer them."""
-        be = self.replicas[r].backend
-        return self.replicas[r].cfg.num_slots \
-            - be.num_active - len(be.waiting) > 0
+        m = self._mirror(r)
+        return self._cfgs[r].num_slots - m.active - m.waiting > 0
 
     def _dispatch_candidates(self) -> list[int]:
         """Replica indices dispatch may target (the disaggregated engine
@@ -316,7 +519,14 @@ class ReplicaSet:
                 break                     # head waits; never skip ahead
             handle = self.queue.popleft()
             r = self.policy(self, cands)
-            self.replicas[r].backend.enqueue(handle)
+            if self.mirrors is not None:
+                m = self.mirrors[r]
+                m.waiting += 1
+                m.queued_blocks += _footprint(handle,
+                                              self._cfgs[r].block_size)
+                m.has_work = True
+            if self.replicas[r] is not None:
+                self.replicas[r].backend.enqueue(handle)
             self.dispatched[r] += 1
             step0, t0 = self._enq.pop(handle.uid)
             self.wait_steps.append(self.steps - 1 - step0)

@@ -64,7 +64,15 @@ Counterpart of ``repro/launch/engine/scheduler.py::PagedBackend``
   step stays on under NCCL (its collectives capture); under gloo (the
   CPU, ranks sharing a card) the step runs eagerly and
   ``eager_decode_steps`` counts it: a choice made from the backend and
-  reported in ``stats()["tp"]``, never taken on a failure.
+  reported in ``stats()["tp"]``, never taken on a failure. With
+  ``overlap=True`` every rank makes the same follow-up / bail decision
+  and allocates the same blocks (every input to them is the same host
+  state on every rank), so the same collectives run in the same order:
+  the dispatched decode's, then the admission prefill's. Under NCCL the
+  dispatched step is a replay of the captured graph; under gloo it runs
+  eagerly and its collectives block on the host, so overlap changes only
+  the order of host work there (``stats()["overlap"]`` stays True and
+  the dispatch-then-harvest path is the one that runs).
 * **Migration** (``disagg.py`` / ``transport.py``) — ``export_slot``,
   ``detach_slot`` and ``import_slot`` move a live request between
   replicas' backends at any stream position; a ``prefill_only`` backend
@@ -288,7 +296,9 @@ class PagedBackend:
         Outputs equal the sequential path's: every fed token and stream
         position matches, and a follow-up's writes for a row retired at
         harvest land only where nothing live reads (the row's own
-        frontier, or blocks whose reuse is enqueued after this decode)."""
+        frontier, or blocks whose reuse is enqueued after this decode).
+        Under a mesh every rank takes the same branch at each point (see
+        the module docstring), so the ranks' collectives pair up."""
         pend, self._pending = self._pending, None
         followed = False
         if pend is not None:

@@ -10,15 +10,21 @@ Replicas:         add --dp 2 (one device, one shared FCFS queue)
 Disaggregated:    add --dp 2 --roles prefill,decode (or --roles auto)
 Tensor parallel:  add --tp 2 (T ranks: spawned here, or one a process
                   under torchrun --nproc-per-node T; rank 0 prints)
+Replicas x TP:    add --dp 2 --tp 2 (R x T ranks, each replica on a
+                  (1, T) submesh behind one shared queue; rank 0 prints)
 
 ``--tp T`` serves one engine over T ranks (``launch/mesh.py``): on the
 CPU and on ranks sharing one card over gloo, on T cards of their own over
 NCCL. Every rank builds the same seeded params and keeps its slices; the
 stats carry a ``tp`` section (mesh, rank, backend, whether the decode
 step is a captured graph, collectives per step, bytes, and the per-block
-plan: which blocks split and which leaves are kept whole). Every
-decoder-only family serves over a mesh (dense, windowed, recurrent,
-xLSTM, MoE by expert parallelism); the encoder-decoder raises.
+plan: which blocks split and which leaves are kept whole). Every family
+but the VLM serves over a mesh (dense, windowed, recurrent, xLSTM, MoE
+by expert parallelism, and whisper_base, its requests carrying random
+encoder frames here). ``--dp R --tp T`` serves ``ReplicaSet(mesh=)``
+over a ``(data=R, model=T)`` mesh; its stats add the router's
+exchanges. ``--roles`` with ``--tp`` raises (migration across
+submeshes is not ported).
 """
 
 from __future__ import annotations
@@ -33,7 +39,8 @@ from repro_torch.configs import get_config
 from repro_torch.launch.engine import (DisaggregatedEngine, Engine,
                                        EngineConfig, ReplicaSet,
                                        SamplingParams)
-from repro_torch.launch.mesh import SUBMESHES, launch, not_ported
+from repro_torch.launch.mesh import (MIGRATION, launch, not_ported,
+                                     replica_cli_mesh)
 from repro_torch.models.model import Model, resolve_device
 
 
@@ -70,18 +77,19 @@ def main(argv=None):
                     help="tensor parallelism: one engine over T ranks, "
                          "each with 1/T of every block whose dimension "
                          "divides T (heads, channels, experts, MLP, "
-                         "vocabulary) and its slice of the pool and state")
+                         "vocabulary) and its slice of the pool and state; "
+                         "every family but the VLM, whisper included, "
+                         "with EngineConfig(overlap=True) too; with --dp "
+                         "R, R such engines behind one queue")
     args = ap.parse_args(argv)
-    if args.tp < 1:
-        raise ValueError(f"--tp {args.tp} must be >= 1")
-    if args.tp > 1:
-        if args.dp > 1 or args.roles is not None:
-            raise not_ported(f"--dp {args.dp} / --roles with --tp "
-                             f"{args.tp}", SUBMESHES)
-        resolve_device(args.device)      # no GPU: raise before spawning
-        launch(_serve, args.tp, args.device, args=(args,))
+    shape = replica_cli_mesh(args.dp, args.tp)
+    if shape is None:
+        _serve(None, args)
         return
-    _serve(None, args)
+    if args.roles is not None:
+        raise not_ported(f"--roles with --tp {args.tp}", MIGRATION)
+    resolve_device(args.device)          # no GPU: raise before spawning
+    launch(_serve, args.tp, args.device, dp=args.dp, args=(args,))
 
 
 def _serve(mesh, args):
@@ -94,10 +102,14 @@ def _serve(mesh, args):
     model = Model(cfg, device=device)
     params = model.init(seed=0)
     rng = np.random.default_rng(0)
+    replicas = mesh is not None and mesh.shape["data"] > 1
     ecfg = EngineConfig(backend=args.backend, num_slots=args.slots,
                         max_len=128, spec_tokens=args.spec_tokens,
-                        kv_dtype=args.kv_dtype, mesh=mesh)
-    if args.roles is not None:
+                        kv_dtype=args.kv_dtype,
+                        mesh=None if replicas else mesh)
+    if replicas:
+        engine = ReplicaSet(model, params, ecfg, mesh=mesh)
+    elif args.roles is not None:
         roles = args.roles if args.roles == "auto" \
             else tuple(args.roles.split(","))
         engine = DisaggregatedEngine(model, params, ecfg, dp=args.dp,
@@ -114,19 +126,25 @@ def _serve(mesh, args):
     sp = [SamplingParams(max_tokens=int(rng.integers(4, args.n_new + 1)),
                          temperature=args.temperature, seed=i)
           for i in range(args.requests)]
+    feats = None
+    if cfg.enc_dec:                  # the frontend is a stub: random frames
+        feats = [rng.standard_normal((int(rng.integers(1, cfg.encoder_len
+                                                       + 1)), cfg.d_model))
+                 .astype(np.float32) for _ in prompts]
     t0 = time.time()
-    outs = engine.generate(prompts, sp)
+    outs = engine.generate(prompts, sp, encoder_features=feats)
     if model.device.type == "cuda":
         torch.cuda.synchronize()
     dt = time.time() - t0
     total = sum(len(o) for o in outs)
+    stats = engine.stats()           # a collective under ReplicaSet(mesh=)
     if mesh is not None and mesh.rank != 0:
         return
     print(f"[{args.backend} {model.device} tp={args.tp} dp={args.dp} "
           f"roles={args.roles} "
           f"spec={args.spec_tokens} kv={args.kv_dtype}] {total} tokens "
           f"over {len(outs)} reqs in {dt:.2f}s ({total / dt:.1f} tok/s)  "
-          f"stats={engine.stats()}")
+          f"stats={stats}")
     for i, o in enumerate(outs[:2]):
         print(f"req{i}: {o[:12]}...")
 

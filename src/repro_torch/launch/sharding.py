@@ -40,8 +40,15 @@ concatenations of per-head parts (mLSTM ``w_up`` = [c | z] and ``w_if`` =
 heads' columns of each part, where JAX's contiguous column split would
 hand one rank all of ``c`` and the other all of ``z``.
 
+The encoder-decoder (whisper) plans one attention mode for its
+encoder's self-attention, its decoder's self-attention and the
+cross-attention, and ``encdec.paged_cache_specs`` splits its cross-KV
+arena by kv heads where they divide T, as JAX's does.
+
 The ``fsdp`` layout, ``opt_state_specs`` and a seq-sharded decode cache
-wait for the sub-items that need them (``make_shard_ctx`` raises).
+wait for the sub-items that need them (``layout_ctx`` raises), and so
+does a data axis above 1 inside one engine: replicas on ``(data, model)``
+submeshes are one engine a submesh (``ReplicaSet(mesh=)``).
 """
 
 from __future__ import annotations
@@ -52,7 +59,7 @@ from typing import Any
 import torch
 
 from ..models import layers
-from .mesh import SHARDED_TRAINING, SUBMESHES, TP_FAMILIES, not_ported
+from .mesh import SHARDED_TRAINING, TP_FAMILIES, not_ported
 
 
 class TPStats:
@@ -138,9 +145,11 @@ def tp_report(shard: ShardCtx, device, step_collectives: int,
 def layout_ctx(mesh, layout: str = "2d", tp_axis: str = "model") -> ShardCtx:
     """A ``ShardCtx`` of ``mesh`` with no plan: enough for the layout
     rules (``param_specs``, ``paged_cache_specs``, ``batch_specs``) of
-    any config, not to run a model. Raises for what is not ported: the
-    ``fsdp`` layout (sharded training) and a data axis above 1 (FSDP
-    under one engine, or replicas on submeshes)."""
+    any config, not to run a model. ``mesh`` is one engine's: a ``(1,
+    T)`` mesh, or a submesh of replicas whose data axis is 1
+    (``mesh.submeshes``). Raises for what is not ported: the ``fsdp``
+    layout and a data axis above 1 inside one engine (FSDP, or JAX's
+    slots sharded over ``data``), both sharded training's."""
     if tp_axis not in mesh.axis_names:
         raise ValueError(f"mesh has no {tp_axis!r} axis: {mesh.axis_names}")
     if layout != "2d":
@@ -149,7 +158,9 @@ def layout_ctx(mesh, layout: str = "2d", tp_axis: str = "model") -> ShardCtx:
     if any(int(mesh.shape[a]) > 1 for a in dp):
         raise not_ported(
             f"a data axis above 1 inside one engine (mesh {mesh.shape}: "
-            "FSDP, or replicas on submeshes with --dp)", SUBMESHES)
+            "FSDP, or slots sharded over 'data'; for replicas on (1, T) "
+            "submeshes pass the mesh to ReplicaSet(mesh=))",
+            SHARDED_TRAINING)
     return ShardCtx(mesh=mesh, dp_axes=dp, tp_axis=tp_axis, layout=layout)
 
 
@@ -338,7 +349,7 @@ def leaf_layout(path, shard: ShardCtx) -> str:
     if plan is None or len(path) < 2:
         return "spec"
     parent, name = path[-2], path[-1]
-    if parent == "attn" and name in ATTN_PROJ and (
+    if parent in ("attn", "xattn") and name in ATTN_PROJ and (
             plan.attn == "whole"
             or (plan.attn == "kv_replicated" and name in ("wk", "wv"))):
         return "whole"
@@ -395,10 +406,14 @@ def init_rank_params(model, seed: int, shard: ShardCtx = None):
     and top-level leaf as it goes (``shard_params`` of each part), so
     the whole tree never exists at once. ``shard`` None: the whole tree,
     the single-device run to hold the ranks to. Returns a ``RankSlices``
-    tree under ``shard``."""
-    from ..models import transformer
+    tree under ``shard``. An encoder-decoder (whisper_base: 74M
+    parameters) is drawn whole by ``model.init``'s draw, then sliced."""
+    from ..models import encdec, transformer
 
     gen = torch.Generator(device=model.device).manual_seed(seed)
+    if model.cfg.enc_dec:
+        tree = encdec.init_encdec(gen, model.cfg)
+        return tree if shard is None else shard_params(tree, shard)
     if shard is None:
         return transformer.init_lm(gen, model.cfg, per_layer=True)
     return RankSlices(transformer.init_lm(
@@ -457,11 +472,11 @@ class TPPlan:
         """Collectives of one layer of ``kind`` for one token row window
         (its mixer and the FFN after it)."""
         attn = {"heads": 1, "kv_replicated": 1}.get(self.attn, 0)
-        mixer = {"attn": attn, "local": attn, "rglru": 2 * self.rglru,
-                 "mlstm": 2 * self.xlstm,
+        mixer = {"attn": attn, "local": attn, "dec": 2 * attn,
+                 "rglru": 2 * self.rglru, "mlstm": 2 * self.xlstm,
                  "slstm": self.xlstm + self.slstm_ff}[kind]
         ffn = 0                         # an xLSTM block has no FFN after it
-        if kind in ("attn", "local"):
+        if kind in ("attn", "local", "dec"):
             ffn = int(self.moe if self.experts[1] else self.mlp)
         elif kind == "rglru":
             ffn = int(self.mlp)
@@ -507,19 +522,19 @@ def _attn_mode(cfg, tp: int) -> str:
 
 def plan_tp(cfg, shard: ShardCtx) -> TPPlan:
     """The per-block plan of ``cfg`` on this rank (``TPPlan``), chosen
-    from which dimensions divide T. Raises NotImplementedError naming
-    the sub-item for what no plan serves: an encoder-decoder, a VLM or
-    absolute-position frontend, an xLSTM whose heads do not divide T."""
+    from which dimensions divide T. An encoder-decoder takes one
+    attention mode for its encoder, its decoder and the cross-attention
+    (its sinusoidal table needs no collective). Raises
+    NotImplementedError naming the sub-item for what no plan serves: a
+    VLM or a decoder-only absolute-position frontend, an xLSTM whose
+    heads do not divide T."""
     from ..models import transformer
     from ..models.ssm import slstm_ffn_width
 
     tp, rank = shard.tp_size, shard.tp_rank
     name = f"{cfg.family}/{cfg.name}"
-    if cfg.enc_dec:
-        raise not_ported(f"an encoder-decoder ({name}) under a mesh "
-                         "(encdec.paged_cache_specs)", TP_FAMILIES)
-    if cfg.visual_prefix or cfg.rope_style == "mrope" \
-            or cfg.pos_embed != "none" or cfg.attn_bias:
+    if cfg.visual_prefix or cfg.rope_style == "mrope" or cfg.attn_bias \
+            or (cfg.pos_embed != "none" and not cfg.enc_dec):
         raise not_ported(f"{name}'s frontend under a mesh", TP_FAMILIES)
     kinds = set(cfg.block_pattern)
     xlstm = bool(kinds & {"mlstm", "slstm"})
@@ -537,8 +552,11 @@ def plan_tp(cfg, shard: ShardCtx) -> TPPlan:
     E = cfg.n_experts
     moe = bool(E) and E % tp == 0
     experts = (rank * E // tp, E // tp) if moe else (0, E)
-    walk = tuple((kind, transformer._is_pool_kind(cfg, kind))
-                 for kind in cfg.layer_kinds)
+    if cfg.enc_dec:
+        walk = (("dec", True),) * cfg.n_layers
+    else:
+        walk = tuple((kind, transformer._is_pool_kind(cfg, kind))
+                     for kind in cfg.layer_kinds)
     return TPPlan(
         tp=tp, rank=rank, attn=attn, q_heads=q, kv_heads=kv,
         mlp=cfg.d_ff > 0 and cfg.d_ff % tp == 0,

@@ -35,6 +35,12 @@ plan's ``attn`` (``launch.sharding.TPPlan``):
 * ``"whole"`` (query heads that do not divide T): the layer whole on
   every rank, no collective.
 
+The encoder-decoder takes the same plan for its encoder
+(``attend_masked``, ``attend`` non-causal), its decoder and its
+cross-attention (``encode_cross_kv`` projects the kv heads the rank
+holds, from the weights; ``attend_cross`` / ``attend_cross_masked`` read
+the rank's kv-head range of a whole arena under ``"kv_replicated"``).
+
 Cross-attention (whisper's decoder over the encoder's K/V):
 ``attend_cross``, the dense path's, runs K1 non-causal (Sq query rows
 over all F encoder positions); JAX pins this call to its plain
@@ -163,15 +169,27 @@ def attend(params, cfg, x, positions, window=None, causal=True,
     return layers.tp_reduce(out @ params["wo"], shard), {"k": k, "v": v}
 
 
-def attend_cross(params, cfg, x, kv):
+def _cross_kv(kv, kvr):
+    """The kv heads ``kvr`` = (first, count) of a cross K/V ``{"k", "v"}``
+    of (B, Hkv, F, D), views (all of them for None)."""
+    if kvr is None:
+        return kv["k"], kv["v"]
+    return kv["k"].narrow(1, *kvr), kv["v"].narrow(1, *kvr)
+
+
+def attend_cross(params, cfg, x, kv, shard=None):
     """Cross-attention of x (B, Sq, d) over the encoder's K/V
     ``{"k", "v"}`` of (B, Hkv, F, D), every position visible: kernel K1,
-    non-causal (its plain version on the CPU)."""
+    non-causal (its plain version on the CPU). With ``shard``: the rank's
+    query heads over its kv heads, the output all-reduced."""
+    shard, kvr = _tp(shard)
     B, Sq, _ = x.shape
-    q = _proj(params, x, "q", cfg.n_heads, cfg.head_dim).transpose(1, 2)
-    out = kops.flash_attention(q, kv["k"], kv["v"], causal=False)
-    out = out.transpose(1, 2).reshape(B, Sq, cfg.n_heads * cfg.head_dim)
-    return out @ params["wo"]
+    hd = cfg.head_dim
+    q = _proj(params, x, "q", _heads(params, "q", hd), hd).transpose(1, 2)
+    k, v = _cross_kv(kv, kvr)
+    out = kops.flash_attention(q, k, v, causal=False)
+    out = out.transpose(1, 2).reshape(B, Sq, -1)
+    return layers.tp_reduce(out @ params["wo"], shard)
 
 
 def _masked_softmax_attend(q, k, v, lengths, dtype):
@@ -193,32 +211,44 @@ def _masked_softmax_attend(q, k, v, lengths, dtype):
     return out.transpose(1, 2).reshape(B, Sq, hq * hd).to(dtype)
 
 
-def attend_masked(params, cfg, x, lengths):
+def attend_masked(params, cfg, x, lengths, shard=None):
     """Bidirectional self-attention over a right-padded batch (the
     serving encoder): x (B, S, d) of which the first ``lengths[b]`` rows
     are real. Pad keys carry no mass; pad query rows are computed and
-    never read. Plain torch (see the module docstring)."""
+    never read. Plain torch (see the module docstring). With ``shard``:
+    the rank's query heads over the kv heads they read, the output
+    all-reduced."""
+    shard, kv = _tp(shard)
     q, k, v = _project_qkv(params, cfg, x, x)
-    out = _masked_softmax_attend(q, k.transpose(1, 2), v.transpose(1, 2),
-                                 lengths, x.dtype)
-    return out @ params["wo"]
+    out = _masked_softmax_attend(q, _kv_view(k, kv).transpose(1, 2),
+                                 _kv_view(v, kv).transpose(1, 2), lengths,
+                                 x.dtype)
+    return layers.tp_reduce(out @ params["wo"], shard)
 
 
-def attend_cross_masked(params, cfg, x, kv, enc_lengths):
+def attend_cross_masked(params, cfg, x, kv, enc_lengths, shard=None):
     """Cross-attention of x (B, Sq, d) over ``{"k", "v"}`` (B, Hkv, F, D)
     of which the first ``enc_lengths[b]`` positions are real (the rest is
     frame-bucket padding or arena capacity). Plain torch (see the module
-    docstring)."""
-    q = _proj(params, x, "q", cfg.n_heads, cfg.head_dim)
-    return _masked_softmax_attend(q, kv["k"], kv["v"], enc_lengths,
-                                  x.dtype) @ params["wo"]
+    docstring). With ``shard``: the rank's query heads over its kv heads
+    (its range of a whole arena under ``"kv_replicated"``), the output
+    all-reduced."""
+    shard, kvr = _tp(shard)
+    hd = cfg.head_dim
+    q = _proj(params, x, "q", _heads(params, "q", hd), hd)
+    k, v = _cross_kv(kv, kvr)
+    out = _masked_softmax_attend(q, k, v, enc_lengths, x.dtype)
+    return layers.tp_reduce(out @ params["wo"], shard)
 
 
 def encode_cross_kv(params, cfg, enc_out):
     """The cross-attention K/V of encoder output (B, F, d): ``{"k",
-    "v"}`` of (B, Hkv, F, D), transposed views of the projections."""
-    return {n: _proj(params, enc_out, n, cfg.n_kv_heads,
-                     cfg.head_dim).transpose(1, 2) for n in ("k", "v")}
+    "v"}`` of (B, Hkv, F, D), transposed views of the projections. The
+    kv heads are the weights' (a rank's under tensor parallelism, all of
+    them where the plan keeps ``wk`` / ``wv`` whole)."""
+    hd = cfg.head_dim
+    return {n: _proj(params, enc_out, n, _heads(params, n, hd),
+                     hd).transpose(1, 2) for n in ("k", "v")}
 
 
 def decode_attend_paged(params, cfg, x, pool, block_table, lengths, *,

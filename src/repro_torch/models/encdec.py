@@ -30,6 +30,15 @@ Three paths share the params:
 
 Everything writes its pools and arena IN PLACE, so the captured decode
 step (``launch/engine/step_graph.py``) replays over fixed storage.
+
+Tensor parallelism (``ctx.shard``, the serving paths): the encoder, the
+decoder's self-attention and the cross-attention run by the plan's one
+attention mode (``launch.sharding.plan_tp``): on the rank's heads, its
+pool and arena split by kv heads (``"heads"``), or its query heads over
+a pool and arena every rank writes whole (``"kv_replicated"``); the MLPs
+by ``d_ff``, the embedding and tied head by vocabulary where it divides
+T. Each row-parallel product is all-reduced (``layers.tp_reduce``).
+``paged_cache_specs`` gives the tree's layout, JAX's.
 """
 
 from __future__ import annotations
@@ -72,18 +81,20 @@ def init_encdec(gen, cfg):
             "final_norm": norm()}
 
 
-def _mlp_part(p, cfg, x):
+def _mlp_part(p, cfg, x, shard=None):
     xn = layers.apply_norm(cfg.norm, p["ln2"], x)
-    return x + layers.apply_mlp(p["mlp"], xn, cfg.activation)
+    mlp_shard = shard if layers.split_over(shard, "mlp") else None
+    return x + layers.apply_mlp(p["mlp"], xn, cfg.activation, mlp_shard)
 
 
-def encode(params, cfg, frames, enc_lengths=None):
+def encode(params, cfg, frames, enc_lengths=None, shard=None):
     """frames (B, F, d) -> encoder output (B, F, d) in the model dtype.
 
     The frames are cast to the model dtype BEFORE the sinusoidal table
     is added in that dtype (JAX's order). ``enc_lengths`` ((B,) int)
     masks right-padded frames (``attend_masked``); None runs the
-    exact-length encoder through K1, bidirectional.
+    exact-length encoder through K1, bidirectional. ``shard``: this
+    rank's heads and MLP columns, each block's output all-reduced.
     """
     x = frames.to(model_dtype(cfg))
     positions = torch.arange(x.shape[1], device=x.device)
@@ -93,17 +104,19 @@ def encode(params, cfg, frames, enc_lengths=None):
         xn = layers.apply_norm(cfg.norm, p["ln1"], x)
         if enc_lengths is None:
             out, _ = attn_lib.attend(p["attn"], cfg, xn, positions,
-                                     causal=False)
+                                     causal=False, shard=shard)
         else:
-            out = attn_lib.attend_masked(p["attn"], cfg, xn, enc_lengths)
-        x = _mlp_part(p, cfg, x + out)
+            out = attn_lib.attend_masked(p["attn"], cfg, xn, enc_lengths,
+                                         shard)
+        x = _mlp_part(p, cfg, x + out, shard)
     return layers.apply_norm(cfg.norm, params["enc_norm"], x)
 
 
-def _embed(params, cfg, tokens, positions):
-    """Token embeddings plus the sinusoidal table at ``positions``
-    (broadcast against tokens' (B, S))."""
-    x = params["embed"][tokens.long()]
+def _embed(params, cfg, tokens, positions, shard=None):
+    """Token embeddings (``shard``: from this rank's vocab slice,
+    ``layers.vocab_parallel_lookup``) plus the sinusoidal table at
+    ``positions`` (broadcast against tokens' (B, S))."""
+    x = layers.vocab_parallel_lookup(params["embed"], tokens, shard)
     return x + layers.sinusoidal_embed(positions, cfg.d_model, x.dtype)
 
 
@@ -115,23 +128,25 @@ def _select_rows(x, rows):
     return x[torch.arange(x.shape[0], device=x.device), rows.long()][:, None]
 
 
-def _decoder_prefill(params, cfg, tokens, enc_out, cross_fn):
+def _decoder_prefill(params, cfg, tokens, enc_out, cross_fn, shard=None):
     """The decoder over a full (right-padded) prompt: per layer K1
     causal self-attention, then ``cross_fn(p_xattn, xn, cross_kv)``, then
     the MLP. Returns (hidden (B, S, d), per-layer [(k, v)] with k, v
-    (B, S, Hkv, D), per-layer cross K/V)."""
+    (B, S, Hkv, D), per-layer cross K/V). ``shard``: the rank's heads
+    (K1 on them) and MLP columns, and its kv heads' K/V."""
     S = tokens.shape[1]
     positions = torch.arange(S, device=tokens.device)
-    x = _embed(params, cfg, tokens, positions)
+    x = _embed(params, cfg, tokens, positions, shard)
     self_kv, cross = [], []
     for i in range(cfg.n_layers):
         p = layer_slice(params["dec"], i)
         xkv = attn_lib.encode_cross_kv(p["xattn"], cfg, enc_out)
         xn = layers.apply_norm(cfg.norm, p["ln1"], x)
-        out, kv = attn_lib.attend(p["attn"], cfg, xn, positions)
+        out, kv = attn_lib.attend(p["attn"], cfg, xn, positions,
+                                  shard=shard)
         x = x + out
         xn = layers.apply_norm(cfg.norm, p["lnx"], x)
-        x = _mlp_part(p, cfg, x + cross_fn(p["xattn"], xn, xkv))
+        x = _mlp_part(p, cfg, x + cross_fn(p["xattn"], xn, xkv), shard)
         self_kv.append(kv)
         cross.append(xkv)
     return x, self_kv, cross
@@ -236,15 +251,40 @@ def decode_step(params, cfg, cache, tokens, pos, ctx=None):
 # ---------------------------------------------------------------------------
 
 
-def init_paged_cache(cfg, layout, device):
+def init_paged_cache(cfg, layout, device, shard=None):
     """``{"self": {"k", "v"}, "cross": {"k", "v"}}``: the decoder's
     self-KV in a block pool of (L, NB, BS, Hkv, D), the cross K/V in the
     arena (``paged_kv.init_cross_arena``). Block tables, lengths, arena
-    rows and frame counts live with the scheduler."""
+    rows and frame counts live with the scheduler. ``shard``: this
+    rank's slice of each leaf (``paged_cache_specs``), allocated at its
+    local shape."""
+    if shard is not None:
+        from ..launch import sharding
+        meta = init_paged_cache(cfg, layout, torch.device("meta"))
+        return sharding.local_zeros(meta, paged_cache_specs(cfg, layout,
+                                                            shard),
+                                    shard, device)
     dtype = model_dtype(cfg)
     return {"self": paged_kv.init_layer_pool(cfg, layout, dtype, device,
                                              lead=(cfg.n_layers,)),
             "cross": paged_kv.init_cross_arena(cfg, layout, dtype, device)}
+
+
+def paged_cache_specs(cfg, layout, shard):
+    """Specs of the ``init_paged_cache`` tree over ``shard``'s mesh
+    (JAX's ``encdec.paged_cache_specs``): the self pool head-sharded like
+    every full-attention pool (``sharding.paged_pool_spec``), the cross
+    arena (L, A+1, Hkv, F, D) on its kv-head axis where the kv heads
+    divide the model axis, else whole (its rows stay whole: A+1 is off
+    any power-of-two grid)."""
+    from ..launch import sharding
+
+    shapes = init_paged_cache(cfg, layout, torch.device("meta"))
+    tp = shard.tp_axis if cfg.n_kv_heads % shard.tp_size == 0 else None
+    return {"self": {n: sharding.paged_pool_spec(t.shape, shard)
+                     for n, t in shapes["self"].items()},
+            "cross": {n: (None, None, tp, None, None)
+                      for n in shapes["cross"]}}
 
 
 def paged_pool_mask(cfg, layout):
@@ -268,16 +308,19 @@ def prefill_paged(params, cfg, pools, tokens, frames, enc_lengths, lengths,
     null row). The masked encoder runs, each layer's
     cross K/V is written into the arena rows, and the decoder's
     self-KV packed into the pool. Returns (logits (N, V) f32 at each
-    row's last real position, pools).
+    row's last real position, pools). ``ctx.shard``: the rank's heads,
+    and its slices of the pool and the arena.
     """
-    del ctx
+    shard = ctx.shard if ctx is not None else None
     N, Sb = tokens.shape
     bs = pools["self"]["k"].shape[2]
-    enc_out = encode(params, cfg, frames, enc_lengths=enc_lengths)
+    enc_out = encode(params, cfg, frames, enc_lengths=enc_lengths,
+                     shard=shard)
     x, self_kv, cross = _decoder_prefill(
         params, cfg, tokens, enc_out,
         lambda p, xn, kv: attn_lib.attend_cross_masked(p, cfg, xn, kv,
-                                                       enc_lengths))
+                                                       enc_lengths, shard),
+        shard)
     W = block_ids.shape[1] * bs
     dense = {n: torch.nn.functional.pad(t, (0, 0, 0, 0, 0, W - Sb))
              for n, t in _stack(self_kv).items()}     # (L, N, W, Hkv, D)
@@ -285,7 +328,7 @@ def prefill_paged(params, cfg, pools, tokens, frames, enc_lengths, lengths,
     paged_kv.pack_cross_arena(pools["cross"], _stack(cross), arena_ids)
     x = layers.apply_norm(cfg.norm, params["final_norm"],
                           _select_rows(x, lengths.long() - 1))
-    return _logits(params, cfg, x)[:, 0], pools
+    return _logits(params, cfg, x, shard)[:, 0], pools
 
 
 def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
@@ -296,21 +339,24 @@ def decode_step_paged(params, cfg, pools, block_table, lengths, tokens,
     PLACE), cross-attention over each row's arena row ``arena_ids``
     (B,) masked to ``enc_lengths`` (B,) (an empty slot on the null row,
     0 frames, reads zeros). Nothing is read back to the host. Returns
-    (logits (B, V) f32, pools)."""
-    del ctx
-    x = _embed(params, cfg, tokens, lengths.long()[:, None])
+    (logits (B, V) f32, pools). ``ctx.shard``: K2 over the rank's
+    head-sharded pool (or its kv-head range of a whole one), the cross
+    attention over its arena slice, the logits all-gathered where the
+    vocabulary splits."""
+    shard = ctx.shard if ctx is not None else None
+    x = _embed(params, cfg, tokens, lengths.long()[:, None], shard)
     rows = arena_ids.long()
     for i in range(cfg.n_layers):
         p = layer_slice(params["dec"], i)
         xn = layers.apply_norm(cfg.norm, p["ln1"], x)
         out, _ = attn_lib.decode_attend_paged(
             p["attn"], cfg, xn, layer_slice(pools["self"], i), block_table,
-            lengths)
+            lengths, shard=shard)
         x = x + out
         xn = layers.apply_norm(cfg.norm, p["lnx"], x)
         kv = {n: torch.index_select(pools["cross"][n][i], 0, rows)
               for n in ("k", "v")}                  # (B, Hkv, enc_len, D)
         x = _mlp_part(p, cfg, x + attn_lib.attend_cross_masked(
-            p["xattn"], cfg, xn, kv, enc_lengths))
+            p["xattn"], cfg, xn, kv, enc_lengths, shard), shard)
     x = layers.apply_norm(cfg.norm, params["final_norm"], x)
-    return _logits(params, cfg, x)[:, 0], pools
+    return _logits(params, cfg, x, shard)[:, 0], pools

@@ -175,19 +175,23 @@ class Model:
         """Block pools on this model's device; ``spec`` (a
         ``paged_kv.PoolSpec``) selects an int8/fp8 block format. An
         enc-dec config's tree is its self-KV pool and the cross arena,
-        always in the model dtype. ``shard`` (a decoder-only stack's):
-        this rank's head shard of every pool (``paged_cache_specs``)."""
+        always in the model dtype. ``shard``: this rank's slice of every
+        pool and of the arena (``paged_cache_specs``)."""
         if self.cfg.enc_dec:
             if spec is not None and spec.quantized:
                 raise ValueError("quantized KV is decoder-only "
                                  "(ServingCaps.quantized_kv)")
-            return encdec.init_paged_cache(self.cfg, layout, self.device)
+            return encdec.init_paged_cache(self.cfg, layout, self.device,
+                                           shard)
         return transformer.init_paged_cache(self.cfg, layout, self.device,
                                             spec, shard)
 
     def paged_cache_specs(self, layout, shard, spec=None):
         """Specs of the ``init_paged_cache`` tree over ``shard``'s mesh
-        (``transformer.paged_cache_specs``); decoder-only stacks."""
+        (``transformer.paged_cache_specs``; an enc-dec config's
+        ``encdec.paged_cache_specs``, its cross arena included)."""
+        if self.cfg.enc_dec:
+            return encdec.paged_cache_specs(self.cfg, layout, shard)
         return transformer.paged_cache_specs(self.cfg, layout, shard, spec)
 
     def paged_pool_mask(self, layout, spec=None):

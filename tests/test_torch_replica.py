@@ -603,8 +603,9 @@ def test_kv_format_mismatch_raises(pairs):
 
 
 def test_refusals(pairs):
-    """Roles and overrides validate as JAX's do; the mesh, in every
-    form, names the Multi-device item."""
+    """Roles and overrides validate as JAX's do; a mesh passed through
+    ``EngineConfig`` raises JAX's ValueError, and the disaggregated
+    engine on a mesh names the Multi-device item's sub-item."""
     _, _, tm, tparams = pairs("olmo_1b")
     base = EngineConfig(**dict(GEO, spec_tokens=2))
     dis = DisaggregatedEngine(tm, tparams, base, dp=2,
@@ -629,7 +630,13 @@ def test_refusals(pairs):
     for kw in (dict(mesh=object()),
                dict(cfg=EngineConfig(**GEO, mesh=object()))):
         with pytest.raises(NotImplementedError, match="multi-device"):
-            ReplicaSet(tm, tparams, **{"cfg": EngineConfig(**GEO), **kw},
-                       dp=2, device="cpu")
+            DisaggregatedEngine(tm, tparams,
+                                **{"cfg": EngineConfig(**GEO), **kw},
+                                dp=2, roles=("prefill", "decode"),
+                                device="cpu")
+    with pytest.raises(ValueError, match="not through EngineConfig"):
+        ReplicaSet(tm, tparams, EngineConfig(**GEO, mesh=object()), dp=2,
+                   device="cpu")
     with pytest.raises(NotImplementedError, match="multi-device"):
-        serve.main(["--smoke", "--device", "cpu", "--tp", "2", "--dp", "2"])
+        serve.main(["--smoke", "--device", "cpu", "--tp", "2", "--dp", "2",
+                    "--roles", "auto"])

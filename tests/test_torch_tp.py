@@ -24,9 +24,11 @@ makes the oracle, "tokens are mesh-independent": JAX's single-device
      collectives;
   4. K2 / K3's body choosers at per-rank shapes pick what they pick at
      the model's;
-  5. the refusals name their ROADMAP sub-item, ``--tp`` asking for a
-     GPU that is not there raises before any rank starts, and a rank
-     that raises makes the launcher raise within its timeout.
+  5. what a mesh serves since the refusals went (``overlap=True`` for
+     every family, whisper at T = 2 and 4) builds and reports its plan,
+     and the refusals that stand name their ROADMAP sub-item; ``--tp``
+     asking for a GPU that is not there raises before any rank starts,
+     and a rank that raises makes the launcher raise within its timeout.
 
 The JAX engines run in this process while the ranks run theirs.
 """
@@ -54,7 +56,8 @@ from repro_torch.configs import all_configs, get_config
 from repro_torch.kernels import paged_attention as pa
 from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import serve, sharding, train
-from repro_torch.launch.engine import Engine, EngineConfig, ReplicaSet
+from repro_torch.launch.engine import (DisaggregatedEngine, Engine,
+                                       EngineConfig, ReplicaSet)
 from repro_torch.models import paged_kv, transformer
 from repro_torch.models.model import Model
 
@@ -281,36 +284,55 @@ def olmo():
 
 
 @pytest.mark.parametrize("arch,tp,data,extra,match", [
-    ("olmo_1b", 2, 2, {}, "replicas on submeshes"),
-    ("olmo_1b", 2, 1, {"overlap": True}, "overlap"),
-    ("recurrentgemma_2b", 2, 1, {"overlap": True}, "overlap"),
-    ("h2o_danube_3_4b", 2, 1, {"overlap": True}, "overlap"),
-    ("xlstm_1_3b", 2, 1, {"overlap": True}, "overlap"),
-    ("qwen3_moe_30b_a3b", 2, 1, {"overlap": True}, "overlap"),
-    ("whisper_base", 2, 1, {}, "encoder-decoder"),
-    ("whisper_base", 4, 1, {}, "encoder-decoder"),
+    # a data axis above 1 inside one engine (FSDP): still refused
+    ("olmo_1b", 2, 2, {}, "sharded training"),
+    # served since the refusals went: the engine builds, reports its plan
+    ("olmo_1b", 2, 1, {"overlap": True}, None),
+    ("recurrentgemma_2b", 2, 1, {"overlap": True}, None),
+    ("h2o_danube_3_4b", 2, 1, {"overlap": True}, None),
+    ("xlstm_1_3b", 2, 1, {"overlap": True}, None),
+    ("qwen3_moe_30b_a3b", 2, 1, {"overlap": True}, None),
+    ("whisper_base", 2, 1, {}, None),
+    ("whisper_base", 4, 1, {"overlap": True}, None),
+    # still refused: the VLM's frontend, xLSTM heads that do not divide T
+    ("qwen2_vl_2b", 2, 1, {}, "the other families under TP"),
+    ("xlstm_1_3b", 8, 1, {}, "the other families under TP"),
 ])
 def test_engine_refusals_name_their_sub_item(arch, tp, data, extra, match):
-    model = Model(get_config(arch).smoke(), device="cpu")
+    cfg = get_config(arch).smoke()
+    model = Model(cfg, device="cpu")
     params = model.init(seed=0)
-    cfg = EngineConfig(mesh=_mesh(tp, data=data), **extra)
-    with pytest.raises(NotImplementedError, match=match) as exc:
-        Engine(model, params, cfg, device="cpu")
-    assert "multi-device" in str(exc.value)
+    ecfg = EngineConfig(mesh=_mesh(tp, data=data), **extra)
+    if match is not None:
+        with pytest.raises(NotImplementedError, match=match) as exc:
+            Engine(model, params, ecfg, device="cpu")
+        assert "multi-device" in str(exc.value)
+        return
+    st = Engine(model, params, ecfg, device="cpu").stats()
+    plan = sharding.plan_tp(cfg, sharding.layout_ctx(_mesh(tp)))
+    assert st["overlap"] == extra.get("overlap", False)
+    assert st["tp"]["plan"] == plan.report()["plan"]
+    assert st["tp"]["plan_collectives_per_step"] == plan.step_collectives()
 
 
 def test_other_refusals_name_their_sub_item(olmo, tmp_path):
     model, params = olmo
-    with pytest.raises(NotImplementedError, match="replicas on submeshes"):
-        ReplicaSet(model, params, EngineConfig(), dp=2, mesh=_mesh(2),
+    mesh = _mesh(2, data=2)
+    with pytest.raises(NotImplementedError,
+                       match="migration across submeshes"):
+        DisaggregatedEngine(model, params, EngineConfig(), dp=2, mesh=mesh,
+                            device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="migration across submeshes"):
+        serve.main(["--smoke", "--device", "cpu", "--tp", "2", "--dp", "2",
+                    "--roles", "prefill,decode"])
+    with pytest.raises(ValueError, match="not through EngineConfig"):
+        ReplicaSet(model, params, EngineConfig(mesh=mesh), dp=2,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="replicas on submeshes"):
-        serve.main(["--smoke", "--device", "cpu", "--tp", "2", "--dp", "2"])
-    for fn in (lambda: meshlib.replica_cli_mesh(2, 2),
-               lambda: meshlib.submeshes(_mesh(2), 2)):
-        with pytest.raises(NotImplementedError,
-                           match="replicas on submeshes"):
-            fn()
+    assert [dict(m.shape) for m in meshlib.submeshes(mesh, 2)] == \
+        [{"data": 1, "model": 2}] * 2
+    assert dict(meshlib.replica_cli_mesh(2, 2).shape) == \
+        {"data": 2, "model": 2}
     with pytest.raises(NotImplementedError, match="sharded training"):
         sharding.layout_ctx(_mesh(2), layout="fsdp")
     with pytest.raises(NotImplementedError, match="sharded training"):

@@ -132,8 +132,9 @@ def test_plan_of_each_family(arch, tp, attn, experts, collectives):
 def test_plan_ranges_and_refusals():
     """A rank's q heads and the kv heads they read (yi smoke at T = 4:
     rank 3's one q head reads kv head 1 of 2), its experts; the
-    encoder-decoder is refused naming the sub-item, every other config
-    the port serves is planned at T = 2 and 4."""
+    encoder-decoder is planned by heads (whisper_base's 8 / 8 at T = 2
+    and 4: 3 collectives a decoder layer, its 51865-token vocabulary
+    whole), and so is every other config the port serves."""
     cfg = get_config("yi_6b").smoke()
     plans = [sharding.plan_tp(cfg, sharding.layout_ctx(_mesh(4, r)))
              for r in range(4)]
@@ -148,9 +149,9 @@ def test_plan_ranges_and_refusals():
             shard = sharding.layout_ctx(_mesh(tp))
             cfg = get_config(arch)
             if cfg.enc_dec:
-                with pytest.raises(NotImplementedError,
-                                   match="the other families under TP"):
-                    sharding.plan_tp(cfg, shard)
+                plan = sharding.plan_tp(cfg, shard)
+                assert plan.attn == "heads" and not plan.vocab
+                assert plan.step_collectives() == 3 * cfg.n_layers
             elif not cfg.visual_prefix:
                 sharding.plan_tp(cfg, shard)
 
