@@ -16,7 +16,9 @@ check it end to end.
                                      # NCCL (parity_tp at 2 ranks;
                                      # tp_serve for olmo_1b at 2 and 4
                                      # ranks and yi_6b at 4, each against
-                                     # its own single-device run)
+                                     # its own single-device run; the
+                                     # packet ladder between two cards
+                                     # and tp_disagg_serve priced by it)
 
 Every paged engine decodes through the captured step
 (``launch/engine/step_graph.py``): feed select, the decode and sampling
@@ -175,6 +177,25 @@ Phases, one JSON line each (any failed check exits non-zero):
               verify and suffix bodies, K4) are timed at a rank's shapes
               (8 of olmo_1b's 16 heads, (8, 8/8, ., 128)) and take their
               launches, summed over the ranks, from this phase.
+   tp_disagg_serve — olmo_1b at full width in bf16 as
+              ``DisaggregatedEngine`` on a (data=2, model=2) mesh of 4
+              ranks on the card, roles prefill / decode, serve's 16
+              requests: tokens equal serve's; packets, logical and
+              per-rank bytes, each packet's gather / send / receive /
+              scatter ms (CUDA events and the host clock), the router's
+              exchanges and their ms, tok/s, TTFT / TPOT p50, the
+              prefill replica's steps (0), no leak on any rank. The
+              summary line has the ``*_tp`` K1 / K2 / combine rows again
+              with this phase's launches (and parity_tp_disagg's as
+              ``parity_launches``).
+   parity_tp_disagg — ``DisaggregatedEngine`` on a (data=3, model=2)
+              mesh of 6 ranks on the card, prefill / decode / decode,
+              smoke configs in f32: olmo_1b stealing on a tight pool,
+              olmo_1b over an int8 pool with a speculative decode role,
+              recurrentgemma_2b and olmo_1b (stealing mid-decode) with
+              overlap on the decode role, whisper_base: tokens and
+              counters equal the cpu ``DisaggregatedEngine(dp=3)``'s,
+              every rank's stats equal, no leak.
 8. parity_recurrent — recurrentgemma_2b (RG-LRU + local attention) and
               h2o_danube_3_4b (sliding-window attention) smoke in f32, cuda
               against cpu on a pool tight enough to preempt, with rings
@@ -273,8 +294,9 @@ Phases, one JSON line each (any failed check exits non-zero):
               to LADDER_ITERS a rung), and the extended-precision
               right-hand side, each on cuda and cpu with the same matrix
               (equal iterations, x within 1e-12), then vp128 CG on
-              hilbert_like(1024, cond 1e8) for 200 iterations (ms per
-              iteration).
+              hilbert_like(1024, cond 1e8) for CG_TIMED_ITERS iterations
+              (ms per iteration). Each part's line carries its
+              ``seconds`` and ``t_s``.
 13. parity_train — the training path at smoke sizes in f32: olmo_1b,
               h2o_danube_3_4b, recurrentgemma_2b, xlstm_1_3b,
               qwen3_moe_30b_a3b, kimi_k2_1t_a32b and whisper_base
@@ -372,9 +394,7 @@ kernel alone equals the tree, and carries ``body``, ``call_ms`` /
 ``graph_ms`` (the whole call eager / replayed), ``finalize_ms`` beside
 the torch tree's ``tree_finalize_ms``, ``call_host_ms`` (host wall time
 a call, synced) and ``enqueue_ms`` (not synced), ``--profile``
-``kernel_ms``; the 8192^2 rows time the ring at 8, 16 and 32 lanes a
-CTA (``ring_ms_by_lanes_per_cta``). The summary line has a
-``vrp_finalize`` row.
+``kernel_ms``. The summary line has a ``vrp_finalize`` row.
 
 Then a ``{"kernels": [...]}`` summary line, the card's name and power
 limit from nvidia-smi, and as the last line
@@ -409,10 +429,13 @@ LONG, LONG_NEW = 2200, 64          # recurrent_serve: prompts past the window
 K6_TOL = {"bfloat16": (3e-2, 3e-1),  # (rtol, atol) by operand dtype, as
           "float32": (1e-5, 1e-4)}   # tests/test_kernels.py holds K6
 K8_N = 2**24 + 3                   # K8 cases: a ragged tail of 3
-K8_LANES_PER_CTA = (8, 16, 32)     # the ring body's lanes a CTA, timed
 DIFF_N, DIFF_STEPS, ALPHA = 8192, 200, 0.20   # tile_path diffusion
 LADDER = ("f64", "vp128", "vp256", "vp512")   # adaptive CG precisions
-LADDER_ITERS = 100                 # problem 1's cut (the example's 400)
+LADDER_ITERS = 50                  # problem 1's cut (the example's 400):
+#                                    no rung converges by 100 either, and
+#                                    every rung is compared cuda vs cpu
+CG_TIMED_ITERS = 20                # tile_path's vp128 n = 1024 timing: only
+#                                    ms_per_iter reads it
 PARITY_TOL = 1e-3                  # f32 logits, cuda vs cpu summation order
 N_REQ, HALF = 16, 8                # serve: first HALF prompts in bucket 512
 SHARED, PHRASE = 256, 8            # spec_serve: shared prefix, repeated phrase
@@ -3284,7 +3307,7 @@ def exact_sum(t):
     return math.fsum(t.double().cpu().numpy().tolist())
 
 
-def k8_case(torch, np, dot, n, offset=0, sweep=False, profile=False):
+def k8_case(torch, np, dot, n, offset=0, profile=False):
     """K8a (``dot``) or K8b through ``ops.vrp_dot`` / ``ops.vrp_sum`` on
     n values, x scaled by 1e4 (tests/test_kernels.py's data), the inputs
     ``offset`` floats into their buffers (1: a base no tensor map takes):
@@ -3300,8 +3323,7 @@ def k8_case(torch, np, dot, n, offset=0, sweep=False, profile=False):
     ``tree_finalize_ms`` the torch tree (the finalize before the kernel),
     ``call_host_ms`` the host's wall time of a call with its sync and
     ``enqueue_ms`` without; ``kernel_ms`` (``profile``) the profiler's
-    device time of both kernels in one call. ``sweep`` times the ring at
-    8, 16 and 32 lanes a CTA (each checked bit-equal). The plain version
+    device time of both kernels in one call. The plain version
     (n / 1024 sequential vector steps) is timed once. No PyTorch call
     returns the compensated expansion: no library time."""
     from repro_torch.kernels import ops, ref
@@ -3380,14 +3402,6 @@ def k8_case(torch, np, dot, n, offset=0, sweep=False, profile=False):
            "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
     if profile:
         row["kernel_ms"] = kernel_ms(torch, final_fn, K8_KERNELS)
-    if sweep:
-        row["ring_ms_by_lanes_per_cta"] = {}
-        for L in K8_LANES_PER_CTA:
-            call = lambda: k8.launch(x, args[-1], dot, "sweep",  # noqa: E731
-                                     lanes_per_cta=L)[0]
-            check(torch.equal(call(), want),
-                  f"{row['kernel']} ring at {L} lanes a CTA != plain")
-            row["ring_ms_by_lanes_per_cta"][L] = cuda_ms(torch, call)
     emit(row)
     check(body == want_body, f"{row['kernel']} {row['case']}: ran the "
                              f"{body} body, expected {want_body}")
@@ -3424,12 +3438,10 @@ def phase_tile_kernels(torch, np, profile):
     k7_case(torch, "ragged_4097x4099", (4097, 4099), "laplace")
     k7b = k7_case(torch, "seven_point_512", (512, 512, 512), "laplace")
     k7_case(torch, "random27_512", (512, 512, 512), "random")
-    k8a = k8_case(torch, np, True, DIFF_N * DIFF_N, sweep=True,
-                  profile=profile)
+    k8a = k8_case(torch, np, True, DIFF_N * DIFF_N, profile=profile)
     k8_case(torch, np, True, K8_N, profile=profile)
     k8_case(torch, np, True, K8_N, offset=1)
-    k8b = k8_case(torch, np, False, DIFF_N * DIFF_N, sweep=True,
-                  profile=profile)
+    k8b = k8_case(torch, np, False, DIFF_N * DIFF_N, profile=profile)
     k8_case(torch, np, False, K8_N, profile=profile)
     return k6, k7a, k7b, k8a, k8b
 
@@ -3528,6 +3540,15 @@ def phase_tile_path(torch, np, profile):
         zero_bodies(fn)
     cluster = stx.DEFAULT_CLUSTER
     out = {"phase": "tile_path"}
+    t_part = time.monotonic()
+
+    def part_done(key):
+        """A part's seconds and ``t_s`` (seconds since the start) at its
+        end."""
+        nonlocal t_part
+        now = time.monotonic()
+        out[key].update(seconds=now - t_part, t_s=now - T_START)
+        t_part = now
 
     # (a) diffusion at full size: K7a steps, the totals through K8
     w5 = ref.five_point_weights(device="cuda")
@@ -3584,6 +3605,7 @@ def phase_tile_path(torch, np, profile):
           "tile_path: K8 totals differ from the plain lanes' finalized sums")
     check(d["small_96x96_8_steps_equal"] and d["small_64cube_equal"],
           "tile_path: example-size stencils differ on cuda and cpu")
+    part_done("diffusion")
 
     # (b) the tile policies' dispatch
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3620,6 +3642,7 @@ def phase_tile_path(torch, np, profile):
     check(out["dispatch"]["vrp_reduction_equal"],
           "tile_path: vrp reduction differs on cuda and cpu")
     del x, w, y_stx, y_vec, diff
+    part_done("dispatch")
 
     # (c) the VRP solvers: the adaptive ladder on cuda and cpu
     problems = {}
@@ -3628,14 +3651,16 @@ def phase_tile_path(torch, np, profile):
             ("hilbert_like64_cond1e8",
              solvers.hilbert_like(64, cond=1e8, seed=SEED), 1e-12,
              LADDER_ITERS)):
+        t0 = time.monotonic()
         b = A @ torch.ones(A.shape[0], dtype=A.dtype)
         got = adaptive_cg(torch, solvers, A.cuda(), b.cuda(), tol, maxiter)
         want = adaptive_cg(torch, solvers, A, b, tol, maxiter)
         problems[name] = compare_solves(torch, name, got, want)
         problems[name].update(tol=tol, maxiter=maxiter,
                               solved_at=got[-1][0] if got[-1][2] <= tol
-                              else None)
+                              else None, seconds=time.monotonic() - t0)
     # problem 3: the right-hand side in extended precision
+    t0 = time.monotonic()
     env = PRESETS["vp256"]
     A = solvers.hilbert_like(24, cond=1e6, seed=1)
     res3 = {}
@@ -3656,12 +3681,15 @@ def phase_tile_path(torch, np, profile):
                                               res3["cuda"], res3["cpu"])
     problems["extended_rhs"]["x_err"] = {
         r[0]: float((r[4] - 1).abs().max()) for r in res3["cuda"]}
-    # cg at vp128 on n = 1024: time per iteration on the card
+    problems["extended_rhs"]["seconds"] = time.monotonic() - t0
+    # cg at vp128 on n = 1024: time per iteration on the card (a timing
+    # only: CG_TIMED_ITERS iterations, no comparison rides on them)
     A = solvers.hilbert_like(1024, cond=1e8, seed=SEED).cuda()
     b = A @ torch.ones(1024, dtype=A.dtype, device="cuda")
     torch.cuda.synchronize()
     t0 = time.monotonic()
-    big = solvers.cg(A, b, PRESETS["vp128"], tol=1e-12, maxiter=200)
+    big = solvers.cg(A, b, PRESETS["vp128"], tol=1e-12,
+                     maxiter=CG_TIMED_ITERS)
     torch.cuda.synchronize()
     secs = time.monotonic() - t0
     problems["cg_vp128_n1024"] = {"iterations": big.iterations,
@@ -3670,6 +3698,7 @@ def phase_tile_path(torch, np, profile):
     check(math.isfinite(big.residual) and big.iterations > 0,
           "tile_path: vp128 CG on n 1024 failed")
     out["solvers"] = problems
+    part_done("solvers")
     out["launches"] = {k: fn.launches for k, fn in counters.items()}
     out["k6_launches_by_body"] = dict(k6.stx_matmul.launches_by_body)
     out["k7b_launches_by_body"] = dict(k7.stencil3d.launches_by_body)
@@ -4912,6 +4941,41 @@ def tp_rows(rows, totals):
     return out
 
 
+TPD_ROWS = (
+    ("K1_tp", "K1", "flash_attention (tp_disagg_serve: the prefill "
+     "replica's ranks of DisaggregatedEngine(mesh=), 8 of olmo_1b's 16 "
+     "heads; timed at (8, 8/8, 512, 128))",
+     "src/repro_torch/csrc/flash_attention.cu",
+     "src/repro/kernels/flash_attention.py:109"),
+    ("K2_tp", "K2", "paged_decode_attention (tp_disagg_serve: the decode "
+     "replica's ranks over their kv-head shards, "
+     "paged_decode_attention_headshard)",
+     "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:361"),
+    ("K2_combine_tp", "K2_combine", "paged_decode_combine (tp_disagg_serve's "
+     "decode ranks)", "src/repro_torch/csrc/paged_attention.cu",
+     "src/repro/kernels/paged_attention.py:361"),
+)
+
+
+def tpd_rows(rows, totals, parity):
+    """The kernels line's rows of the disaggregated engine on a mesh:
+    launches from tp_disagg_serve's ranks (timed at the same rank shapes
+    as tp_serve's rows), ``parity_launches`` from parity_tp_disagg's
+    smoke ranks."""
+    out = []
+    for key, count, name, src, tpu in TPD_ROWS:
+        row = rows[key]
+        out.append({"name": name, "route": "cuda", "source": src,
+                    "replaces": tpu, "launches": totals[count],
+                    "parity_launches": parity.get(count, 0),
+                    **{k: row[k] for k in (
+                        "max_abs_err", "ms", "plain_ms", "bound_ms",
+                        "bound_by", "library_ms", "body", "splits",
+                        "graph_ms") if k in row}})
+    return out
+
+
 def tp_cards_main(torch, np):
     """``--tp-cards``: the build and the TP phases alone, on a machine
     with a card a rank (NCCL, the decode step captured): first the
@@ -4922,9 +4986,11 @@ def tp_cards_main(torch, np):
     T = 2 and 4 (overlap on too); then tp_serve for olmo_1b at T = 2 and
     4 (with an overlap=True turn) and yi_6b at T = 4, each against its
     own single-device run on the first card, tp_replica_serve (olmo_1b,
-    ReplicaSet on a (2, 2) mesh: NCCL within a replica), then parity_tp
-    at T = 2 (the kernels rows at a rank's shapes are the one-card
-    run's)."""
+    ReplicaSet on a (2, 2) mesh: NCCL within a replica), the packet
+    ladder between two cards (NCCL), tp_disagg_serve (olmo_1b,
+    DisaggregatedEngine on a (2, 2) mesh: NCCL within a replica and for
+    the packets, priced by the ladder's fit), then parity_tp at T = 2
+    (the kernels rows at a rank's shapes are the one-card run's)."""
     from repro_torch.configs import get_config
     from repro_torch.launch.engine import Engine, EngineConfig
     from repro_torch.models.model import Model
@@ -4966,6 +5032,9 @@ def tp_cards_main(torch, np):
         if arch == "olmo_1b":
             phase_tp_replica_serve(torch, np, prompts, news, warm, base_outs,
                                    timeout_s=TP_CARDS_TIMEOUT_S)
+            fit = phase_packet_ladder(torch, np)
+            phase_tp_disagg_serve(torch, np, prompts, news, warm, base_outs,
+                                  fabric=fit, timeout_s=TP_CARDS_TIMEOUT_S)
     phase_parity_tp(torch, np, tp=2, timeout_s=TP_CARDS_TIMEOUT_S)
 
 
@@ -6073,6 +6142,451 @@ def phase_tp_replica_serve(torch, np, prompts, news, warm, base_outs,
             for k in ("K1", "K2", "K2_combine")}
 
 
+# ---------------------------------------------------------------------------
+# migration across submeshes: parity_tp_disagg, tp_disagg_serve, and the
+# packet ladder between two cards (--tp-cards)
+# ---------------------------------------------------------------------------
+
+TPD_ROLES = ("prefill", "decode", "decode")
+# name: (arch, tp_parity_case mode for the geometry, policy, role
+# overrides, pool dtype)
+TPD_CASES = {
+    "olmo_steal": ("olmo_1b", "greedy_preempt", "first", {}, "bf16"),
+    "olmo_int8_spec": ("olmo_1b", "seeded", "least_loaded",
+                       {"decode": {"spec_tokens": 3}}, "int8"),
+    "recurrentgemma_overlap": ("recurrentgemma_2b", "seeded",
+                               "least_loaded",
+                               {"decode": {"overlap": True}}, "bf16"),
+    "whisper": ("whisper_base", "seeded", "least_loaded", {}, "bf16"),
+    "olmo_steal_overlap": ("olmo_1b", "seeded", "first",
+                           {"decode": {"overlap": True}}, "bf16"),
+}
+# olmo_steal_overlap's new tokens: two long requests, four short ones,
+# so a steal comes mid-decode and the donor's flush harvests tokens
+TPD_OVERLAP_NEW = (14, 14, 4, 4, 4, 4)
+PACKET_LADDER = (4096, 65536, 1 << 20, 8 << 20, 32 << 20, 128 << 20)
+LADDER_REPS = 20                    # round trips a rung
+
+
+def tpd_case(name, cfg):
+    """(engine kwargs, prompts, sampling kwargs, encoder features or
+    None, policy, role overrides) of a parity_tp_disagg case: smoke
+    geometry (whisper 4 slots, max_len 32), six prompts in one prefill
+    bucket, greedy rows that run to 10 tokens where a tight pool makes
+    the first decode replica preempt and the other steal, greedy rows of
+    ``TPD_OVERLAP_NEW`` tokens for the steals under overlap, seeded rows
+    elsewhere; whisper's requests 1 and 2 share one feature array."""
+    import numpy as np
+
+    arch, mode, pol, role_ov, kv = TPD_CASES[name]
+    seed = SEED + 500 + list(TPD_CASES).index(name)
+    kw, prompts, samp = tp_parity_case("olmo_1b", mode, cfg.vocab_size,
+                                       seed=seed)
+    kw = dict(kw, kv_dtype=kv)
+    if name == "olmo_steal":
+        samp = [dict(s, max_tokens=10) for s in samp]
+    if name == "olmo_steal_overlap":
+        samp = [dict(max_tokens=n) for n in TPD_OVERLAP_NEW]
+    feats = None
+    if arch == "whisper_base":
+        kw.update(num_slots=4, max_len=32)
+        samp = [dict(max_tokens=8)] * len(prompts)
+        rng = np.random.default_rng(seed)
+        feats = [rng.standard_normal((f, cfg.d_model)).astype(np.float32)
+                 for f in (5, 16, 9, 12, 7, 16)]
+        feats[2] = feats[1]
+    return (kw, prompts, samp, feats,
+            first_candidate if pol == "first" else pol, role_ov)
+
+
+def tpd_view(st):
+    """What a disaggregated engine's stats share with another serving
+    the same requests by the same decisions."""
+    d = st["disagg"]
+    return {"dispatched": st["dispatched"], "steps": st["steps"],
+            "preemptions": st["preemptions"],
+            "replica_steps": [p["steps"] for p in st["per_replica"]],
+            **{k: d[k] for k in ("exported", "imported", "stolen",
+                                 "bytes_moved", "fabric_s")}}
+
+
+def home_leaks(engine):
+    """This process's replica of a set on a mesh: blocks and arena rows
+    still held after the run (0 and 0 when nothing leaked)."""
+    be = engine.replicas[engine.home].backend
+    be.alloc.check_invariant()
+    return (be.layout.usable_blocks - be.alloc.free_count,
+            0 if be.arena is None else be.arena.used_count)
+
+
+def parity_tpd_rank(mesh):
+    """One rank of parity_tp_disagg: each case through
+    ``DisaggregatedEngine(mesh=)`` on the smoke configs (the CPU's params
+    from the seed), this rank's kernel launches apart."""
+    torch = rank_setup()
+    from repro_torch.configs import get_config
+    from repro_torch.launch.engine import (DisaggregatedEngine,
+                                           EngineConfig, SamplingParams)
+    from repro_torch.models import weights
+    from repro_torch.models.model import Model
+
+    out = {}
+    for name, (arch, *_) in TPD_CASES.items():
+        cfg = get_config(arch).smoke()
+        model = Model(cfg, device=mesh.device)
+        params = weights.to_device(Model(cfg, device="cpu").init(seed=SEED),
+                                   mesh.device)
+        kw, prompts, samp, feats, pol, role_ov = tpd_case(name, cfg)
+        before = kernel_counts()
+        dis = DisaggregatedEngine(model, params, EngineConfig(**kw),
+                                  mesh=mesh, roles=TPD_ROLES, policy=pol,
+                                  role_overrides=role_ov)
+        toks = dis.generate(prompts, [SamplingParams(**s) for s in samp],
+                            encoder_features=feats)
+        torch.cuda.synchronize()
+        out[name] = (toks, dis.stats(), home_leaks(dis),
+                     counts_delta(before, kernel_counts()), dis.home)
+    return out
+
+
+def phase_parity_tp_disagg(torch, np, timeout_s=TP_TIMEOUT_S):
+    """``DisaggregatedEngine`` on a (data=3, model=2) mesh of 6 ranks on
+    the one card (gloo: the replicas' subgroups, the router's exchange
+    and the payload moves), roles prefill / decode / decode, smoke
+    configs in f32: olmo_1b stealing on a tight pool (decode-side
+    preemption), olmo_1b seeded over an int8 pool with a speculative
+    decode role, recurrentgemma_2b (replicated KV, channel-sharded
+    state) with overlap on the decode role, whisper_base (the cross
+    arena), olmo_1b stealing under overlap. Tokens and counters equal
+    the cpu ``DisaggregatedEngine(dp=3)``'s on the same weights, every
+    rank returns the same ``stats()``, no rank leaks, the prefill
+    replica never steps, prefill ranks launched K1 (recurrentgemma's K5
+    too), decode ranks K2 / K3 / K4 (recurrentgemma's decode is plain
+    torch). Returns the launches summed over the ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+    from repro_torch.launch.engine import (DisaggregatedEngine,
+                                           EngineConfig, SamplingParams)
+    from repro_torch.models.model import Model
+
+    t0 = time.monotonic()
+    ranks = run_in_thread(lambda: meshlib.launch(
+        parity_tpd_rank, 2, "cuda", dp=3, timeout_s=timeout_s))
+    want = {}
+    for name, (arch, *_) in TPD_CASES.items():
+        cfg = get_config(arch).smoke()
+        model = Model(cfg, device="cpu")
+        kw, prompts, samp, feats, pol, role_ov = tpd_case(name, cfg)
+        dis = DisaggregatedEngine(model, model.init(seed=SEED),
+                                  EngineConfig(**kw), dp=3, roles=TPD_ROLES,
+                                  policy=pol, role_overrides=role_ov,
+                                  device="cpu")
+        toks = dis.generate(prompts, [SamplingParams(**s) for s in samp],
+                            encoder_features=feats)
+        want[name] = (toks, tpd_view(dis.stats()))
+    got = ranks()
+    totals = {}
+    for name, (arch, *_) in TPD_CASES.items():
+        toks, view = want[name]
+        rs = [g[name] for g in got]
+        st = rs[0][1]
+        d = st["disagg"]
+        row = {"phase": "parity_tp_disagg", "case": name, "config": arch,
+               "dtype": "float32", "mesh": {"data": 3, "model": 2},
+               "roles": list(TPD_ROLES),
+               "tokens_equal": all(r[0] == toks for r in rs),
+               "stats_equal_cpu": all(tpd_view(r[1]) == view for r in rs),
+               "ranks_stats_equal": all(r[1] == st for r in rs),
+               "exported": d["exported"], "imported": d["imported"],
+               "stolen": d["stolen"], "bytes_moved": d["bytes_moved"],
+               "rank_bytes_moved": d["rank_bytes_moved"],
+               "fabric_s": d["fabric_s"],
+               "preemptions": st["preemptions"], "router": st["router"],
+               "leaks_by_rank": [r[2] for r in rs],
+               "launches_by_rank": [r[3] for r in rs]}
+        emit(row)
+        check(row["tokens_equal"] and row["stats_equal_cpu"]
+              and row["ranks_stats_equal"],
+              f"parity_tp_disagg {name}: tokens or counters differ from "
+              f"the cpu DisaggregatedEngine(dp=3)'s, or the ranks' stats "
+              f"differ ({tpd_view(st)} vs {view})")
+        check(all(r[2] == (0, 0) for r in rs) and st["blocks_used"] == 0
+              and st["per_replica"][0]["steps"] == 0,
+              f"parity_tp_disagg {name}: leaks {row['leaks_by_rank']}, "
+              f"prefill steps {st['per_replica'][0]['steps']}")
+        check(name != "olmo_steal" or (d["stolen"] >= 1
+                                       and st["preemptions"] > 0),
+              f"parity_tp_disagg {name}: stolen {d['stolen']}, "
+              f"preemptions {st['preemptions']}")
+        check(name != "olmo_steal_overlap" or d["stolen"] >= 2,
+              f"parity_tp_disagg {name}: stolen {d['stolen']}")
+        for r in rs:
+            n = r[3]
+            # recurrentgemma's decode (rings, the RG-LRU step) is plain
+            # torch: its decode ranks owe no kernel
+            if r[4] == 0:
+                ran = launched(n["K1"]) > 0 and (
+                    arch != "recurrentgemma_2b" or launched(n["K5"]) > 0)
+            else:
+                ran = arch == "recurrentgemma_2b" or (
+                    n["K2"] + n["K4_decode"] + launched(n["K3"]) > 0)
+            check(ran, f"parity_tp_disagg {name}: replica {r[4]}'s rank "
+                       f"launched no kernel of its role {n}")
+            for k, v in n.items():
+                totals[k] = totals.get(k, 0) + launched(v)
+    emit({"phase": "parity_tp_disagg", "summary": True,
+          "seconds": time.monotonic() - t0, "launches": totals})
+    return totals
+
+
+class PacketTimer:
+    """On a rank: CUDA events and the host clock around every packet's
+    gather (``transport.extract_slot``), send or receive
+    (``send_payload`` / ``recv_payload``) and scatter (``insert_packet``)
+    on this rank, while active."""
+
+    PARTS = {"extract_slot": "gather", "send_payload": "send",
+             "recv_payload": "recv", "insert_packet": "scatter"}
+
+    def __init__(self, torch, transport):
+        self.torch, self.transport = torch, transport
+        self.rows = {p: [] for p in self.PARTS.values()}
+
+    def __enter__(self):
+        self.orig = {f: getattr(self.transport, f) for f in self.PARTS}
+        for f, part in self.PARTS.items():
+            setattr(self.transport, f, self._wrap(self.orig[f], part))
+        return self
+
+    def _wrap(self, fn, part):
+        def timed(*args, **kw):
+            ev = self.torch.cuda.Event
+            start, end = ev(enable_timing=True), ev(enable_timing=True)
+            t0 = time.monotonic()
+            start.record()
+            res = fn(*args, **kw)
+            end.record()
+            end.synchronize()
+            self.rows[part].append((start.elapsed_time(end),
+                                    1e3 * (time.monotonic() - t0)))
+            return res
+        return timed
+
+    def __exit__(self, *exc):
+        for f, fn in self.orig.items():
+            setattr(self.transport, f, fn)
+
+    def summary(self):
+        """Per part: calls, mean and p50 device ms (CUDA events) and host
+        ms (the host clock, the event synchronized)."""
+        out = {}
+        for part, rows in self.rows.items():
+            if not rows:
+                continue
+            dev = sorted(r[0] for r in rows)
+            host = sorted(r[1] for r in rows)
+            out[part] = {"calls": len(rows),
+                         "device_ms_mean": sum(dev) / len(dev),
+                         "device_ms_p50": dev[len(dev) // 2],
+                         "host_ms_mean": sum(host) / len(host),
+                         "host_ms_p50": host[len(host) // 2],
+                         "host_ms_max": host[-1]}
+        return out
+
+
+def tpd_serve_rank(mesh, prompts, news, warm, fabric):
+    """One rank of tp_disagg_serve: olmo_1b at full width from the seed
+    (each rank keeps its slices), ``DisaggregatedEngine(mesh=)`` with
+    roles prefill / decode at serve's geometry a replica, a warm-up
+    request, then serve's requests with this rank's K1 / K2 / combine
+    counters set to 0 just before and its packets timed."""
+    torch = rank_setup()
+    from repro_torch.configs import get_config
+    from repro_torch.core import noc
+    from repro_torch.kernels import flash_attention as fa
+    from repro_torch.kernels import paged_attention as pa
+    from repro_torch.launch.engine import (DisaggregatedEngine,
+                                           EngineConfig, SamplingParams,
+                                           transport)
+    from repro_torch.models.model import Model
+
+    model = Model(get_config("olmo_1b"), device=mesh.device)
+    params = model.init(seed=SEED)
+    dis = DisaggregatedEngine(
+        model, params, EngineConfig(**SERVE_GEO), mesh=mesh,
+        roles=("prefill", "decode"),
+        fabric=None if fabric is None else noc.FabricSpec(**fabric))
+    del params                             # the engine keeps its slices
+    torch.cuda.empty_cache()
+    dis.generate([warm], SamplingParams(max_tokens=2))
+    dis.reset_telemetry()
+    torch.cuda.synchronize()
+    fa.flash_attention.launches = 0
+    zero_bodies(fa.flash_attention)
+    pa.paged_decode_attention.launches = 0
+    pa.paged_decode_combine.launches = 0
+    with PacketTimer(torch, transport) as timer:
+        t0 = time.monotonic()
+        outs = dis.generate(prompts, [SamplingParams(max_tokens=n)
+                                      for n in news])
+        torch.cuda.synchronize()
+        secs = time.monotonic() - t0
+    return {"outs": outs, "seconds": secs, "stats": dis.stats(),
+            "launches": {"K1": fa.flash_attention.launches,
+                         "K2": pa.paged_decode_attention.launches,
+                         "K2_combine": pa.paged_decode_combine.launches},
+            "k1_bodies": dict(fa.flash_attention.launches_by_body),
+            "packets": timer.summary(), "leaks": home_leaks(dis),
+            "replica": dis.home, "backend": mesh.payload_backend,
+            "device": torch.cuda.get_device_name(mesh.device)}
+
+
+def phase_tp_disagg_serve(torch, np, prompts, news, warm, base_outs,
+                          fabric=None, timeout_s=TP_TIMEOUT_S):
+    """olmo_1b at full width in bf16 as ``DisaggregatedEngine(mesh=)`` on
+    a (data=2, model=2) mesh of 4 ranks, roles prefill / decode (on the
+    one card: every group gloo, a packet staged through pinned host
+    memory, the steps eager; on 4 cards: NCCL inside a replica and for
+    the packets, the decode step captured): serve's 16 requests, tokens
+    equal to serve's (``base_outs``); packets, logical and per-rank bytes,
+    each packet's gather / send / receive / scatter ms by CUDA events and
+    the host clock, the router's exchanges and their ms, tok/s, TTFT and
+    TPOT p50, the prefill replica's steps (0), leaks by rank; with
+    ``fabric`` (a dict of ``FabricSpec`` fields) ``fabric_s`` a packet
+    beside the measured move. Returns the launches summed over ranks."""
+    from repro_torch.configs import get_config
+    from repro_torch.launch import mesh as meshlib
+
+    t0 = time.monotonic()
+    got = meshlib.launch(tpd_serve_rank, 2, "cuda", dp=2,
+                         args=(prompts, news, warm, fabric),
+                         timeout_s=timeout_s)
+    r0 = got[0]
+    st = r0["stats"]
+    d = st["disagg"]
+    per = st["per_replica"]
+    ntok = sum(len(o) for o in r0["outs"])
+    rate, first = agreement(r0["outs"], base_outs)
+    send = [g["packets"]["send"] for g in got if "send" in g["packets"]]
+    recv = [g["packets"]["recv"] for g in got if "recv" in g["packets"]]
+    move_ms = max(s["host_ms_mean"] for s in send) if send else 0.0
+    row = {"phase": "tp_disagg_serve", "config": "olmo-1b",
+           "dtype": "bfloat16", "mesh": {"data": 2, "model": 2},
+           "roles": d["roles"], "payload_backend": r0["backend"],
+           "captured_step": [p["tp"]["captured_step"] for p in per],
+           "requests": len(r0["outs"]), "tokens": ntok,
+           "seconds": r0["seconds"], "tok_s": ntok / r0["seconds"],
+           "ttft_p50_s": st["ttft"]["p50_s"],
+           "tpot_p50_s": st["latency"]["tpot"]["p50_s"],
+           "replica_steps": [p["steps"] for p in per],
+           "packets": d["imported"], "stolen": d["stolen"],
+           "bytes_moved": d["bytes_moved"],
+           "rank_bytes_moved": d["rank_bytes_moved"],
+           "bytes_per_packet": d["bytes_per_packet"],
+           "rank_bytes_per_packet": d["rank_bytes_moved"]
+           / max(d["imported"], 1),
+           "packet_ms_by_rank": [g["packets"] for g in got],
+           "move_ms_per_packet": move_ms,
+           "move_gb_s_per_rank": (d["rank_bytes_moved"]
+                                  / max(d["imported"], 1))
+           / (move_ms * 1e6) if move_ms else 0.0,
+           "fabric_priced": d["fabric_priced"],
+           "fabric_ms_per_packet": 1e3 * d["fabric_s"]
+           / max(d["imported"], 1),
+           "router": st["router"],
+           "exchange_ms_per_exchange": st["router"]["exchange_ms"]
+           / max(st["router"]["exchanges"], 1),
+           "launches_by_rank": [g["launches"] for g in got],
+           "k1_launches_by_body": [g["k1_bodies"] for g in got],
+           "leaks_by_rank": [g["leaks"] for g in got],
+           "requests_equal_serve": rate, "first_differing_step": first,
+           "ranks_stats_equal": all(g["stats"] == st for g in got),
+           "blocks_used": st["blocks_used"], "device": r0["device"],
+           "phase_seconds": time.monotonic() - t0}
+    emit(row)
+    check(all(g["outs"] == r0["outs"] for g in got)
+          and row["ranks_stats_equal"],
+          "tp_disagg_serve: the ranks' tokens or stats differ")
+    check(rate == 1.0, f"tp_disagg_serve: {rate} of the requests equal "
+          f"serve's (first difference at step {first})")
+    check(st["blocks_used"] == 0 and all(g["leaks"] == (0, 0) for g in got)
+          and per[0]["steps"] == 0 and d["exported"] == len(prompts)
+          and d["imported"] == d["exported"] + d["stolen"]
+          and len(send) == len(recv) == 2,
+          f"tp_disagg_serve: leaks {row['leaks_by_rank']}, prefill steps "
+          f"{per[0]['steps']}, disagg {d}, timed sides {len(send)} / "
+          f"{len(recv)}")
+    L = get_config("olmo_1b").n_layers
+    for g in got:
+        n = g["launches"]
+        if g["replica"] == 0:
+            ok = n["K1"] > 0 and g["k1_bodies"]["wgmma"] == n["K1"] \
+                and n["K2"] == 0
+        else:
+            p = per[1]
+            ok = n["K2"] == n["K2_combine"] == L * p["steps"] > 0
+        check(ok, f"tp_disagg_serve: replica {g['replica']}'s rank "
+                  f"launches {n} {g['k1_bodies']}")
+    return {k: sum(g["launches"][k] for g in got)
+            for k in ("K1", "K2", "K2_combine")}
+
+
+def ladder_rank(mesh, sizes, reps):
+    """One of two ranks, a card each (NCCL): for each packet size,
+    ``reps`` round trips of a send from rank 0 and the reply from rank 1,
+    timed on the host clock around the whole loop (the streams
+    synchronized): a one-way transfer is half a round trip."""
+    torch = rank_setup()
+    out = []
+    peer = 1 - mesh.rank
+    for n in sizes:
+        buf = torch.zeros(n, dtype=torch.uint8, device=mesh.device)
+
+        def trip():
+            if mesh.rank == 0:
+                torch.distributed.send(buf, peer, group=mesh.group)
+                torch.distributed.recv(buf, peer, group=mesh.group)
+            else:
+                torch.distributed.recv(buf, peer, group=mesh.group)
+                torch.distributed.send(buf, peer, group=mesh.group)
+
+        for _ in range(3):
+            trip()
+        torch.cuda.synchronize()
+        t0 = time.monotonic()
+        for _ in range(reps):
+            trip()
+        torch.cuda.synchronize()
+        out.append((n, (time.monotonic() - t0) / (2 * reps)))
+    return out, mesh.backend
+
+
+def phase_packet_ladder(torch, np, timeout_s=TP_CARDS_TIMEOUT_S):
+    """Packets between two cards over NCCL (a rank a card), sizes 4 KiB
+    to 128 MiB: one-way seconds and GB/s a size, and the least-squares
+    fit t = latency + bytes / rate over the ladder: the figures of a
+    ``core.noc.FabricSpec`` for the card. Returns the fit as
+    ``FabricSpec`` fields (``pod_bw`` = ``ici_bw``: one node has no
+    second tier)."""
+    from repro_torch.launch import mesh as meshlib
+
+    got, backend = meshlib.launch(ladder_rank, 2, "cuda",
+                                  args=(PACKET_LADDER, LADDER_REPS),
+                                  timeout_s=timeout_s)[0]
+    xs = np.array([n for n, _ in got], dtype=np.float64)
+    ts = np.array([t for _, t in got], dtype=np.float64)
+    slope, lat = (float(v) for v in np.polyfit(xs, ts, 1))
+    fit = {"ici_bw": 1.0 / slope, "pod_bw": 1.0 / slope,
+           "latency_us": lat * 1e6}
+    emit({"phase": "packet_ladder", "backend": backend, "cards": 2,
+          "rungs": [{"bytes": int(n), "one_way_ms": t * 1e3,
+                     "gb_s": n / t / 1e9} for n, t in got],
+          "fit": fit, "device": torch.cuda.get_device_name(0)})
+    check(backend == "nccl" and slope > 0 and all(t > 0 for t in ts),
+          f"packet_ladder: {backend}, fit {fit} over {got}")
+    return fit
+
+
 def kvrange_geometry(mode):
     """(first decode lengths, cached lengths, block size, table width)
     of parity_tp_families' yi_6b smoke case ``mode`` at T = 4: its first
@@ -6393,8 +6907,12 @@ def main():
                                        base_outs).items():
         tp_launches[k] += n
     torch.cuda.empty_cache()
+    tpd_launches = phase_tp_disagg_serve(torch, np, prompts, news, warm,
+                                         base_outs)
+    torch.cuda.empty_cache()
     tpf_launches = phase_parity_tp_families(torch, np)
     phase_parity_tp_replica(torch, np)
+    tpd_parity = phase_parity_tp_disagg(torch, np)
     tpf_launches.update(phase_tp_families_serve(torch, np, prompts, warm,
                                                 TPF_SERVE, TP))
     torch.cuda.empty_cache()
@@ -6550,6 +7068,7 @@ def main():
                             "graph_ms", "simt_ms", "call_ms", "call_host_ms")
                            if k in row}})
     kernels += tp_rows(tp_kernels, tp_launches)
+    kernels += tpd_rows(tp_kernels, tpd_launches, tpd_parity)
     kernels += tpf_rows(tpf_kernels, tpf_launches)
     emit({"kernels": kernels})
     print(nvidia_smi(), flush=True)

@@ -20,7 +20,7 @@ import time
 from typing import Any, Optional, Sequence
 
 from ...models.model import Model, resolve_device
-from ...models.paged_kv import KV_DTYPES
+from ...models.paged_kv import KV_DTYPES, blocks_for
 from ...models.transformer import RunCtx, check_supported
 
 
@@ -371,6 +371,59 @@ class EngineConfig:
     overlap: bool = False
 
 
+def check_request(model: Model, cfg: EngineConfig, prompt: Sequence[int],
+                  sampling: SamplingParams, encoder_features=None):
+    """Raise ValueError when an engine of ``model`` under ``cfg`` could
+    never serve the request (empty prompt, position cap, the paged
+    pool's capacity, encoder features absent on an encoder-decoder
+    config, present on any other, or not a (frames, d_model) array of
+    1..encoder_len frames). Reads the config alone, so a replica set
+    validates against replicas this process holds no engine of."""
+    mc = model.cfg
+    caps = model.serving_caps()
+    if len(prompt) < 1:
+        raise ValueError("empty prompt")
+    if len(prompt) + sampling.max_tokens > cfg.max_len:
+        raise ValueError(
+            f"prompt ({len(prompt)}) + max_tokens "
+            f"({sampling.max_tokens}) exceeds max_len "
+            f"{cfg.max_len}")
+    if encoder_features is not None and not caps.cross_attn:
+        raise ValueError(
+            f"encoder features on a non-encoder-decoder config: "
+            f"{mc.family}/{mc.name} has no cross-attention "
+            f"(enc_dec=False) — drop Request.encoder_features, or "
+            f"serve an enc-dec config (e.g. whisper)")
+    if caps.cross_attn:
+        if encoder_features is None:
+            raise ValueError(
+                f"encoder-decoder config {mc.family}/{mc.name} "
+                f"needs Request.encoder_features (a "
+                f"(frames, {mc.d_model}) array — whisper mel-conv "
+                f"frames, the frontend being a stub); bare prompts "
+                f"are decoder-only")
+        shape = getattr(encoder_features, "shape", None)
+        if shape is None or len(shape) != 2 or shape[1] != mc.d_model:
+            raise ValueError(
+                f"encoder_features must be a (frames, d_model="
+                f"{mc.d_model}) array, got shape {shape}")
+        if not 1 <= shape[0] <= mc.encoder_len:
+            raise ValueError(
+                f"encoder_features frames ({shape[0]}) outside "
+                f"[1, encoder_len={mc.encoder_len}] for "
+                f"{mc.family}/{mc.name}")
+    if cfg.backend == "paged":
+        # the worst case must fit the pool: it could never run even alone
+        worst = blocks_for(len(prompt) + sampling.max_tokens,
+                           cfg.block_size)
+        usable = cfg.num_blocks - 1          # block 0 is the null block
+        if worst > usable:
+            raise ValueError(
+                f"request worst case ({worst} blocks) exceeds pool "
+                f"capacity ({usable} usable blocks) — "
+                "it could never run to completion even alone")
+
+
 class Engine:
     """Serving front-end over the paged or static backend on one device,
     or on one rank of a tensor-parallel mesh (``EngineConfig.mesh``).
@@ -516,45 +569,9 @@ class Engine:
     def check_request(self, prompt: Sequence[int],
                       sampling: SamplingParams, encoder_features=None):
         """Raise ValueError when this engine could never serve the
-        request (empty prompt, position cap, pool capacity, encoder
-        features absent on an encoder-decoder config, present on any
-        other, or not a (frames, d_model) array of 1..encoder_len
-        frames)."""
-        mc = self.model.cfg
-        if len(prompt) < 1:
-            raise ValueError("empty prompt")
-        if len(prompt) + sampling.max_tokens > self.cfg.max_len:
-            raise ValueError(
-                f"prompt ({len(prompt)}) + max_tokens "
-                f"({sampling.max_tokens}) exceeds max_len "
-                f"{self.cfg.max_len}")
-        if encoder_features is not None and not self.caps.cross_attn:
-            raise ValueError(
-                f"encoder features on a non-encoder-decoder config: "
-                f"{mc.family}/{mc.name} has no cross-attention "
-                f"(enc_dec=False) — drop Request.encoder_features, or "
-                f"serve an enc-dec config (e.g. whisper)")
-        if self.caps.cross_attn:
-            if encoder_features is None:
-                raise ValueError(
-                    f"encoder-decoder config {mc.family}/{mc.name} "
-                    f"needs Request.encoder_features (a "
-                    f"(frames, {mc.d_model}) array — whisper mel-conv "
-                    f"frames, the frontend being a stub); bare prompts "
-                    f"are decoder-only")
-            shape = getattr(encoder_features, "shape", None)
-            if shape is None or len(shape) != 2 or shape[1] != mc.d_model:
-                raise ValueError(
-                    f"encoder_features must be a (frames, d_model="
-                    f"{mc.d_model}) array, got shape {shape}")
-            if not 1 <= shape[0] <= mc.encoder_len:
-                raise ValueError(
-                    f"encoder_features frames ({shape[0]}) outside "
-                    f"[1, encoder_len={mc.encoder_len}] for "
-                    f"{mc.family}/{mc.name}")
-        check = getattr(self.backend, "check_request", None)
-        if check is not None:            # paged: worst-case pool bound
-            check(len(prompt), sampling)
+        request (``check_request``)."""
+        check_request(self.model, self.cfg, prompt, sampling,
+                      encoder_features)
 
     def add_request(self, prompt,
                     sampling: Optional[SamplingParams] = None,

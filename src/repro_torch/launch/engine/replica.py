@@ -34,8 +34,9 @@ builds and steps only its own replica's ``Engine``, on its submesh
 makes the same dispatch decisions, so it has to see every replica's
 state: after each step an all-gather over the mesh's world group (the
 router's exchange, gloo: host data only) brings every replica's
-allocator blocks in use, active slots, waiting requests and their block
-footprint, has-work flag, that step's ``RequestOutput``s, when each was
+allocator blocks in use and free, active slots, waiting requests and
+their block footprint, has-work flag, cross-arena rows (free, and the
+requests holding one), that step's ``RequestOutput``s, when each was
 sampled and the step's busy time; dispatch then runs the policy on those
 mirrored numbers everywhere (the mirror of a replica that takes a
 request grows by its footprint at once), and every process applies the
@@ -45,7 +46,9 @@ T ranks must agree on all of it; a rank whose state differs from its
 replica's first rank raises. A callable policy must be deterministic, as
 ``least_loaded`` and ``round_robin`` are. ``step_workers`` has nothing
 to do there (one engine a process), and ``stats()`` is a collective
-every rank calls.
+every rank calls. Per-replica ``overrides`` hold there too: requests
+validate against every replica's config (``api.check_request``, which
+needs no engine), so every process raises on the same requests.
 
 Token streams equal a single engine's serving the same requests: outputs
 are a pure function of (params, prompt, SamplingParams) by the engine's
@@ -65,7 +68,7 @@ import torch
 
 from ...models import paged_kv
 from ...models.model import Model
-from ..mesh import MIGRATION, SHARDED_TRAINING, not_ported, submeshes
+from ..mesh import SHARDED_TRAINING, not_ported, submeshes
 from . import api
 from .api import (Engine, EngineConfig, RequestHandle, RequestOutput,
                   SamplingParams)
@@ -73,16 +76,22 @@ from .api import (Engine, EngineConfig, RequestHandle, RequestOutput,
 
 @dataclasses.dataclass
 class _Mirror:
-    """One replica's scheduling state as dispatch reads it: the
-    allocator's blocks in use (-1: a static backend), active slots,
-    waiting requests and their block footprint, and whether it has
-    work. On one device read from the engine (``_state``); under a mesh
-    refreshed by each exchange and grown at each dispatch to it."""
+    """One replica's scheduling state as dispatch and migration read it:
+    the allocator's blocks in use (-1: a static backend) and free (cached
+    prefix blocks count, as ``BlockAllocator.free_count`` does), active
+    slots, waiting requests and their block footprint, whether it has
+    work, and its cross arena's free rows (-1: no arena) and the uids of
+    the live requests holding one. On one device read from the engine
+    (``_state``); under a mesh refreshed by each exchange, grown at each
+    dispatch to it and at each packet landing on it."""
     used: int = 0
     active: int = 0
     waiting: int = 0
     queued_blocks: int = 0
     has_work: bool = False
+    free: int = 0
+    arena_free: int = -1
+    arena_uids: frozenset = frozenset()
 
 
 def _footprint(h: RequestHandle, block_size: int) -> int:
@@ -97,11 +106,16 @@ def _state(eng: Engine) -> _Mirror:
     """A local engine's ``_Mirror``, as dispatch reads it and the
     exchange sends it."""
     be = eng.backend
-    paged = hasattr(be, "alloc")
-    queued = sum(_footprint(h, eng.cfg.block_size)
-                 for h in be.waiting) if paged else 0
-    return _Mirror(be.alloc.used_count if paged else -1, be.num_active,
-                   len(be.waiting), queued, eng.has_work)
+    if not hasattr(be, "alloc"):                   # static
+        return _Mirror(-1, be.num_active, len(be.waiting), 0, eng.has_work)
+    queued = sum(_footprint(h, eng.cfg.block_size) for h in be.waiting)
+    m = _Mirror(be.alloc.used_count, be.num_active, len(be.waiting), queued,
+                eng.has_work, be.alloc.free_count)
+    if be.arena is not None:
+        m.arena_free = be.arena.free_count
+        m.arena_uids = frozenset(s.req.uid for i, s in enumerate(be.slots)
+                                 if s.req is not None and be.arena_ids[i])
+    return m
 
 
 def least_loaded(rset: "ReplicaSet", candidates: list[int]) -> int:
@@ -144,8 +158,8 @@ class ReplicaSet:
         replica (None keeps ``cfg``). May not carry ``mesh`` or
         ``eos_id`` (stop semantics must match for outputs to stay
         request-pure). With overrides, requests validate against every
-        replica, since any of them may serve a request. Not ported with
-        ``mesh`` (a process validates against its own replica only).
+        replica's config, since any of them may serve a request (under a
+        mesh too: the check needs no engine).
     ctx : RunCtx, optional
         Per-call model context forwarded to every replica.
     step_workers : int, optional
@@ -177,9 +191,6 @@ class ReplicaSet:
             raise ValueError("pass the mesh to ReplicaSet(mesh=...), "
                              "not through EngineConfig")
         if mesh is not None:
-            if overrides is not None:
-                raise not_ported("per-replica overrides with "
-                                 "ReplicaSet(mesh=)", MIGRATION)
             rows = int(mesh.shape["data"])
             meshes = submeshes(mesh, rows if dp is None else dp)
             if len(meshes) != rows:
@@ -210,6 +221,7 @@ class ReplicaSet:
             cfgs = [dataclasses.replace(cfg, **(ov or {}))
                     for ov in overrides]
         self._cfgs = cfgs
+        self.model = model
         self.mirrors = None
         if mesh is None:
             self.home = None
@@ -220,12 +232,19 @@ class ReplicaSet:
             sub = meshes[self.home]
             self.replicas = [None] * self.dp
             self.replicas[self.home] = Engine(
-                model, params, dataclasses.replace(cfg, mesh=sub), ctx=ctx,
-                device=sub.device)
-            self.mirrors = [_Mirror() for _ in range(self.dp)]
+                model, params, dataclasses.replace(cfgs[self.home],
+                                                   mesh=sub),
+                ctx=ctx, device=sub.device)
+            idle = _state(self.replicas[self.home])  # as every replica
+            self.mirrors = [dataclasses.replace(
+                idle, free=c.num_blocks - 1 if idle.used >= 0 else 0,
+                arena_free=c.num_slots if idle.arena_free >= 0 else -1)
+                for c in cfgs]
         self.cfg = cfg                   # baseline per-replica config
-        local = [e for e in self.replicas if e is not None]
-        self._validators = local if overrides is not None else local[:1]
+        self._validators = cfgs if overrides is not None else cfgs[:1]
+        # under a mesh: outputs of a replica's next step that a steal's
+        # flush already applied here (disagg.py), by replica
+        self._preapplied: dict[int, int] = {}
         self.policy = _POLICIES.get(policy, policy)
         if not callable(self.policy):
             raise ValueError(f"unknown dispatch policy {policy!r}")
@@ -274,8 +293,9 @@ class ReplicaSet:
             prompt = prompt.prompt
         sampling = sampling or SamplingParams()
         prompt = [int(t) for t in prompt]
-        for eng in self._validators:
-            eng.check_request(prompt, sampling, encoder_features)
+        for c in self._validators:
+            api.check_request(self.model, c, prompt, sampling,
+                              encoder_features)
         handle = RequestHandle(self._uid, prompt, sampling,
                                encoder_features=encoder_features)
         self._uid += 1
@@ -290,38 +310,74 @@ class ReplicaSet:
         process's replica, then the router's exchange)."""
         self.steps += 1
         moved = self._dispatch()
-        if self.mesh is not None:
-            outs, progress = self._mesh_step()
-            self.made_progress = moved > 0 or progress
-            self._finish(outs)
-            return outs
-        busy = [(r, eng) for r, eng in enumerate(self.replicas)
-                if eng.has_work]
-        outs = self._timed_steps(busy)
-        self.made_progress = moved > 0 or any(
-            eng.made_progress for _, eng in busy)
+        outs, progress, _ = self._step_replicas(self._busy(range(self.dp)))
+        self.made_progress = moved > 0 or progress
         self._finish(outs)
         return outs
 
-    def _mesh_step(self):
-        """Step this process's replica if the mirrors say it is busy,
-        then exchange (``_exchange``). Returns (the merged outputs,
-        whether any replica made progress)."""
-        busy = [r for r, m in enumerate(self.mirrors) if m.has_work]
+    def _busy(self, ids) -> list[int]:
+        """The replicas among ``ids`` with work, by their (mirrored)
+        state."""
+        return [r for r in ids if self._mirror(r).has_work]
+
+    def _step_replicas(self, busy: list[int], after=None):
+        """Step the ``busy`` replicas and merge their outputs in replica
+        order; ``after(r)``, where given, runs right after replica r's
+        step, on the process holding it, and returns host data the
+        caller gets back for every replica. Under a mesh this process
+        steps its own replica (if busy), then the router's exchange
+        brings the others' outputs, state and ``after`` data (none when
+        no replica is busy). Returns (outputs, whether any replica made
+        progress, {replica: after's data})."""
+        if self.mesh is None:
+            outs = self._timed_steps([(r, self.replicas[r]) for r in busy])
+            extra = {r: after(r) for r in busy} if after else {}
+            return outs, any(self.replicas[r].made_progress
+                             for r in busy), extra
         if not busy:
-            return [], False
+            return [], False, {}
         eng = self.replicas[self.home]
-        part, progress, dt = [], False, 0.0
+        part, progress, dt, extra = [], False, 0.0, None
         if self.home in busy:
             t0 = time.monotonic()
             part = eng.step()
             dt = time.monotonic() - t0
             progress = eng.made_progress
-        # (replica, model rank, what its ranks must agree on, host data)
-        got = self._exchange((self.home, self.mesh.coord("model"),
-                              (_state(eng), part, progress),
-                              (self._sample_offsets(part), dt)))
-        outs = []
+            if after is not None:
+                extra = after(self.home)
+        got = self._gather((_state(eng), part, progress, extra),
+                           (self._sample_offsets(part), dt))
+        outs, extras = [], {}
+        for r in range(self.dp):
+            (state, rpart, rprog, rextra), (offsets, rdt) = got[r]
+            self.mirrors[r] = state
+            if r in busy:
+                self.busy_s[r] += rdt
+                self.tokens_out[r] += sum(len(o.new_tokens) for o in rpart)
+                extras[r] = rextra
+            # a steal's flush applied the first outputs here already
+            done = self._preapplied.pop(r, 0) if r in busy else 0
+            if r != self.home:
+                for o, off in list(zip(rpart, offsets))[done:]:
+                    self._apply(o, off)
+            progress = progress or rprog
+            outs.extend(rpart)
+        return outs, progress, extras
+
+    def _gather(self, agreed, host) -> list:
+        """The router's exchange, counted and timed: ``(agreed, host)``
+        all-gathered over the mesh's world group; returns each replica's
+        pair as its first rank sent it. ``agreed`` is what a replica's T
+        ranks must send alike (a rank that disagrees raises); ``host``
+        may differ (clocks)."""
+        t0 = time.monotonic()
+        got = [None] * self.mesh.size
+        torch.distributed.all_gather_object(
+            got, (self.home, self.mesh.coord("model"), agreed, host),
+            group=self.mesh.group)
+        self.exchanges += 1
+        self.exchange_s += time.monotonic() - t0
+        out = []
         for r in range(self.dp):
             entries = [g for g in got if g[0] == r]
             first = min(entries, key=lambda g: g[1])
@@ -331,17 +387,8 @@ class ReplicaSet:
                         f"replica {r}: rank {g[1]} on the model axis "
                         f"disagrees with rank {first[1]} ({g[2]} vs "
                         f"{first[2]})")
-            (state, rpart, rprog), (offsets, rdt) = first[2:]
-            self.mirrors[r] = state
-            if r in busy:
-                self.busy_s[r] += rdt
-                self.tokens_out[r] += sum(len(o.new_tokens) for o in rpart)
-            if r != self.home:
-                for o, off in zip(rpart, offsets):
-                    self._apply(o, off)
-            progress = progress or rprog
-            outs.extend(rpart)
-        return outs, progress
+            out.append(first[2:])
+        return out
 
     def _sample_offsets(self, part: list[RequestOutput]) -> list[float]:
         """When each output of this process's replica was sampled, as an
@@ -355,17 +402,6 @@ class ReplicaSet:
             out.append(h.t_tokens[-left[o.request_id]] - h.t_submit)
             left[o.request_id] -= 1
         return out
-
-    def _exchange(self, mine):
-        """The router's exchange: ``mine`` all-gathered over the mesh's
-        world group (every rank's, in rank order), counted and timed."""
-        t0 = time.monotonic()
-        got = [None] * self.mesh.size
-        torch.distributed.all_gather_object(got, mine,
-                                            group=self.mesh.group)
-        self.exchanges += 1
-        self.exchange_s += time.monotonic() - t0
-        return got
 
     def _apply(self, out: RequestOutput, offset: float):
         """Register another replica's output on this process's handle of

@@ -210,17 +210,6 @@ class PagedBackend:
 
     # -- public backend API ---------------------------------------------
 
-    def check_request(self, prompt_len: int, sampling):
-        """Reject requests whose WORST-CASE footprint exceeds the pool
-        (they could never run to completion even alone)."""
-        worst = paged_kv.blocks_for(
-            prompt_len + sampling.max_tokens, self.cfg.block_size)
-        if worst > self.layout.usable_blocks:
-            raise ValueError(
-                f"request worst case ({worst} blocks) exceeds pool "
-                f"capacity ({self.layout.usable_blocks} usable blocks) — "
-                "it could never run to completion even alone")
-
     def enqueue(self, req: RequestHandle):
         """Append to the FCFS queue (the Engine validated it first)."""
         self.waiting.append(req)

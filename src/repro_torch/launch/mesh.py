@@ -15,9 +15,10 @@ its engine's collectives run over (``submeshes``).
 * ``init_mesh(tp, device, dp=R)`` joins the groups this process belongs
   to and returns its ``Mesh`` (rank, group, device, backend, and under
   R > 1 its replica's subgroup). Every rank creates the R subgroups in
-  the same order. Under ``torchrun`` the rank, world size and rendezvous
-  come from the environment; else the caller passes them (the spawn
-  launcher does).
+  the same order, then the payload group that KV packets move over
+  between replicas (``Mesh.payload_group``). Under ``torchrun`` the rank,
+  world size and rendezvous come from the environment; else the caller
+  passes them (the spawn launcher does).
 * ``launch(fn, tp, device, dp=R)`` runs ``fn(mesh, *args)`` on every
   rank: under ``torchrun`` on this process's rank alone, else on R x T
   ranks it spawns (``torch.multiprocessing``, start method ``spawn``),
@@ -31,9 +32,13 @@ its engine's collectives run over (``submeshes``).
   ``gloo`` on the CPU and when ranks share one card (NCCL refuses two
   ranks on one device). With R > 1 that choice is the replicas'
   subgroups'; the world group, which carries host data only (the
-  router's exchange), is gloo. Every group gets an explicit timeout, so
-  a rank that dies fails the others' collectives instead of hanging
-  them.
+  router's exchange), is gloo. A KV packet moving between two replicas
+  goes rank t to rank t over the payload group: the world group itself
+  under gloo (a CUDA payload staged through pinned host memory, since
+  gloo's ``send`` / ``recv`` take CPU tensors only), a world-sized NCCL
+  group when each rank owns a card. Every group gets an explicit
+  timeout, so a rank that dies fails the others' collectives instead of
+  hanging them.
 
 ``--tp T`` uses exactly T ranks, where JAX's ``make_local_mesh`` shards
 one engine over all local devices as ``(n / T, T)``: a data axis above 1
@@ -41,8 +46,6 @@ inside one engine (FSDP, or JAX's slots sharded over ``data``) is not
 ported (``sharding.layout_ctx`` raises naming the sub-item).
 ``submeshes`` cuts a mesh into its replicas' ``(1, T)`` submeshes;
 ``replica_cli_mesh`` gives the shape ``--dp R --tp T`` asks for.
-Moving a request's KV between submeshes is not ported
-(``DisaggregatedEngine(mesh=)`` raises naming ``MIGRATION``).
 
 Importing this module starts no process and touches no device.
 """
@@ -65,7 +68,6 @@ from ..models.model import resolve_device
 # ROADMAP queue 1, item 7 ("Multi-device"): what is left of its sharded
 # part, named by the refusals of the options still to come
 TP_FAMILIES = "the other families under TP"
-MIGRATION = "migration across submeshes"
 SHARDED_TRAINING = "sharded training"
 
 DEFAULT_TIMEOUT_S = 600.0
@@ -103,6 +105,13 @@ class Mesh:
         replica (its ``submeshes`` entry's group), else None.
     model_backend : str or None
         ``model_group``'s backend.
+    payload_group
+        The group KV packets move over between replicas (rank t of one
+        replica to rank t of another): the world group under gloo, a
+        world-sized NCCL group when each rank owns a card; under a data
+        axis of 1 the mesh's group.
+    payload_backend : str or None
+        ``payload_group``'s backend.
     """
 
     shape: dict
@@ -112,6 +121,8 @@ class Mesh:
     backend: str = "gloo"
     model_group: Any = None
     model_backend: Optional[str] = None
+    payload_group: Any = None
+    payload_backend: Optional[str] = None
 
     @property
     def axis_names(self) -> tuple:
@@ -169,8 +180,9 @@ def init_mesh(tp: int, device="cuda", *, dp: int = 1, rank=None,
     ``rank`` and ``init_method``. ``backend`` None chooses by
     ``choose_backend`` over the ``dp * tp`` ranks: the group's with
     ``dp`` 1, else the replicas' model-axis subgroups' (the world group
-    is gloo then). A CUDA device on a machine without one raises before
-    any group is joined."""
+    is gloo then, and the payload group the world group under gloo, a
+    world-sized NCCL group under nccl). A CUDA device on a machine
+    without one raises before any group is joined."""
     if tp < 1:
         raise ValueError(f"--tp {tp} must be >= 1")
     if dp < 1:
@@ -195,17 +207,22 @@ def init_mesh(tp: int, device="cuda", *, dp: int = 1, rank=None,
         backend if dp == 1 else "gloo", init_method=init_method, rank=rank,
         world_size=world, timeout=timeout)
     shape = {"data": dp, "model": tp}
+    world_group = torch.distributed.group.WORLD
     if dp == 1:
-        return Mesh(shape, rank, torch.distributed.group.WORLD, dev,
-                    backend)
+        return Mesh(shape, rank, world_group, dev, backend,
+                    payload_group=world_group, payload_backend=backend)
     own = None
     for r in range(dp):             # every rank, in the same order
         g = torch.distributed.new_group(list(range(r * tp, (r + 1) * tp)),
                                         timeout=timeout, backend=backend)
         if r == rank // tp:
             own = g
-    return Mesh(shape, rank, torch.distributed.group.WORLD, dev, "gloo",
-                model_group=own, model_backend=backend)
+    payload = world_group if backend == "gloo" else \
+        torch.distributed.new_group(list(range(world)), timeout=timeout,
+                                    backend=backend)
+    return Mesh(shape, rank, world_group, dev, "gloo", model_group=own,
+                model_backend=backend, payload_group=payload,
+                payload_backend=backend)
 
 
 def _rank_main(fn, rank, tp, dp, device, backend, init_method, timeout_s,

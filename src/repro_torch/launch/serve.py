@@ -12,6 +12,8 @@ Tensor parallel:  add --tp 2 (T ranks: spawned here, or one a process
                   under torchrun --nproc-per-node T; rank 0 prints)
 Replicas x TP:    add --dp 2 --tp 2 (R x T ranks, each replica on a
                   (1, T) submesh behind one shared queue; rank 0 prints)
+Disagg x TP:      add --dp 2 --tp 2 --roles auto (KV packets move rank t
+                  to rank t between the replicas' submeshes)
 
 ``--tp T`` serves one engine over T ranks (``launch/mesh.py``): on the
 CPU and on ranks sharing one card over gloo, on T cards of their own over
@@ -22,9 +24,9 @@ plan: which blocks split and which leaves are kept whole). Every family
 but the VLM serves over a mesh (dense, windowed, recurrent, xLSTM, MoE
 by expert parallelism, and whisper_base, its requests carrying random
 encoder frames here). ``--dp R --tp T`` serves ``ReplicaSet(mesh=)``
-over a ``(data=R, model=T)`` mesh; its stats add the router's
-exchanges. ``--roles`` with ``--tp`` raises (migration across
-submeshes is not ported).
+over a ``(data=R, model=T)`` mesh, and with ``--roles``
+``DisaggregatedEngine(mesh=)``; their stats add the router's exchanges
+(and the ``disagg`` section: packets, logical and per-rank bytes).
 """
 
 from __future__ import annotations
@@ -39,8 +41,7 @@ from repro_torch.configs import get_config
 from repro_torch.launch.engine import (DisaggregatedEngine, Engine,
                                        EngineConfig, ReplicaSet,
                                        SamplingParams)
-from repro_torch.launch.mesh import (MIGRATION, launch, not_ported,
-                                     replica_cli_mesh)
+from repro_torch.launch.mesh import launch, replica_cli_mesh
 from repro_torch.models.model import Model, resolve_device
 
 
@@ -86,8 +87,6 @@ def main(argv=None):
     if shape is None:
         _serve(None, args)
         return
-    if args.roles is not None:
-        raise not_ported(f"--roles with --tp {args.tp}", MIGRATION)
     resolve_device(args.device)          # no GPU: raise before spawning
     launch(_serve, args.tp, args.device, dp=args.dp, args=(args,))
 
@@ -107,11 +106,14 @@ def _serve(mesh, args):
                         max_len=128, spec_tokens=args.spec_tokens,
                         kv_dtype=args.kv_dtype,
                         mesh=None if replicas else mesh)
-    if replicas:
+    roles = args.roles if args.roles in (None, "auto") \
+        else tuple(args.roles.split(","))
+    if replicas and roles is not None:
+        engine = DisaggregatedEngine(model, params, ecfg, mesh=mesh,
+                                     roles=roles)
+    elif replicas:
         engine = ReplicaSet(model, params, ecfg, mesh=mesh)
-    elif args.roles is not None:
-        roles = args.roles if args.roles == "auto" \
-            else tuple(args.roles.split(","))
+    elif roles is not None:
         engine = DisaggregatedEngine(model, params, ecfg, dp=args.dp,
                                      roles=roles, device=args.device)
     elif args.dp > 1:
@@ -137,7 +139,7 @@ def _serve(mesh, args):
         torch.cuda.synchronize()
     dt = time.time() - t0
     total = sum(len(o) for o in outs)
-    stats = engine.stats()           # a collective under ReplicaSet(mesh=)
+    stats = engine.stats()           # a collective under a (data, model) mesh
     if mesh is not None and mesh.rank != 0:
         return
     print(f"[{args.backend} {model.device} tp={args.tp} dp={args.dp} "

@@ -171,20 +171,21 @@ class Model:
         return transformer.decode_step(params, self.cfg, cache, tokens, pos,
                                        ctx, mrope_positions=mrope_positions)
 
-    def init_paged_cache(self, layout, spec=None, shard=None):
-        """Block pools on this model's device; ``spec`` (a
+    def init_paged_cache(self, layout, spec=None, shard=None, device=None):
+        """Block pools on this model's device (or ``device``: "meta" gives
+        the tree's shapes without memory); ``spec`` (a
         ``paged_kv.PoolSpec``) selects an int8/fp8 block format. An
         enc-dec config's tree is its self-KV pool and the cross arena,
         always in the model dtype. ``shard``: this rank's slice of every
         pool and of the arena (``paged_cache_specs``)."""
+        device = self.device if device is None else torch.device(device)
         if self.cfg.enc_dec:
             if spec is not None and spec.quantized:
                 raise ValueError("quantized KV is decoder-only "
                                  "(ServingCaps.quantized_kv)")
-            return encdec.init_paged_cache(self.cfg, layout, self.device,
-                                           shard)
-        return transformer.init_paged_cache(self.cfg, layout, self.device,
-                                            spec, shard)
+            return encdec.init_paged_cache(self.cfg, layout, device, shard)
+        return transformer.init_paged_cache(self.cfg, layout, device, spec,
+                                            shard)
 
     def paged_cache_specs(self, layout, shard, spec=None):
         """Specs of the ``init_paged_cache`` tree over ``shard``'s mesh

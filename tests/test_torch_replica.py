@@ -20,7 +20,7 @@
      test_torch_xlstm.py);
   5. a mid-migration cancel, decode-side preemption and the full-hit
      rewind leak nothing; the refusals: a ``kv_format`` mismatch, role
-     validation, ``mesh=`` and the CLI's ``--tp`` with ``--dp``.
+     validation, a mesh through ``EngineConfig`` or one with no group.
 
 Weights are JAX's init carried over with the weight bridge; prompts come
 from numpy with a seed. Tokens and counters are compared exactly.
@@ -47,6 +47,7 @@ from repro.models.model import Model as JModel
 from repro_torch import tree
 from repro_torch.configs import all_configs, get_config
 from repro_torch.core import noc
+from repro_torch.launch import mesh as meshlib
 from repro_torch.launch import serve
 from repro_torch.launch.engine import (DisaggregatedEngine, Engine,
                                        EngineConfig, ReplicaSet,
@@ -604,8 +605,10 @@ def test_kv_format_mismatch_raises(pairs):
 
 def test_refusals(pairs):
     """Roles and overrides validate as JAX's do; a mesh passed through
-    ``EngineConfig`` raises JAX's ValueError, and the disaggregated
-    engine on a mesh names the Multi-device item's sub-item."""
+    ``EngineConfig`` raises JAX's ValueError, the disaggregated engine
+    takes a mesh as ``ReplicaSet`` does (a mesh that only describes a
+    shape raises its ValueError) and ``serve --roles`` with ``--tp``
+    reaches the launcher (here: no GPU)."""
     _, _, tm, tparams = pairs("olmo_1b")
     base = EngineConfig(**dict(GEO, spec_tokens=2))
     dis = DisaggregatedEngine(tm, tparams, base, dp=2,
@@ -627,9 +630,11 @@ def test_refusals(pairs):
     with pytest.raises(ValueError, match="cannot change"):
         ReplicaSet(tm, tparams, EngineConfig(**GEO), dp=2,
                    overrides=[None, {"eos_id": 5}], device="cpu")
-    for kw in (dict(mesh=object()),
-               dict(cfg=EngineConfig(**GEO, mesh=object()))):
-        with pytest.raises(NotImplementedError, match="multi-device"):
+    shape = meshlib.Mesh({"data": 2, "model": 2})     # no group
+    for kw, match in ((dict(mesh=shape), "only describes a shape"),
+                      (dict(cfg=EngineConfig(**GEO, mesh=shape)),
+                       "not through EngineConfig")):
+        with pytest.raises(ValueError, match=match):
             DisaggregatedEngine(tm, tparams,
                                 **{"cfg": EngineConfig(**GEO), **kw},
                                 dp=2, roles=("prefill", "decode"),
@@ -637,6 +642,5 @@ def test_refusals(pairs):
     with pytest.raises(ValueError, match="not through EngineConfig"):
         ReplicaSet(tm, tparams, EngineConfig(**GEO, mesh=object()), dp=2,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="multi-device"):
-        serve.main(["--smoke", "--device", "cpu", "--tp", "2", "--dp", "2",
-                    "--roles", "auto"])
+    with pytest.raises(RuntimeError, match="is_available"):
+        serve.main(["--smoke", "--tp", "2", "--dp", "2", "--roles", "auto"])

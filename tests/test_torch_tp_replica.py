@@ -15,12 +15,16 @@ policy's over the same loads.
   2. ``submeshes`` gives JAX's shapes and raises JAX's ValueErrors (JAX's
      over a mesh of one CPU device repeated), and ``replica_cli_mesh``
      JAX's shapes (over a device count stubbed in, as its CLI reads it);
-  3. ``serve --smoke --device cpu --dp 2 --tp 2`` serves;
-  4. what stays refused names its sub-item: ``DisaggregatedEngine`` on a
-     mesh and ``--roles`` with ``--tp`` ("migration across submeshes");
-     a mesh passed through ``EngineConfig`` raises JAX's ValueError, and
-     ``ReplicaSet(mesh=, dp=)`` with fewer replicas than the data axis
-     (a data axis above 1 inside one engine) names "sharded training".
+  3. ``serve --smoke --device cpu --dp 2 --tp 2`` serves, and with
+     ``--roles auto`` serves ``DisaggregatedEngine(mesh=)``;
+  4. what became legal takes a mesh as ``ReplicaSet`` does: the
+     disaggregated engine and per-replica overrides get past their old
+     refusals to the shape-only mesh's ValueError, and a mesh passed
+     through ``EngineConfig`` raises JAX's ValueError; what stays refused
+     names its sub-item: ``ReplicaSet(mesh=, dp=)`` with fewer replicas
+     than the data axis (a data axis above 1 inside one engine) names
+     "sharded training". (``test_torch_tp_disagg.py`` serves both on a
+     (3, 2) mesh.)
 """
 
 import threading
@@ -184,6 +188,16 @@ def test_serve_cli_dp_tp_serves(capfd):
     assert out.count("tok/s") == 1                   # rank 0 prints
 
 
+def test_serve_cli_dp_tp_roles_serves(capfd):
+    serve.main(["--smoke", "--device", "cpu", "--dp", "2", "--tp", "2",
+                "--roles", "auto", "--requests", "4", "--n-new", "6"])
+    out = capfd.readouterr().out
+    assert "tp=2 dp=2 roles=auto" in out and "'router'" in out
+    assert "'disagg'" in out and "'roles': ['prefill', 'decode']" in out
+    assert "'exported': 4" in out and "'blocks_used': 0" in out
+    assert out.count("tok/s") == 1                   # rank 0 prints
+
+
 # -- 4. what stays refused ---------------------------------------------------
 
 
@@ -191,24 +205,28 @@ def test_refusals_name_migration_across_submeshes():
     model = Model(get_config(rc.ARCH).smoke(), device="cpu")
     params = model.init(seed=0)
     mesh = meshlib.Mesh({"data": 2, "model": 2})
-    for kw in (dict(mesh=mesh), dict(cfg=EngineConfig(mesh=mesh))):
-        with pytest.raises(NotImplementedError,
-                           match="migration across submeshes") as exc:
-            DisaggregatedEngine(model, params, **{"cfg": EngineConfig(),
-                                                  **kw},
-                                dp=2, roles=("prefill", "decode"),
-                                device="cpu")
-        assert "multi-device" in str(exc.value)
-    with pytest.raises(NotImplementedError,
-                       match="migration across submeshes"):
-        serve.main(["--smoke", "--device", "cpu", "--dp", "2", "--tp", "2",
-                    "--roles", "auto"])
-    with pytest.raises(ValueError, match="not through EngineConfig"):
-        ReplicaSet(model, params, EngineConfig(mesh=mesh), mesh=mesh,
-                   device="cpu")
+    # legal now: each gets past its old refusal to ReplicaSet's checks
+    with pytest.raises(ValueError, match="only describes a shape"):
+        DisaggregatedEngine(model, params, EngineConfig(), mesh=mesh,
+                            roles=("prefill", "decode"), device="cpu")
+    with pytest.raises(ValueError, match="only describes a shape"):
+        ReplicaSet(model, params, mesh=mesh, device="cpu",
+                   overrides=[None, {"num_slots": 2}])
+    for cls, kw in ((ReplicaSet, {}),
+                    (DisaggregatedEngine, dict(dp=2, roles="auto"))):
+        with pytest.raises(ValueError, match="not through EngineConfig"):
+            cls(model, params, EngineConfig(mesh=mesh), mesh=mesh,
+                device="cpu", **kw)
+    # still refused
     with pytest.raises(NotImplementedError,
                        match="data axis above 1 inside one engine.*"
                              "sharded training"):
         ReplicaSet(model, params, mesh=mesh, dp=1, device="cpu")
+    with pytest.raises(NotImplementedError,
+                       match="data axis above 1 inside one engine.*"
+                             "sharded training"):
+        DisaggregatedEngine(model, params,
+                            mesh=meshlib.Mesh({"data": 4, "model": 2}),
+                            roles=("prefill", "decode"), device="cpu")
     with pytest.raises(ValueError, match="only describes a shape"):
         ReplicaSet(model, params, mesh=mesh, device="cpu")
